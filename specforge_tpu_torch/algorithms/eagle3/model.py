@@ -159,12 +159,16 @@ class OnlineEagle3Model(nn.Module):
             denom = torch.clamp(torch.sum(lm), min=1e-6)
 
             kl_loss = self.loss_fn(logits, step_target_p, cur_position_mask)
+            # without an LK loss the acceptance rate is a metric only: it
+            # reads detached logits, so autograd keeps none of its fp32
+            # softmax intermediates (the JAX model's stop_gradient lets XLA
+            # drop its backward the same way)
             acceptance_rate, log_acceptance_rate = compute_acceptance_rate(
-                logits, step_target_p, cur_position_mask, ratio=step_ratio
+                logits if self.lk_loss_type is not None else logits.detach(),
+                step_target_p, cur_position_mask, ratio=step_ratio
             )
             if self.lk_loss_type is None:
                 loss = kl_loss
-                acceptance_rate = acceptance_rate.detach()
             else:
                 loss = compute_lk_loss(
                     kl_loss, acceptance_rate, log_acceptance_rate,

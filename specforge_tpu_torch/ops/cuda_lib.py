@@ -122,8 +122,19 @@ def library() -> ctypes.CDLL:
                 p, p, p, p, i, p, p, p, p, p, p, i, i, i, i, i, p,
             ]
             lib.ttt_attention_fwd.restype = i
-            lib.fused_ce_fwd.argtypes = [p, i, p, p, p, p, p, p, i, i, p]
+            for name in ("ttt_attention_bwd_dq", "ttt_attention_bwd_dkv"):
+                fn = getattr(lib, name)
+                n_out = 3 if name.endswith("dq") else 2
+                fn.argtypes = [p, p, p, p, i, p, p, p, p, p, p, p,
+                               *[p] * n_out, i, i, i, i, i, p]
+                fn.restype = i
+            ll = ctypes.c_longlong
+            lib.fused_ce_fwd.argtypes = [p, i, p, p, p, p, p, p, i, i, i, ll,
+                                         p]
             lib.fused_ce_fwd.restype = i
+            lib.fused_ce_bwd.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i,
+                                         ll, p]
+            lib.fused_ce_bwd.restype = i
             lib.specforge_cuda_error_string.argtypes = [i]
             lib.specforge_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -36,7 +36,9 @@ def matmul_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     fp32 and are never rounded to their own type (``preferred_element_type``
     of the JAX package)."""
     dtype = torch.promote_types(a.dtype, b.dtype)
-    if dtype == torch.float32:
+    if dtype == torch.float32 or a.device.type == "cpu":
+        # (the CPU has no low-precision product with an fp32 result; the
+        # fp32 product of the same values is what it would compute)
         return a.float() @ b.float()
     return torch.mm(a.to(dtype), b.to(dtype), out_dtype=torch.float32)
 

@@ -92,6 +92,31 @@ def read_feature_specs(path: str) -> Tuple[Dict[str, FeatureSpec], Dict[str, str
     return specs, metadata
 
 
+def read_safetensors_keys(path: str) -> Tuple[str, ...]:
+    """Tensor names of a safetensors file (header only)."""
+    with open(path, "rb") as f:
+        header, _, _ = _read_header(f)
+    return tuple(header)
+
+
+def read_safetensors_tensor(path: str, name: str) -> torch.Tensor:
+    """One tensor of a safetensors file (a target checkpoint shard), read
+    without loading the others."""
+    with open(path, "rb") as f:
+        header, _, start = _read_header(f)
+        if name not in header:
+            raise KeyError(f"{name!r} not in {path}")
+        info = header[name]
+        lo, hi = info["data_offsets"]
+        f.seek(start + lo)
+        data = bytearray(f.read(hi - lo))
+    dtype = _DTYPES[info["dtype"]]
+    if not data:
+        return torch.empty(info["shape"], dtype=dtype)
+    return torch.frombuffer(data, dtype=torch.uint8).view(dtype).reshape(
+        info["shape"])
+
+
 def load_feature_file(path: str) -> Tuple[Dict[str, torch.Tensor], Dict[str, str]]:
     """Load tensors (CPU) and metadata of one ``.sft`` feature file."""
     if not path.endswith(".sft"):

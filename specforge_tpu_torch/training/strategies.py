@@ -3,7 +3,10 @@
 Counterpart of ``specforge_tpu/training/strategies.py`` (``StepOutput`` and
 ``Eagle3TrainStrategy``). The JAX strategy receives its parameters
 explicitly; here the strategy holds the :class:`OnlineEagle3Model`, whose
-parameters live on its device, and moves each batch there.
+parameters live on its device, and moves each batch there. ``forward_loss``
+may be handed substitute tensors for the model's parameters (the train
+step's once-per-micro-step cast copies), which it applies through
+``torch.func.functional_call``.
 """
 
 from __future__ import annotations
@@ -115,10 +118,14 @@ class Eagle3TrainStrategy:
         frozen: Dict[str, torch.Tensor],
         ctx: Optional[StepContext] = None,
         metadata: Optional[Dict[str, Any]] = None,
+        params: Optional[Dict[str, torch.Tensor]] = None,
     ) -> StepOutput:
         args, kwargs = self._inputs(tensors, frozen, metadata,
                                     self.compact_teacher)
-        out = self.model(*args, **kwargs)
+        if params is None:
+            out = self.model(*args, **kwargs)
+        else:
+            out = torch.func.functional_call(self.model, params, args, kwargs)
         length = out.plosses.shape[0]
         weights = torch.tensor(
             [self.ploss_decay ** i for i in range(length)],

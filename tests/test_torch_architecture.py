@@ -1,8 +1,9 @@
 """Import rules of the PyTorch port, checked on the source (AST).
 
-The port and its chip smoke script import neither JAX (nor flax, optax) nor
-anything of the JAX package, and none of the libraries the machine with the
-card lacks (safetensors, ml_dtypes). Every CUDA source under csrc/ is built.
+The port and its chip smoke script import neither JAX (nor flax, optax,
+orbax) nor anything of the JAX package, and none of the libraries the
+machine with the card lacks (safetensors, ml_dtypes, pydantic). Every CUDA
+source under csrc/ is built.
 """
 
 import ast
@@ -14,8 +15,8 @@ from specforge_tpu_torch.ops import cuda_lib
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 PKG = os.path.join(REPO, "specforge_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "safetensors",
-             "specforge_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes",
+             "safetensors", "pydantic", "specforge_tpu")
 
 
 def _sources():

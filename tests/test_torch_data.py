@@ -42,6 +42,16 @@ from specforge_tpu_torch.training import vocab_mapping as pt_vocab
 MAXLEN, HID = 32, 16
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread per test worker (see test_torch_train.py's
+    fixture of the same name: the default oversubscribes a shared CPU)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def sample_arrays(rng, seq):
     """One sample in every dtype the feature files carry."""
     return {

@@ -67,6 +67,16 @@ CFG_KW = dict(vocab_size=V, draft_vocab_size=VD, hidden_size=HID,
 REPO = os.path.join(os.path.dirname(__file__), "..")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread per test worker (see test_torch_train.py's
+    fixture of the same name: the default oversubscribes a shared CPU)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def vocab_maps(rng):
     keep = np.sort(rng.choice(V, size=VD, replace=False))
     t2d = np.zeros(V, bool)

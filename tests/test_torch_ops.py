@@ -34,6 +34,16 @@ ATTN_TOL = 2e-5  # tests/test_attention_pallas.py
 CE_RTOL = 1e-5   # tests/test_loss.py
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread per test worker (see test_torch_train.py's
+    fixture of the same name: the default oversubscribes a shared CPU)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def t(x):
     return torch.from_numpy(np.asarray(x).copy())
 
@@ -281,3 +291,99 @@ def test_shift_pad_matches_jax():
         np.testing.assert_array_equal(
             shift_pad(t(x), left=left).numpy(),
             np.asarray(jax_shift_pad(jnp.asarray(x), left=left)))
+
+
+# --------------------------------------------------------------------------
+# backward
+# --------------------------------------------------------------------------
+
+BWD_RTOL, BWD_ATOL = 5e-4, 5e-5  # tests/test_attention_pallas.py:76-84
+
+
+@pytest.mark.parametrize("n_branches", [0, 1, 6])
+def test_ttt_attention_backward_matches_pallas_interpret(n_branches):
+    """jax.grad through the interpret-mode Pallas kernels against the port's
+    autograd Function (plain backward on CPU), on q, every key and every
+    value, with padded key_valid."""
+    q, keys, values, valid = attention_case(n_branches, padded=True, seed=5)
+    do = np.random.default_rng(6).normal(size=(B, S, H * D)).astype(np.float32)
+    nk = len(keys)
+
+    def f(q_, ks, vs):
+        out = jax_attention_pallas.ttt_flash_attention(
+            q_, list(ks), list(vs), key_valid=jnp.asarray(valid),
+            interpret=True)
+        return jnp.sum(out * jnp.asarray(do))
+
+    gq_j, gk_j, gv_j = jax.grad(f, argnums=(0, 1, 2))(
+        jnp.asarray(q), tuple(jnp.asarray(k) for k in keys),
+        tuple(jnp.asarray(v) for v in values))
+
+    tq = t(q).requires_grad_(True)
+    tk = [t(k).requires_grad_(True) for k in keys]
+    tv = [t(v).requires_grad_(True) for v in values]
+    out = pt_attention_cuda.ttt_flash_attention(tq, tk, tv, t(valid))
+    grads = torch.autograd.grad(out, [tq, *tk, *tv], t(do))
+    assert len(grads) == 1 + 2 * nk
+    expected = [gq_j, *gk_j, *gv_j]
+    for i, (got, ref) in enumerate(zip(grads, expected)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref),
+                                   rtol=BWD_RTOL, atol=BWD_ATOL,
+                                   err_msg=f"gradient {i}")
+
+
+def test_ttt_attention_backward_plain_matches_autograd_of_plain_forward():
+    q, keys, values, valid = attention_case(3, padded=True, seed=7)
+    do = t(np.random.default_rng(8).normal(size=(B, S, H * D)).astype(
+        np.float32))
+    tq = t(q).requires_grad_(True)
+    tk = [t(k).requires_grad_(True) for k in keys]
+    tv = [t(v).requires_grad_(True) for v in values]
+    out, m, l = pt_attention_cuda.ttt_flash_attention_plain(tq, tk, tv,
+                                                            t(valid))
+    expected = torch.autograd.grad(out, [tq, *tk, *tv], do)
+    dq, dks, dvs = pt_attention_cuda.ttt_flash_attention_backward_plain(
+        tq.detach(), [k.detach() for k in tk], [v.detach() for v in tv],
+        t(valid), out.detach(), m.detach(), l.detach(), do)
+    for got, ref in zip([dq, *dks, *dvs], expected):
+        torch.testing.assert_close(got, ref, rtol=BWD_RTOL, atol=BWD_ATOL)
+
+
+@pytest.mark.parametrize("shape", [(2, 8, 40), (2, S, VD), (1, 300, 2500)])
+def test_ce_backward_plain_matches_pallas_interpret(shape):
+    logits, target, mask = ce_case(shape, seed=9)
+    g = np.float32(1.3)
+    _, res_j = jax_loss_pallas.loss_forward_pallas(
+        jnp.asarray(logits), jnp.asarray(target), jnp.asarray(mask),
+        interpret=True)
+    expected = jax_loss_pallas.loss_backward_pallas(
+        jnp.asarray(logits), jnp.asarray(target), res_j, jnp.asarray(g),
+        interpret=True)
+    _, stats = pt_loss_cuda.loss_forward(t(logits), t(target), t(mask))
+    got = pt_loss_cuda.loss_backward(t(logits), t(target), stats,
+                                     torch.tensor(g))
+    # tests/test_loss.py:95
+    np.testing.assert_allclose(got.numpy(), np.asarray(expected), rtol=1e-4,
+                               atol=1e-6)
+    masked = mask[..., 0] == 0
+    assert np.all(got.numpy()[masked] == 0.0)
+
+
+def test_ce_autograd_reads_a_teacher_window_without_copying():
+    """The fused CE's gradient, through autograd, for a strided window of a
+    padded teacher (as a TTT step slices it), against jax.grad of the JAX
+    fused loss."""
+    logits, _, mask = ce_case((2, S, VD), seed=10)
+    rng = np.random.default_rng(11)
+    padded = rng.random((2, S + 7, VD)).astype(np.float32)
+    padded /= padded.sum(-1, keepdims=True)
+    window = padded[:, 3:3 + S]
+    ref = jax.grad(lambda x: jax_loss.log_softmax_loss(
+        x, jnp.asarray(window), jnp.asarray(mask)))(jnp.asarray(logits))
+    x = t(logits).requires_grad_(True)
+    target = t(padded)[:, 3:3 + S]
+    assert not target.is_contiguous()
+    (got,) = torch.autograd.grad(
+        pt_loss.log_softmax_loss(x, target, t(mask)), x)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-6)
