@@ -11,10 +11,11 @@ Phases, each printing JSON lines:
    ``nvcc`` for ``sm_90a`` (in parallel) into one library;
 3. kernels, at the shapes of the slices: each kernel (the TTT attention and
    fused CE forwards, the fused CE backward and the two TTT attention
-   backward kernels) is held against its plain PyTorch version on the card,
-   in the working dtype, and timed with CUDA events (median of 20 runs after
-   3 warm-ups) beside the plain version, one PyTorch library call as a
-   yardstick, and its bound;
+   backward kernels; the DFlash block-attention forward and its two
+   backward kernels in cases (a)-(e) of ``DFLASH_CASES``) is held against
+   its plain PyTorch version on the card, in the working dtype, and timed
+   with CUDA events (median of 20 runs after 3 warm-ups) beside the plain
+   version, one PyTorch library call as a yardstick, and its bound;
 4. slice 1: the EAGLE3 offline TTT forward at the full Qwen3-8B EAGLE3 width
    (``configs/qwen3-8b-eagle3.json``, random weights from ``--seed``), from
    feature files written and read back by the port's data plane, through
@@ -33,7 +34,18 @@ Phases, each printing JSON lines:
    micro-step and optimizer-step times of the trainer's own train step,
    peak memory with and without ``compute_params_dtype``, and one profiled
    micro-step;
-6. the kernels line, then the card line, then ``{"ok": true, ...}``.
+6. slice 3, the DFlash family: ``cli.main(["train", ...])`` on
+   ``examples/qwen3-8b-domino-offline.json`` with ``configs/qwen3-8b-domino.json``
+   at full width (B=2, S up to 768, 256 anchors of 16; accumulation 2, so 4
+   optimizer steps and one checkpoint at the epoch's end): exactly 5
+   launches of each DFlash kernel per micro-batch, the kernel path against
+   the chunked plain path (the draft config's ``attention_backend:
+   "chunked"``) from the same initial weights and anchors, ``lambda_base``
+   decaying as ``linear_lambda_base`` says, the micro-step and optimizer
+   times, peak memory and one profiled micro-step; then one optimizer step
+   of the ``dflash`` strategy on ``configs/qwen3-8b-dflash.json`` (512
+   anchors, the ``loss_terms`` normalisation) against its plain path;
+7. the kernels line, then the card line, then ``{"ok": true, ...}``.
 
 Any failed check raises: the script then exits non-zero with a traceback and
 prints no result. Without a CUDA device it exits non-zero at once.
@@ -65,8 +77,17 @@ from specforge_tpu_torch.models.draft.llama_eagle3 import (
     Eagle3Config,
     LlamaEagle3Draft,
 )
-from specforge_tpu_torch.ops import attention_cuda, cuda_lib, loss_cuda
+from specforge_tpu_torch.ops import (
+    attention_cuda,
+    cuda_lib,
+    dflash_attention_cuda,
+    loss_cuda,
+)
 from specforge_tpu_torch.ops.loss import log_softmax_loss_reference
+from specforge_tpu_torch.ops.masks import (
+    dflash_dense_mask,
+    sample_anchor_positions,
+)
 from specforge_tpu_torch.runtime.data_plane.feature_dataloader import (
     FeatureDataLoader,
 )
@@ -80,7 +101,10 @@ from specforge_tpu_torch.runtime.data_plane.offline_reader import (
 )
 from specforge_tpu_torch.training.checkpoint import CheckpointManager
 from specforge_tpu_torch.training.optimizer import global_norm
-from specforge_tpu_torch.training.strategies import Eagle3TrainStrategy
+from specforge_tpu_torch.training.strategies import (
+    Eagle3TrainStrategy,
+    linear_lambda_base,
+)
 from specforge_tpu_torch.training.train_step import make_train_step
 from specforge_tpu_torch.training.vocab_mapping import (
     load_vocab_mapping,
@@ -585,6 +609,245 @@ def ce_backward_phase(gen) -> dict:
 
 
 # --------------------------------------------------------------------------
+# the DFlash block-attention kernels against their plain versions
+# --------------------------------------------------------------------------
+
+#: (name, B, H, KVH, D, S, N, sliding window): (a) the Domino slice; (b)
+#: configs/qwen3-8b-dflash.json's 512 anchors at S=2048; (c) the sliding
+#: window of configs/qwen3.6-27b-dflash.json, which bites at S=8192; (d)
+#: head dim 64 (configs/qwen2.5-0.5b-dflash.json's heads); (e) a context that
+#: is no multiple of the 64-key tile
+DFLASH_CASES = (
+    ("a_domino", 2, 32, 8, 128, 768, 256, None),
+    ("b_dflash_s2048", 2, 32, 8, 128, 2048, 512, None),
+    ("c_sliding_w4096", 1, 32, 8, 128, 8192, 512, 4096),
+    ("d_head_dim_64", 2, 14, 2, 64, 768, 256, None),
+    ("e_s700", 2, 32, 8, 128, 700, 256, None),
+)
+DFLASH_BS = 16
+DFLASH_KERNELS = ("dflash_attention_fwd", "dflash_attention_bwd_dq",
+                  "dflash_attention_bwd_dkv")
+
+
+def dflash_case_inputs(gen, b, h, kvh, d, s, n):
+    """Anchors from the port's sampler over a loss mask of the response part
+    (the last three quarters; row 1 has fewer candidates than slots, so its
+    last slots are not kept; row 0's first anchor is moved to 0) and bf16
+    q/k/v, q and the draft k/v as strided views of one merged projection,
+    as the draft model has them."""
+    loss_mask = torch.zeros(b, s, dtype=torch.int32)
+    loss_mask[:, s // 4:] = 1
+    if b > 1:
+        loss_mask[1, :s - n // 2] = 0
+    anchors, keep = sample_anchor_positions(
+        torch.Generator().manual_seed(int(gen.initial_seed()) + s), loss_mask,
+        n)
+    anchors[0, 0] = 0
+    q_len = n * DFLASH_BS
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    qkv = rnd(b, q_len, (h + 2 * kvh) * d)
+    q = qkv[..., :h * d].view(b, q_len, h, d).transpose(1, 2)
+    k_drf = qkv[..., h * d:(h + kvh) * d].view(b, q_len, kvh, d).transpose(
+        1, 2)
+    v_drf = qkv[..., (h + kvh) * d:].view(b, q_len, kvh, d).transpose(1, 2)
+    return (q, rnd(b, kvh, s, d), rnd(b, kvh, s, d), k_drf, v_drf,
+            anchors.cuda(), keep.cuda())
+
+
+def dflash_spans(anchors, keep, s, window):
+    """Allowed keys per query row [B, Q] from the anchors: context keys
+    [lo, hi) and draft keys (the row's own block, or offsets <= its own under
+    a sliding window): (context pairs, draft pairs) per row."""
+    bs = DFLASH_BS
+    a = anchors.long().repeat_interleave(bs, dim=1)
+    kept = keep.repeat_interleave(bs, dim=1)
+    off = torch.arange(a.shape[1], device=a.device) % bs
+    hi = a.clamp(0, s)
+    lo = (a + off - (window - 1)).clamp(min=0) if window else torch.zeros_like(a)
+    ctx = (hi - torch.minimum(lo, hi)) * kept
+    drf = ((off + 1) if window else torch.full_like(off, bs)) * kept
+    return ctx, drf
+
+
+def dflash_bounds(inputs, window) -> dict:
+    """The least times of the three kernels for these anchors: each input
+    read once and each output written once over the card's memory rate;
+    the tensor-core products over the allowed (row, key) pairs at the bf16
+    peak (2·D operations per pair and product)."""
+    q, k_ctx, _, _, _, anchors, keep = inputs
+    b, h, q_len, d = q.shape
+    kvh, s = k_ctx.shape[1], k_ctx.shape[2]
+    ctx, drf = dflash_spans(anchors, keep, s, window)
+    p_ctx, p_drf = int(ctx.sum()) * h, int(drf.sum()) * h
+    product = 2 * d
+    q_bytes = b * h * q_len * d * 2          # q, out, dO or dq
+    ctx_bytes = b * kvh * s * d * 2          # one context key or value tensor
+    drf_bytes = b * kvh * q_len * d * 2      # one draft key or value tensor
+    stat_bytes = b * h * q_len * 4           # one of m, l, delta
+    idx_bytes = 2 * anchors.numel() * 4
+
+    def bound(nbytes, ops):
+        return {"bytes_ms": nbytes / PEAK_HBM * 1e3,
+                "ops_ms": ops / PEAK_BF16 * 1e3}
+
+    return {
+        # s = q k^T and p v
+        "dflash_attention_fwd": bound(
+            2 * q_bytes + 2 * ctx_bytes + 2 * drf_bytes + 2 * stat_bytes
+            + idx_bytes, 2 * product * (p_ctx + p_drf)),
+        # s, dp, dq over every pair; the draft keys' dk, dv over theirs
+        "dflash_attention_bwd_dq": bound(
+            3 * q_bytes + 2 * ctx_bytes + 4 * drf_bytes + 3 * stat_bytes
+            + idx_bytes, product * (3 * (p_ctx + p_drf) + 2 * p_drf)),
+        # s, dp, dk, dv over the context pairs
+        "dflash_attention_bwd_dkv": bound(
+            2 * q_bytes + 4 * ctx_bytes + 3 * stat_bytes + idx_bytes,
+            4 * product * p_ctx),
+    }
+
+
+def dflash_sdpa_yardstick(inputs, window, dout):
+    """One library call computing the same function, and its backward:
+    SDPA over cat(k_ctx, k_drf) with the boolean dense DFlash mask and
+    enable_gqa. Timed only (rows of blocks not kept differ: SDPA has no
+    exact-zero rule for them)."""
+    q, k_ctx, v_ctx, k_drf, v_drf, anchors, keep = inputs
+    b, h, q_len, d = q.shape
+    mask = dflash_dense_mask(anchors, keep, k_ctx.shape[2], DFLASH_BS, window)
+    qr = q.detach().requires_grad_(True)
+    k_cat = torch.cat([k_ctx, k_drf], dim=2).requires_grad_(True)
+    v_cat = torch.cat([v_ctx, v_drf], dim=2).requires_grad_(True)
+
+    def forward():
+        return F.scaled_dot_product_attention(qr, k_cat, v_cat,
+                                              attn_mask=mask, enable_gqa=True)
+
+    out = forward()
+    do = dout.view(b, q_len, h, d).transpose(1, 2)
+    return forward, lambda: torch.autograd.grad(out, (qr, k_cat, v_cat), do,
+                                                retain_graph=True)
+
+
+def dflash_kernel_phase(gen) -> list:
+    """The three DFlash kernels against their plain versions in cases
+    (a)-(e), in bf16: the output and every gradient within ATTN_TOL of the
+    plain version's largest value, (m, l) within STAT_RTOL. Each case is
+    timed (kernel, plain); case (a), the Domino slice's launch, also gives
+    the library yardstick and the bound the kernels line reports."""
+    fwd = dflash_attention_cuda.dflash_flash_attention_fwd
+    results = {}
+    for name, b, h, kvh, d, s, n, window in DFLASH_CASES:
+        inputs = dflash_case_inputs(gen, b, h, kvh, d, s, n)
+        keep = inputs[-1]
+        if window:
+            lo_bites = bool(((inputs[5].long() - (window - 1)) > 0)[keep].any())
+            if not lo_bites:
+                raise AssertionError(f"case {name}: the window does not bite")
+        out, m, l = fwd(*inputs, DFLASH_BS, window)
+        dout = torch.randn(out.shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+        grads = dflash_attention_cuda.dflash_flash_attention_bwd(
+            *inputs, DFLASH_BS, window, out, m, l, dout)
+        torch.cuda.synchronize()
+        ref, ref_m, ref_l = dflash_attention_cuda.dflash_flash_attention_plain(
+            *inputs, DFLASH_BS, window)
+        ref_grads = dflash_attention_cuda.dflash_flash_attention_backward_plain(
+            *inputs, DFLASH_BS, window, out, m, l, dout)
+        kept_rows = keep.repeat_interleave(DFLASH_BS, dim=1)
+        if out[~kept_rows].any():
+            raise AssertionError(f"case {name}: rows not kept are not 0")
+        # kernel A gives dq and the draft dk/dv, kernel B the context dk/dv
+        pairs = {
+            "dflash_attention_fwd": [(out, ref)],
+            "dflash_attention_bwd_dq": list(zip(grads[0:1] + grads[3:],
+                                                ref_grads[0:1]
+                                                + ref_grads[3:])),
+            "dflash_attention_bwd_dkv": list(zip(grads[1:3], ref_grads[1:3])),
+        }
+        errs = {k: max(rel_max_err(a, r) for a, r in v)
+                for k, v in pairs.items()}
+        abs_errs = {k: max(max_err(a, r) for a, r in v)
+                    for k, v in pairs.items()}
+        for kernel, err in errs.items():
+            check(f"{kernel} case {name} (max|err| / max|ref|)", err,
+                  ATTN_TOL)
+        rows = kept_rows[:, None].expand_as(m)  # m is -1e30 on the others
+        errs["m"] = max_err(m[rows], ref_m[rows]) / (
+            1.0 + float(ref_m[rows].abs().max()))
+        errs["l"] = float(((l - ref_l).abs() / ref_l.clamp(min=1e-30)).max())
+        check(f"dflash m case {name}", errs["m"], STAT_RTOL)
+        check(f"dflash l case {name}", errs["l"], STAT_RTOL)
+        delta = attention_cuda.backward_delta(out, dout, h)
+        bwd_args = (*inputs, DFLASH_BS, window, dout, m, l, delta)
+        row = {
+            "phase": "kernel", "name": "dflash_attention", "case": name,
+            "B": b, "H": h, "KVH": kvh, "D": d, "S": s, "N": n,
+            "sliding_window": window, "kept_blocks": int(keep.sum()),
+            "rel_err": errs, "max_abs_err": abs_errs,
+            "tol": {"out_and_grads": f"{ATTN_TOL} * max|ref|",
+                    "m_l": STAT_RTOL},
+            "ms": {
+                "dflash_attention_fwd": median_ms(
+                    lambda: fwd(*inputs, DFLASH_BS, window)),
+                "dflash_attention_bwd_dq": median_ms(
+                    lambda: dflash_attention_cuda.dflash_attention_bwd_dq(
+                        *bwd_args)),
+                "dflash_attention_bwd_dkv": median_ms(
+                    lambda: dflash_attention_cuda.dflash_attention_bwd_dkv(
+                        *bwd_args)),
+            },
+            "plain_fwd_ms": median_ms(
+                lambda: dflash_attention_cuda.dflash_flash_attention_plain(
+                    *inputs, DFLASH_BS, window), runs=5, warmup=1),
+            "plain_bwd_ms": median_ms(
+                lambda: dflash_attention_cuda
+                .dflash_flash_attention_backward_plain(
+                    *inputs, DFLASH_BS, window, out, m, l, dout),
+                runs=5, warmup=1),
+            "bound": dflash_bounds(inputs, window),
+        }
+        if name in ("a_domino", "b_dflash_s2048"):
+            lib_fwd, lib_bwd = dflash_sdpa_yardstick(inputs, window, dout)
+            row["library_fwd_ms"] = median_ms(lib_fwd)
+            row["library_bwd_ms"] = median_ms(lib_bwd)
+        emit(row)
+        results[name] = row
+        del inputs, out, grads, ref, ref_grads, dout, bwd_args
+        torch.cuda.empty_cache()
+
+    main = results["a_domino"]
+    lines = []
+    for kernel, line in zip(DFLASH_KERNELS, (103, 180, 254)):
+        bound = main["bound"][kernel]
+        backward = kernel != "dflash_attention_fwd"
+        lines.append({
+            "name": kernel,
+            "route": "cuda",
+            "source": "specforge_tpu_torch/csrc/dflash_attention.cu",
+            "replaces": f"specforge_tpu/ops/dflash_pallas.py:{line}",
+            "max_abs_err": max(r["max_abs_err"][kernel]
+                               for r in results.values()),
+            "rel_err": max(r["rel_err"][kernel] for r in results.values()),
+            "tol": f"{ATTN_TOL} * max|ref|",
+            # per launch at the Domino slice's shapes (case a); the plain
+            # backward and the library backward compute every gradient at
+            # once, and stand beside both backward kernels
+            "ms": main["ms"][kernel],
+            "plain_ms": main["plain_bwd_ms" if backward else "plain_fwd_ms"],
+            "library_ms": main["library_bwd_ms" if backward
+                               else "library_fwd_ms"],
+            "bound_ms": max(bound["bytes_ms"], bound["ops_ms"]),
+            "bound_by": ("bytes" if bound["bytes_ms"] > bound["ops_ms"]
+                         else "operations"),
+        })
+    return lines
+
+
+# --------------------------------------------------------------------------
 # the slice: EAGLE3 offline TTT forward at Qwen3-8B width
 # --------------------------------------------------------------------------
 
@@ -801,14 +1064,14 @@ BACKWARD_KERNELS = ("fused_ce_bwd", "ttt_attention_bwd_dq",
                     "ttt_attention_bwd_dkv")
 
 
-def write_target_dir(root: Path, cfg: Eagle3Config, device, seed: int,
-                     std: float) -> Path:
+def write_target_dir(root: Path, vocab_size: int, hidden_size: int, device,
+                     seed: int, std: float) -> Path:
     """A random HF-layout target directory (``config.json`` and one
     ``model.safetensors`` with the bf16 lm_head and embedding), written by
     the port's safetensors writer, so the trainer loads them for real."""
     root.mkdir(parents=True, exist_ok=True)
     gen = torch.Generator(device=device).manual_seed(seed + 3)
-    shape = (cfg.vocab_size, cfg.resolved_target_hidden_size)
+    shape = (vocab_size, hidden_size)
     tensors = {
         key: (torch.randn(*shape, generator=gen, device=device) * std).to(
             torch.bfloat16).cpu()
@@ -816,7 +1079,7 @@ def write_target_dir(root: Path, cfg: Eagle3Config, device, seed: int,
     }
     save_feature_file(str(root / "model.safetensors"), tensors)
     (root / "config.json").write_text(json.dumps({
-        "vocab_size": cfg.vocab_size, "hidden_size": shape[1],
+        "vocab_size": vocab_size, "hidden_size": hidden_size,
         "tie_word_embeddings": False,
     }))
     return root
@@ -867,17 +1130,22 @@ def window_grads(trainer, window) -> tuple:
     before the clip and the update) → (loss, {name: fp32 grad})."""
     grads, stats = trainer.train_step.accumulate(
         trainer.state, stack_window(window), trainer.frozen)
-    return float(stats["loss"]) / len(window), grads
+    return float(stats["loss"] / stats["norm"]), grads
 
 
 def compare_grads(kernel: dict, plain: dict) -> dict:
-    """Per parameter: cosine and relative norm difference of two gradients."""
+    """Per parameter: cosine and relative norm difference of two gradients.
+    A gradient that is exactly zero on both paths (Domino's correction head
+    while lambda_base is 1) is recorded as such."""
     out = {}
     for name, a in kernel.items():
         b = plain[name]
         a = a.to(b.device)
-        cos = float(F.cosine_similarity(a.reshape(1, -1), b.reshape(1, -1)))
         na, nb = float(a.norm()), float(b.norm())
+        if na == nb == 0.0:
+            out[name] = {"cosine": None, "both_zero": True}
+            continue
+        cos = float(F.cosine_similarity(a.reshape(1, -1), b.reshape(1, -1)))
         out[name] = {"cosine": cos, "norm_rel_diff": abs(na - nb) / nb}
         if not cos >= GRAD_COSINE:
             raise AssertionError(f"step-1 grad of {name}: cosine {cos} "
@@ -958,7 +1226,9 @@ def run_training(cfg_path: Path, device, seed: int, workdir: Path, *,
                    max_length)
     write_features(workdir / "eval", cfg, seed + 100, EVAL_FILES, min_len,
                    max_length)
-    target = write_target_dir(workdir / "target", cfg, device, seed, head_std)
+    target = write_target_dir(workdir / "target", cfg.vocab_size,
+                              cfg.resolved_target_hidden_size, device, seed,
+                              head_std)
     run_json = training_run_json(workdir, cfg_path, target, max_length)
     runs = workdir / "runs"
     overrides = list(overrides)
@@ -1059,6 +1329,231 @@ def run_training(cfg_path: Path, device, seed: int, workdir: Path, *,
     return results, counts
 
 
+# --------------------------------------------------------------------------
+# slice 3: DFlash-family offline training at Qwen3-8B width
+# --------------------------------------------------------------------------
+
+DOMINO_CONFIG = REPO / "configs" / "qwen3-8b-domino.json"
+DOMINO_EXAMPLE = REPO / "examples" / "qwen3-8b-domino-offline.json"
+DFLASH_CONFIG = REPO / "configs" / "qwen3-8b-dflash.json"
+#: the Domino run: 16 files of 512-768 tokens, 4 optimizer steps of 2
+#: micro-batches; the DFlash step: 4 files, one optimizer step
+FAMILY_FILES = {"domino": 16, "dflash": 4}
+DFLASH_COUNTERS = {
+    "dflash_attention_fwd": dflash_attention_cuda.dflash_flash_attention_fwd,
+    "dflash_attention_bwd_dq": dflash_attention_cuda.dflash_attention_bwd_dq,
+    "dflash_attention_bwd_dkv": dflash_attention_cuda.dflash_attention_bwd_dkv,
+}
+
+
+def write_dflash_features(root: Path, n_capture: int, hidden: int,
+                          vocab: int, seed: int, n_files: int, min_len: int,
+                          max_len: int) -> None:
+    """Offline DFlash feature files (``input_ids``, ``loss_mask`` over the
+    response part, ``hidden_states`` [S, n_capture·hidden] bf16), written by
+    the port's writer from a CPU generator."""
+    gen = torch.Generator().manual_seed(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    for i in range(n_files):
+        n = int(torch.randint(min_len, max_len + 1, (1,), generator=gen))
+        prompt = int(torch.randint(n // 10, n // 3, (1,), generator=gen))
+        loss_mask = torch.zeros(n, dtype=torch.int64)
+        loss_mask[prompt:] = 1
+        tensors = {
+            "input_ids": torch.randint(0, vocab, (n,), generator=gen),
+            "loss_mask": loss_mask,
+            "hidden_states": torch.randn(n, n_capture * hidden,
+                                         generator=gen).to(torch.bfloat16),
+        }
+        save_feature_file(str(root / f"sample-{i:04d}.sft"), tensors,
+                          {"target_repr": "hidden_state"})
+
+
+def family_run_json(kind: str, workdir: Path, draft_config: Path,
+                    target: Path, max_length: int) -> Path:
+    """``examples/qwen3-8b-domino-offline.json``, read as data, pointed at
+    this run's directories, with accumulation 2 (from 8) and a log line per
+    step; for ``dflash`` the same run with the dflash strategy and its
+    default 512 anchors. The checkpoint is written at the epoch's end."""
+    raw = json.loads(DOMINO_EXAMPLE.read_text())
+    raw["run_id"] = kind
+    raw["output_dir"] = str(workdir / "runs")
+    raw["model"].update(target_model_path=str(target),
+                        draft_config_path=str(draft_config))
+    raw["data"].update(train_data_path=str(workdir / "train"),
+                       max_length=max_length, num_workers=2)
+    raw["training"].update(accumulation_steps=ACCUM, log_interval=1)
+    if kind == "dflash":
+        raw["training"].update(strategy="dflash", num_anchors=512)
+    raw["tracking"] = {"backend": "jsonl"}
+    path = workdir / "run.json"
+    path.write_text(json.dumps(raw, indent=2))
+    return path
+
+
+def train_windows(trainer) -> list:
+    """The trainer's own train step over every accumulation window of its
+    loader (no checkpoint) → per-step metrics as floats."""
+    steps = []
+    for stacked, _ids, _meta in trainer._accum_groups(trainer.train_loader):
+        trainer.state, metrics = trainer.train_step(trainer.state, stacked,
+                                                    trainer.frozen)
+        steps.append({"step": trainer.state.step,
+                      **{k: float(v) for k, v in metrics.items()}})
+    return steps
+
+
+def compare_curves(kernel: list, plain: list) -> list:
+    curve = []
+    for k, p in zip(kernel, plain, strict=True):
+        if not (math.isfinite(k["train/loss"])
+                and math.isfinite(p["train/loss"])):
+            raise AssertionError(f"step {k['step']}: loss not finite")
+        rel = abs(k["train/loss"] - p["train/loss"]) / abs(p["train/loss"])
+        check(f"step {k['step']} train/loss, kernel vs plain", rel,
+              TRAIN_STEP1_RTOL if k["step"] == 1 else TRAIN_DRIFT_RTOL)
+        curve.append({"step": k["step"], "loss": k["train/loss"],
+                      "plain_loss": p["train/loss"], "rel_diff": rel,
+                      "grad_norm": k["train/grad_norm"],
+                      "plain_grad_norm": p["train/grad_norm"]})
+    return curve
+
+
+def run_family_training(kind: str, cfg_path: Path, device, seed: int,
+                        workdir: Path, *, max_length=768, min_len=512,
+                        head_std=0.02, overrides=()) -> tuple:
+    """Slice 3 end to end for ``kind`` ("domino" or "dflash"); returns the
+    results and the DFlash kernels' launch counts of its main path, set to
+    0 just before it and read just after.
+
+    domino: the main path is ``cli.main(["train", ...])`` (4 steps and the
+    end-of-epoch checkpoint); then a fresh kernel-path trainer gives step
+    1's loss and gradients and the timings, and a plain-path trainer (the
+    draft config's ``attention_backend: "chunked"``, same initial weights
+    and anchors) its own, and its loss curve from the trainer's train step.
+    dflash: the main path is the kernel-path trainer's train step over its
+    one window (no checkpoint), then the same plain-path comparison."""
+    from specforge_tpu_torch.models.draft.dflash import DFlashConfig
+
+    raw_cfg = json.loads(Path(cfg_path).read_text())
+    cfg = DFlashConfig.from_dict(raw_cfg)
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    write_dflash_features(workdir / "train", len(cfg.resolved_target_layer_ids),
+                          cfg.hidden_size, cfg.vocab_size, seed,
+                          FAMILY_FILES[kind], min_len, max_length)
+    target = write_target_dir(workdir / "target", cfg.vocab_size,
+                              cfg.hidden_size, device, seed, head_std)
+    run_json = family_run_json(kind, workdir, cfg_path, target, max_length)
+    chunked_cfg = workdir / "draft-chunked.json"
+    chunked_cfg.write_text(json.dumps({**raw_cfg,
+                                       "attention_backend": "chunked"}))
+    runs = workdir / "runs"
+    overrides = list(overrides)
+
+    def trainer_for(*extra):
+        config = load_config(str(run_json), overrides + list(extra))
+        return build_training_run(config, device=None if on_card else device)
+
+    results = {"disk_free_bytes": shutil.disk_usage(workdir).free}
+    for fn in DFLASH_COUNTERS.values():
+        fn.launches = 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    if kind == "domino":
+        device_args = [] if on_card else ["--device", str(device)]
+        rc = cli.main(["train", "-c", str(run_json), *device_args,
+                       *[a for o in overrides for a in ("--set", o)]])
+        if rc != 0:
+            raise AssertionError(f"cli train exited {rc}")
+        sync()
+        counts = {n: fn.launches for n, fn in DFLASH_COUNTERS.items()}
+        kernel_steps = step_records(runs, kind)
+        step_dir = Path(CheckpointManager.resolve_step_dir(str(runs)))
+        results["checkpoint"] = {
+            "dir": step_dir.name,
+            "bytes": sum(f.stat().st_size for f in step_dir.rglob("*")
+                         if f.is_file()),
+        }
+        results["main_path_s"] = time.perf_counter() - t0
+        if on_card:
+            results["main_path_peak_bytes"] = torch.cuda.max_memory_allocated()
+        trainer = trainer_for('run_id="kernel"')
+        window = first_window(trainer)
+        loss_k, grads_k = window_grads(trainer, window)
+        grads_k = {k: g.cpu() for k, g in grads_k.items()}
+        results.update(measure_kernel_path(trainer, window, sync))
+    else:
+        trainer = trainer_for()
+        window = first_window(trainer)
+        loss_k, grads_k = window_grads(trainer, window)
+        grads_k = {k: g.cpu() for k, g in grads_k.items()}
+        for fn in DFLASH_COUNTERS.values():
+            fn.launches = 0
+        sync()
+        t0 = time.perf_counter()
+        kernel_steps = train_windows(trainer)
+        sync()
+        counts = {n: fn.launches for n, fn in DFLASH_COUNTERS.items()}
+        results["main_path_s"] = time.perf_counter() - t0
+        if on_card:
+            results["main_path_peak_bytes"] = torch.cuda.max_memory_allocated()
+    results["micro_batches"] = len(kernel_steps) * ACCUM
+    del trainer
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the plain path from the same initial weights and anchors: the chunked
+    # attention of the draft config's "chunked" backend
+    plain = trainer_for(f'model.draft_config_path="{chunked_cfg}"',
+                        'run_id="plain"')
+    for fn in DFLASH_COUNTERS.values():
+        fn.launches = 0
+    loss_p, grads_p = window_grads(plain, window)
+    check("step-1 loss, kernel vs plain", abs(loss_k - loss_p) / abs(loss_p),
+          TRAIN_STEP1_RTOL)
+    results["step1"] = {"loss": loss_k, "plain_loss": loss_p}
+    results["step1_grads"] = compare_grads(grads_k, grads_p)
+    del grads_k, grads_p
+    plain_steps = train_windows(plain)
+    results["plain_path_launches"] = {n: fn.launches
+                                      for n, fn in DFLASH_COUNTERS.items()}
+    if any(results["plain_path_launches"].values()):
+        raise AssertionError("the chunked plain path launched a DFlash kernel")
+    del plain
+    if on_card:
+        torch.cuda.empty_cache()
+    results["loss_curve"] = compare_curves(kernel_steps, plain_steps)
+    results["optimizer_steps"] = len(kernel_steps)
+    if kind == "domino":
+        t = load_config(str(run_json), overrides).training
+        lambdas = [r["train/lambda_base"] for r in kernel_steps]
+        expected = [linear_lambda_base(r["step"] - 1, len(kernel_steps),
+                                       t.lambda_base_start,
+                                       t.lambda_base_decay_ratio)
+                    for r in kernel_steps]
+        for step, (got, want) in enumerate(zip(lambdas, expected), 1):
+            check(f"step {step} lambda_base", abs(got - want), 1e-6)
+        results["lambda_base"] = lambdas
+        b, n = BATCH, t.num_anchors
+        ms = results["micro_step_ms"]
+        results["draft_tokens_per_s"] = b * n * cfg.block_size / (ms / 1e3)
+        results["context_tokens_per_s"] = b * max_length / (ms / 1e3)
+    shutil.rmtree(runs, ignore_errors=True)
+    return results, counts
+
+
+def check_family_counts(counts: dict, micro_batches: int, layers: int) -> None:
+    """Exactly one launch of each DFlash kernel per layer and micro-batch."""
+    for name, n in counts.items():
+        if n != layers * micro_batches:
+            raise AssertionError(
+                f"{name}: {n} launches, expected {layers * micro_batches} "
+                f"({layers} per micro-batch)")
+
+
 def final_eval(step_dir) -> dict:
     """The eval metrics saved beside a checkpoint."""
     meta = json.loads((Path(step_dir) / "contract.json").read_text())
@@ -1092,6 +1587,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     kernels = [attention_kernel_phase(gen), ce_kernel_phase(gen)]
     kernels += [ce_backward_phase(gen), *attention_backward_phase(gen)]
+    torch.cuda.empty_cache()
+    kernels += dflash_kernel_phase(gen)
     torch.cuda.empty_cache()
 
     cfg = Eagle3Config.from_file(CONFIG)
@@ -1134,6 +1631,31 @@ def main() -> int:
                          "grad_cosine": GRAD_COSINE,
                          "grad_norm_rtol": GRAD_NORM_RTOL},
           **training})
+    torch.cuda.empty_cache()
+
+    layers = json.loads(DOMINO_CONFIG.read_text())["num_hidden_layers"]
+    family_counts = {}
+    for kind, cfg_path in (("domino", DOMINO_CONFIG),
+                           ("dflash", DFLASH_CONFIG)):
+        with tempfile.TemporaryDirectory() as tmp:
+            results, family_counts[kind] = run_family_training(
+                kind, cfg_path, torch.device("cuda"), args.seed, Path(tmp))
+        check_family_counts(family_counts[kind], results["micro_batches"],
+                            layers)
+        emit({"phase": f"{kind}_training",
+              "config": str(DOMINO_EXAMPLE.relative_to(REPO)),
+              "draft_config": str(cfg_path.relative_to(REPO)),
+              "batch": BATCH, "max_length": 768,
+              "accumulation_steps": ACCUM, "launches": family_counts[kind],
+              "tolerances": {"step1_loss_rtol": TRAIN_STEP1_RTOL,
+                             "later_loss_rtol": TRAIN_DRIFT_RTOL,
+                             "grad_cosine": GRAD_COSINE,
+                             "grad_norm_rtol": GRAD_NORM_RTOL},
+              **results})
+        torch.cuda.empty_cache()
+    # each kernel's launches from its own main path: the EAGLE3 kernels from
+    # the EAGLE3 training run, the DFlash kernels from the Domino run
+    counts.update(family_counts["domino"])
     for k in kernels:
         k["launches"] = counts[k["name"]]
         k["kernel_ms"] = k["ms"]

@@ -1,9 +1,9 @@
-"""Built-in algorithm registrations of the port: eagle3.
+"""Built-in algorithm registrations of the port: eagle3, dflash, domino.
 
 Counterpart of ``specforge_tpu/algorithms/builtin.py``, for EAGLE3 (and
-EAGLE3.1, which is eagle3 with ``fc_norm: true`` in the draft config). The
-JAX package's other algorithms are known by name and refused with the slice
-of the port that brings them.
+EAGLE3.1, which is eagle3 with ``fc_norm: true`` in the draft config) and
+the DFlash family's dflash and domino. The JAX package's other algorithms
+are known by name and refused with the slice of the port that brings them.
 """
 
 from __future__ import annotations
@@ -28,9 +28,8 @@ from specforge_tpu_torch.algorithms.registry import (
 
 #: algorithms of the JAX package not ported yet → the slice that brings them
 QUEUED = {
-    "dflash": "slice 3, the DFlash family (ROADMAP.md, Queue 1 item 4)",
-    "domino": "slice 3, the DFlash family (ROADMAP.md, Queue 1 item 4)",
-    "dspark": "slice 3, the DFlash family (ROADMAP.md, Queue 1 item 4)",
+    "dspark": "the DSpark draft, after the P-EAGLE and USP slices "
+              "(ROADMAP.md, Queue 1 item 4)",
     "peagle": "slice 4, P-EAGLE (ROADMAP.md, Queue 1 item 5)",
 }
 
@@ -121,5 +120,106 @@ EAGLE3 = AlgorithmRegistration(
 )
 
 
+# --- dflash family ---------------------------------------------------------
+
+def _dflash_build_draft(draft_cls_name: str):
+    def build(config_dict: Dict[str, Any], dtype=torch.bfloat16,
+              attention_backend: str = "auto", device=None, seed: int = 0):
+        """The family reads its attention backend from the draft config
+        (``attention_backend``: "auto", "pallas" or "chunked"), not from
+        ``training.attention_backend``, as the JAX package does."""
+        from specforge_tpu_torch.models.draft import dflash, domino
+
+        config = dflash.DFlashConfig.from_dict(config_dict)
+        cls = {"DFlashDraftModel": dflash.DFlashDraftModel,
+               "DominoDraftModel": domino.DominoDraftModel}[draft_cls_name]
+        draft = cls(
+            config, dtype=dtype,
+            attention_backend=config_dict.get("attention_backend", "auto"),
+            attn_chunk_blocks=int(config_dict.get("attn_chunk_blocks", 8)),
+            device=device, seed=seed,
+        )
+        return draft, config
+
+    return build
+
+
+def _dflash_family_training_model(wrapper_name: str):
+    def build(draft, options: Dict[str, Any]):
+        from specforge_tpu_torch.algorithms.common import dflash_family
+
+        kwargs = dict(
+            draft_model=draft,
+            mask_token_id=int(options.get(
+                "mask_token_id", draft.config.mask_token_id or 0)),
+            block_size=int(options.get("block_size", draft.config.block_size)),
+            num_anchors=int(options.get("num_anchors", 512)),
+            loss_decay_gamma=options.get("loss_decay_gamma"),
+            objective_chunk_blocks=int(
+                options.get("objective_chunk_blocks", 128)),
+            fused_objective=bool(options.get("fused_vocab_objective", True)),
+        )
+        if wrapper_name == "OnlineDFlashModel":
+            kwargs["loss_type"] = options.get("loss_type", "dflash")
+            kwargs["dpace_alpha"] = float(options.get("dpace_alpha", 0.5))
+        else:
+            kwargs["shift_label"] = bool(
+                options.get("shift_label", draft.config.shift_label))
+        return getattr(dflash_family, wrapper_name)(**kwargs)
+
+    return build
+
+
+def _dflash_family_strategy(strategy_name: str):
+    def build(model, options: Dict[str, Any]):
+        from specforge_tpu_torch.training import strategies
+
+        kwargs = {"seed": int(options.get("seed", 0))}
+        if strategy_name == "DominoTrainStrategy":
+            kwargs["lambda_start"] = float(options.get("lambda_start", 1.0))
+            kwargs["decay_ratio"] = float(options.get("decay_ratio", 0.5))
+        return getattr(strategies, strategy_name)(model, **kwargs)
+
+    return build
+
+
+def _dflash_registration(name: str, draft_arch: str, wrapper_name: str,
+                         strategy_name: str) -> AlgorithmRegistration:
+    features = frozenset({"input_ids", "loss_mask", "hidden_states"})
+    return AlgorithmRegistration(
+        spec=AlgorithmSpec(
+            name=name,
+            draft=DraftRequirement(
+                compatible_architectures=frozenset({draft_arch}),
+                default_architecture=draft_arch,
+            ),
+            feature_contracts=tuple(
+                FeatureContract(mode=mode, required_features=features,
+                                target_representation="hidden_state")
+                for mode in (FeatureMode.OFFLINE, FeatureMode.STREAMING)
+            ),
+            offline_schema=OfflineStorageSchema(
+                format="specforge_dflash_states_v1",
+                feature_names=tuple(sorted(features)),
+                aux_feature="hidden_states",
+            ),
+            capabilities=AlgorithmCapabilities(),
+        ),
+        providers=AlgorithmProviders(
+            build_draft=_dflash_build_draft(draft_arch),
+            build_training_model=_dflash_family_training_model(wrapper_name),
+            build_strategy=_dflash_family_strategy(strategy_name),
+            frozen_requirements=frozenset(
+                {"target_head_weight", "target_embed_weight"}),
+        ),
+    )
+
+
+DFLASH = _dflash_registration("dflash", "DFlashDraftModel",
+                              "OnlineDFlashModel", "DFlashTrainStrategy")
+DOMINO = _dflash_registration("domino", "DominoDraftModel",
+                              "OnlineDominoModel", "DominoTrainStrategy")
+
+
 def builtin_algorithm_registry() -> AlgorithmRegistry:
-    return AlgorithmRegistry([EAGLE3], queued=QUEUED)
+    return AlgorithmRegistry([EAGLE3, DFLASH, DOMINO], queued=QUEUED)

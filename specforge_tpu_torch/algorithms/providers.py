@@ -9,7 +9,7 @@ counterpart: a torch module initialises its own weights.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, FrozenSet, Tuple
+from typing import Any, Callable, FrozenSet, Optional, Tuple
 
 #: (config dict, dtype, attention_backend, device, seed) → (module, config)
 BuildDraft = Callable[..., Tuple[Any, Any]]
@@ -24,3 +24,14 @@ class AlgorithmProviders:
     build_strategy: BuildStrategy
     # frozen tensors the strategy reads from the `frozen` dict each step
     frozen_requirements: FrozenSet[str] = frozenset()
+
+
+def dflash_capture_layers(
+    draft_config: Any, target_num_layers: int,
+    override: Optional[Tuple[int, ...]] = None,
+) -> Tuple[int, ...]:
+    """The target layers a DFlash-family draft reads: the run's override,
+    else the draft config's (explicit or evenly spaced) target layer ids."""
+    if override is not None:
+        return tuple(override)
+    return tuple(draft_config.resolved_target_layer_ids)

@@ -1,14 +1,17 @@
 """Composition root: Config → runnable training run, on one device.
 
-Counterpart of ``specforge_tpu/application/composition.py`` for EAGLE3
-offline: resolves the algorithm registration, builds the draft, training
-model and strategy through the providers, loads the frozen target tables and
-the vocab mapping (from a file, or derived from the training features),
-copies and freezes the target embedding (the frozen table cast to bf16),
-wires the ``PaddingCollator`` loaders and the tracker, and returns the
-:class:`Trainer`. What the port has not reached yet (a mesh, USP, document
-packing, online runs, other algorithms, a warm start) is refused with the
-slice that brings it.
+Counterpart of ``specforge_tpu/application/composition.py`` for offline
+runs of EAGLE3 and the DFlash family (dflash, domino): resolves the
+algorithm registration, builds the draft, training model and strategy
+through the providers, loads the frozen target tables and the vocab mapping
+(from a file, or derived from the training features), wires the
+``PaddingCollator`` loaders and the tracker, and returns the
+:class:`Trainer`. EAGLE3 copies the target embedding into its draft and
+freezes it (the frozen table cast to bf16); the DFlash family reads the
+target head and embedding from ``frozen`` at every step and trains every
+draft parameter. What the port has not reached yet (a mesh, USP, document
+packing, online runs, other algorithms, a warm start, an eval pass for the
+DFlash family) is refused with the slice that brings it.
 """
 
 from __future__ import annotations
@@ -122,6 +125,7 @@ def _refuse_unported(config: Config) -> None:
 def _strategy_options(config: Config) -> Dict[str, Any]:
     t = config.training
     return {
+        # eagle3
         "ttt_length": t.ttt_length,
         "ploss_decay": t.ploss_decay,
         "lk_loss_type": t.lk_loss_type,
@@ -129,6 +133,17 @@ def _strategy_options(config: Config) -> Dict[str, Any]:
         "kl_decay": t.kl_decay,
         "compact_teacher": t.compact_teacher,
         "compact_teacher_chunk_size": t.compact_teacher_chunk_size,
+        # dflash family
+        "num_anchors": t.num_anchors,
+        "loss_decay_gamma": t.loss_decay_gamma,
+        "objective_chunk_blocks": t.objective_chunk_blocks,
+        "fused_vocab_objective": t.fused_vocab_objective,
+        "loss_type": t.loss_type,
+        "dpace_alpha": t.dpace_alpha,
+        "lambda_start": t.lambda_base_start,
+        "decay_ratio": t.lambda_base_decay_ratio,
+        "mask_token_id": t.mask_token_id,
+        "seed": t.seed,
     }
 
 
@@ -147,8 +162,8 @@ def _load_target_tables(config: Config) -> Dict[str, torch.Tensor]:
 
 
 def _resolve_vocab_mapping(config: Config, draft_config) -> Optional[tuple]:
-    draft_vocab = draft_config.draft_vocab_size
-    vocab = draft_config.vocab_size
+    draft_vocab = getattr(draft_config, "draft_vocab_size", None)
+    vocab = getattr(draft_config, "vocab_size", None)
     if not draft_vocab or draft_vocab >= (vocab or 0):
         return None
     if config.model.vocab_mapping_path:
@@ -187,8 +202,15 @@ def build_training_run(config: Config, registry=None, frozen_override=None,
         resolved.draft_config_dict, dtype=compute_dtype,
         attention_backend=t.attention_backend, device=device, seed=t.seed,
     )
+    if options.get("mask_token_id") is None:
+        options["mask_token_id"] = getattr(draft_config, "mask_token_id", 0)
     model = providers.build_training_model(draft, options)
     strategy = providers.build_strategy(model, options)
+    if config.data.eval_data_path and not hasattr(strategy, "eval_outputs"):
+        raise NotImplementedError(
+            f"an eval pass for {t.strategy!r}: the JAX strategies of the "
+            "DFlash family define none (ROADMAP.md, Queue 1 item 4)"
+        )
 
     frozen = (
         {k: torch.as_tensor(v) for k, v in frozen_override.items()}
@@ -198,13 +220,16 @@ def build_training_run(config: Config, registry=None, frozen_override=None,
     mapping = _resolve_vocab_mapping(config, draft_config)
     if mapping is not None:
         draft.set_vocab_maps(*mapping)
-    embed = frozen.pop("target_embed_weight", None)
-    if embed is not None and embed.shape == draft.embed_tokens.weight.shape:
-        # the EAGLE3 contract: the draft embedding is target-copied, frozen
-        with torch.no_grad():
-            draft.embed_tokens.weight.copy_(embed)
-    trainable_mask = embedding_freeze_mask(model)
-    cast_frozen_to(model, trainable_mask, torch.bfloat16)
+    trainable_mask = None
+    if t.strategy == "eagle3":
+        # the EAGLE3 contract: the draft embedding is target-copied and
+        # frozen; the table is then not carried through every step
+        embed = frozen.pop("target_embed_weight", None)
+        if embed is not None and embed.shape == draft.embed_tokens.weight.shape:
+            with torch.no_grad():
+                draft.embed_tokens.weight.copy_(embed)
+        trainable_mask = embedding_freeze_mask(model)
+        cast_frozen_to(model, trainable_mask, torch.bfloat16)
     # loaded tables are bf16 already; an override keeps its dtype, as in
     # the JAX package
     frozen = {k: v.to(device) for k, v in frozen.items()}

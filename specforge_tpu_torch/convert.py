@@ -1,14 +1,19 @@
-"""Carry weights of the JAX ``OnlineEagle3Model`` over to the port.
+"""Carry weights of the JAX training models over to the port.
 
 :func:`params_from_jax` takes the flax variable tree as numpy arrays (the
 caller runs ``jax.device_get``; this package never imports JAX) and returns
-the ``state_dict`` of :class:`specforge_tpu_torch.algorithms.eagle3.model.
-OnlineEagle3Model`:
+the ``state_dict`` of the port's counterpart (``OnlineEagle3Model``,
+``OnlineDFlashModel`` or ``OnlineDominoModel``):
 
-- a flax ``Dense`` kernel is [in, out] and becomes torch's [out, in] weight;
-- ``nn.Embed``'s ``embedding`` and RMSNorm's ``weight`` keep their layout;
+- a flax ``Dense`` kernel, a ``MergedProj`` kernel and a ``KernelParam``
+  kernel are [in, out] and become torch's [out, in] weight (Domino's
+  ``embed_proj_1`` kernel [emb, V], used as ``act @ kernel`` in JAX, is the
+  port's [V, emb] weight used as ``act @ weight^T``: the same product);
+- a bias, ``nn.Embed``'s ``embedding``, RMSNorm's ``weight`` and the GRU's
+  ``weight_ih``/``weight_hh`` (already torch's [3·hd, in] layout) keep
+  their layout;
 - the merged ``qkv_proj`` and ``gate_up_proj`` stay merged, as in the JAX
-  draft;
+  drafts;
 - the ``buffers`` collection (``t2d``, ``d2t``) becomes module buffers.
 """
 
@@ -30,8 +35,8 @@ def _walk(node: Mapping[str, Any], prefix: str, out: Dict[str, np.ndarray]):
 
 
 def params_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax ``{"params": ..., "buffers": ...}`` of OnlineEagle3Model (numpy
-    leaves) → the port's state_dict."""
+    """Flax ``{"params": ..., "buffers": ...}`` of a JAX training model
+    (numpy leaves) → the port's state_dict."""
     flat: Dict[str, np.ndarray] = {}
     _walk(variables["params"], "", flat)
     state: Dict[str, torch.Tensor] = {}
@@ -43,6 +48,10 @@ def params_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             )
         elif leaf in ("embedding", "weight"):
             state[f"{stem}.weight"] = torch.from_numpy(
+                np.ascontiguousarray(arr.astype(np.float32))
+            )
+        elif leaf in ("bias", "weight_ih", "weight_hh"):
+            state[name] = torch.from_numpy(
                 np.ascontiguousarray(arr.astype(np.float32))
             )
         else:

@@ -1,0 +1,1076 @@
+// DFlash block attention, forward and backward, for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernels of specforge_tpu/ops/dflash_pallas.py
+// reached through `dflash_flash_attention`: `_fwd_kernel` (forward, through
+// `_fwd_pallas`), and the two kernels of `_bwd_pallas`: `_bwd_dq_kernel` (dq
+// plus the draft keys' dk/dv) and `_bwd_dkv_kernel` (the context keys'
+// dk/dv).
+//
+// What it computes. Query row r lies in anchor block n = r / bs at offset
+// o = r % bs, with anchor a_n. It attends, under one softmax, to the context
+// keys j < a_n (and, under a sliding window w, j >= a_n + o - (w - 1)) and to
+// its own block's bs draft keys (under a sliding window only offsets <= o).
+// A block that is not kept attends to nothing: its rows come out exactly 0,
+// with m = -1e30 and l = 0. Each row's allowed keys are two intervals, the
+// context keys [lo, hi) and the draft keys [dlo, dhi), computed in the kernel
+// from the anchors and keep flags [B, N]. The output goes straight to the
+// [B, Q, H*D] layout the o_proj reads; the row statistics m and l are saved
+// in fp32 for the backward, which recomputes p = exp(s - m) / l, takes
+// delta = rowsum(dO * O) as given, and forms ds = p * (dO V^T - delta):
+//   dq = scale * ds K,  dk = scale * ds^T Q,  dv = p^T dO.
+//
+// What bounds it on this card. At the Domino slice (B=2, H=32, KVH=8,
+// D=128, S=768, 256 anchors of 16, so Q=4096) a row attends to about
+// S/2 + 16 keys: the forward's two products are about 54 GFLOP (54 us at the
+// bf16 tensor-core peak) against about 176 MB moved (53 us at 3.35 TB/s), so
+// it sits at the ridge; kernel A (3 products) and kernel B (4 products over
+// the context keys) are bound by operations. chip_smoke.py recomputes both
+// terms from each run's anchors.
+//
+// What the design does about that. Every product runs on the tensor cores
+// through `mma.sync.m16n8k16` (bf16 in, fp32 accumulate); no score tile
+// reaches device memory; nothing is padded or copied (the ragged ends of the
+// context and of the draft rows are zero-filled by cp.async and masked).
+// Forward and kernel A: one block of 4 warps owns a q tile of 64 rows of one
+// (batch, head), a whole number of anchor blocks; each warp keeps the Q (and
+// dO) fragments of its 16 rows in registers. The anchors are sorted, so the
+// tile's context loop runs only over the K tiles between the smallest lower
+// bound and the largest anchor of its kept rows; then the tile's own 64 draft
+// rows are folded in as one more tile under the block-diagonal mask (each
+// warp skips the 8-key groups outside its own blocks). K/V tiles of 64 keys
+// are staged by cp.async in two buffers of padded shared memory and reach the
+// tensor cores through ldmatrix. Kernel A stages the draft tile's p and ds in
+// shared memory and then gives each warp 16 draft keys: their dk, dv are
+// products over the tile's rows, written per query head; the wrapper sums the
+// H / KVH heads of each group in fp32 (each draft key is read only by its own
+// block's rows, so no other block touches it).
+// Kernel B: one block owns 64 context keys of one (batch, kv head), K and V in
+// shared memory, dk and dv in fp32 registers; it first lists the q tiles whose
+// rows can reach these keys (from the anchors), then walks the group's query
+// heads over those tiles with Q, dO and the row statistics staged by cp.async
+// in two buffers. The GQA kv head is read as h / (H / KVH), never repeated in
+// memory; there are no atomics, so two runs give the same bits.
+// Not yet used: TMA, wgmma and warp specialisation.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBlockM = 64;  // query rows per q tile, 16 per warp
+constexpr int kBlockN = 64;  // keys per shared-memory tile
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kPStride = kBlockN + 8;  // padded row of the staged draft p, ds
+constexpr float kNegInf = -1e30f;      // finite, as in the TPU kernel
+
+struct Params {
+  const __nv_bfloat16* q;   // [B, H, Q, D] strided
+  const __nv_bfloat16* kc;  // [B, KVH, S, D] strided: context keys
+  const __nv_bfloat16* vc;
+  const __nv_bfloat16* kd;  // [B, KVH, Q, D] strided: draft keys
+  const __nv_bfloat16* vd;
+  const int* anchors;       // [B, N]
+  const int* keep;          // [B, N], 0 = block not kept
+  __nv_bfloat16* out;       // [B, Q, H*D]
+  float* m;                 // [B, H, Q]
+  float* l;                 // [B, H, Q]
+  const __nv_bfloat16* dout;  // [B, Q, H*D], contiguous
+  const float* delta;         // [B, H, Q]
+  __nv_bfloat16* dq;          // [B, H, Q, D], contiguous
+  __nv_bfloat16* dkd;         // [B, H, Q, D]: draft dk per query head
+  __nv_bfloat16* dvd;         // [B, H, Q, D]
+  __nv_bfloat16* dkc;         // [B, KVH, S, D], contiguous
+  __nv_bfloat16* dvc;
+  long long q_sb, q_sh, q_ss;
+  long long kc_sb, kc_sh, kc_ss;
+  long long vc_sb, vc_sh, vc_ss;
+  long long kd_sb, kd_sh, kd_ss;
+  long long vd_sb, vd_sh, vd_ss;
+  int B, H, KVH, S, Q, N, bs, window;  // window 0: no sliding window
+  float scale;
+};
+
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// D[16x8] += A[16x16] * B[16x8], bf16 inputs, fp32 accumulators.
+__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
+// row l % 8 of matrix l / 8. With .trans each matrix arrives transposed.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
+                                                  const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled when !full
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :
+               : "r"(d), "l"(src), "r"(full ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The allowed keys of query row r of batch b: context keys [x, y), draft
+// keys [z, w). Both are empty for a row past Q or of a block not kept.
+__device__ __forceinline__ int4 row_span(const Params& p, int b, int r) {
+  int lo = 0, hi = 0, dlo = 0, dhi = 0;
+  if (r < p.Q) {
+    const int n = r / p.bs;
+    const long long i = (long long)b * p.N + n;
+    if (p.keep[i] != 0) {
+      const int a = p.anchors[i];
+      hi = min(max(a, 0), p.S);
+      if (p.window > 0) lo = min(max(a + r % p.bs - (p.window - 1), 0), hi);
+      dlo = n * p.bs;
+      dhi = p.window > 0 ? r + 1 : dlo + p.bs;
+    }
+  }
+  return make_int4(lo, hi, dlo, dhi);
+}
+
+// Every row's spans of the q tile at q0 into sSpan, and into sBounds the
+// context keys any kept row of the tile may attend: [min lo, max hi).
+__device__ __forceinline__ void tile_spans(const Params& p, int b, int q0,
+                                           int4* sSpan, int* sBounds) {
+  if (threadIdx.x < kBlockM) sSpan[threadIdx.x] = row_span(p, b, q0 + threadIdx.x);
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    int lo = INT_MAX, hi = 0;
+    for (int i = threadIdx.x; i < kBlockM; i += 32) {
+      const int4 s = sSpan[i];
+      if (s.y > s.x) {
+        lo = min(lo, s.x);
+        hi = max(hi, s.y);
+      }
+    }
+    lo = __reduce_min_sync(0xffffffffu, lo);
+    hi = __reduce_max_sync(0xffffffffu, hi);
+    if (threadIdx.x == 0) {
+      sBounds[0] = lo;
+      sBounds[1] = hi;
+    }
+  }
+  __syncthreads();
+}
+
+// The draft keys (local to the q tile) that warp `warp`'s 16 rows can reach:
+// the anchor blocks those rows lie in.
+__device__ __forceinline__ void warp_draft_range(int warp, int bs, int& lo,
+                                                 int& hi) {
+  lo = (warp * 16 / bs) * bs;
+  hi = min(((warp * 16 + 15) / bs + 1) * bs, kBlockM);
+}
+
+// A-operand fragments of a 16-row slab (rows row0 and row0 + 8 of this
+// thread) straight from device memory; rows not `in` read as zeros
+template <int kSteps>
+__device__ __forceinline__ void load_a_frags(uint32_t f[kSteps][4],
+                                             const __nv_bfloat16* base,
+                                             long long row_stride, int row0,
+                                             bool in0, bool in1, int t) {
+#pragma unroll
+  for (int ks = 0; ks < kSteps; ++ks) {
+    const int c = ks * 16 + 2 * t;
+    f[ks][0] = in0 ? ld32(base + row0 * row_stride + c) : 0u;
+    f[ks][1] = in1 ? ld32(base + (row0 + 8) * row_stride + c) : 0u;
+    f[ks][2] = in0 ? ld32(base + row0 * row_stride + c + 8) : 0u;
+    f[ks][3] = in1 ? ld32(base + (row0 + 8) * row_stride + c + 8) : 0u;
+  }
+}
+
+// Stage tile j of a q tile's key sequence into sK/sV: the context tiles
+// t_lo, t_lo + 1, ... (j < n_ctx), then the q tile's own draft rows
+// (j == n_ctx). Rows past S (or Q) are zero-filled.
+template <int D>
+__device__ __forceinline__ void load_kv_tile(const Params& p, int b, int kvh,
+                                             int q0, int t_lo, int n_ctx,
+                                             int j, __nv_bfloat16* sK,
+                                             __nv_bfloat16* sV) {
+  constexpr int kStride = D + 8;
+  constexpr int kVecPerRow = D / 8;
+  const bool draft = j == n_ctx;
+  const int key0 = draft ? q0 : (t_lo + j) * kBlockN;
+  const int limit = draft ? p.Q : p.S;
+  const __nv_bfloat16* kb =
+      draft ? p.kd + b * p.kd_sb + kvh * p.kd_sh : p.kc + b * p.kc_sb + kvh * p.kc_sh;
+  const __nv_bfloat16* vb =
+      draft ? p.vd + b * p.vd_sb + kvh * p.vd_sh : p.vc + b * p.vc_sb + kvh * p.vc_sh;
+  const long long kss = draft ? p.kd_ss : p.kc_ss;
+  const long long vss = draft ? p.vd_ss : p.vc_ss;
+  for (int i = threadIdx.x; i < kBlockN * kVecPerRow; i += kThreads) {
+    const int r = i / kVecPerRow;
+    const int c = (i % kVecPerRow) * 8;
+    const int key = key0 + r;
+    const long long src = key < limit ? key : 0;
+    cp_async16(sK + r * kStride + c, kb + src * kss + c, key < limit);
+    cp_async16(sV + r * kStride + c, vb + src * vss + c, key < limit);
+  }
+  cp_async_commit();
+}
+
+// --------------------------------------------------------------------------
+// forward
+// --------------------------------------------------------------------------
+
+// Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4):
+//   A regs 0..3: (row g, cols 2t..2t+1), (row g+8, 2t..), (row g, 2t+8..),
+//                (row g+8, 2t+8..)
+//   B regs 0..1: (k rows 2t..2t+1, col g), (k rows 2t+8..2t+9, col g)
+//   C regs 0..3: (row g, cols 2t, 2t+1), (row g+8, cols 2t, 2t+1)
+template <int D>
+__global__ void __launch_bounds__(kThreads) dflash_fwd_kernel(const Params p) {
+  constexpr int kStride = D + 8;  // padded row: conflict-free ldmatrix
+  constexpr int kSteps = D / 16;
+  constexpr int kDTiles = D / 8;
+  constexpr int kNTiles = kBlockN / 8;
+  constexpr int kTile = kBlockN * kStride;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sKs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sVs = sKs + 2 * kTile;
+  __shared__ int4 sSpan[kBlockM];
+  __shared__ int sBounds[2];
+
+  const int n_qtiles = (p.Q + kBlockM - 1) / kBlockM;
+  const int qtile = n_qtiles - 1 - blockIdx.x;  // later anchors (more keys) first
+  const int b = blockIdx.y / p.H;
+  const int h = blockIdx.y % p.H;
+  const int kvh = h / (p.H / p.KVH);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int q0 = qtile * kBlockM;
+  const int row0 = q0 + warp * 16 + g;
+  const int row1 = row0 + 8;
+  const bool in0 = row0 < p.Q;
+  const bool in1 = row1 < p.Q;
+
+  tile_spans(p, b, q0, sSpan, sBounds);
+  const int4 sp0 = sSpan[warp * 16 + g];
+  const int4 sp1 = sSpan[warp * 16 + g + 8];
+  const bool any_ctx = sBounds[1] > sBounds[0];
+  const int t_lo = any_ctx ? sBounds[0] / kBlockN : 0;
+  const int n_ctx = any_ctx ? (sBounds[1] + kBlockN - 1) / kBlockN - t_lo : 0;
+  int wlo, whi;
+  warp_draft_range(warp, p.bs, wlo, whi);
+
+  uint32_t qf[kSteps][4];
+  load_a_frags<kSteps>(qf, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, row0, in0,
+                       in1, t);
+
+  float o[kDTiles][4];
+#pragma unroll
+  for (int dt = 0; dt < kDTiles; ++dt) {
+    o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+  }
+  float m0 = kNegInf, m1 = kNegInf;
+  float l0 = 0.f, l1 = 0.f;  // per-thread partial sums until the quad reduce
+
+  const int n_tiles = n_ctx + 1;
+  load_kv_tile<D>(p, b, kvh, q0, t_lo, n_ctx, 0, sKs, sVs);
+  for (int j = 0; j < n_tiles; ++j) {
+    const bool draft = j == n_ctx;
+    const int key0 = draft ? q0 : (t_lo + j) * kBlockN;
+    const int lo0 = draft ? sp0.z : sp0.x, hi0 = draft ? sp0.w : sp0.y;
+    const int lo1 = draft ? sp1.z : sp1.x, hi1 = draft ? sp1.w : sp1.y;
+    const int buf = j & 1;
+    if (j + 1 < n_tiles) {
+      load_kv_tile<D>(p, b, kvh, q0, t_lo, n_ctx, j + 1,
+                      sKs + (buf ^ 1) * kTile, sVs + (buf ^ 1) * kTile);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* sK = sKs + buf * kTile;
+    const __nv_bfloat16* sV = sVs + buf * kTile;
+
+    float s[kNTiles][4];
+#pragma unroll
+    for (int nt = 0; nt < kNTiles; ++nt) {
+      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
+      // draft keys outside this warp's blocks are masked: skip their product
+      if (draft && (nt * 8 >= whi || nt * 8 + 8 <= wlo)) continue;
+      const __nv_bfloat16* kp = sK + (nt * 8 + (lane & 7)) * kStride +
+                                (lane >> 3) * 8;
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ks += 2) {
+        uint32_t kf[4];
+        ldmatrix_x4(kf, kp + ks * 16);
+        mma_bf16(s[nt], qf[ks], kf[0], kf[1]);
+        mma_bf16(s[nt], qf[ks + 1], kf[2], kf[3]);
+      }
+    }
+
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int nt = 0; nt < kNTiles; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = key0 + nt * 8 + 2 * t + e;
+        s[nt][e] = (col >= lo0 && col < hi0) ? s[nt][e] * p.scale : kNegInf;
+        s[nt][2 + e] =
+            (col >= lo1 && col < hi1) ? s[nt][2 + e] * p.scale : kNegInf;
+        mx0 = fmaxf(mx0, s[nt][e]);
+        mx1 = fmaxf(mx1, s[nt][2 + e]);
+      }
+    }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    const float c0 = __expf(m0 - mx0);
+    const float c1 = __expf(m1 - mx1);
+    m0 = mx0;
+    m1 = mx1;
+    l0 *= c0;
+    l1 *= c1;
+#pragma unroll
+    for (int dt = 0; dt < kDTiles; ++dt) {
+      o[dt][0] *= c0;
+      o[dt][1] *= c0;
+      o[dt][2] *= c1;
+      o[dt][3] *= c1;
+    }
+#pragma unroll
+    for (int nt = 0; nt < kNTiles; ++nt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p0 = s[nt][e] == kNegInf ? 0.f : __expf(s[nt][e] - m0);
+        const float p1 =
+            s[nt][2 + e] == kNegInf ? 0.f : __expf(s[nt][2 + e] - m1);
+        s[nt][e] = p0;
+        s[nt][2 + e] = p1;
+        l0 += p0;
+        l1 += p1;
+      }
+    }
+
+    // O += P V: P from the score registers (C layout -> A layout), V from
+    // shared memory as B through a transposing ldmatrix
+#pragma unroll
+    for (int kk = 0; kk < kBlockN / 16; ++kk) {
+      if (draft && (kk * 16 >= whi || kk * 16 + 16 <= wlo)) continue;
+      uint32_t a[4];
+      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      const __nv_bfloat16* vp =
+          sV + (kk * 16 + (lane & 8) + (lane & 7)) * kStride + (lane >> 4) * 8;
+#pragma unroll
+      for (int dt = 0; dt < kDTiles; dt += 2) {
+        uint32_t vf[4];
+        ldmatrix_x4_trans(vf, vp + dt * 8);
+        mma_bf16(o[dt], a, vf[0], vf[1]);
+        mma_bf16(o[dt + 1], a, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with `buf` before it is refilled
+  }
+
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  const long long HD = (long long)p.H * D;
+  const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+  const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+  if (in0) {
+    __nv_bfloat16* op = p.out + ((long long)b * p.Q + row0) * HD + h * D;
+#pragma unroll
+    for (int dt = 0; dt < kDTiles; ++dt) {
+      *reinterpret_cast<uint32_t*>(op + dt * 8 + 2 * t) =
+          pack_bf16(o[dt][0] * inv0, o[dt][1] * inv0);
+    }
+  }
+  if (in1) {
+    __nv_bfloat16* op = p.out + ((long long)b * p.Q + row1) * HD + h * D;
+#pragma unroll
+    for (int dt = 0; dt < kDTiles; ++dt) {
+      *reinterpret_cast<uint32_t*>(op + dt * 8 + 2 * t) =
+          pack_bf16(o[dt][2] * inv1, o[dt][3] * inv1);
+    }
+  }
+  if (t == 0) {
+    const long long base = ((long long)b * p.H + h) * p.Q;
+    if (in0) {
+      p.m[base + row0] = m0;
+      p.l[base + row0] = l0;
+    }
+    if (in1) {
+      p.m[base + row1] = m1;
+      p.l[base + row1] = l1;
+    }
+  }
+}
+
+// --------------------------------------------------------------------------
+// backward, kernel A: dq, and the draft keys' dk/dv per query head
+// --------------------------------------------------------------------------
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) dflash_bwd_dq_kernel(const Params p) {
+  constexpr int kStride = D + 8;
+  constexpr int kSteps = D / 16;
+  constexpr int kDTiles = D / 8;
+  constexpr int kVecPerRow = D / 8;
+  constexpr int kTile = kBlockN * kStride;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sKs = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sVs = sKs + 2 * kTile;
+  __nv_bfloat16* sP = sVs + 2 * kTile;        // draft tile's p [row][key]
+  __nv_bfloat16* sDS = sP + kBlockM * kPStride;  // draft tile's ds
+  __shared__ int4 sSpan[kBlockM];
+  __shared__ int sBounds[2];
+
+  const int H = p.H;
+  const int n_qtiles = (p.Q + kBlockM - 1) / kBlockM;
+  const int qtile = n_qtiles - 1 - blockIdx.x;  // later anchors (more keys) first
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y % H;
+  const int kvh = h / (H / p.KVH);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int q0 = qtile * kBlockM;
+  const int rl0 = warp * 16 + g;  // this thread's rows, local to the tile
+  const int row0 = q0 + rl0;
+  const int row1 = row0 + 8;
+  const bool in0 = row0 < p.Q;
+  const bool in1 = row1 < p.Q;
+  const long long HD = (long long)H * D;
+
+  tile_spans(p, b, q0, sSpan, sBounds);
+  const int4 sp0 = sSpan[rl0];
+  const int4 sp1 = sSpan[rl0 + 8];
+  const bool any_ctx = sBounds[1] > sBounds[0];
+  const int t_lo = any_ctx ? sBounds[0] / kBlockN : 0;
+  const int n_ctx = any_ctx ? (sBounds[1] + kBlockN - 1) / kBlockN - t_lo : 0;
+  int wlo, whi;
+  warp_draft_range(warp, p.bs, wlo, whi);
+
+  uint32_t qf[kSteps][4], df[kSteps][4];
+  load_a_frags<kSteps>(qf, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, row0, in0,
+                       in1, t);
+  load_a_frags<kSteps>(df, p.dout + (long long)b * p.Q * HD + h * D, HD, row0,
+                       in0, in1, t);
+  const long long sbase = ((long long)b * H + h) * p.Q;
+  // rows past Q get p = 0 (inverse l of 0)
+  const float m0 = in0 ? p.m[sbase + row0] : 0.f;
+  const float m1 = in1 ? p.m[sbase + row1] : 0.f;
+  const float il0 = in0 ? 1.f / fmaxf(p.l[sbase + row0], 1e-30f) : 0.f;
+  const float il1 = in1 ? 1.f / fmaxf(p.l[sbase + row1], 1e-30f) : 0.f;
+  const float dl0 = in0 ? p.delta[sbase + row0] : 0.f;
+  const float dl1 = in1 ? p.delta[sbase + row1] : 0.f;
+
+  float dq[kDTiles][4];
+#pragma unroll
+  for (int dt = 0; dt < kDTiles; ++dt) {
+    dq[dt][0] = dq[dt][1] = dq[dt][2] = dq[dt][3] = 0.f;
+  }
+
+  const int n_tiles = n_ctx + 1;
+  load_kv_tile<D>(p, b, kvh, q0, t_lo, n_ctx, 0, sKs, sVs);
+  for (int j = 0; j < n_tiles; ++j) {
+    const bool draft = j == n_ctx;
+    const int key0 = draft ? q0 : (t_lo + j) * kBlockN;
+    const int lo0 = draft ? sp0.z : sp0.x, hi0 = draft ? sp0.w : sp0.y;
+    const int lo1 = draft ? sp1.z : sp1.x, hi1 = draft ? sp1.w : sp1.y;
+    const int buf = j & 1;
+    if (j + 1 < n_tiles) {
+      load_kv_tile<D>(p, b, kvh, q0, t_lo, n_ctx, j + 1,
+                      sKs + (buf ^ 1) * kTile, sVs + (buf ^ 1) * kTile);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* sK = sKs + buf * kTile;
+    const __nv_bfloat16* sV = sVs + buf * kTile;
+
+#pragma unroll
+    for (int kk = 0; kk < kBlockN / 16; ++kk) {
+      // draft keys outside this warp's blocks: p = ds = 0, no products
+      const bool need = !draft || (kk * 16 < whi && kk * 16 + 16 > wlo);
+      // s = Q K^T and dp = dO V^T for 16 rows x 16 keys
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        s[e2][0] = s[e2][1] = s[e2][2] = s[e2][3] = 0.f;
+        dp[e2][0] = dp[e2][1] = dp[e2][2] = dp[e2][3] = 0.f;
+        if (!need) continue;
+        const int nt = 2 * kk + e2;
+        const int off = (nt * 8 + (lane & 7)) * kStride + (lane >> 3) * 8;
+#pragma unroll
+        for (int ks = 0; ks < kSteps; ks += 2) {
+          uint32_t f[4];
+          ldmatrix_x4(f, sK + off + ks * 16);
+          mma_bf16(s[e2], qf[ks], f[0], f[1]);
+          mma_bf16(s[e2], qf[ks + 1], f[2], f[3]);
+          ldmatrix_x4(f, sV + off + ks * 16);
+          mma_bf16(dp[e2], df[ks], f[0], f[1]);
+          mma_bf16(dp[e2], df[ks + 1], f[2], f[3]);
+        }
+      }
+      // p recomputed under the row spans, ds = p * (dp - delta)
+      float pv[2][4];
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = key0 + (2 * kk + e2) * 8 + 2 * t + e;
+          const float p0 = (need && col >= lo0 && col < hi0)
+                               ? __expf(s[e2][e] * p.scale - m0) * il0
+                               : 0.f;
+          const float p1 = (need && col >= lo1 && col < hi1)
+                               ? __expf(s[e2][2 + e] * p.scale - m1) * il1
+                               : 0.f;
+          pv[e2][e] = p0;
+          pv[e2][2 + e] = p1;
+          s[e2][e] = p0 * (dp[e2][e] - dl0);
+          s[e2][2 + e] = p1 * (dp[e2][2 + e] - dl1);
+        }
+      }
+      if (draft) {
+        // stage p and ds of the draft tile for the draft keys' dk/dv
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int c = kk * 16 + e2 * 8 + 2 * t;
+          *reinterpret_cast<uint32_t*>(sP + rl0 * kPStride + c) =
+              pack_bf16(pv[e2][0], pv[e2][1]);
+          *reinterpret_cast<uint32_t*>(sP + (rl0 + 8) * kPStride + c) =
+              pack_bf16(pv[e2][2], pv[e2][3]);
+          *reinterpret_cast<uint32_t*>(sDS + rl0 * kPStride + c) =
+              pack_bf16(s[e2][0], s[e2][1]);
+          *reinterpret_cast<uint32_t*>(sDS + (rl0 + 8) * kPStride + c) =
+              pack_bf16(s[e2][2], s[e2][3]);
+        }
+      }
+      if (!need) continue;
+      // dq += ds K: ds from registers (C -> A layout), K as B (k = key,
+      // n = head dim) through a transposing ldmatrix
+      uint32_t a[4];
+      a[0] = pack_bf16(s[0][0], s[0][1]);
+      a[1] = pack_bf16(s[0][2], s[0][3]);
+      a[2] = pack_bf16(s[1][0], s[1][1]);
+      a[3] = pack_bf16(s[1][2], s[1][3]);
+      const __nv_bfloat16* kp =
+          sK + (kk * 16 + (lane & 8) + (lane & 7)) * kStride + (lane >> 4) * 8;
+#pragma unroll
+      for (int dt = 0; dt < kDTiles; dt += 2) {
+        uint32_t f[4];
+        ldmatrix_x4_trans(f, kp + dt * 8);
+        mma_bf16(dq[dt], a, f[0], f[1]);
+        mma_bf16(dq[dt + 1], a, f[2], f[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with `buf` before it is refilled
+  }
+
+  __nv_bfloat16* dqp = p.dq + sbase * D;
+#pragma unroll
+  for (int dt = 0; dt < kDTiles; ++dt) {
+    const int c = dt * 8 + 2 * t;
+    if (in0) {
+      *reinterpret_cast<uint32_t*>(dqp + row0 * D + c) =
+          pack_bf16(dq[dt][0] * p.scale, dq[dt][1] * p.scale);
+    }
+    if (in1) {
+      *reinterpret_cast<uint32_t*>(dqp + row1 * D + c) =
+          pack_bf16(dq[dt][2] * p.scale, dq[dt][3] * p.scale);
+    }
+  }
+
+  // the draft keys' dk = scale * ds^T Q and dv = p^T dO over this tile's
+  // rows: Q and dO of the tile into the (now free) first K/V buffers
+  __nv_bfloat16* sQ = sKs;
+  __nv_bfloat16* sDO = sVs;
+  {
+    const __nv_bfloat16* qbase = p.q + b * p.q_sb + h * p.q_sh;
+    const __nv_bfloat16* dbase = p.dout + (long long)b * p.Q * HD + h * D;
+    for (int i = threadIdx.x; i < kBlockM * kVecPerRow; i += kThreads) {
+      const int r = i / kVecPerRow;
+      const int c = (i % kVecPerRow) * 8;
+      const int row = q0 + r;
+      const long long src = row < p.Q ? row : 0;
+      cp_async16(sQ + r * kStride + c, qbase + src * p.q_ss + c, row < p.Q);
+      cp_async16(sDO + r * kStride + c, dbase + src * HD + c, row < p.Q);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+  }
+  __syncthreads();
+
+  // warp w owns draft keys 16w .. 16w+15 of the tile; only the rows of their
+  // anchor blocks reach them
+  int rlo, rhi;
+  warp_draft_range(warp, p.bs, rlo, rhi);
+  float dk[kDTiles][4], dv[kDTiles][4];
+#pragma unroll
+  for (int dt = 0; dt < kDTiles; ++dt) {
+    dk[dt][0] = dk[dt][1] = dk[dt][2] = dk[dt][3] = 0.f;
+    dv[dt][0] = dv[dt][1] = dv[dt][2] = dv[dt][3] = 0.f;
+  }
+  for (int kk = rlo / 16; kk < (rhi + 15) / 16; ++kk) {
+    // A = ds^T, p^T (rows = keys, k = query rows) from the [row][key] tiles
+    // through a transposing ldmatrix
+    const int aoff = (kk * 16 + (lane >> 4) * 8 + (lane & 7)) * kPStride +
+                     warp * 16 + ((lane >> 3) & 1) * 8;
+    uint32_t ads[4], ap[4];
+    ldmatrix_x4_trans(ads, sDS + aoff);
+    ldmatrix_x4_trans(ap, sP + aoff);
+    // B = Q, dO (k = query rows, n = head dim)
+    const int toff =
+        (kk * 16 + (lane & 8) + (lane & 7)) * kStride + (lane >> 4) * 8;
+#pragma unroll
+    for (int dt = 0; dt < kDTiles; dt += 2) {
+      uint32_t f[4];
+      ldmatrix_x4_trans(f, sQ + toff + dt * 8);
+      mma_bf16(dk[dt], ads, f[0], f[1]);
+      mma_bf16(dk[dt + 1], ads, f[2], f[3]);
+      ldmatrix_x4_trans(f, sDO + toff + dt * 8);
+      mma_bf16(dv[dt], ap, f[0], f[1]);
+      mma_bf16(dv[dt + 1], ap, f[2], f[3]);
+    }
+  }
+  const int kr0 = q0 + warp * 16 + g;  // this thread's two draft keys
+  const int kr1 = kr0 + 8;
+  __nv_bfloat16* dkp = p.dkd + sbase * D;
+  __nv_bfloat16* dvp = p.dvd + sbase * D;
+#pragma unroll
+  for (int dt = 0; dt < kDTiles; ++dt) {
+    const int c = dt * 8 + 2 * t;
+    if (kr0 < p.Q) {
+      *reinterpret_cast<uint32_t*>(dkp + kr0 * D + c) =
+          pack_bf16(dk[dt][0] * p.scale, dk[dt][1] * p.scale);
+      *reinterpret_cast<uint32_t*>(dvp + kr0 * D + c) =
+          pack_bf16(dv[dt][0], dv[dt][1]);
+    }
+    if (kr1 < p.Q) {
+      *reinterpret_cast<uint32_t*>(dkp + kr1 * D + c) =
+          pack_bf16(dk[dt][2] * p.scale, dk[dt][3] * p.scale);
+      *reinterpret_cast<uint32_t*>(dvp + kr1 * D + c) =
+          pack_bf16(dv[dt][2], dv[dt][3]);
+    }
+  }
+}
+
+// --------------------------------------------------------------------------
+// backward, kernel B: the context keys' dk/dv
+// --------------------------------------------------------------------------
+
+// One block owns 64 context keys of one (batch, kv head), 16 per warp, and
+// walks (query head of the group, q tile that reaches these keys) pairs, so
+// the group's heads are summed in registers.
+template <int D>
+__global__ void __launch_bounds__(kThreads) dflash_bwd_dkv_kernel(const Params p) {
+  constexpr int kStride = D + 8;
+  constexpr int kSteps = D / 16;
+  constexpr int kDTiles = D / 8;
+  constexpr int kVecPerRow = D / 8;
+  constexpr int kTile = kBlockN * kStride;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* sV = sK + kTile;
+  __nv_bfloat16* sQs = sV + kTile;        // two stages
+  __nv_bfloat16* sDOs = sQs + 2 * kTile;  // two stages
+  int* sList = reinterpret_cast<int*>(sDOs + 2 * kTile);  // useful q tiles
+  __shared__ float sM[2][kBlockM], sIL[2][kBlockM], sDl[2][kBlockM];
+  __shared__ int sLo[2][kBlockM], sHi[2][kBlockM];
+  __shared__ int sCount;
+
+  const int H = p.H;
+  const int G = H / p.KVH;
+  const int ktile = blockIdx.x;  // early keys (reached by most q tiles) first
+  const int b = blockIdx.y / p.KVH;
+  const int kvh = blockIdx.y % p.KVH;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int key0 = ktile * kBlockN;
+  const int kr0 = key0 + warp * 16 + g;  // this thread's two keys
+  const int kr1 = kr0 + 8;
+  const long long HD = (long long)H * D;
+
+  // K and V of this block's keys, once
+  {
+    const __nv_bfloat16* kbase = p.kc + b * p.kc_sb + kvh * p.kc_sh;
+    const __nv_bfloat16* vbase = p.vc + b * p.vc_sb + kvh * p.vc_sh;
+    for (int i = threadIdx.x; i < kBlockN * kVecPerRow; i += kThreads) {
+      const int r = i / kVecPerRow;
+      const int c = (i % kVecPerRow) * 8;
+      const int key = key0 + r;
+      const long long src = key < p.S ? key : 0;
+      cp_async16(sK + r * kStride + c, kbase + src * p.kc_ss + c, key < p.S);
+      cp_async16(sV + r * kStride + c, vbase + src * p.vc_ss + c, key < p.S);
+    }
+    cp_async_commit();
+  }
+
+  // the q tiles whose kept rows can reach keys [key0, key0 + 64): a row of
+  // block n reaches at most [a_n - (w - 1), a_n) (all of [0, a_n) without a
+  // window); flags first, then compacted in place by one warp
+  const int n_qtiles = (p.Q + kBlockM - 1) / kBlockM;
+  const int blocks_per_tile = kBlockM / p.bs;
+  for (int i = threadIdx.x; i < n_qtiles; i += kThreads) {
+    int lo = INT_MAX, hi = 0;
+    const int n_end = min((i + 1) * blocks_per_tile, p.N);
+    for (int n = i * blocks_per_tile; n < n_end; ++n) {
+      const long long idx = (long long)b * p.N + n;
+      if (p.keep[idx] == 0) continue;
+      const int a = p.anchors[idx];
+      const int bh = min(max(a, 0), p.S);
+      const int bl = p.window > 0 ? min(max(a - (p.window - 1), 0), bh) : 0;
+      if (bh > bl) {
+        lo = min(lo, bl);
+        hi = max(hi, bh);
+      }
+    }
+    sList[i] = (hi > lo && lo < key0 + kBlockN && hi > key0) ? 1 : 0;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    int count = 0;
+    for (int base = 0; base < n_qtiles; base += 32) {
+      const int i = base + lane;
+      const bool f = i < n_qtiles && sList[i] != 0;
+      const unsigned mask = __ballot_sync(0xffffffffu, f);
+      __syncwarp();
+      if (f) sList[count + __popc(mask & ((1u << lane) - 1u))] = i;
+      count += __popc(mask);
+      __syncwarp();
+    }
+    if (lane == 0) sCount = count;
+  }
+  __syncthreads();
+  const int n_useful = sCount;
+  const int n_iters = G * n_useful;
+
+  // iteration it covers query head kvh * G + it / n_useful of q tile
+  // sList[it % n_useful]
+  auto load_q = [&](int it, int buf) {
+    const int h = kvh * G + it / n_useful;
+    const int q0 = sList[it % n_useful] * kBlockM;
+    const __nv_bfloat16* qbase = p.q + b * p.q_sb + h * p.q_sh;
+    const __nv_bfloat16* dbase = p.dout + (long long)b * p.Q * HD + h * D;
+    __nv_bfloat16* sQ = sQs + buf * kTile;
+    __nv_bfloat16* sDO = sDOs + buf * kTile;
+    for (int i = threadIdx.x; i < kBlockM * kVecPerRow; i += kThreads) {
+      const int r = i / kVecPerRow;
+      const int c = (i % kVecPerRow) * 8;
+      const int row = q0 + r;
+      const long long src = row < p.Q ? row : 0;
+      cp_async16(sQ + r * kStride + c, qbase + src * p.q_ss + c, row < p.Q);
+      cp_async16(sDO + r * kStride + c, dbase + src * HD + c, row < p.Q);
+    }
+    const long long sbase = ((long long)b * H + h) * p.Q;
+    for (int i = threadIdx.x; i < kBlockM; i += kThreads) {
+      const int row = q0 + i;
+      const bool in = row < p.Q;
+      const int4 span = row_span(p, b, row);
+      sM[buf][i] = in ? p.m[sbase + row] : 0.f;
+      sIL[buf][i] = in ? 1.f / fmaxf(p.l[sbase + row], 1e-30f) : 0.f;
+      sDl[buf][i] = in ? p.delta[sbase + row] : 0.f;
+      sLo[buf][i] = span.x;
+      sHi[buf][i] = span.y;
+    }
+    cp_async_commit();
+  };
+
+  float dk[kDTiles][4], dv[kDTiles][4];
+#pragma unroll
+  for (int dt = 0; dt < kDTiles; ++dt) {
+    dk[dt][0] = dk[dt][1] = dk[dt][2] = dk[dt][3] = 0.f;
+    dv[dt][0] = dv[dt][1] = dv[dt][2] = dv[dt][3] = 0.f;
+  }
+
+  // A-operand (rows = this warp's 16 keys) addresses of K and V
+  const int a_off = (warp * 16 + (lane & 15)) * kStride + (lane >> 4) * 8;
+  if (n_iters > 0) load_q(0, 0);
+  for (int it = 0; it < n_iters; ++it) {
+    const int buf = it & 1;
+    if (it + 1 < n_iters) {
+      load_q(it + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const __nv_bfloat16* sQ = sQs + buf * kTile;
+    const __nv_bfloat16* sDO = sDOs + buf * kTile;
+
+#pragma unroll
+    for (int kk = 0; kk < kBlockM / 16; ++kk) {
+      // s^T = K Q^T and dp^T = V dO^T for 16 keys x 16 queries
+      float s[2][4], dp[2][4];
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        s[e2][0] = s[e2][1] = s[e2][2] = s[e2][3] = 0.f;
+        dp[e2][0] = dp[e2][1] = dp[e2][2] = dp[e2][3] = 0.f;
+      }
+#pragma unroll
+      for (int ks = 0; ks < kSteps; ks += 2) {
+        uint32_t ka0[4], ka1[4], va0[4], va1[4];
+        ldmatrix_x4(ka0, sK + a_off + ks * 16);
+        ldmatrix_x4(ka1, sK + a_off + (ks + 1) * 16);
+        ldmatrix_x4(va0, sV + a_off + ks * 16);
+        ldmatrix_x4(va1, sV + a_off + (ks + 1) * 16);
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2) {
+          const int off = ((2 * kk + e2) * 8 + (lane & 7)) * kStride +
+                          (lane >> 3) * 8 + ks * 16;
+          uint32_t f[4];
+          ldmatrix_x4(f, sQ + off);
+          mma_bf16(s[e2], ka0, f[0], f[1]);
+          mma_bf16(s[e2], ka1, f[2], f[3]);
+          ldmatrix_x4(f, sDO + off);
+          mma_bf16(dp[e2], va0, f[0], f[1]);
+          mma_bf16(dp[e2], va1, f[2], f[3]);
+        }
+      }
+      // p^T under the row spans, ds^T = p^T * (dp^T - delta)
+      float pt[2][4];
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int qi = kk * 16 + e2 * 8 + 2 * t + (i & 1);
+          const int kr = i < 2 ? kr0 : kr1;
+          const bool ok = kr >= sLo[buf][qi] && kr < sHi[buf][qi];
+          const float pv =
+              ok ? __expf(s[e2][i] * p.scale - sM[buf][qi]) * sIL[buf][qi]
+                 : 0.f;
+          pt[e2][i] = pv;
+          s[e2][i] = pv * (dp[e2][i] - sDl[buf][qi]);
+        }
+      }
+      // dv += p^T dO and dk += ds^T Q: A from registers (C -> A layout), dO
+      // and Q as B (k = query, n = head dim) through transposing ldmatrix
+      uint32_t ap[4], as[4];
+      ap[0] = pack_bf16(pt[0][0], pt[0][1]);
+      ap[1] = pack_bf16(pt[0][2], pt[0][3]);
+      ap[2] = pack_bf16(pt[1][0], pt[1][1]);
+      ap[3] = pack_bf16(pt[1][2], pt[1][3]);
+      as[0] = pack_bf16(s[0][0], s[0][1]);
+      as[1] = pack_bf16(s[0][2], s[0][3]);
+      as[2] = pack_bf16(s[1][0], s[1][1]);
+      as[3] = pack_bf16(s[1][2], s[1][3]);
+      const int toff =
+          (kk * 16 + (lane & 8) + (lane & 7)) * kStride + (lane >> 4) * 8;
+#pragma unroll
+      for (int dt = 0; dt < kDTiles; dt += 2) {
+        uint32_t f[4];
+        ldmatrix_x4_trans(f, sDO + toff + dt * 8);
+        mma_bf16(dv[dt], ap, f[0], f[1]);
+        mma_bf16(dv[dt + 1], ap, f[2], f[3]);
+        ldmatrix_x4_trans(f, sQ + toff + dt * 8);
+        mma_bf16(dk[dt], as, f[0], f[1]);
+        mma_bf16(dk[dt + 1], as, f[2], f[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with `buf` before it is refilled
+  }
+  cp_async_wait<0>();  // the K/V copy, when no q tile reached these keys
+
+  const long long obase = ((long long)b * p.KVH + kvh) * p.S * D;
+#pragma unroll
+  for (int dt = 0; dt < kDTiles; ++dt) {
+    const int c = dt * 8 + 2 * t;
+    if (kr0 < p.S) {
+      *reinterpret_cast<uint32_t*>(p.dkc + obase + kr0 * D + c) =
+          pack_bf16(dk[dt][0] * p.scale, dk[dt][1] * p.scale);
+      *reinterpret_cast<uint32_t*>(p.dvc + obase + kr0 * D + c) =
+          pack_bf16(dv[dt][0], dv[dt][1]);
+    }
+    if (kr1 < p.S) {
+      *reinterpret_cast<uint32_t*>(p.dkc + obase + kr1 * D + c) =
+          pack_bf16(dk[dt][2] * p.scale, dk[dt][3] * p.scale);
+      *reinterpret_cast<uint32_t*>(p.dvc + obase + kr1 * D + c) =
+          pack_bf16(dv[dt][2], dv[dt][3]);
+    }
+  }
+}
+
+// --------------------------------------------------------------------------
+// launches
+// --------------------------------------------------------------------------
+
+template <typename Kernel>
+int launch_kernel(Kernel kernel, dim3 grid, int smem, const Params& p,
+                  cudaStream_t st) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, kThreads, smem, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int smem_fwd(int D) { return 4 * kBlockN * (D + 8) * 2; }
+int smem_dq(int D) { return smem_fwd(D) + 2 * kBlockM * kPStride * 2; }
+int smem_dkv(int D, int n_qtiles) {
+  return 6 * kBlockN * (D + 8) * 2 + n_qtiles * 4;
+}
+
+// tensors: q, k_ctx, v_ctx, k_drf, v_drf; strides: their element strides
+// over (b, head, row), 15 values in that order; the head dim is contiguous
+int fill_params(Params& p, const void* const* tensors,
+                const long long* strides, const int* anchors, const int* keep,
+                int B, int H, int KVH, int S, int N, int bs, int window,
+                int D) {
+  if (B < 1 || KVH < 1 || H % KVH != 0 || (long long)B * H > 65535 ||
+      S < 1 || N < 1 || bs < 1 || kBlockM % bs != 0 || window < 0 ||
+      (D != 64 && D != 128) || (long long)N * bs > INT_MAX / 2) {
+    return cudaErrorInvalidValue;
+  }
+  p.q = static_cast<const __nv_bfloat16*>(tensors[0]);
+  p.kc = static_cast<const __nv_bfloat16*>(tensors[1]);
+  p.vc = static_cast<const __nv_bfloat16*>(tensors[2]);
+  p.kd = static_cast<const __nv_bfloat16*>(tensors[3]);
+  p.vd = static_cast<const __nv_bfloat16*>(tensors[4]);
+  p.anchors = anchors;
+  p.keep = keep;
+  p.out = p.dq = p.dkd = p.dvd = p.dkc = p.dvc = nullptr;
+  p.m = p.l = nullptr;
+  p.dout = nullptr;
+  p.delta = nullptr;
+  long long* dst[15] = {&p.q_sb,  &p.q_sh,  &p.q_ss,  &p.kc_sb, &p.kc_sh,
+                        &p.kc_ss, &p.vc_sb, &p.vc_sh, &p.vc_ss, &p.kd_sb,
+                        &p.kd_sh, &p.kd_ss, &p.vd_sb, &p.vd_sh, &p.vd_ss};
+  for (int i = 0; i < 15; ++i) *dst[i] = strides[i];
+  p.B = B;
+  p.H = H;
+  p.KVH = KVH;
+  p.S = S;
+  p.N = N;
+  p.bs = bs;
+  p.Q = N * bs;
+  p.window = window;
+  p.scale = 1.0f / sqrtf(static_cast<float>(D));
+  return cudaSuccess;
+}
+
+}  // namespace
+
+// Forward: out [B, Q, H*D] bf16, m and l [B, H, Q] fp32 (all contiguous).
+// anchors, keep: [B, N] int32 contiguous; window 0 = no sliding window.
+// Launches on `stream` and returns cudaGetLastError().
+extern "C" int dflash_attention_fwd(const void* const* tensors,
+                                    const long long* strides,
+                                    const int* anchors, const int* keep,
+                                    void* out, float* m, float* l, int B,
+                                    int H, int KVH, int S, int N, int bs,
+                                    int window, int D, void* stream) {
+  Params p;
+  const int e = fill_params(p, tensors, strides, anchors, keep, B, H, KVH, S,
+                            N, bs, window, D);
+  if (e != cudaSuccess) return e;
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.m = m;
+  p.l = l;
+  const dim3 grid((p.Q + kBlockM - 1) / kBlockM, B * H);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return D == 128 ? launch_kernel(dflash_fwd_kernel<128>, grid, smem_fwd(128), p, st)
+                  : launch_kernel(dflash_fwd_kernel<64>, grid, smem_fwd(64), p, st);
+}
+
+// Backward kernel A: dq [B, H, Q, D] and the draft keys' dk, dv per query
+// head [B, H, Q, D] (all contiguous bf16). dout [B, Q, H*D] is contiguous;
+// m, l, delta are [B, H, Q] fp32. The other arguments are those of the
+// forward.
+extern "C" int dflash_attention_bwd_dq(
+    const void* const* tensors, const long long* strides, const int* anchors,
+    const int* keep, const void* dout, const float* m, const float* l,
+    const float* delta, void* dq, void* dkd, void* dvd, int B, int H, int KVH,
+    int S, int N, int bs, int window, int D, void* stream) {
+  Params p;
+  const int e = fill_params(p, tensors, strides, anchors, keep, B, H, KVH, S,
+                            N, bs, window, D);
+  if (e != cudaSuccess) return e;
+  p.dout = static_cast<const __nv_bfloat16*>(dout);
+  p.m = const_cast<float*>(m);
+  p.l = const_cast<float*>(l);
+  p.delta = delta;
+  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.dkd = static_cast<__nv_bfloat16*>(dkd);
+  p.dvd = static_cast<__nv_bfloat16*>(dvd);
+  const dim3 grid((p.Q + kBlockM - 1) / kBlockM, B * H);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return D == 128 ? launch_kernel(dflash_bwd_dq_kernel<128>, grid, smem_dq(128), p, st)
+                  : launch_kernel(dflash_bwd_dq_kernel<64>, grid, smem_dq(64), p, st);
+}
+
+// Backward kernel B: the context keys' dk, dv [B, KVH, S, D] (contiguous
+// bf16), summed over the query heads of each group. Arguments as kernel A.
+extern "C" int dflash_attention_bwd_dkv(
+    const void* const* tensors, const long long* strides, const int* anchors,
+    const int* keep, const void* dout, const float* m, const float* l,
+    const float* delta, void* dkc, void* dvc, int B, int H, int KVH, int S,
+    int N, int bs, int window, int D, void* stream) {
+  Params p;
+  const int e = fill_params(p, tensors, strides, anchors, keep, B, H, KVH, S,
+                            N, bs, window, D);
+  if (e != cudaSuccess) return e;
+  if ((long long)B * KVH > 65535) return cudaErrorInvalidValue;
+  const int n_qtiles = (p.Q + kBlockM - 1) / kBlockM;
+  const int smem = smem_dkv(D, n_qtiles);
+  if (smem > 227 * 1024) return cudaErrorInvalidValue;
+  p.dout = static_cast<const __nv_bfloat16*>(dout);
+  p.m = const_cast<float*>(m);
+  p.l = const_cast<float*>(l);
+  p.delta = delta;
+  p.dkc = static_cast<__nv_bfloat16*>(dkc);
+  p.dvc = static_cast<__nv_bfloat16*>(dvc);
+  const dim3 grid((S + kBlockN - 1) / kBlockN, B * KVH);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return D == 128 ? launch_kernel(dflash_bwd_dkv_kernel<128>, grid, smem, p, st)
+                  : launch_kernel(dflash_bwd_dkv_kernel<64>, grid, smem, p, st);
+}

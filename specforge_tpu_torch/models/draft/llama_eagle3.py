@@ -79,17 +79,22 @@ class RMSNorm(nn.Module):
 
 
 class Linear(nn.Module):
-    """Bias-free projection with an fp32 [out, in] weight, computed in ``dtype``."""
+    """Projection with an fp32 [out, in] weight (and, when ``bias``, an fp32
+    bias initialised to 0), computed in ``dtype``."""
 
-    def __init__(self, in_features: int, out_features: int, dtype, device=None):
+    def __init__(self, in_features: int, out_features: int, dtype, device=None,
+                 bias: bool = False):
         super().__init__()
         self.dtype = dtype
         self.weight = nn.Parameter(
             torch.empty(out_features, in_features, device=device)
         )
+        self.bias = (nn.Parameter(torch.zeros(out_features, device=device))
+                     if bias else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x.to(self.dtype), self.weight.to(self.dtype))
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype), bias)
 
 
 class Eagle3Attention(nn.Module):

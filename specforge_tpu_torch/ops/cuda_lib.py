@@ -29,7 +29,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
 #: every kernel source of the library; tests check that csrc/ holds no other
-SOURCES = ("ttt_attention.cu", "fused_ce.cu")
+SOURCES = ("ttt_attention.cu", "fused_ce.cu", "dflash_attention.cu")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -135,6 +135,16 @@ def library() -> ctypes.CDLL:
             lib.fused_ce_bwd.argtypes = [p, i, p, p, p, p, p, p, p, i, i, i,
                                          ll, p]
             lib.fused_ce_bwd.restype = i
+            # tensors (5 pointers), strides (15 int64), anchors, keep, ...
+            lib.dflash_attention_fwd.argtypes = [p, p, p, p, p, p, p,
+                                                 *[i] * 8, p]
+            lib.dflash_attention_fwd.restype = i
+            for name, n_out in (("dflash_attention_bwd_dq", 3),
+                                ("dflash_attention_bwd_dkv", 2)):
+                fn = getattr(lib, name)
+                fn.argtypes = [p, p, p, p, p, p, p, p, *[p] * n_out,
+                               *[i] * 8, p]
+                fn.restype = i
             lib.specforge_cuda_error_string.argtypes = [i]
             lib.specforge_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -1,12 +1,12 @@
-"""EAGLE3 training strategy: TrainBatch tensors → loss + metrics.
+"""Training strategies: TrainBatch tensors → loss + metrics.
 
-Counterpart of ``specforge_tpu/training/strategies.py`` (``StepOutput`` and
-``Eagle3TrainStrategy``). The JAX strategy receives its parameters
-explicitly; here the strategy holds the :class:`OnlineEagle3Model`, whose
-parameters live on its device, and moves each batch there. ``forward_loss``
-may be handed substitute tensors for the model's parameters (the train
-step's once-per-micro-step cast copies), which it applies through
-``torch.func.functional_call``.
+Counterpart of ``specforge_tpu/training/strategies.py`` (``StepOutput``,
+``linear_lambda_base`` and the EAGLE3, DFlash and Domino strategies). The
+JAX strategy receives its parameters explicitly; here the strategy holds the
+training model, whose parameters live on its device, and moves each batch
+there. ``forward_loss`` may be handed substitute tensors for the model's
+parameters (the train step's once-per-micro-step cast copies), which it
+applies through ``torch.func.functional_call``.
 """
 
 from __future__ import annotations
@@ -14,31 +14,65 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from specforge_tpu_torch.models.target.head import (
     apply_target_head,
     target_head_preprocess,
 )
+from specforge_tpu_torch.ops.masks import sample_anchor_positions
 from specforge_tpu_torch.utils import model_device, to_device
 
 
 @dataclass
 class StepOutput:
     """loss keeps grad; metrics are detached scalars; ratio_metrics are
-    (numerator, denominator) pairs summed across batches before dividing."""
+    (numerator, denominator) pairs summed across batches before dividing;
+    loss_terms optionally carries an additive objective (numerator,
+    denominator) whose denominator the train step sums over the window (the
+    DFlash-family contract)."""
 
     loss: torch.Tensor
     metrics: Dict[str, torch.Tensor] = field(default_factory=dict)
     ratio_metrics: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = field(
         default_factory=dict
     )
+    loss_terms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
 
 @dataclass(frozen=True)
 class StepContext:
     global_step: Any = 0
     total_steps: Optional[int] = None
+
+
+def linear_lambda_base(global_step, total_steps: int,
+                       lambda_start: float = 1.0,
+                       decay_ratio: float = 0.5) -> float:
+    """Domino base-loss weight: linear decay to 0 over
+    ``total_steps * decay_ratio`` steps, in float32 as the JAX package
+    computes it."""
+    f32 = np.float32
+    decay_steps = max(1, int(total_steps * decay_ratio))
+    progress = min(f32(int(global_step)) / f32(decay_steps), f32(1.0))
+    return float(np.clip(f32(lambda_start) * (f32(1.0) - progress),
+                         f32(0.0), f32(1.0)))
+
+
+def _validate_batch(strategy, tensors: Dict[str, Any]) -> None:
+    missing = {f for f in strategy.required_features if f not in tensors}
+    if missing:
+        raise ValueError(
+            f"{strategy.name} batch missing required features "
+            f"{sorted(missing)}; present={sorted(tensors)}"
+        )
+
+
+def _apply(model, params, args, kwargs):
+    if params is None:
+        return model(*args, **kwargs)
+    return torch.func.functional_call(model, params, args, kwargs)
 
 
 class Eagle3TrainStrategy:
@@ -68,17 +102,9 @@ class Eagle3TrainStrategy:
         self.compact_teacher = compact_teacher
         self.compact_teacher_chunk_size = compact_teacher_chunk_size
 
-    def validate_batch(self, tensors: Dict[str, Any]) -> None:
-        missing = {f for f in self.required_features if f not in tensors}
-        if missing:
-            raise ValueError(
-                f"{self.name} batch missing required features {sorted(missing)}; "
-                f"present={sorted(tensors)}"
-            )
-
     def _inputs(self, tensors, frozen, metadata, compact: bool):
         """Device placement, the teacher shift and the model's arguments."""
-        self.validate_batch(tensors)
+        _validate_batch(self, tensors)
         device = model_device(self.model)
         tensors = to_device(tensors, device)
         frozen = to_device(frozen, device)
@@ -122,10 +148,7 @@ class Eagle3TrainStrategy:
     ) -> StepOutput:
         args, kwargs = self._inputs(tensors, frozen, metadata,
                                     self.compact_teacher)
-        if params is None:
-            out = self.model(*args, **kwargs)
-        else:
-            out = torch.func.functional_call(self.model, params, args, kwargs)
+        out = _apply(self.model, params, args, kwargs)
         length = out.plosses.shape[0]
         weights = torch.tensor(
             [self.ploss_decay ** i for i in range(length)],
@@ -165,3 +188,88 @@ class Eagle3TrainStrategy:
             "loss_sums": out.metric_losses * out.metric_loss_denoms,
             "loss_dens": out.metric_loss_denoms,
         }
+
+
+class DFlashTrainStrategy:
+    """DFlash block-parallel strategy over :class:`OnlineDFlashModel`.
+
+    Anchors are sampled here, from a CPU ``torch.Generator`` keyed on
+    (seed, global step), so resumes and the kernel and plain attention paths
+    draw the same anchors on any device. The loss is normalised through
+    ``loss_terms`` over the whole accumulation window. The JAX strategies of
+    the family define no eval pass."""
+
+    name = "dflash"
+    required_features = {"input_ids", "hidden_states", "loss_mask"}
+    uses_loss_terms = True
+
+    def __init__(self, model, *, seed: int = 0) -> None:
+        self.model = model
+        self.seed = seed
+
+    def sample_anchors(self, loss_mask: torch.Tensor,
+                       ctx: Optional[StepContext]):
+        """(positions [B, N] int32, keep [B, N] bool) for this step."""
+        step = ctx.global_step if ctx is not None else 0
+        key = ((int(self.seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF)
+        generator = torch.Generator().manual_seed(key)
+        return sample_anchor_positions(generator, loss_mask,
+                                       self.model.num_anchors)
+
+    def _run(self, tensors, frozen, ctx, params, *extra):
+        _validate_batch(self, tensors)
+        device = model_device(self.model)
+        tensors = to_device(tensors, device)
+        frozen = to_device(frozen, device)
+        loss_mask = tensors["loss_mask"]
+        if loss_mask.dim() == 3:
+            loss_mask = loss_mask[..., 0]
+        args = (tensors["input_ids"], tensors["hidden_states"], loss_mask,
+                frozen["target_head_weight"], frozen["target_embed_weight"],
+                None, *extra)
+        kwargs = {"anchors": self.sample_anchors(loss_mask, ctx)}
+        return _apply(self.model, params, args, kwargs)
+
+    def forward_loss(
+        self,
+        tensors: Dict[str, torch.Tensor],
+        frozen: Dict[str, torch.Tensor],
+        ctx: Optional[StepContext] = None,
+        metadata: Optional[Dict[str, Any]] = None,
+        params: Optional[Dict[str, torch.Tensor]] = None,
+    ) -> StepOutput:
+        loss, accuracy, model_metrics = self._run(tensors, frozen, ctx, params)
+        return StepOutput(
+            loss=loss,
+            metrics={"accuracy": accuracy.detach()},
+            ratio_metrics=model_metrics.get("ratio_metrics", {}),
+            loss_terms=model_metrics.get("loss_terms"),
+        )
+
+
+class DominoTrainStrategy(DFlashTrainStrategy):
+    """Domino strategy: the DFlash spine with a decaying base-loss blend
+    (``lambda_base`` from the step context's global and total steps)."""
+
+    name = "domino"
+    uses_loss_terms = False
+
+    def __init__(self, model, *, seed: int = 0, lambda_start: float = 1.0,
+                 decay_ratio: float = 0.5) -> None:
+        super().__init__(model, seed=seed)
+        self.lambda_start = lambda_start
+        self.decay_ratio = decay_ratio
+
+    def lambda_base(self, ctx: Optional[StepContext]) -> float:
+        if ctx is None or not ctx.total_steps:
+            return 0.0
+        return linear_lambda_base(ctx.global_step, ctx.total_steps,
+                                  self.lambda_start, self.decay_ratio)
+
+    def forward_loss(self, tensors, frozen, ctx=None, metadata=None,
+                     params=None) -> StepOutput:
+        loss, accuracy, model_metrics = self._run(
+            tensors, frozen, ctx, params, self.lambda_base(ctx))
+        metrics = {k: v.detach() for k, v in model_metrics.items()}
+        metrics["accuracy"] = accuracy.detach()
+        return StepOutput(loss=loss, metrics=metrics)

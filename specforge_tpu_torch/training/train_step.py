@@ -8,8 +8,10 @@ optimizer step is explicit.
   ...]`` (``accum=1`` for single-micro steps), as in the JAX package.
 - Each micro-step's gradients come from ``torch.autograd.grad`` on the
   trainable fp32 masters, are stored in ``grads_dtype`` and summed in it;
-  the optimizer math runs in fp32 after a division by ``accum_steps``
-  (EAGLE3 declares no ``loss_terms``).
+  the optimizer math runs in fp32 after one division: by ``accum_steps``,
+  or, for a strategy that declares ``uses_loss_terms`` (DFlash), by the
+  ``loss_terms`` denominator summed over the window's micro-steps (clamped
+  at 1e-6), the gradient then coming from the numerator.
 - Ratio metrics accumulate as (numerator, denominator) pairs and divide once.
 - ``compute_params_dtype`` casts the fp32 masters to that dtype once per
   micro-step (``torch.func.functional_call`` over the cast copies) instead
@@ -75,6 +77,7 @@ def make_train_step(
         else None
     )
     model = strategy.model
+    uses_loss_terms = getattr(strategy, "uses_loss_terms", False)
 
     def micro(state: TrainState, tensors, frozen, ctx):
         params = None
@@ -86,11 +89,16 @@ def make_train_step(
             }
         out = strategy.forward_loss(tensors, frozen, ctx, metadata,
                                     params=params)
+        if out.loss_terms is None:
+            target, denom = out.loss, torch.ones((), device=out.loss.device)
+        else:
+            target, denom = out.loss_terms
         names = list(state.params)
-        grads = torch.autograd.grad(out.loss, [state.params[n] for n in names])
+        grads = torch.autograd.grad(target, [state.params[n] for n in names])
         grads = {n: g.to(grads_dtype) for n, g in zip(names, grads)}
         stats = {
-            "loss": out.loss.detach().float(),
+            "loss": target.detach().float(),
+            "denom": denom.detach().float(),
             "metrics": {k: v.detach().float() for k, v in out.metrics.items()},
             "ratio_num": {k: v[0].detach().float()
                           for k, v in out.ratio_metrics.items()},
@@ -109,8 +117,10 @@ def make_train_step(
     def accumulate(state: TrainState, batch: Mapping[str, torch.Tensor],
                    frozen: Mapping[str, torch.Tensor]):
         """The micro-steps of one window → (fp32 gradients divided by the
-        number of micro-batches, as the optimizer receives them before the
-        clip; the stats summed over the micro-batches)."""
+        window's norm, as the optimizer receives them before the clip; the
+        stats summed over the micro-batches, with ``stats["norm"]`` that
+        norm: the number of micro-batches, or the summed ``loss_terms``
+        denominator for a strategy that ``uses_loss_terms``)."""
         n_micro = next(iter(batch.values())).shape[0]
         grads, stats = micro_step(state, {k: v[0] for k, v in batch.items()},
                                   frozen)
@@ -121,8 +131,13 @@ def make_train_step(
                 grads[name] = grads[name] + g[name]
             stats = _tree_add(stats, s)
             del g
+        if uses_loss_terms:
+            norm = torch.clamp(stats["denom"], min=1e-6)
+        else:
+            norm = torch.tensor(float(n_micro), device=stats["denom"].device)
+        stats["norm"] = norm
         # optimizer math is fp32 regardless of the grad storage dtype
-        return {k: g.float() / n_micro for k, g in grads.items()}, stats
+        return {k: g.float() / norm for k, g in grads.items()}, stats
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
                    frozen: Mapping[str, torch.Tensor]):
@@ -132,7 +147,7 @@ def make_train_step(
                 f"batch has {n_micro} micro-batches, expected {accum_steps}"
             )
         grads, stats = accumulate(state, batch, frozen)
-        loss_out = stats["loss"] / float(accum_steps)
+        loss_out = stats["loss"] / stats["norm"]
         grad_norm = global_norm(grads)
         opt_state = optimizer.step(state.params, grads, state.opt_state,
                                    grad_norm)

@@ -10,6 +10,8 @@ import pytest
 import torch
 
 from specforge_tpu_torch.ops import attention_cuda, loss_cuda
+from specforge_tpu_torch.ops import dflash_attention_cuda as dflash_cuda
+from specforge_tpu_torch.ops.masks import sample_anchor_positions
 from specforge_tpu_torch.ops.loss import (
     log_softmax_loss,
     log_softmax_loss_reference,
@@ -221,3 +223,100 @@ def test_kernels_refuse_what_they_do_not_take(gen):
     with pytest.raises(ValueError):
         loss_cuda.loss_forward(logits, strided,
                                torch.ones(1, 4, 1, device="cuda"))
+
+
+# --------------------------------------------------------------------------
+# DFlash block attention
+# --------------------------------------------------------------------------
+
+def dflash_inputs(gen, b, h, kvh, s, n, d, bs=16):
+    """Anchors from the port's sampler over a response-part loss mask (row
+    1, when there is one, has fewer candidates than slots; row 0's first
+    anchor is 0) and bf16 q/k/v, q as a strided view of a merged
+    projection, as the draft has them."""
+    loss_mask = torch.zeros(b, s, dtype=torch.int32)
+    loss_mask[:, s // 4:] = 1
+    if b > 1:
+        loss_mask[1, :s - n // 2] = 0
+    anchors, keep = sample_anchor_positions(torch.Generator().manual_seed(1),
+                                            loss_mask, n)
+    anchors[0, 0] = 0
+    q_len = n * bs
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    qkv = rnd(b, q_len, (h + 2 * kvh) * d)
+    q = qkv[..., :h * d].view(b, q_len, h, d).transpose(1, 2)
+    k_drf = qkv[..., h * d:(h + kvh) * d].view(b, q_len, kvh, d).transpose(
+        1, 2)
+    v_drf = qkv[..., (h + kvh) * d:].view(b, q_len, kvh, d).transpose(1, 2)
+    return (q, rnd(b, kvh, s, d), rnd(b, kvh, s, d), k_drf, v_drf,
+            anchors.cuda(), keep.cuda())
+
+
+def rel_err(got, want):
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+# (a) the Domino slice's shapes; (c) the sliding window of
+# configs/qwen3.6-27b-dflash.json (w=4096 bites at S=8192); (e) a context
+# that is no multiple of the 64-key tile, at D=64
+@pytest.mark.parametrize("b,h,kvh,s,n,d,window", [
+    (2, 32, 8, 768, 256, 128, None),
+    (1, 32, 8, 8192, 512, 128, 4096),
+    (2, 14, 2, 700, 40, 64, None),
+])
+def test_dflash_kernels_match_plain(gen, b, h, kvh, s, n, d, window):
+    inputs = dflash_inputs(gen, b, h, kvh, s, n, d)
+    counters = (dflash_cuda.dflash_flash_attention_fwd,
+                dflash_cuda.dflash_attention_bwd_dq,
+                dflash_cuda.dflash_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    out, m, l = dflash_cuda.dflash_flash_attention_fwd(*inputs, 16, window)
+    dout = torch.randn(out.shape, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    grads = dflash_cuda.dflash_flash_attention_bwd(*inputs, 16, window, out,
+                                                   m, l, dout)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [x + 1 for x in before]
+    ref, ref_m, ref_l = dflash_cuda.dflash_flash_attention_plain(
+        *inputs, 16, window)
+    # bf16 outputs and gradients: products of bf16-rounded p and ds, sums in
+    # another order; held at 2e-2 of the largest reference value
+    assert rel_err(out, ref) <= 2e-2
+    torch.testing.assert_close(m, ref_m, rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(l, ref_l, rtol=1e-3, atol=1e-3)
+    not_kept = ~inputs[-1].repeat_interleave(16, dim=1)
+    assert not out[not_kept].any()
+    ref_grads = dflash_cuda.dflash_flash_attention_backward_plain(
+        *inputs, 16, window, out, m, l, dout)
+    for name, got, want, x in zip("q kc vc kd vd".split(), grads, ref_grads,
+                                  inputs):
+        assert got.shape == x.shape and got.dtype == torch.bfloat16, name
+        assert rel_err(got, want) <= 2e-2, name
+
+
+def test_dflash_autograd_is_deterministic_and_refuses_bad_shapes(gen):
+    inputs = [x.detach().requires_grad_(x.is_floating_point())
+              for x in dflash_inputs(gen, 2, 8, 2, 300, 20, 128)]
+    runs = []
+    for _ in range(2):
+        out = dflash_cuda.dflash_flash_attention(*inputs, 16)
+        runs.append(torch.autograd.grad(out.float().square().sum(),
+                                        inputs[:5]))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    q, kc, vc, kd, vd, anchors, keep = dflash_inputs(gen, 1, 4, 2, 64, 4, 64)
+    with pytest.raises(ValueError, match="head dim"):
+        dflash_cuda.dflash_flash_attention(q[..., :32], kc[..., :32],
+                                           vc[..., :32], kd[..., :32],
+                                           vd[..., :32], anchors, keep, 16)
+    with pytest.raises(TypeError):
+        dflash_cuda.dflash_flash_attention(q.float(), kc, vc, kd, vd, anchors,
+                                           keep, 16)
+    with pytest.raises(ValueError, match="block_size"):
+        dflash_cuda.dflash_flash_attention(q, kc, vc, kd, vd, anchors, keep,
+                                           48)

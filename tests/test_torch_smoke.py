@@ -82,6 +82,81 @@ def test_training_runs_on_the_cpu_at_small_size(smoke, tmp_path):
     assert "eval/simulated_acc_len" in results["final_eval"]
 
 
+FAMILY_DRAFT = {
+    "architectures": ["DominoDraftModel"], "vocab_size": 256,
+    "hidden_size": 64, "intermediate_size": 128, "num_attention_heads": 4,
+    "num_key_value_heads": 2, "head_dim": 16, "num_hidden_layers": 2,
+    "num_target_layers": 8, "block_size": 4,
+    "max_position_embeddings": 256,
+    "dflash_config": {"mask_token_id": 255, "target_layer_ids": [1, 5],
+                      "projector_type": "domino", "pure_draft_prefix_len": 1,
+                      "emb_dim": 16, "gru_hidden_dim": 16,
+                      "shift_label": True},
+}
+
+
+@pytest.mark.parametrize("kind", ["domino", "dflash"])
+def test_family_training_runs_on_the_cpu_at_small_size(smoke, tmp_path, kind):
+    """The DFlash-family phase: for domino, cli train (4 steps, one
+    checkpoint, the metrics file, a decaying lambda_base) and then the
+    kernel-path and plain-path trainers; for dflash, one step of the
+    trainer's train step (through build_training_run) against the plain
+    path; no launch on CPU tensors."""
+    draft = dict(FAMILY_DRAFT)
+    if kind == "dflash":
+        draft["architectures"] = ["DFlashDraftModel"]
+    cfg_path = tmp_path / "draft.json"
+    cfg_path.write_text(json.dumps(draft))
+    results, counts = smoke.run_family_training(
+        kind, cfg_path, torch.device("cpu"), 0, tmp_path / "work",
+        max_length=64, min_len=40, head_std=0.2,
+        overrides=['model.compute_dtype="float32"', "training.num_anchors=8",
+                   "training.objective_chunk_blocks=4"])
+    steps = 4 if kind == "domino" else 1
+    assert results["optimizer_steps"] == steps
+    assert results["micro_batches"] == 2 * steps
+    assert counts == dict.fromkeys(smoke.DFLASH_COUNTERS, 0)
+    with pytest.raises(AssertionError, match="launches"):
+        smoke.check_family_counts(counts, 2 * steps, 2)
+    smoke.check_family_counts(dict.fromkeys(counts, 4 * steps), 2 * steps, 2)
+    # fp32 on both paths: the kernel's plain version and the chunked path
+    # differ only in the order of their sums
+    assert all(step["rel_diff"] < 1e-4 for step in results["loss_curve"])
+    grads = results["step1_grads"].values()
+    assert all(g["cosine"] > 0.9999 for g in grads if not g.get("both_zero"))
+    if kind == "domino":
+        # lambda_base is 1 at step 1: the correction head gets no gradient
+        assert results["step1_grads"][
+            "draft_model.embed_proj_1.weight"]["both_zero"]
+        assert results["checkpoint"]["dir"] == "domino-step4"
+        assert results["lambda_base"] == [1.0, 0.5, 0.0, 0.0]
+        # 8 anchors of 4 draft tokens against 64 context positions per row
+        assert results["draft_tokens_per_s"] == pytest.approx(
+            results["context_tokens_per_s"] * 32 / 64)
+
+
+def test_family_cli_needs_cuda_and_refuses_an_eval_pass(smoke, tmp_path,
+                                                       monkeypatch):
+    """Without --device and without a card, cli train raises; the family
+    has no eval pass (its JAX strategies define none), so an eval set is
+    refused by name."""
+    from specforge_tpu_torch import cli
+    from specforge_tpu_torch.application.composition import build_training_run
+    from specforge_tpu_torch.config.schema import load_config
+
+    cfg_path = tmp_path / "draft.json"
+    cfg_path.write_text(json.dumps(FAMILY_DRAFT))
+    run_json = smoke.family_run_json("domino", tmp_path, cfg_path,
+                                     tmp_path / "target", 64)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["train", "-c", str(run_json)])
+    config = load_config(str(run_json), ['data.eval_data_path="eval"',
+                                         "training.num_anchors=8"])
+    with pytest.raises(NotImplementedError, match="eval pass"):
+        build_training_run(config, device="cpu")
+
+
 def test_ce_backward_check_rejects_broken_gradients(smoke):
     """The card's check of the fused CE gradient, fed on the CPU the plain
     gradient (which passes) and broken copies of it (which must fail): a

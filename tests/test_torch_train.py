@@ -497,7 +497,7 @@ def test_default_device_entry_points_raise_without_cuda(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("override,slice_name", [
-    ("training.strategy=\"dflash\"", "DFlash"),
+    ("training.strategy=\"dspark\"", "DSpark"),
     ("training.strategy=\"peagle\"", "P-EAGLE"),
     ("training.fsdp_size=2", "parallelism"),
     ("data.pack_documents=true", "P-EAGLE"),
