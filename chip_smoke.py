@@ -12,7 +12,9 @@ Phases, each printing JSON lines:
 3. kernels, at the shapes of the slices: each kernel (the TTT attention and
    fused CE forwards, the fused CE backward and the two TTT attention
    backward kernels; the DFlash block-attention forward and its two
-   backward kernels in cases (a)-(e) of ``DFLASH_CASES``) is held against
+   backward kernels in cases (a)-(e) of ``DFLASH_CASES``; the COD attention
+   forward and its two backward kernels in cases (a)-(e) of
+   ``COD_CASES``) is held against
    its plain PyTorch version on the card, in the working dtype, and timed
    with CUDA events (median of 20 runs after 3 warm-ups) beside the plain
    version, one PyTorch library call as a yardstick, and its bound;
@@ -45,7 +47,21 @@ Phases, each printing JSON lines:
    times, peak memory and one profiled micro-step; then one optimizer step
    of the ``dflash`` strategy on ``configs/qwen3-8b-dflash.json`` (512
    anchors, the ``loss_terms`` normalisation) against its plain path;
-7. the kernels line, then the card line, then ``{"ok": true, ...}``.
+7. slice 4, P-EAGLE: the three COD attention kernels against their plain
+   versions in cases (a)-(e) of ``COD_CASES`` (among the kernels of phase
+   3); then ``cli.main(["train", ...])`` on
+   ``examples/qwen3-8b-peagle-single-chip.json`` with
+   ``configs/qwen3-8b-peagle.json`` at full width (B=2, S up to 1024, 8
+   depths, so T=3456 sampled rows; factored moments, ``adam_b1`` 0, bf16
+   moments, the row-sparse embedding update; accumulation 2, so 4
+   optimizer steps): exactly 4 launches of each COD kernel and 1 of each
+   fused CE kernel per micro-batch, a second run and a resume from the
+   step-2 checkpoint that reach the same weights bit-exactly, the dense
+   embedding update against the row-sparse one, the kernel path against
+   the dense plain path from the same weights and samples, the timings,
+   peak memory and one profiled micro-step, and one optimizer step over
+   packed rows (``data.pack_documents``, 4 documents to a row);
+8. the kernels line, then the card line, then ``{"ok": true, ...}``.
 
 Any failed check raises: the script then exits non-zero with a traceback and
 prints no result. Without a CUDA device it exits non-zero at once.
@@ -69,6 +85,11 @@ import torch.nn.functional as F
 
 from specforge_tpu_torch import cli
 from specforge_tpu_torch.algorithms.eagle3.model import OnlineEagle3Model
+from specforge_tpu_torch.algorithms.peagle.model import (
+    doc_major,
+    document_ids_from_lengths,
+    generate_cod_sample_indices,
+)
 from specforge_tpu_torch.application.composition import build_training_run
 from specforge_tpu_torch.config.schema import load_config
 from specforge_tpu_torch.data.collator import CollatorConfig, PaddingCollator
@@ -77,11 +98,13 @@ from specforge_tpu_torch.models.draft.llama_eagle3 import (
     Eagle3Config,
     LlamaEagle3Draft,
 )
+from specforge_tpu_torch.models.draft.peagle import PEagleConfig, cod_capacities
 from specforge_tpu_torch.ops import (
     attention_cuda,
     cuda_lib,
     dflash_attention_cuda,
     loss_cuda,
+    peagle_attention_cuda,
 )
 from specforge_tpu_torch.ops.loss import log_softmax_loss_reference
 from specforge_tpu_torch.ops.masks import (
@@ -100,7 +123,6 @@ from specforge_tpu_torch.runtime.data_plane.offline_reader import (
     OfflineManifestReader,
 )
 from specforge_tpu_torch.training.checkpoint import CheckpointManager
-from specforge_tpu_torch.training.optimizer import global_norm
 from specforge_tpu_torch.training.strategies import (
     Eagle3TrainStrategy,
     linear_lambda_base,
@@ -848,21 +870,252 @@ def dflash_kernel_phase(gen) -> list:
 
 
 # --------------------------------------------------------------------------
+# the P-EAGLE COD attention kernels against their plain versions
+# --------------------------------------------------------------------------
+
+#: the P-EAGLE sampler of examples/qwen3-8b-peagle-single-chip.json
+COD_DEPTHS, COD_RATIO, COD_RATIO_MIN = 8, 0.7, 0.2
+#: (name, B, H, KVH, D, S, document lengths per row or None for one
+#: document of S, rows whose loss mask is all 0): (a) the slice's shapes;
+#: (b) S=1024 packed as 4 documents of 256 (block-diagonal tiles); (c)
+#: S=2048; (d) head dim 64 (Qwen2.5-0.5B's heads); (e) a row whose document
+#: ends at 600 (an invalid tail) and a row with no supervised token
+COD_CASES = (
+    ("a_slice", 2, 32, 8, 128, 1024, None, ()),
+    ("b_packed_4x256", 2, 32, 8, 128, 1024, (256, 256, 256, 256), ()),
+    ("c_s2048", 1, 32, 8, 128, 2048, None, ()),
+    ("d_head_dim_64", 2, 14, 2, 64, 768, None, ()),
+    ("e_tail_and_unsupervised", 2, 32, 8, 128, 1024, (600,), (1,)),
+)
+COD_KERNELS = ("cod_attention_fwd", "cod_attention_bwd_dq",
+               "cod_attention_bwd_dkv")
+
+
+def cod_case_inputs(gen, b, h, kvh, d, s, doc_lengths, unsupervised):
+    """A COD sample from the port's sampler and doc-major sort over a loss
+    mask of the response part (the last three quarters of each document),
+    and bf16 q/k/v as strided views of one merged projection, as the draft
+    model has them → (q, k, v, the sample's kernel inputs)."""
+    lengths = torch.tensor([list(doc_lengths or (s,))] * b, dtype=torch.int32)
+    doc_ids = document_ids_from_lengths(lengths, s)
+    loss_mask = torch.zeros(b, s, dtype=torch.int32)
+    start = 0
+    for n in doc_lengths or (s,):
+        loss_mask[:, start + n // 4:start + n] = 1
+        start += n
+    for row in unsupervised:
+        loss_mask[row] = 0
+    sample = generate_cod_sample_indices(
+        torch.Generator().manual_seed(int(gen.initial_seed()) + s),
+        loss_mask, doc_ids, COD_DEPTHS, COD_RATIO, COD_RATIO_MIN)
+    sample = doc_major(sample, doc_ids)
+    anchor_doc = doc_ids.long().gather(1, sample.anchor_pos.long())
+    vectors = [x.cuda() for x in (sample.anchor_pos, sample.depth, anchor_doc,
+                                  sample.valid)]
+    tiles = peagle_attention_cuda.cod_tiles(*vectors)
+    t = sample.depth.shape[1]
+    qkv = torch.randn(b, t, (h + 2 * kvh) * d, generator=gen, device="cuda",
+                      dtype=torch.bfloat16)
+    q = qkv[..., :h * d].view(b, t, h, d).transpose(1, 2)
+    k = qkv[..., h * d:(h + kvh) * d].view(b, t, kvh, d).transpose(1, 2)
+    v = qkv[..., (h + kvh) * d:].view(b, t, kvh, d).transpose(1, 2)
+    return q, k, v, tiles
+
+
+def cod_bounds(q, k, tiles) -> dict:
+    """The least times of the three COD kernels for this sample: each input
+    read once and each output written once over the card's memory rate; the
+    tensor-core products over P, the allowed (query, key) pairs over all
+    heads, at the bf16 peak (2·D operations per pair and product: the
+    forward's two, dq's three, dk/dv's four)."""
+    b, h, t, d = q.shape
+    kvh = k.shape[1]
+    props = tiles.props
+    pairs = 0
+    for r0, r1 in peagle_attention_cuda._row_chunks(q):
+        pairs += int(peagle_attention_cuda._allow(props[:, r0:r1], props)
+                     .sum())
+    p_all = pairs * h
+    q_bytes = b * h * t * d * 2          # q, out, dO or dq
+    kv_bytes = b * kvh * t * d * 2       # k, v, dk or dv
+    stat_bytes = b * h * t * 4           # one of m, l, delta
+    prop_bytes = props.numel() * 4
+
+    def bound(nbytes, ops):
+        return {"bytes_ms": nbytes / PEAK_HBM * 1e3,
+                "ops_ms": ops / PEAK_BF16 * 1e3}
+
+    return {
+        "pairs_per_head": pairs,
+        "cod_attention_fwd": bound(
+            2 * q_bytes + 2 * kv_bytes + 2 * stat_bytes + prop_bytes,
+            4 * d * p_all),
+        "cod_attention_bwd_dq": bound(
+            3 * q_bytes + 2 * kv_bytes + 3 * stat_bytes + prop_bytes,
+            6 * d * p_all),
+        "cod_attention_bwd_dkv": bound(
+            2 * q_bytes + 4 * kv_bytes + 3 * stat_bytes + prop_bytes,
+            8 * d * p_all),
+    }
+
+
+def cod_sdpa_yardstick(q, k, v, tiles, dout):
+    """One library call computing the same function, and its backward: SDPA
+    with the dense boolean COD mask and enable_gqa. Timed only (rows with
+    no allowed key differ: SDPA has no exact-zero rule for them)."""
+    b, h, t, d = q.shape
+    props = tiles.props
+    mask = peagle_attention_cuda._allow(props, props)[:, None]
+    qr = q.detach().requires_grad_(True)
+    kr = k.detach().requires_grad_(True)
+    vr = v.detach().requires_grad_(True)
+
+    def forward():
+        return F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask,
+                                              enable_gqa=True)
+
+    out = forward()
+    do = dout.view(b, t, h, d).transpose(1, 2)
+    return forward, lambda: torch.autograd.grad(out, (qr, kr, vr), do,
+                                                retain_graph=True)
+
+
+def cod_kernel_phase(gen) -> list:
+    """The three COD kernels against their plain versions in cases
+    (a)-(e), in bf16: the output and every gradient within ATTN_TOL of the
+    plain version's largest value, (m, l) within STAT_RTOL on rows with an
+    allowed key, and rows without one exactly 0. Each case is timed
+    (kernel, plain); case (a), the slice's launch, also gives the library
+    yardstick and the bound the kernels line reports."""
+    pac = peagle_attention_cuda
+    results = {}
+    for name, b, h, kvh, d, s, doc_lengths, unsupervised in COD_CASES:
+        q, k, v, tiles = cod_case_inputs(gen, b, h, kvh, d, s, doc_lengths,
+                                         unsupervised)
+        t = q.shape[2]
+        out, m, l = pac.cod_attention_fwd(q, k, v, tiles)
+        dout = torch.randn(out.shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+        grads = pac.cod_attention_bwd(q, k, v, tiles, out, m, l, dout)
+        torch.cuda.synchronize()
+        ref, ref_m, ref_l = pac.cod_attention_plain(q, k, v, tiles.props)
+        ref_grads = pac.cod_attention_backward_plain(q, k, v, tiles.props,
+                                                     out, m, l, dout)
+        live = ref_l[:, 0] > 0                                # [B, T]
+        empty_rows = int((~live).sum())
+        if out[~live].any() or l.transpose(1, 2)[~live].any():
+            raise AssertionError(f"case {name}: rows without an allowed key "
+                                 "are not 0")
+        if grads[0].transpose(1, 2)[~live].any():
+            raise AssertionError(f"case {name}: dq of rows without an "
+                                 "allowed key is not 0")
+        pairs = {
+            "cod_attention_fwd": [(out, ref)],
+            "cod_attention_bwd_dq": [(grads[0], ref_grads[0])],
+            "cod_attention_bwd_dkv": list(zip(grads[1:], ref_grads[1:])),
+        }
+        errs = {kname: max(rel_max_err(a, r) for a, r in v_)
+                for kname, v_ in pairs.items()}
+        abs_errs = {kname: max(max_err(a, r) for a, r in v_)
+                    for kname, v_ in pairs.items()}
+        for kernel, err in errs.items():
+            check(f"{kernel} case {name} (max|err| / max|ref|)", err,
+                  ATTN_TOL)
+        rows = live[:, None].expand_as(m)
+        errs["m"] = max_err(m[rows], ref_m[rows]) / (
+            1.0 + float(ref_m[rows].abs().max()))
+        errs["l"] = float(((l - ref_l).abs() / ref_l.clamp(min=1e-30)).max())
+        check(f"cod m case {name}", errs["m"], STAT_RTOL)
+        check(f"cod l case {name}", errs["l"], STAT_RTOL)
+        delta = attention_cuda.backward_delta(out, dout, h)
+        bwd_args = (q, k, v, tiles, dout, m, l, delta)
+        row = {
+            "phase": "kernel", "name": "cod_attention", "case": name,
+            "B": b, "H": h, "KVH": kvh, "D": d, "S": s, "T": t,
+            "doc_lengths": doc_lengths, "unsupervised_rows": list(unsupervised),
+            "empty_rows": empty_rows,
+            "live_tile_share": float(tiles.table.float().mean()),
+            "rel_err": errs, "max_abs_err": abs_errs,
+            "tol": {"out_and_grads": f"{ATTN_TOL} * max|ref|",
+                    "m_l": STAT_RTOL, "empty_rows": "exactly 0"},
+            "ms": {
+                "cod_attention_fwd": median_ms(
+                    lambda: pac.cod_attention_fwd(q, k, v, tiles)),
+                "cod_attention_bwd_dq": median_ms(
+                    lambda: pac.cod_attention_bwd_dq(*bwd_args)),
+                "cod_attention_bwd_dkv": median_ms(
+                    lambda: pac.cod_attention_bwd_dkv(*bwd_args)),
+            },
+            "plain_fwd_ms": median_ms(
+                lambda: pac.cod_attention_plain(q, k, v, tiles.props),
+                runs=5, warmup=1),
+            "plain_bwd_ms": median_ms(
+                lambda: pac.cod_attention_backward_plain(
+                    q, k, v, tiles.props, out, m, l, dout),
+                runs=5, warmup=1),
+            "bound": cod_bounds(q, k, tiles),
+        }
+        if name == "a_slice":
+            lib_fwd, lib_bwd = cod_sdpa_yardstick(q, k, v, tiles, dout)
+            row["library_fwd_ms"] = median_ms(lib_fwd)
+            row["library_bwd_ms"] = median_ms(lib_bwd)
+        emit(row)
+        results[name] = row
+        del q, k, v, tiles, out, grads, ref, ref_grads, dout, bwd_args
+        torch.cuda.empty_cache()
+
+    main = results.get("a_slice", next(iter(results.values())))
+    lines = []
+    for kernel, line in zip(COD_KERNELS, (87, 143, 189)):
+        bound = main["bound"][kernel]
+        backward = kernel != "cod_attention_fwd"
+        lines.append({
+            "name": kernel,
+            "route": "cuda",
+            "source": "specforge_tpu_torch/csrc/peagle_attention.cu",
+            "replaces": f"specforge_tpu/ops/peagle_pallas.py:{line}",
+            "max_abs_err": max(r["max_abs_err"][kernel]
+                               for r in results.values()),
+            "rel_err": max(r["rel_err"][kernel] for r in results.values()),
+            "tol": f"{ATTN_TOL} * max|ref|",
+            # per launch at the slice's shapes (case a); the plain backward
+            # and the library backward compute every gradient at once, and
+            # stand beside both backward kernels
+            "ms": main["ms"][kernel],
+            "plain_ms": main["plain_bwd_ms" if backward else "plain_fwd_ms"],
+            "library_ms": main.get("library_bwd_ms" if backward
+                                   else "library_fwd_ms"),
+            "bound_ms": max(bound["bytes_ms"], bound["ops_ms"]),
+            "bound_by": ("bytes" if bound["bytes_ms"] > bound["ops_ms"]
+                         else "operations"),
+        })
+    return lines
+
+
+# --------------------------------------------------------------------------
 # the slice: EAGLE3 offline TTT forward at Qwen3-8B width
 # --------------------------------------------------------------------------
 
 def write_features(root: Path, cfg: Eagle3Config, seed: int, n_files: int,
-                   min_len: int, max_len: int) -> None:
+                   min_len: int, max_len: int, response_only=False) -> None:
     """Offline feature files in the layout of tests/_fixtures.py, written by
-    the port's writer from a CPU generator."""
+    the port's writer from a CPU generator. The loss mask is random, or
+    with ``response_only`` 0 over a prompt of a tenth to a third of the
+    sample and 1 over the response after it."""
     gen = torch.Generator().manual_seed(seed)
     h = cfg.resolved_target_hidden_size
     root.mkdir(parents=True, exist_ok=True)
     for i in range(n_files):
         n = int(torch.randint(min_len, max_len + 1, (1,), generator=gen))
+        if response_only:
+            loss_mask = torch.zeros(n, dtype=torch.int64)
+            loss_mask[int(torch.randint(n // 10, n // 3, (1,),
+                                        generator=gen)):] = 1
+        else:
+            loss_mask = (torch.rand(n, generator=gen) > 0.25).to(torch.int64)
         tensors = {
             "input_ids": torch.randint(0, cfg.vocab_size, (n,), generator=gen),
-            "loss_mask": (torch.rand(n, generator=gen) > 0.25).to(torch.int64),
+            "loss_mask": loss_mask,
             "hidden_state": torch.randn(n, 3 * h, generator=gen).to(
                 torch.bfloat16),
             "target": torch.randn(n, h, generator=gen).to(torch.bfloat16),
@@ -1159,7 +1412,9 @@ def measure_kernel_path(trainer, window, sync) -> dict:
     """Timings of the train step that ``cli train`` runs, on a kernel-path
     trainer (whose state they change): the micro-step (``micro_step``:
     forward and backward of one micro-batch, twice over the window), the
-    optimizer step (global norm, clip and AdamW), one profiled micro-step,
+    optimizer step (the train step's ``update``: global norm, clip and the
+    AdamW step, row-sparse where the run asks for it), one profiled
+    micro-step,
     and the peak memory of a train step with and without
     ``compute_params_dtype``."""
     step = trainer.train_step
@@ -1173,18 +1428,16 @@ def measure_kernel_path(trainer, window, sync) -> dict:
         del grads
     results = {"micro_step_ms": statistics.median(micro_ms[1:]),
                "micro_step_ms_all": micro_ms}
-    grads, _ = step.accumulate(trainer.state, stack_window(window),
-                               trainer.frozen)
+    grads, stats = step.accumulate(trainer.state, stack_window(window),
+                                   trainer.frozen)
     opt_times = []
     for _ in range(3):
         sync()
         t0 = time.perf_counter()
-        trainer.state.opt_state = trainer.optimizer.step(
-            trainer.state.params, grads, trainer.state.opt_state,
-            global_norm(grads))
+        step.update(trainer.state, grads, stats)
         sync()
         opt_times.append((time.perf_counter() - t0) * 1e3)
-    del grads
+    del grads, stats
     results["optimizer_step_ms"] = statistics.median(opt_times)
     if not next(iter(trainer.state.params.values())).is_cuda:
         return results
@@ -1201,7 +1454,7 @@ def measure_kernel_path(trainer, window, sync) -> dict:
         total_steps=trainer.total_steps, metadata=trainer.metadata,
         lr_schedule=trainer.lr_schedule,
         grads_dtype=trainer.config.grads_dtype,
-        compute_params_dtype="bfloat16")
+        compute_params_dtype="bfloat16", sparse_embed=trainer.sparse_plan)
     for name, train_step in ((default, step), ("bfloat16", cast)):
         sync()
         torch.cuda.reset_peak_memory_stats()
@@ -1545,6 +1798,299 @@ def run_family_training(kind: str, cfg_path: Path, device, seed: int,
     return results, counts
 
 
+# --------------------------------------------------------------------------
+# slice 4: P-EAGLE COD offline training at Qwen3-8B width
+# --------------------------------------------------------------------------
+
+PEAGLE_CONFIG = REPO / "configs" / "qwen3-8b-peagle.json"
+PEAGLE_EXAMPLE = REPO / "examples" / "qwen3-8b-peagle-single-chip.json"
+#: 16 files of 768-1024 tokens: 4 optimizer steps of 2 micro-batches of 2;
+#: the packed step: 16 documents of 128-256 tokens, 4 to a row
+PEAGLE_FILES, PACK_FILES, DOCS_PER_ROW = 16, 16, 4
+PEAGLE_COUNTERS = {
+    "cod_attention_fwd": peagle_attention_cuda.cod_attention_fwd,
+    "cod_attention_bwd_dq": peagle_attention_cuda.cod_attention_bwd_dq,
+    "cod_attention_bwd_dkv": peagle_attention_cuda.cod_attention_bwd_dkv,
+    "fused_ce_fwd": loss_cuda.loss_forward,
+    "fused_ce_bwd": loss_cuda.loss_backward,
+}
+#: the row-sparse and the dense embedding update after one step: the
+#: difference of the touched rows over their largest value, as
+#: tests/test_sparse_embed.py holds the two paths (fp32 sums of the same
+#: gradient terms in other orders; the difference over the largest update
+#: is reported beside it)
+EMBED_UPDATE_RTOL = 1e-5
+EMBED_PATH = "draft_model.embed_tokens.weight"
+
+
+def peagle_run_json(workdir: Path, draft_config: Path, target: Path,
+                    max_length: int) -> Path:
+    """``examples/qwen3-8b-peagle-single-chip.json``, read as data, pointed
+    at this run's directories, with accumulation 2 (from 8), the row-sparse
+    embedding update, one epoch, a log line per step and a checkpoint every
+    2 steps. Its eval set is dropped: P-EAGLE has no eval pass."""
+    raw = json.loads(PEAGLE_EXAMPLE.read_text())
+    raw["run_id"] = "peagle"
+    raw["output_dir"] = str(workdir / "runs")
+    raw["model"].update(target_model_path=str(target),
+                        draft_config_path=str(draft_config))
+    raw["data"].update(train_data_path=str(workdir / "train"),
+                       eval_data_path=None, max_length=max_length,
+                       num_workers=2)
+    raw["training"].update(num_epochs=1, accumulation_steps=ACCUM,
+                           row_sparse_embedding=True, save_interval=2,
+                           eval_interval=0, log_interval=1)
+    raw["tracking"] = {"backend": "jsonl"}
+    path = workdir / "run.json"
+    path.write_text(json.dumps(raw, indent=2))
+    return path
+
+
+def peagle_window_grads(trainer, window) -> tuple:
+    """:func:`window_grads` of a row-sparse run → (loss, the dense grads and
+    the summed embedding rows under ``EMBED_PATH + "[rows]"``, the rows'
+    ids); all on the host."""
+    grads, stats = trainer.train_step.accumulate(
+        trainer.state, stack_window(window), trainer.frozen)
+    uids, rows = stats["sparse_embed"]
+    grads[EMBED_PATH + "[rows]"] = rows
+    return (float(stats["loss"] / stats["norm"]),
+            {k: g.cpu() for k, g in grads.items()}, uids.cpu())
+
+
+def timed_windows(trainer, sync, after_first=None) -> list:
+    """The trainer's train step over every window of its loader, each timed
+    to a device synchronise → per-step metrics and ``step_ms``;
+    ``after_first(trainer)`` runs after step 1, outside the timing."""
+    steps = []
+    for stacked, _ids, _meta in trainer._accum_groups(trainer.train_loader):
+        sync()
+        t0 = time.perf_counter()
+        trainer.state, metrics = trainer.train_step(trainer.state, stacked,
+                                                    trainer.frozen)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        steps.append({"step": trainer.state.step, "step_ms": ms,
+                      **{k: float(v) for k, v in metrics.items()}})
+        if after_first is not None and len(steps) == 1:
+            after_first(trainer)
+    return steps
+
+
+def run_peagle_training(cfg_path: Path, device, seed: int, workdir: Path, *,
+                        max_length=1024, min_len=768, pack_len=(128, 256),
+                        head_std=0.02, overrides=()) -> tuple:
+    """Slice 4 end to end; returns the results and the launch counts of its
+    main path (the ``cli train`` run), set to 0 just before it and read just
+    after.
+
+    The main path is ``cli.main(["train", ...])``: 4 optimizer steps with
+    the row-sparse embedding update and checkpoints at steps 2 and 4. Then
+    a fresh kernel-path trainer gives step 1's loss and gradients, runs the
+    same 4 steps timed (which must reach the cli run's weights: two runs
+    give the same bits), keeping the embedding after step 1, and the
+    micro-step and optimizer-step timings; a trainer resumed from the
+    step-2 checkpoint must reach the final weights bit-exactly; a trainer
+    with the dense embedding update takes step 1, whose touched rows must
+    match the row-sparse ones and whose untouched rows stay as they were;
+    the plain path (the draft config's ``attention_backend: "dense"`` and
+    the reference CE, same initial weights and samples) gives its step-1
+    gradients and loss curve; last, one optimizer step with
+    ``data.pack_documents``."""
+    raw_cfg = json.loads(Path(cfg_path).read_text())
+    cfg = PEagleConfig.from_dict(raw_cfg)
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    write_features(workdir / "train", cfg, seed, PEAGLE_FILES, min_len,
+                   max_length, response_only=True)
+    write_features(workdir / "packed", cfg, seed + 200, PACK_FILES,
+                   *pack_len, response_only=True)
+    target = write_target_dir(workdir / "target", cfg.vocab_size,
+                              cfg.resolved_target_hidden_size, device, seed,
+                              head_std)
+    run_json = peagle_run_json(workdir, cfg_path, target, max_length)
+    dense_cfg = workdir / "draft-dense.json"
+    dense_cfg.write_text(json.dumps({**raw_cfg, "attention_backend": "dense"}))
+    runs = workdir / "runs"
+    overrides = list(overrides)
+
+    def trainer_for(*extra):
+        config = load_config(str(run_json), overrides + list(extra))
+        return build_training_run(config, device=None if on_card else device)
+
+    def free():
+        if on_card:
+            torch.cuda.empty_cache()
+
+    # the main path
+    results = {}
+    for fn in PEAGLE_COUNTERS.values():
+        fn.launches = 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    device_args = [] if on_card else ["--device", str(device)]
+    rc = cli.main(["train", "-c", str(run_json), *device_args,
+                   *[a for o in overrides for a in ("--set", o)]])
+    sync()
+    counts = {n: fn.launches for n, fn in PEAGLE_COUNTERS.items()}
+    if rc != 0:
+        raise AssertionError(f"cli train exited {rc}")
+    results["main_path_s"] = time.perf_counter() - t0
+    if on_card:
+        results["main_path_peak_bytes"] = torch.cuda.max_memory_allocated()
+    kernel_steps = step_records(runs, "peagle")
+    final_dir = Path(CheckpointManager.resolve_step_dir(str(runs)))
+    results["checkpoint"] = {
+        "dir": final_dir.name,
+        "bytes": sum(f.stat().st_size for f in final_dir.rglob("*")
+                     if f.is_file()),
+    }
+    final = CheckpointManager.load_state(str(final_dir))["params"]
+    shutil.rmtree(final_dir)
+
+    # a fresh kernel-path trainer: step 1's gradients, the same 4 steps
+    # timed, then the micro-step and optimizer timings
+    trainer = trainer_for('run_id="kernel"', "training.save_interval=0")
+    window = first_window(trainer)
+    init_embed = trainer.state.params[EMBED_PATH].detach().to("cpu",
+                                                                copy=True)
+    loss_k, grads_k, uids = peagle_window_grads(trainer, window)
+    after_step1 = {}
+
+    def keep_embed(t):
+        after_step1["sparse"] = t.state.params[EMBED_PATH].detach().to(
+            "cpu", copy=True)
+
+    timed = timed_windows(trainer, sync, keep_embed)
+    repeat_exact = all(torch.equal(trainer.state.params[n].detach().cpu(), w)
+                       for n, w in final.items())
+    if not repeat_exact:
+        raise AssertionError("a second run of the same 4 steps did not "
+                             "reach the cli run's weights bit-exactly")
+    results["repeat_bit_exact"] = repeat_exact
+    results["step_ms"] = [r["step_ms"] for r in timed]
+    results["optimizer_step_ms_median_steps_2_4"] = statistics.median(
+        results["step_ms"][1:])
+    del timed
+    results.update(measure_kernel_path(trainer, window, sync))
+    del trainer
+    free()
+
+    # resume from the step-2 checkpoint: the final weights bit-exactly
+    resumed = trainer_for('run_id="resumed"', "training.save_interval=0",
+                          f"training.resume_from={runs / 'peagle-step2'}")
+    resumed.fit()
+    exact = all(torch.equal(resumed.state.params[n].detach().cpu(), w)
+                for n, w in final.items())
+    worst = max(rel_max_err(resumed.state.params[n].detach().cpu(), w)
+                for n, w in final.items())
+    if not exact:
+        raise AssertionError(f"resumed weights differ from the uninterrupted "
+                             f"run's (max|err| / max|w| {worst})")
+    results["resume"] = {"from": "peagle-step2", "steps": resumed.state.step,
+                         "bit_exact": exact, "max_rel_err": worst}
+    del resumed, final
+    shutil.rmtree(runs, ignore_errors=True)
+    free()
+
+    # step 1 with the dense embedding update: the same touched rows, and no
+    # other row moves in either run
+    dense = trainer_for('run_id="dense_embed"', "training.save_interval=0",
+                        "training.row_sparse_embedding=false")
+    dense.state, _ = dense.train_step(dense.state, stack_window(window),
+                                      dense.frozen)
+    after_step1["dense"] = dense.state.params[EMBED_PATH].detach().to(
+        "cpu", copy=True)
+    del dense
+    free()
+    touched = torch.zeros(init_embed.shape[0], dtype=torch.bool)
+    touched[uids] = True
+    moved = {k: e - init_embed for k, e in after_step1.items()}
+    for name, delta in moved.items():
+        if delta[~touched].any():
+            raise AssertionError(f"the {name} embedding update moved a row "
+                                 "no token of the window embeds")
+    diff = max_err(after_step1["sparse"][touched],
+                   after_step1["dense"][touched])
+    update = float(moved["dense"][touched].abs().max())
+    embed_err = diff / float(after_step1["dense"][touched].abs().max())
+    check("row-sparse vs dense embedding rows (max|err| / max|row|)",
+          embed_err, EMBED_UPDATE_RTOL)
+    results["embedding_update"] = {
+        "touched_rows": int(touched.sum()), "max_update": update,
+        "sparse_vs_dense_rel_err": embed_err, "rtol": EMBED_UPDATE_RTOL,
+        "err_over_max_update": diff / update,
+        "untouched_rows_unchanged": True}
+    del after_step1, moved, init_embed
+
+    # the plain path from the same initial weights and samples: the dense
+    # masked attention and the reference CE, no kernel of the port
+    plain = trainer_for(f'model.draft_config_path="{dense_cfg}"',
+                        'run_id="plain"', "training.save_interval=0")
+    plain.strategy.model.loss_fn = log_softmax_loss_reference
+    for fn in PEAGLE_COUNTERS.values():
+        fn.launches = 0
+    loss_p, grads_p, uids_p = peagle_window_grads(plain, window)
+    if not torch.equal(uids, uids_p):
+        raise AssertionError("the plain path embedded other rows")
+    check("step-1 loss, kernel vs plain", abs(loss_k - loss_p) / abs(loss_p),
+          TRAIN_STEP1_RTOL)
+    results["step1"] = {"loss": loss_k, "plain_loss": loss_p}
+    results["step1_grads"] = compare_grads(grads_k, grads_p)
+    del grads_k, grads_p
+    plain_steps = train_windows(plain)
+    results["plain_path_launches"] = {n: fn.launches
+                                      for n, fn in PEAGLE_COUNTERS.items()}
+    if any(results["plain_path_launches"].values()):
+        raise AssertionError("the plain path launched a kernel of the port")
+    del plain
+    free()
+    results["loss_curve"] = compare_curves(kernel_steps, plain_steps)
+    results["optimizer_steps"] = len(kernel_steps)
+    results["micro_batches"] = len(kernel_steps) * ACCUM
+    t = load_config(str(run_json), overrides).training
+    t_rows = sum(cod_capacities(max_length, t.num_depths,
+                                t.down_sample_ratio, t.down_sample_ratio_min))
+    ms = results["micro_step_ms"]
+    results["sampled_rows_per_micro_batch"] = BATCH * t_rows
+    results["tokens_per_s"] = BATCH * max_length / (ms / 1e3)
+    results["sampled_rows_per_s"] = BATCH * t_rows / (ms / 1e3)
+
+    # one optimizer step over packed rows: 4 documents to a row
+    packed = trainer_for('run_id="packed"', "training.save_interval=0",
+                         "data.pack_documents=true",
+                         f"data.docs_per_row={DOCS_PER_ROW}",
+                         f'data.train_data_path="{workdir / "packed"}"')
+    batches = first_window(packed)
+    docs = [int((b["lengths"] > 0).sum()) for b in batches]
+    if docs != [BATCH * DOCS_PER_ROW] * ACCUM:
+        raise AssertionError(f"packed micro-batches hold {docs} documents")
+    steps = timed_windows(packed, sync)
+    if len(steps) != 1 or not math.isfinite(steps[0]["train/loss"]):
+        raise AssertionError(f"packed step: {steps}")
+    results["packed_step"] = {
+        "documents_per_micro_batch": docs, "loss": steps[0]["train/loss"],
+        "grad_norm": steps[0]["train/grad_norm"],
+        "step_ms": steps[0]["step_ms"]}
+    del packed
+    free()
+    shutil.rmtree(runs, ignore_errors=True)
+    return results, counts
+
+
+def check_peagle_counts(counts: dict, micro_batches: int, layers: int) -> None:
+    """Exactly one launch of each COD kernel per layer and micro-batch, and
+    one of each fused CE kernel per micro-batch."""
+    for name, n in counts.items():
+        per = 1 if name.startswith("fused_ce") else layers
+        if n != per * micro_batches:
+            raise AssertionError(
+                f"{name}: {n} launches, expected {per * micro_batches} "
+                f"({per} per micro-batch)")
+
+
 def check_family_counts(counts: dict, micro_batches: int, layers: int) -> None:
     """Exactly one launch of each DFlash kernel per layer and micro-batch."""
     for name, n in counts.items():
@@ -1589,6 +2135,8 @@ def main() -> int:
     kernels += [ce_backward_phase(gen), *attention_backward_phase(gen)]
     torch.cuda.empty_cache()
     kernels += dflash_kernel_phase(gen)
+    torch.cuda.empty_cache()
+    kernels += cod_kernel_phase(gen)
     torch.cuda.empty_cache()
 
     cfg = Eagle3Config.from_file(CONFIG)
@@ -1653,9 +2201,30 @@ def main() -> int:
                              "grad_norm_rtol": GRAD_NORM_RTOL},
               **results})
         torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        results, peagle_counts = run_peagle_training(
+            PEAGLE_CONFIG, torch.device("cuda"), args.seed, Path(tmp))
+    layers = json.loads(PEAGLE_CONFIG.read_text())["num_hidden_layers"]
+    check_peagle_counts(peagle_counts, results["micro_batches"], layers)
+    emit({"phase": "peagle_training",
+          "config": str(PEAGLE_EXAMPLE.relative_to(REPO)),
+          "draft_config": str(PEAGLE_CONFIG.relative_to(REPO)),
+          "batch": BATCH, "max_length": 1024, "accumulation_steps": ACCUM,
+          "row_sparse_embedding": True, "launches": peagle_counts,
+          "tolerances": {"step1_loss_rtol": TRAIN_STEP1_RTOL,
+                         "later_loss_rtol": TRAIN_DRIFT_RTOL,
+                         "grad_cosine": GRAD_COSINE,
+                         "grad_norm_rtol": GRAD_NORM_RTOL,
+                         "embedding_update_rtol": EMBED_UPDATE_RTOL},
+          **results})
+    torch.cuda.empty_cache()
     # each kernel's launches from its own main path: the EAGLE3 kernels from
-    # the EAGLE3 training run, the DFlash kernels from the Domino run
+    # the EAGLE3 training run, the DFlash kernels from the Domino run, the
+    # COD kernels from the P-EAGLE run
     counts.update(family_counts["domino"])
+    counts.update({k: v for k, v in peagle_counts.items()
+                   if k.startswith("cod_")})
     for k in kernels:
         k["launches"] = counts[k["name"]]
         k["kernel_ms"] = k["ms"]

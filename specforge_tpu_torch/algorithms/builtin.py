@@ -1,9 +1,11 @@
-"""Built-in algorithm registrations of the port: eagle3, dflash, domino.
+"""Built-in algorithm registrations of the port: eagle3, dflash, domino,
+peagle.
 
 Counterpart of ``specforge_tpu/algorithms/builtin.py``, for EAGLE3 (and
-EAGLE3.1, which is eagle3 with ``fc_norm: true`` in the draft config) and
-the DFlash family's dflash and domino. The JAX package's other algorithms
-are known by name and refused with the slice of the port that brings them.
+EAGLE3.1, which is eagle3 with ``fc_norm: true`` in the draft config), the
+DFlash family's dflash and domino, and P-EAGLE. The JAX package's other
+algorithms are known by name and refused with the slice of the port that
+brings them.
 """
 
 from __future__ import annotations
@@ -30,7 +32,6 @@ from specforge_tpu_torch.algorithms.registry import (
 QUEUED = {
     "dspark": "the DSpark draft, after the P-EAGLE and USP slices "
               "(ROADMAP.md, Queue 1 item 4)",
-    "peagle": "slice 4, P-EAGLE (ROADMAP.md, Queue 1 item 5)",
 }
 
 
@@ -221,5 +222,87 @@ DOMINO = _dflash_registration("domino", "DominoDraftModel",
                               "OnlineDominoModel", "DominoTrainStrategy")
 
 
+# --- peagle ----------------------------------------------------------------
+
+def _peagle_build_draft(config_dict: Dict[str, Any], dtype=torch.bfloat16,
+                        attention_backend: str = "auto", device=None,
+                        seed: int = 0):
+    """P-EAGLE reads its attention backend from the draft config ("auto" or
+    "pallas": the COD kernels; "dense": the masked [B, T, T] path), as the
+    JAX package does."""
+    from specforge_tpu_torch.models.draft.peagle import (
+        PEagleConfig,
+        PEagleDraftModel,
+    )
+
+    config = PEagleConfig.from_dict(config_dict)
+    draft = PEagleDraftModel(
+        config, dtype=dtype,
+        attention_backend=config_dict.get("attention_backend", "auto"),
+        device=device, seed=seed,
+    )
+    return draft, config
+
+
+def _peagle_build_training_model(draft, options: Dict[str, Any]):
+    from specforge_tpu_torch.algorithms.peagle.model import OnlinePEagleModel
+
+    return OnlinePEagleModel(
+        draft,
+        mask_token_id=int(options.get("mask_token_id") or 0),
+        num_depths=int(options.get("num_depths", 8)),
+        down_sample_ratio=float(options.get("down_sample_ratio", 0.7)),
+        down_sample_ratio_min=float(options.get("down_sample_ratio_min", 0.2)),
+    )
+
+
+def _peagle_build_strategy(model, options: Dict[str, Any]):
+    from specforge_tpu_torch.training.strategies import PEagleTrainStrategy
+
+    return PEagleTrainStrategy(model, seed=int(options.get("seed", 0)))
+
+
+PEAGLE = AlgorithmRegistration(
+    spec=AlgorithmSpec(
+        name="peagle",
+        draft=DraftRequirement(
+            compatible_architectures=frozenset({"PEagleDraftModel"}),
+            default_architecture="PEagleDraftModel",
+        ),
+        feature_contracts=(
+            FeatureContract(
+                mode=FeatureMode.OFFLINE,
+                required_features=frozenset(
+                    {"input_ids", "loss_mask", "hidden_state", "target"}
+                ),
+                target_representation="hidden_state",
+            ),
+            FeatureContract(
+                mode=FeatureMode.STREAMING,
+                required_features=frozenset(
+                    {"input_ids", "loss_mask", "hidden_state", "target"}
+                ),
+                target_representation="logits",
+            ),
+        ),
+        offline_schema=OfflineStorageSchema(
+            format="specforge_hidden_states_v1",
+            feature_names=("input_ids", "loss_mask", "hidden_state", "target"),
+            aux_feature="hidden_state",
+            last_hidden_feature="target",
+        ),
+        capabilities=AlgorithmCapabilities(
+            supports_vocab_mapping=True, max_batch_size=1
+        ),
+    ),
+    providers=AlgorithmProviders(
+        build_draft=_peagle_build_draft,
+        build_training_model=_peagle_build_training_model,
+        build_strategy=_peagle_build_strategy,
+        frozen_requirements=frozenset({"target_head_weight"}),
+    ),
+)
+
+
 def builtin_algorithm_registry() -> AlgorithmRegistry:
-    return AlgorithmRegistry([EAGLE3, DFLASH, DOMINO], queued=QUEUED)
+    return AlgorithmRegistry([EAGLE3, DFLASH, DOMINO, PEAGLE], queued=QUEUED)

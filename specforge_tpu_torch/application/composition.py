@@ -1,17 +1,18 @@
 """Composition root: Config → runnable training run, on one device.
 
 Counterpart of ``specforge_tpu/application/composition.py`` for offline
-runs of EAGLE3 and the DFlash family (dflash, domino): resolves the
+runs of EAGLE3, the DFlash family (dflash, domino) and P-EAGLE: resolves the
 algorithm registration, builds the draft, training model and strategy
 through the providers, loads the frozen target tables and the vocab mapping
-(from a file, or derived from the training features), wires the
-``PaddingCollator`` loaders and the tracker, and returns the
-:class:`Trainer`. EAGLE3 copies the target embedding into its draft and
-freezes it (the frozen table cast to bf16); the DFlash family reads the
+(from a file, or derived from the training features), wires the loaders
+(``PaddingCollator``, or ``PackingCollator`` under ``data.pack_documents``)
+and the tracker, and returns the :class:`Trainer`. EAGLE3 copies the target
+embedding into its draft and freezes it (the frozen table cast to bf16);
+P-EAGLE copies it too but trains it in fp32; the DFlash family reads the
 target head and embedding from ``frozen`` at every step and trains every
-draft parameter. What the port has not reached yet (a mesh, USP, document
-packing, online runs, other algorithms, a warm start, an eval pass for the
-DFlash family) is refused with the slice that brings it.
+draft parameter. What the port has not reached yet (a mesh, USP, online
+runs, other algorithms, a warm start, an eval pass for the DFlash family and
+P-EAGLE) is refused with the slice that brings it.
 """
 
 from __future__ import annotations
@@ -28,7 +29,12 @@ from specforge_tpu_torch.algorithms.builtin import builtin_algorithm_registry
 from specforge_tpu_torch.algorithms.contracts import FeatureMode
 from specforge_tpu_torch.algorithms.registry import AlgorithmRegistration
 from specforge_tpu_torch.config.schema import Config
-from specforge_tpu_torch.data.collator import CollatorConfig, PaddingCollator
+from specforge_tpu_torch.data.collator import (
+    CollatorConfig,
+    PackingCollator,
+    PackingCollatorConfig,
+    PaddingCollator,
+)
 from specforge_tpu_torch.runtime.data_plane.feature_dataloader import (
     FeatureDataLoader,
 )
@@ -110,11 +116,6 @@ def _refuse_unported(config: Config) -> None:
             f"a training mesh (dp_size={t.dp_size}, fsdp_size={t.fsdp_size}) "
             "comes with the parallelism slice (ROADMAP.md, Queue 1 item 6)"
         )
-    if config.data.pack_documents:
-        raise NotImplementedError(
-            "data.pack_documents comes with the P-EAGLE slice (ROADMAP.md, "
-            "Queue 1 item 5)"
-        )
     if config.model.draft_checkpoint_path:
         raise NotImplementedError(
             "model.draft_checkpoint_path (warm_start_draft) is not ported "
@@ -143,6 +144,10 @@ def _strategy_options(config: Config) -> Dict[str, Any]:
         "lambda_start": t.lambda_base_start,
         "decay_ratio": t.lambda_base_decay_ratio,
         "mask_token_id": t.mask_token_id,
+        # peagle
+        "num_depths": t.num_depths,
+        "down_sample_ratio": t.down_sample_ratio,
+        "down_sample_ratio_min": t.down_sample_ratio_min,
         "seed": t.seed,
     }
 
@@ -209,7 +214,14 @@ def build_training_run(config: Config, registry=None, frozen_override=None,
     if config.data.eval_data_path and not hasattr(strategy, "eval_outputs"):
         raise NotImplementedError(
             f"an eval pass for {t.strategy!r}: the JAX strategies of the "
-            "DFlash family define none (ROADMAP.md, Queue 1 item 4)"
+            "DFlash family and P-EAGLE define none (ROADMAP.md, Queue 1 "
+            "item 4)"
+        )
+    if config.data.pack_documents and not getattr(
+            strategy, "supports_packed_documents", False):
+        raise ValueError(
+            "data.pack_documents requires a strategy that consumes document "
+            f"boundaries (P-EAGLE); {t.strategy!r} does not"
         )
 
     frozen = (
@@ -221,13 +233,15 @@ def build_training_run(config: Config, registry=None, frozen_override=None,
     if mapping is not None:
         draft.set_vocab_maps(*mapping)
     trainable_mask = None
-    if t.strategy == "eagle3":
-        # the EAGLE3 contract: the draft embedding is target-copied and
-        # frozen; the table is then not carried through every step
+    if t.strategy in ("eagle3", "peagle"):
+        # the draft embedding is target-copied; the table is then not
+        # carried through every step. EAGLE3 freezes it (in bf16); P-EAGLE
+        # trains it in fp32
         embed = frozen.pop("target_embed_weight", None)
         if embed is not None and embed.shape == draft.embed_tokens.weight.shape:
             with torch.no_grad():
                 draft.embed_tokens.weight.copy_(embed)
+    if t.strategy == "eagle3":
         trainable_mask = embedding_freeze_mask(model)
         cast_frozen_to(model, trainable_mask, torch.bfloat16)
     # loaded tables are bf16 already; an override keeps its dtype, as in
@@ -243,14 +257,22 @@ def build_training_run(config: Config, registry=None, frozen_override=None,
     # bytes and turns the teacher's head product into an fp32 FFMA GEMM.
     # The values are the same: every consumer casts to its compute dtype,
     # and the teacher accumulates in fp32 either way.
-    collate = PaddingCollator(CollatorConfig(max_length=config.data.max_length))
+    if config.data.pack_documents:
+        collate = PackingCollator(PackingCollatorConfig(
+            max_length=config.data.max_length, rows=t.batch_size,
+            max_docs_per_row=config.data.docs_per_row))
+        loader_batch = t.batch_size * config.data.docs_per_row
+    else:
+        collate = PaddingCollator(
+            CollatorConfig(max_length=config.data.max_length))
+        loader_batch = t.batch_size
     metadata = {"target_repr": contract.target_representation}
 
     def make_loader(root):
         return FeatureDataLoader(
             FileFeatureStore(), collate,
             refs=OfflineManifestReader(root).read(),
-            batch_size=t.batch_size, num_workers=config.data.num_workers,
+            batch_size=loader_batch, num_workers=config.data.num_workers,
             prefetch_batches=config.data.prefetch_batches, metadata=metadata,
         )
 

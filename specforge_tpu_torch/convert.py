@@ -3,15 +3,15 @@
 :func:`params_from_jax` takes the flax variable tree as numpy arrays (the
 caller runs ``jax.device_get``; this package never imports JAX) and returns
 the ``state_dict`` of the port's counterpart (``OnlineEagle3Model``,
-``OnlineDFlashModel`` or ``OnlineDominoModel``):
+``OnlineDFlashModel``, ``OnlineDominoModel`` or ``OnlinePEagleModel``):
 
 - a flax ``Dense`` kernel, a ``MergedProj`` kernel and a ``KernelParam``
   kernel are [in, out] and become torch's [out, in] weight (Domino's
   ``embed_proj_1`` kernel [emb, V], used as ``act @ kernel`` in JAX, is the
   port's [V, emb] weight used as ``act @ weight^T``: the same product);
-- a bias, ``nn.Embed``'s ``embedding``, RMSNorm's ``weight`` and the GRU's
-  ``weight_ih``/``weight_hh`` (already torch's [3·hd, in] layout) keep
-  their layout;
+- a bias, ``nn.Embed``'s ``embedding``, RMSNorm's ``weight``, the GRU's
+  ``weight_ih``/``weight_hh`` (already torch's [3·hd, in] layout) and
+  P-EAGLE's ``mask_hidden`` [1, 1, 3·hidden] keep their layout;
 - the merged ``qkv_proj`` and ``gate_up_proj`` stay merged, as in the JAX
   drafts;
 - the ``buffers`` collection (``t2d``, ``d2t``) becomes module buffers.
@@ -50,7 +50,7 @@ def params_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             state[f"{stem}.weight"] = torch.from_numpy(
                 np.ascontiguousarray(arr.astype(np.float32))
             )
-        elif leaf in ("bias", "weight_ih", "weight_hh"):
+        elif leaf in ("bias", "weight_ih", "weight_hh", "mask_hidden"):
             state[name] = torch.from_numpy(
                 np.ascontiguousarray(arr.astype(np.float32))
             )

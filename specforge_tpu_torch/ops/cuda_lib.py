@@ -29,7 +29,8 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 
 #: every kernel source of the library; tests check that csrc/ holds no other
-SOURCES = ("ttt_attention.cu", "fused_ce.cu", "dflash_attention.cu")
+SOURCES = ("ttt_attention.cu", "fused_ce.cu", "dflash_attention.cu",
+           "peagle_attention.cu")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -144,6 +145,16 @@ def library() -> ctypes.CDLL:
                 fn = getattr(lib, name)
                 fn.argtypes = [p, p, p, p, p, p, p, p, *[p] * n_out,
                                *[i] * 8, p]
+                fn.restype = i
+            # tensors (3 pointers), strides (9 int64), props, tiles, ...
+            lib.cod_attention_fwd.argtypes = [p, p, p, p, p, p, p,
+                                              *[i] * 5, p]
+            lib.cod_attention_fwd.restype = i
+            for name, n_out in (("cod_attention_bwd_dq", 1),
+                                ("cod_attention_bwd_dkv", 2)):
+                fn = getattr(lib, name)
+                fn.argtypes = [p, p, p, p, p, p, p, p, *[p] * n_out,
+                               *[i] * 5, p]
                 fn.restype = i
             lib.specforge_cuda_error_string.argtypes = [i]
             lib.specforge_cuda_error_string.restype = ctypes.c_char_p

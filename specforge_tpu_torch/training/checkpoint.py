@@ -4,8 +4,11 @@ Counterpart of ``specforge_tpu/training/checkpoint.py``, with the same names
 and layout; the orbax pytree becomes one ``torch.save`` file:
 
     {output_dir}/{run_id}-step{N}/state/state.pt  — trainable fp32 masters,
-                                                    buffers, optimizer state,
-                                                    step
+                                                    buffers, optimizer state
+                                                    (dense, factored and
+                                                    row-sparse moments as
+                                                    the optimizer keeps
+                                                    them), step
     {output_dir}/{run_id}-step{N}/contract.json   — resume contract + progress
     {output_dir}/{run_id}.latest                  — step number of newest save
     {output_dir}/{run_id}.best_meta.json          — best eval metric + step

@@ -12,14 +12,25 @@ functions on tensors with optax's semantics (not ``torch.optim.AdamW`` and
   ``+ weight_decay · p`` and ``· -lr`` with the schedule read at the count
   *before* the increment (``optax.scale_by_learning_rate``);
 - ``moments_dtype="bfloat16"`` stores both moments in bf16 and accumulates
-  in fp32 each step (the JAX package's ``_scale_by_adam_lowp_moments``).
+  in fp32 each step (the JAX package's ``_scale_by_adam_lowp_moments``);
+- ``factored_second_moments`` keeps, for a tensor with ndim >= 2 and both
+  trailing dims >= ``factored_min_dim``, row and column EMAs of g² instead
+  of a dense second moment, ``nu_hat = R C^T / sum(R)`` (Adafactor's
+  factorisation inside Adam: ``_scale_by_factored_adam``); the row and
+  column EMAs stay fp32 whatever ``moments_dtype`` is, and with
+  ``adam_b1 == 0`` no first moment is kept at all;
+- ``row_sparse_embedding`` (which needs factored moments, ``adam_b1 = 0``
+  and ``weight_decay = 0``, so that untouched rows get exactly no update)
+  updates only the embedding rows a window touched
+  (:func:`sparse_embed_update`), from their gradients summed per row
+  (:func:`segment_sum_rows`); the train step forms no dense [V, H]
+  gradient on that path.
 
 Parameters *are* the fp32 masters; the update is applied to them in place,
 which saves a second copy of every master. Frozen leaves (the
 target-copied embedding) are not handed to the optimizer at all: they get
 no state and no update, as under optax's ``multi_transform`` with
-``set_to_zero``. Factored second moments and the row-sparse embedding
-update belong to P-EAGLE and come with that slice.
+``set_to_zero``.
 """
 
 from __future__ import annotations
@@ -34,9 +45,6 @@ from torch import nn
 
 Tensors = Dict[str, torch.Tensor]
 
-P_EAGLE_SLICE = "the P-EAGLE slice (ROADMAP.md, Queue 1 item 5)"
-
-
 @dataclass(frozen=True)
 class OptimizerConfig:
     lr: float = 1e-4
@@ -50,9 +58,10 @@ class OptimizerConfig:
     #: dtype of the Adam first/second moments ("float32" or "bfloat16");
     #: fp32 masters are kept either way
     moments_dtype: str = "float32"
-    #: Adafactor-style factored second moments (P-EAGLE; not ported yet)
+    #: Adafactor-style rank-1 second moments for large matrices
     factored_second_moments: bool = False
-    #: row-sparse embedding update (P-EAGLE; not ported yet)
+    factored_min_dim: int = 128
+    #: update only the embedding rows a window touched (P-EAGLE)
     row_sparse_embedding: bool = False
 
 
@@ -106,13 +115,22 @@ def clip_by_global_norm(
 class AdamW:
     """Clip-by-global-norm → AdamW with the warmup schedule
     (``build_optimizer`` of the JAX package). State is a plain dict:
-    ``{"count": int, "mu": {name: tensor}, "nu": {name: tensor}}``."""
+    ``{"count": int, "mu": {name: tensor}, "nu": {...}, "nu_row": {...},
+    "nu_col": {...}}``; each moment dict holds the tensors that keep that
+    moment (``nu_row``/``nu_col`` only the factored ones, ``mu`` none when
+    factored with ``adam_b1 == 0``)."""
 
     def __init__(self, config: OptimizerConfig, total_steps: int):
-        if config.factored_second_moments or config.row_sparse_embedding:
-            raise NotImplementedError(
-                "factored second moments and the row-sparse embedding update "
-                f"are not ported yet; they come with {P_EAGLE_SLICE}"
+        if config.row_sparse_embedding and (
+            not config.factored_second_moments
+            or config.adam_b1 != 0.0
+            or config.weight_decay != 0.0
+        ):
+            raise ValueError(
+                "row_sparse_embedding requires factored_second_moments=True, "
+                "adam_b1=0 and weight_decay=0 (untouched rows must receive "
+                "exactly zero update for the sparse path to equal the dense "
+                "one)"
             )
         if config.moments_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"unsupported moments_dtype {config.moments_dtype!r}")
@@ -120,21 +138,40 @@ class AdamW:
         self.schedule = build_lr_schedule(config, total_steps)
         self.moments_dtype = getattr(torch, config.moments_dtype)
 
-    def init(self, params: Mapping[str, torch.Tensor]) -> dict:
-        def zeros():
-            return {k: torch.zeros_like(p, dtype=self.moments_dtype)
-                    for k, p in params.items()}
+    def is_factored(self, p: torch.Tensor) -> bool:
+        return (self.config.factored_second_moments and p.dim() >= 2
+                and min(p.shape[-2:]) >= self.config.factored_min_dim)
 
-        return {"count": 0, "mu": zeros(), "nu": zeros()}
+    def init(self, params: Mapping[str, torch.Tensor]) -> dict:
+        dt = self.moments_dtype
+        keep_mu = not (self.config.factored_second_moments
+                       and self.config.adam_b1 == 0.0)
+        fact = {k: p for k, p in params.items() if self.is_factored(p)}
+        return {
+            "count": 0,
+            "mu": ({k: torch.zeros_like(p, dtype=dt)
+                    for k, p in params.items()} if keep_mu else {}),
+            "nu": {k: torch.zeros_like(p, dtype=dt)
+                   for k, p in params.items() if k not in fact},
+            "nu_row": {k: torch.zeros(p.shape[:-1], device=p.device)
+                       for k, p in fact.items()},
+            "nu_col": {k: torch.zeros(p.shape[:-2] + p.shape[-1:],
+                                      device=p.device)
+                       for k, p in fact.items()},
+        }
 
     @torch.no_grad()
     def step(self, params: Mapping[str, torch.Tensor], grads: Tensors,
-             state: dict, grad_norm: Optional[torch.Tensor] = None) -> dict:
+             state: dict, grad_norm: Optional[torch.Tensor] = None,
+             clip: bool = True) -> dict:
         """Apply one update to ``params`` in place → the new state.
         ``grads`` are fp32; ``grad_norm`` (their global norm) is reused by
-        the clip when given."""
+        the clip when given; ``clip=False`` takes grads the caller has
+        clipped already (the row-sparse path, whose norm spans the
+        embedding rows too)."""
         cfg = self.config
-        grads = clip_by_global_norm(grads, cfg.max_grad_norm, grad_norm)
+        if clip:
+            grads = clip_by_global_norm(grads, cfg.max_grad_norm, grad_norm)
         b1, b2, eps, wd = cfg.adam_b1, cfg.adam_b2, cfg.adam_eps, cfg.weight_decay
         count = state["count"] + 1
         c = torch.tensor(float(count), dtype=torch.float32)
@@ -142,24 +179,99 @@ class AdamW:
         bc2 = 1 - torch.tensor(b2, dtype=torch.float32) ** c
         lr = -self.schedule(state["count"])
         lowp = self.moments_dtype != torch.float32
-        mu_new, nu_new = {}, {}
+        new = {"count": count, "mu": {}, "nu": {}, "nu_row": {}, "nu_col": {}}
         for name, p in params.items():
             g = grads[name]
             bc1d, bc2d = bc1.to(p.device), bc2.to(p.device)
-            if lowp:
+            if cfg.factored_second_moments:
+                u = self._factored(name, g, state, new, bc1d, bc2d)
+            elif lowp:
                 mu = (b1 * state["mu"][name].float() + (1 - b1) * g).to(
                     self.moments_dtype)
                 nu = (b2 * state["nu"][name].float() + (1 - b2) * g * g).to(
                     self.moments_dtype)
                 u = (mu.float() / bc1d) / (torch.sqrt(nu.float() / bc2d) + eps)
+                new["mu"][name], new["nu"][name] = mu, nu
             else:
                 mu = (1 - b1) * g + b1 * state["mu"][name]
                 nu = (1 - b2) * (g * g) + b2 * state["nu"][name]
                 u = (mu / bc1d) / (torch.sqrt(nu / bc2d) + eps)
+                new["mu"][name], new["nu"][name] = mu, nu
             u = u + wd * p
             p.add_(torch.tensor(lr, dtype=torch.float32, device=p.device) * u)
-            mu_new[name], nu_new[name] = mu, nu
-        return {"count": count, "mu": mu_new, "nu": nu_new}
+        return new
+
+    def _factored(self, name, g, state, new, bc1, bc2) -> torch.Tensor:
+        """The update of one tensor under factored second moments
+        (``_scale_by_factored_adam``), its new moments into ``new``."""
+        b1, b2, eps = self.config.adam_b1, self.config.adam_b2, self.config.adam_eps
+        f32, dt = torch.float32, self.moments_dtype
+        mhat = g
+        if b1 > 0.0:
+            mu = (b1 * state["mu"][name].to(f32) + (1 - b1) * g).to(dt)
+            new["mu"][name] = mu
+            mhat = mu.to(f32) / bc1
+        if name in state["nu_row"]:
+            gg = g * g
+            r = b2 * state["nu_row"][name] + (1 - b2) * gg.sum(dim=-1)
+            cv = b2 * state["nu_col"][name] + (1 - b2) * gg.sum(dim=-2)
+            new["nu_row"][name], new["nu_col"][name] = r, cv
+            denom = torch.clamp(r.sum(dim=-1, keepdim=True)[..., None],
+                                min=1e-30)
+            vhat = (r[..., :, None] * cv[..., None, :]) / denom
+        else:
+            nu = (b2 * state["nu"][name].to(f32) + (1 - b2) * g * g).to(dt)
+            new["nu"][name] = nu
+            vhat = nu.to(f32)
+        return mhat / (torch.sqrt(vhat / bc2) + eps)
+
+
+def init_sparse_embed_state(table: torch.Tensor) -> dict:
+    """Factored-Adam state of a row-sparse-updated [V, H] table: O(V) + O(H)
+    vectors, ``{"count": int, "nu_row": [V] fp32, "nu_col": [H] fp32}``."""
+    v, h = table.shape
+    return {"count": 0,
+            "nu_row": torch.zeros(v, device=table.device),
+            "nu_col": torch.zeros(h, device=table.device)}
+
+
+def segment_sum_rows(ids: torch.Tensor, rows: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Sum the rows of duplicate ids → (unique ids [U] ascending, summed
+    rows [U, H]). The rows of each id are added in their order, one
+    sequential sum per output element (``segment_reduce``), so two runs
+    give the same bits on any device."""
+    ids = ids.reshape(-1).to(torch.int64)
+    order = torch.argsort(ids, stable=True)
+    uids, counts = torch.unique_consecutive(ids[order], return_counts=True)
+    summed = torch.segment_reduce(rows[order], "sum", lengths=counts, axis=0)
+    return uids, summed
+
+
+@torch.no_grad()
+def sparse_embed_update(config: OptimizerConfig, schedule: Callable,
+                        state: dict, table: torch.Tensor, uids: torch.Tensor,
+                        g_rows: torch.Tensor) -> dict:
+    """One factored-Adam step on the ``uids`` rows of ``table`` (the fp32
+    master, updated in place) from their summed, normalised and
+    clip-scaled gradients ``g_rows`` [U, H] → the new state. Untouched rows
+    get no update (the dense path's g = 0 there) while their ``nu_row``
+    decays by b2, as in the dense factored step."""
+    b2, eps = config.adam_b2, config.adam_eps
+    count = state["count"] + 1
+    c = torch.tensor(float(count), dtype=torch.float32)
+    bc2 = (1 - torch.tensor(b2, dtype=torch.float32) ** c).to(table.device)
+    gg = g_rows * g_rows
+    nu_row = b2 * state["nu_row"]
+    nu_row.index_add_(0, uids, (1.0 - b2) * gg.sum(dim=1))
+    nu_col = b2 * state["nu_col"] + (1.0 - b2) * gg.sum(dim=0)
+    denom = torch.clamp(nu_row.sum(), min=1e-30)
+    vhat = nu_row[uids][:, None] * nu_col[None, :] / denom
+    update = g_rows / (torch.sqrt(vhat / bc2) + eps)
+    lr = torch.tensor(schedule(state["count"]), dtype=torch.float32,
+                      device=table.device)
+    table.index_add_(0, uids, -lr * update)
+    return {"count": count, "nu_row": nu_row, "nu_col": nu_col}
 
 
 def build_optimizer(config: OptimizerConfig, total_steps: int) -> AdamW:

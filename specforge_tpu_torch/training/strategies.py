@@ -1,10 +1,10 @@
 """Training strategies: TrainBatch tensors → loss + metrics.
 
 Counterpart of ``specforge_tpu/training/strategies.py`` (``StepOutput``,
-``linear_lambda_base`` and the EAGLE3, DFlash and Domino strategies). The
-JAX strategy receives its parameters explicitly; here the strategy holds the
-training model, whose parameters live on its device, and moves each batch
-there. ``forward_loss`` may be handed substitute tensors for the model's
+``linear_lambda_base`` and the EAGLE3, DFlash, Domino and P-EAGLE
+strategies). The JAX strategy receives its parameters explicitly; here the
+strategy holds the training model, whose parameters live on its device, and
+moves each batch there. ``forward_loss`` may be handed substitute tensors for the model's
 parameters (the train step's once-per-micro-step cast copies), which it
 applies through ``torch.func.functional_call``.
 """
@@ -17,6 +17,10 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from specforge_tpu_torch.algorithms.peagle.model import (
+    document_ids_from_lengths,
+    generate_cod_sample_indices,
+)
 from specforge_tpu_torch.models.target.head import (
     apply_target_head,
     target_head_preprocess,
@@ -39,6 +43,9 @@ class StepOutput:
         default_factory=dict
     )
     loss_terms: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    #: non-logged passthrough tensors the train step may consume (the
+    #: embedded-token row ids of the row-sparse embedding update)
+    aux: Dict[str, torch.Tensor] = field(default_factory=dict)
 
 
 @dataclass(frozen=True)
@@ -67,6 +74,14 @@ def _validate_batch(strategy, tensors: Dict[str, Any]) -> None:
             f"{strategy.name} batch missing required features "
             f"{sorted(missing)}; present={sorted(tensors)}"
         )
+
+
+def _step_generator(seed: int, ctx: Optional["StepContext"]) -> torch.Generator:
+    """A CPU generator keyed on (seed, global step): resumes and every
+    device draw the same samples."""
+    step = ctx.global_step if ctx is not None else 0
+    key = ((int(seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF)
+    return torch.Generator().manual_seed(key)
 
 
 def _apply(model, params, args, kwargs):
@@ -210,11 +225,8 @@ class DFlashTrainStrategy:
     def sample_anchors(self, loss_mask: torch.Tensor,
                        ctx: Optional[StepContext]):
         """(positions [B, N] int32, keep [B, N] bool) for this step."""
-        step = ctx.global_step if ctx is not None else 0
-        key = ((int(self.seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF)
-        generator = torch.Generator().manual_seed(key)
-        return sample_anchor_positions(generator, loss_mask,
-                                       self.model.num_anchors)
+        return sample_anchor_positions(_step_generator(self.seed, ctx),
+                                       loss_mask, self.model.num_anchors)
 
     def _run(self, tensors, frozen, ctx, params, *extra):
         _validate_batch(self, tensors)
@@ -273,3 +285,83 @@ class DominoTrainStrategy(DFlashTrainStrategy):
         metrics = {k: v.detach() for k, v in model_metrics.items()}
         metrics["accuracy"] = accuracy.detach()
         return StepOutput(loss=loss, metrics=metrics)
+
+
+class PEagleTrainStrategy:
+    """P-EAGLE COD strategy over :class:`OnlinePEagleModel`.
+
+    Consumes the EAGLE3 capture (``hidden_state`` + ``target``); the COD
+    sample is drawn from a CPU generator keyed on (seed, global step).
+    Unlike EAGLE3, the embeddings and ``mask_hidden`` train, so the whole
+    draft is checkpointed (the trainer saves every trainable parameter)."""
+
+    name = "peagle"
+    required_features = {
+        "input_ids", "attention_mask", "loss_mask", "hidden_state", "target",
+    }
+    #: COD reads per-document ``lengths``: packed rows are supported
+    #: (``PackingCollator``; ``data.pack_documents``)
+    supports_packed_documents = True
+    #: name of the trainable embedding table among the model's parameters
+    sparse_embed_path = "draft_model.embed_tokens.weight"
+
+    def __init__(self, model, *, seed: int = 0) -> None:
+        self.model = model
+        self.seed = seed
+
+    def sparse_embed_delta_shape(self, tensors) -> Tuple[int, int, int]:
+        """[B, T_sampled, H] shape of the zeros whose gradient is the
+        per-position embedding gradient (T is fixed by the sampler)."""
+        b, s = tensors["input_ids"].shape[:2]
+        return (b, self.model.sampled_length(s),
+                self.model.draft_model.config.hidden_size)
+
+    def draw_sample(self, loss_mask: torch.Tensor, lengths: torch.Tensor,
+                    ctx: Optional[StepContext]):
+        """This step's COD sample (depth-major fields [B, T]) of the shifted
+        [B, S, 1] loss mask and the per-row document lengths."""
+        b, s = loss_mask.shape[:2]
+        model = self.model
+        return generate_cod_sample_indices(
+            _step_generator(self.seed, ctx), loss_mask.reshape(b, s),
+            document_ids_from_lengths(lengths.reshape(b, -1), s),
+            model.num_depths, model.down_sample_ratio,
+            model.down_sample_ratio_min)
+
+    def forward_loss(
+        self,
+        tensors: Dict[str, torch.Tensor],
+        frozen: Dict[str, torch.Tensor],
+        ctx: Optional[StepContext] = None,
+        metadata: Optional[Dict[str, Any]] = None,
+        params: Optional[Dict[str, torch.Tensor]] = None,
+    ) -> StepOutput:
+        _validate_batch(self, tensors)
+        device = model_device(self.model)
+        tensors = to_device(tensors, device)
+        frozen = to_device(frozen, device)
+        input_ids = tensors["input_ids"]
+        target = tensors["target"]
+        loss_mask = tensors["loss_mask"]
+        if (metadata or {}).get("target_repr") == "hidden_state":
+            input_ids, target_hidden, loss_mask = target_head_preprocess(
+                input_ids, target, loss_mask)
+            target = apply_target_head(frozen["target_head_weight"],
+                                       target_hidden)
+        lengths = tensors.get("lengths")
+        if lengths is None:
+            lengths = tensors["attention_mask"].sum(dim=-1)
+        args = (input_ids, tensors["attention_mask"], target, loss_mask,
+                tensors["hidden_state"],
+                self.draw_sample(loss_mask, lengths, ctx), lengths,
+                tensors.get("embed_delta"))
+        loss, model_metrics = _apply(self.model, params, args, {})
+        metrics = {k: v.detach() for k, v in model_metrics.items()
+                   if k.endswith(("_sum", "_total"))}
+        ratio_metrics = {"accuracy": (model_metrics["full_acc_sum"],
+                                      model_metrics["full_acc_total"])}
+        return StepOutput(
+            loss=loss.reshape(()), metrics=metrics,
+            ratio_metrics=ratio_metrics,
+            aux={"embedded_ids": model_metrics["embedded_ids"].detach()},
+        )

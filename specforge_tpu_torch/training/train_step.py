@@ -18,6 +18,17 @@ optimizer step is explicit.
   of at every use; autograd then keeps one low-precision copy of each weight
   instead of one per TTT step, and the weight gradients are summed in that
   dtype over the steps before the fp32 convert-back, as in the JAX package.
+  A strategy's trainable embedding table (``sparse_embed_path``) is not
+  cast: the model gathers its fp32 rows and casts those.
+- With a :class:`SparseEmbedPlan` (``row_sparse_embedding``), the embedding
+  table is kept out of the tensors ``torch.autograd.grad`` targets; a zero
+  fp32 ``embed_delta`` [B, T, H] that requires grad is added to the sampled
+  embeddings, and its gradient is the per-position embedding gradient. The
+  ids and rows of the window's micro-steps are concatenated, divided by the
+  norm and summed per id (``segment_sum_rows``); the global norm spans the
+  dense gradients and those rows, one clip scale serves both; then the
+  dense factored step, then the sparse one. No dense [V, H] gradient is
+  formed on this path.
 """
 
 from __future__ import annotations
@@ -28,8 +39,30 @@ from typing import Any, Callable, Dict, Mapping, Optional
 import torch
 from torch import nn
 
-from specforge_tpu_torch.training.optimizer import AdamW, global_norm, split_trainable
+from specforge_tpu_torch.training.optimizer import (
+    AdamW,
+    OptimizerConfig,
+    global_norm,
+    init_sparse_embed_state,
+    segment_sum_rows,
+    sparse_embed_update,
+    split_trainable,
+)
 from specforge_tpu_torch.training.strategies import StepContext
+from specforge_tpu_torch.utils import model_device
+
+
+@dataclass(frozen=True)
+class SparseEmbedPlan:
+    """The row-sparse embedding update of a run: ``path`` names the
+    embedding table among the model's parameters; ``delta_shape_fn`` maps a
+    micro-batch's tensors to the [B, T, H] shape of its ``embed_delta``;
+    ``opt_config`` and ``schedule`` drive the row update."""
+
+    path: str
+    delta_shape_fn: Callable
+    opt_config: OptimizerConfig
+    schedule: Callable
 
 
 @dataclass
@@ -44,11 +77,25 @@ class TrainState:
 
     @classmethod
     def create(cls, model: nn.Module, optimizer: AdamW,
-               trainable_mask: Optional[Mapping[str, bool]] = None
-               ) -> "TrainState":
+               trainable_mask: Optional[Mapping[str, bool]] = None,
+               sparse_embed_path: Optional[str] = None) -> "TrainState":
+        """Optimizer state for the trainable parameters; with
+        ``sparse_embed_path`` the table named there gets the sparse state
+        (``{"dense": ..., "sparse_embed": ...}``) and the rest the dense."""
         trainable, _frozen = split_trainable(model, trainable_mask)
+        if sparse_embed_path is None:
+            opt_state = optimizer.init(trainable)
+        else:
+            if sparse_embed_path not in trainable:
+                raise ValueError(f"sparse-embed path {sparse_embed_path} not "
+                                 "found among trainable params")
+            dense = {k: p for k, p in trainable.items()
+                     if k != sparse_embed_path}
+            opt_state = {"dense": optimizer.init(dense),
+                         "sparse_embed": init_sparse_embed_state(
+                             trainable[sparse_embed_path])}
         return cls(params=trainable, buffers=dict(model.named_buffers()),
-                   opt_state=optimizer.init(trainable), step=0)
+                   opt_state=opt_state, step=0)
 
 
 def make_train_step(
@@ -61,6 +108,7 @@ def make_train_step(
     lr_schedule: Optional[Callable] = None,
     grads_dtype: Any = "float32",
     compute_params_dtype: Optional[Any] = None,
+    sparse_embed: Optional[SparseEmbedPlan] = None,
 ) -> Callable:
     """Build ``train_step(state, batch, frozen) -> (state, metrics)``.
 
@@ -68,8 +116,9 @@ def make_train_step(
     non-trainable tensors (the target lm_head weight). ``metrics`` are 0-d
     fp32 tensors on the model's device (no host sync in the step). The
     returned function carries its parts as ``micro_step(state, tensors,
-    frozen)`` and ``accumulate(state, batch, frozen)``; neither changes the
-    state."""
+    frozen)``, ``accumulate(state, batch, frozen)`` (neither changes the
+    state) and ``update(state, grads, stats)`` (the clip and the optimizer
+    step, in place)."""
     metadata = dict(metadata or {})
     grads_dtype = _dtype(grads_dtype)
     compute_params_dtype = (
@@ -78,23 +127,41 @@ def make_train_step(
     )
     model = strategy.model
     uses_loss_terms = getattr(strategy, "uses_loss_terms", False)
+    embed_path = getattr(strategy, "sparse_embed_path", None)
+    sparse_path = sparse_embed.path if sparse_embed is not None else None
 
     def micro(state: TrainState, tensors, frozen, ctx):
         params = None
         if compute_params_dtype is not None:
             params = {
                 name: p.to(compute_params_dtype)
-                if p.dtype == torch.float32 else p
+                if p.dtype == torch.float32 and name != embed_path else p
                 for name, p in model.named_parameters()
             }
+        names = [n for n in state.params if n != sparse_path]
+        targets = [state.params[n] for n in names]
+        if sparse_embed is not None:
+            # the table is a constant of this graph; its rows' gradient
+            # arrives through embed_delta
+            params = dict(params or {})
+            params[sparse_path] = state.params[sparse_path].detach()
+            delta = torch.zeros(sparse_embed.delta_shape_fn(tensors),
+                                dtype=torch.float32,
+                                device=model_device(model), requires_grad=True)
+            tensors = {**tensors, "embed_delta": delta}
+            targets.append(delta)
         out = strategy.forward_loss(tensors, frozen, ctx, metadata,
                                     params=params)
         if out.loss_terms is None:
             target, denom = out.loss, torch.ones((), device=out.loss.device)
         else:
             target, denom = out.loss_terms
-        names = list(state.params)
-        grads = torch.autograd.grad(target, [state.params[n] for n in names])
+        grads = list(torch.autograd.grad(target, targets))
+        sparse = None
+        if sparse_embed is not None:
+            d_delta = grads.pop()
+            sparse = (out.aux["embedded_ids"].reshape(-1),
+                      d_delta.reshape(-1, d_delta.shape[-1]).float())
         grads = {n: g.to(grads_dtype) for n, g in zip(names, grads)}
         stats = {
             "loss": target.detach().float(),
@@ -105,14 +172,15 @@ def make_train_step(
             "ratio_den": {k: v[1].detach().float()
                           for k, v in out.ratio_metrics.items()},
         }
-        return grads, stats
+        return grads, stats, sparse
 
     def micro_step(state: TrainState, tensors: Mapping[str, torch.Tensor],
                    frozen: Mapping[str, torch.Tensor]):
         """One micro-batch's forward and backward → (gradients in
         ``grads_dtype``, stats)."""
         ctx = StepContext(global_step=state.step, total_steps=total_steps)
-        return micro(state, tensors, frozen, ctx)
+        grads, stats, _ = micro(state, tensors, frozen, ctx)
+        return grads, stats
 
     def accumulate(state: TrainState, batch: Mapping[str, torch.Tensor],
                    frozen: Mapping[str, torch.Tensor]):
@@ -120,24 +188,61 @@ def make_train_step(
         window's norm, as the optimizer receives them before the clip; the
         stats summed over the micro-batches, with ``stats["norm"]`` that
         norm: the number of micro-batches, or the summed ``loss_terms``
-        denominator for a strategy that ``uses_loss_terms``)."""
+        denominator for a strategy that ``uses_loss_terms``). On the
+        row-sparse path ``stats["sparse_embed"]`` holds the touched rows'
+        ids and their summed gradients, divided by the norm too."""
+        ctx = StepContext(global_step=state.step, total_steps=total_steps)
         n_micro = next(iter(batch.values())).shape[0]
-        grads, stats = micro_step(state, {k: v[0] for k, v in batch.items()},
-                                  frozen)
+        grads, stats, sparse = micro(
+            state, {k: v[0] for k, v in batch.items()}, frozen, ctx)
+        ids, rows = ([sparse[0]], [sparse[1]]) if sparse else ([], [])
         for i in range(1, n_micro):
-            g, s = micro_step(state, {k: v[i] for k, v in batch.items()},
-                              frozen)
+            g, s, sp = micro(state, {k: v[i] for k, v in batch.items()},
+                             frozen, ctx)
             for name in grads:
                 grads[name] = grads[name] + g[name]
             stats = _tree_add(stats, s)
+            if sp is not None:
+                ids.append(sp[0])
+                rows.append(sp[1])
             del g
         if uses_loss_terms:
             norm = torch.clamp(stats["denom"], min=1e-6)
         else:
             norm = torch.tensor(float(n_micro), device=stats["denom"].device)
         stats["norm"] = norm
+        if sparse_embed is not None:
+            stats["sparse_embed"] = segment_sum_rows(
+                torch.cat(ids), torch.cat(rows) / norm)
         # optimizer math is fp32 regardless of the grad storage dtype
         return {k: g.float() / norm for k, g in grads.items()}, stats
+
+    def update(state: TrainState, grads, stats) -> torch.Tensor:
+        """Clip and one optimizer step on ``state`` (its parameters in
+        place, its ``opt_state`` replaced) → the global grad norm."""
+        if sparse_embed is None:
+            grad_norm = global_norm(grads)
+            state.opt_state = optimizer.step(state.params, grads,
+                                             state.opt_state, grad_norm)
+            return grad_norm
+        uids, summed = stats["sparse_embed"]
+        # clip by the global norm over the dense grads and the embedding rows
+        grad_norm = torch.sqrt(global_norm(grads) ** 2
+                               + torch.sum(summed * summed))
+        max_norm = sparse_embed.opt_config.max_grad_norm
+        scale = torch.where(grad_norm < max_norm, torch.ones_like(grad_norm),
+                            max_norm / torch.clamp(grad_norm, min=1e-30))
+        grads = {k: g * scale for k, g in grads.items()}
+        dense = {k: p for k, p in state.params.items() if k != sparse_path}
+        state.opt_state = {
+            "dense": optimizer.step(dense, grads, state.opt_state["dense"],
+                                    clip=False),
+            "sparse_embed": sparse_embed_update(
+                sparse_embed.opt_config, sparse_embed.schedule,
+                state.opt_state["sparse_embed"], state.params[sparse_path],
+                uids, summed * scale),
+        }
+        return grad_norm
 
     def train_step(state: TrainState, batch: Mapping[str, torch.Tensor],
                    frozen: Mapping[str, torch.Tensor]):
@@ -148,10 +253,11 @@ def make_train_step(
             )
         grads, stats = accumulate(state, batch, frozen)
         loss_out = stats["loss"] / stats["norm"]
-        grad_norm = global_norm(grads)
-        opt_state = optimizer.step(state.params, grads, state.opt_state,
-                                   grad_norm)
+        new_state = TrainState(params=state.params, buffers=state.buffers,
+                               opt_state=state.opt_state, step=state.step)
+        grad_norm = update(new_state, grads, stats)
         del grads
+        new_state.step = state.step + 1
         metrics = {"train/loss": loss_out, "train/grad_norm": grad_norm}
         for k, v in stats["metrics"].items():
             metrics[f"train/{k}"] = v / accum_steps
@@ -161,13 +267,12 @@ def make_train_step(
         if lr_schedule is not None:
             metrics["train/lr"] = torch.tensor(lr_schedule(state.step),
                                                dtype=torch.float32)
-        new_state = TrainState(params=state.params, buffers=state.buffers,
-                               opt_state=opt_state, step=state.step + 1)
         return new_state, metrics
 
     # its parts, for callers that time a micro-step or read the gradients
     train_step.micro_step = micro_step
     train_step.accumulate = accumulate
+    train_step.update = update
     return train_step
 
 

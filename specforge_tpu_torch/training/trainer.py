@@ -35,7 +35,11 @@ from specforge_tpu_torch.training.profiling import (
     StepProfiler,
 )
 from specforge_tpu_torch.training.tracking import NoOpTracker, Tracker
-from specforge_tpu_torch.training.train_step import TrainState, make_train_step
+from specforge_tpu_torch.training.train_step import (
+    SparseEmbedPlan,
+    TrainState,
+    make_train_step,
+)
 
 logger = logging.getLogger("specforge_tpu_torch.trainer")
 
@@ -94,8 +98,23 @@ class Trainer:
 
         self.optimizer = build_optimizer(optimizer_config, self.total_steps)
         self.lr_schedule = build_lr_schedule(optimizer_config, self.total_steps)
-        self.state = TrainState.create(strategy.model, self.optimizer,
-                                       trainable_mask)
+        self.sparse_plan = None
+        if optimizer_config.row_sparse_embedding:
+            path = getattr(strategy, "sparse_embed_path", None)
+            shape_fn = getattr(strategy, "sparse_embed_delta_shape", None)
+            if path is None or shape_fn is None:
+                raise ValueError(
+                    "optimizer.row_sparse_embedding requires a strategy that "
+                    "declares sparse_embed_path and sparse_embed_delta_shape "
+                    f"(strategy {getattr(strategy, 'name', strategy)!r} does "
+                    "not)"
+                )
+            self.sparse_plan = SparseEmbedPlan(path, shape_fn,
+                                               optimizer_config,
+                                               self.lr_schedule)
+        self.state = TrainState.create(
+            strategy.model, self.optimizer, trainable_mask,
+            sparse_embed_path=self.sparse_plan.path if self.sparse_plan else None)
         self.train_step = make_train_step(
             strategy,
             self.optimizer,
@@ -105,6 +124,7 @@ class Trainer:
             lr_schedule=self.lr_schedule,
             grads_dtype=config.grads_dtype,
             compute_params_dtype=config.compute_params_dtype,
+            sparse_embed=self.sparse_plan,
         )
         self.checkpoints = CheckpointManager(
             config.output_dir, config.run_id,
@@ -143,9 +163,11 @@ class Trainer:
                     for k in window[0].tensors
                 }
                 sample_ids = [sid for b in window for sid in b.sample_ids]
-                metadata = window[0].metadata
+                # the packing counts are per-batch statistics, not options
+                # of the step
+                metadata = _step_metadata(window[0].metadata)
                 for b in window[1:]:
-                    if b.metadata != metadata:
+                    if _step_metadata(b.metadata) != metadata:
                         raise ValueError(
                             "mixed metadata inside one accumulation window: "
                             f"{metadata} vs {b.metadata}"
@@ -266,13 +288,8 @@ class Trainer:
                 )
             for name, tensor in saved.items():
                 live[name].copy_(tensor)
-        opt = payload["opt_state"]
-        device = {k: p.device for k, p in self.state.params.items()}
-        self.state.opt_state = {
-            "count": int(opt["count"]),
-            "mu": {k: v.to(device[k]) for k, v in opt["mu"].items()},
-            "nu": {k: v.to(device[k]) for k, v in opt["nu"].items()},
-        }
+        self.state.opt_state = _restore_tree(self.state.opt_state,
+                                             payload["opt_state"])
         self.state.step = int(payload["step"])
         self.progress = progress
         logger.info(
@@ -280,6 +297,27 @@ class Trainer:
             self.config.run_id, step if step_dir is None else step_dir,
             progress.epoch, progress.samples_consumed,
         )
+
+
+def _step_metadata(metadata: Dict[str, Any]) -> Dict[str, Any]:
+    return {k: v for k, v in metadata.items() if k != "packing"}
+
+
+def _restore_tree(live, saved, where: str = "opt_state"):
+    """The saved optimizer state on the devices of the live one, which it
+    must match in structure (a dense or a factored state, with or without
+    the row-sparse embedding state)."""
+    if isinstance(live, dict):
+        if not isinstance(saved, dict) or set(saved) != set(live):
+            raise ValueError(
+                f"checkpoint {where} differs from the optimizer's: saved "
+                f"{sorted(saved) if isinstance(saved, dict) else saved!r}, "
+                f"expected {sorted(live)}")
+        return {k: _restore_tree(live[k], saved[k], f"{where}.{k}")
+                for k in live}
+    if isinstance(live, torch.Tensor):
+        return saved.to(device=live.device, dtype=live.dtype)
+    return type(live)(saved)
 
 
 def _pull(metrics_dev: Dict[str, Any]) -> Dict[str, float]:

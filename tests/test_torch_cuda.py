@@ -11,6 +11,7 @@ import torch
 
 from specforge_tpu_torch.ops import attention_cuda, loss_cuda
 from specforge_tpu_torch.ops import dflash_attention_cuda as dflash_cuda
+from specforge_tpu_torch.ops import peagle_attention_cuda as cod_cuda
 from specforge_tpu_torch.ops.masks import sample_anchor_positions
 from specforge_tpu_torch.ops.loss import (
     log_softmax_loss,
@@ -320,3 +321,97 @@ def test_dflash_autograd_is_deterministic_and_refuses_bad_shapes(gen):
     with pytest.raises(ValueError, match="block_size"):
         dflash_cuda.dflash_flash_attention(q, kc, vc, kd, vd, anchors, keep,
                                            48)
+
+
+# --------------------------------------------------------------------------
+# P-EAGLE COD attention
+# --------------------------------------------------------------------------
+
+def cod_inputs(gen, b, h, kvh, d, s, doc_lengths=None, unsupervised=(),
+               depths=8):
+    """A COD sample from the port's sampler and doc-major sort over a
+    response-part loss mask, and bf16 q/k/v as strided views of a merged
+    projection, as the draft has them → (q, k, v, tiles)."""
+    from specforge_tpu_torch.algorithms.peagle.model import (
+        doc_major,
+        document_ids_from_lengths,
+        generate_cod_sample_indices,
+    )
+
+    docs = list(doc_lengths or (s,))
+    doc_ids = document_ids_from_lengths(torch.tensor([docs] * b), s)
+    loss_mask = torch.zeros(b, s, dtype=torch.int32)
+    start = 0
+    for n in docs:
+        loss_mask[:, start + n // 4:start + n] = 1
+        start += n
+    for row in unsupervised:
+        loss_mask[row] = 0
+    sample = doc_major(generate_cod_sample_indices(
+        torch.Generator().manual_seed(s), loss_mask, doc_ids, depths, 0.7,
+        0.2), doc_ids)
+    anchor_doc = doc_ids.long().gather(1, sample.anchor_pos.long())
+    tiles = cod_cuda.cod_tiles(*(x.cuda() for x in (
+        sample.anchor_pos, sample.depth, anchor_doc, sample.valid)))
+    t = sample.depth.shape[1]
+    qkv = torch.randn(b, t, (h + 2 * kvh) * d, generator=gen, device="cuda",
+                      dtype=torch.bfloat16)
+    q = qkv[..., :h * d].view(b, t, h, d).transpose(1, 2)
+    k = qkv[..., h * d:(h + kvh) * d].view(b, t, kvh, d).transpose(1, 2)
+    v = qkv[..., (h + kvh) * d:].view(b, t, kvh, d).transpose(1, 2)
+    return q, k, v, tiles
+
+
+# (a) the slice's heads at S=256 (T=864); (b) 4 packed documents of 64
+# (block-diagonal tiles); (e) a document ending at 150 (an invalid tail)
+# and a row with no supervised token, at D=64
+@pytest.mark.parametrize("b,h,kvh,d,s,docs,unsupervised", [
+    (2, 32, 8, 128, 256, None, ()),
+    (2, 32, 8, 128, 256, (64, 64, 64, 64), ()),
+    (2, 14, 2, 64, 256, (150,), (1,)),
+])
+def test_cod_kernels_match_plain(gen, b, h, kvh, d, s, docs, unsupervised):
+    q, k, v, tiles = cod_inputs(gen, b, h, kvh, d, s, docs, unsupervised)
+    counters = (cod_cuda.cod_attention_fwd, cod_cuda.cod_attention_bwd_dq,
+                cod_cuda.cod_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    out, m, l = cod_cuda.cod_attention_fwd(q, k, v, tiles)
+    dout = torch.randn(out.shape, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    grads = cod_cuda.cod_attention_bwd(q, k, v, tiles, out, m, l, dout)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [x + 1 for x in before]
+    ref, ref_m, ref_l = cod_cuda.cod_attention_plain(q, k, v, tiles.props)
+    live = ref_l[:, 0] > 0
+    assert (~live).any()
+    # bf16 outputs and gradients, held at 2e-2 of the largest reference
+    # value; rows with no allowed key exactly 0
+    assert rel_err(out, ref) <= 2e-2
+    assert not out[~live].any() and not l.transpose(1, 2)[~live].any()
+    rows = live[:, None].expand_as(m)
+    torch.testing.assert_close(m[rows], ref_m[rows], rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(l[rows], ref_l[rows], rtol=1e-3, atol=1e-3)
+    ref_grads = cod_cuda.cod_attention_backward_plain(q, k, v, tiles.props,
+                                                      out, m, l, dout)
+    for name, got, want, x in zip("qkv", grads, ref_grads, (q, k, v)):
+        assert got.shape == x.shape and got.dtype == torch.bfloat16, name
+        assert rel_err(got, want) <= 2e-2, name
+    assert not grads[0].transpose(1, 2)[~live].any()
+
+
+def test_cod_autograd_is_deterministic_and_refuses_bad_shapes(gen):
+    q, k, v, tiles = cod_inputs(gen, 2, 8, 2, 128, 200)
+    inputs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    runs = []
+    for _ in range(2):
+        out = cod_cuda.cod_flash_attention(*inputs, tiles=tiles)
+        runs.append(torch.autograd.grad(out.float().square().sum(), inputs))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="head dim"):
+        cod_cuda.cod_flash_attention(q[..., :32], k[..., :32], v[..., :32],
+                                     tiles=tiles)
+    with pytest.raises(TypeError):
+        cod_cuda.cod_flash_attention(q.float(), k, v, tiles=tiles)
+    with pytest.raises(ValueError, match="multiple of KVH"):
+        cod_cuda.cod_flash_attention(q[:, :7], k, v, tiles=tiles)

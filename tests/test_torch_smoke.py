@@ -157,6 +157,80 @@ def test_family_cli_needs_cuda_and_refuses_an_eval_pass(smoke, tmp_path,
         build_training_run(config, device="cpu")
 
 
+PEAGLE_DRAFT = {
+    "architectures": ["PEagleDraftModel"], "vocab_size": 2048,
+    "draft_vocab_size": 256, "hidden_size": 128, "intermediate_size": 256,
+    "num_attention_heads": 4, "num_key_value_heads": 2, "head_dim": 32,
+    "num_hidden_layers": 2, "max_position_embeddings": 256,
+}
+
+
+def test_peagle_training_runs_on_the_cpu_at_small_size(smoke, tmp_path):
+    """The P-EAGLE phase: cli train with factored moments, adam_b1 0, bf16
+    moments and the row-sparse embedding update (4 steps, checkpoints at 2
+    and 4), a second run reaching the same weights, the resume from step 2
+    through the factored and row-sparse optimizer state, the dense
+    embedding update against the row-sparse one, the dense plain path, the
+    packed step; no launch on CPU tensors."""
+    cfg_path = tmp_path / "draft.json"
+    cfg_path.write_text(json.dumps(PEAGLE_DRAFT))
+    results, counts = smoke.run_peagle_training(
+        cfg_path, torch.device("cpu"), 0, tmp_path / "work", max_length=64,
+        min_len=40, pack_len=(8, 16), head_std=0.2,
+        overrides=['model.compute_dtype="float32"'])
+    assert results["optimizer_steps"] == 4 and results["micro_batches"] == 8
+    assert counts == dict.fromkeys(smoke.PEAGLE_COUNTERS, 0)
+    with pytest.raises(AssertionError, match="launches"):
+        smoke.check_peagle_counts(counts, 8, 2)
+    smoke.check_peagle_counts(
+        {n: (8 if n.startswith("fused_ce") else 16) for n in counts}, 8, 2)
+    assert results["checkpoint"]["dir"] == "peagle-step4"
+    assert results["repeat_bit_exact"] and results["resume"]["bit_exact"]
+    assert results["resume"]["steps"] == 4
+    assert results["embedding_update"]["sparse_vs_dense_rel_err"] < 1e-5
+    assert results["embedding_update"]["touched_rows"] > 0
+    # fp32 on both paths: the kernels' plain versions and the dense path
+    # differ only in the order of their sums
+    assert all(step["rel_diff"] < 1e-4 for step in results["loss_curve"])
+    grads = results["step1_grads"]
+    assert all(g["cosine"] > 0.9999 for g in grads.values()
+               if not g.get("both_zero"))
+    assert "draft_model.embed_tokens.weight[rows]" in grads
+    assert results["packed_step"]["documents_per_micro_batch"] == [8, 8]
+    # 8 depths at S=64: 64 + 45 + 32 + 22 + 16 + 13 + 13 + 13 rows a row
+    assert results["sampled_rows_per_micro_batch"] == 2 * 218
+
+
+def test_peagle_cli_needs_cuda_and_refuses_what_it_lacks(smoke, tmp_path,
+                                                        monkeypatch):
+    """Without --device and without a card, cli train raises; P-EAGLE has
+    no eval pass, and document packing is refused for a strategy that does
+    not read document boundaries."""
+    from specforge_tpu_torch import cli
+    from specforge_tpu_torch.application.composition import build_training_run
+    from specforge_tpu_torch.config.schema import load_config
+
+    cfg_path = tmp_path / "draft.json"
+    cfg_path.write_text(json.dumps(PEAGLE_DRAFT))
+    run_json = smoke.peagle_run_json(tmp_path, cfg_path, tmp_path / "target",
+                                     64)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["train", "-c", str(run_json)])
+    config = load_config(str(run_json), ['data.eval_data_path="eval"'])
+    with pytest.raises(NotImplementedError, match="eval pass"):
+        build_training_run(config, device="cpu")
+    family = tmp_path / "family"
+    family.mkdir()
+    draft = family / "draft.json"
+    draft.write_text(json.dumps(FAMILY_DRAFT))
+    config = load_config(str(smoke.family_run_json(
+        "domino", family, draft, family / "target", 64)),
+        ["data.pack_documents=true"])
+    with pytest.raises(ValueError, match="pack_documents"):
+        build_training_run(config, device="cpu")
+
+
 def test_ce_backward_check_rejects_broken_gradients(smoke):
     """The card's check of the fused CE gradient, fed on the CPU the plain
     gradient (which passes) and broken copies of it (which must fail): a

@@ -143,9 +143,15 @@ def test_clip_has_no_epsilon_and_only_clips_above_the_norm():
 
 
 def test_unported_optimizer_options_raise():
-    for kw in ({"factored_second_moments": True},
-               {"row_sparse_embedding": True}):
-        with pytest.raises(NotImplementedError, match="P-EAGLE"):
+    """Every optimizer option is ported (factored second moments and the
+    row-sparse embedding update came with P-EAGLE); what the optimizer
+    refuses is the row-sparse update outside its regime, as JAX does."""
+    pt_opt.build_optimizer(
+        pt_opt.OptimizerConfig(factored_second_moments=True), 10)
+    for kw in ({"row_sparse_embedding": True},
+               {"row_sparse_embedding": True,
+                "factored_second_moments": True}):
+        with pytest.raises(ValueError, match="row_sparse_embedding"):
             pt_opt.build_optimizer(pt_opt.OptimizerConfig(**kw), 10)
 
 
@@ -498,9 +504,9 @@ def test_default_device_entry_points_raise_without_cuda(tmp_path, monkeypatch):
 
 @pytest.mark.parametrize("override,slice_name", [
     ("training.strategy=\"dspark\"", "DSpark"),
-    ("training.strategy=\"peagle\"", "P-EAGLE"),
+    ("deployment.mode=\"disaggregated\"", "online"),
     ("training.fsdp_size=2", "parallelism"),
-    ("data.pack_documents=true", "P-EAGLE"),
+    ("model.draft_checkpoint_path=\"draft\"", "warm_start_draft"),
     ("tracking.backend=\"wandb\"", "ROADMAP"),
 ])
 def test_unported_options_name_their_slice(tmp_path, override, slice_name):
