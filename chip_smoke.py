@@ -2,6 +2,8 @@
 """Chip smoke test of the PyTorch port on one NVIDIA GPU (H100).
 
 Usage: ``python3 chip_smoke.py [--seed N]`` from the repository root.
+``python3 chip_smoke.py --usp-only`` runs phases 1, 2 and 8's training
+alone (on a machine with a card per rank its ranks talk NCCL).
 
 Phases, each printing JSON lines:
 
@@ -14,7 +16,8 @@ Phases, each printing JSON lines:
    backward kernels; the DFlash block-attention forward and its two
    backward kernels in cases (a)-(e) of ``DFLASH_CASES``; the COD attention
    forward and its two backward kernels in cases (a)-(e) of
-   ``COD_CASES``) is held against
+   ``COD_CASES``; the LSE ring-hop forward and its two backward kernels in
+   cases (a)-(e) of ``LSE_CASES``) is held against
    its plain PyTorch version on the card, in the working dtype, and timed
    with CUDA events (median of 20 runs after 3 warm-ups) beside the plain
    version, one PyTorch library call as a yardstick, and its bound;
@@ -61,7 +64,28 @@ Phases, each printing JSON lines:
    the dense plain path from the same weights and samples, the timings,
    peak memory and one profiled micro-step, and one optimizer step over
    packed rows (``data.pack_documents``, 4 documents to a row);
-8. the kernels line, then the card line, then ``{"ok": true, ...}``.
+8. slice 5, USP sequence parallelism: the three offset-causal LSE
+   ring-hop kernels against their plain versions in cases (a)-(e) of
+   ``LSE_CASES`` and at the USP phase's three hops (among the kernels of
+   phase 3); then
+   ``cli.main(["train", ...])`` on ``examples/qwen3-8b-eagle3-usp-32k.json``
+   with ``configs/qwen3-8b-eagle3.json`` at full width on 4 ranks of a 2×2
+   grid started as processes with the SPECFORGE_* env (``--usp-rank``),
+   sharing one card over host-staged gloo, or over NCCL with a card each
+   where the machine has four (B=1, S=4096, TTT 7, compact
+   teacher; accumulation 2, so 4 optimizer steps, checkpoints at steps 2
+   and 4): 14 launches of each LSE kernel and 7 of each fused CE kernel per
+   micro-batch on every rank and none of the TTT kernels, the same losses
+   and bit-identical weights on every rank, only rank 0 writing, a 4-rank
+   resume from step 2 that reaches the final weights bit-exactly, and the
+   USP run against one process on the TTT kernels over the same batches
+   and weights; the transport, per-rank timings, collectives' share and
+   memory beside the single process's;
+9. the kernels line, then the card line, then ``{"ok": true, ...}``.
+
+Phase 8's training runs right after the build, before the kernel phases:
+its 4 ranks need most of the card's memory, and this process holds none of
+it yet; its LSE kernels are held against their plain versions in phase 3.
 
 Any failed check raises: the script then exits non-zero with a traceback and
 prints no result. Without a CUDA device it exits non-zero at once.
@@ -70,9 +94,13 @@ prints no result. Without a CUDA device it exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import gc
+import hashlib
 import json
 import math
+import os
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -104,6 +132,7 @@ from specforge_tpu_torch.ops import (
     cuda_lib,
     dflash_attention_cuda,
     loss_cuda,
+    lse_attention_cuda,
     peagle_attention_cuda,
 )
 from specforge_tpu_torch.ops.loss import log_softmax_loss_reference
@@ -1393,12 +1422,14 @@ def compare_grads(kernel: dict, plain: dict) -> dict:
     out = {}
     for name, a in kernel.items():
         b = plain[name]
-        a = a.to(b.device)
+        # in fp64: over 1e8 elements an fp32 dot product drifts by percents
+        # (cosines above 1 were read that way)
+        a, b = a.to(b.device).double().flatten(), b.double().flatten()
         na, nb = float(a.norm()), float(b.norm())
         if na == nb == 0.0:
             out[name] = {"cosine": None, "both_zero": True}
             continue
-        cos = float(F.cosine_similarity(a.reshape(1, -1), b.reshape(1, -1)))
+        cos = float(a @ b) / (na * nb) if na and nb else 0.0
         out[name] = {"cosine": cos, "norm_rel_diff": abs(na - nb) / nb}
         if not cos >= GRAD_COSINE:
             raise AssertionError(f"step-1 grad of {name}: cosine {cos} "
@@ -2080,6 +2111,620 @@ def run_peagle_training(cfg_path: Path, device, seed: int, workdir: Path, *,
     return results, counts
 
 
+# --------------------------------------------------------------------------
+# slice 5: the offset-causal LSE ring-hop kernels and USP training
+# --------------------------------------------------------------------------
+
+USP_EXAMPLE = REPO / "examples" / "qwen3-8b-eagle3-usp-32k.json"
+LSE_KERNELS = ("lse_attention_fwd", "lse_attention_bwd_dq",
+               "lse_attention_bwd_dkv")
+#: the USP training phase: examples/qwen3-8b-eagle3-usp-32k.json cut to
+#: 4096 tokens (at 8192 the 4 ranks ran out of the card's 80 GB: 18.9 GB
+#: allocated a rank in the first forward), a 2×2 grid, accumulation 2 and
+#: 8 files (4 steps)
+USP_GRID, USP_MAX_LEN, USP_MIN_LEN, USP_FILES = (2, 2), 4096, 3584, 8
+#: a ring chunk of the USP phase: U·S_loc = 2048 positions
+USP_CHUNK = USP_MAX_LEN // USP_GRID[1]
+#: (name, BH, S, D, row_off, col_off, padded key tail), one rank's 16 heads
+#: of 32 after the Ulysses exchange. Cases (a)-(e) at a ring chunk of
+#: S_g = 4096 (8192 tokens on a 2×2 grid): (a) the own chunk; (b) an
+#: earlier chunk (every key allowed); (c) a later chunk (no key: out
+#: exactly 0, lse exactly -1e30); (d) a key-padding tail at a ragged S;
+#: (e) head dim 64. Then the three hops of the USP phase's main path, at
+#: its chunk of USP_CHUNK positions
+LSE_CASES = (
+    ("a_own", 16, 4096, 128, 4096, 4096, 0),
+    ("b_earlier", 16, 4096, 128, 4096, 0, 0),
+    ("c_later", 16, 4096, 128, 0, 4096, 0),
+    ("d_padded_s4000", 16, 4000, 128, 0, 0, 300),
+    ("e_head_dim_64", 16, 4096, 64, 4096, 4096, 0),
+    ("main_own", 16, USP_CHUNK, 128, USP_CHUNK, USP_CHUNK, 0),
+    ("main_earlier", 16, USP_CHUNK, 128, USP_CHUNK, 0, 0),
+    ("main_later", 16, USP_CHUNK, 128, 0, USP_CHUNK, 0),
+)
+#: the hops one TTT step launches on the 4 ranks of the phase's 2×2 grid:
+#: each ring rank attends its own chunk, ring rank 1 an earlier one and
+#: ring rank 0 a later one
+LSE_MAIN_PATH = ("main_own", "main_own", "main_earlier", "main_later")
+USP_TIMEOUT = 900  # seconds for the 4 ranks
+USP_COUNTERS = {
+    "lse_attention_fwd": lse_attention_cuda.lse_attention_fwd,
+    "lse_attention_bwd_dq": lse_attention_cuda.lse_attention_bwd_dq,
+    "lse_attention_bwd_dkv": lse_attention_cuda.lse_attention_bwd_dkv,
+    **KERNEL_COUNTERS,
+}
+
+
+def lse_case_inputs(gen, bh, s, d, pad):
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    valid = torch.ones((bh, s), dtype=torch.int32, device="cuda")
+    if pad:
+        valid[:, s - pad:] = 0
+    return rnd(bh, s, d), rnd(bh, s, d), rnd(bh, s, d), valid
+
+
+def lse_allowed_pairs(valid, row_off, col_off) -> int:
+    """P: the allowed (row, key) pairs over all heads of these inputs."""
+    bh, s = valid.shape
+    counts = torch.cumsum((valid != 0).to(torch.int64), dim=1)
+    lim = torch.arange(s, device=valid.device) + row_off - col_off
+    seen = counts.gather(1, lim.clamp(0, s - 1).expand(bh, s))
+    return int(torch.where(lim >= 0, seen, 0).sum())
+
+
+def lse_bounds(q, valid, row_off, col_off) -> dict:
+    """The least times of the three LSE kernels for these inputs: each
+    input read once and each output written once over the card's memory
+    rate; the tensor-core products over P at the bf16 peak (2·D operations
+    per pair and product: the forward's two, dq's three, dk/dv's four).
+    With no allowed pair (a later chunk) the function reads nothing and
+    only writes its outputs: out and lse, dq, dk and dv."""
+    bh, s, d = q.shape
+    pairs = lse_allowed_pairs(valid, row_off, col_off)
+    t = bh * s * d * 2             # one of q, k, v, out, dO, dq, dk, dv
+    stat = bh * s * 4              # one of lse, dstat
+    vbytes = valid.numel() * 4
+
+    def bound(nbytes, ops):
+        return {"bytes_ms": nbytes / PEAK_HBM * 1e3,
+                "ops_ms": ops / PEAK_BF16 * 1e3}
+
+    if pairs == 0:
+        return {
+            "pairs": 0,
+            "lse_attention_fwd": bound(t + stat, 0),
+            "lse_attention_bwd_dq": bound(t, 0),
+            "lse_attention_bwd_dkv": bound(2 * t, 0),
+        }
+    return {
+        "pairs": pairs,
+        "lse_attention_fwd": bound(4 * t + stat + vbytes, 4 * d * pairs),
+        "lse_attention_bwd_dq": bound(5 * t + 2 * stat + vbytes,
+                                      6 * d * pairs),
+        "lse_attention_bwd_dkv": bound(6 * t + 2 * stat + vbytes,
+                                       8 * d * pairs),
+    }
+
+
+def lse_sdpa_yardstick(q, k, v, valid, row_off, col_off, dout):
+    """One library call computing the same function, and its backward: SDPA
+    with the boolean offset-causal mask (timed only: a row with no allowed
+    key has no exact-zero rule there)."""
+    s = q.shape[1]
+    idx = torch.arange(s, device=q.device)
+    mask = ((idx[None, :] + col_off <= idx[:, None] + row_off)[None]
+            & (valid != 0)[:, None, :])
+    qr, kr, vr = (x.detach().requires_grad_(True) for x in (q, k, v))
+
+    def forward():
+        return F.scaled_dot_product_attention(qr, kr, vr, attn_mask=mask)
+
+    out = forward()
+    return forward, lambda: torch.autograd.grad(out, (qr, kr, vr), dout,
+                                                retain_graph=True)
+
+
+def lse_kernel_phase(gen) -> list:
+    """The three LSE kernels against their plain versions in cases
+    (a)-(e), in bf16: the output and every gradient within ATTN_TOL of the
+    plain version's largest value, lse within STAT_RTOL (|err| / (1 +
+    |lse|)) on rows with an allowed key, and rows without one exactly 0 and
+    -1e30 (case c: every row). Each case is timed (kernel, plain, the SDPA
+    yardstick) beside its bound; the kernels line averages the hops of the
+    USP phase's main path (LSE_MAIN_PATH)."""
+    lac = lse_attention_cuda
+    results = {}
+    for name, bh, s, d, row_off, col_off, pad in LSE_CASES:
+        q, k, v, valid = lse_case_inputs(gen, bh, s, d, pad)
+        out, lse = lac.lse_attention_fwd(q, k, v, valid, row_off, col_off)
+        dout = torch.randn(out.shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+        dlse = torch.randn(lse.shape, generator=gen, device="cuda")
+        grads = lac.lse_attention_bwd(q, k, v, valid, row_off, col_off, out,
+                                      lse, dout, dlse)
+        torch.cuda.synchronize()
+        ref, ref_lse = lac.flash_attention_lse_plain(q, k, v, valid, row_off,
+                                                     col_off)
+        ref_grads = lac.flash_attention_lse_backward_plain(
+            q, k, v, valid, row_off, col_off, out, lse, dout, dlse)
+        empty = ref_lse[..., 0] == lac.NEG_INF
+        if out[empty].any() or not torch.equal(lse[empty], ref_lse[empty]):
+            raise AssertionError(f"case {name}: rows with no allowed key are "
+                                 "not out = 0, lse = -1e30")
+        if name.endswith("later") and not (
+                bool(empty.all()) and not any(g.any() for g in grads)):
+            raise AssertionError("a later-chunk hop wrote a value other than "
+                                 "out = 0, lse = -1e30 and zero gradients")
+        pairs = {
+            "lse_attention_fwd": [(out, ref)],
+            "lse_attention_bwd_dq": [(grads[0], ref_grads[0])],
+            "lse_attention_bwd_dkv": list(zip(grads[1:], ref_grads[1:])),
+        }
+        errs = {kname: max(rel_max_err(a, r) if r.any() else max_err(a, r)
+                           for a, r in v_) for kname, v_ in pairs.items()}
+        abs_errs = {kname: max(max_err(a, r) for a, r in v_)
+                    for kname, v_ in pairs.items()}
+        for kernel, err in errs.items():
+            check(f"{kernel} case {name} (max|err| / max|ref|)", err,
+                  ATTN_TOL)
+        live = ~empty
+        errs["lse"] = (max_err(lse[live], ref_lse[live]) / (
+            1.0 + float(ref_lse[live].abs().max())) if live.any() else 0.0)
+        check(f"lse case {name}", errs["lse"], STAT_RTOL)
+        dstat = lac.backward_dstat(out, dout, dlse)
+        bwd_args = (q, k, v, valid, row_off, col_off, dout, lse, dstat)
+        lib_fwd, lib_bwd = lse_sdpa_yardstick(q, k, v, valid, row_off,
+                                              col_off, dout)
+        row = {
+            "phase": "kernel", "name": "lse_attention", "case": name,
+            "BH": bh, "S": s, "D": d, "row_off": row_off, "col_off": col_off,
+            "padded_keys": pad, "empty_rows": int(empty.sum()),
+            "rel_err": errs, "max_abs_err": abs_errs,
+            "tol": {"out_and_grads": f"{ATTN_TOL} * max|ref|",
+                    "lse": f"{STAT_RTOL} * (1 + max|lse|)",
+                    "empty_rows": "out exactly 0, lse exactly -1e30"},
+            "ms": {
+                "lse_attention_fwd": median_ms(lambda: lac.lse_attention_fwd(
+                    q, k, v, valid, row_off, col_off)),
+                "lse_attention_bwd_dq": median_ms(
+                    lambda: lac.lse_attention_bwd_dq(*bwd_args)),
+                "lse_attention_bwd_dkv": median_ms(
+                    lambda: lac.lse_attention_bwd_dkv(*bwd_args)),
+            },
+            "plain_fwd_ms": median_ms(lambda: lac.flash_attention_lse_plain(
+                q, k, v, valid, row_off, col_off)),
+            "plain_bwd_ms": median_ms(
+                lambda: lac.flash_attention_lse_backward_plain(
+                    q, k, v, valid, row_off, col_off, out, lse, dout, dlse)),
+            "library_fwd_ms": median_ms(lib_fwd),
+            "library_bwd_ms": median_ms(lib_bwd),
+            "bound": lse_bounds(q, valid, row_off, col_off),
+        }
+        emit(row)
+        results[name] = row
+        del q, k, v, valid, out, lse, grads, ref, ref_lse, ref_grads, dout
+        del bwd_args, lib_fwd, lib_bwd
+        torch.cuda.empty_cache()
+
+    main = [results[name] for name in LSE_MAIN_PATH]
+    lines = []
+    for kernel, line in zip(LSE_KERNELS, (471, 521, 563)):
+        backward = kernel != "lse_attention_fwd"
+        plain = "plain_bwd_ms" if backward else "plain_fwd_ms"
+        library = "library_bwd_ms" if backward else "library_fwd_ms"
+        bound_ms, bound_by = mean_bound([r["bound"][kernel] for r in main])
+        lines.append({
+            "name": kernel,
+            "route": "cuda",
+            "source": "specforge_tpu_torch/csrc/lse_attention.cu",
+            "replaces": f"specforge_tpu/ops/attention_pallas.py:{line}",
+            "max_abs_err": max(r["max_abs_err"][kernel]
+                               for r in results.values()),
+            "rel_err": max(r["rel_err"][kernel] for r in results.values()),
+            "tol": f"{ATTN_TOL} * max|ref|",
+            # per launch, averaged over the main path's hops (two own
+            # chunks, one earlier, one later); the plain backward and the
+            # library backward compute every gradient at once, and stand
+            # beside both backward kernels
+            "ms": sum(r["ms"][kernel] for r in main) / len(main),
+            "plain_ms": sum(r[plain] for r in main) / len(main),
+            "library_ms": sum(r[library] for r in main) / len(main),
+            "bound_ms": bound_ms,
+            "bound_by": bound_by,
+        })
+    return lines
+
+
+def usp_run_json(workdir: Path, draft_config: Path, target: Path,
+                 max_length: int) -> Path:
+    """``examples/qwen3-8b-eagle3-usp-32k.json``, read as data, pointed at
+    this run's directories and cut to ``max_length`` tokens, a 2×2 grid,
+    accumulation 2, one epoch, a log line per step and a checkpoint every 2
+    steps."""
+    raw = json.loads(USP_EXAMPLE.read_text())
+    raw["run_id"] = "usp"
+    raw["output_dir"] = str(workdir / "runs")
+    raw["model"].update(target_model_path=str(target),
+                        draft_config_path=str(draft_config))
+    raw["data"].update(train_data_path=str(workdir / "train"),
+                       max_length=max_length, num_workers=2)
+    raw["training"].update(sp_ulysses_size=USP_GRID[0],
+                           sp_ring_size=USP_GRID[1], num_epochs=1,
+                           accumulation_steps=ACCUM, save_interval=2,
+                           log_interval=1)
+    raw["tracking"] = {"backend": "jsonl"}
+    path = workdir / "run.json"
+    path.write_text(json.dumps(raw, indent=2))
+    return path
+
+
+def weights_digest(params: dict) -> str:
+    """sha256 over every trainable tensor's bytes, in name order."""
+    h = hashlib.sha256()
+    for name in sorted(params):
+        h.update(name.encode())
+        h.update(params[name].detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def usp_rank(workdir: Path, device, overrides=()) -> None:
+    """One rank of the USP phase (``chip_smoke.py --usp-rank WORKDIR``,
+    started 4 times with the SPECFORGE_* env): ``cli.main(["train", ...])``
+    with its launch counts set to 0 just before and read just after, then a
+    trainer resumed from the step-2 checkpoint (its step-1 loss and
+    gradients first, from the same initial weights), its micro-step,
+    optimizer-step and whole-step times, the collectives' share and the
+    memory; everything into ``rank{N}.json`` (rank 0 also writes the step-1
+    gradients)."""
+    from specforge_tpu_torch.application import composition
+    from specforge_tpu_torch.parallel import usp
+    from specforge_tpu_torch.parallel.multihost import (
+        barrier,
+        maybe_initialize_distributed,
+        process_index,
+        shutdown,
+    )
+
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    device = maybe_initialize_distributed(device)
+    rank = process_index()
+    run_json = workdir / "run.json"
+    overrides = list(overrides)
+    device_args = [] if on_card else ["--device", str(device)]
+    built = []
+    build = composition.build_training_run
+
+    def capture(*args, **kwargs):
+        trainer = build(*args, **kwargs)
+        step, losses = trainer.train_step, []
+
+        def recorded(state, batch, frozen):
+            state, metrics = step(state, batch, frozen)
+            losses.append(float(metrics["train/loss"]))
+            return state, metrics
+
+        recorded.__dict__.update(step.__dict__)
+        trainer.train_step, trainer.losses = recorded, losses
+        built.append(trainer)
+        return trainer
+
+    def trainer_for(*extra):
+        config = load_config(str(run_json), overrides + list(extra))
+        return build_training_run(config, device=None if on_card else device)
+
+    try:
+        composition.build_training_run = capture
+        out = {"rank": rank}
+        for fn in USP_COUNTERS.values():
+            fn.launches = 0
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        sync()
+        t0 = time.perf_counter()
+        rc = cli.main(["train", "-c", str(run_json), *device_args,
+                       *[a for o in overrides for a in ("--set", o)]])
+        sync()
+        out["cli_train_s"] = time.perf_counter() - t0
+        out["launches"] = {n: fn.launches for n, fn in USP_COUNTERS.items()}
+        composition.build_training_run = build
+        if rc != 0:
+            raise AssertionError(f"rank {rank}: cli train exited {rc}")
+        trainer = built.pop()
+        out.update(
+            transport=trainer.mesh.transport, chunk=trainer.mesh.chunk_index,
+            writes_checkpoints=trainer.checkpoints.primary,
+            tracks=type(trainer.tracker).__name__ != "NoOpTracker",
+            losses=trainer.losses, digest=weights_digest(trainer.state.params))
+        if on_card:
+            out["cli_train_peak_bytes"] = torch.cuda.max_memory_allocated()
+        del trainer
+        gc.collect()  # the recording wrapper makes a reference cycle
+        if on_card:
+            torch.cuda.empty_cache()
+
+        # resumed from step 2: first step 1's loss and gradients from the
+        # same initial weights, then the last two steps
+        resumed = trainer_for(
+            'run_id="usp_resumed"', "training.save_interval=0",
+            f'output_dir="{workdir / "resumed"}"',
+            f"training.resume_from={workdir / 'runs' / 'usp-step2'}")
+        window = first_window(resumed)
+        loss, grads = window_grads(resumed, window)
+        out["step1_loss"] = loss
+        if rank == 0:
+            torch.save({k: g.cpu() for k, g in grads.items()},
+                       workdir / "usp_step1_grads.pt")
+        del grads
+        resumed.fit()
+        out["resumed_digest"] = weights_digest(resumed.state.params)
+        out["resumed_steps"] = resumed.state.step
+
+        # timings on the resumed trainer (its state changes from here): the
+        # micro-steps of one window, the update alone, then two whole steps
+        # (the micro-steps, the gradient all-reduce and the update), each
+        # with the host seconds spent in collectives
+        step = resumed.train_step
+
+        def timed(fn):
+            sync()
+            usp.reset_collective_stats()
+            t0 = time.perf_counter()
+            result = fn()
+            sync()
+            return (result, (time.perf_counter() - t0) * 1e3,
+                    usp.COLLECTIVES["seconds"] * 1e3)
+
+        # each collective waits for the card around it, so that its time
+        # is its own under NCCL too (host-staged gloo waits anyway)
+        usp.TIMED = True
+        micro = [timed(lambda: step.micro_step(resumed.state, tensors,
+                                               resumed.frozen))
+                 for tensors in window]
+        usp.TIMED = False
+        grads = micro[-1][0][0]
+        out["micro_step_ms_all"] = [m[1] for m in micro]
+        out["micro_step_ms"] = micro[-1][1]
+        out["collectives_ms_per_micro_step"] = micro[-1][2]
+        out["collective_bytes_per_micro_step"] = usp.COLLECTIVES["bytes"]
+        # the update of one micro-step's gradients: the same work as the
+        # step's (global norm, clip, AdamW), no collective
+        out["optimizer_step_ms"] = statistics.median(
+            timed(lambda: step.update(resumed.state, grads, {}))[1]
+            for _ in range(3))
+        del micro, grads
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        whole = []
+        for _ in range(2):
+            (resumed.state, _), ms, coll = timed(lambda: resumed.train_step(
+                resumed.state, stack_window(window), resumed.frozen))
+            whole.append({"ms": ms, "collectives_ms": coll})
+        out["whole_steps"] = whole
+        if on_card:
+            out["train_step_peak_bytes"] = torch.cuda.max_memory_allocated()
+        barrier("usp-memory")  # every rank holds its state now
+        if on_card:
+            free, total = torch.cuda.mem_get_info()
+            out["card_used_bytes"] = total - free
+        barrier("usp-done")
+        (workdir / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        composition.build_training_run = build
+        shutdown()
+
+
+def start_usp_ranks(workdir: Path, device, overrides) -> list:
+    """Start the ranks of the USP phase, each ``chip_smoke.py --usp-rank``
+    with the SPECFORGE_* env, wait for all within USP_TIMEOUT (killing them
+    past it) → their ``rank{N}.json`` records; raise with the ranks' logs if
+    one failed."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    ranks = USP_GRID[0] * USP_GRID[1]
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--usp-rank",
+           str(workdir), "--seed", "0"]
+    if device.type != "cuda":
+        cmd += ["--device", str(device)]
+    cmd += [a for o in overrides for a in ("--set", o)]
+    procs = []
+    for rank in range(ranks):
+        env = dict(os.environ, SPECFORGE_COORDINATOR=f"localhost:{port}",
+                   SPECFORGE_NUM_PROCESSES=str(ranks),
+                   SPECFORGE_PROCESS_ID=str(rank))
+        if device.type == "cpu":  # 4 ranks share the host's cores
+            env["OMP_NUM_THREADS"] = "1"
+        else:  # 4 ranks share the card's memory: no stranded segments
+            env["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        log = open(workdir / f"rank{rank}.log", "w")
+        procs.append((subprocess.Popen(cmd, env=env, stdout=log,
+                                       stderr=subprocess.STDOUT), log))
+    failed = []
+    deadline = time.monotonic() + USP_TIMEOUT
+    try:
+        for rank, (proc, _) in enumerate(procs):
+            try:
+                if proc.wait(timeout=max(deadline - time.monotonic(), 1)):
+                    failed.append(rank)
+            except subprocess.TimeoutExpired:
+                failed.append(rank)
+                break
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    if failed:
+        logs = "\n".join(f"--- rank {r}\n"
+                         + (workdir / f"rank{r}.log").read_text()[-4000:]
+                         for r in range(ranks))
+        raise AssertionError(f"USP ranks {failed} failed or timed out\n{logs}")
+    return [json.loads((workdir / f"rank{r}.json").read_text())
+            for r in range(ranks)]
+
+
+def check_usp_counts(rank_launches: list, micro_batches: int) -> None:
+    """On every rank: TTT·R launches of each LSE kernel and TTT of each
+    fused CE kernel per micro-batch, none of the TTT kernels."""
+    ring = USP_GRID[1]
+    for rank, launches in enumerate(rank_launches):
+        for name, n in launches.items():
+            per = (TTT * ring if name.startswith("lse") else
+                   TTT if name.startswith("fused_ce") else 0)
+            if n != per * micro_batches:
+                raise AssertionError(
+                    f"rank {rank}: {name} launched {n} times, "
+                    f"expected {per * micro_batches} ({per} per micro-batch)")
+
+
+def run_usp_training(cfg_path: Path, device, seed: int, workdir: Path, *,
+                     max_length=USP_MAX_LEN, min_len=USP_MIN_LEN,
+                     head_std=0.02, overrides=()) -> tuple:
+    """Slice 5 end to end → (results, the launch counts of the main path
+    summed over the ranks).
+
+    The main path is ``cli.main(["train", ...])`` on 4 ranks of a 2×2 grid
+    (``start_usp_ranks``; over host-staged gloo when they share one card):
+    4 optimizer steps with checkpoints at steps 2 and 4. The ranks must
+    report the same per-step loss and bit-identical final weights, only
+    rank 0 may write, and a 4-rank resume from step 2 must reach the final
+    weights bit-exactly. Then one process runs the same batches from the
+    same initial weights with the TTT kernels (``attention_backend:
+    "pallas"``, B = 1, S = ``max_length``): its step-1 loss and gradients
+    and its loss curve against the USP run's, and its timings."""
+    cfg = Eagle3Config.from_file(cfg_path)
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    write_features(workdir / "train", cfg, seed, USP_FILES, min_len,
+                   max_length)
+    target = write_target_dir(workdir / "target", cfg.vocab_size,
+                              cfg.resolved_target_hidden_size, device, seed,
+                              head_std)
+    run_json = usp_run_json(workdir, cfg_path, target, max_length)
+    overrides = list(overrides)
+    results = {}
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        results["parent_before_ranks"] = {
+            "allocated_bytes": torch.cuda.memory_allocated(),
+            "reserved_bytes": torch.cuda.memory_reserved(),
+            "card_used_bytes": total - free}
+    t0 = time.perf_counter()
+    records = start_usp_ranks(workdir, device, overrides)
+    results["ranks_s"] = time.perf_counter() - t0
+    rank0 = records[0]
+    steps = step_records(workdir / "runs", "usp")
+    micro_batches = len(steps) * ACCUM
+    for rec in records:
+        if rec["losses"] != rank0["losses"]:
+            raise AssertionError(f"rank {rec['rank']}: per-step losses "
+                                 f"{rec['losses']} != rank 0's")
+        if rec["digest"] != rank0["digest"]:
+            raise AssertionError(f"rank {rec['rank']}: final weights differ "
+                                 "from rank 0's")
+        if rec["resumed_digest"] != rank0["digest"]:
+            raise AssertionError(f"rank {rec['rank']}: the resume from step 2 "
+                                 "did not reach the final weights bit-exactly")
+        if rec["step1_loss"] != rank0["step1_loss"]:
+            raise AssertionError(f"rank {rec['rank']}: step-1 loss differs")
+    if [r["step"] for r in steps] != list(range(1, len(steps) + 1)) or [
+            r["train/loss"] for r in steps] != rank0["losses"]:
+        raise AssertionError("rank 0's tracker disagrees with its steps")
+    roles = [(r["writes_checkpoints"], r["tracks"]) for r in records]
+    if roles != [(True, True)] + [(False, False)] * (len(records) - 1):
+        raise AssertionError(f"IO roles {roles}: only rank 0 writes")
+    written = sorted(p.name for p in (workdir / "runs").iterdir())
+    if written != ["usp-step2", "usp-step4", "usp.latest",
+                   "usp.metrics.jsonl", "usp.vocab_mapping.npz"]:
+        raise AssertionError(f"the USP run wrote {written}")
+    grads_usp = torch.load(workdir / "usp_step1_grads.pt", weights_only=True)
+    for name in ("runs", "resumed"):
+        shutil.rmtree(workdir / name, ignore_errors=True)
+
+    # one process, the same batches and initial weights, the TTT kernels
+    config = load_config(str(run_json), overrides + [
+        'run_id="single"', 'training.attention_backend="pallas"',
+        "training.sp_ulysses_size=1", "training.sp_ring_size=1",
+        "training.save_interval=0"])
+    single = build_training_run(config, device=None if on_card else device)
+    window = first_window(single)
+    loss_s, grads_s = window_grads(single, window)
+    check("step-1 loss, USP vs one process",
+          abs(rank0["step1_loss"] - loss_s) / abs(loss_s), TRAIN_STEP1_RTOL)
+    results["step1"] = {"loss": rank0["step1_loss"], "single_loss": loss_s}
+    results["step1_grads"] = compare_grads(
+        grads_usp, {k: g.cpu() for k, g in grads_s.items()})
+    del grads_s, grads_usp
+    single_steps = train_windows(single)
+    curve = []
+    for k, p in zip(steps, single_steps, strict=True):
+        rel = abs(k["train/loss"] - p["train/loss"]) / abs(p["train/loss"])
+        if not (math.isfinite(k["train/loss"])
+                and math.isfinite(p["train/loss"])):
+            raise AssertionError(f"step {k['step']}: loss not finite")
+        check(f"step {k['step']} train/loss, USP vs one process", rel,
+              TRAIN_STEP1_RTOL if k["step"] == 1 else TRAIN_DRIFT_RTOL)
+        curve.append({"step": k["step"], "loss": k["train/loss"],
+                      "single_loss": p["train/loss"], "rel_diff": rel,
+                      "grad_norm": k["train/grad_norm"],
+                      "single_grad_norm": p["train/grad_norm"]})
+    results["loss_curve"] = curve
+    whole = []
+    for _ in range(2):
+        sync()
+        t0 = time.perf_counter()
+        single.state, _ = single.train_step(single.state, stack_window(window),
+                                            single.frozen)
+        sync()
+        whole.append((time.perf_counter() - t0) * 1e3)
+    single_results = measure_kernel_path(single, window, sync)
+    single_results["whole_step_ms_all"] = whole
+    del single
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    tokens = ACCUM * max_length  # the global sequence of a step
+    whole_usp = statistics.median(
+        [statistics.median(w["ms"] for w in r["whole_steps"])
+         for r in records])
+    results.update({
+        "transport": rank0["transport"],
+        "ranks": [{k: r.get(k) for k in (
+            "rank", "chunk", "micro_step_ms", "micro_step_ms_all",
+            "optimizer_step_ms", "collectives_ms_per_micro_step",
+            "collective_bytes_per_micro_step", "whole_steps", "cli_train_s",
+            "cli_train_peak_bytes",
+            "train_step_peak_bytes", "card_used_bytes", "launches")}
+                  for r in records],
+        "whole_step_ms": whole_usp,
+        "tokens_per_s": tokens / (whole_usp / 1e3),
+        "single_process": {
+            **{k: v for k, v in single_results.items()
+               if k != "profile_micro_step"},
+            "profile_micro_step": single_results.get("profile_micro_step"),
+            "whole_step_ms": statistics.median(whole),
+            "tokens_per_s": tokens / (statistics.median(whole) / 1e3),
+        },
+        "optimizer_steps": len(steps),
+        "micro_batches": micro_batches,
+        "resume": {"from": "usp-step2", "steps": rank0["resumed_steps"],
+                   "bit_exact": True},
+        "ranks_bit_identical": True,
+    })
+    counts = {name: sum(r["launches"][name] for r in records)
+              for name in LSE_KERNELS}
+    results["rank_launches"] = [r["launches"] for r in records]
+    return results, counts
+
+
 def check_peagle_counts(counts: dict, micro_batches: int, layers: int) -> None:
     """Exactly one launch of each COD kernel per layer and micro-batch, and
     one of each fused CE kernel per micro-batch."""
@@ -2123,13 +2768,59 @@ def check_training_counts(counts: dict, micro_batches: int,
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
+    # one rank of the USP phase, started by the phase itself
+    parser.add_argument("--usp-rank", metavar="WORKDIR",
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
+    parser.add_argument("--set", action="append", default=[],
+                        help=argparse.SUPPRESS)
+    # the USP phase alone (its ranks and the one process beside them): on a
+    # machine with a card per rank, its ranks talk NCCL
+    parser.add_argument("--usp-only", action="store_true",
+                        help="run only the USP training phase")
     args = parser.parse_args()
+    if args.usp_rank:
+        usp_rank(Path(args.usp_rank), torch.device(args.device), args.set)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
 
     smi = device_facts()
     build()
+    # the USP phase first: its 4 ranks may share the card, and this process
+    # holds none of its memory yet (the kernel phases leave some behind)
+    with tempfile.TemporaryDirectory() as tmp:
+        results, usp_counts = run_usp_training(
+            CONFIG, torch.device("cuda"), args.seed, Path(tmp))
+    check_usp_counts(results["rank_launches"], results["micro_batches"])
+    shared = results["transport"] == "gloo"
+    emit({"phase": "usp_training",
+          "config": str(USP_EXAMPLE.relative_to(REPO)),
+          "draft_config": str(CONFIG.relative_to(REPO)),
+          "grid": {"sp_ulysses": USP_GRID[0], "sp_ring": USP_GRID[1]},
+          "batch": 1, "max_length": USP_MAX_LEN, "ttt_length": TTT,
+          "accumulation_steps": ACCUM,
+          "reduced": {"max_length": f"{USP_MAX_LEN}, not 32768 (8192 ran "
+                                    "out of memory with the 4 ranks on one "
+                                    "card)",
+                      "grid": "sp 2x2, not 2x4: " + (
+                          "the 4 ranks share one card" if shared else
+                          "4 cards, one a rank"),
+                      "accumulation_steps": "2, not 8",
+                      "steps": f"4 optimizer steps over {USP_FILES} files "
+                               f"of {USP_MIN_LEN}-{USP_MAX_LEN} tokens",
+                      "checkpoints": "at steps 2 and 4"},
+          "launches_summed_over_ranks": usp_counts,
+          "tolerances": {"step1_loss_rtol": TRAIN_STEP1_RTOL,
+                         "later_loss_rtol": TRAIN_DRIFT_RTOL,
+                         "grad_cosine": GRAD_COSINE,
+                         "grad_norm_rtol": GRAD_NORM_RTOL},
+          **results})
+    if args.usp_only:
+        print(smi, flush=True)
+        return 0
+    torch.cuda.empty_cache()
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     kernels = [attention_kernel_phase(gen), ce_kernel_phase(gen)]
     kernels += [ce_backward_phase(gen), *attention_backward_phase(gen)]
@@ -2137,6 +2828,8 @@ def main() -> int:
     kernels += dflash_kernel_phase(gen)
     torch.cuda.empty_cache()
     kernels += cod_kernel_phase(gen)
+    torch.cuda.empty_cache()
+    kernels += lse_kernel_phase(gen)
     torch.cuda.empty_cache()
 
     cfg = Eagle3Config.from_file(CONFIG)
@@ -2219,12 +2912,15 @@ def main() -> int:
                          "embedding_update_rtol": EMBED_UPDATE_RTOL},
           **results})
     torch.cuda.empty_cache()
+
     # each kernel's launches from its own main path: the EAGLE3 kernels from
     # the EAGLE3 training run, the DFlash kernels from the Domino run, the
-    # COD kernels from the P-EAGLE run
+    # COD kernels from the P-EAGLE run, the LSE kernels from the USP run
+    # (summed over its 4 ranks)
     counts.update(family_counts["domino"])
     counts.update({k: v for k, v in peagle_counts.items()
                    if k.startswith("cod_")})
+    counts.update(usp_counts)
     for k in kernels:
         k["launches"] = counts[k["name"]]
         k["kernel_ms"] = k["ms"]

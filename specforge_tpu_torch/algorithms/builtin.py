@@ -37,7 +37,7 @@ QUEUED = {
 
 def _eagle3_build_draft(config_dict: Dict[str, Any], dtype=torch.bfloat16,
                         attention_backend: str = "dense", device=None,
-                        seed: int = 0):
+                        seed: int = 0, mesh=None):
     from specforge_tpu_torch.models.draft.llama_eagle3 import (
         Eagle3Config,
         LlamaEagle3Draft,
@@ -46,7 +46,7 @@ def _eagle3_build_draft(config_dict: Dict[str, Any], dtype=torch.bfloat16,
     config = Eagle3Config.from_dict(config_dict)
     draft = LlamaEagle3Draft(config, dtype=dtype,
                              attention_backend=attention_backend,
-                             device=device, seed=seed)
+                             device=device, seed=seed, mesh=mesh)
     return draft, config
 
 

@@ -16,6 +16,15 @@ them diagonally.
 Every teacher tensor is detached. Outputs are stacked per-step tensors so the
 strategy can weight the losses and the evaluator can reduce metrics as
 numerator/denominator pairs.
+
+Under the ``"usp"`` backend every rank of the sequence group receives its
+own cut of the batch (``SequenceShard.take``, made by the strategy on the
+host): its chunk and the halo of ``length - 1`` positions after it that the
+shifts and the teacher slices read. It computes the teacher over both, RoPE
+at global positions, and each
+loss and metric as a function of numerators and denominators summed over
+the group (``sp_sum``: the global value on every rank, each rank's gradient
+its own share). The JAX model computes the same in one global program.
 """
 
 from __future__ import annotations
@@ -36,6 +45,7 @@ from specforge_tpu_torch.ops.teacher import (
     compute_target_p_padded,
     compute_target_p_padded_from_hidden,
 )
+from specforge_tpu_torch.parallel.usp import SequenceShard, sp_sum
 from specforge_tpu_torch.utils import shift_pad
 
 #: "fused" = the fused CE (kernel on CUDA, its plain version on CPU);
@@ -98,54 +108,73 @@ class OnlineEagle3Model(nn.Module):
         target_hidden_for_compact: Optional[torch.Tensor] = None,
         target_head_weight: Optional[torch.Tensor] = None,
         compact_teacher_chunk_size: int = 32768,
+        shard: Optional[SequenceShard] = None,
     ) -> TTTOutputs:
         """input_ids [B, S] (already teacher-shifted), attention_mask [B, S],
         loss_mask [B, S, 1], hidden_states [B, S, 3*target_hidden], target
         [B, S, V] full-vocab teacher logits (or None when the compact path
-        supplies hidden + head weight)."""
+        supplies hidden + head weight). Under ``"usp"`` ``shard`` is this
+        rank's :class:`SequenceShard` and every tensor is its local cut
+        (``shard.take``: [B, shard.real, ...], the chunk and its halo)."""
         draft = self.draft_model
         t2d, d2t = draft.t2d, draft.d2t
+        batch_size = input_ids.shape[0]
+        mesh = draft.mesh if draft.attention_backend == "usp" else None
+        if shard is None:
+            if mesh is not None and mesh.sp_size > 1:
+                raise ValueError("attention_backend='usp' takes this rank's "
+                                 "SequenceShard and its local tensors")
+            shard = SequenceShard.of(None, input_ids.shape[1], 0)
+        seq_len, s_loc = shard.global_size, shard.size
+
+        def reduce(x):
+            return sp_sum(x, mesh)
 
         with torch.no_grad():
+            # the teacher of the positions the window holds, padded past
+            # them as past the global end
+            pad = self.length + shard.width - shard.real
             if target_hidden_for_compact is not None:
                 teacher = compute_target_p_padded_from_hidden(
                     target_hidden_for_compact, target_head_weight, t2d, d2t,
-                    loss_mask, self.length,
-                    chunk_size=compact_teacher_chunk_size,
+                    loss_mask, pad, chunk_size=compact_teacher_chunk_size,
                 )
             else:
                 teacher = compute_target_p_padded(
-                    target, t2d, d2t, loss_mask, self.length
+                    target, t2d, d2t, loss_mask, pad
                 )
         target_p_padded, accept_ratio_padded, token_ids_padded, position_mask = (
             teacher
         )
 
-        batch_size, seq_len = input_ids.shape
-        hidden = draft.project_hidden_states(hidden_states)
-        if draft.attention_backend == "pallas":
-            # the kernel never materializes the [S, S] bias; padding rides
+        hidden = draft.project_hidden_states(shard.chunk(hidden_states))
+        if draft.attention_backend in ("pallas", "usp"):
+            # the kernels never materialize the [S, S] bias; padding rides
             # the [B, S] key-validity mask
-            bias, key_valid = None, attention_mask
+            bias, key_valid = None, shard.chunk(attention_mask)
         else:
             bias = make_causal_bias(attention_mask, batch_size, seq_len)
             key_valid = None
         if position_ids is None:
             position_ids = torch.arange(
-                seq_len, device=input_ids.device
-            ).expand(batch_size, seq_len)
+                shard.start, shard.start + s_loc, device=input_ids.device
+            ).expand(batch_size, s_loc)
+        else:
+            position_ids = shard.chunk(position_ids)
 
         cache = ((), ())
-        cur_input_ids = input_ids
-        cur_loss_mask = loss_mask
-        cur_position_mask = position_mask
+        cur_input_ids = shard.window(input_ids)
+        cur_loss_mask = shard.window(loss_mask)
+        cur_position_mask = shard.pad(position_mask)
         steps = []
         for idx in range(self.length):
-            step_target_p = target_p_padded[:, idx:idx + seq_len]
-            step_ratio = accept_ratio_padded[:, idx:idx + seq_len]
-            step_token_ids = token_ids_padded[:, idx:idx + seq_len]
+            step_target_p = target_p_padded[:, idx:idx + s_loc]
+            step_ratio = accept_ratio_padded[:, idx:idx + s_loc]
+            step_token_ids = token_ids_padded[:, idx:idx + s_loc]
+            step_position_mask = cur_position_mask[:, :s_loc]
 
-            embeds = draft.embed_input_ids(cur_input_ids).to(hidden.dtype)
+            embeds = draft.embed_input_ids(cur_input_ids[:, :s_loc]).to(
+                hidden.dtype)
             hidden, cache = draft.ttt_step(
                 embeds, hidden, cache, bias, position_ids, key_valid
             )
@@ -154,18 +183,24 @@ class OnlineEagle3Model(nn.Module):
             # token accuracy against the teacher argmax
             pred_draft = torch.argmax(logits, dim=-1)
             pred_target = pred_draft + d2t[pred_draft]
-            lm = cur_loss_mask[..., 0].float()
-            correct = torch.sum((pred_target == step_token_ids).float() * lm)
-            denom = torch.clamp(torch.sum(lm), min=1e-6)
+            lm = cur_loss_mask[:, :s_loc, 0].float()
+            correct = reduce(torch.sum((pred_target == step_token_ids).float()
+                                       * lm))
+            denom = torch.clamp(reduce(torch.sum(lm)), min=1e-6)
 
-            kl_loss = self.loss_fn(logits, step_target_p, cur_position_mask)
+            # the mean over this chunk's B*S_loc rows, as its share of the
+            # mean over all B*S rows
+            kl_loss = reduce(self.loss_fn(logits, step_target_p,
+                                          step_position_mask)
+                             * (s_loc / seq_len))
             # without an LK loss the acceptance rate is a metric only: it
             # reads detached logits, so autograd keeps none of its fp32
             # softmax intermediates (the JAX model's stop_gradient lets XLA
             # drop its backward the same way)
             acceptance_rate, log_acceptance_rate = compute_acceptance_rate(
                 logits if self.lk_loss_type is not None else logits.detach(),
-                step_target_p, cur_position_mask, ratio=step_ratio
+                step_target_p, step_position_mask, ratio=step_ratio,
+                reduce=reduce,
             )
             if self.lk_loss_type is None:
                 loss = kl_loss
@@ -174,7 +209,7 @@ class OnlineEagle3Model(nn.Module):
                     kl_loss, acceptance_rate, log_acceptance_rate,
                     self.lk_loss_type, self.kl_scale, self.kl_decay,
                 )
-            pos_den = torch.sum(cur_position_mask.float())
+            pos_den = reduce(torch.sum(step_position_mask.float()))
             steps.append((
                 loss,
                 acceptance_rate.detach(),
@@ -182,7 +217,7 @@ class OnlineEagle3Model(nn.Module):
                 correct,
                 denom,
                 loss.detach(),
-                torch.tensor(float(logits.shape[0] * logits.shape[1]),
+                torch.tensor(float(batch_size * seq_len),
                              device=logits.device),
                 acceptance_rate.detach() * pos_den,
                 pos_den,

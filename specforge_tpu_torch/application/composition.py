@@ -1,4 +1,4 @@
-"""Composition root: Config → runnable training run, on one device.
+"""Composition root: Config → runnable training run.
 
 Counterpart of ``specforge_tpu/application/composition.py`` for offline
 runs of EAGLE3, the DFlash family (dflash, domino) and P-EAGLE: resolves the
@@ -10,9 +10,14 @@ and the tracker, and returns the :class:`Trainer`. EAGLE3 copies the target
 embedding into its draft and freezes it (the frozen table cast to bf16);
 P-EAGLE copies it too but trains it in fp32; the DFlash family reads the
 target head and embedding from ``frozen`` at every step and trains every
-draft parameter. What the port has not reached yet (a mesh, USP, online
-runs, other algorithms, a warm start, an eval pass for the DFlash family and
-P-EAGLE) is refused with the slice that brings it.
+draft parameter. EAGLE3 under ``attention_backend: "usp"`` runs on
+``sp_ulysses × sp_ring`` processes started with the multi-process env
+(``parallel/multihost.py``): the rank grid and its groups first, then the
+draft over them; every rank loads the same samples, the primary rank derives
+the vocab mapping and owns the tracker. What the port has not reached yet
+(FSDP2 ``dp``/``fsdp`` meshes, online runs, other algorithms, a warm start,
+an eval pass for the DFlash family and P-EAGLE) is refused with the slice
+that brings it.
 """
 
 from __future__ import annotations
@@ -34,6 +39,14 @@ from specforge_tpu_torch.data.collator import (
     PackingCollator,
     PackingCollatorConfig,
     PaddingCollator,
+)
+from specforge_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+from specforge_tpu_torch.parallel.multihost import (
+    barrier,
+    is_primary,
+    maybe_initialize_distributed,
+    process_count,
+    shard_refs_for_process,
 )
 from specforge_tpu_torch.runtime.data_plane.feature_dataloader import (
     FeatureDataLoader,
@@ -106,10 +119,10 @@ def _refuse_unported(config: Config) -> None:
             "online (disaggregated) runs come with the capture and online "
             "slice (ROADMAP.md, Queue 1 item 7)"
         )
-    if t.attention_backend == "usp":
+    if t.attention_backend == "usp" and t.strategy != "eagle3":
         raise NotImplementedError(
-            "attention_backend='usp' comes with the sequence-parallel slice "
-            "(ROADMAP.md, Queue 1 item 6)"
+            f"attention_backend='usp' is EAGLE3's; {t.strategy!r} has no "
+            "sequence-parallel path in the port (ROADMAP.md, Queue 1 item 6)"
         )
     if t.dp_size > 1 or t.fsdp_size > 1:
         raise NotImplementedError(
@@ -177,25 +190,71 @@ def _resolve_vocab_mapping(config: Config, draft_config) -> Optional[tuple]:
         cache = os.path.join(
             config.output_dir, f"{config.run_id}.vocab_mapping.npz"
         )
-        if os.path.exists(cache):
-            return load_vocab_mapping(cache)
-        logger.info("deriving vocab mapping from %s",
-                    config.data.train_data_path)
-        t2d, d2t = derive_from_offline_dir(
-            config.data.train_data_path, vocab, draft_vocab
-        )
-        save_vocab_mapping(cache, t2d, d2t)
-        return t2d, d2t
+        if process_count() <= 1:
+            if os.path.exists(cache):
+                return load_vocab_mapping(cache)
+            return _derive_vocab_mapping(config, cache, vocab, draft_vocab)
+        # several ranks: the primary derives and writes the shared cache;
+        # every rank passes the barrier, whatever the cache's timing
+        if is_primary() and not os.path.exists(cache):
+            _derive_vocab_mapping(config, cache, vocab, draft_vocab)
+        barrier("vocab-mapping")
+        return load_vocab_mapping(cache)
     return None
+
+
+def _derive_vocab_mapping(config: Config, cache: str, vocab: int,
+                          draft_vocab: int) -> tuple:
+    logger.info("deriving vocab mapping from %s", config.data.train_data_path)
+    t2d, d2t = derive_from_offline_dir(
+        config.data.train_data_path, vocab, draft_vocab
+    )
+    os.makedirs(config.output_dir, exist_ok=True)
+    save_vocab_mapping(cache, t2d, d2t)
+    return t2d, d2t
+
+
+def _build_mesh(config: Config, device: torch.device):
+    """The USP rank grid (None without USP), after the checks of the JAX
+    composition: one process per rank of ``sp_ulysses × sp_ring``, and a
+    ``max_length`` that divides into the chunks."""
+    t = config.training
+    procs = process_count()
+    if t.attention_backend != "usp":
+        if procs > 1:
+            raise NotImplementedError(
+                f"{procs} processes without attention_backend='usp': data "
+                "parallelism (dp/fsdp) comes with the parallelism slice "
+                "(ROADMAP.md, Queue 1 item 6)"
+            )
+        return None
+    mesh_cfg = MeshConfig(sp_ulysses=t.sp_ulysses_size,
+                          sp_ring=t.sp_ring_size)
+    if config.data.max_length % mesh_cfg.world_size != 0:
+        raise ValueError(
+            f"data.max_length={config.data.max_length} must be divisible by "
+            f"sp_ulysses*sp_ring={mesh_cfg.world_size} for USP"
+        )
+    if mesh_cfg.world_size != procs:
+        raise ValueError(
+            f"attention_backend=usp needs one process per rank of "
+            f"sp_ulysses*sp_ring={mesh_cfg.world_size}, have {procs} (start "
+            "each with SPECFORGE_COORDINATOR, SPECFORGE_NUM_PROCESSES and "
+            "SPECFORGE_PROCESS_ID)"
+        )
+    return build_mesh(mesh_cfg, device)
 
 
 def build_training_run(config: Config, registry=None, frozen_override=None,
                        device: DeviceLike = None) -> Trainer:
-    """Build a fully wired offline Trainer on one device: CUDA unless the
-    caller names another (``device="cpu"`` in the tests); without a card
-    and without a device named this raises."""
+    """Build a fully wired offline Trainer: CUDA unless the caller names
+    another device (``device="cpu"`` in the tests); without a card and
+    without a device named this raises. Under the multi-process env this
+    process is one rank (its own card when there is one per rank)."""
     device = resolve_device(device)
     _refuse_unported(config)
+    device = maybe_initialize_distributed(device)
+    mesh = _build_mesh(config, device)
     resolved = resolve_run(config, registry)
     providers = resolved.registration.providers
     t = config.training
@@ -206,6 +265,7 @@ def build_training_run(config: Config, registry=None, frozen_override=None,
     draft, draft_config = providers.build_draft(
         resolved.draft_config_dict, dtype=compute_dtype,
         attention_backend=t.attention_backend, device=device, seed=t.seed,
+        **({"mesh": mesh} if mesh is not None else {}),
     )
     if options.get("mask_token_id") is None:
         options["mask_token_id"] = getattr(draft_config, "mask_token_id", 0)
@@ -269,9 +329,11 @@ def build_training_run(config: Config, registry=None, frozen_override=None,
     metadata = {"target_repr": contract.target_representation}
 
     def make_loader(root):
+        # every rank of a sequence group loads the same samples
+        refs = shard_refs_for_process(OfflineManifestReader(root).read(),
+                                      t.batch_size, grid=mesh)
         return FeatureDataLoader(
-            FileFeatureStore(), collate,
-            refs=OfflineManifestReader(root).read(),
+            FileFeatureStore(), collate, refs=refs,
             batch_size=loader_batch, num_workers=config.data.num_workers,
             prefetch_batches=config.data.prefetch_batches, metadata=metadata,
         )
@@ -279,8 +341,10 @@ def build_training_run(config: Config, registry=None, frozen_override=None,
     train_loader = make_loader(config.data.train_data_path)
     eval_loader = (make_loader(config.data.eval_data_path)
                    if config.data.eval_data_path else None)
+    # the primary rank alone writes metrics and markers
     tracker = build_tracker(
-        config.tracking.backend, output_dir=config.output_dir,
+        config.tracking.backend if is_primary() else "none",
+        output_dir=config.output_dir,
         run_id=config.run_id, project=config.tracking.project,
     )
     trainer_config = TrainerConfig(
@@ -335,4 +399,5 @@ def build_training_run(config: Config, registry=None, frozen_override=None,
         trainable_mask=trainable_mask,
         metadata=metadata,
         contract_fingerprints=fingerprints,
+        mesh=mesh,
     )

@@ -1,8 +1,12 @@
 """Command-line interface: ``python -m specforge_tpu_torch.cli train``.
 
 Counterpart of ``specforge_tpu/cli.py`` for ``train``: a config file,
-dotted ``--set`` overrides and the ``--plan`` dry run, offline and on one
-device (CUDA unless ``--device`` names another). SIGTERM unwinds as an
+dotted ``--set`` overrides and the ``--plan`` dry run, offline, on CUDA
+unless ``--device`` names another device. A sequence-parallel run
+(``attention_backend: "usp"``) starts this command once per rank with
+``SPECFORGE_COORDINATOR=host:port``, ``SPECFORGE_NUM_PROCESSES`` and
+``SPECFORGE_PROCESS_ID``, as the JAX multi-host recipe does; each rank
+leaves the process group it made on exit. SIGTERM unwinds as an
 exception, so the trainer's cleanup runs. ``export`` and ``benchmark`` are
 not ported yet (ROADMAP.md, Queue 1).
 """
@@ -36,13 +40,22 @@ def _train(args) -> int:
         print(json.dumps(config.model_dump(), indent=2, default=str))
         return 0
     _install_signal_unwind()
-    from specforge_tpu_torch.application.composition import build_training_run
+    import torch.distributed as dist
 
-    trainer = build_training_run(config, device=args.device)
+    from specforge_tpu_torch.application.composition import build_training_run
+    from specforge_tpu_torch.parallel.multihost import shutdown
+
+    # a process group that the caller made stays the caller's
+    owned = not dist.is_initialized()
     try:
-        metrics = trainer.fit()
+        trainer = build_training_run(config, device=args.device)
+        try:
+            metrics = trainer.fit()
+        finally:
+            trainer.tracker.finish()
     finally:
-        trainer.tracker.finish()
+        if owned:
+            shutdown()
     if metrics:
         print(json.dumps({k: float(v) for k, v in metrics.items()}, indent=2))
     return 0

@@ -15,6 +15,9 @@ the ``state_dict`` of the port's counterpart (``OnlineEagle3Model``,
 - the merged ``qkv_proj`` and ``gate_up_proj`` stay merged, as in the JAX
   drafts;
 - the ``buffers`` collection (``t2d``, ``d2t``) becomes module buffers.
+
+USP (``attention_backend: "usp"``) adds no parameter: the same tree loads
+into a draft of any attention backend, on every rank of a sequence group.
 """
 
 from __future__ import annotations

@@ -16,8 +16,11 @@ module names, so weights carry over (``specforge_tpu_torch.convert``):
 
 Parameters are fp32; every matrix product runs in ``dtype`` (bf16 by
 default); RMSNorm computes its statistics in fp32. ``attention_backend`` is
-``"dense"`` (the plain reference) or ``"pallas"`` — the name the configs use;
-here it selects the hand-written TTT flash-attention kernel.
+``"dense"`` (the plain reference), ``"pallas"`` — the name the configs use;
+here it selects the hand-written TTT flash-attention kernel — or ``"usp"``:
+sequence-parallel attention over the ranks of a
+:class:`~specforge_tpu_torch.parallel.mesh.Mesh` (Ulysses × ring, with the
+LSE ring-hop kernel), where each rank holds one sequence chunk.
 """
 
 from __future__ import annotations
@@ -36,6 +39,10 @@ from specforge_tpu_torch.ops.attention import (
 )
 from specforge_tpu_torch.ops.attention_cuda import ttt_flash_attention
 from specforge_tpu_torch.ops.rope import RopeSpec, apply_rope, rope_cos_sin
+from specforge_tpu_torch.parallel.usp import (
+    ulysses_scatter_heads,
+    usp_ttt_attention_scattered,
+)
 from specforge_tpu_torch.utils import DeviceLike, resolve_device
 
 ACT_FNS = {
@@ -45,7 +52,7 @@ ACT_FNS = {
     "gelu_pytorch_tanh": lambda x: F.gelu(x, approximate="tanh"),
 }
 
-ATTENTION_BACKENDS = ("dense", "pallas")
+ATTENTION_BACKENDS = ("dense", "pallas", "usp")
 
 Cache = Tuple[Tuple[torch.Tensor, ...], Tuple[torch.Tensor, ...]]
 
@@ -99,15 +106,19 @@ class Linear(nn.Module):
 
 class Eagle3Attention(nn.Module):
     def __init__(self, config: Eagle3Config, dtype, attention_backend: str,
-                 device=None):
+                 device=None, mesh=None):
         super().__init__()
         if attention_backend not in ATTENTION_BACKENDS:
             raise ValueError(
                 f"attention_backend {attention_backend!r} not in "
                 f"{ATTENTION_BACKENDS}"
             )
+        if (attention_backend == "usp") != (mesh is not None):
+            raise ValueError("attention_backend='usp' takes a mesh, and only "
+                             "it does")
         self.config = config
         self.attention_backend = attention_backend
+        self.mesh = mesh
         d = config.resolved_head_dim
         h, kvh = config.num_attention_heads, config.num_key_value_heads
         self.qkv_proj = Linear(2 * config.hidden_size, (h + 2 * kvh) * d,
@@ -127,8 +138,13 @@ class Eagle3Attention(nn.Module):
 
         hidden_2h [B, S, 2*hidden]; cache: (keys, values) tuples of earlier
         branches [B, KVH, S, D]; bias [B, 1, S, S] (dense backend) or None;
-        position_ids [B, S]; key_valid [B, S] (kernel backend).
-        Returns (attn_out [B, S, hidden], new_cache)."""
+        position_ids [B, S]; key_valid [B, S] (kernel backends).
+        Returns (attn_out [B, S, hidden], new_cache).
+
+        Under ``"usp"`` S is this rank's chunk, position_ids are global,
+        and the cache holds each branch's K/V after the Ulysses exchange,
+        expanded to the full head count first (the exchange divides heads
+        across ranks), so each step's K/V cross once."""
         cfg = self.config
         b, s, _ = hidden_2h.shape
         d = cfg.resolved_head_dim
@@ -140,10 +156,20 @@ class Eagle3Attention(nn.Module):
         v = qkv[..., qc + kc:].view(b, s, kvh, d).transpose(1, 2)
 
         lck = len(cache[0])
+        seq = s * self.mesh.sp_size if self.mesh is not None else s
         cos, sin = rope_cos_sin(
-            self.rope_spec, position_ids + lck, s + lck, dtype=q.dtype
+            self.rope_spec, position_ids + lck, seq + lck, dtype=q.dtype
         )
         q, k = apply_rope(q, k, cos, sin)
+        if self.attention_backend == "usp":
+            mesh, g = self.mesh, h // kvh
+            keys = tuple(cache[0]) + (ulysses_scatter_heads(
+                k.repeat_interleave(g, dim=1), mesh),)
+            values = tuple(cache[1]) + (ulysses_scatter_heads(
+                v.repeat_interleave(g, dim=1), mesh),)
+            attn_out = usp_ttt_attention_scattered(
+                mesh, ulysses_scatter_heads(q, mesh), keys, values, key_valid)
+            return self.o_proj(attn_out), (keys, values)
         keys = tuple(cache[0]) + (k,)
         values = tuple(cache[1]) + (v,)
         if self.attention_backend == "pallas":
@@ -168,11 +194,11 @@ class Eagle3MLP(nn.Module):
 
 class Eagle3DecoderLayer(nn.Module):
     def __init__(self, config: Eagle3Config, dtype, attention_backend: str,
-                 device=None):
+                 device=None, mesh=None):
         super().__init__()
         eps = config.rms_norm_eps
         self.self_attn = Eagle3Attention(config, dtype, attention_backend,
-                                         device)
+                                         device, mesh)
         self.mlp = Eagle3MLP(config, dtype, device)
         self.hidden_norm = RMSNorm(config.hidden_size, eps, device)
         self.input_layernorm = RMSNorm(config.hidden_size, eps, device)
@@ -199,7 +225,9 @@ class LlamaEagle3Draft(nn.Module):
 
     ``device`` defaults to CUDA (and raises without it); weights are drawn
     from ``generator`` (a :class:`torch.Generator` on that device) when given,
-    else from a fresh one seeded with ``seed``."""
+    else from a fresh one seeded with ``seed``, so every rank of a ``"usp"``
+    run draws the same weights. ``mesh`` is the rank grid of the ``"usp"``
+    backend."""
 
     def __init__(
         self,
@@ -209,16 +237,18 @@ class LlamaEagle3Draft(nn.Module):
         device: DeviceLike = None,
         seed: int = 0,
         generator: Optional[torch.Generator] = None,
+        mesh=None,
     ):
         super().__init__()
         device = resolve_device(device)
         self.config = config
         self.dtype = dtype
         self.attention_backend = attention_backend
+        self.mesh = mesh
         self.embed_tokens = nn.Embedding(config.vocab_size, config.hidden_size,
                                          device=device)
         self.midlayer = Eagle3DecoderLayer(config, dtype, attention_backend,
-                                           device)
+                                           device, mesh)
         th = config.resolved_target_hidden_size
         self.fc = Linear(3 * th, config.hidden_size, dtype, device)
         self.fc_norm = config.fc_norm

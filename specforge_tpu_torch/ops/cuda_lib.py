@@ -30,7 +30,7 @@ BUILD_DIR = PKG_DIR / "_build"
 
 #: every kernel source of the library; tests check that csrc/ holds no other
 SOURCES = ("ttt_attention.cu", "fused_ce.cu", "dflash_attention.cu",
-           "peagle_attention.cu")
+           "peagle_attention.cu", "lse_attention.cu")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -156,6 +156,15 @@ def library() -> ctypes.CDLL:
                 fn.argtypes = [p, p, p, p, p, p, p, p, *[p] * n_out,
                                *[i] * 5, p]
                 fn.restype = i
+            # q, k, v, valid, outputs..., BH, Sq, Sk, D, row_off, col_off
+            lib.lse_attention_fwd.argtypes = [p, p, p, p, p, p, *[i] * 6, p]
+            lib.lse_attention_fwd.restype = i
+            lib.lse_attention_bwd_dq.argtypes = [p, p, p, p, p, p, p, p,
+                                                 *[i] * 6, p]
+            lib.lse_attention_bwd_dq.restype = i
+            lib.lse_attention_bwd_dkv.argtypes = [p, p, p, p, p, p, p, p, p,
+                                                  *[i] * 6, p]
+            lib.lse_attention_bwd_dkv.restype = i
             lib.specforge_cuda_error_string.argtypes = [i]
             lib.specforge_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -7,7 +7,7 @@ loss modes blend it with the KL (CE) loss. Counterpart of
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -48,12 +48,17 @@ def _acceptance_per_token(
 
 
 def _masked_mean(
-    values_per_token: torch.Tensor, position_mask: torch.Tensor, eps: float
+    values_per_token: torch.Tensor, position_mask: torch.Tensor, eps: float,
+    reduce: Optional[Callable] = None,
 ) -> torch.Tensor:
+    """Masked mean; ``reduce`` sums the numerator and the denominator over
+    the ranks of a sequence group before the clamp and the division."""
     mask = position_mask.squeeze(-1).to(values_per_token.dtype)
     numerator = torch.sum(values_per_token * mask)
-    denominator = torch.clamp(torch.sum(mask), min=eps)
-    return numerator / denominator
+    denominator = torch.sum(mask)
+    if reduce is not None:
+        numerator, denominator = reduce(numerator), reduce(denominator)
+    return numerator / torch.clamp(denominator, min=eps)
 
 
 def compute_acceptance_rate(
@@ -62,19 +67,23 @@ def compute_acceptance_rate(
     position_mask: torch.Tensor,
     eps: float = 1e-8,
     ratio: Optional[torch.Tensor] = None,
+    reduce: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Masked-mean acceptance and log-acceptance over valid positions.
 
     The un-renormalized teacher restricted to the draft vocab is
     ``target_probs`` (optionally factored as ``target_probs * ratio``); draft
     probabilities come from a full softmax of the draft logits in fp32.
+    ``reduce`` sums numerators and denominators over a sequence group (the
+    ``reduce_axes`` psum of the JAX version).
     """
     acc_per_token = _acceptance_per_token(logits, target_probs, ratio)
-    acceptance_rate = _masked_mean(acc_per_token, position_mask, eps)
+    acceptance_rate = _masked_mean(acc_per_token, position_mask, eps, reduce)
     log_acc_per_token = torch.where(
         acc_per_token > 0, torch.log(acc_per_token), torch.zeros_like(acc_per_token)
     )
-    log_acceptance_rate = _masked_mean(log_acc_per_token, position_mask, eps)
+    log_acceptance_rate = _masked_mean(log_acc_per_token, position_mask, eps,
+                                       reduce)
     return acceptance_rate, log_acceptance_rate
 
 

@@ -17,8 +17,10 @@ Resume validates the full contract (strategy, world size, batch/accum/total
 steps, model fingerprints) and refuses a silently divergent resume.
 Rotation keeps ``max_checkpoints`` newest, never deleting the best. The
 payload holds only tensors, numbers and dicts, and is read back with
-``weights_only=True``. One process writes it: the trainer runs on one
-device in this port.
+``weights_only=True``. One process writes it: in a multi-process run the
+ranks hold the same state (USP sums gradients over the sequence group before
+the step), so the primary rank writes the files and the markers between two
+barriers, and every rank reads them on resume.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ import json
 import os
 import shutil
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -107,11 +109,16 @@ class CheckpointManager:
         run_id: str,
         *,
         max_checkpoints: int = 5,
+        primary: bool = True,
+        barrier_fn: Optional[Callable[[str], None]] = None,
     ) -> None:
         self.output_dir = os.path.abspath(output_dir)
         self.run_id = run_id
         self.max_checkpoints = max_checkpoints
-        os.makedirs(self.output_dir, exist_ok=True)
+        self.primary = primary
+        self._barrier = barrier_fn or (lambda name: None)
+        if primary:
+            os.makedirs(self.output_dir, exist_ok=True)
 
     # --- paths ----------------------------------------------------------
     def step_dir(self, step: int) -> str:
@@ -132,7 +139,16 @@ class CheckpointManager:
         progress: Progress,
         metrics: Optional[Dict[str, float]] = None,
     ) -> str:
-        """Write ``state`` (a TrainState) under ``{run_id}-step{step}``."""
+        """Write ``state`` (a TrainState) under ``{run_id}-step{step}``:
+        the primary writes, every rank waits for it."""
+        step_dir = self.step_dir(step)
+        self._barrier(f"ckpt-pre-{step}")
+        if self.primary:
+            self._write(state, step, contract, progress, metrics)
+        self._barrier(f"ckpt-post-{step}")
+        return step_dir
+
+    def _write(self, state, step, contract, progress, metrics) -> None:
         step_dir = self.step_dir(step)
         if os.path.exists(step_dir):
             shutil.rmtree(step_dir)
@@ -160,11 +176,12 @@ class CheckpointManager:
             f.write(str(step))
         os.replace(self._latest_marker() + ".tmp", self._latest_marker())
         self._rotate()
-        return step_dir
 
     def _existing_steps(self) -> List[int]:
         steps = []
         prefix = f"{self.run_id}-step"
+        if not os.path.isdir(self.output_dir):  # the primary makes it
+            return steps
         for name in os.listdir(self.output_dir):
             if name.startswith(prefix):
                 tail = name[len(prefix):]
@@ -194,7 +211,7 @@ class CheckpointManager:
     def maybe_update_best(self, step: int, metrics: Dict[str, float]) -> bool:
         """Record ``step`` as best if its metric (higher is better) beats
         the stored one."""
-        if BEST_METRIC not in metrics:
+        if BEST_METRIC not in metrics or not self.primary:
             return False
         value = float(metrics[BEST_METRIC])
         current: Optional[float] = None

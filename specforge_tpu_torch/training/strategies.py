@@ -26,6 +26,7 @@ from specforge_tpu_torch.models.target.head import (
     target_head_preprocess,
 )
 from specforge_tpu_torch.ops.masks import sample_anchor_positions
+from specforge_tpu_torch.parallel.usp import SequenceShard
 from specforge_tpu_torch.utils import model_device, to_device
 
 
@@ -97,12 +98,21 @@ class Eagle3TrainStrategy:
       - "hidden_state" (offline): re-run the frozen head over the stored last
         hidden state — or stream it in vocab chunks when ``compact_teacher``.
       - "logits"/None (online): use delivered teacher logits as they are.
+
+    Under the ``"usp"`` backend every rank of the sequence group holds the
+    same global batch on the host and moves only its own cut to the card
+    (``SequenceShard.take``: its chunk, the halo after it, and one position
+    more for the teacher shift, which runs after the cut).
     """
 
     name = "eagle3"
     required_features = {
         "input_ids", "attention_mask", "loss_mask", "hidden_state", "target",
     }
+    #: the batch's [B, S, ...] tensors, cut to this rank's positions
+    positional = required_features | {"position_ids"}
+    #: those the teacher shift moves one position left
+    shifted = {"input_ids", "target"}
 
     def __init__(
         self,
@@ -117,17 +127,28 @@ class Eagle3TrainStrategy:
         self.compact_teacher = compact_teacher
         self.compact_teacher_chunk_size = compact_teacher_chunk_size
 
+    def _shard(self, seq_len: int) -> SequenceShard:
+        draft = self.model.draft_model
+        mesh = draft.mesh if draft.attention_backend == "usp" else None
+        return SequenceShard.of(mesh, seq_len, self.model.length - 1)
+
     def _inputs(self, tensors, frozen, metadata, compact: bool):
-        """Device placement, the teacher shift and the model's arguments."""
+        """This rank's cut of the batch, device placement, the teacher
+        shift and the model's arguments."""
         _validate_batch(self, tensors)
+        shift = (metadata or {}).get("target_repr") == "hidden_state"
+        shard = self._shard(tensors["input_ids"].shape[1])
+        tensors = {k: shard.take(v, int(shift and k in self.shifted))
+                   if k in self.positional else v
+                   for k, v in tensors.items()}
         device = model_device(self.model)
         tensors = to_device(tensors, device)
         frozen = to_device(frozen, device)
         input_ids = tensors["input_ids"]
         target = tensors["target"]
         loss_mask = tensors["loss_mask"]
-        kwargs: Dict[str, Any] = {}
-        if (metadata or {}).get("target_repr") == "hidden_state":
+        kwargs: Dict[str, Any] = {"shard": shard}
+        if shift:
             head_w = frozen.get("target_head_weight")
             if head_w is None:
                 raise ValueError(
@@ -137,6 +158,9 @@ class Eagle3TrainStrategy:
             input_ids, target_hidden, loss_mask = target_head_preprocess(
                 input_ids, target, loss_mask
             )
+            # the shift read the one position past the cut; drop it
+            input_ids, target_hidden = (shard.trim(input_ids),
+                                        shard.trim(target_hidden))
             if compact:
                 target = None
                 kwargs.update(

@@ -29,6 +29,11 @@ optimizer step is explicit.
   dense gradients and those rows, one clip scale serves both; then the
   dense factored step, then the sparse one. No dense [V, H] gradient is
   formed on this path.
+- With a ``mesh`` whose sequence group holds more than one rank (USP), each
+  rank's gradients are its own chunk's share of the global loss; they are
+  summed over the group (one all-reduce per parameter and window, fp32)
+  before the division, the global norm and the clip, so every rank takes
+  the same optimizer step.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from specforge_tpu_torch.training.optimizer import (
     sparse_embed_update,
     split_trainable,
 )
+from specforge_tpu_torch.parallel.usp import all_reduce_sum
 from specforge_tpu_torch.training.strategies import StepContext
 from specforge_tpu_torch.utils import model_device
 
@@ -109,6 +115,7 @@ def make_train_step(
     grads_dtype: Any = "float32",
     compute_params_dtype: Optional[Any] = None,
     sparse_embed: Optional[SparseEmbedPlan] = None,
+    mesh=None,
 ) -> Callable:
     """Build ``train_step(state, batch, frozen) -> (state, metrics)``.
 
@@ -126,6 +133,7 @@ def make_train_step(
         else None
     )
     model = strategy.model
+    sp_group = mesh is not None and mesh.sp_size > 1
     uses_loss_terms = getattr(strategy, "uses_loss_terms", False)
     embed_path = getattr(strategy, "sparse_embed_path", None)
     sparse_path = sparse_embed.path if sparse_embed is not None else None
@@ -214,6 +222,9 @@ def make_train_step(
         if sparse_embed is not None:
             stats["sparse_embed"] = segment_sum_rows(
                 torch.cat(ids), torch.cat(rows) / norm)
+        if sp_group:
+            for name in grads:  # one parameter at a time: one extra copy
+                grads[name] = all_reduce_sum(grads[name].float(), mesh)
         # optimizer math is fp32 regardless of the grad storage dtype
         return {k: g.float() / norm for k, g in grads.items()}, stats
 

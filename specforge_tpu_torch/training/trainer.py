@@ -4,8 +4,12 @@ Counterpart of ``specforge_tpu/training/trainer.py``: loader → accumulation
 grouping → train step → logging/eval/checkpointing, with mid-epoch
 seek/resume and perf counters. The model lives in the strategy (its
 parameters on its device); each micro-batch moves there inside the
-strategy. A mesh, multiple hosts and durable acknowledgements (``ack_fn``)
-come with the parallelism and online slices (ROADMAP.md, Queue 1).
+strategy. In a multi-process USP run (``mesh``) every rank of the sequence
+group loads the same samples and runs the same steps; the train step sums
+the gradients over the group, the primary rank writes checkpoints and
+markers between barriers (the tracker of the other ranks is a no-op), and
+every rank restores on resume. FSDP2 ``dp``/``fsdp`` meshes and durable
+acknowledgements (``ack_fn``) come with later slices (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -18,6 +22,11 @@ from typing import Any, Dict, Iterable, List, Optional
 import torch
 
 from specforge_tpu_torch.eval.evaluator import Evaluator
+from specforge_tpu_torch.parallel.multihost import (
+    barrier,
+    is_primary,
+    process_count,
+)
 from specforge_tpu_torch.runtime.contracts import TrainBatch
 from specforge_tpu_torch.training.checkpoint import (
     CheckpointManager,
@@ -81,8 +90,10 @@ class Trainer:
         trainable_mask: Optional[Dict[str, bool]] = None,
         metadata: Optional[Dict[str, Any]] = None,
         contract_fingerprints: Optional[Dict[str, Any]] = None,
+        mesh=None,
     ) -> None:
         self.strategy = strategy
+        self.mesh = mesh
         self.train_loader = train_loader
         self.eval_loader = eval_loader
         self.config = config
@@ -125,10 +136,12 @@ class Trainer:
             grads_dtype=config.grads_dtype,
             compute_params_dtype=config.compute_params_dtype,
             sparse_embed=self.sparse_plan,
+            mesh=mesh,
         )
         self.checkpoints = CheckpointManager(
             config.output_dir, config.run_id,
             max_checkpoints=config.max_checkpoints,
+            primary=is_primary(), barrier_fn=barrier,
         )
         self.evaluator = Evaluator(strategy, self.metadata)
         self.profiler = StepProfiler(config.profiling, config.run_id)
@@ -138,7 +151,7 @@ class Trainer:
     def resume_contract(self) -> ResumeContract:
         return ResumeContract(
             strategy=self.strategy.name,
-            world_size=1,
+            world_size=process_count(),
             train_batch_size=getattr(self.train_loader, "batch_size", 0),
             accum_steps=self.config.accum_steps,
             total_steps=self.total_steps,

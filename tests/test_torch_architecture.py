@@ -59,3 +59,15 @@ def test_every_cuda_source_is_built():
             f"{name} lacks its note: the TPU kernel it replaces and what "
             "bounds it"
         )
+
+
+def test_usp_slice_is_built_and_imports_nothing_of_jax():
+    """The LSE ring-hop source is built, and the parallel package (the
+    process runtime, the rank grid, USP) is among the checked sources."""
+    assert "lse_attention.cu" in cuda_lib.SOURCES
+    parallel = sorted(p for p in _sources()
+                      if os.sep + "parallel" + os.sep in p)
+    assert [os.path.basename(p) for p in parallel] == [
+        "__init__.py", "mesh.py", "multihost.py", "usp.py"]
+    for path in parallel:
+        assert not {m for m in _top_level_imports(path) if m in FORBIDDEN}

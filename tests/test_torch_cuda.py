@@ -11,6 +11,7 @@ import torch
 
 from specforge_tpu_torch.ops import attention_cuda, loss_cuda
 from specforge_tpu_torch.ops import dflash_attention_cuda as dflash_cuda
+from specforge_tpu_torch.ops import lse_attention_cuda as lse_cuda
 from specforge_tpu_torch.ops import peagle_attention_cuda as cod_cuda
 from specforge_tpu_torch.ops.masks import sample_anchor_positions
 from specforge_tpu_torch.ops.loss import (
@@ -415,3 +416,88 @@ def test_cod_autograd_is_deterministic_and_refuses_bad_shapes(gen):
         cod_cuda.cod_flash_attention(q.float(), k, v, tiles=tiles)
     with pytest.raises(ValueError, match="multiple of KVH"):
         cod_cuda.cod_flash_attention(q[:, :7], k, v, tiles=tiles)
+
+
+# --------------------------------------------------------------------------
+# offset-causal LSE attention (the USP ring hop)
+# --------------------------------------------------------------------------
+
+def lse_inputs(gen, bh, s, d, pad_tail=0):
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+
+    valid = torch.ones((bh, s), dtype=torch.int32, device="cuda")
+    if pad_tail:
+        valid[:, s - pad_tail:] = 0
+    return rnd(bh, s, d), rnd(bh, s, d), rnd(bh, s, d), valid
+
+
+# (a) the own chunk (row_off = col_off); (b) an earlier chunk (every key
+# allowed); (c) a later chunk (nothing allowed); (d) a key-padding tail
+# with a ragged S; (e) head dim 64 and a half-overlapping chunk
+@pytest.mark.parametrize("case,s,d,row_off,col_off,pad", [
+    ("a_own", 256, 128, 512, 512, 0),
+    ("b_earlier", 256, 128, 512, 256, 0),
+    ("c_later", 256, 128, 256, 512, 0),
+    ("d_padded_ragged", 250, 128, 250, 250, 37),
+    ("e_d64_half", 200, 64, 300, 200, 0),
+])
+def test_lse_attention_kernels_match_plain(gen, case, s, d, row_off, col_off,
+                                           pad):
+    q, k, v, valid = lse_inputs(gen, 6, s, d, pad)
+    counters = (lse_cuda.lse_attention_fwd, lse_cuda.lse_attention_bwd_dq,
+                lse_cuda.lse_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    out, lse = lse_cuda.lse_attention_fwd(q, k, v, valid, row_off, col_off)
+    dout = torch.randn(out.shape, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    dlse = torch.randn(lse.shape, generator=gen, device="cuda")
+    grads = lse_cuda.lse_attention_bwd(q, k, v, valid, row_off, col_off, out,
+                                       lse, dout, dlse)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [x + 1 for x in before]
+    ref, ref_lse = lse_cuda.flash_attention_lse_plain(q, k, v, valid,
+                                                      row_off, col_off)
+    empty = ref_lse[..., 0] == lse_cuda.NEG_INF
+    # rows with no allowed key: out exactly 0, lse exactly -1e30
+    assert torch.equal(lse[empty], ref_lse[empty])
+    assert not out[empty].any()
+    if case == "c_later":
+        assert bool(empty.all())
+    else:
+        # bf16 output held at 2e-2 of the largest reference value; the fp32
+        # lse from bf16 products within 1e-3
+        assert rel_err(out, ref) <= 2e-2
+        torch.testing.assert_close(lse, ref_lse, rtol=1e-3, atol=1e-3)
+    ref_grads = lse_cuda.flash_attention_lse_backward_plain(
+        q, k, v, valid, row_off, col_off, out, lse, dout, dlse)
+    for name, got, want in zip("qkv", grads, ref_grads):
+        assert got.dtype == torch.bfloat16, name
+        if case == "c_later":
+            assert not got.any(), name
+        else:
+            assert rel_err(got, want) <= 2e-2, name
+
+
+def test_lse_attention_autograd_is_deterministic_and_refuses_bad_inputs(gen):
+    q, k, v, valid = lse_inputs(gen, 4, 300, 128, 20)
+    inputs = [x.detach().requires_grad_(True) for x in (q, k, v)]
+    runs = []
+    for _ in range(2):
+        out, lse = lse_cuda.flash_attention_lse(*inputs, valid, 300, 0)
+        loss = out.float().square().sum() + lse.square().sum()
+        runs.append(torch.autograd.grad(loss, inputs))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="head dim"):
+        lse_cuda.lse_attention_fwd(q[..., :32].contiguous(),
+                                   k[..., :32].contiguous(),
+                                   v[..., :32].contiguous(), valid, 0, 0)
+    with pytest.raises(TypeError):
+        lse_cuda.lse_attention_fwd(q.float(), k, v, valid, 0, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        lse_cuda.lse_attention_fwd(q.transpose(0, 1).contiguous()
+                                   .transpose(0, 1), k, v, valid, 0, 0)
+    with pytest.raises(ValueError, match="int32"):
+        lse_cuda.lse_attention_fwd(q, k, v, valid.bool(), 0, 0)

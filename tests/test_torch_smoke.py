@@ -231,6 +231,38 @@ def test_peagle_cli_needs_cuda_and_refuses_what_it_lacks(smoke, tmp_path,
         build_training_run(config, device="cpu")
 
 
+def test_usp_training_runs_on_the_cpu_at_small_size(smoke, tmp_path):
+    """The USP phase: 4 ranks (``chip_smoke.py --usp-rank``, gloo on the
+    CPU) run cli train on a 2×2 grid, agree bit-exactly, resume
+    bit-exactly and match one process on the TTT path; the launch-count
+    check (no launch on CPU tensors)."""
+    cfg = Eagle3Config(vocab_size=2048, draft_vocab_size=512, hidden_size=128,
+                       intermediate_size=384, num_attention_heads=4,
+                       num_key_value_heads=2, max_position_embeddings=4096)
+    cfg_path = tmp_path / "draft.json"
+    cfg_path.write_text(json.dumps(cfg.to_dict()))
+    results, counts = smoke.run_usp_training(
+        cfg_path, torch.device("cpu"), 0, tmp_path / "work", max_length=64,
+        min_len=48, head_std=0.2, overrides=['model.compute_dtype="float32"'])
+    assert results["optimizer_steps"] == 4 and results["micro_batches"] == 8
+    assert results["transport"] == "gloo"
+    assert counts == dict.fromkeys(smoke.LSE_KERNELS, 0)
+    assert sorted(r["chunk"] for r in results["ranks"]) == [0, 1, 2, 3]
+    # fp32 on both paths: the ring and the one-process TTT attention differ
+    # only in the order of their sums
+    assert all(step["rel_diff"] < 1e-4 for step in results["loss_curve"])
+    assert all(g["cosine"] > 0.9999 for g in results["step1_grads"].values())
+    with pytest.raises(AssertionError, match="lse_attention_fwd"):
+        smoke.check_usp_counts(results["rank_launches"], 8)
+    per_micro = {n: smoke.TTT * (2 if n.startswith("lse") else 1)
+                 for n in smoke.USP_COUNTERS if not n.startswith("ttt")}
+    launches = {n: 8 * per_micro.get(n, 0) for n in smoke.USP_COUNTERS}
+    smoke.check_usp_counts([launches] * 4, 8)
+    launches["ttt_flash_attention_fwd"] = 1
+    with pytest.raises(AssertionError, match="ttt_flash_attention_fwd"):
+        smoke.check_usp_counts([launches], 8)
+
+
 def test_ce_backward_check_rejects_broken_gradients(smoke):
     """The card's check of the fused CE gradient, fed on the CPU the plain
     gradient (which passes) and broken copies of it (which must fail): a
