@@ -20,7 +20,9 @@ Phases, each printing JSON lines:
    cases (a)-(e) of ``LSE_CASES``) is held against
    its plain PyTorch version on the card, in the working dtype, and timed
    with CUDA events (median of 20 runs after 3 warm-ups) beside the plain
-   version, one PyTorch library call as a yardstick, and its bound;
+   version, one PyTorch library call as a yardstick, and its bound (the
+   two TTT backward kernels also beside the whole ``ttt_flash_attention_bwd``
+   they make up, ``whole_bwd_ms``);
 4. slice 1: the EAGLE3 offline TTT forward at the full Qwen3-8B EAGLE3 width
    (``configs/qwen3-8b-eagle3.json``, random weights from ``--seed``), from
    feature files written and read back by the port's data plane, through
@@ -543,6 +545,10 @@ def attention_backward_phase(gen) -> list:
                 lambda: attention_cuda.ttt_attention_bwd_dq(*args))
             row["dkv_ms"] = median_ms(
                 lambda: attention_cuda.ttt_attention_bwd_dkv(*args))
+            # the whole backward: delta, both kernels and any reduction
+            row["bwd_ms"] = median_ms(
+                lambda: attention_cuda.ttt_flash_attention_bwd(
+                    q, keys, values, key_valid, out, m, l, dout))
             row["plain_ms"] = median_ms(
                 lambda: attention_cuda.ttt_flash_attention_backward_plain(
                     q, keys, values, key_valid, out, m, l, dout))
@@ -561,8 +567,10 @@ def attention_backward_phase(gen) -> list:
               "source": "specforge_tpu_torch/csrc/ttt_attention.cu",
               "tol": f"{ATTN_BWD_RTOL} * max|ref|",
               # the plain backward and the library backward compute every
-              # gradient at once; each stands beside both kernels
-              "plain_ms": mean("plain_ms"), "library_ms": mean("library_ms")}
+              # gradient at once; each stands beside both kernels, and
+              # beside the whole ttt_flash_attention_bwd
+              "plain_ms": mean("plain_ms"), "library_ms": mean("library_ms"),
+              "whole_bwd_ms": mean("bwd_ms")}
     # per launch, averaged over the main path's branch counts 0..6
     out = []
     for kernel, line in (("dq", 222), ("dkv", 278)):

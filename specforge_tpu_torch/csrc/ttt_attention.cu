@@ -15,46 +15,80 @@
 // The backward recomputes p = exp(s - m) / l from them, with
 // delta = rowsum(dO * O) given, and forms ds = p * (dO V^T - delta):
 //   dq = scale * (ds K + sum_b ds_b k_b),  dk = scale * ds^T Q,
-//   dv = p^T dO,  dk_b = scale * ds_b q,  dv_b = p_b dO.
+//   dv = p^T dO,  dk_b = scale * ds_b q,  dv_b = p_b dO,
+// dk_b and dv_b summed over the H / KVH query heads of each kv head.
 //
 // What bounds it on this card. Per launch the causal block of the forward
 // costs 2*B*H*S^2*D FLOP (68.7 GFLOP at B=2, H=32, S=2048, D=128: 69 us at
 // the bf16 tensor-core peak) and moves 84-185 MB (25-55 us at 3.35 TB/s),
 // so it is bound by tensor-core operations. The backward's dq kernel does
-// three such causal products (s, dp, dq: 104 us), the dk/dv kernel four
-// (s, dp, dv, dk: 139 us), against about 0.2 GB moved for the pair (60 us):
-// both are bound by operations too. (A fused backward would need five
-// products, 174 us for the pair.)
+// three such causal products (s, dp, dq), the dk/dv kernel four (s, dp, dv,
+// dk): 0.1092 and 0.1375 ms at the EAGLE3 shape, averaged over the main
+// path's 0..6 branches, against about 0.2 GB moved for the pair (60 us):
+// both are bound by operations too.
 //
-// What the design does about that. Every product runs on the tensor cores
-// through `mma.sync.m16n8k16` (bf16 in, fp32 accumulate); no S x S tile
-// ever reaches device memory. The forward: one block of 4 warps owns 64
-// query rows of one (batch, head); each warp owns 16 rows and keeps its Q
-// fragments and its O accumulator in registers, with the online-softmax
-// recurrence (m, l, o) in fp32. K/V tiles of 64 keys are staged by cp.async
-// in two buffers of padded (bank-conflict-free) shared memory, so the next
-// tile loads while this one is used, and reach the tensor cores through
-// ldmatrix (transposing where the key index is the reduction). Only the
-// tiles up to the diagonal are visited. The GQA kv head is read as
-// h / (H / KVH), so keys are never repeated in memory, and the ragged
-// sequence edge is masked in the kernel instead of padding S. The diagonal
+// The forward. Every product runs on the tensor cores through
+// `mma.sync.m16n8k16` (bf16 in, fp32 accumulate); no S x S tile ever
+// reaches device memory. One block of 4 warps owns 64 query rows of one
+// (batch, head); each warp owns 16 rows and keeps its Q fragments and its O
+// accumulator in registers, with the online-softmax recurrence (m, l, o) in
+// fp32. K/V tiles of 64 keys are staged by cp.async in two buffers of
+// padded (bank-conflict-free) shared memory and reach the tensor cores
+// through ldmatrix. Only the tiles up to the diagonal are visited. The GQA
+// kv head is read as h / (H / KVH), so keys are never repeated in memory,
+// and the ragged sequence edge is masked in the kernel. The diagonal
 // branches are folded into (m, l, o) after the causal loop. Blocks are
 // issued longest-rows first.
-// The dq kernel has the forward's shape: Q and dO fragments of its 16 rows
-// in registers, dq accumulated in fp32 registers over the causal K/V tiles,
-// then the branch diagonals folded in; it writes the branch dk/dv per query
-// head, and the wrapper sums the H / KVH heads of each group.
-// The dk/dv kernel gives one block of 4 warps 64 keys of one (batch, kv
-// head), K and V in shared memory, dk and dv accumulated in fp32 registers.
-// It walks the q tiles from the diagonal down and, for each, the H / KVH
-// query heads of the group, with Q, dO and the row statistics staged by
-// cp.async in two buffers; so dk and dv come out as [B, KVH, S, D] with no
-// atomics, in a fixed order, and two runs give the same bits.
-// Not yet used: TMA, wgmma and warp specialisation.
+//
+// The backward (both kernels). Every tile product is a warpgroup product,
+// `wgmma.mma_async` (bf16 in, fp32 accumulate), from two consumer
+// warpgroups; B always comes from shared memory through a 128-byte-swizzle
+// descriptor, A from shared memory or, for p and ds, straight from the
+// registers the previous product left them in. A producer warpgroup gives
+// up its registers (`setmaxnreg`: 24 for it, 240 for each consumer) and one
+// of its warps keeps a ring of two tile stages in flight: each 64-row tile
+// of q, dO, k or v is a TMA copy (`cp.async.bulk.tensor`, 64 x 64 boxes of
+// a 4-D tensor map over the strided view, swizzled as the descriptors read
+// it, rows past S zero-filled) that completes on the stage's `mbarrier`.
+// The copies are issued first; then the producer's lanes write the tile's
+// row statistics (m in log2 units, 1/l, delta) and key_valid bits into the
+// same stage and arrive on it, so those global loads overlap the copies and
+// never stall the consumers. Consumers release a stage on a second barrier.
+// No atomics: every sum is taken in a fixed order, and two runs give the
+// same bits. Inside a warpgroup the products come in groups, so the exp of
+// p runs while the tensor cores form dp (and, in dk/dv, dv += p^T dO while
+// ds is formed). p = 2^(s * scale * log2(e) - m2) / l is one FMA and one
+// MUFU a score, the mask a select to -inf, and tiles that need no mask
+// (off the diagonal, every key valid) skip it. ptxas reports no wgmma
+// serialization for these kernels; keeping it so bounds the registers live
+// beside the accumulators (see dq's statistics).
+// dk/dv: a block owns 64 keys of one (batch, kv head) and walks the G * nq
+// (query head, q tile) items of its group, from the diagonal down;
+// warpgroup 0 takes the first half of the items and warpgroup 1 the second
+// (at G = 4 two heads each, with their own rings), each accumulating dk and
+// dv in fp32 registers; the two partials are added through shared memory
+// at the end. Blocks are issued with the key tile as the slow index, so
+// the heaviest start first: at the EAGLE3 shape 512 blocks, one per SM at a
+// time, from 128 items (64 a warpgroup) for the first key tile down to 4.
+// The stream is split inside the block, never across blocks, so no
+// partial sums leave it.
+// dq: a block owns one q tile of one (batch, kv head) and the group's query
+// heads (packed GQA: four resident at a time, two per consumer warpgroup,
+// dq in fp32 registers), so each K/V tile is staged once for all of them;
+// each head's Q/dO tiles have their own barrier, and a warpgroup's second
+// head follows the first K/V tile, so the products start after 64 KB. The
+// branches' k_b / v_b rows follow the causal tiles through the ring,
+// ds_b k_b is added to dq in fp32 from the staged k_b, and the group sums of
+// dk_b / dv_b are taken in the block over the heads in order, in fp32, and
+// written once as [NB, B, KVH, S, D] (past four heads a group is summed
+// chunk by chunk through an fp32 workspace). dq leaves through shared
+// memory in whole rows.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -427,528 +461,1157 @@ int launch(const Params& p, dim3 grid, cudaStream_t st) {
 }
 
 // --------------------------------------------------------------------------
-// backward
+// backward: Hopper primitives
+// --------------------------------------------------------------------------
+
+constexpr int kBwdThreads = 384;  // consumer warpgroups 0 and 1, producer 2
+constexpr int kStages = 2;        // tile stages of each ring
+constexpr int kTileRows = 64;     // rows of every staged tile (wgmma's M)
+constexpr int kPanelBytes = kTileRows * 128;  // 64 rows x 64 bf16 columns
+constexpr int kConsumerRegs = 240;  // setmaxnreg: 2 x 128 x 240 + 128 x 24
+constexpr int kProducerRegs = 24;   //   = 64,512 of the SM's 65,536
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+// expect `bytes` more from the asynchronous copies of the phase, without
+// arriving (the copies are issued first, then the lanes fill in the rest of
+// the stage and arrive)
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.expect_tx.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+// wait for the completion of the barrier's phase of parity `parity`
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred P1;\n"
+      "LAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\n"
+      "bra LAB_WAIT;\n"
+      "DONE:\n"
+      "}\n"
+      :: "r"(smem_u32(bar)), "r"(parity) : "memory");
+}
+
+// one 64 x 64 bf16 box of a 4-D tensor map (d, s, head, b) into a
+// 128-byte-swizzled panel; completion counted in bytes on `bar`
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int d, int s, int h,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(d),
+         "r"(s), "r"(h), "r"(b), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// named barrier of the two consumer warpgroups (id 0 is __syncthreads)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// named barrier of one consumer warpgroup (ids 2 and 3)
+__device__ __forceinline__ void warpgroup_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" :: "r"(2 + wg) : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void reg_alloc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void reg_dealloc() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(R));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+
+// keep the compiler from moving register reads or writes across an
+// asynchronous wgmma that uses these registers
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j]) :: "memory");
+  }
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// byte offset, stride byte offset 1024 (eight 128-byte rows)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// k16 step `kk` over the rows of a 64-row tile read as an MN-major B operand
+// (N = the head dim, contiguous; the next 64 columns one panel further)
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t tile, int kk) {
+  return sw128_desc(tile + kk * 16 * 128, kPanelBytes);
+}
+
+// byte offset of 16-byte chunk `j` (columns 8j..8j+7) of `row` in a
+// 64-row tile of 128-byte-swizzled panels, as the tensor map writes it
+__device__ __forceinline__ int swz(int row, int j) {
+  return (j >> 3) * kPanelBytes + row * 128 + (((j & 7) ^ (row & 7)) << 4);
+}
+
+// sum of the 8 products of two 16-byte bf16 chunks in shared memory
+__device__ __forceinline__ float dot8(const unsigned char* a,
+                                      const unsigned char* b) {
+  const uint4 x = *reinterpret_cast<const uint4*>(a);
+  const uint4 y = *reinterpret_cast<const uint4*>(b);
+  const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+  const uint32_t ys[4] = {y.x, y.y, y.z, y.w};
+  float acc = 0.f;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float2 u = unpack_bf16(xs[e]);
+    const float2 v = unpack_bf16(ys[e]);
+    acc += u.x * v.x + u.y * v.y;
+  }
+  return acc;
+}
+
+// the first 1024-byte boundary at or after p, a pointer into the dynamic
+// shared memory (kept as pointer arithmetic, so the compiler still knows
+// the address space and emits shared, not generic, loads and stores)
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x (flushing denormals; 2^-inf = 0): one MUFU instruction. The backward
+// keeps m in log2 units, m * log2(e), so p = 2^(s * scale * log2(e) - m2)
+// / l, the masked entries as 2^-inf: no branch around the exp.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float masked_logit2(bool ok, float s, float scale2,
+                                               float m2) {
+  return ok ? fmaf(s, scale2, -m2) : __int_as_float(0xff800000);
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64]: A and B from shared memory,
+// both K-major (128-byte swizzle)
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64]: A from registers (per warp the
+// A fragment layout of mma.m16n8k16), B from shared memory MN-major (its N
+// index contiguous; 128-byte swizzle)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128]: A from registers (per warp the
+// A fragment layout of mma.m16n8k16), B from shared memory MN-major (its N
+// index contiguous; 128-byte swizzle)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// accumulator [64 x D] += A (registers) x B (MN-major, N = D)
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2],
+                                         const uint32_t (&a)[4], uint32_t tile,
+                                         int kk) {
+  // opaque to the compiler: the descriptor is built here, not hoisted out
+  // of the caller's loop into registers
+  asm volatile("" : "+r"(tile));
+  const uint64_t db = mnmajor_desc(tile, kk);
+  if constexpr (D == 128) {
+    wgmma_rs_n128(d, a, db, 1);
+  } else {
+    wgmma_rs_n64(d, a, db, 1);
+  }
+}
+
+// [64 x 64] = A [64 x D] B^T, both K-major 64-row tiles in shared memory.
+// Unrolled (a rolled loop makes ptxas serialize the wgmmas), with each
+// step's descriptors pinned between its neighbours: left free, the compiler
+// builds all 2 * D / 16 of them up front, and they spill.
+template <int D>
+__device__ __forceinline__ void wgmma_tile_product(float (&d)[32], uint32_t a,
+                                                   uint32_t b) {
+  const uint64_t da = sw128_desc(a, 16);
+  const uint64_t db = sw128_desc(b, 16);
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    // the start address field (bits 0-13, in 16-byte units) moves 32 bytes
+    // a step inside a panel and one panel every four
+    const uint64_t off = ((ks >> 2) * kPanelBytes + (ks & 3) * 32) >> 4;
+    uint64_t xa = da + off;
+    uint64_t xb = db + off;
+    asm volatile("" : "+l"(xa), "+l"(xb));
+    wgmma_ss_n64(d, xa, xb, ks > 0);
+  }
+}
+
+// --------------------------------------------------------------------------
+// backward kernels
 // --------------------------------------------------------------------------
 
 struct BwdParams {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k[kMaxKeys];
-  const __nv_bfloat16* v[kMaxKeys];
-  const int* valid;            // [B, S]
-  const __nv_bfloat16* dout;   // [B, S, H*D], contiguous
-  const float* m;              // [B, H, S]
-  const float* l;              // [B, H, S]
-  const float* delta;          // [B, H, S], rowsum(dO * O)
-  __nv_bfloat16* dq;           // [B, H, S, D], contiguous
-  __nv_bfloat16* dkb;          // [NB, B, H, S, D]: branch dk per query head
-  __nv_bfloat16* dvb;          // [NB, B, H, S, D]
-  __nv_bfloat16* dk;           // [B, KVH, S, D], contiguous
-  __nv_bfloat16* dv;           // [B, KVH, S, D], contiguous
-  long long q_sb, q_sh, q_ss;
-  long long k_sb, k_sh, k_ss;
-  long long v_sb, v_sh, v_ss;
+  CUtensorMap tm_q;             // q [B, H, S, D] view
+  CUtensorMap tm_do;            // dout [B, S, H*D] read as [B, H, S, D]
+  CUtensorMap tm_k[kMaxKeys];   // keys [B, KVH, S, D], step-0 block first
+  CUtensorMap tm_v[kMaxKeys];   // values
+  const int* valid;             // [B, S]
+  const float* m;               // [B, H, S]
+  const float* l;               // [B, H, S]
+  const float* delta;           // [B, H, S], rowsum(dO * O)
+  __nv_bfloat16* dq;            // [B, H, S, D], contiguous
+  __nv_bfloat16* dkb;           // [NB, B, KVH, S, D]: branch dk, group-summed
+  __nv_bfloat16* dvb;           // [NB, B, KVH, S, D]
+  float* ws;                    // [2, NB, B, KVH, S, D] fp32, when H/KVH > 4
+  __nv_bfloat16* dk;            // [B, KVH, S, D], contiguous
+  __nv_bfloat16* dv;            // [B, KVH, S, D], contiguous
   int B, H, KVH, S, n_branches;
   float scale;
 };
 
-// A-operand fragments of a 16-row slab (rows row0 and row0 + 8 of this
-// thread) straight from device memory; rows past S read as zeros
-template <int kSteps>
-__device__ __forceinline__ void load_a_frags(uint32_t f[kSteps][4],
-                                             const __nv_bfloat16* base,
-                                             long long row_stride, int row0,
-                                             bool in0, bool in1, int t) {
+// Shared memory of the dk/dv kernel, byte offsets from a 1024-aligned base.
+template <int D>
+struct DkvSmem {
+  static constexpr int kTile = kTileRows * D * 2;  // D / 64 swizzled panels
+  static constexpr int kK = 0;
+  static constexpr int kV = kTile;
+  static constexpr int kStage = 2 * kTile;         // Q, then dO
+  static constexpr int kRing = 2 * kTile;          // [2 rings][kStages]
+  static constexpr int kRingBytes = kStages * kStage;
+  static constexpr int kStats = kRing + 2 * kRingBytes;  // [2][kStages][3][64]
+  static constexpr int kValid = kStats + 2 * kStages * 3 * kTileRows * 4;
+  static constexpr int kBars = kValid + kTileRows * 4;
+  static constexpr int kBytes = kBars + 9 * 8 + 1024;  // + alignment slack
+  // the epilogue hands one fp32 [64 x D] partial across in a ring's memory,
+  // and stages a bf16 result behind it
+  static_assert(kTileRows * D * 6 <= kRingBytes, "epilogue does not fit");
+};
+
+// The row statistics of rows q0 + lane and q0 + lane + 32 of one (batch,
+// head), from its offset sb in the [B, H, S] arrays: m in log2 units, 1/l,
+// delta; rows past S get 0 (so their p is 0). All loads are issued first.
+__device__ __forceinline__ void load_row_stats(float* m2, float* il,
+                                               float* dl, const BwdParams& p,
+                                               long long sb, int q0, int S,
+                                               int lane) {
+  float mv[2], lv[2], dv[2];
 #pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks) {
-    const int c = ks * 16 + 2 * t;
-    f[ks][0] = in0 ? ld32(base + row0 * row_stride + c) : 0u;
-    f[ks][1] = in1 ? ld32(base + (row0 + 8) * row_stride + c) : 0u;
-    f[ks][2] = in0 ? ld32(base + row0 * row_stride + c + 8) : 0u;
-    f[ks][3] = in1 ? ld32(base + (row0 + 8) * row_stride + c + 8) : 0u;
+  for (int e = 0; e < 2; ++e) {
+    const int row = q0 + lane + 32 * e;
+    const bool in = row < S;
+    mv[e] = in ? p.m[sb + row] : 0.f;
+    lv[e] = in ? p.l[sb + row] : 0.f;
+    dv[e] = in ? p.delta[sb + row] : 0.f;
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = lane + 32 * e;
+    const bool in = q0 + r < S;
+    m2[r] = mv[e] * kLog2e;
+    il[r] = in ? 1.f / fmaxf(lv[e], 1e-30f) : 0.f;
+    dl[r] = dv[e];
   }
 }
 
-// dq, plus the branch dk/dv: one block owns 64 query rows of one
-// (batch, head), 16 per warp, and walks the causal K/V tiles.
+// p^T = 2^(s^T * scale2 - m2) / l in place, over this thread's 32 entries
+// of a dk/dv tile (keys kr0 / kr1 x queries 8j + 2t + {0, 1}), with the
+// row statistics `st` (m2, 1/l) of the q tile; kMasked applies the keys'
+// validity and the causal diagonal (the plain instance serves the tiles
+// that need neither)
+template <bool kMasked>
+__device__ __forceinline__ void dkv_probs(float (&s)[32], const float* st,
+                                          float scale2, int kr0, int kr1,
+                                          bool kv0, bool kv1, bool diag,
+                                          int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int qc = 8 * j + 2 * t;
+    const float2 mq = *reinterpret_cast<const float2*>(st + qc);
+    const float2 il = *reinterpret_cast<const float2*>(st + kTileRows + qc);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float m_ = (e & 1) ? mq.y : mq.x;
+      const float il_ = (e & 1) ? il.y : il.x;
+      bool ok = true;
+      if constexpr (kMasked) {
+        const int key = e < 2 ? kr0 : kr1;
+        ok = (e < 2 ? kv0 : kv1) && (!diag || key <= qc + (e & 1));
+      }
+      s[4 * j + e] = ex2(masked_logit2(ok, s[4 * j + e], scale2, m_)) * il_;
+    }
+  }
+}
+
+// p = 2^(s * scale2 - m2) / l in place, over this thread's 32 entries of a
+// dq tile (rows r0 / r1 x keys 8j + 2t + {0, 1}), with the rows' m2 and
+// 1/l; kMasked applies the keys' validity `valid` and the causal diagonal
+template <bool kMasked>
+__device__ __forceinline__ void dq_probs(float (&s)[32], const int* valid,
+                                         float scale2, const float (&m2)[2],
+                                         const float (&il)[2], int r0, int r1,
+                                         bool diag, int t) {
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    const int kc = 8 * jj + 2 * t;
+    int2 vv = make_int2(1, 1);
+    if constexpr (kMasked) vv = *reinterpret_cast<const int2*>(valid + kc);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      bool ok = true;
+      if constexpr (kMasked) {
+        const int row = e < 2 ? r0 : r1;
+        ok = ((e & 1) ? vv.y : vv.x) != 0 && (!diag || kc + (e & 1) <= row);
+      }
+      s[4 * jj + e] =
+          ex2(masked_logit2(ok, s[4 * jj + e], scale2, m2[e >> 1])) *
+          il[e >> 1];
+    }
+  }
+}
+
+// This thread's rows (row0 and row0 + 8) of a [64 x D] fp32 accumulator
+// (C layout) times `mul`, as bf16 into a 64-row tile of shared memory,
+// swizzled as the tensor maps write (copy_tile_rows reads it back).
 template <int D>
-__global__ void __launch_bounds__(kThreads) ttt_bwd_dq_kernel(const BwdParams p) {
-  constexpr int kStride = D + 8;
-  constexpr int kSteps = D / 16;
-  constexpr int kDTiles = D / 8;
-  constexpr int kVecPerRow = D / 8;
-  constexpr int kTile = kBlockN * kStride;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sKs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sVs = sKs + 2 * kTile;
-  __shared__ int sValids[2][kBlockN];
+__device__ __forceinline__ void stage_tile(unsigned char* tile,
+                                           const float (&acc)[D / 2],
+                                           float mul, int row0, int t) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    *reinterpret_cast<uint32_t*>(tile + swz(row0, j) + 4 * t) =
+        pack_bf16(acc[4 * j] * mul, acc[4 * j + 1] * mul);
+    *reinterpret_cast<uint32_t*>(tile + swz(row0 + 8, j) + 4 * t) =
+        pack_bf16(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
+  }
+}
+
+// Copy the rows < S of a [64 x D] bf16 tile in shared memory (swizzled as
+// the tensor maps write it) to out ([S, D] rows, contiguous), 16 bytes a
+// lane, whole rows a warp.
+template <int D>
+__device__ __forceinline__ void copy_tile_rows(__nv_bfloat16* out,
+                                               const unsigned char* tile,
+                                               int S, int tid) {
+  constexpr int kChunks = D / 8;
+  constexpr int kRowsPerPass = 32 / kChunks;
+  const int lane = tid % 32;
+  const int jc = lane % kChunks;
+#pragma unroll 4
+  for (int i = 0; i < 16 / kRowsPerPass; ++i) {
+    const int row = (tid / 32) * 16 + i * kRowsPerPass + lane / kChunks;
+    if (row < S) {
+      *reinterpret_cast<uint4*>(out + (long long)row * D + jc * 8) =
+          *reinterpret_cast<const uint4*>(tile + swz(row, jc));
+    }
+  }
+}
+
+// dk/dv of the causal block. A block owns 64 keys of one (batch, kv head):
+// K and V are loaded once. Its work is the stream of (query head of the
+// group, q tile from the diagonal down) pairs, G * nq items; consumer
+// warpgroup 0 takes the first half of the stream and warpgroup 1 the second
+// (at G = 4: two query heads each), each with its own ring of Q / dO tiles
+// and their row statistics, fed by one producer warp. Each warpgroup keeps
+// dk and dv of the 64 keys in fp32 registers; at the end warpgroup 0 hands
+// its dv and warpgroup 1 its dk across through shared memory, and each adds
+// the other's partial to its own: dk = dk0 + dk1, dv = dv1 + dv0, a fixed
+// order. Blocks are issued with the key tile as the slow index, so the key
+// tiles with the most q tiles start first.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    ttt_bwd_dkv_kernel(const __grid_constant__ BwdParams p) {
+  using L = DkvSmem<D>;
+  constexpr int kPanels = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);  // [2][2]
+  uint64_t* empty = full + 2 * kStages;                            // [2][2]
+  uint64_t* kv_full = empty + 2 * kStages;
+  float* stats_all = reinterpret_cast<float*>(smem + L::kStats);
+  int* sValid = reinterpret_cast<int*>(smem + L::kValid);
 
   const int S = p.S;
   const int H = p.H;
-  const int n_qtiles = (S + kBlockM - 1) / kBlockM;
-  const int qtile = n_qtiles - 1 - blockIdx.x;  // longest rows first
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
-  const int kvh = h / (H / p.KVH);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int row0 = qtile * kBlockM + warp * 16 + g;
-  const int row1 = row0 + 8;
-  const bool in0 = row0 < S;
-  const bool in1 = row1 < S;
-  const long long HD = (long long)H * D;
+  const int KVH = p.KVH;
+  const int G = H / KVH;
+  const int BK = p.B * KVH;
+  const int ktile = blockIdx.x / BK;  // slow index: heaviest blocks first
+  const int b = (blockIdx.x % BK) / KVH;
+  const int kvh = blockIdx.x % KVH;
+  const int key0 = ktile * kTileRows;
+  const int nq = (S + kTileRows - 1) / kTileRows - ktile;
+  const int n_items = G * nq;
+  const int half = (n_items + 1) / 2;
+  const int wg = threadIdx.x / 128;
 
-  uint32_t qf[kSteps][4], df[kSteps][4];
-  load_a_frags<kSteps>(qf, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, row0, in0,
-                       in1, t);
-  load_a_frags<kSteps>(df, p.dout + (long long)b * S * HD + h * D, HD, row0,
-                       in0, in1, t);
-  const long long sbase = ((long long)b * H + h) * S;
-  // rows past S get p = 0 (inverse l of 0)
-  const float m0 = in0 ? p.m[sbase + row0] : 0.f;
-  const float m1 = in1 ? p.m[sbase + row1] : 0.f;
-  const float il0 = in0 ? 1.f / fmaxf(p.l[sbase + row0], 1e-30f) : 0.f;
-  const float il1 = in1 ? 1.f / fmaxf(p.l[sbase + row1], 1e-30f) : 0.f;
-  const float dl0 = in0 ? p.delta[sbase + row0] : 0.f;
-  const float dl1 = in1 ? p.delta[sbase + row1] : 0.f;
-
-  float dq[kDTiles][4];
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    dq[dt][0] = dq[dt][1] = dq[dt][2] = dq[dt][3] = 0.f;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2 * kStages; ++i) {
+      mbar_init(&full[i], 32);    // the producer warp's lanes
+      mbar_init(&empty[i], 128);  // the consuming warpgroup's threads
+    }
+    mbar_init(kv_full, 32);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  const __nv_bfloat16* kbase = p.k[0] + b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* vbase = p.v[0] + b * p.v_sb + kvh * p.v_sh;
-  const int* valid = p.valid + (long long)b * S;
-
-  auto load_tile = [&](int j, int buf) {
-    const int key0 = j * kBlockN;
-    __nv_bfloat16* sK = sKs + buf * kTile;
-    __nv_bfloat16* sV = sVs + buf * kTile;
-    for (int i = threadIdx.x; i < kBlockN * kVecPerRow; i += kThreads) {
-      const int r = i / kVecPerRow;
-      const int c = (i % kVecPerRow) * 8;
-      const int key = key0 + r;
-      const long long src = key < S ? key : 0;
-      cp_async16(sK + r * kStride + c, kbase + src * p.k_ss + c, key < S);
-      cp_async16(sV + r * kStride + c, vbase + src * p.v_ss + c, key < S);
+  if (wg == 2) {
+    // producer: warp w feeds ring w; warp 0 first stages K, V and the keys'
+    // validity
+    reg_dealloc<kProducerRegs>();
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    if (warp < 2) {
+      if (warp == 0) {
+        if (lane == 0) {
+          mbar_expect_tx(kv_full, 2 * L::kTile);
+          for (int pn = 0; pn < kPanels; ++pn) {
+            tma_load(smem + L::kK + pn * kPanelBytes, &p.tm_k[0], kv_full,
+                     pn * 64, key0, kvh, b);
+            tma_load(smem + L::kV + pn * kPanelBytes, &p.tm_v[0], kv_full,
+                     pn * 64, key0, kvh, b);
+          }
+        }
+        for (int r = lane; r < kTileRows; r += 32) {
+          const int key = key0 + r;
+          sValid[r] = key < S && p.valid[(long long)b * S + key] != 0;
+        }
+        mbar_arrive(kv_full);
+      }
+      const int first = warp == 0 ? 0 : half;
+      const int count = warp == 0 ? half : n_items - half;
+      for (int i = 0; i < count; ++i) {
+        const int slot = warp * kStages + i % kStages;
+        mbar_wait(&empty[slot], ((i / kStages) & 1) ^ 1);
+        const int item = first + i;
+        const int h = kvh * G + item / nq;
+        const int q0 = (ktile + item % nq) * kTileRows;
+        if (lane == 0) {
+          unsigned char* dst = smem + L::kRing + slot * L::kStage;
+          mbar_expect_tx(&full[slot], 2 * L::kTile);
+          for (int pn = 0; pn < kPanels; ++pn) {
+            tma_load(dst + pn * kPanelBytes, &p.tm_q, &full[slot], pn * 64,
+                     q0, h, b);
+            tma_load(dst + L::kTile + pn * kPanelBytes, &p.tm_do, &full[slot],
+                     pn * 64, q0, h, b);
+          }
+        }
+        // the row statistics travel with their tile
+        float* st = stats_all + slot * 3 * kTileRows;
+        load_row_stats(st, st + kTileRows, st + 2 * kTileRows, p,
+                       ((long long)b * H + h) * S, q0, S, lane);
+        mbar_arrive(&full[slot]);
+      }
     }
-    for (int i = threadIdx.x; i < kBlockN; i += kThreads) {
-      const int key = key0 + i;
-      sValids[buf][i] = key < S ? valid[key] : 0;
-    }
-    cp_async_commit();
-  };
+  } else {
+    reg_alloc<kConsumerRegs>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int kr0 = warp * 16 + g;  // this thread's two keys in the tile
+    const int kr1 = kr0 + 8;
+    const float scale = p.scale;
+    const float scale2 = scale * kLog2e;
 
-  const int last_row = min(qtile * kBlockM + kBlockM, S) - 1;
-  const int n_ktiles = last_row / kBlockN + 1;  // causal tile skip
-  load_tile(0, 0);
-  for (int j = 0; j < n_ktiles; ++j) {
-    const int key0 = j * kBlockN;
-    const int buf = j & 1;
-    if (j + 1 < n_ktiles) {
-      load_tile(j + 1, buf ^ 1);
-      cp_async_wait<1>();
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    mbar_wait(kv_full, 0);
+    const bool kv0 = sValid[kr0] != 0;
+    const bool kv1 = sValid[kr1] != 0;
+    // the warp's keys all valid: off the diagonal no mask is needed
+    const bool keys_ok = __all_sync(0xffffffffu, kv0 && kv1);
+    const uint32_t sK = smem_u32(smem + L::kK);
+    const uint32_t sV = smem_u32(smem + L::kV);
+    const int first = wg == 0 ? 0 : half;
+    const int count = wg == 0 ? half : n_items - half;
+    for (int i = 0; i < count; ++i) {
+      const int slot = wg * kStages + i % kStages;
+      const int item = first + i;
+      const bool diag = item % nq == 0;  // the q tile of the block's keys
+      const uint32_t sQ = smem_u32(smem + L::kRing + slot * L::kStage);
+      const uint32_t sDO = sQ + L::kTile;
+      const float* st = stats_all + slot * 3 * kTileRows;
+      mbar_wait(&full[slot], (i / kStages) & 1);
+
+      // s^T = K Q^T and dp^T = V dO^T, 64 keys x 64 queries, as two
+      // groups: the exp below runs while the tensor cores still form dp
+      float s[32], dp[32];
+      wgmma_fence();
+      wgmma_tile_product<D>(s, sK, sQ);
+      wgmma_commit();
+      wgmma_tile_product<D>(dp, sV, sDO);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s);
+
+      // p^T under the causal/valid mask, kept in s and as the A fragments
+      // (keys x 16 queries) of dv += p^T dO (dO read MN-major), which then
+      // runs while ds^T = p^T (dp^T - delta) is formed
+      if (diag || !keys_ok) {
+        dkv_probs<true>(s, st, scale2, kr0, kr1, kv0, kv1, diag, t);
+      } else {
+        dkv_probs<false>(s, st, scale2, kr0, kr1, kv0, kv1, diag, t);
+      }
+      uint32_t pa[4][4], da[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        pa[j / 2][(j % 2) * 2] = pack_bf16(s[4 * j], s[4 * j + 1]);
+        pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(s[4 * j + 2], s[4 * j + 3]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(dv, pa[kk], sDO, kk);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int qc = 8 * j + 2 * t;
+        const float2 dl =
+            *reinterpret_cast<const float2*>(st + 2 * kTileRows + qc);
+        float dsv[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dsv[e] = s[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? dl.y : dl.x));
+        }
+        da[j / 2][(j % 2) * 2] = pack_bf16(dsv[0], dsv[1]);
+        da[j / 2][(j % 2) * 2 + 1] = pack_bf16(dsv[2], dsv[3]);
+      }
+
+      // dk += ds^T Q (Q read MN-major)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(dk, da[kk], sQ, kk);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(pa);
+      fence_regs(da);
+      mbar_arrive(&empty[slot]);
+    }
+
+    // the two partials: warpgroup 0 gives its dv and keeps dk, warpgroup 1
+    // gives its dk and keeps dv; each hand-over lies in the giver's ring
+    float* give = reinterpret_cast<float*>(smem + L::kRing + wg * L::kRingBytes);
+    const float* take =
+        reinterpret_cast<const float*>(smem + L::kRing + (1 - wg) * L::kRingBytes);
+    // the sums leave as bf16 staged behind the other's hand-over, in
+    // whole rows
+    unsigned char* staged = smem + L::kRing + (1 - wg) * L::kRingBytes +
+                            kTileRows * D * 4;
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) give[i * 128 + tid] = dv[i];
+      consumers_sync();
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dk[i] += take[i * 128 + tid];
+      stage_tile<D>(staged, dk, scale, kr0, t);
     } else {
-      cp_async_wait<0>();
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) give[i * 128 + tid] = dk[i];
+      consumers_sync();
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) dv[i] += take[i * 128 + tid];
+      stage_tile<D>(staged, dv, 1.f, kr0, t);
     }
-    __syncthreads();
-    const __nv_bfloat16* sK = sKs + buf * kTile;
-    const __nv_bfloat16* sV = sVs + buf * kTile;
-    const int* sValid = sValids[buf];
-
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      // s = Q K^T and dp = dO V^T for 16 rows x 16 keys
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int e2 = 0; e2 < 2; ++e2) {
-        const int nt = 2 * kk + e2;
-        s[e2][0] = s[e2][1] = s[e2][2] = s[e2][3] = 0.f;
-        dp[e2][0] = dp[e2][1] = dp[e2][2] = dp[e2][3] = 0.f;
-        const int off = (nt * 8 + (lane & 7)) * kStride + (lane >> 3) * 8;
-#pragma unroll
-        for (int ks = 0; ks < kSteps; ks += 2) {
-          uint32_t f[4];
-          ldmatrix_x4(f, sK + off + ks * 16);
-          mma_bf16(s[e2], qf[ks], f[0], f[1]);
-          mma_bf16(s[e2], qf[ks + 1], f[2], f[3]);
-          ldmatrix_x4(f, sV + off + ks * 16);
-          mma_bf16(dp[e2], df[ks], f[0], f[1]);
-          mma_bf16(dp[e2], df[ks + 1], f[2], f[3]);
-        }
-      }
-      // ds = p * (dp - delta), p recomputed under the causal/valid mask
-#pragma unroll
-      for (int e2 = 0; e2 < 2; ++e2) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int kc = (2 * kk + e2) * 8 + 2 * t + e;
-          const int col = key0 + kc;
-          const bool ok = sValid[kc] != 0;
-          const float p0 =
-              (ok && col <= row0) ? __expf(s[e2][e] * p.scale - m0) * il0 : 0.f;
-          const float p1 = (ok && col <= row1)
-                               ? __expf(s[e2][2 + e] * p.scale - m1) * il1
-                               : 0.f;
-          s[e2][e] = p0 * (dp[e2][e] - dl0);
-          s[e2][2 + e] = p1 * (dp[e2][2 + e] - dl1);
-        }
-      }
-      // dq += ds K: ds from registers (C -> A layout), K as B (k = key,
-      // n = head dim) through a transposing ldmatrix
-      uint32_t a[4];
-      a[0] = pack_bf16(s[0][0], s[0][1]);
-      a[1] = pack_bf16(s[0][2], s[0][3]);
-      a[2] = pack_bf16(s[1][0], s[1][1]);
-      a[3] = pack_bf16(s[1][2], s[1][3]);
-      const __nv_bfloat16* kp =
-          sK + (kk * 16 + (lane & 8) + (lane & 7)) * kStride + (lane >> 4) * 8;
-#pragma unroll
-      for (int dt = 0; dt < kDTiles; dt += 2) {
-        uint32_t f[4];
-        ldmatrix_x4_trans(f, kp + dt * 8);
-        mma_bf16(dq[dt], a, f[0], f[1]);
-        mma_bf16(dq[dt + 1], a, f[2], f[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with `buf` before it is refilled
-  }
-
-  // diagonal branches: p_b = exp(q.k_b * scale - m) / l, not masked by
-  // key_valid; dq gains ds_b k_b, and k_b / v_b get their grads per head
-  const long long bstride = (long long)p.B * H * S * D;
-  const long long obase = (((long long)b * H + h) * S) * D;
-  for (int br = 0; br < p.n_branches; ++br) {
-    const __nv_bfloat16* kb = p.k[1 + br] + b * p.k_sb + kvh * p.k_sh;
-    const __nv_bfloat16* vb = p.v[1 + br] + b * p.v_sb + kvh * p.v_sh;
-    float w0 = 0.f, w1 = 0.f, u0 = 0.f, u1 = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kSteps; ++ks) {
-      const int c = ks * 16 + 2 * t;
-      if (in0) {
-        const float2 qa = unpack_bf16(qf[ks][0]), qc = unpack_bf16(qf[ks][2]);
-        const float2 da = unpack_bf16(df[ks][0]), dc = unpack_bf16(df[ks][2]);
-        const float2 ka = unpack_bf16(ld32(kb + row0 * p.k_ss + c));
-        const float2 kc = unpack_bf16(ld32(kb + row0 * p.k_ss + c + 8));
-        const float2 va = unpack_bf16(ld32(vb + row0 * p.v_ss + c));
-        const float2 vc = unpack_bf16(ld32(vb + row0 * p.v_ss + c + 8));
-        w0 += qa.x * ka.x + qa.y * ka.y + qc.x * kc.x + qc.y * kc.y;
-        u0 += da.x * va.x + da.y * va.y + dc.x * vc.x + dc.y * vc.y;
-      }
-      if (in1) {
-        const float2 qa = unpack_bf16(qf[ks][1]), qc = unpack_bf16(qf[ks][3]);
-        const float2 da = unpack_bf16(df[ks][1]), dc = unpack_bf16(df[ks][3]);
-        const float2 ka = unpack_bf16(ld32(kb + row1 * p.k_ss + c));
-        const float2 kc = unpack_bf16(ld32(kb + row1 * p.k_ss + c + 8));
-        const float2 va = unpack_bf16(ld32(vb + row1 * p.v_ss + c));
-        const float2 vc = unpack_bf16(ld32(vb + row1 * p.v_ss + c + 8));
-        w1 += qa.x * ka.x + qa.y * ka.y + qc.x * kc.x + qc.y * kc.y;
-        u1 += da.x * va.x + da.y * va.y + dc.x * vc.x + dc.y * vc.y;
-      }
-    }
-    const float pb0 = in0 ? __expf(quad_sum(w0) * p.scale - m0) * il0 : 0.f;
-    const float pb1 = in1 ? __expf(quad_sum(w1) * p.scale - m1) * il1 : 0.f;
-    const float dsb0 = pb0 * (quad_sum(u0) - dl0);
-    const float dsb1 = pb1 * (quad_sum(u1) - dl1);
-    __nv_bfloat16* dkb = p.dkb + br * bstride + obase;
-    __nv_bfloat16* dvb = p.dvb + br * bstride + obase;
-#pragma unroll
-    for (int ks = 0; ks < kSteps; ++ks) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int dt = 2 * ks + half;
-        const int c = dt * 8 + 2 * t;
-        if (in0) {
-          const float2 kv = unpack_bf16(ld32(kb + row0 * p.k_ss + c));
-          const float2 qv = unpack_bf16(qf[ks][2 * half]);
-          const float2 dv = unpack_bf16(df[ks][2 * half]);
-          dq[dt][0] += dsb0 * kv.x;
-          dq[dt][1] += dsb0 * kv.y;
-          *reinterpret_cast<uint32_t*>(dkb + row0 * D + c) =
-              pack_bf16(dsb0 * qv.x * p.scale, dsb0 * qv.y * p.scale);
-          *reinterpret_cast<uint32_t*>(dvb + row0 * D + c) =
-              pack_bf16(pb0 * dv.x, pb0 * dv.y);
-        }
-        if (in1) {
-          const float2 kv = unpack_bf16(ld32(kb + row1 * p.k_ss + c));
-          const float2 qv = unpack_bf16(qf[ks][2 * half + 1]);
-          const float2 dv = unpack_bf16(df[ks][2 * half + 1]);
-          dq[dt][2] += dsb1 * kv.x;
-          dq[dt][3] += dsb1 * kv.y;
-          *reinterpret_cast<uint32_t*>(dkb + row1 * D + c) =
-              pack_bf16(dsb1 * qv.x * p.scale, dsb1 * qv.y * p.scale);
-          *reinterpret_cast<uint32_t*>(dvb + row1 * D + c) =
-              pack_bf16(pb1 * dv.x, pb1 * dv.y);
-        }
-      }
-    }
-  }
-
-  __nv_bfloat16* dqp = p.dq + obase;
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (in0) {
-      *reinterpret_cast<uint32_t*>(dqp + row0 * D + c) =
-          pack_bf16(dq[dt][0] * p.scale, dq[dt][1] * p.scale);
-    }
-    if (in1) {
-      *reinterpret_cast<uint32_t*>(dqp + row1 * D + c) =
-          pack_bf16(dq[dt][2] * p.scale, dq[dt][3] * p.scale);
-    }
+    warpgroup_sync(wg);
+    copy_tile_rows<D>((wg == 0 ? p.dk : p.dv) + ((long long)b * KVH + kvh) *
+                                                     S * D +
+                          (long long)key0 * D,
+                      staged, S - key0, tid);
   }
 }
 
-// dk/dv of the causal block: one block owns 64 keys of one (batch, kv
-// head), 16 per warp, and walks (query head of the group, q tile) pairs
-// from the diagonal down, so the group's heads are summed in registers.
+// Shared memory of the dq kernel, byte offsets from a 1024-aligned base.
+constexpr int kHeadsPerBlock = 4;  // query heads resident at once (a chunk)
+constexpr int kSlots = kHeadsPerBlock / 2;  // heads a consumer warpgroup owns
 template <int D>
-__global__ void __launch_bounds__(kThreads) ttt_bwd_dkv_kernel(const BwdParams p) {
-  constexpr int kStride = D + 8;
-  constexpr int kSteps = D / 16;
-  constexpr int kDTiles = D / 8;
-  constexpr int kVecPerRow = D / 8;
-  constexpr int kTile = kBlockN * kStride;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sV = sK + kTile;
-  __nv_bfloat16* sQs = sV + kTile;        // two stages
-  __nv_bfloat16* sDOs = sQs + 2 * kTile;  // two stages
-  __shared__ float sM[2][kBlockN], sIL[2][kBlockN], sDl[2][kBlockN];
+struct DqSmem {
+  static constexpr int kTile = kTileRows * D * 2;
+  static constexpr int kQ = 0;                              // [4] tiles
+  static constexpr int kDO = kHeadsPerBlock * kTile;        // [4] tiles
+  static constexpr int kRing = 2 * kHeadsPerBlock * kTile;  // [kStages]
+  static constexpr int kStage = 2 * kTile;                  // K then V
+  // [kStages][64] keys' validity, then [kStages] "all valid" flags
+  static constexpr int kValid = kRing + kStages * kStage;
+  static constexpr int kStats = kValid + kStages * (kTileRows + 4) * 4;
+  static constexpr int kBranch = kStats + 3 * kHeadsPerBlock * kTileRows * 4;
+  // p_b and ds_b * scale per (branch, head, row): [2][kMaxKeys - 1][4][64]
+  static constexpr int kBars =
+      kBranch + 2 * (kMaxKeys - 1) * kHeadsPerBlock * kTileRows * 4;
+  static constexpr int kBytes =
+      kBars + (2 * kStages + kHeadsPerBlock + 1) * 8 + 1024;  // + slack
+};
+
+// One branch's group sum over a chunk's nh heads in head order, in fp32:
+// dk_b = sum_h (scale * ds_b,h) q_h (warpgroup 0, xs = Q, coef = scale *
+// ds_b) or dv_b = sum_h p_b,h dO_h (warpgroup 1, xs = dO, coef = p_b), rows
+// q0.. of out (bf16, [S, D] of this (branch, batch, kv head)). Beyond one
+// chunk the partial goes through the fp32 workspace ws, chunk by chunk in
+// order. Lane l of warp w sums 16-byte chunk l % (D / 8) of rows
+// 16 w + .. , so each warp writes whole rows.
+template <int D>
+__device__ __forceinline__ void branch_group_sum(
+    const unsigned char* xs, int tile_bytes, const float* coef, int nh,
+    int q0, int S, __nv_bfloat16* out, float* ws, int c, int n_chunks,
+    int tid) {
+  constexpr int kChunks = D / 8;
+  constexpr int kRowsPerPass = 32 / kChunks;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int jc = lane % kChunks;
+#pragma unroll
+  for (int i = 0; i < 16 / kRowsPerPass; ++i) {
+    const int row = warp * 16 + i * kRowsPerPass + lane / kChunks;
+    float acc[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc[e] = 0.f;
+#pragma unroll
+    for (int lh = 0; lh < kHeadsPerBlock; ++lh) {
+      if (lh >= nh) break;
+      const float cf = coef[lh * kTileRows + row];
+      const uint4 x =
+          *reinterpret_cast<const uint4*>(xs + lh * tile_bytes + swz(row, jc));
+      const uint32_t xw[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 f = unpack_bf16(xw[e]);
+        acc[2 * e] += cf * f.x;
+        acc[2 * e + 1] += cf * f.y;
+      }
+    }
+    if (q0 + row >= S) continue;
+    const long long o = (long long)(q0 + row) * D + jc * 8;
+    if (n_chunks > 1) {
+      float4* w = reinterpret_cast<float4*>(ws + o);
+      if (c > 0) {
+        const float4 a = w[0], b = w[1];
+        acc[0] = a.x + acc[0];
+        acc[1] = a.y + acc[1];
+        acc[2] = a.z + acc[2];
+        acc[3] = a.w + acc[3];
+        acc[4] = b.x + acc[4];
+        acc[5] = b.y + acc[5];
+        acc[6] = b.z + acc[6];
+        acc[7] = b.w + acc[7];
+      }
+      if (c + 1 < n_chunks) {
+        w[0] = make_float4(acc[0], acc[1], acc[2], acc[3]);
+        w[1] = make_float4(acc[4], acc[5], acc[6], acc[7]);
+        continue;
+      }
+    }
+    uint4 v;
+    v.x = pack_bf16(acc[0], acc[1]);
+    v.y = pack_bf16(acc[2], acc[3]);
+    v.z = pack_bf16(acc[4], acc[5]);
+    v.w = pack_bf16(acc[6], acc[7]);
+    *reinterpret_cast<uint4*>(out + o) = v;
+  }
+}
+
+// dq and the group-summed branch dk/dv. A block owns one q tile (64 rows)
+// of one (batch, kv head) and the G query heads of its group, in chunks of
+// up to four resident heads (one chunk at G <= 4): each consumer warpgroup
+// keeps dq of up to two heads in fp32 registers, and every K/V tile the
+// producer stages serves all of the chunk's heads. After the causal tiles
+// the producer stages each branch's k_b / v_b rows of the q tile; the
+// consumers add ds_b k_b to dq in fp32 and leave p_b and ds_b in shared
+// memory, and then warpgroup 0 sums dk_b = scale * sum_h
+// ds_b,h q_h and warpgroup 1 dv_b = sum_h p_b,h dO_h over the chunk's heads
+// in head order, in fp32 (branch_group_sum), written once per branch as
+// [NB, B, KVH, S, D]. Blocks are issued longest rows first.
+template <int D>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    ttt_bwd_dq_kernel(const __grid_constant__ BwdParams p) {
+  using L = DqSmem<D>;
+  constexpr int kPanels = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);  // [2]
+  uint64_t* empty = full + kStages;                                // [2]
+  uint64_t* q_full = empty + kStages;  // [kHeadsPerBlock], one per head
+  uint64_t* q_empty = q_full + kHeadsPerBlock;
+  int* sValid = reinterpret_cast<int*>(smem + L::kValid);
+  float* sM = reinterpret_cast<float*>(smem + L::kStats);
+  float* sIL = sM + kHeadsPerBlock * kTileRows;
+  float* sDl = sIL + kHeadsPerBlock * kTileRows;
+  float* sPb = reinterpret_cast<float*>(smem + L::kBranch);
+  float* sDsb = sPb + (kMaxKeys - 1) * kHeadsPerBlock * kTileRows;
 
   const int S = p.S;
   const int H = p.H;
-  const int G = H / p.KVH;
-  const int n_qtiles = (S + kBlockN - 1) / kBlockN;
-  const int ktile = blockIdx.x;  // most q tiles first
-  const int b = blockIdx.y / p.KVH;
-  const int kvh = blockIdx.y % p.KVH;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int key0 = ktile * kBlockM;
-  const int kr0 = key0 + warp * 16 + g;  // this thread's two keys
-  const int kr1 = kr0 + 8;
-  const int* valid = p.valid + (long long)b * S;
-  const bool kv0 = kr0 < S && valid[kr0] != 0;
-  const bool kv1 = kr1 < S && valid[kr1] != 0;
-  const long long HD = (long long)H * D;
+  const int KVH = p.KVH;
+  const int G = H / KVH;
+  const int BK = p.B * KVH;
+  const int n_qtiles = (S + kTileRows - 1) / kTileRows;
+  const int qtile = n_qtiles - 1 - blockIdx.x / BK;  // longest rows first
+  const int b = (blockIdx.x % BK) / KVH;
+  const int kvh = blockIdx.x % KVH;
+  const int q0 = qtile * kTileRows;
+  const int n_ktiles = qtile + 1;  // causal: the key tiles up to the diagonal
+  const int NB = p.n_branches;
+  const int n_chunks = (G + kHeadsPerBlock - 1) / kHeadsPerBlock;
+  const int wg = threadIdx.x / 128;
 
-  // K and V of this block's keys, once
-  {
-    const __nv_bfloat16* kbase = p.k[0] + b * p.k_sb + kvh * p.k_sh;
-    const __nv_bfloat16* vbase = p.v[0] + b * p.v_sb + kvh * p.v_sh;
-    for (int i = threadIdx.x; i < kBlockM * kVecPerRow; i += kThreads) {
-      const int r = i / kVecPerRow;
-      const int c = (i % kVecPerRow) * 8;
-      const int key = key0 + r;
-      const long long src = key < S ? key : 0;
-      cp_async16(sK + r * kStride + c, kbase + src * p.k_ss + c, key < S);
-      cp_async16(sV + r * kStride + c, vbase + src * p.v_ss + c, key < S);
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(&full[i], 32);   // the producer warp's lanes
+      mbar_init(&empty[i], 256);  // both consumer warpgroups
     }
-    cp_async_commit();
+    for (int i = 0; i < kHeadsPerBlock; ++i) mbar_init(&q_full[i], 32);
+    mbar_init(q_empty, 256);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  // iteration it covers query head kvh * G + it / nq of q tile
-  // ktile + it % nq
-  const int nq = n_qtiles - ktile;
-  const int n_iters = G * nq;
-  auto load_q = [&](int it, int buf) {
-    const int h = kvh * G + it / nq;
-    const int q0 = (ktile + it % nq) * kBlockN;
-    const __nv_bfloat16* qbase = p.q + b * p.q_sb + h * p.q_sh;
-    const __nv_bfloat16* dbase = p.dout + (long long)b * S * HD + h * D;
-    __nv_bfloat16* sQ = sQs + buf * kTile;
-    __nv_bfloat16* sDO = sDOs + buf * kTile;
-    for (int i = threadIdx.x; i < kBlockN * kVecPerRow; i += kThreads) {
-      const int r = i / kVecPerRow;
-      const int c = (i % kVecPerRow) * 8;
-      const int row = q0 + r;
-      const long long src = row < S ? row : 0;
-      cp_async16(sQ + r * kStride + c, qbase + src * p.q_ss + c, row < S);
-      cp_async16(sDO + r * kStride + c, dbase + src * HD + c, row < S);
-    }
-    const long long sbase = ((long long)b * H + h) * S;
-    for (int i = threadIdx.x; i < kBlockN; i += kThreads) {
-      const int row = q0 + i;
-      const bool in = row < S;
-      sM[buf][i] = in ? p.m[sbase + row] : 0.f;
-      sIL[buf][i] = in ? 1.f / fmaxf(p.l[sbase + row], 1e-30f) : 0.f;
-      sDl[buf][i] = in ? p.delta[sbase + row] : 0.f;
-    }
-    cp_async_commit();
-  };
-
-  float dk[kDTiles][4], dv[kDTiles][4];
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    dk[dt][0] = dk[dt][1] = dk[dt][2] = dk[dt][3] = 0.f;
-    dv[dt][0] = dv[dt][1] = dv[dt][2] = dv[dt][3] = 0.f;
-  }
-
-  // A-operand (rows = this warp's 16 keys) addresses of K and V
-  const int a_off = (warp * 16 + (lane & 15)) * kStride + (lane >> 4) * 8;
-  load_q(0, 0);
-  for (int it = 0; it < n_iters; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_iters) {
-      load_q(it + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* sQ = sQs + buf * kTile;
-    const __nv_bfloat16* sDO = sDOs + buf * kTile;
-    const int q0 = (ktile + it % nq) * kBlockN;
-
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      // s^T = K Q^T and dp^T = V dO^T for 16 keys x 16 queries
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int e2 = 0; e2 < 2; ++e2) {
-        s[e2][0] = s[e2][1] = s[e2][2] = s[e2][3] = 0.f;
-        dp[e2][0] = dp[e2][1] = dp[e2][2] = dp[e2][3] = 0.f;
-      }
-#pragma unroll
-      for (int ks = 0; ks < kSteps; ks += 2) {
-        uint32_t ka0[4], ka1[4], va0[4], va1[4];
-        ldmatrix_x4(ka0, sK + a_off + ks * 16);
-        ldmatrix_x4(ka1, sK + a_off + (ks + 1) * 16);
-        ldmatrix_x4(va0, sV + a_off + ks * 16);
-        ldmatrix_x4(va1, sV + a_off + (ks + 1) * 16);
-#pragma unroll
-        for (int e2 = 0; e2 < 2; ++e2) {
-          const int off = ((2 * kk + e2) * 8 + (lane & 7)) * kStride +
-                          (lane >> 3) * 8 + ks * 16;
-          uint32_t f[4];
-          ldmatrix_x4(f, sQ + off);
-          mma_bf16(s[e2], ka0, f[0], f[1]);
-          mma_bf16(s[e2], ka1, f[2], f[3]);
-          ldmatrix_x4(f, sDO + off);
-          mma_bf16(dp[e2], va0, f[0], f[1]);
-          mma_bf16(dp[e2], va1, f[2], f[3]);
+  if (wg == 2) {
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x / 32 != 8) return;  // one producer warp
+    const int lane = threadIdx.x % 32;
+    int it = 0;  // ring items so far
+    for (int c = 0; c < n_chunks; ++c) {
+      const int h0 = kvh * G + c * kHeadsPerBlock;
+      const int nh = min(kHeadsPerBlock, G - c * kHeadsPerBlock);
+      if (c > 0) mbar_wait(q_empty, (c - 1) & 1);
+      // the chunk's Q and dO tiles and their row statistics, head by head:
+      // each warpgroup's first head now, its second after the first K/V
+      // tile, so that the products start after 64 KB rather than 160
+      const int n0 = (nh + 1) / 2;  // the heads of consumer warpgroup 0
+      auto load_head = [&](int lh) {
+        if (lh >= nh) return;
+        if (lane == 0) {
+          mbar_expect_tx(&q_full[lh], 2 * L::kTile);
+          for (int pn = 0; pn < kPanels; ++pn) {
+            tma_load(smem + L::kQ + lh * L::kTile + pn * kPanelBytes, &p.tm_q,
+                     &q_full[lh], pn * 64, q0, h0 + lh, b);
+            tma_load(smem + L::kDO + lh * L::kTile + pn * kPanelBytes,
+                     &p.tm_do, &q_full[lh], pn * 64, q0, h0 + lh, b);
+          }
+        }
+        load_row_stats(sM + lh * kTileRows, sIL + lh * kTileRows,
+                       sDl + lh * kTileRows, p,
+                       ((long long)b * H + h0 + lh) * S, q0, S, lane);
+        mbar_arrive(&q_full[lh]);
+      };
+      load_head(0);
+      if (n0 < nh) load_head(n0);
+      // the causal K/V tiles with their keys' validity, then each branch's
+      // k_b / v_b rows of this q tile
+      for (int j = 0; j < n_ktiles + NB; ++j, ++it) {
+        const int st = it % kStages;
+        mbar_wait(&empty[st], ((it / kStages) & 1) ^ 1);
+        const bool causal = j < n_ktiles;
+        if (lane == 0) {
+          unsigned char* dst = smem + L::kRing + st * L::kStage;
+          const int src = causal ? 0 : 1 + j - n_ktiles;
+          const int row = causal ? j * kTileRows : q0;
+          mbar_expect_tx(&full[st], 2 * L::kTile);
+          for (int pn = 0; pn < kPanels; ++pn) {
+            tma_load(dst + pn * kPanelBytes, &p.tm_k[src], &full[st], pn * 64,
+                     row, kvh, b);
+            tma_load(dst + L::kTile + pn * kPanelBytes, &p.tm_v[src],
+                     &full[st], pn * 64, row, kvh, b);
+          }
+        }
+        if (causal) {
+          bool all = true;
+          for (int r = lane; r < kTileRows; r += 32) {
+            const int key = j * kTileRows + r;
+            const bool ok = key < S && p.valid[(long long)b * S + key] != 0;
+            sValid[st * kTileRows + r] = ok;
+            all = all && ok;
+          }
+          // and whether the tile needs no key mask at all
+          all = __all_sync(0xffffffffu, all);
+          if (lane == 0) sValid[kStages * kTileRows + st] = all;
+        }
+        mbar_arrive(&full[st]);
+        if (j == 0) {
+          for (int lh = 1; lh < nh; ++lh) {
+            if (lh != n0) load_head(lh);
+          }
         }
       }
-      // p^T under the causal/valid mask, ds^T = p^T * (dp^T - delta)
-      float pt[2][4];
-#pragma unroll
-      for (int e2 = 0; e2 < 2; ++e2) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qi = kk * 16 + e2 * 8 + 2 * t + (i & 1);
-          const int row = q0 + qi;
-          const bool ok = i < 2 ? (kv0 && kr0 <= row) : (kv1 && kr1 <= row);
-          const float pv =
-              (ok && row < S) ? __expf(s[e2][i] * p.scale - sM[buf][qi]) *
-                                    sIL[buf][qi]
-                              : 0.f;
-          pt[e2][i] = pv;
-          s[e2][i] = pv * (dp[e2][i] - sDl[buf][qi]);
-        }
-      }
-      // dv += p^T dO and dk += ds^T Q: A from registers (C -> A layout), dO
-      // and Q as B (k = query, n = head dim) through transposing ldmatrix
-      uint32_t ap[4], as[4];
-      ap[0] = pack_bf16(pt[0][0], pt[0][1]);
-      ap[1] = pack_bf16(pt[0][2], pt[0][3]);
-      ap[2] = pack_bf16(pt[1][0], pt[1][1]);
-      ap[3] = pack_bf16(pt[1][2], pt[1][3]);
-      as[0] = pack_bf16(s[0][0], s[0][1]);
-      as[1] = pack_bf16(s[0][2], s[0][3]);
-      as[2] = pack_bf16(s[1][0], s[1][1]);
-      as[3] = pack_bf16(s[1][2], s[1][3]);
-      const int toff =
-          (kk * 16 + (lane & 8) + (lane & 7)) * kStride + (lane >> 4) * 8;
-#pragma unroll
-      for (int dt = 0; dt < kDTiles; dt += 2) {
-        uint32_t f[4];
-        ldmatrix_x4_trans(f, sDO + toff + dt * 8);
-        mma_bf16(dv[dt], ap, f[0], f[1]);
-        mma_bf16(dv[dt + 1], ap, f[2], f[3]);
-        ldmatrix_x4_trans(f, sQ + toff + dt * 8);
-        mma_bf16(dk[dt], as, f[0], f[1]);
-        mma_bf16(dk[dt + 1], as, f[2], f[3]);
-      }
     }
-    __syncthreads();  // every warp is done with `buf` before it is refilled
-  }
+  } else {
+    reg_alloc<kConsumerRegs>();
+    const int tid = threadIdx.x % 128;
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int r0 = warp * 16 + g;  // this thread's two rows of the q tile
+    const int r1 = r0 + 8;
+    const float scale = p.scale;
+    const float scale2 = scale * kLog2e;
+    int it = 0;
+    for (int c = 0; c < n_chunks; ++c) {
+      const int nh = min(kHeadsPerBlock, G - c * kHeadsPerBlock);
+      const int n_own = wg == 0 ? (nh + 1) / 2 : nh / 2;
+      const int lh0 = wg == 0 ? 0 : (nh + 1) / 2;  // first local head owned
+      float dq[kSlots][D / 2];
+#pragma unroll
+      for (int sl = 0; sl < kSlots; ++sl) {
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) dq[sl][i] = 0.f;
+      }
 
-  const long long obase = ((long long)b * p.KVH + kvh) * S * D;
+      for (int j = 0; j < n_ktiles; ++j, ++it) {
+        const int st = it % kStages;
+        const uint32_t sK = smem_u32(smem + L::kRing + st * L::kStage);
+        const uint32_t sV = sK + L::kTile;
+        const int* valid = sValid + st * kTileRows;
+        const bool diag = j == qtile;
+        mbar_wait(&full[st], (it / kStages) & 1);
+        const bool tile_full = sValid[kStages * kTileRows + st] != 0;
 #pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (kr0 < S) {
-      *reinterpret_cast<uint32_t*>(p.dk + obase + kr0 * D + c) =
-          pack_bf16(dk[dt][0] * p.scale, dk[dt][1] * p.scale);
-      *reinterpret_cast<uint32_t*>(p.dv + obase + kr0 * D + c) =
-          pack_bf16(dv[dt][0], dv[dt][1]);
-    }
-    if (kr1 < S) {
-      *reinterpret_cast<uint32_t*>(p.dk + obase + kr1 * D + c) =
-          pack_bf16(dk[dt][2] * p.scale, dk[dt][3] * p.scale);
-      *reinterpret_cast<uint32_t*>(p.dv + obase + kr1 * D + c) =
-          pack_bf16(dv[dt][2], dv[dt][3]);
+        for (int sl = 0; sl < kSlots; ++sl) {
+          if (sl >= n_own) break;
+          const int lh = lh0 + sl;
+          const uint32_t sQ = smem_u32(smem + L::kQ + lh * L::kTile);
+          const uint32_t sDO = smem_u32(smem + L::kDO + lh * L::kTile);
+          if (j == 0) mbar_wait(&q_full[lh], c & 1);  // the head's tiles
+          // s = Q K^T and dp = dO V^T, 64 queries x 64 keys, as two groups:
+          // the exp below runs while the tensor cores still form dp
+          float s[32], dp[32];
+          wgmma_fence();
+          wgmma_tile_product<D>(s, sQ, sK);
+          wgmma_commit();
+          wgmma_tile_product<D>(dp, sDO, sV);
+          wgmma_commit();
+          wgmma_wait<1>();
+          fence_regs(s);
+          // the rows' statistics, read from shared memory here, where they
+          // are used (held beside two heads' dq they crowd the registers,
+          // and ptxas then serializes the wgmmas)
+          const float mr[2] = {sM[lh * kTileRows + r0], sM[lh * kTileRows + r1]};
+          const float ilr[2] = {sIL[lh * kTileRows + r0],
+                                sIL[lh * kTileRows + r1]};
+          const float dlr[2] = {sDl[lh * kTileRows + r0],
+                                sDl[lh * kTileRows + r1]};
+          // p under the causal/valid mask, in place
+          if (diag || !tile_full) {
+            dq_probs<true>(s, valid, scale2, mr, ilr, r0, r1, diag, t);
+          } else {
+            dq_probs<false>(s, valid, scale2, mr, ilr, r0, r1, diag, t);
+          }
+          wgmma_wait<0>();
+          fence_regs(dp);
+          // ds = p (dp - delta), as the A fragments of dq += ds K (K read
+          // MN-major)
+          uint32_t da[4][4];
+#pragma unroll
+          for (int jj = 0; jj < 8; ++jj) {
+            float dsv[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              dsv[e] = s[4 * jj + e] * (dp[4 * jj + e] - dlr[e >> 1]);
+            }
+            da[jj / 2][(jj % 2) * 2] = pack_bf16(dsv[0], dsv[1]);
+            da[jj / 2][(jj % 2) * 2 + 1] = pack_bf16(dsv[2], dsv[3]);
+          }
+          wgmma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(dq[sl], da[kk], sK, kk);
+          wgmma_commit();
+          wgmma_wait<0>();
+          fence_regs(dq[sl]);
+          fence_regs(da);
+        }
+        mbar_arrive(&empty[st]);
+      }
+
+      // the group sums read every head's tiles (all arrived by now)
+      for (int lh = 0; lh < nh; ++lh) mbar_wait(&q_full[lh], c & 1);
+      // the diagonal branches: p_b = exp(q.k_b * scale - m) / l, not masked
+      // by key_valid; dq gains ds_b k_b
+      for (int br = 0; br < NB; ++br, ++it) {
+        const int st = it % kStages;
+        const unsigned char* kb = smem + L::kRing + st * L::kStage;
+        const unsigned char* vb = kb + L::kTile;
+        mbar_wait(&full[st], (it / kStages) & 1);
+#pragma unroll
+        for (int sl = 0; sl < kSlots; ++sl) {
+          if (sl >= n_own) break;
+          const int lh = lh0 + sl;
+          const unsigned char* sQ = smem + L::kQ + lh * L::kTile;
+          const unsigned char* sDO = smem + L::kDO + lh * L::kTile;
+          // q.k_b and dO.v_b of rows r0 and r1: lane t of the quad takes
+          // the 16-byte chunks t, t + 4, ... of each row
+          float w0 = 0.f, w1 = 0.f, u0 = 0.f, u1 = 0.f;
+#pragma unroll
+          for (int jj = t; jj < D / 8; jj += 4) {
+            const int o0 = swz(r0, jj), o1 = swz(r1, jj);
+            w0 += dot8(sQ + o0, kb + o0);
+            w1 += dot8(sQ + o1, kb + o1);
+            u0 += dot8(sDO + o0, vb + o0);
+            u1 += dot8(sDO + o1, vb + o1);
+          }
+          const float* mh = sM + lh * kTileRows;
+          const float* ilh = sIL + lh * kTileRows;
+          const float* dlh = sDl + lh * kTileRows;
+          const float pb0 = ex2(fmaf(quad_sum(w0), scale2, -mh[r0])) * ilh[r0];
+          const float pb1 = ex2(fmaf(quad_sum(w1), scale2, -mh[r1])) * ilh[r1];
+          const float dsb0 = pb0 * (quad_sum(u0) - dlh[r0]);
+          const float dsb1 = pb1 * (quad_sum(u1) - dlh[r1]);
+          // dq += ds_b k_b in fp32, k_b at this thread's dq entries
+#pragma unroll
+          for (int jj = 0; jj < D / 8; ++jj) {
+            const float2 ka = unpack_bf16(
+                *reinterpret_cast<const uint32_t*>(kb + swz(r0, jj) + 4 * t));
+            const float2 kc = unpack_bf16(
+                *reinterpret_cast<const uint32_t*>(kb + swz(r1, jj) + 4 * t));
+            dq[sl][4 * jj] += dsb0 * ka.x;
+            dq[sl][4 * jj + 1] += dsb0 * ka.y;
+            dq[sl][4 * jj + 2] += dsb1 * kc.x;
+            dq[sl][4 * jj + 3] += dsb1 * kc.y;
+          }
+          if (t == 0) {
+            const int base = (br * kHeadsPerBlock + lh) * kTileRows;
+            sPb[base + r0] = pb0;
+            sPb[base + r1] = pb1;
+            sDsb[base + r0] = dsb0 * scale;
+            sDsb[base + r1] = dsb1 * scale;
+          }
+        }
+        mbar_arrive(&empty[st]);
+        // the branch's group sums, while the next tiles stream in
+        consumers_sync();  // p_b, ds_b of all the chunk's heads are here
+        const long long obase =
+            ((long long)br * BK + (long long)b * KVH + kvh) * S * D;
+        branch_group_sum<D>(
+            smem + (wg == 0 ? L::kQ : L::kDO), L::kTile,
+            (wg == 0 ? sDsb : sPb) + br * kHeadsPerBlock * kTileRows, nh, q0,
+            S, (wg == 0 ? p.dkb : p.dvb) + obase,
+            n_chunks > 1
+                ? p.ws + (wg == 0 ? 0 : (long long)NB * BK * S * D) + obase
+                : nullptr,
+            c, n_chunks, tid);
+      }
+
+      // dq of the warpgroup's heads, staged as bf16 in their Q tiles (the
+      // last group sums read the Q tiles: wait for them) and written in
+      // whole rows
+      if (NB > 0) consumers_sync();
+#pragma unroll
+      for (int sl = 0; sl < kSlots; ++sl) {
+        if (sl >= n_own) break;
+        stage_tile<D>(smem + L::kQ + (lh0 + sl) * L::kTile, dq[sl], scale, r0,
+                      t);
+      }
+      warpgroup_sync(wg);
+      for (int sl = 0; sl < n_own; ++sl) {
+        const int h = kvh * G + c * kHeadsPerBlock + lh0 + sl;
+        copy_tile_rows<D>(p.dq + (((long long)b * H + h) * S + q0) * D,
+                          smem + L::kQ + (lh0 + sl) * L::kTile, S - q0, tid);
+      }
+
+      // this chunk's Q, dO, statistics and branch terms are read
+      mbar_arrive(q_empty);
     }
   }
 }
 
-template <int D>
-int launch_bwd_dq(const BwdParams& p, dim3 grid, cudaStream_t st) {
-  constexpr int kSmem = 4 * kBlockN * (D + 8) * sizeof(__nv_bfloat16);
+// cuTensorMapEncodeTiled, from the driver through the runtime (the library
+// links no libcuda)
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                  void*, const cuuint64_t*, const cuuint64_t*,
+                                  const cuuint32_t*, const cuuint32_t*,
+                                  CUtensorMapInterleave, CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
+    fn = reinterpret_cast<EncodeTiledFn>(ptr);
+  }
+  return fn;
+}
+
+// A [B, heads, S, D] bf16 view with element strides (b, h, s), the head dim
+// contiguous, as a 4-D map (d, s, head, b) read in 64 x 64 boxes, 128-byte
+// swizzled; rows past S read as zeros. TMA needs a 16-byte aligned base and
+// strides of multiples of 16 bytes: the wrapper checks both.
+bool encode_bhsd(CUtensorMap* map, const void* base, int B, int heads, int S,
+                 int D, long long sb, long long sh, long long ss) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, kTileRows, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <typename Kernel>
+int launch_bwd(Kernel kernel, int smem_bytes, const BwdParams& p, int blocks,
+               cudaStream_t st) {
   const cudaError_t e = cudaFuncSetAttribute(
-      ttt_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  ttt_bwd_dq_kernel<D><<<grid, kThreads, kSmem, st>>>(p);
+  kernel<<<blocks, kBwdThreads, smem_bytes, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_bwd_dkv(const BwdParams& p, dim3 grid, cudaStream_t st) {
-  constexpr int kSmem = 6 * kBlockN * (D + 8) * sizeof(__nv_bfloat16);
-  const cudaError_t e = cudaFuncSetAttribute(
-      ttt_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  ttt_bwd_dkv_kernel<D><<<grid, kThreads, kSmem, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
+// The tensor maps and pointers the two backward kernels share; the maps of
+// the branch keys and values only with `branches`.
 int fill_bwd_params(BwdParams& p, const void* q, const long long* q_strides,
                     const void* const* keys, const void* const* values,
                     int n_keys, const long long* k_strides,
                     const long long* v_strides, const int* valid,
                     const void* dout, const float* m, const float* l,
-                    const float* delta, int B, int H, int KVH, int S, int D) {
-  if (n_keys < 1 || n_keys > kMaxKeys || KVH < 1 || H % KVH != 0 ||
-      B * H > 65535 || S < 1 || (D != 64 && D != 128)) {
+                    const float* delta, int B, int H, int KVH, int S, int D,
+                    bool branches) {
+  if (n_keys < 1 || n_keys > kMaxKeys || KVH < 1 || H % KVH != 0 || S < 1 ||
+      (D != 64 && D != 128)) {
     return cudaErrorInvalidValue;
   }
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  for (int i = 0; i < kMaxKeys; ++i) {
-    p.k[i] = i < n_keys ? static_cast<const __nv_bfloat16*>(keys[i]) : nullptr;
-    p.v[i] = i < n_keys ? static_cast<const __nv_bfloat16*>(values[i]) : nullptr;
+  memset(&p, 0, sizeof(p));
+  bool ok = encode_bhsd(&p.tm_q, q, B, H, S, D, q_strides[0], q_strides[1],
+                        q_strides[2]) &&
+            encode_bhsd(&p.tm_do, dout, B, H, S, D, (long long)S * H * D, D,
+                        (long long)H * D);
+  for (int i = 0; i < (branches ? n_keys : 1); ++i) {
+    ok = ok &&
+         encode_bhsd(&p.tm_k[i], keys[i], B, KVH, S, D, k_strides[0],
+                     k_strides[1], k_strides[2]) &&
+         encode_bhsd(&p.tm_v[i], values[i], B, KVH, S, D, v_strides[0],
+                     v_strides[1], v_strides[2]);
   }
+  if (!ok) return cudaErrorInvalidValue;
   p.valid = valid;
-  p.dout = static_cast<const __nv_bfloat16*>(dout);
   p.m = m;
   p.l = l;
   p.delta = delta;
-  p.dq = p.dkb = p.dvb = p.dk = p.dv = nullptr;
-  p.q_sb = q_strides[0];
-  p.q_sh = q_strides[1];
-  p.q_ss = q_strides[2];
-  p.k_sb = k_strides[0];
-  p.k_sh = k_strides[1];
-  p.k_ss = k_strides[2];
-  p.v_sb = v_strides[0];
-  p.v_sh = v_strides[1];
-  p.v_ss = v_strides[2];
   p.B = B;
   p.H = H;
   p.KVH = KVH;
@@ -1006,27 +1669,36 @@ extern "C" int ttt_attention_fwd(const void* q, const long long* q_strides,
 }
 
 // The backward's first kernel: dq [B, H, S, D] and, per branch, dk_b/dv_b
-// per query head [NB, B, H, S, D] (all contiguous bf16). dout [B, S, H*D]
-// is contiguous; m, l, delta are [B, H, S] fp32. The other arguments are
-// those of ttt_attention_fwd.
+// summed over the query heads of each group [NB, B, KVH, S, D] (all
+// contiguous bf16). dout [B, S, H*D] is contiguous; m, l, delta are
+// [B, H, S] fp32; ws is an fp32 workspace [2, NB, B, KVH, S, D] when
+// H / KVH > 4 (else unused). The other arguments are those of
+// ttt_attention_fwd.
 extern "C" int ttt_attention_bwd_dq(
     const void* q, const long long* q_strides, const void* const* keys,
     const void* const* values, int n_keys, const long long* k_strides,
     const long long* v_strides, const int* valid, const void* dout,
     const float* m, const float* l, const float* delta, void* dq, void* dkb,
-    void* dvb, int B, int H, int KVH, int S, int D, void* stream) {
+    void* dvb, float* ws, int B, int H, int KVH, int S, int D, void* stream) {
   BwdParams p;
   const int e = fill_bwd_params(p, q, q_strides, keys, values, n_keys,
                                 k_strides, v_strides, valid, dout, m, l,
-                                delta, B, H, KVH, S, D);
+                                delta, B, H, KVH, S, D, true);
   if (e != cudaSuccess) return e;
+  if (n_keys > 1 && H / KVH > kHeadsPerBlock && ws == nullptr) {
+    return cudaErrorInvalidValue;
+  }
   p.dq = static_cast<__nv_bfloat16*>(dq);
   p.dkb = static_cast<__nv_bfloat16*>(dkb);
   p.dvb = static_cast<__nv_bfloat16*>(dvb);
-  const dim3 grid((S + kBlockM - 1) / kBlockM, B * H);
+  p.ws = ws;
+  const int blocks = (S + kTileRows - 1) / kTileRows * B * KVH;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 128 ? launch_bwd_dq<128>(p, grid, st)
-                  : launch_bwd_dq<64>(p, grid, st);
+  return D == 128
+             ? launch_bwd(ttt_bwd_dq_kernel<128>, DqSmem<128>::kBytes, p,
+                               blocks, st)
+             : launch_bwd(ttt_bwd_dq_kernel<64>, DqSmem<64>::kBytes, p,
+                              blocks, st);
 }
 
 // The backward's second kernel: dk, dv [B, KVH, S, D] (contiguous bf16) of
@@ -1040,13 +1712,15 @@ extern "C" int ttt_attention_bwd_dkv(
   BwdParams p;
   const int e = fill_bwd_params(p, q, q_strides, keys, values, n_keys,
                                 k_strides, v_strides, valid, dout, m, l,
-                                delta, B, H, KVH, S, D);
+                                delta, B, H, KVH, S, D, false);
   if (e != cudaSuccess) return e;
-  if (B * KVH > 65535) return cudaErrorInvalidValue;
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
-  const dim3 grid((S + kBlockN - 1) / kBlockN, B * KVH);
+  const int blocks = (S + kTileRows - 1) / kTileRows * B * KVH;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 128 ? launch_bwd_dkv<128>(p, grid, st)
-                  : launch_bwd_dkv<64>(p, grid, st);
+  return D == 128
+             ? launch_bwd(ttt_bwd_dkv_kernel<128>, DkvSmem<128>::kBytes,
+                               p, blocks, st)
+             : launch_bwd(ttt_bwd_dkv_kernel<64>, DkvSmem<64>::kBytes, p,
+                              blocks, st);
 }

@@ -31,6 +31,7 @@ from specforge_tpu_torch.ops import cuda_lib
 NEG_INF = -1e30  # finite, as in the kernel
 MAX_KEYS = 8     # the step-0 block plus up to 7 branches
 HEAD_DIMS = (64, 128)
+HEADS_PER_BLOCK = 4  # query heads of a group the dq kernel holds at once
 
 
 def ttt_flash_attention_plain(
@@ -246,22 +247,29 @@ def backward_delta(out: torch.Tensor, dout: torch.Tensor,
 
 
 def ttt_attention_bwd_dq(q, keys, values, valid, dout, m, l, delta):
-    """Launch the dq kernel → (dq [B, H, S, D], branch dk and dv per query
-    head [NB, B, H, S, D]), all contiguous bf16. The operands are those
-    :func:`ttt_flash_attention_bwd` checked: ``valid`` int32 [B, S],
-    ``dout`` contiguous, ``delta`` from :func:`backward_delta`."""
+    """Launch the dq kernel → (dq [B, H, S, D], branch dk and dv summed over
+    the query heads of each group [NB, B, KVH, S, D]), all contiguous bf16.
+    The operands are those :func:`ttt_flash_attention_bwd` checked:
+    ``valid`` int32 [B, S], ``dout`` contiguous, ``delta`` from
+    :func:`backward_delta`. Beyond ``HEADS_PER_BLOCK`` query heads a group
+    is summed chunk by chunk through an fp32 workspace allocated here."""
     b, h, s, d = q.shape
     kvh = keys[0].shape[1]
     nb = len(keys) - 1
     dq = torch.empty((b, h, s, d), dtype=q.dtype, device=q.device)
-    dkb = torch.empty((nb, b, h, s, d), dtype=q.dtype, device=q.device)
+    dkb = torch.empty((nb, b, kvh, s, d), dtype=q.dtype, device=q.device)
     dvb = torch.empty_like(dkb)
+    ws = None
+    if nb and h // kvh > HEADS_PER_BLOCK:
+        ws = torch.empty((2, nb, b, kvh, s, d), dtype=torch.float32,
+                         device=q.device)
     status = cuda_lib.library().ttt_attention_bwd_dq(
         q.data_ptr(), _i64x3(_strides(q)), *_pointer_arrays(keys, values),
         len(keys), _i64x3(_strides(keys[0])), _i64x3(_strides(values[0])),
         valid.data_ptr(),
         dout.data_ptr(), m.data_ptr(), l.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dkb.data_ptr(), dvb.data_ptr(),
+        None if ws is None else ws.data_ptr(),
         b, h, kvh, s, d, torch.cuda.current_stream(q.device).cuda_stream,
     )
     cuda_lib.check(status, "ttt_attention_bwd_dq")
@@ -313,10 +321,9 @@ def ttt_flash_attention_bwd(
 
     CPU tensors take :func:`ttt_flash_attention_backward_plain`; CUDA tensors
     launch the two backward kernels of ``csrc/ttt_attention.cu`` or raise.
-    ``delta = rowsum(dO·O)`` is one torch reduction, and the branch dk/dv
-    that the dq kernel writes per query head are summed over each group's
-    H/KVH heads by one more (in fp32), as the JAX version sums them outside
-    its kernel too."""
+    ``delta = rowsum(dO·O)`` is one torch reduction (the JAX version computes
+    it outside its kernels too); the dq kernel sums the branch dk/dv over
+    each group's H/KVH heads itself."""
     if q.device.type == "cpu":
         return ttt_flash_attention_backward_plain(
             q, keys, values, key_valid, out, m, l, dout)
@@ -324,7 +331,6 @@ def ttt_flash_attention_bwd(
         raise ValueError(f"unsupported device {q.device}")
     valid, _, _ = _check_inputs(q, keys, values, key_valid)
     b, h, s, d = q.shape
-    kvh = keys[0].shape[1]
     for name, x in (("out", out), ("dout", dout)):
         if (x.device != q.device or x.dtype != q.dtype
                 or tuple(x.shape) != (b, s, h * d)):
@@ -335,13 +341,6 @@ def ttt_flash_attention_bwd(
     args = (q, keys, values, valid, dout, m, l, backward_delta(out, dout, h))
     dq, dkb, dvb = ttt_attention_bwd_dq(*args)
     dk, dv = ttt_attention_bwd_dkv(*args)
-    nb = len(keys) - 1
-    if nb:
-        def group_sum(x):
-            return x.view(nb, b, kvh, h // kvh, s, d).sum(
-                3, dtype=torch.float32).to(q.dtype)
-
-        dkb, dvb = group_sum(dkb), group_sum(dvb)
     return dq, [dk, *dkb.unbind(0)], [dv, *dvb.unbind(0)]
 
 

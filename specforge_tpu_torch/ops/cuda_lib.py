@@ -123,9 +123,10 @@ def library() -> ctypes.CDLL:
                 p, p, p, p, i, p, p, p, p, p, p, i, i, i, i, i, p,
             ]
             lib.ttt_attention_fwd.restype = i
-            for name in ("ttt_attention_bwd_dq", "ttt_attention_bwd_dkv"):
+            # dq: dq, branch dk, branch dv and the fp32 workspace; dk/dv: dk, dv
+            for name, n_out in (("ttt_attention_bwd_dq", 4),
+                                ("ttt_attention_bwd_dkv", 2)):
                 fn = getattr(lib, name)
-                n_out = 3 if name.endswith("dq") else 2
                 fn.argtypes = [p, p, p, p, i, p, p, p, p, p, p, p,
                                *[p] * n_out, i, i, i, i, i, p]
                 fn.restype = i

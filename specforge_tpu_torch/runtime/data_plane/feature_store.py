@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import abc
 import os
-from typing import Dict
+from typing import Any, Dict, Optional
 from urllib.parse import urlparse
 
 import torch
@@ -19,7 +19,10 @@ from specforge_tpu_torch.runtime.contracts import (
     FeatureSpec,
     SampleRef,
 )
-from specforge_tpu_torch.runtime.data_plane.feature_file import load_feature_file
+from specforge_tpu_torch.runtime.data_plane.feature_file import (
+    load_feature_file,
+    read_feature_specs,
+)
 
 
 class StoreError(RuntimeError):
@@ -38,24 +41,6 @@ class FileFeatureStore(FeatureStore):
     """Read-only store over existing ``.sft`` capture files."""
 
     @staticmethod
-    def ref_for_file(path: str) -> SampleRef:
-        """A lazy SampleRef for one capture file, named after it: neither the
-        header nor the tensor bytes are read until it is fetched."""
-        path = os.path.abspath(path)
-        sample_id = os.path.basename(path).removesuffix(".sft")
-        handle = FeatureHandle(
-            uri=f"file://{path}",
-            spec=FeatureSpec(name="__file__", shape=(), dtype="uint8"),
-        )
-        return SampleRef(sample_id=sample_id, features={"__file__": handle})
-
-    def fetch(self, ref: SampleRef) -> Dict[str, torch.Tensor]: ...
-
-
-class FileFeatureStore(FeatureStore):
-    """Read-only store over existing ``.sft`` capture files."""
-
-    @staticmethod
     def ref_for_file(
         path: str,
         sample_id: Optional[str] = None,
@@ -64,18 +49,23 @@ class FileFeatureStore(FeatureStore):
         epoch: int = 0,
     ) -> SampleRef:
         """A lazy SampleRef for one capture file: neither the header nor the
-        tensor bytes are read unless ``read_specs``."""
+        tensor bytes are read unless ``read_specs`` (and the file is an
+        ``.sft``; a ``.ckpt`` ref keeps the placeholder handle)."""
         path = os.path.abspath(path)
         if sample_id is None:
             base = os.path.basename(path)
-            sample_id = base[:-len(".sft")] if base.endswith(".sft") else base
+            for suffix in (".sft", ".ckpt.gz", ".ckpt"):
+                if base.endswith(suffix):
+                    base = base[:-len(suffix)]
+                    break
+            sample_id = base
         metadata: Dict[str, Any] = {}
-        if read_specs:
+        if read_specs and path.endswith(".sft"):
             specs, meta = read_feature_specs(path)
             metadata.update(meta)
             features = {
                 name: FeatureHandle(uri=f"file://{path}#{name}", spec=spec)
-                for name, spec in specs.items()
+                for name, spec in sorted(specs.items())  # as safetensors lists them
             }
         else:
             features = {

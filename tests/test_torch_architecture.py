@@ -3,11 +3,12 @@
 The port and its chip smoke script import neither JAX (nor flax, optax,
 orbax) nor anything of the JAX package, and none of the libraries the
 machine with the card lacks (safetensors, ml_dtypes, pydantic). Every CUDA
-source under csrc/ is built.
+source under csrc/ is built, and none uses an atomic operation.
 """
 
 import ast
 import os
+import re
 
 import pytest
 
@@ -25,6 +26,7 @@ def _sources():
             if name.endswith(".py"):
                 yield os.path.join(root, name)
     yield os.path.join(REPO, "chip_smoke.py")
+    yield os.path.join(REPO, "ttt_backward_compare.py")
 
 
 def _top_level_imports(path):
@@ -71,3 +73,36 @@ def test_usp_slice_is_built_and_imports_nothing_of_jax():
         "__init__.py", "mesh.py", "multihost.py", "usp.py"]
     for path in parallel:
         assert not {m for m in _top_level_imports(path) if m in FORBIDDEN}
+
+
+#: atomic operations in CUDA C++ (atomicAdd, atomicCAS, ...) and in inline
+#: PTX (atom, red, the bulk reductions cp.reduce.async.bulk)
+ATOMIC = re.compile(
+    r"\batomic[A-Z]\w*\s*\(|\batom\.|\bred\.|cp\.reduce\.async|"
+    r"\bcuda::atomic|std::atomic")
+
+
+def _code_without_comments(text):
+    text = re.sub(r"/\*.*?\*/", "", text, flags=re.S)
+    return re.sub(r"//[^\n]*", "", text)
+
+
+@pytest.mark.parametrize("name", sorted(cuda_lib.SOURCES))
+def test_no_cuda_source_uses_atomics(name):
+    """The port's determinism rule: every sum is taken in a fixed order, so
+    two runs (and a resume) give the same bits; no kernel may use an atomic
+    operation, whose order changes from run to run."""
+    text = open(os.path.join(PKG, "csrc", name)).read()
+    found = ATOMIC.findall(_code_without_comments(text))
+    assert not found, f"{name} uses atomic operations: {found}"
+
+
+def test_atomic_pattern_finds_what_it_must():
+    """The check above is not vacuous: it finds the forms it forbids, and
+    not the words of a comment."""
+    for code in ("atomicAdd(p, 1.f);", "asm(\"red.global.add.f32 [%0], %1;\");",
+                 "asm(\"atom.global.cas.b32 %0, [%1], %2, %3;\");",
+                 "asm(\"cp.reduce.async.bulk.global.shared::cta.add.f32\");"):
+        assert ATOMIC.search(_code_without_comments(code)), code
+    assert not ATOMIC.search(_code_without_comments(
+        "// no atomics: red. and atomicAdd( in a comment\nint x = 0;"))

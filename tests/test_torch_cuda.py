@@ -114,8 +114,12 @@ def test_ttt_attention_backward_kernels_match_plain(gen, s, d, n_keys):
         assert err <= 2e-2 * float(want.float().abs().max()) + 1e-6
 
 
-def test_ttt_attention_backward_is_deterministic(gen):
-    q, keys, values, valid = attention_inputs(gen, 2, 8, 2, 200, 128, 4)
+@pytest.mark.parametrize("b,h,kvh,s,n_keys", [
+    (2, 8, 2, 200, 4),
+    (2, 32, 8, 2048, 7),  # the main path's shape: 6 branches, padded
+])
+def test_ttt_attention_backward_is_deterministic(gen, b, h, kvh, s, n_keys):
+    q, keys, values, valid = attention_inputs(gen, b, h, kvh, s, 128, n_keys)
     out, m, l = attention_cuda.ttt_flash_attention_fwd(q, keys, values, valid)
     dout = torch.randn(out.shape, generator=gen, device="cuda",
                        dtype=torch.bfloat16)
@@ -160,6 +164,95 @@ def test_ttt_attention_autograd_reaches_every_key(gen):
         for got, want in pairs:
             err = float((got.float() - want.float()).abs().max())
             assert err <= 2e-2 * float(want.float().abs().max())
+
+
+def assert_backward_matches_plain(q, keys, values, valid, gen):
+    """The backward kernels (one launch each) against the plain backward:
+    dq, the causal block's dk/dv and every branch's dk/dv summed over the
+    group's heads, within 2e-2 of the largest reference value."""
+    out, m, l = attention_cuda.ttt_flash_attention_fwd(q, keys, values, valid)
+    dout = torch.randn(out.shape, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    before = (attention_cuda.ttt_attention_bwd_dq.launches,
+              attention_cuda.ttt_attention_bwd_dkv.launches)
+    dq, dks, dvs = attention_cuda.ttt_flash_attention_bwd(
+        q, keys, values, valid, out, m, l, dout)
+    torch.cuda.synchronize()
+    assert (attention_cuda.ttt_attention_bwd_dq.launches,
+            attention_cuda.ttt_attention_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref_dq, ref_dks, ref_dvs = attention_cuda.ttt_flash_attention_backward_plain(
+        q, keys, values, valid, out, m, l, dout)
+    assert len(dks) == len(dvs) == len(keys)
+    for got, want in [(dq, ref_dq), *zip(dks, ref_dks), *zip(dvs, ref_dvs)]:
+        assert got.shape == want.shape and got.dtype == torch.bfloat16
+        assert bool(torch.isfinite(got).all())
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= 2e-2 * float(want.float().abs().max()) + 1e-6
+    return dq, dks, dvs
+
+
+@pytest.mark.parametrize("s,d,n_keys,h,kvh", [
+    (1, 128, 8, 8, 2), (63, 64, 8, 8, 2), (64, 128, 8, 8, 2),
+    (65, 128, 8, 8, 2), (2047, 128, 8, 8, 2), (2048, 64, 8, 8, 2),
+    # groups of 8 (two chunks of resident heads, summed through the fp32
+    # workspace), 3 and 1 query heads
+    (130, 128, 8, 8, 1), (100, 64, 3, 6, 2), (96, 128, 2, 4, 4),
+])
+def test_ttt_attention_backward_edge_shapes(gen, s, d, n_keys, h, kvh):
+    """Ragged and tiny S, D = 64, 7 branches, group sizes 1, 3, 4 and 8."""
+    q, keys, values, valid = attention_inputs(gen, 2, h, kvh, s, d, n_keys)
+    assert_backward_matches_plain(q, keys, values, valid, gen)
+
+
+@pytest.mark.parametrize("n_keys", [1, 8])
+def test_ttt_attention_backward_fully_masked_rows(gen, n_keys):
+    """key_valid padded at the end and masking the first keys of batch 0:
+    its first rows see no causal key (with no branch they attend to
+    nothing and get zero gradients)."""
+    q, keys, values, valid = attention_inputs(gen, 2, 8, 2, 200, 128, n_keys)
+    valid[0, :5] = 0
+    dq, _, _ = assert_backward_matches_plain(q, keys, values, valid, gen)
+    if n_keys == 1:
+        assert float(dq[0, :, :5].float().abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_ttt_attention_backward_reads_strided_views(gen, d):
+    """q and the 8 keys/values as views of merged projections, 7 branches."""
+    b, s, h, kvh = 2, 300, 8, 2
+    qkvs = [torch.randn(b, s, (h + 2 * kvh) * d, generator=gen, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(8)]
+    views = [(x[..., :h * d].view(b, s, h, d).transpose(1, 2),
+              x[..., h * d:(h + kvh) * d].view(b, s, kvh, d).transpose(1, 2),
+              x[..., (h + kvh) * d:].view(b, s, kvh, d).transpose(1, 2))
+             for x in qkvs]
+    valid = torch.ones((b, s), dtype=torch.int32, device="cuda")
+    valid[1, 250:] = 0
+    assert_backward_matches_plain(views[-1][0], [v[1] for v in views],
+                                  [v[2] for v in views], valid, gen)
+
+
+def test_ttt_attention_backward_refuses_what_it_does_not_take(gen):
+    """Layouts the tensor maps cannot describe raise in the wrapper."""
+    q, keys, values, valid = attention_inputs(gen, 1, 4, 2, 64, 128, 2)
+    out, m, l = attention_cuda.ttt_flash_attention_fwd(q, keys, values, valid)
+    dout = torch.randn(out.shape, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    wide = torch.randn(1, 4, 64, 136, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    misaligned = wide[..., 4:132]  # 8-byte offset, rows 136 elements apart
+    with pytest.raises(ValueError):
+        attention_cuda.ttt_flash_attention_bwd(
+            misaligned, keys, values, valid, out, m, l, dout)
+    odd = torch.randn(1, 2, 64, 132, generator=gen, device="cuda",
+                      dtype=torch.bfloat16)[..., :128]  # row stride 132
+    with pytest.raises(ValueError):
+        attention_cuda.ttt_flash_attention_bwd(
+            q, [odd, keys[1]], values, valid, out, m, l, dout)
+    with pytest.raises(ValueError):
+        attention_cuda.ttt_flash_attention_bwd(
+            q, keys, values, valid, out, m[..., :32], l, dout)
 
 
 @pytest.mark.parametrize("v,dtype", [(32000, torch.bfloat16),

@@ -194,6 +194,47 @@ def test_manifest_refs_are_lazy(tmp_path):
         FileFeatureStore().fetch(bad)
 
 
+@pytest.mark.parametrize("name,read_specs", [
+    ("sample-0007.sft", False), ("sample-0007.sft", True),
+    ("sample-0008.ckpt", True), ("sample-0009.ckpt.gz", False),
+])
+def test_ref_for_file_matches_jax(tmp_path, name, read_specs):
+    """``ref_for_file`` in both modes, on an ``.sft`` written from a seed and
+    on ``.ckpt`` names (specs are read only for ``.sft``; the reference
+    ``.ckpt`` reader is not ported, so such a ref is not fetched)."""
+    path = str(tmp_path / name)
+    rng = np.random.default_rng(5)
+    arrays = sample_arrays(rng, 11)
+    if name.endswith(".sft"):
+        jax_ff.save_feature_file(path, arrays, {"target_repr": "hidden_state",
+                                                "source": "seed-5"})
+    else:
+        open(path, "wb").close()
+    ref = FileFeatureStore.ref_for_file(path, read_specs=read_specs, epoch=3)
+    jax_ref = JaxFileFeatureStore.ref_for_file(path, read_specs=read_specs,
+                                               epoch=3)
+    assert ref.sample_id == jax_ref.sample_id == name.split(".")[0]
+    assert ref.epoch == jax_ref.epoch == 3
+    assert dict(ref.metadata) == dict(jax_ref.metadata)
+    assert list(ref.features) == list(jax_ref.features)
+    assert ref.to_json() == jax_ref.to_json()
+    if read_specs and name.endswith(".sft"):
+        assert sorted(ref.features) == sorted(arrays)
+        assert ref.metadata == {"target_repr": "hidden_state",
+                                "source": "seed-5"}
+        for key, arr in arrays.items():
+            assert tuple(ref.features[key].spec.shape) == arr.shape, key
+    else:
+        assert list(ref.features) == ["__file__"]
+    if name.endswith(".sft"):
+        tensors = FileFeatureStore().fetch(ref)
+        jax_tensors = JaxFileFeatureStore().fetch(jax_ref)
+        assert sorted(tensors) == sorted(jax_tensors) == sorted(arrays)
+        for key, arr in jax_tensors.items():
+            assert tuple(tensors[key].shape) == arr.shape, key
+            assert raw_bytes(tensors[key]) == raw_bytes(arr), key
+
+
 def test_vocab_mapping_files_cross_over(tmp_path):
     rng = np.random.default_rng(4)
     keep = np.sort(rng.choice(100, size=20, replace=False))
