@@ -22,7 +22,11 @@ Phases, each printing JSON lines:
    with CUDA events (median of 20 runs after 3 warm-ups) beside the plain
    version, one PyTorch library call as a yardstick, and its bound (the
    two TTT backward kernels also beside the whole ``ttt_flash_attention_bwd``
-   they make up, ``whole_bwd_ms``);
+   they make up, ``whole_bwd_ms``); the TTT forward also on a batch row
+   with no valid key (out 0, m = -1e30, l = 0 exactly), twice at the main
+   shape with the same bits, and beside a second, timed-only yardstick,
+   the library flash kernel over the causal block alone
+   (``library_causal_ms``);
 4. slice 1: the EAGLE3 offline TTT forward at the full Qwen3-8B EAGLE3 width
    (``configs/qwen3-8b-eagle3.json``, random weights from ``--seed``), from
    feature files written and read back by the port's data plane, through
@@ -326,31 +330,76 @@ def sdpa_yardstick(q, keys, values, key_valid):
     )
 
 
+def sdpa_causal_yardstick(q, keys, values):
+    """A second yardstick for the forward, timed only: one library flash
+    kernel over the causal block alone (SDPA with ``is_causal``; k0 and v0
+    repeated to the H query heads outside the timed call). It computes
+    another function (no branches, no key_valid) and says where the causal
+    block stands against a library flash kernel on this card → (ms, name of
+    the SDPA backend that ran: flash, else the next fused one that takes
+    these inputs)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    g = q.shape[1] // keys[0].shape[1]
+    k = keys[0].repeat_interleave(g, dim=1)
+    v = values[0].repeat_interleave(g, dim=1)
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        with sdpa_kernel(backend):
+            try:
+                F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            except RuntimeError:
+                continue
+            return median_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=True)), backend.name
+    raise RuntimeError("no fused SDPA backend takes the causal yardstick")
+
+
 def attention_kernel_phase(gen) -> dict:
     fwd = attention_cuda.ttt_flash_attention_fwd
     plain = attention_cuda.ttt_flash_attention_plain
     worst = 0.0
     timed = []
-    cases = [(MAX_LEN, nb, True) for nb in range(TTT)]
-    cases += [(MAX_LEN, 0, False), (MAX_LEN, 6, False),
-              (MAX_LEN - 1, 0, True), (MAX_LEN - 1, 6, True)]
-    for s, nb, padded in cases:
+    # (S, branches, padded key_valid, batch row 0 with no valid key)
+    cases = [(MAX_LEN, nb, True, False) for nb in range(TTT)]
+    cases += [(MAX_LEN, 0, False, False), (MAX_LEN, 6, False, False),
+              (MAX_LEN - 1, 0, True, False), (MAX_LEN - 1, 6, True, False),
+              (MAX_LEN, 0, False, True), (MAX_LEN, 2, True, True)]
+    for s, nb, padded, empty in cases:
         q, keys, values, key_valid = attention_inputs(gen, s, nb, padded)
+        if empty:
+            key_valid[0] = 0
         out, m, l = fwd(q, keys, values, key_valid)
         torch.cuda.synchronize()
         ref_out, ref_m, ref_l = plain(q, keys, values, key_valid)
+        finite = all(bool(torch.isfinite(x).all()) for x in (out, m, l))
+        check(f"ttt attention S={s} NB={nb} finite", 0.0 if finite else 1.0,
+              0.0)
         err = max_err(out, ref_out)
-        m_err = max_err(m, ref_m) / (1.0 + float(ref_m.abs().max()))
-        l_err = float(((l - ref_l).abs() / ref_l.clamp(min=1e-30)).max())
-        check(f"ttt attention S={s} NB={nb} padded={padded}", err, ATTN_TOL)
+        # rows that attend to something; the others must come out exactly as
+        # the TPU kernel leaves them: out 0, m = -1e30, l = 0
+        live = ref_m > attention_cuda.NEG_INF
+        m_err = (max_err(m[live], ref_m[live])
+                 / (1.0 + float(ref_m[live].abs().max())))
+        l_err = float(((l - ref_l).abs() / ref_l.clamp(min=1e-30))[live].max())
+        dead = ~live
+        out_rows = out.view(q.shape[0], s, q.shape[1], -1).transpose(1, 2)
+        dead_exact = (bool((out_rows[dead] == 0).all())
+                      and bool((m[dead] == attention_cuda.NEG_INF).all())
+                      and bool((l[dead] == 0).all()))
+        check(f"ttt attention S={s} NB={nb} padded={padded} empty={empty}",
+              err, ATTN_TOL)
         check(f"ttt attention m S={s} NB={nb}", m_err, STAT_RTOL)
         check(f"ttt attention l S={s} NB={nb}", l_err, STAT_RTOL)
+        check(f"ttt attention empty rows S={s} NB={nb} (out 0, m -1e30, l 0)",
+              0.0 if dead_exact else 1.0, 0.0)
         worst = max(worst, err)
         row = {"phase": "kernel", "name": "ttt_flash_attention_fwd",
                "S": s, "branches": nb, "padded": padded,
+               "empty_batch_row": empty, "rows_with_no_key": int(dead.sum()),
                "max_abs_err": err, "m_rel_err": m_err, "l_rel_err": l_err,
                "tol": ATTN_TOL}
-        if s == MAX_LEN and padded:
+        if s == MAX_LEN and padded and not empty:
             # the main path's seven launches: one per branch count 0..6
             row["ms"] = median_ms(lambda: fwd(q, keys, values, key_valid))
             row["plain_ms"] = median_ms(
@@ -358,7 +407,19 @@ def attention_kernel_phase(gen) -> dict:
             row["library_ms"] = median_ms(
                 sdpa_yardstick(q, keys, values, key_valid))
             row["bound"] = attention_bound_ms(q, keys, key_valid)
+            if nb == TTT - 1:
+                # two launches on the same inputs give the same bits
+                again = fwd(q, keys, values, key_valid)
+                row["repeat_bit_exact"] = all(
+                    torch.equal(a, b) for a, b in zip(again, (out, m, l)))
+                check("ttt attention repeat bit-exact",
+                      0.0 if row["repeat_bit_exact"] else 1.0, 0.0)
+                del again
             timed.append(row)
+        if s == MAX_LEN and nb == 0 and not padded and not empty:
+            row["library_causal_ms"], row["library_causal_backend"] = (
+                sdpa_causal_yardstick(q, keys, values))
+            causal = row
         emit(row)
         del q, keys, values, ref_out, out
     n = len(timed)
@@ -376,6 +437,11 @@ def attention_kernel_phase(gen) -> dict:
         "library_ms": sum(r["library_ms"] for r in timed) / n,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "repeat_bit_exact": timed[-1]["repeat_bit_exact"],
+        # timed only: SDPA over the causal block alone at NB = 0, unpadded
+        # (another function), on the backend named
+        "library_causal_ms": causal["library_causal_ms"],
+        "library_causal_backend": causal["library_causal_backend"],
     }
 
 

@@ -11,7 +11,9 @@
 // (b) to one query-aligned diagonal key per earlier branch. The diagonal
 // branch logits are NOT masked by `key_valid`, as in the TPU kernel. The
 // output goes straight to the [B, S, H*D] layout the o_proj reads; the row
-// statistics m (max) and l (sum of exp) are saved in fp32 for the backward.
+// statistics m (max) and l (sum of exp) are saved in fp32, natural-log
+// units, for the backward. A row with no allowed key gets out = 0,
+// m = -1e30 (finite, as in the TPU kernel) and l = 0.
 // The backward recomputes p = exp(s - m) / l from them, with
 // delta = rowsum(dO * O) given, and forms ds = p * (dO V^T - delta):
 //   dq = scale * (ds K + sum_b ds_b k_b),  dk = scale * ds^T Q,
@@ -20,48 +22,54 @@
 //
 // What bounds it on this card. Per launch the causal block of the forward
 // costs 2*B*H*S^2*D FLOP (68.7 GFLOP at B=2, H=32, S=2048, D=128: 69 us at
-// the bf16 tensor-core peak) and moves 84-185 MB (25-55 us at 3.35 TB/s),
-// so it is bound by tensor-core operations. The backward's dq kernel does
-// three such causal products (s, dp, dq), the dk/dv kernel four (s, dp, dv,
-// dk): 0.1092 and 0.1375 ms at the EAGLE3 shape, averaged over the main
-// path's 0..6 branches, against about 0.2 GB moved for the pair (60 us):
-// both are bound by operations too.
+// the bf16 tensor-core peak) and moves 84-185 MB over 0..6 branches (q, out,
+// every key and value once: 25-55 us at 3.35 TB/s), so it is bound by
+// tensor-core operations. The backward's dq kernel does three such causal
+// products (s, dp, dq), the dk/dv kernel four (s, dp, dv, dk): 0.1092 and
+// 0.1375 ms at the EAGLE3 shape, averaged over the main path's 0..6
+// branches, against about 0.2 GB moved for the pair (60 us): both are bound
+// by operations too.
 //
-// The forward. Every product runs on the tensor cores through
-// `mma.sync.m16n8k16` (bf16 in, fp32 accumulate); no S x S tile ever
-// reaches device memory. One block of 4 warps owns 64 query rows of one
-// (batch, head); each warp owns 16 rows and keeps its Q fragments and its O
-// accumulator in registers, with the online-softmax recurrence (m, l, o) in
-// fp32. K/V tiles of 64 keys are staged by cp.async in two buffers of
-// padded (bank-conflict-free) shared memory and reach the tensor cores
-// through ldmatrix. Only the tiles up to the diagonal are visited. The GQA
-// kv head is read as h / (H / KVH), so keys are never repeated in memory,
-// and the ragged sequence edge is masked in the kernel. The diagonal
-// branches are folded into (m, l, o) after the causal loop. Blocks are
-// issued longest-rows first.
-//
-// The backward (both kernels). Every tile product is a warpgroup product,
-// `wgmma.mma_async` (bf16 in, fp32 accumulate), from two consumer
+// All three kernels share one shape. Every tile product is a warpgroup
+// product, `wgmma.mma_async` (bf16 in, fp32 accumulate), from two consumer
 // warpgroups; B always comes from shared memory through a 128-byte-swizzle
 // descriptor, A from shared memory or, for p and ds, straight from the
 // registers the previous product left them in. A producer warpgroup gives
 // up its registers (`setmaxnreg`: 24 for it, 240 for each consumer) and one
-// of its warps keeps a ring of two tile stages in flight: each 64-row tile
-// of q, dO, k or v is a TMA copy (`cp.async.bulk.tensor`, 64 x 64 boxes of
-// a 4-D tensor map over the strided view, swizzled as the descriptors read
+// of its warps keeps a ring of tile stages in flight: each 64-row tile of
+// q, dO, k or v is a TMA copy (`cp.async.bulk.tensor`, 64 x 64 boxes of a
+// 4-D tensor map over the strided view, swizzled as the descriptors read
 // it, rows past S zero-filled) that completes on the stage's `mbarrier`.
-// The copies are issued first; then the producer's lanes write the tile's
-// row statistics (m in log2 units, 1/l, delta) and key_valid bits into the
-// same stage and arrive on it, so those global loads overlap the copies and
-// never stall the consumers. Consumers release a stage on a second barrier.
-// No atomics: every sum is taken in a fixed order, and two runs give the
-// same bits. Inside a warpgroup the products come in groups, so the exp of
-// p runs while the tensor cores form dp (and, in dk/dv, dv += p^T dO while
-// ds is formed). p = 2^(s * scale * log2(e) - m2) / l is one FMA and one
-// MUFU a score, the mask a select to -inf, and tiles that need no mask
-// (off the diagonal, every key valid) skip it. ptxas reports no wgmma
-// serialization for these kernels; keeping it so bounds the registers live
-// beside the accumulators (see dq's statistics).
+// The copies are issued first; then the producer's lanes write what travels
+// with the tile (key_valid bits and an "all valid" flag, row statistics)
+// into the same stage and arrive on it, so those global loads overlap the
+// copies and never stall the consumers, which read them only after waiting
+// on the stage. Consumers release a stage on a second barrier. m travels in
+// log2 units, m * log2(e): p = 2^(s * scale * log2(e) - m2) is one FMA and
+// one MUFU a score, the mask a select to -inf, and tiles that need no mask
+// (off the diagonal, every key valid) skip it. No atomics: every sum is
+// taken in a fixed order, and two runs give the same bits. ptxas reports no
+// wgmma serialization for these kernels; keeping it so bounds the registers
+// live beside the accumulators (k-steps unrolled, descriptors pinned).
+//
+// The forward: a block owns one q tile (64 rows) of one (batch, kv head)
+// and up to four query heads of its group (packed GQA: two per consumer
+// warpgroup, O of each in fp32 registers; a group of eight is two chunks of
+// four in two blocks, since no sum crosses heads), so each K/V tile is
+// staged once for all of them, in a ring of four 32 KB stages (D = 128)
+// beside the 64 KB of Q tiles, which come in once, a barrier each. Per K/V
+// tile a warpgroup issues S = Q K^T of both its heads at once; head a's
+// softmax runs while the tensor cores form head b's S, and head b's while
+// they form head a's O += P V (P from registers, V through the MN-major
+// descriptor); both P V products retire inside the tile, which then
+// releases its stage (an accumulator kept in flight across the loop makes
+// ptxas serialize every wgmma). The branches' k_b / v_b rows of the q tile
+// follow the causal tiles through the same ring, once per kv head: q.k_b is
+// the diagonal of a 64 x 64 tile product on the tensor cores (idle by
+// then), folded into (m, l, O) in fp32 with each v_b entry read once for
+// both heads of a warpgroup. O / l leaves as bf16 through shared memory in
+// whole rows of [B, S, H*D]. Blocks are issued longest rows first (the q
+// tile is the grid's slow index).
 // dk/dv: a block owns 64 keys of one (batch, kv head) and walks the G * nq
 // (query head, q tile) items of its group, from the diagonal down;
 // warpgroup 0 takes the first half of the items and warpgroup 1 the second
@@ -71,7 +79,9 @@
 // the heaviest start first: at the EAGLE3 shape 512 blocks, one per SM at a
 // time, from 128 items (64 a warpgroup) for the first key tile down to 4.
 // The stream is split inside the block, never across blocks, so no
-// partial sums leave it.
+// partial sums leave it. Inside a warpgroup the products come in groups, so
+// the exp of p runs while the tensor cores form dp, and dv += p^T dO while
+// ds is formed.
 // dq: a block owns one q tile of one (batch, kv head) and the group's query
 // heads (packed GQA: four resident at a time, two per consumer warpgroup,
 // dq in fp32 registers), so each K/V tile is staged once for all of them;
@@ -87,36 +97,23 @@
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 #include <string.h>
 
 namespace {
 
 constexpr int kMaxKeys = 8;  // the step-0 block plus up to 7 branches
-constexpr int kBlockM = 64;  // query rows per block, 16 per warp
-constexpr int kBlockN = 64;  // keys per shared-memory tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e30f;  // finite, as in the TPU kernel
-
-struct Params {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k[kMaxKeys];
-  const __nv_bfloat16* v[kMaxKeys];
-  const int* valid;     // [B, S], 1 = attendable key of the causal block
-  __nv_bfloat16* out;   // [B, S, H*D]
-  float* m;             // [B, H, S]
-  float* l;             // [B, H, S]
-  long long q_sb, q_sh, q_ss;  // element strides of q over (b, h, s)
-  long long k_sb, k_sh, k_ss;  // shared by every key tensor
-  long long v_sb, v_sh, v_ss;  // shared by every value tensor
-  int H, KVH, S, n_branches;
-  float scale;
-};
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+constexpr int kThreads = 384;  // consumer warpgroups 0 and 1, producer 2
+constexpr int kStages = 2;     // tile stages of each backward ring
+constexpr int kFwdStages = 4;  // K/V stages of the forward's ring
+constexpr int kTileRows = 64;  // rows of every staged tile (wgmma's M)
+constexpr int kPanelBytes = kTileRows * 128;  // 64 rows x 64 bf16 columns
+constexpr int kConsumerRegs = 240;  // setmaxnreg: 2 x 128 x 240 + 128 x 24
+constexpr int kProducerRegs = 24;   //   = 64,512 of the SM's 65,536
+constexpr int kHeadsPerBlock = 4;   // query heads resident at once (a chunk)
+constexpr int kSlots = kHeadsPerBlock / 2;  // heads a consumer warpgroup owns
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -127,54 +124,7 @@ __device__ __forceinline__ float2 unpack_bf16(uint32_t u) {
   return __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&u));
 }
 
-// D[16x8] += A[16x16] * B[16x8], bf16 inputs, fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8. With .trans each matrix arrives transposed.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !full
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(d), "l"(src), "r"(full ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
+// max and sum over the quad of lanes that hold one accumulator row
 __device__ __forceinline__ float quad_max(float x) {
   x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
   return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
@@ -185,292 +135,9 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4):
-//   A regs 0..3: (row g, cols 2t..2t+1), (row g+8, 2t..), (row g, 2t+8..),
-//                (row g+8, 2t+8..)
-//   B regs 0..1: (k rows 2t..2t+1, col g), (k rows 2t+8..2t+9, col g)
-//   C regs 0..3: (row g, cols 2t, 2t+1), (row g+8, cols 2t, 2t+1)
-// So a thread holds rows g and g+8 of its warp's 16, and head-dim columns
-// {8j + 2t, 8j + 2t + 1} of both Q (as A) and O (as C).
-template <int D>
-__global__ void __launch_bounds__(kThreads) ttt_fwd_kernel(const Params p) {
-  constexpr int kStride = D + 8;  // padded row: conflict-free ldmatrix
-  constexpr int kSteps = D / 16;  // k16 steps over the head dim
-  constexpr int kDTiles = D / 8;  // n8 tiles over the head dim
-  constexpr int kNTiles = kBlockN / 8;
-  constexpr int kVecPerRow = D / 8;  // 16-byte vectors per K/V row
-  constexpr int kTile = kBlockN * kStride;
-  // two stages of K and V tiles (dynamic: above the 48 KB static limit)
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sKs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sVs = sKs + 2 * kTile;
-  __shared__ int sValids[2][kBlockN];
-
-  const int S = p.S;
-  const int n_qtiles = (S + kBlockM - 1) / kBlockM;
-  const int qtile = n_qtiles - 1 - blockIdx.x;  // longest rows first
-  const int b = blockIdx.y / p.H;
-  const int h = blockIdx.y % p.H;
-  const int kvh = h / (p.H / p.KVH);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int row0 = qtile * kBlockM + warp * 16 + g;
-  const int row1 = row0 + 8;
-  const bool in0 = row0 < S;
-  const bool in1 = row1 < S;
-
-  const __nv_bfloat16* qb = p.q + b * p.q_sb + h * p.q_sh;
-  uint32_t qf[kSteps][4];
-#pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks) {
-    const int c = ks * 16 + 2 * t;
-    qf[ks][0] = in0 ? ld32(qb + row0 * p.q_ss + c) : 0u;
-    qf[ks][1] = in1 ? ld32(qb + row1 * p.q_ss + c) : 0u;
-    qf[ks][2] = in0 ? ld32(qb + row0 * p.q_ss + c + 8) : 0u;
-    qf[ks][3] = in1 ? ld32(qb + row1 * p.q_ss + c + 8) : 0u;
-  }
-
-  float o[kDTiles][4];
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-  }
-  float m0 = kNegInf, m1 = kNegInf;
-  float l0 = 0.f, l1 = 0.f;  // per-thread partial sums until the quad reduce
-
-  const __nv_bfloat16* kbase = p.k[0] + b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* vbase = p.v[0] + b * p.v_sb + kvh * p.v_sh;
-  const int* valid = p.valid + (long long)b * S;
-
-  // stage k tile j into buffer `buf`: K/V through cp.async (rows past S
-  // are zero-filled), the validity flags through plain loads
-  auto load_tile = [&](int j, int buf) {
-    const int key0 = j * kBlockN;
-    __nv_bfloat16* sK = sKs + buf * kTile;
-    __nv_bfloat16* sV = sVs + buf * kTile;
-    for (int i = threadIdx.x; i < kBlockN * kVecPerRow; i += kThreads) {
-      const int r = i / kVecPerRow;
-      const int c = (i % kVecPerRow) * 8;
-      const int key = key0 + r;
-      const long long src = key < S ? key : 0;
-      cp_async16(sK + r * kStride + c, kbase + src * p.k_ss + c, key < S);
-      cp_async16(sV + r * kStride + c, vbase + src * p.v_ss + c, key < S);
-    }
-    for (int i = threadIdx.x; i < kBlockN; i += kThreads) {
-      const int key = key0 + i;
-      sValids[buf][i] = key < S ? valid[key] : 0;
-    }
-    cp_async_commit();
-  };
-
-  const int last_row = min(qtile * kBlockM + kBlockM, S) - 1;
-  const int n_ktiles = last_row / kBlockN + 1;  // causal tile skip
-  load_tile(0, 0);
-  for (int j = 0; j < n_ktiles; ++j) {
-    const int key0 = j * kBlockN;
-    const int buf = j & 1;
-    // the next tile loads while this one is used
-    if (j + 1 < n_ktiles) {
-      load_tile(j + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* sK = sKs + buf * kTile;
-    const __nv_bfloat16* sV = sVs + buf * kTile;
-    const int* sValid = sValids[buf];
-
-    // scores for 16 rows x 64 keys of this warp; one ldmatrix.x4 brings
-    // the K fragments (keys as n, head dim as k) of two k16 steps
-    float s[kNTiles][4];
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* kp = sK + (nt * 8 + (lane & 7)) * kStride +
-                                (lane >> 3) * 8;
-#pragma unroll
-      for (int ks = 0; ks < kSteps; ks += 2) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, kp + ks * 16);
-        mma_bf16(s[nt], qf[ks], kf[0], kf[1]);
-        mma_bf16(s[nt], qf[ks + 1], kf[2], kf[3]);
-      }
-    }
-
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kc = nt * 8 + 2 * t + e;
-        const int col = key0 + kc;
-        const bool ok = sValid[kc] != 0;
-        s[nt][e] = (ok && col <= row0) ? s[nt][e] * p.scale : kNegInf;
-        s[nt][2 + e] = (ok && col <= row1) ? s[nt][2 + e] * p.scale : kNegInf;
-        mx0 = fmaxf(mx0, s[nt][e]);
-        mx1 = fmaxf(mx1, s[nt][2 + e]);
-      }
-    }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    const float c0 = __expf(m0 - mx0);
-    const float c1 = __expf(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    l0 *= c0;
-    l1 *= c1;
-#pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt) {
-      o[dt][0] *= c0;
-      o[dt][1] *= c0;
-      o[dt][2] *= c1;
-      o[dt][3] *= c1;
-    }
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float p0 = s[nt][e] == kNegInf ? 0.f : __expf(s[nt][e] - m0);
-        const float p1 =
-            s[nt][2 + e] == kNegInf ? 0.f : __expf(s[nt][2 + e] - m1);
-        s[nt][e] = p0;
-        s[nt][2 + e] = p1;
-        l0 += p0;
-        l1 += p1;
-      }
-    }
-
-    // O += P V: P from the score registers (C layout -> A layout), V from
-    // shared memory as B (k = key, n = head dim): one transposing
-    // ldmatrix.x4 brings the fragments of two n8 head-dim tiles
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* vp =
-          sV + (kk * 16 + (lane & 8) + (lane & 7)) * kStride +
-          (lane >> 4) * 8;
-#pragma unroll
-      for (int dt = 0; dt < kDTiles; dt += 2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vp + dt * 8);
-        mma_bf16(o[dt], a, vf[0], vf[1]);
-        mma_bf16(o[dt + 1], a, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with `buf` before it is refilled
-  }
-
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-
-  // diagonal branches: one query-aligned key per earlier TTT step, folded
-  // into the same (m, l, o) statistics; not masked by key_valid
-  for (int br = 0; br < p.n_branches; ++br) {
-    const __nv_bfloat16* kb = p.k[1 + br] + b * p.k_sb + kvh * p.k_sh;
-    const __nv_bfloat16* vb = p.v[1 + br] + b * p.v_sb + kvh * p.v_sh;
-    float d0 = 0.f, d1 = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kSteps; ++ks) {
-      const int c = ks * 16 + 2 * t;
-      if (in0) {
-        const float2 qa = unpack_bf16(qf[ks][0]);
-        const float2 qc = unpack_bf16(qf[ks][2]);
-        const float2 ka = unpack_bf16(ld32(kb + row0 * p.k_ss + c));
-        const float2 kc = unpack_bf16(ld32(kb + row0 * p.k_ss + c + 8));
-        d0 += qa.x * ka.x + qa.y * ka.y + qc.x * kc.x + qc.y * kc.y;
-      }
-      if (in1) {
-        const float2 qa = unpack_bf16(qf[ks][1]);
-        const float2 qc = unpack_bf16(qf[ks][3]);
-        const float2 ka = unpack_bf16(ld32(kb + row1 * p.k_ss + c));
-        const float2 kc = unpack_bf16(ld32(kb + row1 * p.k_ss + c + 8));
-        d1 += qa.x * ka.x + qa.y * ka.y + qc.x * kc.x + qc.y * kc.y;
-      }
-    }
-    const float w0 = quad_sum(d0) * p.scale;
-    const float w1 = quad_sum(d1) * p.scale;
-    const float n0 = fmaxf(m0, w0);
-    const float n1 = fmaxf(m1, w1);
-    const float c0 = __expf(m0 - n0), e0 = __expf(w0 - n0);
-    const float c1 = __expf(m1 - n1), e1 = __expf(w1 - n1);
-    l0 = l0 * c0 + e0;
-    l1 = l1 * c1 + e1;
-    m0 = n0;
-    m1 = n1;
-#pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt) {
-      const int c = dt * 8 + 2 * t;
-      const float2 va =
-          in0 ? unpack_bf16(ld32(vb + row0 * p.v_ss + c)) : make_float2(0.f, 0.f);
-      const float2 vc =
-          in1 ? unpack_bf16(ld32(vb + row1 * p.v_ss + c)) : make_float2(0.f, 0.f);
-      o[dt][0] = o[dt][0] * c0 + e0 * va.x;
-      o[dt][1] = o[dt][1] * c0 + e0 * va.y;
-      o[dt][2] = o[dt][2] * c1 + e1 * vc.x;
-      o[dt][3] = o[dt][3] * c1 + e1 * vc.y;
-    }
-  }
-
-  const long long HD = (long long)p.H * D;
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f);
-  const float inv1 = 1.f / fmaxf(l1, 1e-30f);
-  if (in0) {
-    __nv_bfloat16* op = p.out + ((long long)b * S + row0) * HD + h * D;
-#pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt) {
-      *reinterpret_cast<uint32_t*>(op + dt * 8 + 2 * t) =
-          pack_bf16(o[dt][0] * inv0, o[dt][1] * inv0);
-    }
-  }
-  if (in1) {
-    __nv_bfloat16* op = p.out + ((long long)b * S + row1) * HD + h * D;
-#pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt) {
-      *reinterpret_cast<uint32_t*>(op + dt * 8 + 2 * t) =
-          pack_bf16(o[dt][2] * inv1, o[dt][3] * inv1);
-    }
-  }
-  if (t == 0) {
-    const long long base = ((long long)b * p.H + h) * S;
-    if (in0) {
-      p.m[base + row0] = m0;
-      p.l[base + row0] = l0;
-    }
-    if (in1) {
-      p.m[base + row1] = m1;
-      p.l[base + row1] = l1;
-    }
-  }
-}
-
-template <int D>
-int launch(const Params& p, dim3 grid, cudaStream_t st) {
-  constexpr int kSmem = 4 * kBlockN * (D + 8) * sizeof(__nv_bfloat16);
-  const cudaError_t e = cudaFuncSetAttribute(
-      ttt_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  ttt_fwd_kernel<D><<<grid, kThreads, kSmem, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // --------------------------------------------------------------------------
-// backward: Hopper primitives
+// Hopper primitives
 // --------------------------------------------------------------------------
-
-constexpr int kBwdThreads = 384;  // consumer warpgroups 0 and 1, producer 2
-constexpr int kStages = 2;        // tile stages of each ring
-constexpr int kTileRows = 64;     // rows of every staged tile (wgmma's M)
-constexpr int kPanelBytes = kTileRows * 128;  // 64 rows x 64 bf16 columns
-constexpr int kConsumerRegs = 240;  // setmaxnreg: 2 x 128 x 240 + 128 x 24
-constexpr int kProducerRegs = 24;   //   = 64,512 of the SM's 65,536
-
 __device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
 }
@@ -616,9 +283,10 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 
 constexpr float kLog2e = 1.4426950408889634f;
 
-// 2^x (flushing denormals; 2^-inf = 0): one MUFU instruction. The backward
-// keeps m in log2 units, m * log2(e), so p = 2^(s * scale * log2(e) - m2)
-// / l, the masked entries as 2^-inf: no branch around the exp.
+// 2^x (flushing denormals; 2^-inf = 0): one MUFU instruction. The kernels
+// keep m in log2 units, m * log2(e), so p = 2^(s * scale * log2(e) - m2)
+// (/ l in the backward), the masked entries as 2^-inf: no branch around
+// the exp.
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
@@ -754,19 +422,20 @@ __device__ __forceinline__ void wgmma_tile_product(float (&d)[32], uint32_t a,
   }
 }
 
-// --------------------------------------------------------------------------
-// backward kernels
-// --------------------------------------------------------------------------
-
-struct BwdParams {
+// The operands of the three kernels: tensor maps over the strided views and
+// plain pointers for what is not a tile.
+struct Params {
   CUtensorMap tm_q;             // q [B, H, S, D] view
-  CUtensorMap tm_do;            // dout [B, S, H*D] read as [B, H, S, D]
+  CUtensorMap tm_do;            // backward: dout [B, S, H*D] as [B, H, S, D]
   CUtensorMap tm_k[kMaxKeys];   // keys [B, KVH, S, D], step-0 block first
   CUtensorMap tm_v[kMaxKeys];   // values
-  const int* valid;             // [B, S]
-  const float* m;               // [B, H, S]
-  const float* l;               // [B, H, S]
-  const float* delta;           // [B, H, S], rowsum(dO * O)
+  const int* valid;             // [B, S], 1 = attendable key of the causal block
+  __nv_bfloat16* out;           // forward: [B, S, H*D]
+  float* m_out;                 // forward: [B, H, S], natural-log units
+  float* l_out;                 // forward: [B, H, S]
+  const float* m;               // backward: [B, H, S]
+  const float* l;               // backward: [B, H, S]
+  const float* delta;           // backward: [B, H, S], rowsum(dO * O)
   __nv_bfloat16* dq;            // [B, H, S, D], contiguous
   __nv_bfloat16* dkb;           // [NB, B, KVH, S, D]: branch dk, group-summed
   __nv_bfloat16* dvb;           // [NB, B, KVH, S, D]
@@ -776,6 +445,450 @@ struct BwdParams {
   int B, H, KVH, S, n_branches;
   float scale;
 };
+
+// This thread's rows (row0 and row0 + 8) of a [64 x D] fp32 accumulator
+// (C layout) times mul0 / mul1, as bf16 into a 64-row tile of shared
+// memory, swizzled as the tensor maps write (copy_tile_rows reads it back).
+template <int D>
+__device__ __forceinline__ void stage_tile(unsigned char* tile,
+                                           const float (&acc)[D / 2],
+                                           float mul0, float mul1, int row0,
+                                           int t) {
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+    *reinterpret_cast<uint32_t*>(tile + swz(row0, j) + 4 * t) =
+        pack_bf16(acc[4 * j] * mul0, acc[4 * j + 1] * mul0);
+    *reinterpret_cast<uint32_t*>(tile + swz(row0 + 8, j) + 4 * t) =
+        pack_bf16(acc[4 * j + 2] * mul1, acc[4 * j + 3] * mul1);
+  }
+}
+
+// Copy the rows < S of a [64 x D] bf16 tile in shared memory (swizzled as
+// the tensor maps write it) to out (rows `ld` elements apart, D contiguous),
+// 16 bytes a lane, whole rows a warp.
+template <int D>
+__device__ __forceinline__ void copy_tile_rows(__nv_bfloat16* out,
+                                               long long ld,
+                                               const unsigned char* tile,
+                                               int S, int tid) {
+  constexpr int kChunks = D / 8;
+  constexpr int kRowsPerPass = 32 / kChunks;
+  const int lane = tid % 32;
+  const int jc = lane % kChunks;
+#pragma unroll 4
+  for (int i = 0; i < 16 / kRowsPerPass; ++i) {
+    const int row = (tid / 32) * 16 + i * kRowsPerPass + lane / kChunks;
+    if (row < S) {
+      *reinterpret_cast<uint4*>(out + row * ld + jc * 8) =
+          *reinterpret_cast<const uint4*>(tile + swz(row, jc));
+    }
+  }
+}
+
+// --------------------------------------------------------------------------
+// forward
+// --------------------------------------------------------------------------
+
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Shared memory of the forward kernel, byte offsets from a 1024-aligned base.
+template <int D>
+struct FwdSmem {
+  static constexpr int kTile = kTileRows * D * 2;
+  static constexpr int kQ = 0;                          // [4] Q tiles
+  static constexpr int kRing = kHeadsPerBlock * kTile;  // [kFwdStages]
+  static constexpr int kStage = 2 * kTile;              // K then V
+  // [kFwdStages][64] keys' validity, then [kFwdStages] "all valid" flags
+  static constexpr int kValid = kRing + kFwdStages * kStage;
+  static constexpr int kBars =
+      (kValid + kFwdStages * (kTileRows + 1) * 4 + 7) / 8 * 8;
+  static constexpr int kBytes =
+      kBars + (2 * kFwdStages + kHeadsPerBlock) * 8 + 1024;  // + slack
+};
+
+// One head's online-softmax step over a 64 x 64 tile of raw scores q.k
+// (this thread's rows r0 / r1 x keys 8j + 2t + {0, 1}): kMasked sets the
+// keys that are invalid (`valid`, the stage's bits) or, on the diagonal
+// tile, above the row to -inf. The rows' running max m2 (log2 units, never
+// below -1e30, so 2^(m2_old - m2_new) never meets inf - inf) and this
+// thread's partial sums ls are updated, the accumulator o rescaled, and
+// p = 2^(s * scale2 - m2) packed as the A fragments of O += P V.
+template <int D, bool kMasked>
+__device__ __forceinline__ void fwd_softmax(float (&s)[32], float (&o)[D / 2],
+                                            float (&m2)[2], float (&ls)[2],
+                                            uint32_t (&pa)[4][4],
+                                            const int* valid, float scale2,
+                                            int r0, int r1, bool diag, int t) {
+  const float minus_inf = __int_as_float(0xff800000);
+  float mx0 = minus_inf, mx1 = minus_inf;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    if constexpr (kMasked) {
+      const int kc = 8 * j + 2 * t;
+      const int2 vv = *reinterpret_cast<const int2*>(valid + kc);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = e < 2 ? r0 : r1;
+        const bool ok = ((e & 1) ? vv.y : vv.x) != 0 &&
+                        (!diag || kc + (e & 1) <= row);
+        s[4 * j + e] = ok ? s[4 * j + e] : minus_inf;
+      }
+    }
+    mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+    mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  const float n0 = fmaxf(m2[0], quad_max(mx0) * scale2);
+  const float n1 = fmaxf(m2[1], quad_max(mx1) * scale2);
+  const float c0 = ex2(m2[0] - n0);
+  const float c1 = ex2(m2[1] - n1);
+  m2[0] = n0;
+  m2[1] = n1;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    o[4 * i] *= c0;
+    o[4 * i + 1] *= c0;
+    o[4 * i + 2] *= c1;
+    o[4 * i + 3] *= c1;
+  }
+  float l0 = 0.f, l1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float p0 = ex2(fmaf(s[4 * j], scale2, -n0));
+    const float p1 = ex2(fmaf(s[4 * j + 1], scale2, -n0));
+    const float p2 = ex2(fmaf(s[4 * j + 2], scale2, -n1));
+    const float p3 = ex2(fmaf(s[4 * j + 3], scale2, -n1));
+    l0 += p0 + p1;
+    l1 += p2 + p3;
+    pa[j / 2][(j % 2) * 2] = pack_bf16(p0, p1);
+    pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
+  }
+  ls[0] = fmaf(ls[0], c0, l0);
+  ls[1] = fmaf(ls[1], c1, l1);
+}
+
+// A consumer warpgroup of the forward with kN (1 or 2) heads, local heads
+// lh0.. of the block's chunk (global heads h0 + lh0..): the causal K/V
+// tiles, the branches, and the epilogue. Head a's and head b's S = Q K^T
+// are issued together; a's softmax runs while the tensor cores form b's S,
+// b's while they form a's O += P V. A stage is released once both P V
+// products of its tile are done.
+template <int D, int kN>
+__device__ __forceinline__ void fwd_consumer(const Params& p,
+                                             unsigned char* smem, int lh0,
+                                             int h0, int b, int qtile) {
+  using L = FwdSmem<D>;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty = full + kFwdStages;
+  uint64_t* q_full = empty + kFwdStages;
+  const int* sValid = reinterpret_cast<const int*>(smem + L::kValid);
+  const int S = p.S;
+  const int q0 = qtile * kTileRows;
+  const int n_ktiles = qtile + 1;  // causal: the key tiles up to the diagonal
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int r0 = warp * 16 + g;  // this thread's two rows of the q tile
+  const int r1 = r0 + 8;
+  const float scale2 = p.scale * kLog2e;
+  const uint32_t sQa = smem_u32(smem + L::kQ + lh0 * L::kTile);
+  const uint32_t sQb = sQa + L::kTile;
+
+  float o[kN][D / 2];
+  float m2[kN][2], ls[kN][2];
+#pragma unroll
+  for (int h = 0; h < kN; ++h) {
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[h][i] = 0.f;
+    m2[h][0] = m2[h][1] = kNegInf;
+    ls[h][0] = ls[h][1] = 0.f;
+  }
+  mbar_wait(&q_full[lh0], 0);
+  for (int j = 0; j < n_ktiles; ++j) {
+    const int st = j % kFwdStages;
+    const uint32_t sK = smem_u32(smem + L::kRing + st * L::kStage);
+    const uint32_t sV = sK + L::kTile;
+    const int* valid = sValid + st * kTileRows;
+    const bool diag = j == qtile;
+    mbar_wait(&full[st], (j / kFwdStages) & 1);
+    // the flag is read only after the wait: the producer writes it with
+    // the stage
+    const bool masked = diag || sValid[kFwdStages * kTileRows + st] == 0;
+    float sa[32], sb[32];
+    uint32_t pa[4][4], pb[4][4];
+    wgmma_fence();
+    wgmma_tile_product<D>(sa, sQa, sK);
+    wgmma_commit();
+    if constexpr (kN == 2) {
+      if (j == 0) mbar_wait(&q_full[lh0 + 1], 0);
+      wgmma_fence();  // after the branch: else ptxas inserts it there (C7520)
+      wgmma_tile_product<D>(sb, sQb, sK);
+      wgmma_commit();
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_regs(sa);
+    if (masked) {
+      fwd_softmax<D, true>(sa, o[0], m2[0], ls[0], pa, valid, scale2, r0, r1,
+                           diag, t);
+    } else {
+      fwd_softmax<D, false>(sa, o[0], m2[0], ls[0], pa, valid, scale2, r0,
+                            r1, diag, t);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(o[0], pa[kk], sV, kk);
+    wgmma_commit();
+    if constexpr (kN == 2) {
+      wgmma_wait<1>();
+      fence_regs(sb);
+      if (masked) {
+        fwd_softmax<D, true>(sb, o[1], m2[1], ls[1], pb, valid, scale2, r0,
+                             r1, diag, t);
+      } else {
+        fwd_softmax<D, false>(sb, o[1], m2[1], ls[1], pb, valid, scale2, r0,
+                              r1, diag, t);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(o[1], pb[kk], sV, kk);
+      wgmma_commit();
+    }
+    // both P V products retire inside the tile: an accumulator in flight
+    // across the loop's back edge makes ptxas serialize every wgmma (C7514)
+    wgmma_wait<0>();
+    fence_regs(pa);
+#pragma unroll
+    for (int h = 0; h < kN; ++h) fence_regs(o[h]);
+    if constexpr (kN == 2) fence_regs(pb);
+    mbar_arrive(&empty[st]);
+  }
+
+  // the rows' whole sums, then the diagonal branches: one query-aligned key
+  // per earlier TTT step, not masked by key_valid, folded into (m, l, O)
+#pragma unroll
+  for (int h = 0; h < kN; ++h) {
+    ls[h][0] = quad_sum(ls[h][0]);
+    ls[h][1] = quad_sum(ls[h][1]);
+  }
+  for (int br = 0; br < p.n_branches; ++br) {
+    const int it = n_ktiles + br;
+    const int st = it % kFwdStages;
+    const unsigned char* kb = smem + L::kRing + st * L::kStage;
+    const unsigned char* vb = kb + L::kTile;
+    mbar_wait(&full[st], (it / kFwdStages) & 1);
+    // q.k_b of rows r0 and r1 for every head: the diagonal of S = Q k_b^T,
+    // a 64 x 64 tile product on the tensor cores (idle here); the lane of
+    // the quad that holds a row's diagonal entry passes it to the others
+    float w[kN][2];
+#pragma unroll
+    for (int h = 0; h < kN; ++h) {
+      // one head at a time: two 64 x 64 accumulators beside both heads' O
+      // spill
+      float sx[32];
+      wgmma_fence();
+      wgmma_tile_product<D>(sx, sQa + h * L::kTile, smem_u32(kb));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sx);
+      // row r0's diagonal is column 16 * warp + g: entry 8 * warp + (g & 1)
+      // of lane t = g / 2; row r1's entry 8 * warp + 6 + (g & 1)
+      float d0 = 0.f, d1 = 0.f;
+#pragma unroll
+      for (int ww = 0; ww < 4; ++ww) {
+        if (ww == warp) {
+          d0 = (g & 1) ? sx[8 * ww + 1] : sx[8 * ww];
+          d1 = (g & 1) ? sx[8 * ww + 7] : sx[8 * ww + 6];
+        }
+      }
+      const int src = (lane & ~3) | (g >> 1);
+      w[h][0] = __shfl_sync(0xffffffffu, d0, src);
+      w[h][1] = __shfl_sync(0xffffffffu, d1, src);
+    }
+    float c[kN][2], e[kN][2];
+#pragma unroll
+    for (int h = 0; h < kN; ++h) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float x = w[h][r] * scale2;
+        const float n = fmaxf(m2[h][r], x);
+        c[h][r] = ex2(m2[h][r] - n);
+        e[h][r] = ex2(x - n);
+        m2[h][r] = n;
+        ls[h][r] = fmaf(ls[h][r], c[h][r], e[h][r]);
+      }
+    }
+    // O = O * c + e * v_b, each v_b entry read once for both heads
+#pragma unroll
+    for (int jj = 0; jj < D / 8; ++jj) {
+      const float2 va = unpack_bf16(
+          *reinterpret_cast<const uint32_t*>(vb + swz(r0, jj) + 4 * t));
+      const float2 vc = unpack_bf16(
+          *reinterpret_cast<const uint32_t*>(vb + swz(r1, jj) + 4 * t));
+#pragma unroll
+      for (int h = 0; h < kN; ++h) {
+        o[h][4 * jj] = fmaf(o[h][4 * jj], c[h][0], e[h][0] * va.x);
+        o[h][4 * jj + 1] = fmaf(o[h][4 * jj + 1], c[h][0], e[h][0] * va.y);
+        o[h][4 * jj + 2] = fmaf(o[h][4 * jj + 2], c[h][1], e[h][1] * vc.x);
+        o[h][4 * jj + 3] = fmaf(o[h][4 * jj + 3], c[h][1], e[h][1] * vc.y);
+      }
+    }
+    mbar_arrive(&empty[st]);
+  }
+
+  // O / l as bf16, staged in the head's own Q tile (read for the last time
+  // above) and written in whole rows of [B, S, H*D]; m back in natural-log
+  // units, -1e30 where the row saw no key, and l
+  const long long HD = (long long)p.H * D;
+#pragma unroll
+  for (int h = 0; h < kN; ++h) {
+    stage_tile<D>(smem + L::kQ + (lh0 + h) * L::kTile, o[h],
+                  1.f / fmaxf(ls[h][0], 1e-30f), 1.f / fmaxf(ls[h][1], 1e-30f),
+                  r0, t);
+    if (t == 0) {
+      const long long base = ((long long)b * p.H + h0 + lh0 + h) * S + q0;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = e == 0 ? r0 : r1;
+        if (q0 + r < S) {
+          p.m_out[base + r] = m2[h][e] <= kNegInf ? kNegInf : m2[h][e] * kLn2;
+          p.l_out[base + r] = ls[h][e];
+        }
+      }
+    }
+  }
+  warpgroup_sync(threadIdx.x / 128);
+  for (int h = 0; h < kN; ++h) {
+    copy_tile_rows<D>(p.out + ((long long)b * S + q0) * HD +
+                          (long long)(h0 + lh0 + h) * D,
+                      HD, smem + L::kQ + (lh0 + h) * L::kTile, S - q0, tid);
+  }
+}
+
+// The forward. A block owns one q tile of one (batch, kv head) and a chunk
+// of up to four query heads of its group (blockIdx: q tile, counted from
+// the last, slowest; then batch, kv head, chunk). A producer warp stages
+// the chunk's Q tiles once (consumer warpgroup 0's first head, then 1's,
+// then after the first K/V tile the second heads), then the causal K/V
+// tiles with their keys' validity and "all valid" flag, then each
+// branch's k_b / v_b rows of the q tile, through a ring of kFwdStages.
+// Consumer warpgroup 0 owns the first (nh + 1) / 2 heads, warpgroup 1 the
+// rest; a warpgroup with none still releases every stage.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    ttt_fwd_kernel(const __grid_constant__ Params p) {
+  using L = FwdSmem<D>;
+  constexpr int kPanels = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::kBars);
+  uint64_t* empty = full + kFwdStages;
+  uint64_t* q_full = empty + kFwdStages;  // [kHeadsPerBlock], one per head
+  int* sValid = reinterpret_cast<int*>(smem + L::kValid);
+
+  const int S = p.S;
+  const int KVH = p.KVH;
+  const int G = p.H / KVH;
+  const int n_chunks = (G + kHeadsPerBlock - 1) / kHeadsPerBlock;
+  const int per_qtile = p.B * KVH * n_chunks;
+  const int n_qtiles = (S + kTileRows - 1) / kTileRows;
+  const int qtile = n_qtiles - 1 - blockIdx.x / per_qtile;  // longest first
+  const int rest = blockIdx.x % per_qtile;
+  const int b = rest / (KVH * n_chunks);
+  const int kvh = rest / n_chunks % KVH;
+  const int chunk = rest % n_chunks;
+  const int h0 = kvh * G + chunk * kHeadsPerBlock;
+  const int nh = min(kHeadsPerBlock, G - chunk * kHeadsPerBlock);
+  const int n0 = (nh + 1) / 2;  // the heads of consumer warpgroup 0
+  const int q0 = qtile * kTileRows;
+  const int n_items = qtile + 1 + p.n_branches;  // causal tiles, branches
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kFwdStages; ++i) {
+      mbar_init(&full[i], 32);    // the producer warp's lanes
+      mbar_init(&empty[i], 256);  // both consumer warpgroups
+    }
+    for (int i = 0; i < kHeadsPerBlock; ++i) mbar_init(&q_full[i], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    reg_dealloc<kProducerRegs>();
+    if (threadIdx.x / 32 != 8) return;  // one producer warp
+    const int lane = threadIdx.x % 32;
+    auto load_q = [&](int lh) {
+      if (lane == 0) {
+        mbar_expect_tx(&q_full[lh], L::kTile);
+        for (int pn = 0; pn < kPanels; ++pn) {
+          tma_load(smem + L::kQ + lh * L::kTile + pn * kPanelBytes, &p.tm_q,
+                   &q_full[lh], pn * 64, q0, h0 + lh, b);
+        }
+        mbar_arrive(&q_full[lh]);
+      }
+    };
+    load_q(0);
+    if (n0 < nh) load_q(n0);
+    for (int j = 0; j < n_items; ++j) {
+      const int st = j % kFwdStages;
+      mbar_wait(&empty[st], ((j / kFwdStages) & 1) ^ 1);
+      const bool causal = j <= qtile;
+      if (lane == 0) {
+        unsigned char* dst = smem + L::kRing + st * L::kStage;
+        const int src = causal ? 0 : j - qtile;
+        const int row = causal ? j * kTileRows : q0;
+        mbar_expect_tx(&full[st], 2 * L::kTile);
+        for (int pn = 0; pn < kPanels; ++pn) {
+          tma_load(dst + pn * kPanelBytes, &p.tm_k[src], &full[st], pn * 64,
+                   row, kvh, b);
+          tma_load(dst + L::kTile + pn * kPanelBytes, &p.tm_v[src], &full[st],
+                   pn * 64, row, kvh, b);
+        }
+      }
+      if (causal) {
+        bool all = true;
+        for (int r = lane; r < kTileRows; r += 32) {
+          const int key = j * kTileRows + r;
+          const bool ok = key < S && p.valid[(long long)b * S + key] != 0;
+          sValid[st * kTileRows + r] = ok;
+          all = all && ok;
+        }
+        // and whether the tile needs no key mask at all
+        all = __all_sync(0xffffffffu, all);
+        if (lane == 0) sValid[kFwdStages * kTileRows + st] = all;
+      }
+      mbar_arrive(&full[st]);
+      if (j == 0) {
+        for (int lh = 1; lh < nh; ++lh) {
+          if (lh != n0) load_q(lh);
+        }
+      }
+    }
+  } else {
+    reg_alloc<kConsumerRegs>();
+    const int n_own = wg == 0 ? n0 : nh - n0;
+    const int lh0 = wg == 0 ? 0 : n0;
+    if (n_own == 2) {
+      fwd_consumer<D, 2>(p, smem, lh0, h0, b, qtile);
+    } else if (n_own == 1) {
+      fwd_consumer<D, 1>(p, smem, lh0, h0, b, qtile);
+    } else {
+      // no head here (a group of one): pass every stage on
+      for (int j = 0; j < n_items; ++j) {
+        const int st = j % kFwdStages;
+        mbar_wait(&full[st], (j / kFwdStages) & 1);
+        mbar_arrive(&empty[st]);
+      }
+    }
+  }
+}
+
+// --------------------------------------------------------------------------
+// backward kernels
+// --------------------------------------------------------------------------
 
 // Shared memory of the dk/dv kernel, byte offsets from a 1024-aligned base.
 template <int D>
@@ -799,7 +912,7 @@ struct DkvSmem {
 // head), from its offset sb in the [B, H, S] arrays: m in log2 units, 1/l,
 // delta; rows past S get 0 (so their p is 0). All loads are issued first.
 __device__ __forceinline__ void load_row_stats(float* m2, float* il,
-                                               float* dl, const BwdParams& p,
+                                               float* dl, const Params& p,
                                                long long sb, int q0, int S,
                                                int lane) {
   float mv[2], lv[2], dv[2];
@@ -877,43 +990,6 @@ __device__ __forceinline__ void dq_probs(float (&s)[32], const int* valid,
   }
 }
 
-// This thread's rows (row0 and row0 + 8) of a [64 x D] fp32 accumulator
-// (C layout) times `mul`, as bf16 into a 64-row tile of shared memory,
-// swizzled as the tensor maps write (copy_tile_rows reads it back).
-template <int D>
-__device__ __forceinline__ void stage_tile(unsigned char* tile,
-                                           const float (&acc)[D / 2],
-                                           float mul, int row0, int t) {
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j) {
-    *reinterpret_cast<uint32_t*>(tile + swz(row0, j) + 4 * t) =
-        pack_bf16(acc[4 * j] * mul, acc[4 * j + 1] * mul);
-    *reinterpret_cast<uint32_t*>(tile + swz(row0 + 8, j) + 4 * t) =
-        pack_bf16(acc[4 * j + 2] * mul, acc[4 * j + 3] * mul);
-  }
-}
-
-// Copy the rows < S of a [64 x D] bf16 tile in shared memory (swizzled as
-// the tensor maps write it) to out ([S, D] rows, contiguous), 16 bytes a
-// lane, whole rows a warp.
-template <int D>
-__device__ __forceinline__ void copy_tile_rows(__nv_bfloat16* out,
-                                               const unsigned char* tile,
-                                               int S, int tid) {
-  constexpr int kChunks = D / 8;
-  constexpr int kRowsPerPass = 32 / kChunks;
-  const int lane = tid % 32;
-  const int jc = lane % kChunks;
-#pragma unroll 4
-  for (int i = 0; i < 16 / kRowsPerPass; ++i) {
-    const int row = (tid / 32) * 16 + i * kRowsPerPass + lane / kChunks;
-    if (row < S) {
-      *reinterpret_cast<uint4*>(out + (long long)row * D + jc * 8) =
-          *reinterpret_cast<const uint4*>(tile + swz(row, jc));
-    }
-  }
-}
-
 // dk/dv of the causal block. A block owns 64 keys of one (batch, kv head):
 // K and V are loaded once. Its work is the stream of (query head of the
 // group, q tile from the diagonal down) pairs, G * nq items; consumer
@@ -926,8 +1002,8 @@ __device__ __forceinline__ void copy_tile_rows(__nv_bfloat16* out,
 // order. Blocks are issued with the key tile as the slow index, so the key
 // tiles with the most q tiles start first.
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-    ttt_bwd_dkv_kernel(const __grid_constant__ BwdParams p) {
+__global__ void __launch_bounds__(kThreads, 1)
+    ttt_bwd_dkv_kernel(const __grid_constant__ Params p) {
   using L = DkvSmem<D>;
   constexpr int kPanels = D / 64;
   extern __shared__ unsigned char smem_raw[];
@@ -1117,26 +1193,24 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       consumers_sync();
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) dk[i] += take[i * 128 + tid];
-      stage_tile<D>(staged, dk, scale, kr0, t);
+      stage_tile<D>(staged, dk, scale, scale, kr0, t);
     } else {
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) give[i * 128 + tid] = dk[i];
       consumers_sync();
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) dv[i] += take[i * 128 + tid];
-      stage_tile<D>(staged, dv, 1.f, kr0, t);
+      stage_tile<D>(staged, dv, 1.f, 1.f, kr0, t);
     }
     warpgroup_sync(wg);
     copy_tile_rows<D>((wg == 0 ? p.dk : p.dv) + ((long long)b * KVH + kvh) *
                                                      S * D +
                           (long long)key0 * D,
-                      staged, S - key0, tid);
+                      D, staged, S - key0, tid);
   }
 }
 
 // Shared memory of the dq kernel, byte offsets from a 1024-aligned base.
-constexpr int kHeadsPerBlock = 4;  // query heads resident at once (a chunk)
-constexpr int kSlots = kHeadsPerBlock / 2;  // heads a consumer warpgroup owns
 template <int D>
 struct DqSmem {
   static constexpr int kTile = kTileRows * D * 2;
@@ -1234,8 +1308,8 @@ __device__ __forceinline__ void branch_group_sum(
 // in head order, in fp32 (branch_group_sum), written once per branch as
 // [NB, B, KVH, S, D]. Blocks are issued longest rows first.
 template <int D>
-__global__ void __launch_bounds__(kBwdThreads, 1)
-    ttt_bwd_dq_kernel(const __grid_constant__ BwdParams p) {
+__global__ void __launch_bounds__(kThreads, 1)
+    ttt_bwd_dq_kernel(const __grid_constant__ Params p) {
   using L = DqSmem<D>;
   constexpr int kPanels = D / 64;
   extern __shared__ unsigned char smem_raw[];
@@ -1509,13 +1583,13 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 #pragma unroll
       for (int sl = 0; sl < kSlots; ++sl) {
         if (sl >= n_own) break;
-        stage_tile<D>(smem + L::kQ + (lh0 + sl) * L::kTile, dq[sl], scale, r0,
-                      t);
+        stage_tile<D>(smem + L::kQ + (lh0 + sl) * L::kTile, dq[sl], scale,
+                      scale, r0, t);
       }
       warpgroup_sync(wg);
       for (int sl = 0; sl < n_own; ++sl) {
         const int h = kvh * G + c * kHeadsPerBlock + lh0 + sl;
-        copy_tile_rows<D>(p.dq + (((long long)b * H + h) * S + q0) * D,
+        copy_tile_rows<D>(p.dq + (((long long)b * H + h) * S + q0) * D, D,
                           smem + L::kQ + (lh0 + sl) * L::kTile, S - q0, tid);
       }
 
@@ -1573,33 +1647,35 @@ bool encode_bhsd(CUtensorMap* map, const void* base, int B, int heads, int S,
 }
 
 template <typename Kernel>
-int launch_bwd(Kernel kernel, int smem_bytes, const BwdParams& p, int blocks,
-               cudaStream_t st) {
+int launch(Kernel kernel, int smem_bytes, const Params& p, long long blocks,
+           cudaStream_t st) {
+  if (blocks < 1 || blocks > INT_MAX) return cudaErrorInvalidValue;
   const cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<blocks, kBwdThreads, smem_bytes, st>>>(p);
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem_bytes, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The tensor maps and pointers the two backward kernels share; the maps of
-// the branch keys and values only with `branches`.
-int fill_bwd_params(BwdParams& p, const void* q, const long long* q_strides,
-                    const void* const* keys, const void* const* values,
-                    int n_keys, const long long* k_strides,
-                    const long long* v_strides, const int* valid,
-                    const void* dout, const float* m, const float* l,
-                    const float* delta, int B, int H, int KVH, int S, int D,
-                    bool branches) {
-  if (n_keys < 1 || n_keys > kMaxKeys || KVH < 1 || H % KVH != 0 || S < 1 ||
-      (D != 64 && D != 128)) {
+// The tensor maps and pointers the three kernels share: the map of dout
+// only for the backward (dout given), those of the branch keys and values
+// only with `branches`.
+int fill_params(Params& p, const void* q, const long long* q_strides,
+                const void* const* keys, const void* const* values,
+                int n_keys, const long long* k_strides,
+                const long long* v_strides, const int* valid,
+                const void* dout, int B, int H, int KVH, int S, int D,
+                bool branches) {
+  if (n_keys < 1 || n_keys > kMaxKeys || B < 1 || KVH < 1 || H % KVH != 0 ||
+      S < 1 || (D != 64 && D != 128)) {
     return cudaErrorInvalidValue;
   }
   memset(&p, 0, sizeof(p));
   bool ok = encode_bhsd(&p.tm_q, q, B, H, S, D, q_strides[0], q_strides[1],
                         q_strides[2]) &&
-            encode_bhsd(&p.tm_do, dout, B, H, S, D, (long long)S * H * D, D,
-                        (long long)H * D);
+            (dout == nullptr ||
+             encode_bhsd(&p.tm_do, dout, B, H, S, D, (long long)S * H * D, D,
+                         (long long)H * D));
   for (int i = 0; i < (branches ? n_keys : 1); ++i) {
     ok = ok &&
          encode_bhsd(&p.tm_k[i], keys[i], B, KVH, S, D, k_strides[0],
@@ -1609,9 +1685,6 @@ int fill_bwd_params(BwdParams& p, const void* q, const long long* q_strides,
   }
   if (!ok) return cudaErrorInvalidValue;
   p.valid = valid;
-  p.m = m;
-  p.l = l;
-  p.delta = delta;
   p.B = B;
   p.H = H;
   p.KVH = KVH;
@@ -1621,10 +1694,17 @@ int fill_bwd_params(BwdParams& p, const void* q, const long long* q_strides,
   return cudaSuccess;
 }
 
+// blocks of the q-tile grids: q tiles x batch x kv heads (x head chunks)
+long long qtile_blocks(int B, int KVH, int S, int chunks) {
+  return (long long)((S + kTileRows - 1) / kTileRows) * B * KVH * chunks;
+}
+
 }  // namespace
 
 // keys/values: n_keys device pointers each (the step-0 block first, then
 // the branches); *_strides: element strides over (b, h, s); the head dim is
+// contiguous, and every base and stride is a multiple of 16 bytes (the
+// tensor maps'). out [B, S, H*D] bf16, m and l [B, H, S] fp32, all
 // contiguous. Launches on `stream` and returns cudaGetLastError().
 extern "C" int ttt_attention_fwd(const void* q, const long long* q_strides,
                                  const void* const* keys,
@@ -1633,39 +1713,19 @@ extern "C" int ttt_attention_fwd(const void* q, const long long* q_strides,
                                  const long long* v_strides, const int* valid,
                                  void* out, float* m, float* l, int B, int H,
                                  int KVH, int S, int D, void* stream) {
-  if (n_keys < 1 || n_keys > kMaxKeys || KVH < 1 || H % KVH != 0 ||
-      B * H > 65535 || S < 1) {
-    return cudaErrorInvalidValue;
-  }
   Params p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  for (int i = 0; i < kMaxKeys; ++i) {
-    p.k[i] = i < n_keys ? static_cast<const __nv_bfloat16*>(keys[i]) : nullptr;
-    p.v[i] = i < n_keys ? static_cast<const __nv_bfloat16*>(values[i]) : nullptr;
-  }
-  p.valid = valid;
+  const int e = fill_params(p, q, q_strides, keys, values, n_keys, k_strides,
+                            v_strides, valid, nullptr, B, H, KVH, S, D, true);
+  if (e != cudaSuccess) return e;
   p.out = static_cast<__nv_bfloat16*>(out);
-  p.m = m;
-  p.l = l;
-  p.q_sb = q_strides[0];
-  p.q_sh = q_strides[1];
-  p.q_ss = q_strides[2];
-  p.k_sb = k_strides[0];
-  p.k_sh = k_strides[1];
-  p.k_ss = k_strides[2];
-  p.v_sb = v_strides[0];
-  p.v_sh = v_strides[1];
-  p.v_ss = v_strides[2];
-  p.H = H;
-  p.KVH = KVH;
-  p.S = S;
-  p.n_branches = n_keys - 1;
-  p.scale = 1.0f / sqrtf(static_cast<float>(D));
-  const dim3 grid((S + kBlockM - 1) / kBlockM, B * H);
+  p.m_out = m;
+  p.l_out = l;
+  const int chunks = (H / KVH + kHeadsPerBlock - 1) / kHeadsPerBlock;
+  const long long blocks = qtile_blocks(B, KVH, S, chunks);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 128) return launch<128>(p, grid, st);
-  if (D == 64) return launch<64>(p, grid, st);
-  return cudaErrorInvalidValue;
+  return D == 128
+             ? launch(ttt_fwd_kernel<128>, FwdSmem<128>::kBytes, p, blocks, st)
+             : launch(ttt_fwd_kernel<64>, FwdSmem<64>::kBytes, p, blocks, st);
 }
 
 // The backward's first kernel: dq [B, H, S, D] and, per branch, dk_b/dv_b
@@ -1680,25 +1740,27 @@ extern "C" int ttt_attention_bwd_dq(
     const long long* v_strides, const int* valid, const void* dout,
     const float* m, const float* l, const float* delta, void* dq, void* dkb,
     void* dvb, float* ws, int B, int H, int KVH, int S, int D, void* stream) {
-  BwdParams p;
-  const int e = fill_bwd_params(p, q, q_strides, keys, values, n_keys,
-                                k_strides, v_strides, valid, dout, m, l,
-                                delta, B, H, KVH, S, D, true);
+  Params p;
+  const int e = fill_params(p, q, q_strides, keys, values, n_keys, k_strides,
+                            v_strides, valid, dout, B, H, KVH, S, D, true);
   if (e != cudaSuccess) return e;
   if (n_keys > 1 && H / KVH > kHeadsPerBlock && ws == nullptr) {
     return cudaErrorInvalidValue;
   }
+  p.m = m;
+  p.l = l;
+  p.delta = delta;
   p.dq = static_cast<__nv_bfloat16*>(dq);
   p.dkb = static_cast<__nv_bfloat16*>(dkb);
   p.dvb = static_cast<__nv_bfloat16*>(dvb);
   p.ws = ws;
-  const int blocks = (S + kTileRows - 1) / kTileRows * B * KVH;
+  const long long blocks = qtile_blocks(B, KVH, S, 1);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return D == 128
-             ? launch_bwd(ttt_bwd_dq_kernel<128>, DqSmem<128>::kBytes, p,
-                               blocks, st)
-             : launch_bwd(ttt_bwd_dq_kernel<64>, DqSmem<64>::kBytes, p,
-                              blocks, st);
+             ? launch(ttt_bwd_dq_kernel<128>, DqSmem<128>::kBytes, p, blocks,
+                      st)
+             : launch(ttt_bwd_dq_kernel<64>, DqSmem<64>::kBytes, p, blocks,
+                      st);
 }
 
 // The backward's second kernel: dk, dv [B, KVH, S, D] (contiguous bf16) of
@@ -1709,18 +1771,20 @@ extern "C" int ttt_attention_bwd_dkv(
     const long long* v_strides, const int* valid, const void* dout,
     const float* m, const float* l, const float* delta, void* dk, void* dv,
     int B, int H, int KVH, int S, int D, void* stream) {
-  BwdParams p;
-  const int e = fill_bwd_params(p, q, q_strides, keys, values, n_keys,
-                                k_strides, v_strides, valid, dout, m, l,
-                                delta, B, H, KVH, S, D, false);
+  Params p;
+  const int e = fill_params(p, q, q_strides, keys, values, n_keys, k_strides,
+                            v_strides, valid, dout, B, H, KVH, S, D, false);
   if (e != cudaSuccess) return e;
+  p.m = m;
+  p.l = l;
+  p.delta = delta;
   p.dk = static_cast<__nv_bfloat16*>(dk);
   p.dv = static_cast<__nv_bfloat16*>(dv);
-  const int blocks = (S + kTileRows - 1) / kTileRows * B * KVH;
+  const long long blocks = qtile_blocks(B, KVH, S, 1);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return D == 128
-             ? launch_bwd(ttt_bwd_dkv_kernel<128>, DkvSmem<128>::kBytes,
-                               p, blocks, st)
-             : launch_bwd(ttt_bwd_dkv_kernel<64>, DkvSmem<64>::kBytes, p,
-                              blocks, st);
+             ? launch(ttt_bwd_dkv_kernel<128>, DkvSmem<128>::kBytes, p,
+                      blocks, st)
+             : launch(ttt_bwd_dkv_kernel<64>, DkvSmem<64>::kBytes, p, blocks,
+                      st);
 }

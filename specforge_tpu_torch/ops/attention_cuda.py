@@ -22,6 +22,7 @@ through their strides. The gradients come out contiguous.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import List, Optional, Sequence, Tuple
 
 import torch
@@ -31,7 +32,7 @@ from specforge_tpu_torch.ops import cuda_lib
 NEG_INF = -1e30  # finite, as in the kernel
 MAX_KEYS = 8     # the step-0 block plus up to 7 branches
 HEAD_DIMS = (64, 128)
-HEADS_PER_BLOCK = 4  # query heads of a group the dq kernel holds at once
+HEADS_PER_BLOCK = 4  # query heads of a group a forward or dq block holds
 
 
 def ttt_flash_attention_plain(
@@ -126,23 +127,29 @@ def ttt_flash_attention_backward_plain(
 
 
 def _strides(x: torch.Tensor) -> Tuple[int, int, int]:
-    return x.stride(0), x.stride(1), x.stride(2)
+    return x.stride()[:3]
 
 
-def _check_operand(name: str, x: torch.Tensor, shape, device) -> None:
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, q on {device}")
+def _check_operand(name: str, x: torch.Tensor, shape,
+                   device) -> Tuple[int, int, int]:
+    """Refuse what the tensor maps cannot describe → the (b, h, s) strides.
+    Each property is read once: the wrapper runs this for every operand of
+    every launch, on the host's critical path."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{name} must be bfloat16, got {x.dtype}")
-    if tuple(x.shape) != tuple(shape):
+    if x.shape != shape:
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape}")
-    if x.stride(-1) != 1 or any(st % 8 for st in _strides(x)):
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, q on {device}")
+    st = x.stride()
+    if st[3] != 1 or st[0] % 8 or st[1] % 8 or st[2] % 8:
         raise ValueError(
             f"{name} needs a contiguous head dim and (b, h, s) strides that "
-            f"are multiples of 8 elements, got strides {tuple(x.stride())}"
+            f"are multiples of 8 elements, got strides {st}"
         )
     if x.data_ptr() % 16:
         raise ValueError(f"{name} must be 16-byte aligned")
+    return st[:3]
 
 
 def ttt_flash_attention_fwd(
@@ -163,8 +170,8 @@ def ttt_flash_attention_fwd(
     b, h, s, d = q.shape
     kvh = keys[0].shape[1]
     out = torch.empty((b, s, h * d), dtype=q.dtype, device=q.device)
-    m = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    l = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
+    # m and l in one allocation (the host's time per launch counts)
+    m, l = torch.empty((2, b, h, s), dtype=torch.float32, device=q.device)
     status = cuda_lib.library().ttt_attention_fwd(
         q.data_ptr(), _i64x3(_strides(q)), *_pointer_arrays(keys, values),
         len(keys), _i64x3(k_strides), _i64x3(v_strides), valid.data_ptr(),
@@ -180,14 +187,22 @@ def ttt_flash_attention_fwd(
 ttt_flash_attention_fwd.launches = 0
 
 
-def _i64x3(values) -> ctypes.Array:
-    return (ctypes.c_longlong * 3)(*values)
+# the ctypes array types, made once: making one costs microseconds a launch
+_I64X3 = ctypes.c_longlong * 3
+_PTRS = ctypes.c_void_p * MAX_KEYS
+
+
+@functools.lru_cache(maxsize=64)
+def _i64x3(strides: Tuple[int, int, int]) -> ctypes.Array:
+    """(b, h, s) strides as the C side reads them, made once per layout (a
+    training run passes the same layouts every step; the C side only
+    reads the array)."""
+    return _I64X3(*strides)
 
 
 def _pointer_arrays(keys, values) -> Tuple[ctypes.Array, ctypes.Array]:
-    ptrs = ctypes.c_void_p * len(keys)
-    return (ptrs(*[k.data_ptr() for k in keys]),
-            ptrs(*[v.data_ptr() for v in values]))
+    return (_PTRS(*[k.data_ptr() for k in keys]),
+            _PTRS(*[v.data_ptr() for v in values]))
 
 
 def _check_inputs(q, keys, values, key_valid):
@@ -204,26 +219,35 @@ def _check_inputs(q, keys, values, key_valid):
     if d not in HEAD_DIMS:
         raise ValueError(f"head dim {d} not in {HEAD_DIMS}")
     kvh = keys[0].shape[1]
-    if h % kvh or b * h > 65535:
-        raise ValueError(f"bad head counts: H={h}, KVH={kvh}, B={b}")
-    _check_operand("q", q, (b, h, s, d), q.device)
-    for i, (k, v) in enumerate(zip(keys, values)):
-        _check_operand(f"keys[{i}]", k, (b, kvh, s, d), q.device)
-        _check_operand(f"values[{i}]", v, (b, kvh, s, d), q.device)
-    k_strides, v_strides = _strides(keys[0]), _strides(values[0])
-    if any(_strides(k) != k_strides for k in keys) or any(
-        _strides(v) != v_strides for v in values
-    ):
-        raise ValueError("all keys (and all values) must share one layout")
+    if h % kvh:
+        raise ValueError(f"bad head counts: H={h}, KVH={kvh}")
+    # the forward's grid: q tiles x batch x kv heads x chunks of the group
+    blocks = -(-s // 64) * b * kvh * -(-(h // kvh) // HEADS_PER_BLOCK)
+    if blocks >= 2 ** 31:
+        raise ValueError(f"{blocks} blocks: more than a grid holds")
+    device = q.device
+    _check_operand("q", q, (b, h, s, d), device)
+    kv_shape = (b, kvh, s, d)
+    k_strides = _check_operand("keys[0]", keys[0], kv_shape, device)
+    v_strides = _check_operand("values[0]", values[0], kv_shape, device)
+    for i in range(1, len(keys)):
+        if (_check_operand(f"keys[{i}]", keys[i], kv_shape, device) != k_strides
+                or _check_operand(f"values[{i}]", values[i], kv_shape,
+                                  device) != v_strides):
+            raise ValueError("all keys (and all values) must share one layout")
     if key_valid is None:
-        valid = torch.ones((b, s), dtype=torch.int32, device=q.device)
+        valid = torch.ones((b, s), dtype=torch.int32, device=device)
     else:
-        if tuple(key_valid.shape) != (b, s) or key_valid.device != q.device:
+        if key_valid.shape != (b, s) or key_valid.device != device:
             raise ValueError(
-                f"key_valid must be [B, S] on {q.device}, got "
+                f"key_valid must be [B, S] on {device}, got "
                 f"{tuple(key_valid.shape)} on {key_valid.device}"
             )
-        valid = (key_valid != 0).to(torch.int32).contiguous()
+        # every kernel reads it as int32 and tests != 0 itself: an int32
+        # mask (the collator's) goes as it is
+        valid = key_valid
+        if key_valid.dtype != torch.int32 or not key_valid.is_contiguous():
+            valid = (key_valid != 0).to(torch.int32).contiguous()
     return valid, k_strides, v_strides
 
 

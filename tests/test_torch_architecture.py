@@ -26,7 +26,7 @@ def _sources():
             if name.endswith(".py"):
                 yield os.path.join(root, name)
     yield os.path.join(REPO, "chip_smoke.py")
-    yield os.path.join(REPO, "ttt_backward_compare.py")
+    yield os.path.join(REPO, "ttt_attention_compare.py")
 
 
 def _top_level_imports(path):

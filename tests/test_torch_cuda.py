@@ -40,33 +40,95 @@ def attention_inputs(gen, b, h, kvh, s, d, n_keys):
             [rnd(b, kvh, s, d) for _ in range(n_keys)], valid)
 
 
-@pytest.mark.parametrize("s,d,n_keys", [(64, 128, 1), (100, 128, 3),
-                                        (257, 64, 7), (128, 128, 8)])
-def test_ttt_attention_kernel_matches_plain(gen, s, d, n_keys):
-    q, keys, values, valid = attention_inputs(gen, 2, 8, 2, s, d, n_keys)
+def assert_forward_matches_plain(q, keys, values, valid):
+    """One forward launch against the plain forward → (out, m, l)."""
     before = attention_cuda.ttt_flash_attention_fwd.launches
     out, m, l = attention_cuda.ttt_flash_attention_fwd(q, keys, values, valid)
     torch.cuda.synchronize()
     assert attention_cuda.ttt_flash_attention_fwd.launches == before + 1
     ref, ref_m, ref_l = attention_cuda.ttt_flash_attention_plain(
         q, keys, values, valid)
+    for x in (out, m, l):
+        assert bool(torch.isfinite(x).all())
     # bf16 output: relative eps 7.8e-3, sums taken in another order
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=2e-2)
     torch.testing.assert_close(m, ref_m, rtol=1e-3, atol=1e-3)
     torch.testing.assert_close(l, ref_l, rtol=1e-3, atol=1e-3)
+    return out, m, l
 
 
-def test_ttt_attention_reads_strided_views(gen):
-    """q/k/v as views of one merged projection, as the draft model has them."""
-    b, s, h, kvh, d = 2, 96, 4, 2, 128
-    qkv = torch.randn(b, s, (h + 2 * kvh) * d, generator=gen, device="cuda",
-                      dtype=torch.bfloat16)
-    q = qkv[..., :h * d].view(b, s, h, d).transpose(1, 2)
-    k = qkv[..., h * d:(h + kvh) * d].view(b, s, kvh, d).transpose(1, 2)
-    v = qkv[..., (h + kvh) * d:].view(b, s, kvh, d).transpose(1, 2)
-    out = attention_cuda.ttt_flash_attention(q, [k], [v])
-    ref = attention_cuda.ttt_flash_attention_plain(q, [k], [v])[0]
+@pytest.mark.parametrize("s,d,n_keys,h,kvh", [
+    (64, 128, 1, 8, 2), (100, 128, 3, 8, 2), (257, 64, 7, 8, 2),
+    (128, 128, 8, 8, 2),
+    # ragged and tiny S, both head dims, 1 and 8 keys
+    (1, 128, 8, 8, 2), (63, 64, 1, 8, 2), (64, 64, 8, 8, 2),
+    (65, 128, 1, 8, 2), (2047, 128, 8, 8, 2), (2048, 64, 1, 8, 2),
+    # groups of 8 (two chunks of four heads), 3 and 1 query heads
+    (130, 128, 8, 8, 1), (100, 64, 3, 6, 2), (96, 128, 1, 4, 4),
+    (200, 64, 8, 3, 3),
+])
+def test_ttt_attention_kernel_matches_plain(gen, s, d, n_keys, h, kvh):
+    q, keys, values, valid = attention_inputs(gen, 2, h, kvh, s, d, n_keys)
+    assert_forward_matches_plain(q, keys, values, valid)
+
+
+@pytest.mark.parametrize("n_keys,h,kvh", [(1, 8, 2), (1, 4, 4), (3, 8, 2)])
+def test_ttt_attention_forward_empty_rows(gen, n_keys, h, kvh):
+    """A batch row with no valid key: with no branch its rows attend to
+    nothing (out 0, m = -1e30, l = 0, no NaN); with branches they attend to
+    the branch keys alone."""
+    q, keys, values, valid = attention_inputs(gen, 2, h, kvh, 200, 128, n_keys)
+    valid[0] = 0
+    out, m, l = assert_forward_matches_plain(q, keys, values, valid)
+    if n_keys == 1:
+        assert float(out[0].float().abs().max()) == 0.0
+        assert bool((m[0] == -1e30).all()) and bool((l[0] == 0).all())
+
+
+@pytest.mark.parametrize("d,n_keys", [(128, 1), (64, 8), (128, 8)])
+def test_ttt_attention_reads_strided_views(gen, d, n_keys):
+    """q/k/v as views of one merged projection per step, as the draft model
+    has them."""
+    b, s, h, kvh = 2, 96, 4, 2
+    qkvs = [torch.randn(b, s, (h + 2 * kvh) * d, generator=gen, device="cuda",
+                        dtype=torch.bfloat16) for _ in range(n_keys)]
+    views = [(x[..., :h * d].view(b, s, h, d).transpose(1, 2),
+              x[..., h * d:(h + kvh) * d].view(b, s, kvh, d).transpose(1, 2),
+              x[..., (h + kvh) * d:].view(b, s, kvh, d).transpose(1, 2))
+             for x in qkvs]
+    q, keys, values = views[-1][0], [v[1] for v in views], [v[2] for v in views]
+    out = attention_cuda.ttt_flash_attention(q, keys, values)
+    ref = attention_cuda.ttt_flash_attention_plain(q, keys, values)[0]
     torch.testing.assert_close(out.float(), ref.float(), rtol=0, atol=2e-2)
+
+
+def test_ttt_attention_forward_is_deterministic(gen):
+    """Two launches at the main path's shape (6 branches, padded) give the
+    same bits."""
+    q, keys, values, valid = attention_inputs(gen, 2, 32, 8, 2048, 128, 7)
+    first = attention_cuda.ttt_flash_attention_fwd(q, keys, values, valid)
+    second = attention_cuda.ttt_flash_attention_fwd(q, keys, values, valid)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_ttt_attention_forward_refuses_what_it_does_not_take(gen):
+    """Layouts the tensor maps cannot describe, and other dtypes, raise in
+    the wrapper."""
+    q, keys, values, valid = attention_inputs(gen, 1, 4, 2, 64, 128, 2)
+    fwd = attention_cuda.ttt_flash_attention_fwd
+    wide = torch.randn(1, 4, 64, 136, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        fwd(wide[..., 4:132], keys, values, valid)  # 8-byte offset
+    odd = torch.randn(1, 2, 64, 132, generator=gen, device="cuda",
+                      dtype=torch.bfloat16)[..., :128]  # row stride 132
+    with pytest.raises(ValueError):
+        fwd(q, keys, [values[0], odd], valid)
+    with pytest.raises(TypeError):
+        fwd(q, [keys[0], keys[1].float()], values, valid)
+    with pytest.raises(TypeError):
+        fwd(q.half(), keys, values, valid)
 
 
 @pytest.mark.parametrize("v,dtype", [(32000, torch.bfloat16),

@@ -102,6 +102,56 @@ def test_ttt_attention_stats_match_pallas_interpret(n_branches):
     np.testing.assert_allclose(l.numpy(), l_ref, rtol=ATTN_TOL, atol=ATTN_TOL)
 
 
+@pytest.mark.parametrize("n_branches,kvh", [(0, KVH), (2, KVH), (0, H)])
+def test_ttt_attention_empty_rows_match_pallas_interpret(n_branches, kvh):
+    """A batch row whose key_valid is all zero, with groups of H / KVH and
+    of one head: with no branch its rows attend to nothing and come out as
+    the TPU kernel leaves them (out 0, m = -1e30, l = 0, no NaN), the
+    contract the card's kernel keeps; with branches they attend to the
+    branch keys alone."""
+    rng = np.random.default_rng(3)
+    q = rng.normal(size=(B, H, S, D)).astype(np.float32)
+    keys = [rng.normal(size=(B, kvh, S, D)).astype(np.float32)
+            for _ in range(n_branches + 1)]
+    values = [rng.normal(size=(B, kvh, S, D)).astype(np.float32)
+              for _ in range(n_branches + 1)]
+    valid = np.ones((B, S), np.int32)
+    valid[0] = 0
+    expected = jax_attention_pallas.ttt_flash_attention(
+        jnp.asarray(q), [jnp.asarray(k) for k in keys],
+        [jnp.asarray(v) for v in values], key_valid=jnp.asarray(valid),
+        interpret=True,
+    )
+    g = H // kvh
+
+    def flat(x):
+        x = np.repeat(x, g, axis=1) if x.shape[1] != H else x
+        return jnp.asarray(x.reshape(B * H, S, D))
+
+    branches = tuple((flat(k), flat(v)) for k, v in zip(keys[1:], values[1:]))
+    _, res = jax_attention_pallas._ttt_flash_fwd(
+        flat(q), flat(keys[0]), flat(values[0]), branches,
+        jnp.asarray(np.repeat(valid, H, axis=0)), S, S, True,
+    )
+    m_ref = np.asarray(res[6])[:, 0].reshape(B, H, S)
+    l_ref = np.asarray(res[7])[:, 0].reshape(B, H, S)
+    out, m, l = pt_attention_cuda.ttt_flash_attention_fwd(
+        t(q), [t(k) for k in keys], [t(v) for v in values], t(valid))
+    for x in (out, m, l):
+        assert bool(torch.isfinite(x).all())
+    np.testing.assert_allclose(out.numpy(), np.asarray(expected),
+                               rtol=ATTN_TOL, atol=ATTN_TOL)
+    np.testing.assert_allclose(m.numpy(), m_ref, rtol=ATTN_TOL, atol=ATTN_TOL)
+    np.testing.assert_allclose(l.numpy(), l_ref, rtol=ATTN_TOL, atol=ATTN_TOL)
+    if n_branches == 0:
+        np.testing.assert_array_equal(out[0].numpy(), 0.0)
+        np.testing.assert_array_equal(np.asarray(expected)[0], 0.0)
+        np.testing.assert_array_equal(m[0].numpy(), np.float32(-1e30))
+        np.testing.assert_array_equal(m_ref[0], np.float32(-1e30))
+        np.testing.assert_array_equal(l[0].numpy(), 0.0)
+        np.testing.assert_array_equal(l_ref[0], 0.0)
+
+
 @pytest.mark.parametrize("n_branches,padded", [(0, True), (3, True),
                                                (6, False)])
 def test_dense_attention_matches_jax_reference(n_branches, padded):

@@ -1,22 +1,26 @@
 #!/usr/bin/env python3
-"""Time the TTT attention backward of several checkouts on one card, in turns.
+"""Time the TTT attention kernels of several checkouts on one card, in turns.
 
 Usage, from the repository root on a machine with a card::
 
     mkdir -p chip_trees/parent
     git archive <parent commit> | tar -x -C chip_trees/parent
-    python3 ttt_backward_compare.py chip_trees/parent . . chip_trees/parent \\
+    python3 ttt_attention_compare.py chip_trees/parent . . chip_trees/parent \\
         [--micro-step]
 
 For each TREE (a checkout of this repository; ``chip_trees/`` is listed in
 ``.gitignore``), in the order given, one process imports that tree's port,
 builds its kernel library and prints one JSON line with, at the EAGLE3 shape
 of ``chip_smoke.py`` (B=2, H=32, KVH=8, S=2048, D=128, padded key_valid) and
-each branch count 0..6 of the main path: the dq kernel's, the dk/dv kernel's
-and the whole ``ttt_flash_attention_bwd``'s time (delta, the kernels and any
-reduction), CUDA events, median of 20 after 3 warm-ups, each taken through
-that tree's own ``chip_smoke`` helpers, and their means over the branch
-counts. With ``--micro-step`` it also times the EAGLE3 micro-step at Qwen3-8B
+each branch count 0..6 of the main path: the forward's time
+(``ttt_flash_attention_fwd``), the dq kernel's, the dk/dv kernel's and the
+whole ``ttt_flash_attention_bwd``'s (delta, the kernels and any reduction),
+CUDA events, median of 20 after 3 warm-ups, each taken through that tree's
+own ``chip_smoke`` helpers and wrappers, and their means over the branch
+counts. ``chip_smoke.median_ms`` synchronizes after every launch, so its
+times include the wrapper's host work before the launch; ``fwd_run_ms`` is
+the forward timed as the card runs it in a step, 30 launches back to back
+between two events, after 3 warm-ups. With ``--micro-step`` it also times the EAGLE3 micro-step at Qwen3-8B
 width (``configs/qwen3-8b-eagle3.json``, random weights from seed 0, the
 ``chip_smoke`` training run's data): the trainer's own ``micro_step``, host
 clock to a device sync, median of 7 after one. Give the trees in turns
@@ -46,6 +50,19 @@ rows = []
 for nb in range(cs.TTT):
     q, keys, values, key_valid = cs.attention_inputs(gen, cs.MAX_LEN, nb, True)
     out, m, l = ac.ttt_flash_attention_fwd(q, keys, values, key_valid)
+    fwd = lambda: ac.ttt_flash_attention_fwd(q, keys, values, key_valid)
+    fwd_ms = cs.median_ms(fwd)
+    for _ in range(3):
+        fwd()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(30):
+        fwd()
+    end.record()
+    end.synchronize()
+    fwd_run_ms = start.elapsed_time(end) / 30
     dout = torch.randn(out.shape, generator=gen, device="cuda",
                        dtype=torch.bfloat16)
     valid = key_valid.to(torch.int32)
@@ -53,6 +70,8 @@ for nb in range(cs.TTT):
     args = (q, keys, values, valid, dout, m, l, delta)
     rows.append({
         "branches": nb,
+        "fwd_ms": fwd_ms,
+        "fwd_run_ms": fwd_run_ms,
         "dq_ms": cs.median_ms(lambda: ac.ttt_attention_bwd_dq(*args)),
         "dkv_ms": cs.median_ms(lambda: ac.ttt_attention_bwd_dkv(*args)),
         "bwd_ms": cs.median_ms(lambda: ac.ttt_flash_attention_bwd(
@@ -60,11 +79,11 @@ for nb in range(cs.TTT):
     })
     del q, keys, values, out, dout, args
 result = {"tree": opts["tree"], "rows": rows}
-for key in ("dq_ms", "dkv_ms", "bwd_ms"):
+for key in ("fwd_ms", "fwd_run_ms", "dq_ms", "dkv_ms", "bwd_ms"):
     result["mean_" + key] = sum(r[key] for r in rows) / len(rows)
 if opts["micro_step"]:
     torch.cuda.empty_cache()
-    work = Path(tempfile.mkdtemp(prefix="ttt-bwd-compare-"))
+    work = Path(tempfile.mkdtemp(prefix="ttt-attention-compare-"))
     cfg = cs.Eagle3Config.from_file(cs.CONFIG)
     cs.write_features(work / "train", cfg, 0, cs.TRAIN_FILES, 1536,
                       cs.MAX_LEN)
