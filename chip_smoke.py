@@ -105,6 +105,7 @@ import hashlib
 import json
 import math
 import os
+import re
 import shutil
 import socket
 import statistics
@@ -231,6 +232,31 @@ def median_ms(fn, runs: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def run_ms(fn, launches: int = 30, warmup: int = 3) -> float:
+    """ms a launch over ``launches`` launches back to back between two
+    events, after ``warmup``: the kernel as a step runs it, with no sync
+    between launches (median_ms syncs after each, so its times include
+    the wrapper's host work before the launch)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def check_repeat(name: str, fn) -> None:
+    """Two launches of ``fn`` give the same bits in every output."""
+    first, second = fn(), fn()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"{name}: two launches differ")
+
+
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -262,16 +288,57 @@ def device_facts() -> str:
     return smi
 
 
+#: the kernels redesigned for Hopper whose ptxas report the build line
+#: details; a wgmma serialization note (C75xx) fails the build phase
+HOPPER_KERNELS = ("ttt_fwd_kernel", "ttt_bwd_dq_kernel", "ttt_bwd_dkv_kernel",
+                  "dflash_bwd_dkv_kernel", "cod_bwd_dkv_kernel")
+
+
+def ptxas_report(log: str) -> tuple:
+    """ptxas's registers and spills per entry function of HOPPER_KERNELS
+    (keyed by kernel and head dim) and every wgmma serialization note →
+    (report, notes)."""
+    report, notes, current = {}, [], None
+    for line in log.splitlines():
+        found = re.search(r"Compiling entry function '(\w+)'", line)
+        if found:
+            name = found.group(1)
+            kernel = next((k for k in HOPPER_KERNELS if k in name), None)
+            dim = re.search(r"ILi(\d+)E", name)
+            current = (f"{kernel}<{dim.group(1) if dim else '?'}>"
+                       if kernel else None)
+        if re.search(r"\bC75\d\d\b", line) or "serialized" in line:
+            notes.append(line.strip())
+        if current is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill:
+            report.setdefault(current, {}).update(
+                spill_stores=int(spill.group(1)),
+                spill_loads=int(spill.group(2)))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            report.setdefault(current, {})["registers"] = int(regs.group(1))
+    return report, notes
+
+
 def build() -> None:
     t0 = time.perf_counter()
     cuda_lib.library()
+    log = cuda_lib.build_log or ""
     ptxas = [
-        line.strip() for line in (cuda_lib.build_log or "").splitlines()
+        line.strip() for line in log.splitlines()
         if "registers" in line or "spill" in line
     ]
+    report, notes = ptxas_report(log)
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": cuda_lib.build_seconds,
-          "sources": list(cuda_lib.SOURCES), "ptxas": ptxas})
+          "sources": list(cuda_lib.SOURCES), "headers": list(cuda_lib.HEADERS),
+          "hopper_kernels": report, "wgmma_serialization": notes,
+          "ptxas": ptxas})
+    if notes:
+        raise AssertionError(f"ptxas serialized wgmma: {notes}")
 
 
 # --------------------------------------------------------------------------
@@ -798,6 +865,20 @@ def dflash_spans(anchors, keep, s, window):
     return ctx, drf
 
 
+def dflash_reached_keys(anchors, keep, s, window) -> torch.Tensor:
+    """[B, S] bool: the context keys some kept row may attend (block n's
+    rows reach [a_n - (w - 1), a_n), all of [0, a_n) without a window)."""
+    hi = anchors.long().clamp(0, s)
+    lo = ((anchors.long() - (window - 1)).clamp(min=0).minimum(hi)
+          if window else torch.zeros_like(hi))
+    kept = keep.long()
+    diff = torch.zeros(anchors.shape[0], s + 1, dtype=torch.long,
+                       device=anchors.device)
+    diff.scatter_add_(1, lo, kept)
+    diff.scatter_add_(1, hi, -kept)
+    return diff.cumsum(dim=1)[:, :s] > 0
+
+
 def dflash_bounds(inputs, window) -> dict:
     """The least times of the three kernels for these anchors: each input
     read once and each output written once over the card's memory rate;
@@ -908,8 +989,29 @@ def dflash_kernel_phase(gen) -> list:
         check(f"dflash l case {name}", errs["l"], STAT_RTOL)
         delta = attention_cuda.backward_delta(out, dout, h)
         bwd_args = (*inputs, DFLASH_BS, window, dout, m, l, delta)
+        # the context dk/dv: two launches give the same bits; keys no kept
+        # row reaches are exactly 0
+        dkv = dflash_attention_cuda.dflash_attention_bwd_dkv
+        check_repeat(f"dflash_attention_bwd_dkv case {name}",
+                     lambda: dkv(*bwd_args))
+        unreached = ~dflash_reached_keys(inputs[5], keep, s, window)
+        unreached = unreached[:, None].expand(b, kvh, s)
+        if grads[1][unreached].any() or grads[2][unreached].any():
+            raise AssertionError(f"case {name}: dk/dv of keys no row reaches "
+                                 "are not 0")
+        run = {
+            "dflash_attention_fwd": run_ms(
+                lambda: fwd(*inputs, DFLASH_BS, window)),
+            "dflash_attention_bwd_dq": run_ms(
+                lambda: dflash_attention_cuda.dflash_attention_bwd_dq(
+                    *bwd_args)),
+            "dflash_attention_bwd_dkv": run_ms(lambda: dkv(*bwd_args)),
+        }
         row = {
             "phase": "kernel", "name": "dflash_attention", "case": name,
+            "dkv_repeat": "bit-exact",
+            "unreached_keys": int(unreached[:, 0].sum()),
+            "run_ms": run,
             "B": b, "H": h, "KVH": kvh, "D": d, "S": s, "N": n,
             "sliding_window": window, "kept_blocks": int(keep.sum()),
             "rel_err": errs, "max_abs_err": abs_errs,
@@ -958,10 +1060,12 @@ def dflash_kernel_phase(gen) -> list:
                                for r in results.values()),
             "rel_err": max(r["rel_err"][kernel] for r in results.values()),
             "tol": f"{ATTN_TOL} * max|ref|",
-            # per launch at the Domino slice's shapes (case a); the plain
-            # backward and the library backward compute every gradient at
-            # once, and stand beside both backward kernels
+            # per launch at the Domino slice's shapes (case a), one at a
+            # time and back to back; the plain backward and the library
+            # backward compute every gradient at once, and stand beside both
+            # backward kernels
             "ms": main["ms"][kernel],
+            "run_ms": main["run_ms"][kernel],
             "plain_ms": main["plain_bwd_ms" if backward else "plain_fwd_ms"],
             "library_ms": main["library_bwd_ms" if backward
                                else "library_fwd_ms"],
@@ -1132,8 +1236,32 @@ def cod_kernel_phase(gen) -> list:
         check(f"cod l case {name}", errs["l"], STAT_RTOL)
         delta = attention_cuda.backward_delta(out, dout, h)
         bwd_args = (q, k, v, tiles, dout, m, l, delta)
+        # dk/dv: two launches give the same bits; keys no row may attend
+        # are exactly 0
+        check_repeat(f"cod_attention_bwd_dkv case {name}",
+                     lambda: pac.cod_attention_bwd_dkv(*bwd_args))
+        reached = torch.zeros(b, t, dtype=torch.bool, device="cuda")
+        for r0, r1 in pac._row_chunks(q):
+            reached |= pac._allow(tiles.props[:, r0:r1],
+                                  tiles.props).any(dim=1)
+        unreached = (~reached)[:, None].expand(b, kvh, t)
+        if grads[1][unreached].any() or grads[2][unreached].any():
+            raise AssertionError(f"case {name}: dk/dv of keys no row reaches "
+                                 "are not 0")
+        run = {
+            "cod_attention_fwd": run_ms(
+                lambda: pac.cod_attention_fwd(q, k, v, tiles)),
+            "cod_attention_bwd_dq": run_ms(
+                lambda: pac.cod_attention_bwd_dq(*bwd_args)),
+            "cod_attention_bwd_dkv": run_ms(
+                lambda: pac.cod_attention_bwd_dkv(*bwd_args)),
+        }
         row = {
             "phase": "kernel", "name": "cod_attention", "case": name,
+            "dkv_repeat": "bit-exact",
+            "unreached_keys": int((~reached).sum()),
+            "full_tile_share": float(tiles.full.float().mean()),
+            "run_ms": run,
             "B": b, "H": h, "KVH": kvh, "D": d, "S": s, "T": t,
             "doc_lengths": doc_lengths, "unsupervised_rows": list(unsupervised),
             "empty_rows": empty_rows,
@@ -1181,10 +1309,12 @@ def cod_kernel_phase(gen) -> list:
                                for r in results.values()),
             "rel_err": max(r["rel_err"][kernel] for r in results.values()),
             "tol": f"{ATTN_TOL} * max|ref|",
-            # per launch at the slice's shapes (case a); the plain backward
-            # and the library backward compute every gradient at once, and
-            # stand beside both backward kernels
+            # per launch at the slice's shapes (case a), one at a time and
+            # back to back; the plain backward and the library backward
+            # compute every gradient at once, and stand beside both backward
+            # kernels
             "ms": main["ms"][kernel],
+            "run_ms": main["run_ms"][kernel],
             "plain_ms": main["plain_bwd_ms" if backward else "plain_fwd_ms"],
             "library_ms": main.get("library_bwd_ms" if backward
                                    else "library_fwd_ms"),

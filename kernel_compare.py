@@ -1,0 +1,237 @@
+#!/usr/bin/env python3
+"""Time one family of attention kernels of several checkouts on one card, in turns.
+
+Usage, from the repository root on a machine with a card::
+
+    mkdir -p chip_trees/parent
+    git archive <parent commit> | tar -x -C chip_trees/parent
+    python3 kernel_compare.py chip_trees/parent . . chip_trees/parent \\
+        [--family ttt|dflash|cod] [--micro-step]
+
+For each TREE (a checkout of this repository; ``chip_trees/`` is listed in
+``.gitignore``), in the order given, one process imports that tree's port,
+builds its kernel library and prints one JSON line with the family's three
+kernels timed at the shape of its main path, each through that tree's own
+``chip_smoke`` helpers and wrappers:
+
+- ``ttt`` (the default): the EAGLE3 shape of ``chip_smoke.py`` (B=2, H=32,
+  KVH=8, S=2048, D=128, padded key_valid) at each branch count 0..6 of the
+  main path: the forward (``ttt_flash_attention_fwd``), the dq kernel, the
+  dk/dv kernel and the whole ``ttt_flash_attention_bwd`` (delta, the kernels
+  and any reduction), and their means over the branch counts;
+- ``dflash``: case (a) of ``chip_smoke.DFLASH_CASES``, the Domino slice
+  (B=2, H=32, KVH=8, D=128, S=768, 256 anchors of 16, from
+  ``dflash_case_inputs``): the forward, dq (with the draft keys' dk/dv) and
+  the context keys' dk/dv;
+- ``cod``: case (a) of ``chip_smoke.COD_CASES``, the P-EAGLE slice (B=2,
+  H=32, KVH=8, D=128, S=1024 over 8 depths, from ``cod_case_inputs``): the
+  forward, dq and dk/dv.
+
+Each kernel is timed twice with CUDA events: ``<kernel>_ms``, one launch at
+a time (``chip_smoke.median_ms``: median of 20 after 3 warm-ups, a sync
+after each launch, so the wrapper's host work before the launch counts) and
+``<kernel>_run_ms``, 30 launches back to back between two events after 3
+warm-ups (the kernel as a step runs it). With ``--micro-step`` it also times
+the family's micro-step at Qwen3-8B width, random weights from seed 0 and
+the ``chip_smoke`` training run's data (EAGLE3
+``configs/qwen3-8b-eagle3.json``; Domino ``configs/qwen3-8b-domino.json``;
+P-EAGLE ``configs/qwen3-8b-peagle.json``): the trainer's own
+``micro_step``, host clock to a device sync, median of 7 after one. Give
+the trees in turns (parent, change, change, parent): the card drifts
+between runs. The first line is the card's name and power limit; any
+failure exits non-zero.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+WORKER = r'''
+import json, statistics, sys, tempfile, time
+from pathlib import Path
+import torch
+import chip_smoke as cs
+from specforge_tpu_torch.ops import attention_cuda as ac, cuda_lib
+
+opts = json.loads(sys.argv[1])
+cuda_lib.library()
+gen = torch.Generator(device="cuda").manual_seed(0)
+
+
+def run_ms(fn, launches=30, warmup=3):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(launches):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / launches
+
+
+def timed(kernels):
+    row = {}
+    for name, fn in kernels.items():
+        row[name + "_ms"] = cs.median_ms(fn)
+        row[name + "_run_ms"] = run_ms(fn)
+    return row
+
+
+def randn_like(x):
+    return torch.randn(x.shape, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+
+
+def ttt():
+    rows = []
+    for nb in range(cs.TTT):
+        q, keys, values, key_valid = cs.attention_inputs(gen, cs.MAX_LEN, nb,
+                                                         True)
+        out, m, l = ac.ttt_flash_attention_fwd(q, keys, values, key_valid)
+        dout = randn_like(out)
+        valid = key_valid.to(torch.int32)
+        delta = ac.backward_delta(out, dout, q.shape[1])
+        args = (q, keys, values, valid, dout, m, l, delta)
+        row = {"branches": nb, **timed({
+            "fwd": lambda: ac.ttt_flash_attention_fwd(q, keys, values,
+                                                      key_valid),
+            "dq": lambda: ac.ttt_attention_bwd_dq(*args),
+            "dkv": lambda: ac.ttt_attention_bwd_dkv(*args),
+            "bwd": lambda: ac.ttt_flash_attention_bwd(
+                q, keys, values, key_valid, out, m, l, dout),
+        })}
+        rows.append(row)
+        del q, keys, values, out, dout, args
+    result = {"rows": rows}
+    for key in rows[0]:
+        if key.endswith("ms"):
+            result["mean_" + key] = sum(r[key] for r in rows) / len(rows)
+    return result
+
+
+def dflash():
+    from specforge_tpu_torch.ops import dflash_attention_cuda as dc
+    name, b, h, kvh, d, s, n, window = cs.DFLASH_CASES[0]
+    inputs = cs.dflash_case_inputs(gen, b, h, kvh, d, s, n)
+    bs = cs.DFLASH_BS
+    out, m, l = dc.dflash_flash_attention_fwd(*inputs, bs, window)
+    dout = randn_like(out)
+    args = (*inputs, bs, window, dout, m, l, ac.backward_delta(out, dout, h))
+    return {"case": name, **timed({
+        "fwd": lambda: dc.dflash_flash_attention_fwd(*inputs, bs, window),
+        "dq": lambda: dc.dflash_attention_bwd_dq(*args),
+        "dkv": lambda: dc.dflash_attention_bwd_dkv(*args),
+    })}
+
+
+def cod():
+    from specforge_tpu_torch.ops import peagle_attention_cuda as pac
+    name, b, h, kvh, d, s, docs, unsupervised = cs.COD_CASES[0]
+    q, k, v, tiles = cs.cod_case_inputs(gen, b, h, kvh, d, s, docs,
+                                        unsupervised)
+    out, m, l = pac.cod_attention_fwd(q, k, v, tiles)
+    dout = randn_like(out)
+    args = (q, k, v, tiles, dout, m, l, ac.backward_delta(out, dout, h))
+    return {"case": name, **timed({
+        "fwd": lambda: pac.cod_attention_fwd(q, k, v, tiles),
+        "dq": lambda: pac.cod_attention_bwd_dq(*args),
+        "dkv": lambda: pac.cod_attention_bwd_dkv(*args),
+    })}
+
+
+def trainer_for(family, work):
+    """A kernel-path trainer of the family's chip_smoke training run."""
+    device = torch.device("cuda")
+    if family == "ttt":
+        cfg = cs.Eagle3Config.from_file(cs.CONFIG)
+        cs.write_features(work / "train", cfg, 0, cs.TRAIN_FILES, 1536,
+                          cs.MAX_LEN)
+        cs.write_features(work / "eval", cfg, 100, cs.EVAL_FILES, 1536,
+                          cs.MAX_LEN)
+        target = cs.write_target_dir(work / "target", cfg.vocab_size,
+                                     cfg.resolved_target_hidden_size, device,
+                                     0, 0.02)
+        run_json = cs.training_run_json(work, cs.CONFIG, target, cs.MAX_LEN)
+    elif family == "dflash":
+        from specforge_tpu_torch.models.draft.dflash import DFlashConfig
+        cfg = DFlashConfig.from_dict(json.loads(cs.DOMINO_CONFIG.read_text()))
+        cs.write_dflash_features(
+            work / "train", len(cfg.resolved_target_layer_ids),
+            cfg.hidden_size, cfg.vocab_size, 0, cs.FAMILY_FILES["domino"],
+            512, 768)
+        target = cs.write_target_dir(work / "target", cfg.vocab_size,
+                                     cfg.hidden_size, device, 0, 0.02)
+        run_json = cs.family_run_json("domino", work, cs.DOMINO_CONFIG,
+                                      target, 768)
+    else:
+        cfg = cs.PEagleConfig.from_dict(
+            json.loads(cs.PEAGLE_CONFIG.read_text()))
+        cs.write_features(work / "train", cfg, 0, cs.PEAGLE_FILES, 768, 1024,
+                          response_only=True)
+        target = cs.write_target_dir(work / "target", cfg.vocab_size,
+                                     cfg.resolved_target_hidden_size, device,
+                                     0, 0.02)
+        run_json = cs.peagle_run_json(work, cs.PEAGLE_CONFIG, target, 1024)
+    config = cs.load_config(str(run_json), ['run_id="timing"',
+                                            "training.save_interval=0"])
+    return cs.build_training_run(config, device=None)
+
+
+family = opts["family"]
+result = {"tree": opts["tree"], "family": family,
+          **{"ttt": ttt, "dflash": dflash, "cod": cod}[family]()}
+if opts["micro_step"]:
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="kernel-compare-") as tmp:
+        trainer = trainer_for(family, Path(tmp))
+        window = cs.first_window(trainer)
+        step = trainer.train_step
+        times = []
+        for tensors in window * 4:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            grads, _ = step.micro_step(trainer.state, tensors,
+                                       trainer.frozen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            del grads
+    result["micro_step_ms"] = statistics.median(times[1:])
+    result["micro_step_ms_all"] = times
+print(json.dumps(result), flush=True)
+'''
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("trees", nargs="+", help="checkouts, in turn order")
+    parser.add_argument("--family", choices=("ttt", "dflash", "cod"),
+                        default="ttt", help="the kernels to time")
+    parser.add_argument("--micro-step", action="store_true",
+                        help="also time the family's micro-step of each tree")
+    args = parser.parse_args()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip()
+    print(json.dumps({"card": smi.splitlines()[0]}), flush=True)
+    for tree in args.trees:
+        root = os.path.abspath(tree)
+        env = dict(os.environ, PYTHONPATH=root)
+        opts = json.dumps({"tree": tree, "family": args.family,
+                           "micro_step": args.micro_step})
+        proc = subprocess.run([sys.executable, "-c", WORKER, opts], cwd=root,
+                              env=env)
+        if proc.returncode != 0:
+            print(f"{tree}: exited {proc.returncode}", file=sys.stderr)
+            return proc.returncode
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -28,10 +28,10 @@
 // terms from each run's anchors.
 //
 // What the design does about that. Every product runs on the tensor cores
-// through `mma.sync.m16n8k16` (bf16 in, fp32 accumulate); no score tile
-// reaches device memory; nothing is padded or copied (the ragged ends of the
-// context and of the draft rows are zero-filled by cp.async and masked).
-// Forward and kernel A: one block of 4 warps owns a q tile of 64 rows of one
+// (bf16 in, fp32 accumulate); no score tile reaches device memory; nothing
+// is padded or copied (the ragged ends of the context and of the draft rows
+// are zero-filled and masked). Forward and kernel A, on
+// `mma.sync.m16n8k16`: one block of 4 warps owns a q tile of 64 rows of one
 // (batch, head), a whole number of anchor blocks; each warp keeps the Q (and
 // dO) fragments of its 16 rows in registers. The anchors are sorted, so the
 // tile's context loop runs only over the K tiles between the smallest lower
@@ -44,18 +44,28 @@
 // products over the tile's rows, written per query head; the wrapper sums the
 // H / KVH heads of each group in fp32 (each draft key is read only by its own
 // block's rows, so no other block touches it).
-// Kernel B: one block owns 64 context keys of one (batch, kv head), K and V in
-// shared memory, dk and dv in fp32 registers; it first lists the q tiles whose
-// rows can reach these keys (from the anchors), then walks the group's query
-// heads over those tiles with Q, dO and the row statistics staged by cp.async
-// in two buffers. The GQA kv head is read as h / (H / KVH), never repeated in
-// memory; there are no atomics, so two runs give the same bits.
-// Not yet used: TMA, wgmma and warp specialisation.
+// Kernel B, the context keys' dk/dv, is bound by its four products per
+// (query head, q tile) item that reaches a key tile: at the Domino slice
+// 27,936 items over 192 blocks, the heaviest (key tile 0, every q tile of
+// the four heads) 256 items. The first design ran them on mma.sync from 4
+// warps with two cp.async stages and the mask per element, at about 7% of
+// the tensor rate on that block. It now follows ttt_bwd_dkv_kernel
+// (dkv_stream.cuh): a block of 384 threads owns 64 context keys of one
+// (batch, kv head), K and V by TMA once, and first lists the q tiles whose
+// kept anchors reach its keys; two consumer warpgroups split the group's
+// (head, q tile) stream, each fed a ring of Q/dO stages by two producer
+// warps, and run all four products on `wgmma` with dk, dv in fp32
+// registers. Each
+// row's context span [lo, hi) travels with its stage; a tile whose rows all
+// reach every key of the block skips the mask (at the Domino slice most do:
+// the key tile lies below the q tile's smallest anchor). The key tile is
+// the grid's slow index, so without a window the heaviest blocks start
+// first. The kernels share the Hopper helpers of hopper.cuh.
+// The forward and kernel A do not use TMA, wgmma or warp specialisation yet.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <limits.h>
-#include <stdint.h>
+
+#include "dkv_stream.cuh"
 
 namespace {
 
@@ -64,7 +74,6 @@ constexpr int kBlockN = 64;  // keys per shared-memory tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kPStride = kBlockN + 8;  // padded row of the staged draft p, ds
-constexpr float kNegInf = -1e30f;      // finite, as in the TPU kernel
 
 struct Params {
   const __nv_bfloat16* q;   // [B, H, Q, D] strided
@@ -95,11 +104,6 @@ struct Params {
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // D[16x8] += A[16x16] * B[16x8], bf16 inputs, fp32 accumulators.
@@ -148,16 +152,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // The allowed keys of query row r of batch b: context keys [x, y), draft
@@ -707,237 +701,103 @@ __global__ void __launch_bounds__(kThreads) dflash_bwd_dq_kernel(const Params p)
 // backward, kernel B: the context keys' dk/dv
 // --------------------------------------------------------------------------
 
-// One block owns 64 context keys of one (batch, kv head), 16 per warp, and
-// walks (query head of the group, q tile that reaches these keys) pairs, so
-// the group's heads are summed in registers.
-template <int D>
-__global__ void __launch_bounds__(kThreads) dflash_bwd_dkv_kernel(const Params p) {
-  constexpr int kStride = D + 8;
-  constexpr int kSteps = D / 16;
-  constexpr int kDTiles = D / 8;
-  constexpr int kVecPerRow = D / 8;
-  constexpr int kTile = kBlockN * kStride;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sV = sK + kTile;
-  __nv_bfloat16* sQs = sV + kTile;        // two stages
-  __nv_bfloat16* sDOs = sQs + 2 * kTile;  // two stages
-  int* sList = reinterpret_cast<int*>(sDOs + 2 * kTile);  // useful q tiles
-  __shared__ float sM[2][kBlockM], sIL[2][kBlockM], sDl[2][kBlockM];
-  __shared__ int sLo[2][kBlockM], sHi[2][kBlockM];
-  __shared__ int sCount;
+struct DkvParams {
+  DkvStream s;         // rows = Q, keys = S
+  const int* anchors;  // [B, N]
+  const int* keep;     // [B, N], 0 = block not kept
+  int N, bs_shift, window;  // block_size = 1 << bs_shift (it divides 64)
+};
 
-  const int H = p.H;
-  const int G = H / p.KVH;
-  const int ktile = blockIdx.x;  // early keys (reached by most q tiles) first
-  const int b = blockIdx.y / p.KVH;
-  const int kvh = blockIdx.y % p.KVH;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int key0 = ktile * kBlockN;
-  const int kr0 = key0 + warp * 16 + g;  // this thread's two keys
-  const int kr1 = kr0 + 8;
-  const long long HD = (long long)H * D;
+// The DFlash mask of the dk/dv stream: a row's allowed context keys are one
+// interval [lo, hi) (the x, y of row_span), staged with its q tile as 16
+// bytes a row; a stage needs no mask when every row of the tile reaches
+// every key of the block's tile (kept, lo <= key0, hi >= key0 + 64).
+struct DFlashRows {
+  const DkvParams& p;
 
-  // K and V of this block's keys, once
-  {
-    const __nv_bfloat16* kbase = p.kc + b * p.kc_sb + kvh * p.kc_sh;
-    const __nv_bfloat16* vbase = p.vc + b * p.vc_sb + kvh * p.vc_sh;
-    for (int i = threadIdx.x; i < kBlockN * kVecPerRow; i += kThreads) {
-      const int r = i / kVecPerRow;
-      const int c = (i % kVecPerRow) * 8;
-      const int key = key0 + r;
-      const long long src = key < p.S ? key : 0;
-      cp_async16(sK + r * kStride + c, kbase + src * p.kc_ss + c, key < p.S);
-      cp_async16(sV + r * kStride + c, vbase + src * p.vc_ss + c, key < p.S);
-    }
-    cp_async_commit();
+  using Keys = int2;  // this thread's two keys
+  using Row = int2;   // a row's context span [lo, hi)
+
+  __device__ __forceinline__ Keys keys(const unsigned char*,
+                                       const DkvBlock& blk, int kr0) const {
+    return make_int2(blk.key0 + kr0, blk.key0 + kr0 + 8);
   }
 
-  // the q tiles whose kept rows can reach keys [key0, key0 + 64): a row of
-  // block n reaches at most [a_n - (w - 1), a_n) (all of [0, a_n) without a
-  // window); flags first, then compacted in place by one warp
-  const int n_qtiles = (p.Q + kBlockM - 1) / kBlockM;
-  const int blocks_per_tile = kBlockM / p.bs;
-  for (int i = threadIdx.x; i < n_qtiles; i += kThreads) {
+  __device__ __forceinline__ Row row(const unsigned char* mask, int r) const {
+    return *reinterpret_cast<const int2*>(mask + r * 16);
+  }
+
+  __device__ __forceinline__ bool allow(const Keys& k, int kx, Row r) const {
+    const int key = kx ? k.y : k.x;
+    return key >= r.x && key < r.y;
+  }
+
+  // row q0 + r's span; whether it reaches every key of the block's tile
+  __device__ __forceinline__ bool stage_row(unsigned char* mask,
+                                            const DkvBlock& blk, int q0,
+                                            int r) const {
+    const int row = q0 + r;
+    int lo = 0, hi = 0;
+    if (row < p.s.rows) {
+      const long long i = (long long)blk.b * p.N + (row >> p.bs_shift);
+      if (p.keep[i] != 0) {
+        const int a = p.anchors[i];
+        hi = min(max(a, 0), p.s.keys);
+        if (p.window > 0) {
+          const int o = row & ((1 << p.bs_shift) - 1);
+          lo = min(max(a + o - (p.window - 1), 0), hi);
+        }
+      }
+    }
+    *reinterpret_cast<int2*>(mask + r * 16) = make_int2(lo, hi);
+    return lo <= blk.key0 && hi >= blk.key0 + kTileRows;
+  }
+
+  // the tile needs no mask when every row reaches every key
+  __device__ __forceinline__ bool tile_free(int, bool rows_free) const {
+    return rows_free;
+  }
+};
+
+// One block owns 64 context keys of one (batch, kv head) (blockIdx: key
+// tile, the slow index, then batch, kv head): without a window the early
+// key tiles are reached by the most q tiles, so the heaviest blocks start
+// first. The block first lists the q tiles whose kept anchors reach its
+// keys (a row of block n reaches at most [a_n - (w - 1), a_n); all of
+// [0, a_n) without a window), then streams the group's query heads over
+// them (dkv_stream.cuh).
+template <int D>
+__global__ void __launch_bounds__(kDkvThreads, 1)
+    dflash_bwd_dkv_kernel(const __grid_constant__ DkvParams p) {
+  using L = DkvStreamSmem<D>;
+  extern __shared__ unsigned char dkv_smem[];
+  unsigned char* smem = align1024(dkv_smem);
+  int* list = reinterpret_cast<int*>(smem + L::kList);
+  const int BK = p.s.B * p.s.KVH;
+  const int b = blockIdx.x % BK / p.s.KVH;
+  const int key0 = blockIdx.x / BK * kTileRows;
+  dkv_init_block<D>(smem, b, blockIdx.x % p.s.KVH, key0);
+
+  const int n_qtiles = (p.s.rows + kBlockM - 1) / kBlockM;
+  const int blocks_per_tile = kBlockM >> p.bs_shift;
+  for (int i = threadIdx.x; i < n_qtiles; i += blockDim.x) {
     int lo = INT_MAX, hi = 0;
     const int n_end = min((i + 1) * blocks_per_tile, p.N);
     for (int n = i * blocks_per_tile; n < n_end; ++n) {
       const long long idx = (long long)b * p.N + n;
       if (p.keep[idx] == 0) continue;
       const int a = p.anchors[idx];
-      const int bh = min(max(a, 0), p.S);
+      const int bh = min(max(a, 0), p.s.keys);
       const int bl = p.window > 0 ? min(max(a - (p.window - 1), 0), bh) : 0;
       if (bh > bl) {
         lo = min(lo, bl);
         hi = max(hi, bh);
       }
     }
-    sList[i] = (hi > lo && lo < key0 + kBlockN && hi > key0) ? 1 : 0;
+    list[i] = (hi > lo && lo < key0 + kTileRows && hi > key0) ? 1 : 0;
   }
-  __syncthreads();
-  if (warp == 0) {
-    int count = 0;
-    for (int base = 0; base < n_qtiles; base += 32) {
-      const int i = base + lane;
-      const bool f = i < n_qtiles && sList[i] != 0;
-      const unsigned mask = __ballot_sync(0xffffffffu, f);
-      __syncwarp();
-      if (f) sList[count + __popc(mask & ((1u << lane) - 1u))] = i;
-      count += __popc(mask);
-      __syncwarp();
-    }
-    if (lane == 0) sCount = count;
-  }
-  __syncthreads();
-  const int n_useful = sCount;
-  const int n_iters = G * n_useful;
-
-  // iteration it covers query head kvh * G + it / n_useful of q tile
-  // sList[it % n_useful]
-  auto load_q = [&](int it, int buf) {
-    const int h = kvh * G + it / n_useful;
-    const int q0 = sList[it % n_useful] * kBlockM;
-    const __nv_bfloat16* qbase = p.q + b * p.q_sb + h * p.q_sh;
-    const __nv_bfloat16* dbase = p.dout + (long long)b * p.Q * HD + h * D;
-    __nv_bfloat16* sQ = sQs + buf * kTile;
-    __nv_bfloat16* sDO = sDOs + buf * kTile;
-    for (int i = threadIdx.x; i < kBlockM * kVecPerRow; i += kThreads) {
-      const int r = i / kVecPerRow;
-      const int c = (i % kVecPerRow) * 8;
-      const int row = q0 + r;
-      const long long src = row < p.Q ? row : 0;
-      cp_async16(sQ + r * kStride + c, qbase + src * p.q_ss + c, row < p.Q);
-      cp_async16(sDO + r * kStride + c, dbase + src * HD + c, row < p.Q);
-    }
-    const long long sbase = ((long long)b * H + h) * p.Q;
-    for (int i = threadIdx.x; i < kBlockM; i += kThreads) {
-      const int row = q0 + i;
-      const bool in = row < p.Q;
-      const int4 span = row_span(p, b, row);
-      sM[buf][i] = in ? p.m[sbase + row] : 0.f;
-      sIL[buf][i] = in ? 1.f / fmaxf(p.l[sbase + row], 1e-30f) : 0.f;
-      sDl[buf][i] = in ? p.delta[sbase + row] : 0.f;
-      sLo[buf][i] = span.x;
-      sHi[buf][i] = span.y;
-    }
-    cp_async_commit();
-  };
-
-  float dk[kDTiles][4], dv[kDTiles][4];
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    dk[dt][0] = dk[dt][1] = dk[dt][2] = dk[dt][3] = 0.f;
-    dv[dt][0] = dv[dt][1] = dv[dt][2] = dv[dt][3] = 0.f;
-  }
-
-  // A-operand (rows = this warp's 16 keys) addresses of K and V
-  const int a_off = (warp * 16 + (lane & 15)) * kStride + (lane >> 4) * 8;
-  if (n_iters > 0) load_q(0, 0);
-  for (int it = 0; it < n_iters; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_iters) {
-      load_q(it + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* sQ = sQs + buf * kTile;
-    const __nv_bfloat16* sDO = sDOs + buf * kTile;
-
-#pragma unroll
-    for (int kk = 0; kk < kBlockM / 16; ++kk) {
-      // s^T = K Q^T and dp^T = V dO^T for 16 keys x 16 queries
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int e2 = 0; e2 < 2; ++e2) {
-        s[e2][0] = s[e2][1] = s[e2][2] = s[e2][3] = 0.f;
-        dp[e2][0] = dp[e2][1] = dp[e2][2] = dp[e2][3] = 0.f;
-      }
-#pragma unroll
-      for (int ks = 0; ks < kSteps; ks += 2) {
-        uint32_t ka0[4], ka1[4], va0[4], va1[4];
-        ldmatrix_x4(ka0, sK + a_off + ks * 16);
-        ldmatrix_x4(ka1, sK + a_off + (ks + 1) * 16);
-        ldmatrix_x4(va0, sV + a_off + ks * 16);
-        ldmatrix_x4(va1, sV + a_off + (ks + 1) * 16);
-#pragma unroll
-        for (int e2 = 0; e2 < 2; ++e2) {
-          const int off = ((2 * kk + e2) * 8 + (lane & 7)) * kStride +
-                          (lane >> 3) * 8 + ks * 16;
-          uint32_t f[4];
-          ldmatrix_x4(f, sQ + off);
-          mma_bf16(s[e2], ka0, f[0], f[1]);
-          mma_bf16(s[e2], ka1, f[2], f[3]);
-          ldmatrix_x4(f, sDO + off);
-          mma_bf16(dp[e2], va0, f[0], f[1]);
-          mma_bf16(dp[e2], va1, f[2], f[3]);
-        }
-      }
-      // p^T under the row spans, ds^T = p^T * (dp^T - delta)
-      float pt[2][4];
-#pragma unroll
-      for (int e2 = 0; e2 < 2; ++e2) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qi = kk * 16 + e2 * 8 + 2 * t + (i & 1);
-          const int kr = i < 2 ? kr0 : kr1;
-          const bool ok = kr >= sLo[buf][qi] && kr < sHi[buf][qi];
-          const float pv =
-              ok ? __expf(s[e2][i] * p.scale - sM[buf][qi]) * sIL[buf][qi]
-                 : 0.f;
-          pt[e2][i] = pv;
-          s[e2][i] = pv * (dp[e2][i] - sDl[buf][qi]);
-        }
-      }
-      // dv += p^T dO and dk += ds^T Q: A from registers (C -> A layout), dO
-      // and Q as B (k = query, n = head dim) through transposing ldmatrix
-      uint32_t ap[4], as[4];
-      ap[0] = pack_bf16(pt[0][0], pt[0][1]);
-      ap[1] = pack_bf16(pt[0][2], pt[0][3]);
-      ap[2] = pack_bf16(pt[1][0], pt[1][1]);
-      ap[3] = pack_bf16(pt[1][2], pt[1][3]);
-      as[0] = pack_bf16(s[0][0], s[0][1]);
-      as[1] = pack_bf16(s[0][2], s[0][3]);
-      as[2] = pack_bf16(s[1][0], s[1][1]);
-      as[3] = pack_bf16(s[1][2], s[1][3]);
-      const int toff =
-          (kk * 16 + (lane & 8) + (lane & 7)) * kStride + (lane >> 4) * 8;
-#pragma unroll
-      for (int dt = 0; dt < kDTiles; dt += 2) {
-        uint32_t f[4];
-        ldmatrix_x4_trans(f, sDO + toff + dt * 8);
-        mma_bf16(dv[dt], ap, f[0], f[1]);
-        mma_bf16(dv[dt + 1], ap, f[2], f[3]);
-        ldmatrix_x4_trans(f, sQ + toff + dt * 8);
-        mma_bf16(dk[dt], as, f[0], f[1]);
-        mma_bf16(dk[dt + 1], as, f[2], f[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with `buf` before it is refilled
-  }
-  cp_async_wait<0>();  // the K/V copy, when no q tile reached these keys
-
-  const long long obase = ((long long)b * p.KVH + kvh) * p.S * D;
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (kr0 < p.S) {
-      *reinterpret_cast<uint32_t*>(p.dkc + obase + kr0 * D + c) =
-          pack_bf16(dk[dt][0] * p.scale, dk[dt][1] * p.scale);
-      *reinterpret_cast<uint32_t*>(p.dvc + obase + kr0 * D + c) =
-          pack_bf16(dv[dt][0], dv[dt][1]);
-    }
-    if (kr1 < p.S) {
-      *reinterpret_cast<uint32_t*>(p.dkc + obase + kr1 * D + c) =
-          pack_bf16(dk[dt][2] * p.scale, dk[dt][3] * p.scale);
-      *reinterpret_cast<uint32_t*>(p.dvc + obase + kr1 * D + c) =
-          pack_bf16(dv[dt][2], dv[dt][3]);
-    }
-  }
+  compact_list(list, n_qtiles, &block_info<D>(smem)->n_list);
+  dkv_stream_block<D>(p.s, DFlashRows{p}, smem);
 }
 
 // --------------------------------------------------------------------------
@@ -956,9 +816,6 @@ int launch_kernel(Kernel kernel, dim3 grid, int smem, const Params& p,
 
 int smem_fwd(int D) { return 4 * kBlockN * (D + 8) * 2; }
 int smem_dq(int D) { return smem_fwd(D) + 2 * kBlockM * kPStride * 2; }
-int smem_dkv(int D, int n_qtiles) {
-  return 6 * kBlockN * (D + 8) * 2 + n_qtiles * 4;
-}
 
 // tensors: q, k_ctx, v_ctx, k_drf, v_drf; strides: their element strides
 // over (b, head, row), 15 values in that order; the head dim is contiguous
@@ -1049,7 +906,9 @@ extern "C" int dflash_attention_bwd_dq(
 }
 
 // Backward kernel B: the context keys' dk, dv [B, KVH, S, D] (contiguous
-// bf16), summed over the query heads of each group. Arguments as kernel A.
+// bf16), summed over the query heads of each group. Arguments as kernel A;
+// the strides of q and of the context keys and values must be multiples of
+// 8 elements and their bases 16-byte aligned (the tensor maps').
 extern "C" int dflash_attention_bwd_dkv(
     const void* const* tensors, const long long* strides, const int* anchors,
     const int* keep, const void* dout, const float* m, const float* l,
@@ -1059,18 +918,22 @@ extern "C" int dflash_attention_bwd_dkv(
   const int e = fill_params(p, tensors, strides, anchors, keep, B, H, KVH, S,
                             N, bs, window, D);
   if (e != cudaSuccess) return e;
-  if ((long long)B * KVH > 65535) return cudaErrorInvalidValue;
-  const int n_qtiles = (p.Q + kBlockM - 1) / kBlockM;
-  const int smem = smem_dkv(D, n_qtiles);
-  if (smem > 227 * 1024) return cudaErrorInvalidValue;
-  p.dout = static_cast<const __nv_bfloat16*>(dout);
-  p.m = const_cast<float*>(m);
-  p.l = const_cast<float*>(l);
-  p.delta = delta;
-  p.dkc = static_cast<__nv_bfloat16*>(dkc);
-  p.dvc = static_cast<__nv_bfloat16*>(dvc);
-  const dim3 grid((S + kBlockN - 1) / kBlockN, B * KVH);
+  DkvParams d;
+  if (!fill_stream(d.s, tensors[0], strides, tensors[1], strides + 3,
+                   tensors[2], strides + 6, dout, m, l, delta, dkc, dvc, B,
+                   H, KVH, p.Q, S, D)) {
+    return cudaErrorInvalidValue;
+  }
+  d.anchors = anchors;
+  d.keep = keep;
+  d.N = N;
+  d.bs_shift = 0;
+  while ((1 << d.bs_shift) < bs) ++d.bs_shift;
+  d.window = window;
+  const long long blocks = (long long)((S + kBlockN - 1) / kBlockN) * B * KVH;
+  const int smem = dkv_smem_bytes(D, (p.Q + kBlockM - 1) / kBlockM);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 128 ? launch_kernel(dflash_bwd_dkv_kernel<128>, grid, smem, p, st)
-                  : launch_kernel(dflash_bwd_dkv_kernel<64>, grid, smem, p, st);
+  return D == 128
+             ? launch_dkv(dflash_bwd_dkv_kernel<128>, smem, d, blocks, st)
+             : launch_dkv(dflash_bwd_dkv_kernel<64>, smem, d, blocks, st);
 }

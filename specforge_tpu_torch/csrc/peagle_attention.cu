@@ -30,30 +30,46 @@
 // chip_smoke.py recomputes both terms from each run's sample.
 //
 // What the design does about that. Every product runs on the tensor cores
-// through `mma.sync.m16n8k16` (bf16 in, fp32 accumulate); no score tile
-// reaches device memory. Whole 64 x 64 tiles with no allowed pair are
-// skipped: the caller hands a [B, NT, NT] table (1 where a tile pair holds
-// an allowed pair), built once per forward from the model's mask and shared
-// by every layer and head; each block lists its live tiles from it first.
-// The doc-major order of the sample makes the live tiles few and dense
-// (about a third of the grid at the slice, block-diagonal when documents are
-// packed). Forward and dq: one block of 4 warps owns a q tile of 64 rows of
-// one (batch, head); each warp keeps the Q (and dO) fragments of its 16 rows
-// and the properties of its thread's two rows in registers; the live K/V
-// tiles and their keys' properties are staged by cp.async in two buffers of
-// padded shared memory and reach the tensor cores through ldmatrix. dk/dv:
-// one block owns 64 keys of one (batch, kv head), K and V in shared memory,
-// dk and dv in fp32 registers, and walks the group's H / KVH query heads over
-// the q tiles live for these keys, with Q, dO, the row statistics and the
-// rows' properties staged in two buffers. The GQA kv head is read as
-// h / (H / KVH), never repeated in memory; there are no atomics, so two runs
-// give the same bits. T need not be a multiple of 64: rows and keys past T
-// are zero-filled and carry no valid property.
-// Not yet used: TMA, wgmma and warp specialisation.
+// (bf16 in, fp32 accumulate); no score tile reaches device memory. Whole
+// 64 x 64 tiles with no allowed pair are skipped: the caller hands a
+// [B, NT, NT] table (1 where a tile pair holds an allowed pair), built once
+// per forward from the model's mask and shared by every layer and head;
+// each block lists its live tiles from it first. The doc-major order of
+// the sample makes the live tiles few and dense (about a quarter of the
+// grid at the slice, block-diagonal when documents are packed). Forward
+// and dq, on `mma.sync.m16n8k16`: one block of 4 warps owns a q tile of 64
+// rows of one (batch, head); each warp keeps the Q (and dO) fragments of
+// its 16 rows and the properties of its thread's two rows in registers;
+// the live K/V tiles and their keys' properties are staged by cp.async in
+// two buffers of padded shared memory and reach the tensor cores through
+// ldmatrix. The GQA kv head is read as h / (H / KVH), never repeated in
+// memory; there are no atomics, so two runs give the same bits. T need not
+// be a multiple of 64: rows and keys past T are zero-filled and carry no
+// valid property.
+// dk/dv is bound by its four products per live (query head, q tile) item:
+// at the slice 45,632 items over 864 blocks, at most 180 in one block; the
+// first design (mma.sync from 4 warps, two cp.async stages, the predicate
+// on every pair) reached about 10% of the tensor rate on the critical path,
+// and its grid order (key tiles doc-major, not by load) left SMs idle at
+// the end. It now follows ttt_bwd_dkv_kernel (dkv_stream.cuh): a block of
+// 384 threads owns 64 keys of one (batch, kv head), K and V by TMA once;
+// two consumer warpgroups split the group's (head, live q tile) stream,
+// each fed a ring of Q/dO stages by two producer warps, and run all four
+// products on `wgmma` with dk, dv in fp32 registers. The rows' properties
+// travel with their stage, the keys' are staged once in shared memory
+// and read per item only where the predicate runs, so they hold no
+// consumer registers across the stream (dk and dv take 128); tile pairs
+// whose every pair is allowed (a second [B, NT, NT] array from the caller,
+// carried as a bit of the block's item list: 46% of the live pairs at the
+// slice) skip the predicate. The blocks are issued longest first, in an
+// order of (batch, key tile) pairs the caller sorts by their live q tiles
+// on the card, once per forward. The kernels share the Hopper helpers of
+// hopper.cuh. The forward and dq do not use TMA, wgmma or warp
+// specialisation yet.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <limits.h>
+
+#include "dkv_stream.cuh"
 
 namespace {
 
@@ -61,7 +77,6 @@ constexpr int kBlockM = 64;  // query rows per q tile, 16 per warp
 constexpr int kBlockN = 64;  // keys per shared-memory tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr float kNegInf = -1e30f;  // finite, as in the TPU kernel
 
 struct Params {
   const __nv_bfloat16* q;  // [B, H, T, D] strided
@@ -86,11 +101,6 @@ struct Params {
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // D[16x8] += A[16x16] * B[16x8], bf16 inputs, fp32 accumulators.
@@ -139,16 +149,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // The COD predicate: x = anchor, y = depth, z = doc of the anchor (-1 for
@@ -561,203 +561,112 @@ __global__ void __launch_bounds__(kThreads) cod_bwd_dq_kernel(const Params p) {
 // backward: dk, dv
 // --------------------------------------------------------------------------
 
-// One block owns 64 keys of one (batch, kv head), 16 per warp, and walks
-// (query head of the group, live q tile) pairs, so the group's heads are
-// summed in registers.
-template <int D>
-__global__ void __launch_bounds__(kThreads) cod_bwd_dkv_kernel(const Params p) {
-  constexpr int kStride = D + 8;
-  constexpr int kSteps = D / 16;
-  constexpr int kDTiles = D / 8;
-  constexpr int kVecPerRow = D / 8;
-  constexpr int kTile = kBlockN * kStride;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sV = sK + kTile;
-  __nv_bfloat16* sQs = sV + kTile;        // two stages
-  __nv_bfloat16* sDOs = sQs + 2 * kTile;  // two stages
-  int* sList = reinterpret_cast<int*>(sDOs + 2 * kTile);  // live q tiles
-  __shared__ float sM[2][kBlockM], sIL[2][kBlockM], sDl[2][kBlockM];
-  __shared__ int4 sQP[2][kBlockM];
-  __shared__ int sCount;
+struct CodDkvParams {
+  DkvStream s;         // rows = keys = T
+  const int4* props;   // [B, T]
+  const int* tiles;    // [B, NT, NT]: 1 where a tile pair may attend
+  const int* full;     // [B, NT, NT]: 1 where every pair of it is allowed
+  const int* order;    // [B * NT]: (batch, key tile) pairs, longest first
+  int NT;
+};
 
-  const int H = p.H;
-  const int G = H / p.KVH;
-  const int ktile = blockIdx.x;
-  const int b = blockIdx.y / p.KVH;
-  const int kvh = blockIdx.y % p.KVH;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int key0 = ktile * kBlockN;
-  const int kr0 = key0 + warp * 16 + g;  // this thread's two keys
-  const int kr1 = kr0 + 8;
-  const int4 kp0 = load_prop(p, b, kr0);
-  const int4 kp1 = load_prop(p, b, kr1);
-  const long long HD = (long long)H * D;
+// The COD mask of the dk/dv stream. Each row's properties travel with its
+// q tile (16 bytes a row) with the row's own conditions folded into the
+// doc: a row that is invalid or padding gets a doc no key has (INT_MIN + 1);
+// an invalid key gets INT_MIN, which no row has. Then a pair is allowed iff
+// the docs match and the trunk or the rollout rule holds, as cod_allow. The
+// block's 64 keys' properties are staged once, and a thread reads its two
+// keys' for each item that needs the mask. A stage needs no mask when the
+// caller's full-tile flag (carried in the item list) says every pair of the
+// tile pair is allowed.
+struct CodRows {
+  const CodDkvParams& p;
 
-  // K and V of this block's keys, once
-  {
-    const __nv_bfloat16* kbase = p.k + b * p.k_sb + kvh * p.k_sh;
-    const __nv_bfloat16* vbase = p.v + b * p.v_sb + kvh * p.v_sh;
-    for (int i = threadIdx.x; i < kBlockN * kVecPerRow; i += kThreads) {
-      const int r = i / kVecPerRow;
-      const int c = (i % kVecPerRow) * 8;
-      const int key = key0 + r;
-      const long long src = key < p.T ? key : 0;
-      cp_async16(sK + r * kStride + c, kbase + src * p.k_ss + c, key < p.T);
-      cp_async16(sV + r * kStride + c, vbase + src * p.v_ss + c, key < p.T);
-    }
-    cp_async_commit();
-  }
-
-  // the q tiles with an allowed pair in this k tile: column `ktile` of the
-  // batch's table
-  const int n_useful = live_list(p.tiles + (long long)b * p.NT * p.NT + ktile,
-                                 p.NT, p.NT, sList, &sCount);
-  const int n_iters = G * n_useful;
-
-  // iteration it covers query head kvh * G + it / n_useful of q tile
-  // sList[it % n_useful]
-  auto load_q = [&](int it, int buf) {
-    const int h = kvh * G + it / n_useful;
-    const int q0 = sList[it % n_useful] * kBlockM;
-    const __nv_bfloat16* qbase = p.q + b * p.q_sb + h * p.q_sh;
-    const __nv_bfloat16* dbase = p.dout + (long long)b * p.T * HD + h * D;
-    __nv_bfloat16* sQ = sQs + buf * kTile;
-    __nv_bfloat16* sDO = sDOs + buf * kTile;
-    for (int i = threadIdx.x; i < kBlockM * kVecPerRow; i += kThreads) {
-      const int r = i / kVecPerRow;
-      const int c = (i % kVecPerRow) * 8;
-      const int row = q0 + r;
-      const long long src = row < p.T ? row : 0;
-      cp_async16(sQ + r * kStride + c, qbase + src * p.q_ss + c, row < p.T);
-      cp_async16(sDO + r * kStride + c, dbase + src * HD + c, row < p.T);
-    }
-    const long long sbase = ((long long)b * H + h) * p.T;
-    for (int i = threadIdx.x; i < kBlockM; i += kThreads) {
-      const int row = q0 + i;
-      const bool in = row < p.T;
-      sM[buf][i] = in ? p.m[sbase + row] : 0.f;
-      sIL[buf][i] = in ? 1.f / fmaxf(p.l[sbase + row], 1e-30f) : 0.f;
-      sDl[buf][i] = in ? p.delta[sbase + row] : 0.f;
-      sQP[buf][i] = load_prop(p, b, row);
-    }
-    cp_async_commit();
+  struct Keys {
+    int a0, d0, c0, a1, d1, c1;  // anchor, depth, doc of the two keys
   };
+  using Row = int4;  // anchor, depth, doc of a row
 
-  float dk[kDTiles][4], dv[kDTiles][4];
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    dk[dt][0] = dk[dt][1] = dk[dt][2] = dk[dt][3] = 0.f;
-    dv[dt][0] = dv[dt][1] = dv[dt][2] = dv[dt][3] = 0.f;
+  __device__ __forceinline__ int4 prop(int b, int i) const {
+    return i < p.s.rows ? p.props[(long long)b * p.s.rows + i]
+                        : make_int4(0, 0, -1, 0);
   }
 
-  // A-operand (rows = this warp's 16 keys) addresses of K and V
-  const int a_off = (warp * 16 + (lane & 15)) * kStride + (lane >> 4) * 8;
-  if (n_iters > 0) load_q(0, 0);
-  for (int it = 0; it < n_iters; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_iters) {
-      load_q(it + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* sQ = sQs + buf * kTile;
-    const __nv_bfloat16* sDO = sDOs + buf * kTile;
-
-#pragma unroll
-    for (int kk = 0; kk < kBlockM / 16; ++kk) {
-      // s^T = K Q^T and dp^T = V dO^T for 16 keys x 16 queries
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int e2 = 0; e2 < 2; ++e2) {
-        s[e2][0] = s[e2][1] = s[e2][2] = s[e2][3] = 0.f;
-        dp[e2][0] = dp[e2][1] = dp[e2][2] = dp[e2][3] = 0.f;
-      }
-#pragma unroll
-      for (int ks = 0; ks < kSteps; ks += 2) {
-        uint32_t ka0[4], ka1[4], va0[4], va1[4];
-        ldmatrix_x4(ka0, sK + a_off + ks * 16);
-        ldmatrix_x4(ka1, sK + a_off + (ks + 1) * 16);
-        ldmatrix_x4(va0, sV + a_off + ks * 16);
-        ldmatrix_x4(va1, sV + a_off + (ks + 1) * 16);
-#pragma unroll
-        for (int e2 = 0; e2 < 2; ++e2) {
-          const int off = ((2 * kk + e2) * 8 + (lane & 7)) * kStride +
-                          (lane >> 3) * 8 + ks * 16;
-          uint32_t f[4];
-          ldmatrix_x4(f, sQ + off);
-          mma_bf16(s[e2], ka0, f[0], f[1]);
-          mma_bf16(s[e2], ka1, f[2], f[3]);
-          ldmatrix_x4(f, sDO + off);
-          mma_bf16(dp[e2], va0, f[0], f[1]);
-          mma_bf16(dp[e2], va1, f[2], f[3]);
-        }
-      }
-      // p^T under the predicate, ds^T = p^T * (dp^T - delta)
-      float pt[2][4];
-#pragma unroll
-      for (int e2 = 0; e2 < 2; ++e2) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qi = kk * 16 + e2 * 8 + 2 * t + (i & 1);
-          const bool ok = cod_allow(sQP[buf][qi], i < 2 ? kp0 : kp1);
-          const float pv =
-              ok ? __expf(s[e2][i] * p.scale - sM[buf][qi]) * sIL[buf][qi]
-                 : 0.f;
-          pt[e2][i] = pv;
-          s[e2][i] = pv * (dp[e2][i] - sDl[buf][qi]);
-        }
-      }
-      // dv += p^T dO and dk += ds^T Q: A from registers (C -> A layout), dO
-      // and Q as B (k = query, n = head dim) through transposing ldmatrix
-      uint32_t ap[4], as[4];
-      ap[0] = pack_bf16(pt[0][0], pt[0][1]);
-      ap[1] = pack_bf16(pt[0][2], pt[0][3]);
-      ap[2] = pack_bf16(pt[1][0], pt[1][1]);
-      ap[3] = pack_bf16(pt[1][2], pt[1][3]);
-      as[0] = pack_bf16(s[0][0], s[0][1]);
-      as[1] = pack_bf16(s[0][2], s[0][3]);
-      as[2] = pack_bf16(s[1][0], s[1][1]);
-      as[3] = pack_bf16(s[1][2], s[1][3]);
-      const int toff =
-          (kk * 16 + (lane & 8) + (lane & 7)) * kStride + (lane >> 4) * 8;
-#pragma unroll
-      for (int dt = 0; dt < kDTiles; dt += 2) {
-        uint32_t f[4];
-        ldmatrix_x4_trans(f, sDO + toff + dt * 8);
-        mma_bf16(dv[dt], ap, f[0], f[1]);
-        mma_bf16(dv[dt + 1], ap, f[2], f[3]);
-        ldmatrix_x4_trans(f, sQ + toff + dt * 8);
-        mma_bf16(dk[dt], as, f[0], f[1]);
-        mma_bf16(dk[dt + 1], as, f[2], f[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with `buf` before it is refilled
+  // key data: key key0 + r's (anchor, depth, doc) at 16 r, by thread r < 64
+  __device__ __forceinline__ void stage_key(unsigned char* key_data, int b,
+                                            int key0, int r) const {
+    const int4 x = prop(b, key0 + r);
+    *reinterpret_cast<int4*>(key_data + r * 16) =
+        make_int4(x.x, x.y, x.w != 0 ? x.z : INT_MIN, 0);
   }
-  cp_async_wait<0>();  // the K/V copy, when no q tile reached these keys
 
-  const long long obase = ((long long)b * p.KVH + kvh) * p.T * D;
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (kr0 < p.T) {
-      *reinterpret_cast<uint32_t*>(p.dk + obase + kr0 * D + c) =
-          pack_bf16(dk[dt][0] * p.scale, dk[dt][1] * p.scale);
-      *reinterpret_cast<uint32_t*>(p.dv + obase + kr0 * D + c) =
-          pack_bf16(dv[dt][0], dv[dt][1]);
-    }
-    if (kr1 < p.T) {
-      *reinterpret_cast<uint32_t*>(p.dk + obase + kr1 * D + c) =
-          pack_bf16(dk[dt][2] * p.scale, dk[dt][3] * p.scale);
-      *reinterpret_cast<uint32_t*>(p.dv + obase + kr1 * D + c) =
-          pack_bf16(dv[dt][2], dv[dt][3]);
-    }
+  __device__ __forceinline__ Keys keys(const unsigned char* key_data,
+                                       const DkvBlock&, int kr0) const {
+    const int4 x = *reinterpret_cast<const int4*>(key_data + kr0 * 16);
+    const int4 y = *reinterpret_cast<const int4*>(key_data + kr0 * 16 + 128);
+    return {x.x, x.y, x.z, y.x, y.y, y.z};
   }
+
+  __device__ __forceinline__ Row row(const unsigned char* mask, int r) const {
+    return *reinterpret_cast<const int4*>(mask + r * 16);
+  }
+
+  __device__ __forceinline__ bool allow(const Keys& k, int kx, Row q) const {
+    const int ka = kx ? k.a1 : k.a0;
+    const int kd = kx ? k.d1 : k.d0;
+    const int kc = kx ? k.c1 : k.c0;
+    return q.z == kc && ((kd == 0 && q.x >= ka) || (q.x == ka && q.y >= kd));
+  }
+
+  // row q0 + r's properties, the row's own conditions folded into the doc
+  __device__ __forceinline__ bool stage_row(unsigned char* mask,
+                                            const DkvBlock& blk, int q0,
+                                            int r) const {
+    int4 x = prop(blk.b, q0 + r);
+    x.z = x.w != 0 && x.z != -1 ? x.z : INT_MIN + 1;
+    *reinterpret_cast<int4*>(mask + r * 16) = x;
+    return true;
+  }
+
+  // the caller's full-tile flag of (q tile, the block's key tile), the
+  // list entry's tile bit
+  __device__ __forceinline__ bool tile_free(int tile_bit, bool) const {
+    return tile_bit != 0;
+  }
+};
+
+// One block owns 64 keys of one (batch, kv head): blockIdx / KVH picks the
+// (batch, key tile) pair from `order` (the caller sorts the pairs by their
+// live q tiles, descending, so the heaviest blocks start first), blockIdx %
+// KVH the kv head. The block stages its keys' properties, lists the live q
+// tiles of its key tile (column `ktile` of the batch's table) and streams
+// the group's query heads over them (dkv_stream.cuh).
+template <int D>
+__global__ void __launch_bounds__(kDkvThreads, 1)
+    cod_bwd_dkv_kernel(const __grid_constant__ CodDkvParams p) {
+  using L = DkvStreamSmem<D>;
+  extern __shared__ unsigned char dkv_smem[];
+  unsigned char* smem = align1024(dkv_smem);
+  int* list = reinterpret_cast<int*>(smem + L::kList);
+  const int NT = p.NT;
+  const int pair = p.order[blockIdx.x / p.s.KVH];
+  const int b = pair / NT;
+  const int ktile = pair % NT;
+  dkv_init_block<D>(smem, b, blockIdx.x % p.s.KVH, ktile * kTileRows);
+
+  const CodRows pol{p};
+  if (threadIdx.x < kTileRows) {
+    pol.stage_key(smem + L::kKeys, b, ktile * kTileRows, threadIdx.x);
+  }
+  // the live q tiles of the key tile, each with its full-tile flag as the
+  // tile bit
+  const long long column = (long long)b * NT * NT + ktile;
+  for (int i = threadIdx.x; i < NT; i += blockDim.x) {
+    const long long at = column + (long long)i * NT;
+    list[i] = p.tiles[at] != 0 ? 1 + 2 * (p.full[at] != 0) : 0;
+  }
+  compact_list(list, NT, &block_info<D>(smem)->n_list);
+  dkv_stream_block<D>(p.s, pol, smem);
 }
 
 // --------------------------------------------------------------------------
@@ -778,7 +687,6 @@ int launch_kernel(Kernel kernel, dim3 grid, int smem, const Params& p,
 int smem_q_side(int D, int nt) {
   return 4 * kBlockN * (D + 8) * 2 + 2 * kBlockN * 16 + nt * 4;
 }
-int smem_dkv(int D, int nt) { return 6 * kBlockN * (D + 8) * 2 + nt * 4; }
 
 // tensors: q, k, v; strides: their element strides over (b, head, row), 9
 // values in that order; the head dim is contiguous
@@ -807,7 +715,8 @@ int fill_params(Params& p, const void* const* tensors,
   p.T = T;
   p.NT = (T + kBlockN - 1) / kBlockN;
   p.scale = 1.0f / sqrtf(static_cast<float>(D));
-  if (smem_dkv(D, p.NT) > 227 * 1024) return cudaErrorInvalidValue;
+  // the dk/dv kernel's shared memory is the largest of the three
+  if (dkv_smem_bytes(D, p.NT) > 227 * 1024) return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 
@@ -861,10 +770,16 @@ extern "C" int cod_attention_bwd_dq(const void* const* tensors,
 }
 
 // Backward, dk and dv [B, KVH, T, D] (contiguous bf16), summed over the
-// query heads of each group. Arguments as the dq kernel.
+// query heads of each group. full: [B, NT, NT] int32, 1 where every pair
+// of the tile pair is allowed (whole tiles inside T); order: [B * NT] int32,
+// the (batch, key tile) pairs b * NT + ktile in launch order. The other
+// arguments are those of the dq kernel; the strides of q, k and v must be
+// multiples of 8 elements and their bases 16-byte aligned (the tensor
+// maps').
 extern "C" int cod_attention_bwd_dkv(const void* const* tensors,
                                      const long long* strides,
                                      const void* props, const int* tiles,
+                                     const int* full, const int* order,
                                      const void* dout, const float* m,
                                      const float* l, const float* delta,
                                      void* dk, void* dv, int B, int H,
@@ -872,16 +787,20 @@ extern "C" int cod_attention_bwd_dkv(const void* const* tensors,
   Params p;
   const int e = fill_params(p, tensors, strides, props, tiles, B, H, KVH, T, D);
   if (e != cudaSuccess) return e;
-  if ((long long)B * KVH > 65535) return cudaErrorInvalidValue;
-  p.dout = static_cast<const __nv_bfloat16*>(dout);
-  p.m = const_cast<float*>(m);
-  p.l = const_cast<float*>(l);
-  p.delta = delta;
-  p.dk = static_cast<__nv_bfloat16*>(dk);
-  p.dv = static_cast<__nv_bfloat16*>(dv);
-  const dim3 grid(p.NT, B * KVH);
+  CodDkvParams d;
+  if (!fill_stream(d.s, tensors[0], strides, tensors[1], strides + 3,
+                   tensors[2], strides + 6, dout, m, l, delta, dk, dv, B, H,
+                   KVH, T, T, D)) {
+    return cudaErrorInvalidValue;
+  }
+  d.props = static_cast<const int4*>(props);
+  d.tiles = tiles;
+  d.full = full;
+  d.order = order;
+  d.NT = p.NT;
+  const long long blocks = (long long)B * p.NT * KVH;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int smem = smem_dkv(D, p.NT);
-  return D == 128 ? launch_kernel(cod_bwd_dkv_kernel<128>, grid, smem, p, st)
-                  : launch_kernel(cod_bwd_dkv_kernel<64>, grid, smem, p, st);
+  const int smem = dkv_smem_bytes(D, p.NT);
+  return D == 128 ? launch_dkv(cod_bwd_dkv_kernel<128>, smem, d, blocks, st)
+                  : launch_dkv(cod_bwd_dkv_kernel<64>, smem, d, blocks, st);
 }

@@ -31,6 +31,8 @@ BUILD_DIR = PKG_DIR / "_build"
 #: every kernel source of the library; tests check that csrc/ holds no other
 SOURCES = ("ttt_attention.cu", "fused_ce.cu", "dflash_attention.cu",
            "peagle_attention.cu", "lse_attention.cu")
+#: the headers the sources include
+HEADERS = ("hopper.cuh", "dkv_stream.cuh")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -63,7 +65,7 @@ def nvcc_path() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     return h.hexdigest()[:16]
@@ -151,12 +153,13 @@ def library() -> ctypes.CDLL:
             lib.cod_attention_fwd.argtypes = [p, p, p, p, p, p, p,
                                               *[i] * 5, p]
             lib.cod_attention_fwd.restype = i
-            for name, n_out in (("cod_attention_bwd_dq", 1),
-                                ("cod_attention_bwd_dkv", 2)):
-                fn = getattr(lib, name)
-                fn.argtypes = [p, p, p, p, p, p, p, p, *[p] * n_out,
-                               *[i] * 5, p]
-                fn.restype = i
+            lib.cod_attention_bwd_dq.argtypes = [p, p, p, p, p, p, p, p, p,
+                                                 *[i] * 5, p]
+            lib.cod_attention_bwd_dq.restype = i
+            # ... the full-tile flags and the block order, then as dq with
+            # two outputs
+            lib.cod_attention_bwd_dkv.argtypes = [p] * 12 + [i] * 5 + [p]
+            lib.cod_attention_bwd_dkv.restype = i
             # q, k, v, valid, outputs..., BH, Sq, Sk, D, row_off, col_off
             lib.lse_attention_fwd.argtypes = [p, p, p, p, p, p, *[i] * 6, p]
             lib.lse_attention_fwd.restype = i

@@ -13,10 +13,13 @@ They read the four properties per token ([B, T, 4] int32, one 16-byte load)
 and evaluate the predicate in registers; a [B, NT, NT] table of the 64 x 64
 tile pairs that hold an allowed pair (:func:`cod_tiles`, built once per
 forward from the model's [B, T, T] mask and shared by every layer and head)
-lets them skip the rest. A row with no allowed key (an invalid slot,
-padding) gives out 0, m = -1e30 and l = 0, and gradient 0; the dense path
-averages uniformly there instead, which changes no loss or gradient, since
-those rows are masked from the loss and no valid row attends them.
+lets them skip the rest. Beside it, :func:`cod_tiles` marks the tile pairs
+whose every pair is allowed (the dk/dv kernel skips the predicate there)
+and orders the dk/dv kernel's (batch, key tile) blocks longest first. A
+row with no allowed key (an invalid slot, padding) gives out 0, m = -1e30
+and l = 0, and gradient 0; the dense path averages uniformly there
+instead, which changes no loss or gradient, since those rows are masked
+from the loss and no valid row attends them.
 
 Layouts follow the JAX wrapper: q ``[B, H, T, D]``, k and v ``[B, KVH, T,
 D]`` (strided views of the merged ``qkv_proj`` output are read through
@@ -53,6 +56,13 @@ class CODTiles(NamedTuple):
     #: [B, NT, NT] int32, NT = ceil(T / TILE): 1 where the tile pair (q tile,
     #: k tile) holds an allowed pair
     table: torch.Tensor
+    #: [B, NT, NT] int32: 1 where every one of the tile pair's TILE x TILE
+    #: pairs is allowed (whole tiles inside T only)
+    full: torch.Tensor
+    #: [B * NT] int32: the (batch, key tile) pairs b * NT + k, ordered by
+    #: their live q tiles (the table's column sums), descending and stable:
+    #: the dk/dv kernel's launch order
+    order: torch.Tensor
 
 
 def _allow(qp: torch.Tensor, kp: torch.Tensor) -> torch.Tensor:
@@ -80,10 +90,21 @@ def cod_allow_dense(ap, dp, dc, vl) -> torch.Tensor:
     return _allow(props, props)
 
 
+def block_order(table: torch.Tensor) -> torch.Tensor:
+    """The dk/dv kernel's launch order of a [B, NT, NT] tile table → [B * NT]
+    int32: the (batch, key tile) pairs b * NT + k sorted by their live q
+    tiles, descending, ties in index order. On the table's device, with no
+    host sync."""
+    live = table.sum(dim=1, dtype=torch.int32).flatten()
+    order = torch.sort(live, descending=True, stable=True).indices
+    return order.to(torch.int32)
+
+
 def cod_tiles(anchor_pos, depth, doc, valid,
               allow_mask: Optional[torch.Tensor] = None) -> CODTiles:
-    """Properties and the tile-skip table of one sample ([B, T] vectors),
-    the table from ``allow_mask`` [B, T, T] when the caller has it."""
+    """Properties, the tile-skip table, the full-tile flags and the dk/dv
+    block order of one sample ([B, T] vectors), from ``allow_mask``
+    [B, T, T] when the caller has it."""
     props = cod_props(anchor_pos, depth, doc, valid)
     if allow_mask is None:
         allow_mask = _allow(props, props)
@@ -91,8 +112,11 @@ def cod_tiles(anchor_pos, depth, doc, valid,
     nt = -(-t // TILE)
     padded = allow_mask.new_zeros((b, nt * TILE, nt * TILE))
     padded[:, :t, :t] = allow_mask
-    table = padded.view(b, nt, TILE, nt, TILE).any(dim=4).any(dim=2)
-    return CODTiles(props, table.to(torch.int32).contiguous())
+    tiled = padded.view(b, nt, TILE, nt, TILE)
+    table = tiled.any(dim=4).any(dim=2).to(torch.int32).contiguous()
+    # the padding past T is never allowed, so a tail tile is never full
+    full = tiled.all(dim=4).all(dim=2).to(torch.int32).contiguous()
+    return CODTiles(props, table, full, block_order(table))
 
 
 def _row_chunks(q: torch.Tensor):
@@ -203,9 +227,10 @@ def _check_inputs(q, k, v, tiles: CODTiles):
     for name, x, heads in (("q", q, h), ("k", k, kvh), ("v", v, kvh)):
         _check_operand(name, x, (b, heads, t, d), q.device)
     nt = -(-t // TILE)
-    props, table = tiles
-    for name, x, shape in (("props", props, (b, t, 4)),
-                           ("table", table, (b, nt, nt))):
+    for name, x, shape in (("props", tiles.props, (b, t, 4)),
+                           ("table", tiles.table, (b, nt, nt)),
+                           ("full", tiles.full, (b, nt, nt)),
+                           ("order", tiles.order, (b * nt,))):
         if (x.device != q.device or x.dtype != torch.int32
                 or tuple(x.shape) != shape or not x.is_contiguous()):
             raise ValueError(
@@ -282,6 +307,7 @@ def cod_attention_bwd_dkv(q, k, v, tiles: CODTiles, dout, m, l, delta):
     dv = torch.empty_like(dk)
     status = cuda_lib.library().cod_attention_bwd_dkv(
         ptrs, strides, tiles.props.data_ptr(), tiles.table.data_ptr(),
+        tiles.full.data_ptr(), tiles.order.data_ptr(),
         dout.data_ptr(), m.data_ptr(), l.data_ptr(), delta.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), *_dims(q, k), _stream(q))
     cuda_lib.check(status, "cod_attention_bwd_dkv")
@@ -328,21 +354,20 @@ def cod_attention_bwd(q, k, v, tiles: CODTiles, out, m, l, dout) -> Tensor3:
 
 
 class _CODFlashAttention(torch.autograd.Function):
-    """(q, k, v, props, table) → out [B, T, H*D]; saves out, m, l."""
+    """(q, k, v, *CODTiles) → out [B, T, H*D]; saves out, m, l."""
 
     @staticmethod
-    def forward(ctx, q, k, v, props, table):
-        tiles = CODTiles(props, table)
-        out, m, l = cod_attention_fwd(q, k, v, tiles)
-        ctx.save_for_backward(q, k, v, props, table, out, m, l)
+    def forward(ctx, q, k, v, *tiles):
+        out, m, l = cod_attention_fwd(q, k, v, CODTiles(*tiles))
+        ctx.save_for_backward(q, k, v, *tiles, out, m, l)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, props, table, out, m, l = ctx.saved_tensors
-        dq, dk, dv = cod_attention_bwd(q, k, v, CODTiles(props, table), out,
-                                       m, l, dout)
-        return dq, dk, dv, None, None
+        q, k, v, *tiles, out, m, l = ctx.saved_tensors
+        dq, dk, dv = cod_attention_bwd(q, k, v, CODTiles(*tiles), out, m, l,
+                                       dout)
+        return (dq, dk, dv) + (None,) * len(tiles)
 
 
 def cod_flash_attention(
@@ -365,4 +390,4 @@ def cod_flash_attention(
     here from the four [B, T] vectors (and ``allow_mask`` when given)."""
     if tiles is None:
         tiles = cod_tiles(anchor_pos, depth, doc, valid, allow_mask)
-    return _CODFlashAttention.apply(q, k, v, tiles.props, tiles.table)
+    return _CODFlashAttention.apply(q, k, v, *tiles)

@@ -26,7 +26,7 @@ def _sources():
             if name.endswith(".py"):
                 yield os.path.join(root, name)
     yield os.path.join(REPO, "chip_smoke.py")
-    yield os.path.join(REPO, "ttt_attention_compare.py")
+    yield os.path.join(REPO, "kernel_compare.py")
 
 
 def _top_level_imports(path):
@@ -54,6 +54,11 @@ def test_every_cuda_source_is_built():
     )
     assert sorted(n for n in on_disk if n.endswith(".cu")) == sorted(
         cuda_lib.SOURCES
+    )
+    # every header is hashed into the library's name, so an edited header
+    # is rebuilt
+    assert sorted(n for n in on_disk if n.endswith(".cuh")) == sorted(
+        cuda_lib.HEADERS
     )
     for name in on_disk:
         text = open(os.path.join(csrc, name)).read()
@@ -87,7 +92,8 @@ def _code_without_comments(text):
     return re.sub(r"//[^\n]*", "", text)
 
 
-@pytest.mark.parametrize("name", sorted(cuda_lib.SOURCES))
+@pytest.mark.parametrize("name",
+                         sorted(cuda_lib.SOURCES + cuda_lib.HEADERS))
 def test_no_cuda_source_uses_atomics(name):
     """The port's determinism rule: every sum is taken in a fixed order, so
     two runs (and a resume) give the same bits; no kernel may use an atomic

@@ -479,6 +479,115 @@ def test_dflash_autograd_is_deterministic_and_refuses_bad_shapes(gen):
                                            48)
 
 
+def dflash_dkv(inputs, window, gen):
+    """One launch of the context dk/dv kernel on the forward's statistics →
+    (its operands, dk, dv, the plain dk, dv)."""
+    q = inputs[0]
+    out, m, l = dflash_cuda.dflash_flash_attention_fwd(*inputs, 16, window)
+    dout = torch.randn(out.shape, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    delta = attention_cuda.backward_delta(out, dout, q.shape[1])
+    args = (*inputs, 16, window, dout, m, l, delta)
+    before = dflash_cuda.dflash_attention_bwd_dkv.launches
+    dk, dv = dflash_cuda.dflash_attention_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    assert dflash_cuda.dflash_attention_bwd_dkv.launches == before + 1
+    ref = dflash_cuda.dflash_flash_attention_backward_plain(
+        *inputs, 16, window, out, m, l, dout)
+    return args, dk, dv, ref[1], ref[2]
+
+
+def dflash_reached_keys(anchors, keep, s, window):
+    """[B, S] bool: the context keys some kept row may attend."""
+    reached = torch.zeros(anchors.shape[0], s, dtype=torch.bool)
+    for b, (row, kept) in enumerate(zip(anchors.tolist(), keep.tolist())):
+        for a, k in zip(row, kept):
+            hi = min(max(a, 0), s)
+            lo = min(max(a - (window - 1), 0), hi) if window else 0
+            if k:
+                reached[b, lo:hi] = True
+    return reached
+
+
+def test_dflash_dkv_is_bit_exact_at_the_domino_slice(gen):
+    """Two launches at the Domino slice's shapes give the same bits, and
+    both match the plain dk/dv."""
+    inputs = dflash_inputs(gen, 2, 32, 8, 768, 256, 128)
+    args, dk, dv, ref_dk, ref_dv = dflash_dkv(inputs, None, gen)
+    again = dflash_cuda.dflash_attention_bwd_dkv(*args)
+    assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+    assert rel_err(dk, ref_dk) <= 2e-2 and rel_err(dv, ref_dv) <= 2e-2
+
+
+# groups of 1, 4, 7 and 8 query heads; contexts that are no multiple of the
+# 64-key tile; D = 64 and 128; a sliding window that bites (anchors past
+# 2w, so a row's lower bound moves off 0)
+@pytest.mark.parametrize("b,h,kvh,s,n,d,window", [
+    (2, 8, 8, 130, 12, 128, None),
+    (2, 16, 4, 700, 40, 64, None),
+    (2, 14, 2, 333, 24, 64, None),
+    (1, 32, 4, 1000, 40, 128, 200),
+    (2, 16, 2, 257, 20, 128, 48),
+])
+def test_dflash_dkv_matches_plain(gen, b, h, kvh, s, n, d, window):
+    inputs = dflash_inputs(gen, b, h, kvh, s, n, d)
+    anchors, keep = inputs[5], inputs[6]
+    if window:
+        assert bool(((anchors.long() - (window - 1)) > 0)[keep].any())
+    _, dk, dv, ref_dk, ref_dv = dflash_dkv(inputs, window, gen)
+    for got, want in ((dk, ref_dk), (dv, ref_dv)):
+        assert got.shape == (b, kvh, s, d) and got.dtype == torch.bfloat16
+        # bf16 products of bf16-rounded p and ds, sums in another order
+        assert rel_err(got, want) <= 2e-2
+    reached = dflash_reached_keys(anchors.cpu(), keep.cpu(), s, window)
+    unreached = (~reached).cuda()[:, None].expand(b, kvh, s)
+    assert not dk[unreached].any() and not dv[unreached].any()
+
+
+def test_dflash_dkv_unreached_key_tiles_are_exact_zeros(gen):
+    """Key tiles no q tile reaches (every anchor below 200 of S = 700) come
+    out exactly 0; the others match the plain dk/dv."""
+    inputs = list(dflash_inputs(gen, 2, 8, 2, 700, 16, 128))
+    inputs[5] = torch.sort(torch.randint(
+        1, 200, (2, 16), generator=torch.Generator().manual_seed(3))
+                           ).values.to(torch.int32).cuda()
+    inputs[6] = torch.ones_like(inputs[5])
+    _, dk, dv, ref_dk, ref_dv = dflash_dkv(inputs, None, gen)
+    assert not dk[:, :, 200:].any() and not dv[:, :, 200:].any()
+    assert dk[:, :, :190].any()
+    assert rel_err(dk, ref_dk) <= 2e-2 and rel_err(dv, ref_dv) <= 2e-2
+
+
+def test_dflash_dkv_reads_strided_views(gen):
+    """Context keys and values cut from one merged [B, S, 2*KVH*D] tensor
+    are read through their strides."""
+    b, h, kvh, s, n, d = 2, 8, 2, 300, 20, 128
+    inputs = list(dflash_inputs(gen, b, h, kvh, s, n, d))
+    kv = torch.randn(b, s, 2 * kvh * d, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    inputs[1] = kv[..., :kvh * d].view(b, s, kvh, d).transpose(1, 2)
+    inputs[2] = kv[..., kvh * d:].view(b, s, kvh, d).transpose(1, 2)
+    _, dk, dv, ref_dk, ref_dv = dflash_dkv(inputs, None, gen)
+    assert rel_err(dk, ref_dk) <= 2e-2 and rel_err(dv, ref_dv) <= 2e-2
+
+
+def test_dflash_dkv_refuses_layouts_a_tensor_map_cannot_read(gen):
+    inputs = list(dflash_inputs(gen, 1, 4, 2, 128, 8, 64))
+    out, m, l = dflash_cuda.dflash_flash_attention_fwd(*inputs, 16)
+    dout = torch.ones_like(out)
+    delta = attention_cuda.backward_delta(out, dout, 4)
+    wide = torch.randn(1, 2, 128, 68, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    for bad, match in ((wide[..., :64], "multiples of 8"),
+                       (wide.flatten()[4:4 + 2 * 128 * 64].view(1, 2, 128, 64),
+                        "16-byte aligned")):
+        args = list(inputs)
+        args[1] = bad
+        with pytest.raises(ValueError, match=match):
+            dflash_cuda.dflash_attention_bwd_dkv(*args, 16, None, dout, m, l,
+                                                 delta)
+
+
 # --------------------------------------------------------------------------
 # P-EAGLE COD attention
 # --------------------------------------------------------------------------
@@ -571,6 +680,89 @@ def test_cod_autograd_is_deterministic_and_refuses_bad_shapes(gen):
         cod_cuda.cod_flash_attention(q.float(), k, v, tiles=tiles)
     with pytest.raises(ValueError, match="multiple of KVH"):
         cod_cuda.cod_flash_attention(q[:, :7], k, v, tiles=tiles)
+
+
+def cod_dkv(q, k, v, tiles, gen):
+    """One launch of the COD dk/dv kernel on the forward's statistics →
+    (its operands, dk, dv, the plain dk, dv)."""
+    out, m, l = cod_cuda.cod_attention_fwd(q, k, v, tiles)
+    dout = torch.randn(out.shape, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    delta = attention_cuda.backward_delta(out, dout, q.shape[1])
+    args = (q, k, v, tiles, dout, m, l, delta)
+    before = cod_cuda.cod_attention_bwd_dkv.launches
+    dk, dv = cod_cuda.cod_attention_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    assert cod_cuda.cod_attention_bwd_dkv.launches == before + 1
+    ref = cod_cuda.cod_attention_backward_plain(q, k, v, tiles.props, out, m,
+                                                l, dout)
+    return args, dk, dv, ref[1], ref[2]
+
+
+def test_cod_dkv_is_bit_exact_at_the_slice(gen):
+    """Two launches at the P-EAGLE slice's shapes give the same bits, and
+    both match the plain dk/dv."""
+    q, k, v, tiles = cod_inputs(gen, 2, 32, 8, 128, 1024)
+    assert bool(tiles.full.any())
+    args, dk, dv, ref_dk, ref_dv = cod_dkv(q, k, v, tiles, gen)
+    again = cod_cuda.cod_attention_bwd_dkv(*args)
+    assert torch.equal(dk, again[0]) and torch.equal(dv, again[1])
+    assert rel_err(dk, ref_dk) <= 2e-2 and rel_err(dv, ref_dv) <= 2e-2
+
+
+# groups of 1, 4, 7 and 8 query heads at D = 64 and 128 (T from the
+# sampler, no multiple of 64); packed documents; a document with an invalid
+# tail and a row with no supervised token
+@pytest.mark.parametrize("b,h,kvh,d,s,docs,unsupervised", [
+    (2, 8, 8, 128, 200, None, ()),
+    (2, 16, 4, 64, 256, (64, 64, 64, 64), ()),
+    (2, 14, 2, 64, 300, (150,), (1,)),
+    (1, 32, 4, 128, 512, (128, 384), ()),
+    (2, 16, 2, 128, 256, (100, 156), (0,)),
+])
+def test_cod_dkv_matches_plain(gen, b, h, kvh, d, s, docs, unsupervised):
+    q, k, v, tiles = cod_inputs(gen, b, h, kvh, d, s, docs, unsupervised)
+    t = q.shape[2]
+    _, dk, dv, ref_dk, ref_dv = cod_dkv(q, k, v, tiles, gen)
+    for got, want in ((dk, ref_dk), (dv, ref_dv)):
+        assert got.shape == (b, kvh, t, d) and got.dtype == torch.bfloat16
+        assert rel_err(got, want) <= 2e-2
+    # keys no row may attend (invalid slots, an unsupervised row): exact 0
+    reached = cod_cuda._allow(tiles.props, tiles.props).any(dim=1)
+    unreached = (~reached)[:, None].expand(b, kvh, t)
+    assert bool(unreached.any())
+    assert not dk[unreached].any() and not dv[unreached].any()
+
+
+def test_cod_tiles_on_the_card_match_the_cpu(gen):
+    """The full-tile flags and the block order built on the card (no host
+    sync) equal those built on the CPU."""
+    q, k, v, tiles = cod_inputs(gen, 2, 8, 2, 128, 1024, (256, 256, 512))
+    cpu = cod_cuda.cod_tiles(*(x.cpu() for x in (
+        tiles.props[..., 0], tiles.props[..., 1], tiles.props[..., 2],
+        tiles.props[..., 3])))
+    for name in ("table", "full", "order"):
+        assert torch.equal(getattr(tiles, name).cpu(), getattr(cpu, name)), name
+
+
+def test_cod_dkv_refuses_layouts_a_tensor_map_cannot_read(gen):
+    q, k, v, tiles = cod_inputs(gen, 1, 4, 2, 64, 100)
+    out, m, l = cod_cuda.cod_attention_fwd(q, k, v, tiles)
+    dout = torch.ones_like(out)
+    delta = attention_cuda.backward_delta(out, dout, 4)
+    t = q.shape[2]
+    wide = torch.randn(1, 2, t, 68, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    for bad, match in ((wide[..., :64], "multiples of 8"),
+                       (wide.flatten()[4:4 + 2 * t * 64].view(1, 2, t, 64),
+                        "16-byte aligned")):
+        with pytest.raises(ValueError, match=match):
+            cod_cuda.cod_attention_bwd_dkv(q, bad, v, tiles, dout, m, l,
+                                           delta)
+    with pytest.raises(ValueError, match="order"):
+        cod_cuda.cod_attention_bwd_dkv(
+            q, k, v, tiles._replace(order=tiles.order[:-1]), dout, m, l,
+            delta)
 
 
 # --------------------------------------------------------------------------

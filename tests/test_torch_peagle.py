@@ -337,6 +337,69 @@ def test_plain_statistics_tiles_and_chunks():
     assert table[0].all() and not table[1].any()
 
 
+def _slice_sample(lengths, s, seed):
+    """A COD sample of the port's sampler (8 depths, the P-EAGLE example's
+    ratios) over a response-part loss mask of each document, doc-major →
+    the four [B, T] vectors the kernels read."""
+    lengths = torch.tensor(lengths, dtype=torch.int32)
+    doc_ids = document_ids_from_lengths(lengths, s)
+    loss_mask = torch.zeros(lengths.shape[0], s, dtype=torch.int32)
+    for row, lens in enumerate(lengths.tolist()):
+        start = 0
+        for n in lens:
+            loss_mask[row, start + n // 4:start + n] = 1
+            start += n
+    sample = doc_major(generate_cod_sample_indices(
+        torch.Generator().manual_seed(seed), loss_mask, doc_ids, 8, RATIO,
+        RATIO_MIN), doc_ids)
+    anchor_doc = doc_ids.long().gather(1, sample.anchor_pos.long())
+    return sample.anchor_pos, sample.depth, anchor_doc, sample.valid
+
+
+def test_cod_full_tiles_match_the_jax_mask():
+    """The full-tile flags mark exactly the 64 x 64 tile pairs whose every
+    pair the JAX package's dense predicate allows (a ragged T: the tail
+    tiles are never full), a subset of the live table; the table is the
+    JAX mask's any-tile."""
+    vectors = _slice_sample([[256, 0], [100, 156]], 256, seed=5)
+    tiles = pac.cod_tiles(*vectors)
+    b, t = vectors[0].shape
+    nt = -(-t // pac.TILE)
+    assert t % pac.TILE, "the sample's T must be ragged"
+    for i in range(b):
+        dense = np.asarray(jax_cod.cod_allow_dense(
+            *(jnp.asarray(x[i].numpy()) for x in vectors)))
+        padded = np.zeros((nt * pac.TILE, nt * pac.TILE), bool)
+        padded[:t, :t] = dense
+        blocks = padded.reshape(nt, pac.TILE, nt, pac.TILE)
+        np.testing.assert_array_equal(tiles.full[i].numpy(),
+                                      blocks.all(axis=(1, 3)))
+        np.testing.assert_array_equal(tiles.table[i].numpy(),
+                                      blocks.any(axis=(1, 3)))
+    full = tiles.full.bool()
+    assert full.any() and not full[:, -1].any() and not full[:, :, -1].any()
+    assert not (full & ~tiles.table.bool()).any()
+    assert tiles.full.dtype == torch.int32 and tiles.full.is_contiguous()
+
+
+def test_cod_block_order_is_stable_and_longest_first():
+    """The dk/dv launch order is a permutation of the (batch, key tile)
+    pairs, by live q tiles descending, ties in index order."""
+    tiles = pac.cod_tiles(*_slice_sample([[256, 0], [100, 156]], 256, 6))
+    b, nt, _ = tiles.table.shape
+    order = tiles.order
+    assert order.dtype == torch.int32 and order.shape == (b * nt,)
+    assert sorted(order.tolist()) == list(range(b * nt))
+    live = tiles.table.sum(dim=1).flatten()[order.long()].tolist()
+    for i in range(len(live) - 1):
+        assert live[i] >= live[i + 1]
+        if live[i] == live[i + 1]:
+            assert order[i] < order[i + 1]
+    table = torch.tensor([[[1, 1, 0, 0], [0, 1, 1, 0],
+                           [0, 1, 1, 0], [0, 1, 1, 0]]], dtype=torch.int32)
+    assert pac.block_order(table).tolist() == [1, 2, 0, 3]
+
+
 def test_cpu_wrappers_launch_nothing_and_kernel_checks_refuse():
     qkv, props, _, _ = _attention_inputs()
     q, k, v = (t(x) for x in qkv)
