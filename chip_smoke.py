@@ -26,7 +26,10 @@ Phases, each printing JSON lines:
    with no valid key (out 0, m = -1e30, l = 0 exactly), twice at the main
    shape with the same bits, and beside a second, timed-only yardstick,
    the library flash kernel over the causal block alone
-   (``library_causal_ms``);
+   (``library_causal_ms``); the DFlash and COD backward kernels (dq and
+   dk/dv) also twice in every case for the same bits, dq exactly 0 on rows
+   with no allowed key and dk/dv on keys no row reaches, and 30 launches
+   back to back (``run_ms``);
 4. slice 1: the EAGLE3 offline TTT forward at the full Qwen3-8B EAGLE3 width
    (``configs/qwen3-8b-eagle3.json``, random weights from ``--seed``), from
    feature files written and read back by the port's data plane, through
@@ -291,7 +294,15 @@ def device_facts() -> str:
 #: the kernels redesigned for Hopper whose ptxas report the build line
 #: details; a wgmma serialization note (C75xx) fails the build phase
 HOPPER_KERNELS = ("ttt_fwd_kernel", "ttt_bwd_dq_kernel", "ttt_bwd_dkv_kernel",
-                  "dflash_bwd_dkv_kernel", "cod_bwd_dkv_kernel")
+                  "dflash_bwd_dq_kernel", "dflash_bwd_dkv_kernel",
+                  "cod_bwd_dq_kernel", "cod_bwd_dkv_kernel")
+#: the kernels line's entries whose kernel is one of HOPPER_KERNELS, with
+#: the route note they carry (the others are the first design: mma.sync
+#: from 4 warps, cp.async stages)
+HOPPER_ROUTE = ("ttt_flash_attention_fwd", "ttt_attention_bwd_dq",
+                "ttt_attention_bwd_dkv", "dflash_attention_bwd_dq",
+                "dflash_attention_bwd_dkv", "cod_attention_bwd_dq",
+                "cod_attention_bwd_dkv")
 
 
 def ptxas_report(log: str) -> tuple:
@@ -989,11 +1000,19 @@ def dflash_kernel_phase(gen) -> list:
         check(f"dflash l case {name}", errs["l"], STAT_RTOL)
         delta = attention_cuda.backward_delta(out, dout, h)
         bwd_args = (*inputs, DFLASH_BS, window, dout, m, l, delta)
-        # the context dk/dv: two launches give the same bits; keys no kept
-        # row reaches are exactly 0
+        # both backward kernels: two launches give the same bits; rows of
+        # blocks not kept get dq (and draft dk/dv) exactly 0, keys no kept
+        # row reaches context dk/dv exactly 0
+        dq_kernel = dflash_attention_cuda.dflash_attention_bwd_dq
         dkv = dflash_attention_cuda.dflash_attention_bwd_dkv
+        check_repeat(f"dflash_attention_bwd_dq case {name}",
+                     lambda: dq_kernel(*bwd_args))
         check_repeat(f"dflash_attention_bwd_dkv case {name}",
                      lambda: dkv(*bwd_args))
+        if any(g.transpose(1, 2)[~kept_rows].any()
+               for g in (grads[0], grads[3], grads[4])):
+            raise AssertionError(f"case {name}: dq or draft dk/dv of rows "
+                                 "not kept are not 0")
         unreached = ~dflash_reached_keys(inputs[5], keep, s, window)
         unreached = unreached[:, None].expand(b, kvh, s)
         if grads[1][unreached].any() or grads[2][unreached].any():
@@ -1002,14 +1021,13 @@ def dflash_kernel_phase(gen) -> list:
         run = {
             "dflash_attention_fwd": run_ms(
                 lambda: fwd(*inputs, DFLASH_BS, window)),
-            "dflash_attention_bwd_dq": run_ms(
-                lambda: dflash_attention_cuda.dflash_attention_bwd_dq(
-                    *bwd_args)),
+            "dflash_attention_bwd_dq": run_ms(lambda: dq_kernel(*bwd_args)),
             "dflash_attention_bwd_dkv": run_ms(lambda: dkv(*bwd_args)),
         }
         row = {
             "phase": "kernel", "name": "dflash_attention", "case": name,
-            "dkv_repeat": "bit-exact",
+            "dq_repeat": "bit-exact", "dkv_repeat": "bit-exact",
+            "rows_not_kept": int((~kept_rows).sum()),
             "unreached_keys": int(unreached[:, 0].sum()),
             "run_ms": run,
             "B": b, "H": h, "KVH": kvh, "D": d, "S": s, "N": n,
@@ -1236,8 +1254,11 @@ def cod_kernel_phase(gen) -> list:
         check(f"cod l case {name}", errs["l"], STAT_RTOL)
         delta = attention_cuda.backward_delta(out, dout, h)
         bwd_args = (q, k, v, tiles, dout, m, l, delta)
-        # dk/dv: two launches give the same bits; keys no row may attend
-        # are exactly 0
+        # both backward kernels: two launches give the same bits; keys no
+        # row may attend get dk/dv exactly 0 (rows with no allowed key get
+        # dq 0, checked above)
+        check_repeat(f"cod_attention_bwd_dq case {name}",
+                     lambda: (pac.cod_attention_bwd_dq(*bwd_args),))
         check_repeat(f"cod_attention_bwd_dkv case {name}",
                      lambda: pac.cod_attention_bwd_dkv(*bwd_args))
         reached = torch.zeros(b, t, dtype=torch.bool, device="cuda")
@@ -1258,7 +1279,7 @@ def cod_kernel_phase(gen) -> list:
         }
         row = {
             "phase": "kernel", "name": "cod_attention", "case": name,
-            "dkv_repeat": "bit-exact",
+            "dq_repeat": "bit-exact", "dkv_repeat": "bit-exact",
             "unreached_keys": int((~reached).sum()),
             "full_tile_share": float(tiles.full.float().mean()),
             "run_ms": run,
@@ -3128,6 +3149,8 @@ def main() -> int:
     for k in kernels:
         k["launches"] = counts[k["name"]]
         k["kernel_ms"] = k["ms"]
+        if k["name"] in HOPPER_ROUTE:
+            k["route_note"] = "wgmma, TMA"
     emit({"kernels": kernels})
     print(smi, flush=True)
     # one card is used, whatever the machine holds

@@ -21,11 +21,13 @@ kernels timed at the shape of its main path, each through that tree's own
   and any reduction), and their means over the branch counts;
 - ``dflash``: case (a) of ``chip_smoke.DFLASH_CASES``, the Domino slice
   (B=2, H=32, KVH=8, D=128, S=768, 256 anchors of 16, from
-  ``dflash_case_inputs``): the forward, dq (with the draft keys' dk/dv) and
-  the context keys' dk/dv;
+  ``dflash_case_inputs``): the forward, dq (with the draft keys' dk/dv),
+  the context keys' dk/dv and the whole ``dflash_flash_attention_bwd``
+  (delta, both kernels and any reduction: a tree whose dq kernel leaves
+  the draft dk/dv per query head sums them there);
 - ``cod``: case (a) of ``chip_smoke.COD_CASES``, the P-EAGLE slice (B=2,
   H=32, KVH=8, D=128, S=1024 over 8 depths, from ``cod_case_inputs``): the
-  forward, dq and dk/dv.
+  forward, dq, dk/dv and the whole ``cod_attention_bwd``.
 
 Each kernel is timed twice with CUDA events: ``<kernel>_ms``, one launch at
 a time (``chip_smoke.median_ms``: median of 20 after 3 warm-ups, a sync
@@ -128,6 +130,8 @@ def dflash():
         "fwd": lambda: dc.dflash_flash_attention_fwd(*inputs, bs, window),
         "dq": lambda: dc.dflash_attention_bwd_dq(*args),
         "dkv": lambda: dc.dflash_attention_bwd_dkv(*args),
+        "bwd": lambda: dc.dflash_flash_attention_bwd(
+            *inputs, bs, window, out, m, l, dout),
     })}
 
 
@@ -143,6 +147,7 @@ def cod():
         "fwd": lambda: pac.cod_attention_fwd(q, k, v, tiles),
         "dq": lambda: pac.cod_attention_bwd_dq(*args),
         "dkv": lambda: pac.cod_attention_bwd_dkv(*args),
+        "bwd": lambda: pac.cod_attention_bwd(q, k, v, tiles, out, m, l, dout),
     })}
 
 

@@ -30,20 +30,33 @@
 // What the design does about that. Every product runs on the tensor cores
 // (bf16 in, fp32 accumulate); no score tile reaches device memory; nothing
 // is padded or copied (the ragged ends of the context and of the draft rows
-// are zero-filled and masked). Forward and kernel A, on
-// `mma.sync.m16n8k16`: one block of 4 warps owns a q tile of 64 rows of one
-// (batch, head), a whole number of anchor blocks; each warp keeps the Q (and
-// dO) fragments of its 16 rows in registers. The anchors are sorted, so the
-// tile's context loop runs only over the K tiles between the smallest lower
-// bound and the largest anchor of its kept rows; then the tile's own 64 draft
-// rows are folded in as one more tile under the block-diagonal mask (each
-// warp skips the 8-key groups outside its own blocks). K/V tiles of 64 keys
-// are staged by cp.async in two buffers of padded shared memory and reach the
-// tensor cores through ldmatrix. Kernel A stages the draft tile's p and ds in
-// shared memory and then gives each warp 16 draft keys: their dk, dv are
-// products over the tile's rows, written per query head; the wrapper sums the
-// H / KVH heads of each group in fp32 (each draft key is read only by its own
-// block's rows, so no other block touches it).
+// are zero-filled and masked). The forward, on `mma.sync.m16n8k16`: one
+// block of 4 warps owns a q tile of 64 rows of one (batch, head), a whole
+// number of anchor blocks; each warp keeps the Q fragments of its 16 rows
+// in registers. The anchors are sorted, so the tile's context loop runs
+// only over the K tiles between the smallest lower bound and the largest
+// anchor of its kept rows; then the tile's own 64 draft rows are folded in
+// as one more tile under the block-diagonal mask (each warp skips the 8-key
+// groups outside its own blocks). K/V tiles of 64 keys are staged by
+// cp.async in two buffers of padded shared memory and reach the tensor
+// cores through ldmatrix. It does not use TMA, wgmma or warp
+// specialisation yet.
+// Kernel A, dq and the draft keys' dk/dv, is bound by its three products
+// per (query head, key tile) item: at the Domino slice about 7 key tiles
+// per q tile. The first design (mma.sync from 4 warps, a block per query
+// head, two cp.async stages, the span test on every score, the draft dk/dv
+// written per query head and summed by the wrapper) reached about 10% of
+// its bound. It now follows ttt_bwd_dq_kernel (dq_stream.cuh): a block of
+// 384 threads owns a q tile of one (batch, kv head) and the group's query
+// heads, four resident (a group of more runs in chunks), so each K/V tile
+// is staged once for them by TMA; two consumer warpgroups run the three
+// products on `wgmma` with dq in fp32 registers. A context tile inside
+// every kept row's span skips the mask (at the Domino slice most of a q
+// tile's context tiles lie below its smallest anchor). The draft keys
+// follow as one more stage of the ring; their p and ds live only on the
+// bs x bs diagonal blocks, which are staged compactly, and the block sums
+// the draft dk/dv over its group's heads in fp32 in a fixed order and
+// writes them once per kv head.
 // Kernel B, the context keys' dk/dv, is bound by its four products per
 // (query head, q tile) item that reaches a key tile: at the Domino slice
 // 27,936 items over 192 blocks, the heaviest (key tile 0, every q tile of
@@ -55,17 +68,17 @@
 // kept anchors reach its keys; two consumer warpgroups split the group's
 // (head, q tile) stream, each fed a ring of Q/dO stages by two producer
 // warps, and run all four products on `wgmma` with dk, dv in fp32
-// registers. Each
-// row's context span [lo, hi) travels with its stage; a tile whose rows all
-// reach every key of the block skips the mask (at the Domino slice most do:
-// the key tile lies below the q tile's smallest anchor). The key tile is
-// the grid's slow index, so without a window the heaviest blocks start
-// first. The kernels share the Hopper helpers of hopper.cuh.
-// The forward and kernel A do not use TMA, wgmma or warp specialisation yet.
+// registers. Each row's context span [lo, hi) travels with its stage; a
+// tile whose rows all reach every key of the block skips the mask (at the
+// Domino slice most do: the key tile lies below the q tile's smallest
+// anchor). The key tile is the grid's slow index, so without a window the
+// heaviest blocks start first. The kernels share the Hopper helpers of
+// hopper.cuh.
 
 #include <limits.h>
 
 #include "dkv_stream.cuh"
+#include "dq_stream.cuh"
 
 namespace {
 
@@ -73,7 +86,6 @@ constexpr int kBlockM = 64;  // query rows per q tile, 16 per warp
 constexpr int kBlockN = 64;  // keys per shared-memory tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kPStride = kBlockN + 8;  // padded row of the staged draft p, ds
 
 struct Params {
   const __nv_bfloat16* q;   // [B, H, Q, D] strided
@@ -86,13 +98,6 @@ struct Params {
   __nv_bfloat16* out;       // [B, Q, H*D]
   float* m;                 // [B, H, Q]
   float* l;                 // [B, H, Q]
-  const __nv_bfloat16* dout;  // [B, Q, H*D], contiguous
-  const float* delta;         // [B, H, Q]
-  __nv_bfloat16* dq;          // [B, H, Q, D], contiguous
-  __nv_bfloat16* dkd;         // [B, H, Q, D]: draft dk per query head
-  __nv_bfloat16* dvd;         // [B, H, Q, D]
-  __nv_bfloat16* dkc;         // [B, KVH, S, D], contiguous
-  __nv_bfloat16* dvc;
   long long q_sb, q_sh, q_ss;
   long long kc_sb, kc_sh, kc_ss;
   long long vc_sb, vc_sh, vc_ss;
@@ -155,8 +160,11 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // The allowed keys of query row r of batch b: context keys [x, y), draft
-// keys [z, w). Both are empty for a row past Q or of a block not kept.
-__device__ __forceinline__ int4 row_span(const Params& p, int b, int r) {
+// keys [z, w). Both are empty for a row past Q or of a block not kept. P is
+// the forward's Params or the dq kernel's DFlashDqParams (the anchors,
+// keep, N, S, Q, bs and window of both).
+template <class P>
+__device__ __forceinline__ int4 row_span(const P& p, int b, int r) {
   int lo = 0, hi = 0, dlo = 0, dhi = 0;
   if (r < p.Q) {
     const int n = r / p.bs;
@@ -446,255 +454,239 @@ __global__ void __launch_bounds__(kThreads) dflash_fwd_kernel(const Params p) {
 }
 
 // --------------------------------------------------------------------------
-// backward, kernel A: dq, and the draft keys' dk/dv per query head
+// backward, kernel A: dq, and the draft keys' dk/dv summed over the group
 // --------------------------------------------------------------------------
 
+struct DFlashDqParams {
+  DqStream s;           // rows = Q; tm_k[0], tm_v[0]: the context (S keys),
+                        // tm_k[1], tm_v[1]: the draft keys (Q)
+  const int* anchors;   // [B, N]
+  const int* keep;      // [B, N], 0 = block not kept
+  __nv_bfloat16* dkd;   // [B, KVH, Q, D]: the draft keys' dk, group-summed
+  __nv_bfloat16* dvd;   // [B, KVH, Q, D]
+  float* ws;            // [2, B, KVH, Q, D] fp32 when the group spans chunks
+  int S, Q, N, bs, window;
+  int band_shift;       // log2 of the draft band's width, max(bs, 16)
+  int band_off;         // byte offset of the draft staging in shared memory
+};
+
+// The DFlash policy of the dq stream. A block lists the context tiles that
+// its kept rows reach, then its own 64 draft keys (the second key source,
+// the block's last tile). Each row's spans (lo, hi, dlo, dhi) are the rows'
+// mask data; a context tile needs no mask when every kept row reaches all
+// of its keys (rows not kept have no allowed key, so their p is 0
+// unmasked), its list bit. The draft tile is always masked
+// (block-diagonal, and by offset under a window); each head's p and ds
+// there live only on its bs x bs diagonal blocks, which a band of width W =
+// max(bs, 16) along the diagonal holds: they are staged in bf16, [64
+// rows][W] per head, and after the chunk's last tile warpgroup 0 sums dk_d
+// = scale * sum_h ds_h^T Q_h and warpgroup 1 dv_d = sum_h p_h^T dO_h over
+// the chunk's heads in head order on mma.sync (under 5% of the block's
+// products), in fp32, through the workspace past one chunk, and writes
+// them once as [B, KVH, Q, D].
 template <int D>
-__global__ void __launch_bounds__(kThreads) dflash_bwd_dq_kernel(const Params p) {
-  constexpr int kStride = D + 8;
-  constexpr int kSteps = D / 16;
-  constexpr int kDTiles = D / 8;
-  constexpr int kVecPerRow = D / 8;
-  constexpr int kTile = kBlockN * kStride;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sKs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sVs = sKs + 2 * kTile;
-  __nv_bfloat16* sP = sVs + 2 * kTile;        // draft tile's p [row][key]
-  __nv_bfloat16* sDS = sP + kBlockM * kPStride;  // draft tile's ds
-  __shared__ int4 sSpan[kBlockM];
-  __shared__ int sBounds[2];
+struct DFlashDq {
+  static constexpr bool kSecondSource = true;  // the draft keys, last
+  const DFlashDqParams& p;
 
-  const int H = p.H;
-  const int n_qtiles = (p.Q + kBlockM - 1) / kBlockM;
-  const int qtile = n_qtiles - 1 - blockIdx.x;  // later anchors (more keys) first
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
-  const int kvh = h / (H / p.KVH);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int q0 = qtile * kBlockM;
-  const int rl0 = warp * 16 + g;  // this thread's rows, local to the tile
-  const int row0 = q0 + rl0;
-  const int row1 = row0 + 8;
-  const bool in0 = row0 < p.Q;
-  const bool in1 = row1 < p.Q;
-  const long long HD = (long long)H * D;
+  __device__ __forceinline__ void stage_key(unsigned char*, const DqBlock&,
+                                            int, int, int) const {}
 
-  tile_spans(p, b, q0, sSpan, sBounds);
-  const int4 sp0 = sSpan[rl0];
-  const int4 sp1 = sSpan[rl0 + 8];
-  const bool any_ctx = sBounds[1] > sBounds[0];
-  const int t_lo = any_ctx ? sBounds[0] / kBlockN : 0;
-  const int n_ctx = any_ctx ? (sBounds[1] + kBlockN - 1) / kBlockN - t_lo : 0;
-  int wlo, whi;
-  warp_draft_range(warp, p.bs, wlo, whi);
-
-  uint32_t qf[kSteps][4], df[kSteps][4];
-  load_a_frags<kSteps>(qf, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, row0, in0,
-                       in1, t);
-  load_a_frags<kSteps>(df, p.dout + (long long)b * p.Q * HD + h * D, HD, row0,
-                       in0, in1, t);
-  const long long sbase = ((long long)b * H + h) * p.Q;
-  // rows past Q get p = 0 (inverse l of 0)
-  const float m0 = in0 ? p.m[sbase + row0] : 0.f;
-  const float m1 = in1 ? p.m[sbase + row1] : 0.f;
-  const float il0 = in0 ? 1.f / fmaxf(p.l[sbase + row0], 1e-30f) : 0.f;
-  const float il1 = in1 ? 1.f / fmaxf(p.l[sbase + row1], 1e-30f) : 0.f;
-  const float dl0 = in0 ? p.delta[sbase + row0] : 0.f;
-  const float dl1 = in1 ? p.delta[sbase + row1] : 0.f;
-
-  float dq[kDTiles][4];
+  // key key0 + 8 jj + 2 t + (e & 1) against row r0 (e < 2) or r0 + 8
+  __device__ __forceinline__ uint32_t tile_bits(const unsigned char* rows,
+                                                const unsigned char*,
+                                                int key0, bool draft, int r0,
+                                                int t) const {
+    const int4 a = *reinterpret_cast<const int4*>(rows + r0 * 16);
+    const int4 c = *reinterpret_cast<const int4*>(rows + (r0 + 8) * 16);
+    const int lo[2] = {draft ? a.z : a.x, draft ? c.z : c.x};
+    const int n[2] = {(draft ? a.w : a.y) - lo[0], (draft ? c.w : c.y) - lo[1]};
+    uint32_t bits = 0u;
 #pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    dq[dt][0] = dq[dt][1] = dq[dt][2] = dq[dt][3] = 0.f;
+    for (int i = 0; i < 32; ++i) {
+      const int key = key0 + 8 * (i >> 2) + 2 * t + (i & 1);
+      const int e = (i >> 1) & 1;
+      bits |= static_cast<uint32_t>(
+                  static_cast<unsigned>(key - lo[e]) <
+                  static_cast<unsigned>(n[e])) << i;
+    }
+    return bits;
   }
 
-  const int n_tiles = n_ctx + 1;
-  load_kv_tile<D>(p, b, kvh, q0, t_lo, n_ctx, 0, sKs, sVs);
-  for (int j = 0; j < n_tiles; ++j) {
-    const bool draft = j == n_ctx;
-    const int key0 = draft ? q0 : (t_lo + j) * kBlockN;
-    const int lo0 = draft ? sp0.z : sp0.x, hi0 = draft ? sp0.w : sp0.y;
-    const int lo1 = draft ? sp1.z : sp1.x, hi1 = draft ? sp1.w : sp1.y;
-    const int buf = j & 1;
-    if (j + 1 < n_tiles) {
-      load_kv_tile<D>(p, b, kvh, q0, t_lo, n_ctx, j + 1,
-                      sKs + (buf ^ 1) * kTile, sVs + (buf ^ 1) * kTile);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* sK = sKs + buf * kTile;
-    const __nv_bfloat16* sV = sVs + buf * kTile;
-
+  // the draft tile's p and ds of head lh, this thread's band entries
+  __device__ __forceinline__ void tile_done(unsigned char* smem, int lh,
+                                            const float (&pr)[32],
+                                            const uint32_t (&da)[4][4],
+                                            int r0, int t) const {
+    const int w = 1 << p.band_shift;
+    const int band0 = (r0 >> p.band_shift) << p.band_shift;
+    unsigned char* pb = smem + p.band_off + lh * 2 * kTileRows * w * 2;
+    unsigned char* db = pb + kTileRows * w * 2;
 #pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      // draft keys outside this warp's blocks: p = ds = 0, no products
-      const bool need = !draft || (kk * 16 < whi && kk * 16 + 16 > wlo);
-      // s = Q K^T and dp = dO V^T for 16 rows x 16 keys
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int e2 = 0; e2 < 2; ++e2) {
-        s[e2][0] = s[e2][1] = s[e2][2] = s[e2][3] = 0.f;
-        dp[e2][0] = dp[e2][1] = dp[e2][2] = dp[e2][3] = 0.f;
-        if (!need) continue;
-        const int nt = 2 * kk + e2;
-        const int off = (nt * 8 + (lane & 7)) * kStride + (lane >> 3) * 8;
-#pragma unroll
-        for (int ks = 0; ks < kSteps; ks += 2) {
-          uint32_t f[4];
-          ldmatrix_x4(f, sK + off + ks * 16);
-          mma_bf16(s[e2], qf[ks], f[0], f[1]);
-          mma_bf16(s[e2], qf[ks + 1], f[2], f[3]);
-          ldmatrix_x4(f, sV + off + ks * 16);
-          mma_bf16(dp[e2], df[ks], f[0], f[1]);
-          mma_bf16(dp[e2], df[ks + 1], f[2], f[3]);
-        }
-      }
-      // p recomputed under the row spans, ds = p * (dp - delta)
-      float pv[2][4];
-#pragma unroll
-      for (int e2 = 0; e2 < 2; ++e2) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = key0 + (2 * kk + e2) * 8 + 2 * t + e;
-          const float p0 = (need && col >= lo0 && col < hi0)
-                               ? __expf(s[e2][e] * p.scale - m0) * il0
-                               : 0.f;
-          const float p1 = (need && col >= lo1 && col < hi1)
-                               ? __expf(s[e2][2 + e] * p.scale - m1) * il1
-                               : 0.f;
-          pv[e2][e] = p0;
-          pv[e2][2 + e] = p1;
-          s[e2][e] = p0 * (dp[e2][e] - dl0);
-          s[e2][2 + e] = p1 * (dp[e2][2 + e] - dl1);
-        }
-      }
-      if (draft) {
-        // stage p and ds of the draft tile for the draft keys' dk/dv
-#pragma unroll
-        for (int e2 = 0; e2 < 2; ++e2) {
-          const int c = kk * 16 + e2 * 8 + 2 * t;
-          *reinterpret_cast<uint32_t*>(sP + rl0 * kPStride + c) =
-              pack_bf16(pv[e2][0], pv[e2][1]);
-          *reinterpret_cast<uint32_t*>(sP + (rl0 + 8) * kPStride + c) =
-              pack_bf16(pv[e2][2], pv[e2][3]);
-          *reinterpret_cast<uint32_t*>(sDS + rl0 * kPStride + c) =
-              pack_bf16(s[e2][0], s[e2][1]);
-          *reinterpret_cast<uint32_t*>(sDS + (rl0 + 8) * kPStride + c) =
-              pack_bf16(s[e2][2], s[e2][3]);
-        }
-      }
-      if (!need) continue;
-      // dq += ds K: ds from registers (C -> A layout), K as B (k = key,
-      // n = head dim) through a transposing ldmatrix
-      uint32_t a[4];
-      a[0] = pack_bf16(s[0][0], s[0][1]);
-      a[1] = pack_bf16(s[0][2], s[0][3]);
-      a[2] = pack_bf16(s[1][0], s[1][1]);
-      a[3] = pack_bf16(s[1][2], s[1][3]);
-      const __nv_bfloat16* kp =
-          sK + (kk * 16 + (lane & 8) + (lane & 7)) * kStride + (lane >> 4) * 8;
-#pragma unroll
-      for (int dt = 0; dt < kDTiles; dt += 2) {
-        uint32_t f[4];
-        ldmatrix_x4_trans(f, kp + dt * 8);
-        mma_bf16(dq[dt], a, f[0], f[1]);
-        mma_bf16(dq[dt + 1], a, f[2], f[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with `buf` before it is refilled
-  }
-
-  __nv_bfloat16* dqp = p.dq + sbase * D;
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (in0) {
-      *reinterpret_cast<uint32_t*>(dqp + row0 * D + c) =
-          pack_bf16(dq[dt][0] * p.scale, dq[dt][1] * p.scale);
-    }
-    if (in1) {
-      *reinterpret_cast<uint32_t*>(dqp + row1 * D + c) =
-          pack_bf16(dq[dt][2] * p.scale, dq[dt][3] * p.scale);
+    for (int jj = 0; jj < 8; ++jj) {
+      if (8 * jj < band0 || 8 * jj >= band0 + w) continue;
+      const int o0 = (r0 * w + 8 * jj + 2 * t - band0) * 2;
+      const int o1 = o0 + 8 * w * 2;  // row r0 + 8
+      *reinterpret_cast<uint32_t*>(pb + o0) =
+          pack_bf16(pr[4 * jj], pr[4 * jj + 1]);
+      *reinterpret_cast<uint32_t*>(pb + o1) =
+          pack_bf16(pr[4 * jj + 2], pr[4 * jj + 3]);
+      *reinterpret_cast<uint32_t*>(db + o0) = da[jj / 2][(jj % 2) * 2];
+      *reinterpret_cast<uint32_t*>(db + o1) = da[jj / 2][(jj % 2) * 2 + 1];
     }
   }
 
-  // the draft keys' dk = scale * ds^T Q and dv = p^T dO over this tile's
-  // rows: Q and dO of the tile into the (now free) first K/V buffers
-  __nv_bfloat16* sQ = sKs;
-  __nv_bfloat16* sDO = sVs;
-  {
-    const __nv_bfloat16* qbase = p.q + b * p.q_sb + h * p.q_sh;
-    const __nv_bfloat16* dbase = p.dout + (long long)b * p.Q * HD + h * D;
-    for (int i = threadIdx.x; i < kBlockM * kVecPerRow; i += kThreads) {
-      const int r = i / kVecPerRow;
-      const int c = (i % kVecPerRow) * 8;
-      const int row = q0 + r;
-      const long long src = row < p.Q ? row : 0;
-      cp_async16(sQ + r * kStride + c, qbase + src * p.q_ss + c, row < p.Q);
-      cp_async16(sDO + r * kStride + c, dbase + src * HD + c, row < p.Q);
+  // The chunk's group sums of the draft keys: warp w of warpgroup 0 (dk,
+  // A = ds^T, B = Q) or 1 (dv, A = p^T, B = dO) owns draft keys 16 w ..
+  // 16 w + 15 of the tile, which only the rows of their band reach; a
+  // half of D at a time.
+  __device__ __forceinline__ void chunk_done(unsigned char* smem,
+                                             const DqBlock& blk, int c,
+                                             bool last, int nh, int wg,
+                                             int tid) const {
+    using L = DqStreamSmem<D>;
+    consumers_sync();  // every head's draft p and ds are staged
+    const int warp = tid / 32;
+    const int lane = tid % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int w = 1 << p.band_shift;
+    const int k0 = warp * 16;
+    const int band0 = (k0 >> p.band_shift) << p.band_shift;
+    // ds (warpgroup 0) or p (warpgroup 1) of head 0; a head is 2 bands on
+    const unsigned char* band =
+        smem + p.band_off + (wg == 0 ? kTileRows * w * 2 : 0);
+    const unsigned char* xs = smem + (wg == 0 ? L::kQ : L::kDO);
+    const long long at =
+        (((long long)blk.b * p.s.KVH + blk.kvh) * p.s.rows + blk.q0) * D;
+    __nv_bfloat16* out = (wg == 0 ? p.dkd : p.dvd) + at;
+    float* ws = c == 0 && last ? nullptr
+                              : p.ws + (wg == 0 ? 0
+                                                : (long long)p.s.B * p.s.KVH *
+                                                      p.s.rows * D) + at;
+    const float mul = wg == 0 ? p.s.scale : 1.f;
+    const int a_row = (lane & 7) + ((lane >> 4) << 3);  // queries of the band
+    const int a_col = k0 - band0 + ((lane >> 3) & 1) * 8;  // its keys
+#pragma unroll
+    for (int half = 0; half < D / 64; ++half) {
+      float acc[8][4];
+#pragma unroll
+      for (int dt = 0; dt < 8; ++dt) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int key = k0 + g + 8 * hr;
+          float2 v = make_float2(0.f, 0.f);
+          if (c > 0 && blk.q0 + key < p.s.rows) {
+            v = *reinterpret_cast<const float2*>(
+                ws + (long long)key * D + half * 64 + dt * 8 + 2 * t);
+          }
+          acc[dt][2 * hr] = v.x;
+          acc[dt][2 * hr + 1] = v.y;
+        }
+      }
+      for (int lh = 0; lh < nh; ++lh) {
+        for (int ks = 0; ks < (w >> 4); ++ks) {
+          const int row = band0 + ks * 16;
+          uint32_t a[4];
+          ldmatrix_x4_trans(a, band + (lh * 2 * kTileRows * w +
+                                       (row + a_row) * w + a_col) * 2);
+#pragma unroll
+          for (int dt = 0; dt < 8; dt += 2) {
+            uint32_t f[4];
+            ldmatrix_x4_trans(f, xs + lh * L::kTile +
+                                     swz(row + (lane & 15),
+                                         half * 8 + dt + (lane >> 4)));
+            mma_bf16(acc[dt], a, f[0], f[1]);
+            mma_bf16(acc[dt + 1], a, f[2], f[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int dt = 0; dt < 8; ++dt) {
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int key = k0 + g + 8 * hr;
+          if (blk.q0 + key >= p.s.rows) continue;
+          const long long o = (long long)key * D + half * 64 + dt * 8 + 2 * t;
+          if (!last) {
+            *reinterpret_cast<float2*>(ws + o) =
+                make_float2(acc[dt][2 * hr], acc[dt][2 * hr + 1]);
+          } else {
+            *reinterpret_cast<uint32_t*>(out + o) = pack_bf16(
+                acc[dt][2 * hr] * mul, acc[dt][2 * hr + 1] * mul);
+          }
+        }
+      }
     }
-    cp_async_commit();
-    cp_async_wait<0>();
+    consumers_sync();  // the Q and dO tiles are read: the next chunk may come
+  }
+};
+
+// One block owns one q tile (64 rows) of one (batch, kv head) and the
+// group's query heads (dq_stream.cuh); the q tile is the grid's slow index,
+// later tiles (later anchors, more context keys) first. The block writes
+// its rows' spans, reduces them over its kept rows and lists its tiles.
+template <int D>
+__global__ void __launch_bounds__(kDqThreads, 1)
+    dflash_bwd_dq_kernel(const __grid_constant__ DFlashDqParams p) {
+  using L = DqStreamSmem<D>;
+  extern __shared__ unsigned char dq_smem[];
+  unsigned char* smem = align1024(dq_smem);
+  DqBlock* info = dq_block_info<D>(smem);
+  int* setup = dq_setup<D>(smem);
+  int* list = reinterpret_cast<int*>(smem + L::kExtra);
+  const int BK = p.s.B * p.s.KVH;
+  const int n_qtiles = (p.s.rows + kTileRows - 1) / kTileRows;
+  const int q0 = (n_qtiles - 1 - blockIdx.x / BK) * kTileRows;
+  const int b = blockIdx.x % BK / p.s.KVH;
+  dq_init_block<D>(smem, b, blockIdx.x % p.s.KVH, q0);
+  int4* spans = reinterpret_cast<int4*>(smem + L::kRowData);
+  if (threadIdx.x < kTileRows) {
+    spans[threadIdx.x] = row_span(p, b, q0 + threadIdx.x);
   }
   __syncthreads();
-
-  // warp w owns draft keys 16w .. 16w+15 of the tile; only the rows of their
-  // anchor blocks reach them
-  int rlo, rhi;
-  warp_draft_range(warp, p.bs, rlo, rhi);
-  float dk[kDTiles][4], dv[kDTiles][4];
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    dk[dt][0] = dk[dt][1] = dk[dt][2] = dk[dt][3] = 0.f;
-    dv[dt][0] = dv[dt][1] = dv[dt][2] = dv[dt][3] = 0.f;
-  }
-  for (int kk = rlo / 16; kk < (rhi + 15) / 16; ++kk) {
-    // A = ds^T, p^T (rows = keys, k = query rows) from the [row][key] tiles
-    // through a transposing ldmatrix
-    const int aoff = (kk * 16 + (lane >> 4) * 8 + (lane & 7)) * kPStride +
-                     warp * 16 + ((lane >> 3) & 1) * 8;
-    uint32_t ads[4], ap[4];
-    ldmatrix_x4_trans(ads, sDS + aoff);
-    ldmatrix_x4_trans(ap, sP + aoff);
-    // B = Q, dO (k = query rows, n = head dim)
-    const int toff =
-        (kk * 16 + (lane & 8) + (lane & 7)) * kStride + (lane >> 4) * 8;
-#pragma unroll
-    for (int dt = 0; dt < kDTiles; dt += 2) {
-      uint32_t f[4];
-      ldmatrix_x4_trans(f, sQ + toff + dt * 8);
-      mma_bf16(dk[dt], ads, f[0], f[1]);
-      mma_bf16(dk[dt + 1], ads, f[2], f[3]);
-      ldmatrix_x4_trans(f, sDO + toff + dt * 8);
-      mma_bf16(dv[dt], ap, f[0], f[1]);
-      mma_bf16(dv[dt + 1], ap, f[2], f[3]);
+  if (threadIdx.x < 32) {
+    // over the kept rows (a draft span): the context keys any of them
+    // attends, [lo, hi), and the largest lo and smallest hi
+    int lo = INT_MAX, hi = 0, max_lo = 0, min_hi = INT_MAX;
+    for (int i = threadIdx.x; i < kTileRows; i += 32) {
+      const int4 s = spans[i];
+      if (s.w > s.z) {
+        max_lo = max(max_lo, s.x);
+        min_hi = min(min_hi, s.y);
+        if (s.y > s.x) {
+          lo = min(lo, s.x);
+          hi = max(hi, s.y);
+        }
+      }
+    }
+    lo = __reduce_min_sync(0xffffffffu, lo);
+    hi = __reduce_max_sync(0xffffffffu, hi);
+    max_lo = __reduce_max_sync(0xffffffffu, max_lo);
+    min_hi = __reduce_min_sync(0xffffffffu, min_hi);
+    if (threadIdx.x == 0) {
+      const bool any = hi > lo;
+      setup[0] = any ? lo / kTileRows : 0;  // the first context tile
+      setup[1] = max_lo;
+      setup[2] = min_hi;
+      info->n_tiles = any ? (hi + kTileRows - 1) / kTileRows - setup[0] + 1
+                          : 1;  // and the draft tile
     }
   }
-  const int kr0 = q0 + warp * 16 + g;  // this thread's two draft keys
-  const int kr1 = kr0 + 8;
-  __nv_bfloat16* dkp = p.dkd + sbase * D;
-  __nv_bfloat16* dvp = p.dvd + sbase * D;
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (kr0 < p.Q) {
-      *reinterpret_cast<uint32_t*>(dkp + kr0 * D + c) =
-          pack_bf16(dk[dt][0] * p.scale, dk[dt][1] * p.scale);
-      *reinterpret_cast<uint32_t*>(dvp + kr0 * D + c) =
-          pack_bf16(dv[dt][0], dv[dt][1]);
-    }
-    if (kr1 < p.Q) {
-      *reinterpret_cast<uint32_t*>(dkp + kr1 * D + c) =
-          pack_bf16(dk[dt][2] * p.scale, dk[dt][3] * p.scale);
-      *reinterpret_cast<uint32_t*>(dvp + kr1 * D + c) =
-          pack_bf16(dv[dt][2], dv[dt][3]);
-    }
+  __syncthreads();
+  // the context tiles, each with its "needs no mask" bit, then the draft
+  // keys (the q tile's own rows of the second source)
+  const int n_tiles = info->n_tiles;
+  for (int j = threadIdx.x; j < n_tiles; j += blockDim.x) {
+    const int tile = setup[0] + j;
+    const int key0 = tile * kTileRows;
+    list[j] = j + 1 == n_tiles
+                  ? 2 * (q0 / kTileRows)
+                  : 2 * tile + (setup[1] <= key0 &&
+                                key0 + kTileRows <= setup[2]);
   }
+  __syncthreads();
+  dq_stream_block<D>(p.s, DFlashDq<D>{p}, smem);
 }
 
 // --------------------------------------------------------------------------
@@ -815,7 +807,6 @@ int launch_kernel(Kernel kernel, dim3 grid, int smem, const Params& p,
 }
 
 int smem_fwd(int D) { return 4 * kBlockN * (D + 8) * 2; }
-int smem_dq(int D) { return smem_fwd(D) + 2 * kBlockM * kPStride * 2; }
 
 // tensors: q, k_ctx, v_ctx, k_drf, v_drf; strides: their element strides
 // over (b, head, row), 15 values in that order; the head dim is contiguous
@@ -835,10 +826,8 @@ int fill_params(Params& p, const void* const* tensors,
   p.vd = static_cast<const __nv_bfloat16*>(tensors[4]);
   p.anchors = anchors;
   p.keep = keep;
-  p.out = p.dq = p.dkd = p.dvd = p.dkc = p.dvc = nullptr;
+  p.out = nullptr;
   p.m = p.l = nullptr;
-  p.dout = nullptr;
-  p.delta = nullptr;
   long long* dst[15] = {&p.q_sb,  &p.q_sh,  &p.q_ss,  &p.kc_sb, &p.kc_sh,
                         &p.kc_ss, &p.vc_sb, &p.vc_sh, &p.vc_ss, &p.kd_sb,
                         &p.kd_sh, &p.kd_ss, &p.vd_sb, &p.vd_sh, &p.vd_ss};
@@ -879,30 +868,61 @@ extern "C" int dflash_attention_fwd(const void* const* tensors,
                   : launch_kernel(dflash_fwd_kernel<64>, grid, smem_fwd(64), p, st);
 }
 
-// Backward kernel A: dq [B, H, Q, D] and the draft keys' dk, dv per query
-// head [B, H, Q, D] (all contiguous bf16). dout [B, Q, H*D] is contiguous;
-// m, l, delta are [B, H, Q] fp32. The other arguments are those of the
-// forward.
+// Backward kernel A: dq [B, H, Q, D] and the draft keys' dk, dv summed
+// over each group's query heads [B, KVH, Q, D] (all contiguous bf16). dout
+// [B, Q, H*D] is contiguous; m, l, delta are [B, H, Q] fp32. `heads` is the
+// number of query heads a block keeps resident: 4, or 2 where the draft
+// staging (64 x max(bs, 16) bf16 of p and of ds a head) does not fit beside
+// four at D = 128; ws is an fp32 workspace [2, B, KVH, Q, D] when H / KVH >
+// heads (else unused). The other arguments are those of the forward; the
+// strides of all five operands must be multiples of 8 elements and their
+// bases 16-byte aligned (the tensor maps').
 extern "C" int dflash_attention_bwd_dq(
     const void* const* tensors, const long long* strides, const int* anchors,
     const int* keep, const void* dout, const float* m, const float* l,
-    const float* delta, void* dq, void* dkd, void* dvd, int B, int H, int KVH,
-    int S, int N, int bs, int window, int D, void* stream) {
+    const float* delta, void* dq, void* dkd, void* dvd, float* ws, int heads,
+    int B, int H, int KVH, int S, int N, int bs, int window, int D,
+    void* stream) {
   Params p;
   const int e = fill_params(p, tensors, strides, anchors, keep, B, H, KVH, S,
                             N, bs, window, D);
   if (e != cudaSuccess) return e;
-  p.dout = static_cast<const __nv_bfloat16*>(dout);
-  p.m = const_cast<float*>(m);
-  p.l = const_cast<float*>(l);
-  p.delta = delta;
-  p.dq = static_cast<__nv_bfloat16*>(dq);
-  p.dkd = static_cast<__nv_bfloat16*>(dkd);
-  p.dvd = static_cast<__nv_bfloat16*>(dvd);
-  const dim3 grid((p.Q + kBlockM - 1) / kBlockM, B * H);
+  DFlashDqParams d;
+  if (!fill_dq_stream(d.s, tensors[0], strides, tensors[1], strides + 3,
+                      tensors[2], strides + 6, S, tensors[3], strides + 9,
+                      tensors[4], strides + 12, p.Q, dout, m, l, delta, dq,
+                      B, H, KVH, p.Q, D, heads) ||
+      (H / KVH > heads && ws == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  d.anchors = anchors;
+  d.keep = keep;
+  d.dkd = static_cast<__nv_bfloat16*>(dkd);
+  d.dvd = static_cast<__nv_bfloat16*>(dvd);
+  d.ws = ws;
+  d.S = S;
+  d.Q = p.Q;
+  d.N = N;
+  d.bs = bs;
+  d.window = window;
+  d.band_shift = 4;
+  while ((1 << d.band_shift) < bs) ++d.band_shift;
+  // the tile list (the context tiles and the draft tile), then the draft
+  // staging, unless that fits in the Q tiles' unused slots
+  const int list = ((S + kTileRows - 1) / kTileRows + 1 + 3) / 4 * 16;
+  const int band = heads * 2 * kTileRows * (1 << d.band_shift) * 2;
+  const int tile = kTileRows * D * 2;
+  const bool in_q = band <= (kDqHeads - heads) * tile;
+  d.band_off = in_q ? heads * tile
+                    : list + (D == 128 ? DqStreamSmem<128>::kExtra
+                                       : DqStreamSmem<64>::kExtra);
+  const int smem = dq_smem_bytes(D, list + (in_q ? 0 : band));
+  const long long blocks =
+      (long long)((p.Q + kTileRows - 1) / kTileRows) * B * KVH;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 128 ? launch_kernel(dflash_bwd_dq_kernel<128>, grid, smem_dq(128), p, st)
-                  : launch_kernel(dflash_bwd_dq_kernel<64>, grid, smem_dq(64), p, st);
+  return D == 128
+             ? launch_hopper(dflash_bwd_dq_kernel<128>, smem, d, blocks, st)
+             : launch_hopper(dflash_bwd_dq_kernel<64>, smem, d, blocks, st);
 }
 
 // Backward kernel B: the context keys' dk, dv [B, KVH, S, D] (contiguous
@@ -933,7 +953,8 @@ extern "C" int dflash_attention_bwd_dkv(
   const long long blocks = (long long)((S + kBlockN - 1) / kBlockN) * B * KVH;
   const int smem = dkv_smem_bytes(D, (p.Q + kBlockM - 1) / kBlockM);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 128
-             ? launch_dkv(dflash_bwd_dkv_kernel<128>, smem, d, blocks, st)
-             : launch_dkv(dflash_bwd_dkv_kernel<64>, smem, d, blocks, st);
+  return D == 128 ? launch_hopper(dflash_bwd_dkv_kernel<128>, smem, d,
+                                  blocks, st)
+                  : launch_hopper(dflash_bwd_dkv_kernel<64>, smem, d, blocks,
+                                  st);
 }

@@ -41,7 +41,7 @@
 
 namespace {
 
-constexpr int kDkvThreads = 384;  // consumer warpgroups 0 and 1, producer 2
+constexpr int kDkvThreads = kHopperThreads;
 constexpr int kDkvStages = 2;     // Q/dO stages of each warpgroup's ring
 
 // What travels with a stage, byte offsets inside its row block: m in log2
@@ -117,31 +117,6 @@ template <int D>
 __device__ __forceinline__ DkvBlock load_block(unsigned char* smem) {
   const volatile DkvBlock* x = block_info<D>(smem);
   return {x->b, x->kvh, x->key0, x->n_list};
-}
-
-// The flags list[i] (i < n: 0, or 1 plus twice a tile bit of the
-// policy's) compacted in place into entries 2 i + bit of the ascending
-// indices whose flag is set, by warp 0; their number into *count. Every
-// thread of the block calls it, after writing the flags.
-__device__ __forceinline__ void compact_list(int* list, int n, int* count) {
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    int c = 0;
-    for (int base = 0; base < n; base += 32) {
-      const int i = base + lane;
-      const int f = i < n ? list[i] : 0;
-      const unsigned mask = __ballot_sync(0xffffffffu, f != 0);
-      __syncwarp();
-      if (f != 0) {
-        list[c + __popc(mask & ((1u << lane) - 1u))] = 2 * i + (f >> 1);
-      }
-      c += __popc(mask);
-      __syncwarp();
-    }
-    if (lane == 0) *count = c;
-  }
-  __syncthreads();
 }
 
 // p^T = 2^(s^T * scale2 - m2) / l in place, over this thread's 32 entries
@@ -443,21 +418,6 @@ bool fill_stream(DkvStream& s, const void* q, const long long* q_strides,
   s.keys = keys;
   s.scale = 1.0f / sqrtf(static_cast<float>(D));
   return ok;
-}
-
-// Launch a dk/dv kernel of `blocks` blocks with `smem` bytes of dynamic
-// shared memory → cudaGetLastError().
-template <typename Kernel, typename P>
-int launch_dkv(Kernel kernel, int smem, const P& p, long long blocks,
-               cudaStream_t st) {
-  if (blocks < 1 || blocks > 0x7fffffffLL || smem > 227 * 1024) {
-    return cudaErrorInvalidValue;
-  }
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<static_cast<unsigned>(blocks), kDkvThreads, smem, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -22,6 +22,7 @@ namespace {
 constexpr float kNegInf = -1e30f;  // finite, as in the TPU kernel
 constexpr int kTileRows = 64;  // rows of every staged tile (wgmma's M)
 constexpr int kPanelBytes = kTileRows * 128;  // 64 rows x 64 bf16 columns
+constexpr int kHopperThreads = 384;  // consumer warpgroups 0 and 1, producer 2
 constexpr int kConsumerRegs = 240;  // setmaxnreg: 2 x 128 x 240 + 128 x 24
 constexpr int kProducerRegs = 24;   //   = 64,512 of the SM's 65,536
 constexpr float kLog2e = 1.4426950408889634f;
@@ -174,6 +175,31 @@ __device__ __forceinline__ int swz(int row, int j) {
 // the address space and emits shared, not generic, loads and stores)
 __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// The flags list[i] (i < n: 0, or 1 plus twice a tile bit of the
+// policy's) compacted in place into entries 2 i + bit of the ascending
+// indices whose flag is set, by warp 0; their number into *count. Every
+// thread of the block calls it, after writing the flags.
+__device__ __forceinline__ void compact_list(int* list, int n, int* count) {
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int c = 0;
+    for (int base = 0; base < n; base += 32) {
+      const int i = base + lane;
+      const int f = i < n ? list[i] : 0;
+      const unsigned mask = __ballot_sync(0xffffffffu, f != 0);
+      __syncwarp();
+      if (f != 0) {
+        list[c + __popc(mask & ((1u << lane) - 1u))] = 2 * i + (f >> 1);
+      }
+      c += __popc(mask);
+      __syncwarp();
+    }
+    if (lane == 0) *count = c;
+  }
+  __syncthreads();
 }
 
 // 2^x (flushing denormals; 2^-inf = 0): one MUFU instruction. The kernels
@@ -399,6 +425,21 @@ bool encode_bhsd(CUtensorMap* map, const void* base, int B, int heads, int S,
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Launch a warp-specialised kernel of `blocks` blocks of kHopperThreads
+// with `smem` bytes of dynamic shared memory → cudaGetLastError().
+template <typename Kernel, typename P>
+int launch_hopper(Kernel kernel, int smem, const P& p, long long blocks,
+                  cudaStream_t st) {
+  if (blocks < 1 || blocks > 0x7fffffffLL || smem > 227 * 1024) {
+    return cudaErrorInvalidValue;
+  }
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<static_cast<unsigned>(blocks), kHopperThreads, smem, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace

@@ -36,16 +36,30 @@
 // per forward from the model's mask and shared by every layer and head;
 // each block lists its live tiles from it first. The doc-major order of
 // the sample makes the live tiles few and dense (about a quarter of the
-// grid at the slice, block-diagonal when documents are packed). Forward
-// and dq, on `mma.sync.m16n8k16`: one block of 4 warps owns a q tile of 64
-// rows of one (batch, head); each warp keeps the Q (and dO) fragments of
-// its 16 rows and the properties of its thread's two rows in registers;
-// the live K/V tiles and their keys' properties are staged by cp.async in
-// two buffers of padded shared memory and reach the tensor cores through
-// ldmatrix. The GQA kv head is read as h / (H / KVH), never repeated in
-// memory; there are no atomics, so two runs give the same bits. T need not
-// be a multiple of 64: rows and keys past T are zero-filled and carry no
-// valid property.
+// grid at the slice, block-diagonal when documents are packed). The
+// forward, on `mma.sync.m16n8k16`: one block of 4 warps owns a q tile of
+// 64 rows of one (batch, head); each warp keeps the Q fragments of its 16
+// rows and the properties of its thread's two rows in registers; the live
+// K/V tiles and their keys' properties are staged by cp.async in two
+// buffers of padded shared memory and reach the tensor cores through
+// ldmatrix; it does not use TMA, wgmma or warp specialisation yet. The GQA
+// kv head is read as h / (H / KVH), never repeated in memory; there are no
+// atomics, so two runs give the same bits. T need not be a multiple of 64:
+// rows and keys past T are zero-filled and carry no valid property.
+// dq is bound by its three products per live (query head, key tile) item:
+// at the slice about 13 live key tiles per q tile. The first design
+// (mma.sync from 4 warps, a block per query head, two cp.async stages, the
+// predicate on every pair, blocks in doc-major order) reached about 8% of
+// its bound. It now follows ttt_bwd_dq_kernel (dq_stream.cuh): a block of
+// 384 threads owns a q tile of one (batch, kv head) and the group's query
+// heads, four resident, so each live K/V tile is staged once for them by
+// TMA; two consumer warpgroups run the three products on `wgmma` with dq
+// in fp32 registers. The rows' folded properties are staged once a block,
+// a stage's keys' with the stage, and the predicate runs once a stage for
+// both of a warpgroup's heads, only where the caller's full-tile flag
+// (carried in the block's tile list) is not set. The blocks are issued
+// longest first, in an order of (batch, q tile) pairs the caller sorts by
+// their live key tiles on the card.
 // dk/dv is bound by its four products per live (query head, q tile) item:
 // at the slice 45,632 items over 864 blocks, at most 180 in one block; the
 // first design (mma.sync from 4 warps, two cp.async stages, the predicate
@@ -64,12 +78,12 @@
 // slice) skip the predicate. The blocks are issued longest first, in an
 // order of (batch, key tile) pairs the caller sorts by their live q tiles
 // on the card, once per forward. The kernels share the Hopper helpers of
-// hopper.cuh. The forward and dq do not use TMA, wgmma or warp
-// specialisation yet.
+// hopper.cuh.
 
 #include <limits.h>
 
 #include "dkv_stream.cuh"
+#include "dq_stream.cuh"
 
 namespace {
 
@@ -87,11 +101,6 @@ struct Params {
   __nv_bfloat16* out;      // [B, T, H*D]
   float* m;                // [B, H, T]
   float* l;                // [B, H, T]
-  const __nv_bfloat16* dout;  // [B, T, H*D], contiguous
-  const float* delta;         // [B, H, T]
-  __nv_bfloat16* dq;          // [B, H, T, D], contiguous
-  __nv_bfloat16* dk;          // [B, KVH, T, D], contiguous
-  __nv_bfloat16* dv;
   long long q_sb, q_sh, q_ss;
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
@@ -417,144 +426,111 @@ __global__ void __launch_bounds__(kThreads) cod_fwd_kernel(const Params p) {
 // backward: dq
 // --------------------------------------------------------------------------
 
+// The pair test on folded properties: a row's doc is INT_MIN + 1 when the
+// row is invalid or padding, a key's INT_MIN when it is invalid, so that a
+// pair is allowed iff the docs match and the trunk or the rollout rule
+// holds, as cod_allow
+__device__ __forceinline__ bool cod_folded_allow(int4 q, int ka, int kd,
+                                                 int kc) {
+  return q.z == kc && ((kd == 0 && q.x >= ka) || (q.x == ka && q.y >= kd));
+}
+
+// token i's properties with its own conditions folded into the doc: as a
+// row (`row`: invalid or padding gets INT_MIN + 1) or as a key (invalid
+// gets INT_MIN); a token past T is invalid
+__device__ __forceinline__ int4 cod_folded(const int4* props, int T, int b,
+                                           int i, bool row) {
+  const int4 x =
+      i < T ? props[(long long)b * T + i] : make_int4(0, 0, -1, 0);
+  const bool ok = x.w != 0 && (!row || x.z != -1);
+  return make_int4(x.x, x.y, ok ? x.z : (row ? INT_MIN + 1 : INT_MIN), 0);
+}
+
+struct CodDqParams {
+  DqStream s;          // rows = keys = T
+  const int4* props;   // [B, T]
+  const int* tiles;    // [B, NT, NT]: 1 where a tile pair may attend
+  const int* full;     // [B, NT, NT]: 1 where every pair of it is allowed
+  const int* order;    // [B * NT]: (batch, q tile) pairs, longest first
+  int NT;
+};
+
+// The COD policy of the dq stream. A block streams the live key tiles of
+// its q tile (row `qtile` of the batch's table), listed first with each
+// tile's full-tile flag as the entry's bit. The rows' folded properties are
+// the rows' mask data; a stage that is not full carries its keys' folded
+// properties, written by the producer lanes, and the consumers test the
+// pairs once a stage; a full stage needs neither.
+struct CodDq {
+  static constexpr bool kSecondSource = false;
+  const CodDqParams& p;
+
+  // a stage that is not full carries its keys' folded properties
+  __device__ __forceinline__ void stage_key(unsigned char* key_data,
+                                            const DqBlock& blk, int entry,
+                                            int key0, int r) const {
+    if ((entry & 1) != 0) return;
+    *reinterpret_cast<int4*>(key_data + r * 16) =
+        cod_folded(p.props, p.s.rows, blk.b, key0 + r, false);
+  }
+
+  // key 8 jj + 2 t + (e & 1) of the tile against row r0 (e < 2) or r0 + 8
+  __device__ __forceinline__ uint32_t tile_bits(const unsigned char* rows,
+                                                const unsigned char* keys,
+                                                int, bool, int r0,
+                                                int t) const {
+    const int4 q0 = *reinterpret_cast<const int4*>(rows + r0 * 16);
+    const int4 q1 = *reinterpret_cast<const int4*>(rows + (r0 + 8) * 16);
+    uint32_t bits = 0u;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int4 k =
+            *reinterpret_cast<const int4*>(keys + (8 * jj + 2 * t + c) * 16);
+        bits |= static_cast<uint32_t>(cod_folded_allow(q0, k.x, k.y, k.z))
+                << (4 * jj + c);
+        bits |= static_cast<uint32_t>(cod_folded_allow(q1, k.x, k.y, k.z))
+                << (4 * jj + 2 + c);
+      }
+    }
+    return bits;
+  }
+
+  __device__ __forceinline__ void chunk_done(unsigned char*, const DqBlock&,
+                                             int, bool, int, int, int) const {}
+};
+
+// One block owns one q tile of one (batch, kv head) and the group's query
+// heads (dq_stream.cuh): blockIdx / KVH picks the (batch, q tile) pair from
+// `order` (the caller sorts the pairs by their live key tiles, descending,
+// so the heaviest blocks start first), blockIdx % KVH the kv head. The
+// block writes its rows' folded properties and lists the live key tiles of
+// its q tile (row `qtile` of the batch's table).
 template <int D>
-__global__ void __launch_bounds__(kThreads) cod_bwd_dq_kernel(const Params p) {
-  constexpr int kStride = D + 8;
-  constexpr int kSteps = D / 16;
-  constexpr int kDTiles = D / 8;
-  constexpr int kTile = kBlockN * kStride;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sKs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sVs = sKs + 2 * kTile;
-  int4* sKPs = reinterpret_cast<int4*>(sVs + 2 * kTile);
-  int* sList = reinterpret_cast<int*>(sKPs + 2 * kBlockN);
-  __shared__ int sCount;
-
-  const int H = p.H;
-  const int qtile = blockIdx.x;
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
-  const int kvh = h / (H / p.KVH);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int row0 = qtile * kBlockM + warp * 16 + g;
-  const int row1 = row0 + 8;
-  const bool in0 = row0 < p.T;
-  const bool in1 = row1 < p.T;
-  const long long HD = (long long)H * D;
-  const int4 qp0 = load_prop(p, b, row0);
-  const int4 qp1 = load_prop(p, b, row1);
-
-  const int n_live = live_list(
-      p.tiles + ((long long)b * p.NT + qtile) * p.NT, 1, p.NT, sList, &sCount);
-
-  uint32_t qf[kSteps][4], df[kSteps][4];
-  load_a_frags<kSteps>(qf, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, row0, in0,
-                       in1, t);
-  load_a_frags<kSteps>(df, p.dout + (long long)b * p.T * HD + h * D, HD, row0,
-                       in0, in1, t);
-  const long long sbase = ((long long)b * H + h) * p.T;
-  // rows past T get p = 0 (no allowed key, inverse l of 0)
-  const float m0 = in0 ? p.m[sbase + row0] : 0.f;
-  const float m1 = in1 ? p.m[sbase + row1] : 0.f;
-  const float il0 = in0 ? 1.f / fmaxf(p.l[sbase + row0], 1e-30f) : 0.f;
-  const float il1 = in1 ? 1.f / fmaxf(p.l[sbase + row1], 1e-30f) : 0.f;
-  const float dl0 = in0 ? p.delta[sbase + row0] : 0.f;
-  const float dl1 = in1 ? p.delta[sbase + row1] : 0.f;
-
-  float dq[kDTiles][4];
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    dq[dt][0] = dq[dt][1] = dq[dt][2] = dq[dt][3] = 0.f;
+__global__ void __launch_bounds__(kDqThreads, 1)
+    cod_bwd_dq_kernel(const __grid_constant__ CodDqParams p) {
+  using L = DqStreamSmem<D>;
+  extern __shared__ unsigned char dq_smem[];
+  unsigned char* smem = align1024(dq_smem);
+  int* list = reinterpret_cast<int*>(smem + L::kExtra);
+  const int NT = p.NT;
+  const int pair = p.order[blockIdx.x / p.s.KVH];
+  const int b = pair / NT;
+  const int q0 = pair % NT * kTileRows;
+  dq_init_block<D>(smem, b, blockIdx.x % p.s.KVH, q0);
+  if (threadIdx.x < kTileRows) {
+    reinterpret_cast<int4*>(smem + L::kRowData)[threadIdx.x] =
+        cod_folded(p.props, p.s.rows, b, q0 + threadIdx.x, true);
   }
-
-  if (n_live > 0) load_kv_tile<D>(p, b, kvh, sList[0], sKs, sVs, sKPs);
-  for (int j = 0; j < n_live; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_live) {
-      load_kv_tile<D>(p, b, kvh, sList[j + 1], sKs + (buf ^ 1) * kTile,
-                      sVs + (buf ^ 1) * kTile, sKPs + (buf ^ 1) * kBlockN);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* sK = sKs + buf * kTile;
-    const __nv_bfloat16* sV = sVs + buf * kTile;
-    const int4* sKP = sKPs + buf * kBlockN;
-
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      // s = Q K^T and dp = dO V^T for 16 rows x 16 keys
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int e2 = 0; e2 < 2; ++e2) {
-        s[e2][0] = s[e2][1] = s[e2][2] = s[e2][3] = 0.f;
-        dp[e2][0] = dp[e2][1] = dp[e2][2] = dp[e2][3] = 0.f;
-        const int nt = 2 * kk + e2;
-        const int off = (nt * 8 + (lane & 7)) * kStride + (lane >> 3) * 8;
-#pragma unroll
-        for (int ks = 0; ks < kSteps; ks += 2) {
-          uint32_t f[4];
-          ldmatrix_x4(f, sK + off + ks * 16);
-          mma_bf16(s[e2], qf[ks], f[0], f[1]);
-          mma_bf16(s[e2], qf[ks + 1], f[2], f[3]);
-          ldmatrix_x4(f, sV + off + ks * 16);
-          mma_bf16(dp[e2], df[ks], f[0], f[1]);
-          mma_bf16(dp[e2], df[ks + 1], f[2], f[3]);
-        }
-      }
-      // p recomputed under the predicate, ds = p * (dp - delta)
-#pragma unroll
-      for (int e2 = 0; e2 < 2; ++e2) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int4 kp = sKP[(2 * kk + e2) * 8 + 2 * t + e];
-          const float p0 = cod_allow(qp0, kp)
-                               ? __expf(s[e2][e] * p.scale - m0) * il0
-                               : 0.f;
-          const float p1 = cod_allow(qp1, kp)
-                               ? __expf(s[e2][2 + e] * p.scale - m1) * il1
-                               : 0.f;
-          s[e2][e] = p0 * (dp[e2][e] - dl0);
-          s[e2][2 + e] = p1 * (dp[e2][2 + e] - dl1);
-        }
-      }
-      // dq += ds K: ds from registers (C -> A layout), K as B (k = key,
-      // n = head dim) through a transposing ldmatrix
-      uint32_t a[4];
-      a[0] = pack_bf16(s[0][0], s[0][1]);
-      a[1] = pack_bf16(s[0][2], s[0][3]);
-      a[2] = pack_bf16(s[1][0], s[1][1]);
-      a[3] = pack_bf16(s[1][2], s[1][3]);
-      const __nv_bfloat16* kp =
-          sK + (kk * 16 + (lane & 8) + (lane & 7)) * kStride + (lane >> 4) * 8;
-#pragma unroll
-      for (int dt = 0; dt < kDTiles; dt += 2) {
-        uint32_t f[4];
-        ldmatrix_x4_trans(f, kp + dt * 8);
-        mma_bf16(dq[dt], a, f[0], f[1]);
-        mma_bf16(dq[dt + 1], a, f[2], f[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with `buf` before it is refilled
+  // the live key tiles of the q tile, each with its full-tile flag as the
+  // tile bit
+  const long long row = (long long)pair * NT;
+  for (int i = threadIdx.x; i < NT; i += blockDim.x) {
+    list[i] = p.tiles[row + i] != 0 ? 1 + 2 * (p.full[row + i] != 0) : 0;
   }
-
-  __nv_bfloat16* dqp = p.dq + sbase * D;
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (in0) {
-      *reinterpret_cast<uint32_t*>(dqp + row0 * D + c) =
-          pack_bf16(dq[dt][0] * p.scale, dq[dt][1] * p.scale);
-    }
-    if (in1) {
-      *reinterpret_cast<uint32_t*>(dqp + row1 * D + c) =
-          pack_bf16(dq[dt][2] * p.scale, dq[dt][3] * p.scale);
-    }
-  }
+  compact_list(list, NT, &dq_block_info<D>(smem)->n_tiles);
+  dq_stream_block<D>(p.s, CodDq{p}, smem);
 }
 
 // --------------------------------------------------------------------------
@@ -702,10 +678,8 @@ int fill_params(Params& p, const void* const* tensors,
   p.v = static_cast<const __nv_bfloat16*>(tensors[2]);
   p.props = static_cast<const int4*>(props);
   p.tiles = tiles;
-  p.out = p.dq = p.dk = p.dv = nullptr;
+  p.out = nullptr;
   p.m = p.l = nullptr;
-  p.dout = nullptr;
-  p.delta = nullptr;
   long long* dst[9] = {&p.q_sb, &p.q_sh, &p.q_ss, &p.k_sb, &p.k_sh,
                        &p.k_ss, &p.v_sb, &p.v_sh, &p.v_ss};
   for (int i = 0; i < 9; ++i) *dst[i] = strides[i];
@@ -715,8 +689,11 @@ int fill_params(Params& p, const void* const* tensors,
   p.T = T;
   p.NT = (T + kBlockN - 1) / kBlockN;
   p.scale = 1.0f / sqrtf(static_cast<float>(D));
-  // the dk/dv kernel's shared memory is the largest of the three
-  if (dkv_smem_bytes(D, p.NT) > 227 * 1024) return cudaErrorInvalidValue;
+  // the backward kernels' shared memory grows with the tile list
+  if (dkv_smem_bytes(D, p.NT) > 227 * 1024 ||
+      dq_smem_bytes(D, p.NT * 4) > 227 * 1024) {
+    return cudaErrorInvalidValue;
+  }
   return cudaSuccess;
 }
 
@@ -745,11 +722,16 @@ extern "C" int cod_attention_fwd(const void* const* tensors,
 }
 
 // Backward, dq [B, H, T, D] (contiguous bf16). dout [B, T, H*D] is
-// contiguous; m, l, delta are [B, H, T] fp32. The other arguments are those
-// of the forward.
+// contiguous; m, l, delta are [B, H, T] fp32; full: [B, NT, NT] int32, 1
+// where every pair of the tile pair is allowed; order: [B * NT] int32, the
+// (batch, q tile) pairs b * NT + qtile in launch order. The other
+// arguments are those of the forward; the strides of q, k and v must be
+// multiples of 8 elements and their bases 16-byte aligned (the tensor
+// maps').
 extern "C" int cod_attention_bwd_dq(const void* const* tensors,
                                     const long long* strides,
                                     const void* props, const int* tiles,
+                                    const int* full, const int* order,
                                     const void* dout, const float* m,
                                     const float* l, const float* delta,
                                     void* dq, int B, int H, int KVH, int T,
@@ -757,16 +739,23 @@ extern "C" int cod_attention_bwd_dq(const void* const* tensors,
   Params p;
   const int e = fill_params(p, tensors, strides, props, tiles, B, H, KVH, T, D);
   if (e != cudaSuccess) return e;
-  p.dout = static_cast<const __nv_bfloat16*>(dout);
-  p.m = const_cast<float*>(m);
-  p.l = const_cast<float*>(l);
-  p.delta = delta;
-  p.dq = static_cast<__nv_bfloat16*>(dq);
-  const dim3 grid(p.NT, B * H);
+  CodDqParams d;
+  if (!fill_dq_stream(d.s, tensors[0], strides, tensors[1], strides + 3,
+                      tensors[2], strides + 6, T, nullptr, nullptr, nullptr,
+                      nullptr, 0, dout, m, l, delta, dq, B, H, KVH, T, D,
+                      kDqHeads)) {
+    return cudaErrorInvalidValue;
+  }
+  d.props = static_cast<const int4*>(props);
+  d.tiles = tiles;
+  d.full = full;
+  d.order = order;
+  d.NT = p.NT;
+  const long long blocks = (long long)B * p.NT * KVH;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int smem = smem_q_side(D, p.NT);
-  return D == 128 ? launch_kernel(cod_bwd_dq_kernel<128>, grid, smem, p, st)
-                  : launch_kernel(cod_bwd_dq_kernel<64>, grid, smem, p, st);
+  const int smem = dq_smem_bytes(D, p.NT * 4);
+  return D == 128 ? launch_hopper(cod_bwd_dq_kernel<128>, smem, d, blocks, st)
+                  : launch_hopper(cod_bwd_dq_kernel<64>, smem, d, blocks, st);
 }
 
 // Backward, dk and dv [B, KVH, T, D] (contiguous bf16), summed over the
@@ -801,6 +790,6 @@ extern "C" int cod_attention_bwd_dkv(const void* const* tensors,
   const long long blocks = (long long)B * p.NT * KVH;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int smem = dkv_smem_bytes(D, p.NT);
-  return D == 128 ? launch_dkv(cod_bwd_dkv_kernel<128>, smem, d, blocks, st)
-                  : launch_dkv(cod_bwd_dkv_kernel<64>, smem, d, blocks, st);
+  return D == 128 ? launch_hopper(cod_bwd_dkv_kernel<128>, smem, d, blocks, st)
+                  : launch_hopper(cod_bwd_dkv_kernel<64>, smem, d, blocks, st);
 }

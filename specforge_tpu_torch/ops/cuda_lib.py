@@ -32,7 +32,7 @@ BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("ttt_attention.cu", "fused_ce.cu", "dflash_attention.cu",
            "peagle_attention.cu", "lse_attention.cu")
 #: the headers the sources include
-HEADERS = ("hopper.cuh", "dkv_stream.cuh")
+HEADERS = ("hopper.cuh", "dkv_stream.cuh", "dq_stream.cuh")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -143,21 +143,20 @@ def library() -> ctypes.CDLL:
             lib.dflash_attention_fwd.argtypes = [p, p, p, p, p, p, p,
                                                  *[i] * 8, p]
             lib.dflash_attention_fwd.restype = i
-            for name, n_out in (("dflash_attention_bwd_dq", 3),
-                                ("dflash_attention_bwd_dkv", 2)):
-                fn = getattr(lib, name)
-                fn.argtypes = [p, p, p, p, p, p, p, p, *[p] * n_out,
-                               *[i] * 8, p]
-                fn.restype = i
+            # ... dout, m, l, delta, then dq, draft dk, draft dv, the fp32
+            # workspace and the resident heads; or the context dk, dv
+            lib.dflash_attention_bwd_dq.argtypes = [p] * 12 + [i] * 9 + [p]
+            lib.dflash_attention_bwd_dq.restype = i
+            lib.dflash_attention_bwd_dkv.argtypes = [p] * 10 + [i] * 8 + [p]
+            lib.dflash_attention_bwd_dkv.restype = i
             # tensors (3 pointers), strides (9 int64), props, tiles, ...
             lib.cod_attention_fwd.argtypes = [p, p, p, p, p, p, p,
                                               *[i] * 5, p]
             lib.cod_attention_fwd.restype = i
-            lib.cod_attention_bwd_dq.argtypes = [p, p, p, p, p, p, p, p, p,
-                                                 *[i] * 5, p]
+            # ... the full-tile flags, the block order, dout, m, l, delta
+            # and the outputs (dq; dk, dv)
+            lib.cod_attention_bwd_dq.argtypes = [p] * 11 + [i] * 5 + [p]
             lib.cod_attention_bwd_dq.restype = i
-            # ... the full-tile flags and the block order, then as dq with
-            # two outputs
             lib.cod_attention_bwd_dkv.argtypes = [p] * 12 + [i] * 5 + [p]
             lib.cod_attention_bwd_dkv.restype = i
             # q, k, v, valid, outputs..., BH, Sq, Sk, D, row_off, col_off

@@ -256,21 +256,36 @@ def dflash_flash_attention_fwd(
 dflash_flash_attention_fwd.launches = 0
 
 
+def _dq_heads(d: int, block_size: int) -> int:
+    """Query heads a dq block keeps resident: four, or two where the draft
+    staging (64 x max(block_size, 16) bf16 of p and of ds a head) does not
+    fit beside four at D = 128."""
+    return 4 if d == 64 or block_size <= 16 else 2
+
+
 def dflash_attention_bwd_dq(q, k_ctx, v_ctx, k_drf, v_drf, anchors, keep,
                             block_size, sliding_window, dout, m, l, delta):
-    """Launch kernel A → (dq, draft dk, draft dv), each [B, H, Q, D]
-    contiguous bf16, the draft gradients per query head. ``dout`` is
-    contiguous [B, Q, H*D], ``delta`` from :func:`backward_delta`."""
+    """Launch kernel A → (dq [B, H, Q, D], draft dk, draft dv [B, KVH, Q,
+    D]), contiguous bf16, the draft gradients summed over each group's
+    query heads in the kernel. ``dout`` is contiguous [B, Q, H*D],
+    ``delta`` from :func:`backward_delta`."""
     ptrs, strides, a32, k32, window = _check_inputs(
         q, k_ctx, v_ctx, k_drf, v_drf, anchors, keep, block_size,
         sliding_window)
+    b, h, q_len, d = q.shape
+    kvh = k_ctx.shape[1]
+    heads = _dq_heads(d, block_size)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    dkd = torch.empty_like(dq)
-    dvd = torch.empty_like(dq)
+    dkd = torch.empty((b, kvh, q_len, d), dtype=k_drf.dtype, device=q.device)
+    dvd = torch.empty_like(dkd)
+    # past one chunk of resident heads the group sums go through fp32
+    ws = (torch.empty((2, b, kvh, q_len, d), dtype=torch.float32,
+                      device=q.device) if h // kvh > heads else None)
     status = cuda_lib.library().dflash_attention_bwd_dq(
         ptrs, strides, a32.data_ptr(), k32.data_ptr(), dout.data_ptr(),
         m.data_ptr(), l.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dkd.data_ptr(), dvd.data_ptr(),
+        None if ws is None else ws.data_ptr(), heads,
         *_dims(q, k_ctx, anchors, block_size, window), _stream(q))
     cuda_lib.check(status, "dflash_attention_bwd_dq")
     dflash_attention_bwd_dq.launches += 1
@@ -322,8 +337,8 @@ def dflash_flash_attention_bwd(
 
     CPU tensors take :func:`dflash_flash_attention_backward_plain`; CUDA
     tensors launch the two backward kernels or raise. ``delta`` is one
-    torch reduction, and the draft dk/dv that kernel A writes per query head
-    are summed over each group's H/KVH heads by one more (in fp32)."""
+    torch reduction; kernel A sums the draft dk/dv over each group's query
+    heads itself."""
     if q.device.type == "cpu":
         return dflash_flash_attention_backward_plain(
             q, k_ctx, v_ctx, k_drf, v_drf, anchors, keep, block_size,
@@ -331,7 +346,6 @@ def dflash_flash_attention_bwd(
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     b, h, q_len, d = q.shape
-    kvh = k_ctx.shape[1]
     for name, x in (("out", out), ("dout", dout)):
         if (x.device != q.device or x.dtype != q.dtype
                 or tuple(x.shape) != (b, q_len, h * d)):
@@ -344,12 +358,7 @@ def dflash_flash_attention_bwd(
             sliding_window, dout, m, l, backward_delta(out, dout, h))
     dq, dkd, dvd = dflash_attention_bwd_dq(*args)
     dkc, dvc = dflash_attention_bwd_dkv(*args)
-
-    def group_sum(x):
-        return x.view(b, kvh, h // kvh, q_len, d).sum(
-            2, dtype=torch.float32).to(q.dtype)
-
-    return dq, dkc, dvc, group_sum(dkd), group_sum(dvd)
+    return dq, dkc, dvc, dkd, dvd
 
 
 class _DFlashFlashAttention(torch.autograd.Function):

@@ -14,8 +14,9 @@ and evaluate the predicate in registers; a [B, NT, NT] table of the 64 x 64
 tile pairs that hold an allowed pair (:func:`cod_tiles`, built once per
 forward from the model's [B, T, T] mask and shared by every layer and head)
 lets them skip the rest. Beside it, :func:`cod_tiles` marks the tile pairs
-whose every pair is allowed (the dk/dv kernel skips the predicate there)
-and orders the dk/dv kernel's (batch, key tile) blocks longest first. A
+whose every pair is allowed (the backward kernels skip the predicate
+there) and orders the dk/dv kernel's (batch, key tile) blocks and the dq
+kernel's (batch, q tile) blocks longest first. A
 row with no allowed key (an invalid slot, padding) gives out 0, m = -1e30
 and l = 0, and gradient 0; the dense path averages uniformly there
 instead, which changes no loss or gradient, since those rows are masked
@@ -63,6 +64,10 @@ class CODTiles(NamedTuple):
     #: their live q tiles (the table's column sums), descending and stable:
     #: the dk/dv kernel's launch order
     order: torch.Tensor
+    #: [B * NT] int32: the (batch, q tile) pairs b * NT + q, ordered by their
+    #: live key tiles (the table's row sums), descending and stable: the dq
+    #: kernel's launch order
+    dq_order: torch.Tensor
 
 
 def _allow(qp: torch.Tensor, kp: torch.Tensor) -> torch.Tensor:
@@ -90,12 +95,14 @@ def cod_allow_dense(ap, dp, dc, vl) -> torch.Tensor:
     return _allow(props, props)
 
 
-def block_order(table: torch.Tensor) -> torch.Tensor:
-    """The dk/dv kernel's launch order of a [B, NT, NT] tile table → [B * NT]
-    int32: the (batch, key tile) pairs b * NT + k sorted by their live q
-    tiles, descending, ties in index order. On the table's device, with no
+def block_order(table: torch.Tensor, dim: int) -> torch.Tensor:
+    """A backward kernel's launch order of a [B, NT, NT] tile table → [B *
+    NT] int32: the (batch, tile) pairs b * NT + i sorted by their live
+    tiles, the table summed over ``dim`` (1: the dk/dv kernel's key tiles
+    by their live q tiles; 2: the dq kernel's q tiles by their live key
+    tiles), descending, ties in index order. On the table's device, with no
     host sync."""
-    live = table.sum(dim=1, dtype=torch.int32).flatten()
+    live = table.sum(dim=dim, dtype=torch.int32).flatten()
     order = torch.sort(live, descending=True, stable=True).indices
     return order.to(torch.int32)
 
@@ -103,8 +110,8 @@ def block_order(table: torch.Tensor) -> torch.Tensor:
 def cod_tiles(anchor_pos, depth, doc, valid,
               allow_mask: Optional[torch.Tensor] = None) -> CODTiles:
     """Properties, the tile-skip table, the full-tile flags and the dk/dv
-    block order of one sample ([B, T] vectors), from ``allow_mask``
-    [B, T, T] when the caller has it."""
+    and dq block orders of one sample ([B, T] vectors), from
+    ``allow_mask`` [B, T, T] when the caller has it."""
     props = cod_props(anchor_pos, depth, doc, valid)
     if allow_mask is None:
         allow_mask = _allow(props, props)
@@ -116,7 +123,8 @@ def cod_tiles(anchor_pos, depth, doc, valid,
     table = tiled.any(dim=4).any(dim=2).to(torch.int32).contiguous()
     # the padding past T is never allowed, so a tail tile is never full
     full = tiled.all(dim=4).all(dim=2).to(torch.int32).contiguous()
-    return CODTiles(props, table, full, block_order(table))
+    return CODTiles(props, table, full, block_order(table, 1),
+                    block_order(table, 2))
 
 
 def _row_chunks(q: torch.Tensor):
@@ -230,7 +238,8 @@ def _check_inputs(q, k, v, tiles: CODTiles):
     for name, x, shape in (("props", tiles.props, (b, t, 4)),
                            ("table", tiles.table, (b, nt, nt)),
                            ("full", tiles.full, (b, nt, nt)),
-                           ("order", tiles.order, (b * nt,))):
+                           ("order", tiles.order, (b * nt,)),
+                           ("dq_order", tiles.dq_order, (b * nt,))):
         if (x.device != q.device or x.dtype != torch.int32
                 or tuple(x.shape) != shape or not x.is_contiguous()):
             raise ValueError(
@@ -287,6 +296,7 @@ def cod_attention_bwd_dq(q, k, v, tiles: CODTiles, dout, m, l, delta):
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     status = cuda_lib.library().cod_attention_bwd_dq(
         ptrs, strides, tiles.props.data_ptr(), tiles.table.data_ptr(),
+        tiles.full.data_ptr(), tiles.dq_order.data_ptr(),
         dout.data_ptr(), m.data_ptr(), l.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), *_dims(q, k), _stream(q))
     cuda_lib.check(status, "cod_attention_bwd_dq")

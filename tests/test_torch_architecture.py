@@ -68,6 +68,31 @@ def test_every_cuda_source_is_built():
         )
 
 
+def _hopper_kernels():
+    """The kernels of csrc/ launched one block an SM
+    (``__launch_bounds__(..., 1)``): the warp-specialised Hopper designs."""
+    for name in cuda_lib.SOURCES:
+        text = _code_without_comments(
+            open(os.path.join(PKG, "csrc", name)).read())
+        yield from re.findall(
+            r"__launch_bounds__\(\s*\w+\s*,\s*1\s*\)\s*(\w+)\s*\(", text)
+
+
+def test_every_hopper_kernel_is_reported_by_chip_smoke():
+    """chip_smoke.py's build phase reports registers and spills of, and
+    fails on a wgmma serialization note in, every Hopper kernel: its
+    HOPPER_KERNELS names each of them, and nothing else."""
+    tree = ast.parse(open(os.path.join(REPO, "chip_smoke.py")).read())
+    named = next(ast.literal_eval(node.value) for node in tree.body
+                 if isinstance(node, ast.Assign)
+                 and any(getattr(t, "id", None) == "HOPPER_KERNELS"
+                         for t in node.targets))
+    found = sorted(_hopper_kernels())
+    assert {"dflash_bwd_dq_kernel", "cod_bwd_dq_kernel",
+            "ttt_bwd_dq_kernel"} <= set(found)
+    assert found == sorted(named)
+
+
 def test_usp_slice_is_built_and_imports_nothing_of_jax():
     """The LSE ring-hop source is built, and the parallel package (the
     process runtime, the rank grid, USP) is among the checked sources."""

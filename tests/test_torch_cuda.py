@@ -588,6 +588,109 @@ def test_dflash_dkv_refuses_layouts_a_tensor_map_cannot_read(gen):
                                                  delta)
 
 
+def dflash_dq(inputs, window, gen, bs=16):
+    """One launch of kernel A (dq and the draft dk/dv) on the forward's
+    statistics → (its operands, dq, dk_drf, dv_drf, the plain ones)."""
+    q = inputs[0]
+    out, m, l = dflash_cuda.dflash_flash_attention_fwd(*inputs, bs, window)
+    dout = torch.randn(out.shape, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    delta = attention_cuda.backward_delta(out, dout, q.shape[1])
+    args = (*inputs, bs, window, dout, m, l, delta)
+    before = dflash_cuda.dflash_attention_bwd_dq.launches
+    dq, dkd, dvd = dflash_cuda.dflash_attention_bwd_dq(*args)
+    torch.cuda.synchronize()
+    assert dflash_cuda.dflash_attention_bwd_dq.launches == before + 1
+    ref = dflash_cuda.dflash_flash_attention_backward_plain(
+        *inputs, bs, window, out, m, l, dout)
+    return args, dq, dkd, dvd, ref[0], ref[3], ref[4]
+
+
+def test_dflash_dq_is_bit_exact_at_the_domino_slice(gen):
+    """Two launches of kernel A at the Domino slice's shapes give the same
+    bits, and match the plain dq and draft dk/dv."""
+    inputs = dflash_inputs(gen, 2, 32, 8, 768, 256, 128)
+    args, dq, dkd, dvd, ref_dq, ref_dkd, ref_dvd = dflash_dq(inputs, None,
+                                                             gen)
+    again = dflash_cuda.dflash_attention_bwd_dq(*args)
+    for got, rep in zip((dq, dkd, dvd), again):
+        assert torch.equal(got, rep)
+    for got, want in ((dq, ref_dq), (dkd, ref_dkd), (dvd, ref_dvd)):
+        assert rel_err(got, want) <= 2e-2
+
+
+# groups of 1, 4, 7 and 8 query heads (7 and 8 in two chunks of resident
+# heads); D = 64 and 128; contexts that are no multiple of the 64-key tile;
+# a sliding window that bites; anchor blocks of 32 and 64 rows (two heads
+# resident, the draft staging in the free Q slots)
+@pytest.mark.parametrize("b,h,kvh,s,n,d,window,bs", [
+    (2, 8, 8, 130, 12, 128, None, 16),
+    (2, 16, 4, 700, 40, 64, None, 16),
+    (2, 14, 2, 333, 24, 64, None, 16),
+    (1, 32, 4, 1000, 40, 128, 200, 16),
+    (2, 16, 2, 257, 20, 128, 48, 16),
+    (2, 16, 4, 300, 10, 128, None, 32),
+    (1, 8, 2, 500, 5, 128, 100, 64),
+])
+def test_dflash_dq_matches_plain(gen, b, h, kvh, s, n, d, window, bs):
+    inputs = dflash_inputs(gen, b, h, kvh, s, n, d, bs)
+    anchors, keep = inputs[5], inputs[6]
+    if window:
+        assert bool(((anchors.long() - (window - 1)) > 0)[keep].any())
+    _, dq, dkd, dvd, ref_dq, ref_dkd, ref_dvd = dflash_dq(inputs, window, gen,
+                                                          bs)
+    q_len = n * bs
+    assert dq.shape == (b, h, q_len, d)
+    for got in (dkd, dvd):
+        # the draft gradients come out summed over each group's heads
+        assert got.shape == (b, kvh, q_len, d) and got.is_contiguous()
+    for got, want in ((dq, ref_dq), (dkd, ref_dkd), (dvd, ref_dvd)):
+        assert got.dtype == torch.bfloat16
+        # bf16 products of bf16-rounded p and ds, sums in another order
+        assert rel_err(got, want) <= 2e-2
+    # rows of blocks not kept attend nothing: exact zeros
+    not_kept = ~keep.repeat_interleave(bs, dim=1)
+    if b > 1:
+        assert bool(not_kept.any())
+    assert not dq.transpose(1, 2)[not_kept].any()
+    assert not dkd.transpose(1, 2)[not_kept].any()
+    assert not dvd.transpose(1, 2)[not_kept].any()
+
+
+def test_dflash_dq_reads_strided_views(gen):
+    """q and the draft keys cut from one merged qkv, the context keys and
+    values from one merged kv: all read through their strides."""
+    b, h, kvh, s, n, d = 2, 8, 2, 300, 20, 128
+    inputs = list(dflash_inputs(gen, b, h, kvh, s, n, d))
+    assert not inputs[0].is_contiguous() and not inputs[3].is_contiguous()
+    kv = torch.randn(b, s, 2 * kvh * d, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    inputs[1] = kv[..., :kvh * d].view(b, s, kvh, d).transpose(1, 2)
+    inputs[2] = kv[..., kvh * d:].view(b, s, kvh, d).transpose(1, 2)
+    _, dq, dkd, dvd, ref_dq, ref_dkd, ref_dvd = dflash_dq(inputs, None, gen)
+    for got, want in ((dq, ref_dq), (dkd, ref_dkd), (dvd, ref_dvd)):
+        assert rel_err(got, want) <= 2e-2
+
+
+def test_dflash_dq_refuses_layouts_a_tensor_map_cannot_read(gen):
+    inputs = list(dflash_inputs(gen, 1, 4, 2, 128, 8, 64))
+    out, m, l = dflash_cuda.dflash_flash_attention_fwd(*inputs, 16)
+    dout = torch.ones_like(out)
+    delta = attention_cuda.backward_delta(out, dout, 4)
+    q_len = 8 * 16
+    wide = torch.randn(1, 2, q_len, 68, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    for bad, match in (
+            (wide[..., :64], "multiples of 8"),
+            (wide.flatten()[4:4 + 2 * q_len * 64].view(1, 2, q_len, 64),
+             "16-byte aligned")):
+        args = list(inputs)
+        args[3] = bad
+        with pytest.raises(ValueError, match=match):
+            dflash_cuda.dflash_attention_bwd_dq(*args, 16, None, dout, m, l,
+                                                delta)
+
+
 # --------------------------------------------------------------------------
 # P-EAGLE COD attention
 # --------------------------------------------------------------------------
@@ -735,13 +838,13 @@ def test_cod_dkv_matches_plain(gen, b, h, kvh, d, s, docs, unsupervised):
 
 
 def test_cod_tiles_on_the_card_match_the_cpu(gen):
-    """The full-tile flags and the block order built on the card (no host
-    sync) equal those built on the CPU."""
+    """The full-tile flags and the two block orders built on the card (no
+    host sync) equal those built on the CPU."""
     q, k, v, tiles = cod_inputs(gen, 2, 8, 2, 128, 1024, (256, 256, 512))
     cpu = cod_cuda.cod_tiles(*(x.cpu() for x in (
         tiles.props[..., 0], tiles.props[..., 1], tiles.props[..., 2],
         tiles.props[..., 3])))
-    for name in ("table", "full", "order"):
+    for name in ("table", "full", "order", "dq_order"):
         assert torch.equal(getattr(tiles, name).cpu(), getattr(cpu, name)), name
 
 
@@ -763,6 +866,73 @@ def test_cod_dkv_refuses_layouts_a_tensor_map_cannot_read(gen):
         cod_cuda.cod_attention_bwd_dkv(
             q, k, v, tiles._replace(order=tiles.order[:-1]), dout, m, l,
             delta)
+
+
+def cod_dq(q, k, v, tiles, gen):
+    """One launch of the COD dq kernel on the forward's statistics → (its
+    operands, dq, the plain dq, the rows with an allowed key [B, T])."""
+    out, m, l = cod_cuda.cod_attention_fwd(q, k, v, tiles)
+    dout = torch.randn(out.shape, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    delta = attention_cuda.backward_delta(out, dout, q.shape[1])
+    args = (q, k, v, tiles, dout, m, l, delta)
+    before = cod_cuda.cod_attention_bwd_dq.launches
+    dq = cod_cuda.cod_attention_bwd_dq(*args)
+    torch.cuda.synchronize()
+    assert cod_cuda.cod_attention_bwd_dq.launches == before + 1
+    ref = cod_cuda.cod_attention_backward_plain(q, k, v, tiles.props, out, m,
+                                                l, dout)
+    return args, dq, ref[0], l[:, 0] > 0
+
+
+def test_cod_dq_is_bit_exact_at_the_slice(gen):
+    """Two launches at the P-EAGLE slice's shapes give the same bits, and
+    both match the plain dq."""
+    q, k, v, tiles = cod_inputs(gen, 2, 32, 8, 128, 1024)
+    assert bool(tiles.full.any())
+    args, dq, ref_dq, _ = cod_dq(q, k, v, tiles, gen)
+    assert torch.equal(dq, cod_cuda.cod_attention_bwd_dq(*args))
+    assert rel_err(dq, ref_dq) <= 2e-2
+
+
+# groups of 1, 4, 7 and 8 query heads at D = 64 and 128 (T from the
+# sampler, no multiple of 64); packed documents; a document with an invalid
+# tail and a row with no supervised token
+@pytest.mark.parametrize("b,h,kvh,d,s,docs,unsupervised", [
+    (2, 8, 8, 128, 200, None, ()),
+    (2, 16, 4, 64, 256, (64, 64, 64, 64), ()),
+    (2, 14, 2, 64, 300, (150,), (1,)),
+    (1, 32, 4, 128, 512, (128, 384), ()),
+    (2, 16, 2, 128, 256, (100, 156), (0,)),
+])
+def test_cod_dq_matches_plain(gen, b, h, kvh, d, s, docs, unsupervised):
+    q, k, v, tiles = cod_inputs(gen, b, h, kvh, d, s, docs, unsupervised)
+    _, dq, ref_dq, live = cod_dq(q, k, v, tiles, gen)
+    assert dq.shape == q.shape and dq.dtype == torch.bfloat16
+    assert rel_err(dq, ref_dq) <= 2e-2
+    # rows with no allowed key (invalid slots, an unsupervised row): exact 0
+    if unsupervised or docs:
+        assert bool((~live).any())
+    assert not dq.transpose(1, 2)[~live].any()
+
+
+def test_cod_dq_refuses_layouts_a_tensor_map_cannot_read(gen):
+    q, k, v, tiles = cod_inputs(gen, 1, 4, 2, 64, 100)
+    out, m, l = cod_cuda.cod_attention_fwd(q, k, v, tiles)
+    dout = torch.ones_like(out)
+    delta = attention_cuda.backward_delta(out, dout, 4)
+    t = q.shape[2]
+    wide = torch.randn(1, 2, t, 68, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    for bad, match in ((wide[..., :64], "multiples of 8"),
+                       (wide.flatten()[4:4 + 2 * t * 64].view(1, 2, t, 64),
+                        "16-byte aligned")):
+        with pytest.raises(ValueError, match=match):
+            cod_cuda.cod_attention_bwd_dq(q, k, bad, tiles, dout, m, l, delta)
+    with pytest.raises(ValueError, match="dq_order"):
+        cod_cuda.cod_attention_bwd_dq(
+            q, k, v, tiles._replace(dq_order=tiles.dq_order[:-1]), dout, m,
+            l, delta)
 
 
 # --------------------------------------------------------------------------

@@ -382,22 +382,37 @@ def test_cod_full_tiles_match_the_jax_mask():
     assert tiles.full.dtype == torch.int32 and tiles.full.is_contiguous()
 
 
-def test_cod_block_order_is_stable_and_longest_first():
-    """The dk/dv launch order is a permutation of the (batch, key tile)
-    pairs, by live q tiles descending, ties in index order."""
+#: a hand-made [1, 4, 4] tile table; its column sums order the key tiles
+#: 1, 2, 0, 3, its row sums (all 2) keep the q tiles in index order; the
+#: transpose swaps the two
+HAND_TABLE = [[[1, 1, 0, 0], [0, 1, 1, 0], [0, 1, 1, 0], [0, 1, 1, 0]]]
+
+
+# the dk/dv kernel's order sums the table over its q tiles (dim 1), the dq
+# kernel's over its key tiles (dim 2)
+@pytest.mark.parametrize("field,dim,hand", [
+    ("order", 1, [[1, 2, 0, 3], [0, 1, 2, 3]]),
+    ("dq_order", 2, [[0, 1, 2, 3], [1, 2, 0, 3]]),
+])
+def test_cod_block_order_is_stable_and_longest_first(field, dim, hand):
+    """A launch order is a permutation of the (batch, tile) pairs, by live
+    tiles descending, ties in index order: on a real sample, and on a
+    hand-made table and its transpose."""
     tiles = pac.cod_tiles(*_slice_sample([[256, 0], [100, 156]], 256, 6))
     b, nt, _ = tiles.table.shape
-    order = tiles.order
+    order = getattr(tiles, field)
     assert order.dtype == torch.int32 and order.shape == (b * nt,)
+    assert torch.equal(order, pac.block_order(tiles.table, dim))
     assert sorted(order.tolist()) == list(range(b * nt))
-    live = tiles.table.sum(dim=1).flatten()[order.long()].tolist()
+    live = tiles.table.sum(dim=dim).flatten()[order.long()].tolist()
+    assert len(set(live)) > 1
     for i in range(len(live) - 1):
         assert live[i] >= live[i + 1]
         if live[i] == live[i + 1]:
             assert order[i] < order[i + 1]
-    table = torch.tensor([[[1, 1, 0, 0], [0, 1, 1, 0],
-                           [0, 1, 1, 0], [0, 1, 1, 0]]], dtype=torch.int32)
-    assert pac.block_order(table).tolist() == [1, 2, 0, 3]
+    table = torch.tensor(HAND_TABLE, dtype=torch.int32)
+    assert pac.block_order(table, dim).tolist() == hand[0]
+    assert pac.block_order(table.transpose(1, 2), dim).tolist() == hand[1]
 
 
 def test_cpu_wrappers_launch_nothing_and_kernel_checks_refuse():
