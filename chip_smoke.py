@@ -26,10 +26,13 @@ Phases, each printing JSON lines:
    with no valid key (out 0, m = -1e30, l = 0 exactly), twice at the main
    shape with the same bits, and beside a second, timed-only yardstick,
    the library flash kernel over the causal block alone
-   (``library_causal_ms``); the DFlash and COD backward kernels (dq and
-   dk/dv) also twice in every case for the same bits, dq exactly 0 on rows
-   with no allowed key and dk/dv on keys no row reaches, and 30 launches
-   back to back (``run_ms``);
+   (``library_causal_ms``); the DFlash, COD and LSE backward kernels (dq
+   and dk/dv) also twice in every case for the same bits, dq exactly 0 on
+   rows with no allowed key and dk/dv on keys no row reaches, and every
+   DFlash, COD and LSE kernel 30 launches back to back (``run_ms``); the
+   LSE kernels also beside the library flash kernel over the same pairs
+   where it takes them without a mask (``library_flash_ms``: causal for an
+   own hop, unmasked for an earlier one);
 4. slice 1: the EAGLE3 offline TTT forward at the full Qwen3-8B EAGLE3 width
    (``configs/qwen3-8b-eagle3.json``, random weights from ``--seed``), from
    feature files written and read back by the port's data plane, through
@@ -295,14 +298,16 @@ def device_facts() -> str:
 #: details; a wgmma serialization note (C75xx) fails the build phase
 HOPPER_KERNELS = ("ttt_fwd_kernel", "ttt_bwd_dq_kernel", "ttt_bwd_dkv_kernel",
                   "dflash_bwd_dq_kernel", "dflash_bwd_dkv_kernel",
-                  "cod_bwd_dq_kernel", "cod_bwd_dkv_kernel")
+                  "cod_bwd_dq_kernel", "cod_bwd_dkv_kernel",
+                  "lse_bwd_dq_kernel", "lse_bwd_dkv_kernel")
 #: the kernels line's entries whose kernel is one of HOPPER_KERNELS, with
 #: the route note they carry (the others are the first design: mma.sync
 #: from 4 warps, cp.async stages)
 HOPPER_ROUTE = ("ttt_flash_attention_fwd", "ttt_attention_bwd_dq",
                 "ttt_attention_bwd_dkv", "dflash_attention_bwd_dq",
                 "dflash_attention_bwd_dkv", "cod_attention_bwd_dq",
-                "cod_attention_bwd_dkv")
+                "cod_attention_bwd_dkv", "lse_attention_bwd_dq",
+                "lse_attention_bwd_dkv")
 
 
 def ptxas_report(log: str) -> tuple:
@@ -2452,14 +2457,55 @@ def lse_sdpa_yardstick(q, k, v, valid, row_off, col_off, dout):
                                                 retain_graph=True)
 
 
+def lse_flash_yardstick(q, k, v, row_off, col_off, dout):
+    """A second yardstick, timed only: the library flash kernel over the
+    hop's pairs where it takes them without a mask (``is_causal`` for an
+    own hop, no mask for an earlier one; key_valid dropped, so on a padded
+    tail it computes more pairs) → (forward, backward), or None where it
+    cannot (a later hop has no pair; a partial overlap; no flash kernel
+    for these inputs on this build)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    s_q, s_k = q.shape[1], k.shape[1]
+    if row_off == col_off and s_q == s_k:
+        causal = True
+    elif col_off + s_k - 1 <= row_off:
+        causal = False
+    else:
+        return None
+    qr, kr, vr = (x[None].detach().requires_grad_(True) for x in (q, k, v))
+
+    def forward():
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            return F.scaled_dot_product_attention(qr, kr, vr,
+                                                  is_causal=causal)
+
+    try:
+        out = forward()
+    except RuntimeError:
+        return None
+    return forward, lambda: torch.autograd.grad(out, (qr, kr, vr), dout[None],
+                                                retain_graph=True)
+
+
+def lse_reached_keys(valid, s_q, row_off, col_off) -> torch.Tensor:
+    """[BH, Sk] bool: the keys some row of the hop may attend (valid, and at
+    or before the last row's limit)."""
+    idx = torch.arange(valid.shape[1], device=valid.device)
+    return (valid != 0) & (idx + col_off <= s_q - 1 + row_off)[None]
+
+
 def lse_kernel_phase(gen) -> list:
     """The three LSE kernels against their plain versions in cases
     (a)-(e), in bf16: the output and every gradient within ATTN_TOL of the
     plain version's largest value, lse within STAT_RTOL (|err| / (1 +
     |lse|)) on rows with an allowed key, and rows without one exactly 0 and
-    -1e30 (case c: every row). Each case is timed (kernel, plain, the SDPA
-    yardstick) beside its bound; the kernels line averages the hops of the
-    USP phase's main path (LSE_MAIN_PATH)."""
+    -1e30 (case c: every row) with dq exactly 0; dk/dv exactly 0 on keys
+    no row reaches; both backward kernels twice with the same bits. Each
+    case is timed (kernel one launch at a time and 30 back to back, plain,
+    the masked SDPA yardstick and the flash one) beside its bound; the
+    kernels line averages the hops of the USP phase's main path
+    (LSE_MAIN_PATH)."""
     lac = lse_attention_cuda
     results = {}
     for name, bh, s, d, row_off, col_off, pad in LSE_CASES:
@@ -2479,6 +2525,13 @@ def lse_kernel_phase(gen) -> list:
         if out[empty].any() or not torch.equal(lse[empty], ref_lse[empty]):
             raise AssertionError(f"case {name}: rows with no allowed key are "
                                  "not out = 0, lse = -1e30")
+        if grads[0][empty].any():
+            raise AssertionError(f"case {name}: dq of rows with no allowed "
+                                 "key is not 0")
+        unreached = ~lse_reached_keys(valid, s, row_off, col_off)
+        if grads[1][unreached].any() or grads[2][unreached].any():
+            raise AssertionError(f"case {name}: dk/dv of keys no row reaches "
+                                 "are not 0")
         if name.endswith("later") and not (
                 bool(empty.all()) and not any(g.any() for g in grads)):
             raise AssertionError("a later-chunk hop wrote a value other than "
@@ -2501,24 +2554,34 @@ def lse_kernel_phase(gen) -> list:
         check(f"lse case {name}", errs["lse"], STAT_RTOL)
         dstat = lac.backward_dstat(out, dout, dlse)
         bwd_args = (q, k, v, valid, row_off, col_off, dout, lse, dstat)
+        check_repeat(f"lse_attention_bwd_dq case {name}",
+                     lambda: (lac.lse_attention_bwd_dq(*bwd_args),))
+        check_repeat(f"lse_attention_bwd_dkv case {name}",
+                     lambda: lac.lse_attention_bwd_dkv(*bwd_args))
+        launch = {
+            "lse_attention_fwd": lambda: lac.lse_attention_fwd(
+                q, k, v, valid, row_off, col_off),
+            "lse_attention_bwd_dq": lambda: lac.lse_attention_bwd_dq(
+                *bwd_args),
+            "lse_attention_bwd_dkv": lambda: lac.lse_attention_bwd_dkv(
+                *bwd_args),
+        }
         lib_fwd, lib_bwd = lse_sdpa_yardstick(q, k, v, valid, row_off,
                                               col_off, dout)
+        flash = lse_flash_yardstick(q, k, v, row_off, col_off, dout)
         row = {
             "phase": "kernel", "name": "lse_attention", "case": name,
             "BH": bh, "S": s, "D": d, "row_off": row_off, "col_off": col_off,
             "padded_keys": pad, "empty_rows": int(empty.sum()),
+            "unreached_keys": int(unreached.sum()),
+            "dq_repeat": "bit-exact", "dkv_repeat": "bit-exact",
             "rel_err": errs, "max_abs_err": abs_errs,
             "tol": {"out_and_grads": f"{ATTN_TOL} * max|ref|",
                     "lse": f"{STAT_RTOL} * (1 + max|lse|)",
-                    "empty_rows": "out exactly 0, lse exactly -1e30"},
-            "ms": {
-                "lse_attention_fwd": median_ms(lambda: lac.lse_attention_fwd(
-                    q, k, v, valid, row_off, col_off)),
-                "lse_attention_bwd_dq": median_ms(
-                    lambda: lac.lse_attention_bwd_dq(*bwd_args)),
-                "lse_attention_bwd_dkv": median_ms(
-                    lambda: lac.lse_attention_bwd_dkv(*bwd_args)),
-            },
+                    "empty_rows": "out and dq exactly 0, lse exactly -1e30",
+                    "unreached_keys": "dk, dv exactly 0"},
+            "ms": {kname: median_ms(fn) for kname, fn in launch.items()},
+            "run_ms": {kname: run_ms(fn) for kname, fn in launch.items()},
             "plain_fwd_ms": median_ms(lambda: lac.flash_attention_lse_plain(
                 q, k, v, valid, row_off, col_off)),
             "plain_bwd_ms": median_ms(
@@ -2526,12 +2589,17 @@ def lse_kernel_phase(gen) -> list:
                     q, k, v, valid, row_off, col_off, out, lse, dout, dlse)),
             "library_fwd_ms": median_ms(lib_fwd),
             "library_bwd_ms": median_ms(lib_bwd),
+            # a hop with no allowed pair leaves the library nothing to do
+            "library_flash_fwd_ms": (median_ms(flash[0]) if flash else
+                                     0.0 if empty.all() else None),
+            "library_flash_bwd_ms": (median_ms(flash[1]) if flash else
+                                     0.0 if empty.all() else None),
             "bound": lse_bounds(q, valid, row_off, col_off),
         }
         emit(row)
         results[name] = row
         del q, k, v, valid, out, lse, grads, ref, ref_lse, ref_grads, dout
-        del bwd_args, lib_fwd, lib_bwd
+        del bwd_args, lib_fwd, lib_bwd, flash, launch
         torch.cuda.empty_cache()
 
     main = [results[name] for name in LSE_MAIN_PATH]
@@ -2540,7 +2608,10 @@ def lse_kernel_phase(gen) -> list:
         backward = kernel != "lse_attention_fwd"
         plain = "plain_bwd_ms" if backward else "plain_fwd_ms"
         library = "library_bwd_ms" if backward else "library_fwd_ms"
+        flash = ("library_flash_bwd_ms" if backward
+                 else "library_flash_fwd_ms")
         bound_ms, bound_by = mean_bound([r["bound"][kernel] for r in main])
+        flash_ms = [r[flash] for r in main]
         lines.append({
             "name": kernel,
             "route": "cuda",
@@ -2551,12 +2622,16 @@ def lse_kernel_phase(gen) -> list:
             "rel_err": max(r["rel_err"][kernel] for r in results.values()),
             "tol": f"{ATTN_TOL} * max|ref|",
             # per launch, averaged over the main path's hops (two own
-            # chunks, one earlier, one later); the plain backward and the
-            # library backward compute every gradient at once, and stand
-            # beside both backward kernels
+            # chunks, one earlier, one later), one at a time and back to
+            # back; the plain backward and the library backwards compute
+            # every gradient at once, and stand beside both backward
+            # kernels; the flash yardstick counts the later hop as 0 ms
             "ms": sum(r["ms"][kernel] for r in main) / len(main),
+            "run_ms": sum(r["run_ms"][kernel] for r in main) / len(main),
             "plain_ms": sum(r[plain] for r in main) / len(main),
             "library_ms": sum(r[library] for r in main) / len(main),
+            "library_flash_ms": (None if None in flash_ms
+                                 else sum(flash_ms) / len(main)),
             "bound_ms": bound_ms,
             "bound_by": bound_by,
         })

@@ -6,7 +6,8 @@ Usage, from the repository root on a machine with a card::
     mkdir -p chip_trees/parent
     git archive <parent commit> | tar -x -C chip_trees/parent
     python3 kernel_compare.py chip_trees/parent . . chip_trees/parent \\
-        [--family ttt|dflash|cod] [--micro-step]
+        [--family ttt|dflash|cod|lse] [--micro-step]
+    python3 kernel_compare.py chip_trees/parent . --sass
 
 For each TREE (a checkout of this repository; ``chip_trees/`` is listed in
 ``.gitignore``), in the order given, one process imports that tree's port,
@@ -27,7 +28,15 @@ kernels timed at the shape of its main path, each through that tree's own
   the draft dk/dv per query head sums them there);
 - ``cod``: case (a) of ``chip_smoke.COD_CASES``, the P-EAGLE slice (B=2,
   H=32, KVH=8, D=128, S=1024 over 8 depths, from ``cod_case_inputs``): the
-  forward, dq, dk/dv and the whole ``cod_attention_bwd``.
+  forward, dq, dk/dv and the whole ``cod_attention_bwd``;
+- ``lse``: the USP ring hop, cases ``a_own`` and ``b_earlier`` of
+  ``chip_smoke.LSE_CASES`` (BH=16, S=4096, D=128: the own chunk and an
+  earlier one) and the hops of ``LSE_MAIN_PATH`` (S=2048: two own, one
+  earlier, one later), from ``lse_case_inputs``: the forward, dq, dk/dv
+  and the whole ``lse_attention_bwd`` (dstat, both kernels), each case on
+  its own and as the main path's mean (``main_<kernel>_ms``). It has no
+  ``--micro-step``: its micro-step is the USP phase, ``chip_smoke.py
+  --usp-only`` on four cards, run per tree in turn.
 
 Each kernel is timed twice with CUDA events: ``<kernel>_ms``, one launch at
 a time (``chip_smoke.median_ms``: median of 20 after 3 warm-ups, a sync
@@ -42,6 +51,14 @@ P-EAGLE ``configs/qwen3-8b-peagle.json``): the trainer's own
 the trees in turns (parent, change, change, parent): the card drifts
 between runs. The first line is the card's name and power limit; any
 failure exits non-zero.
+
+With ``--sass`` it times nothing: each tree's kernel sources
+(``cuda_lib.SOURCES``) are compiled to cubins with that tree's flags and
+``cuobjdump -sass`` prints each kernel's machine code, which is compared
+across the trees with the constant-bank offsets of the parameters masked
+(a changed parameter struct moves them): one line per tree with a digest
+per kernel and head dim, then one line naming the kernels whose code
+differs between the first tree and each other.
 """
 
 from __future__ import annotations
@@ -151,6 +168,37 @@ def cod():
     })}
 
 
+def lse():
+    from specforge_tpu_torch.ops import lse_attention_cuda as lac
+    wanted = ("a_own", "b_earlier") + tuple(cs.LSE_MAIN_PATH)
+    cases = {}
+    for name, bh, s, d, row_off, col_off, pad in cs.LSE_CASES:
+        if name not in wanted:
+            continue
+        q, k, v, valid = cs.lse_case_inputs(gen, bh, s, d, pad)
+        out, lse_ = lac.lse_attention_fwd(q, k, v, valid, row_off, col_off)
+        dout = randn_like(out)
+        dlse = torch.randn(lse_.shape, generator=gen, device="cuda")
+        args = (q, k, v, valid, row_off, col_off, dout, lse_,
+                lac.backward_dstat(out, dout, dlse))
+        cases[name] = timed({
+            "fwd": lambda: lac.lse_attention_fwd(q, k, v, valid, row_off,
+                                                 col_off),
+            "dq": lambda: lac.lse_attention_bwd_dq(*args),
+            "dkv": lambda: lac.lse_attention_bwd_dkv(*args),
+            "bwd": lambda: lac.lse_attention_bwd(q, k, v, valid, row_off,
+                                                 col_off, out, lse_, dout,
+                                                 dlse),
+        })
+        del q, k, v, valid, out, lse_, dout, dlse, args
+        torch.cuda.empty_cache()
+    main = [cases[name] for name in cs.LSE_MAIN_PATH]
+    result = {"cases": cases}
+    for key in main[0]:
+        result["main_" + key] = sum(r[key] for r in main) / len(main)
+    return result
+
+
 def trainer_for(family, work):
     """A kernel-path trainer of the family's chip_smoke training run."""
     device = torch.device("cuda")
@@ -191,7 +239,7 @@ def trainer_for(family, work):
 
 family = opts["family"]
 result = {"tree": opts["tree"], "family": family,
-          **{"ttt": ttt, "dflash": dflash, "cod": cod}[family]()}
+          **{"ttt": ttt, "dflash": dflash, "cod": cod, "lse": lse}[family]()}
 if opts["micro_step"]:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory(prefix="kernel-compare-") as tmp:
@@ -213,18 +261,101 @@ print(json.dumps(result), flush=True)
 '''
 
 
+SASS_WORKER = r'''
+import hashlib, json, re, subprocess, sys, tempfile
+from pathlib import Path
+from specforge_tpu_torch.ops import cuda_lib
+
+nvcc = cuda_lib.nvcc_path()
+cuobjdump = str(Path(nvcc).parent / "cuobjdump")
+flags, it = [], iter(cuda_lib.NVCC_FLAGS)
+for flag in it:  # the compile flags, without the shared-library pairs
+    if flag in ("-Xcompiler", "-Xptxas"):
+        next(it)
+    else:
+        flags.append(flag)
+digests = {}
+with tempfile.TemporaryDirectory(prefix="kernel-sass-") as tmp:
+    for src in cuda_lib.SOURCES:
+        cubin = Path(tmp) / (src + ".cubin")
+        subprocess.run([nvcc, *flags, "-cubin", "-o", str(cubin),
+                        str(cuda_lib.CSRC_DIR / src)], check=True)
+        text = subprocess.run([cuobjdump, "-sass", str(cubin)], check=True,
+                              capture_output=True, text=True).stdout
+        for part in re.split(r"\n\s*Function : ", text)[1:]:
+            name, _, body = part.partition("\n")
+            key = name.strip()
+            # mangled: the length, then the name (a hash's digits may run
+            # into the length)
+            for run in re.finditer(r"\d+", name):
+                for i in range(run.start(), run.end()):
+                    ident = name[run.end():run.end() + int(name[i:run.end()])]
+                    if re.fullmatch(r"[a-z][a-z_]*_kernel", ident):
+                        dim = re.match(r"ILi(\d+)E",
+                                       name[run.end() + len(ident):])
+                        key = f"{ident}<{dim.group(1) if dim else ''}>"
+                        break
+                if key != name.strip():
+                    break
+            code = []
+            for line in body.splitlines():
+                ins = re.sub(r"/\*[0-9a-f]{4,}\*/|/\* 0x[0-9a-f]+ \*/", "",
+                             line)
+                ins = re.sub(r"c\[0x0\]\[0x[0-9a-f]+\]", "c[0x0][P]", ins)
+                if ins.strip():
+                    code.append(" ".join(ins.split()))
+            digests[key] = hashlib.sha256(
+                "\n".join(code).encode()).hexdigest()[:16]
+print(json.dumps({"tree": sys.argv[1], "sass": digests}), flush=True)
+'''
+
+
+def compare_sass(trees) -> int:
+    """Each tree's kernel digests, then the kernels whose code differs."""
+    rows = []
+    for tree in trees:
+        root = os.path.abspath(tree)
+        proc = subprocess.run([sys.executable, "-c", SASS_WORKER, tree],
+                              cwd=root, env=dict(os.environ, PYTHONPATH=root),
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            print(proc.stderr[-3000:], file=sys.stderr)
+            return proc.returncode
+        print(proc.stdout.strip(), flush=True)
+        rows.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    first = rows[0]["sass"]
+    for row in rows[1:]:
+        other = row["sass"]
+        print(json.dumps({
+            "sass_vs": [rows[0]["tree"], row["tree"]],
+            "same": sorted(k for k in first if other.get(k) == first[k]),
+            "differ": sorted(k for k in first
+                             if k in other and other[k] != first[k]),
+            "only_first": sorted(k for k in first if k not in other),
+            "only_other": sorted(k for k in other if k not in first),
+        }), flush=True)
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("trees", nargs="+", help="checkouts, in turn order")
-    parser.add_argument("--family", choices=("ttt", "dflash", "cod"),
+    parser.add_argument("--family", choices=("ttt", "dflash", "cod", "lse"),
                         default="ttt", help="the kernels to time")
     parser.add_argument("--micro-step", action="store_true",
                         help="also time the family's micro-step of each tree")
+    parser.add_argument("--sass", action="store_true",
+                        help="compare the trees' kernel machine code instead")
     args = parser.parse_args()
+    if args.family == "lse" and args.micro_step:
+        parser.error("the LSE micro-step is the USP phase: run chip_smoke.py "
+                     "--usp-only per tree on four cards")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True).stdout.strip()
     print(json.dumps({"card": smi.splitlines()[0]}), flush=True)
+    if args.sass:
+        return compare_sass(args.trees)
     for tree in args.trees:
         root = os.path.abspath(tree)
         env = dict(os.environ, PYTHONPATH=root)

@@ -487,6 +487,8 @@ struct DFlashDqParams {
 template <int D>
 struct DFlashDq {
   static constexpr bool kSecondSource = true;  // the draft keys, last
+  static constexpr bool kRowSlots = false;      // the slots are heads
+  static constexpr bool kLogSumExp = false;     // m and l
   const DFlashDqParams& p;
 
   __device__ __forceinline__ void stage_key(unsigned char*, const DqBlock&,
@@ -705,6 +707,7 @@ struct DkvParams {
 // bytes a row; a stage needs no mask when every row of the tile reaches
 // every key of the block's tile (kept, lo <= key0, hi >= key0 + 64).
 struct DFlashRows {
+  static constexpr bool kLogSumExp = false;  // m and l
   const DkvParams& p;
 
   using Keys = int2;  // this thread's two keys

@@ -1,9 +1,11 @@
 // The dk/dv stream shared by the DFlash context-key kernel
-// (dflash_attention.cu) and the COD kernel (peagle_attention.cu).
+// (dflash_attention.cu), the COD kernel (peagle_attention.cu) and the LSE
+// ring-hop kernel (lse_attention.cu).
 //
 // Replaces, with the mask policy of each source, the Pallas kernels
 // `_bwd_dkv_kernel` of specforge_tpu/ops/dflash_pallas.py and of
-// specforge_tpu/ops/peagle_pallas.py: dk = scale * ds^T Q and dv = p^T dO
+// specforge_tpu/ops/peagle_pallas.py, and `_lse_bwd_dkv_kernel` of
+// specforge_tpu/ops/attention_pallas.py: dk = scale * ds^T Q and dv = p^T dO
 // of a 64-key tile, summed over the query heads of its GQA group, with
 // p = exp(s - m) / l recomputed from the forward's row statistics and
 // ds = p * (dO V^T - delta).
@@ -32,7 +34,10 @@
 // partials are added through shared memory in a fixed order and leave as
 // whole bf16 rows. No atomics: two runs give the same bits, and a block
 // no item reaches writes exact zeros. Rows and keys past the end are
-// zero-filled by TMA and carry no allowed pair.
+// zero-filled by TMA and carry no allowed pair. A policy whose m is a
+// log-sum-exp (Policy::kLogSumExp, the LSE op) has l = 1; its rows with no
+// allowed key (lse = -1e30) get m2 = +1e30 and 1/l = 0, so their p is 0
+// even on a stage without the mask.
 #pragma once
 
 #include <string.h>
@@ -231,12 +236,20 @@ __device__ __forceinline__ void dkv_stream_block(const DkvStream& p,
       const bool in = row < p.rows;
       const long long at = ((long long)b * p.H + h) * p.rows + row;
       const float mv = in ? p.m[at] : 0.f;
-      const float lv = in ? p.l[at] : 0.f;
+      float lv = 0.f;
+      if constexpr (!Policy::kLogSumExp) lv = in ? p.l[at] : 0.f;
       const float dl = in ? p.delta[at] : 0.f;
       const bool row_free = pol.stage_row(rows + kRowMask, blk, q0, r);
-      reinterpret_cast<float*>(rows + kRowM2)[r] = mv * kLog2e;
-      reinterpret_cast<float*>(rows + kRowIl)[r] =
-          in ? 1.f / fmaxf(lv, 1e-30f) : 0.f;
+      if constexpr (Policy::kLogSumExp) {
+        const bool live = in && mv > 0.5f * kNegInf;
+        reinterpret_cast<float*>(rows + kRowM2)[r] =
+            live ? mv * kLog2e : kDeadRowM2;
+        reinterpret_cast<float*>(rows + kRowIl)[r] = live ? 1.f : 0.f;
+      } else {
+        reinterpret_cast<float*>(rows + kRowM2)[r] = mv * kLog2e;
+        reinterpret_cast<float*>(rows + kRowIl)[r] =
+            in ? 1.f / fmaxf(lv, 1e-30f) : 0.f;
+      }
       reinterpret_cast<float*>(rows + kRowDelta)[r] = dl;
       const bool free_half =
           pol.tile_free(entry & 1, __all_sync(0xffffffffu, row_free));

@@ -1,10 +1,12 @@
-// The dq stream shared by the DFlash dq kernel (dflash_attention.cu) and
-// the COD dq kernel (peagle_attention.cu).
+// The dq stream shared by the DFlash dq kernel (dflash_attention.cu), the
+// COD dq kernel (peagle_attention.cu) and the LSE ring-hop dq kernel
+// (lse_attention.cu).
 //
 // Replaces, with the mask policy of each source, the Pallas kernels
 // `_bwd_dq_kernel` of specforge_tpu/ops/dflash_pallas.py (dq, and the draft
-// keys' dk/dv, which the DFlash policy adds) and of
-// specforge_tpu/ops/peagle_pallas.py (dq): dq = scale * ds K over the key
+// keys' dk/dv, which the DFlash policy adds), of
+// specforge_tpu/ops/peagle_pallas.py (dq) and `_lse_bwd_dq_kernel` of
+// specforge_tpu/ops/attention_pallas.py: dq = scale * ds K over the key
 // tiles a q tile reaches, with p = exp(s - m) / l recomputed from the
 // forward's row statistics and ds = p * (dO V^T - delta).
 //
@@ -37,6 +39,16 @@
 // bf16 through shared memory in whole rows. No atomics: two runs give the
 // same bits, and rows and keys past the end are zero-filled by TMA and
 // carry no allowed pair.
+//
+// A policy with row slots (Policy::kRowSlots: the LSE op, whose K/V come
+// expanded to every head, a group of one) fills the slots with adjacent q
+// tiles of one head instead: the block owns two, one a consumer warpgroup,
+// so both warpgroups share each K/V stage. Under causality the later tile
+// reaches more key tiles: the block walks its list, the longest slot's,
+// and a slot skips the stages past its own count and gets its own "needs
+// no mask" decision and mask bits (`slot_tiles`, `slot_free`, `slot_bits`).
+// A policy whose m is a log-sum-exp (Policy::kLogSumExp) has l = 1, and a
+// row with no allowed key (lse = -1e30) takes the dead-row rule above.
 #pragma once
 
 #include <string.h>
@@ -49,7 +61,6 @@ constexpr int kDqThreads = kHopperThreads;
 constexpr int kDqStages = 2;            // K/V stages of the ring
 constexpr int kDqHeads = 4;             // query heads resident at once
 constexpr int kDqSlots = kDqHeads / 2;  // heads a consumer warpgroup owns
-constexpr float kDeadRowM2 = 1e30f;     // m2 of a row with no allowed key
 
 // Shared memory of a dq block, byte offsets from a 1024-aligned base; the
 // block's key tile list and the policy's own memory (DFlash's draft
@@ -124,6 +135,25 @@ __device__ __forceinline__ int* dq_setup(unsigned char* smem) {
   return reinterpret_cast<int*>(smem + DqStreamSmem<D>::kInfo + 16);
 }
 
+// the slots a consumer warpgroup owns: two heads, or one q tile
+template <class Policy>
+__host__ __device__ constexpr int dq_slots() {
+  return Policy::kRowSlots ? 1 : kDqSlots;
+}
+
+// the slots resident in chunk c of a group of G heads: the heads from
+// c * heads on, or (row slots, one chunk) the block's q tiles that start
+// inside the rows
+template <class Policy>
+__device__ __forceinline__ int chunk_slots(const DqStream& p,
+                                          const DqBlock& blk, int c, int G) {
+  if constexpr (Policy::kRowSlots) {
+    return min(p.heads, (p.rows - blk.q0 + kTileRows - 1) / kTileRows);
+  } else {
+    return min(p.heads, G - c * p.heads);
+  }
+}
+
 // The barriers and the coordinates of a dq block, by thread 0, before the
 // block's first __syncthreads
 template <int D>
@@ -162,9 +192,9 @@ __device__ __forceinline__ void stream_dq_probs(float (&s)[32], uint32_t bits,
 }
 
 // The producer: warps 8 and 9, a row (and a key) a lane. Per chunk of the
-// group's heads it loads each head's Q and dO tiles and row statistics,
-// then streams the block's listed key tiles through the ring; the policy
-// writes a stage's key data (`stage_key`).
+// group's heads (or the block's q tiles) it loads each slot's Q and dO
+// tiles and row statistics, then streams the block's listed key tiles
+// through the ring; the policy writes a stage's key data (`stage_key`).
 template <int D, class Policy>
 __device__ __forceinline__ void dq_produce(const DqStream& p,
                                            const Policy& pol,
@@ -183,26 +213,35 @@ __device__ __forceinline__ void dq_produce(const DqStream& p,
   int it = 0;  // ring items so far
   for (int c = 0; c * p.heads < G; ++c) {
     const int h0 = blk.kvh * G + c * p.heads;
-    const int nh = min(p.heads, G - c * p.heads);
-    const int n0 = (nh + 1) / 2;  // the heads of consumer warpgroup 0
+    const int nh = chunk_slots<Policy>(p, blk, c, G);
+    const int n0 = (nh + 1) / 2;  // the slots of consumer warpgroup 0
     if (c > 0) mbar_wait(q_empty, (c - 1) & 1);
     auto load_head = [&](int lh) {
+      // slot lh: head h0 + lh of the block's q tile, or (row slots) q tile
+      // lh of the block's rows of head h0
+      const int hl = Policy::kRowSlots ? 0 : lh;
+      const int q0 = Policy::kRowSlots ? blk.q0 + lh * kTileRows : blk.q0;
       if (r == 0) {
         mbar_expect_tx(&q_full[lh], 2 * L::kTile);
         for (int pn = 0; pn < kPanels; ++pn) {
           tma_load(smem + L::kQ + lh * L::kTile + pn * kPanelBytes, &p.tm_q,
-                   &q_full[lh], pn * 64, blk.q0, h0 + lh, blk.b);
+                   &q_full[lh], pn * 64, q0, h0 + hl, blk.b);
           tma_load(smem + L::kDO + lh * L::kTile + pn * kPanelBytes,
-                   &p.tm_do, &q_full[lh], pn * 64, blk.q0, h0 + lh, blk.b);
+                   &p.tm_do, &q_full[lh], pn * 64, q0, h0 + hl, blk.b);
         }
       }
-      // rows past the end and rows with no allowed key (l = 0) get p = 0
-      const int row = blk.q0 + r;
+      // rows past the end and rows with no allowed key (l = 0; with a
+      // log-sum-exp for m, lse = -1e30 and l = 1 otherwise) get p = 0
+      const int row = q0 + r;
       const bool in = row < p.rows;
-      const long long at = ((long long)blk.b * p.H + h0 + lh) * p.rows + row;
-      const float lv = in ? p.l[at] : 0.f;
+      const long long at = ((long long)blk.b * p.H + h0 + hl) * p.rows + row;
+      float lv = 0.f;
+      if constexpr (!Policy::kLogSumExp) lv = in ? p.l[at] : 0.f;
       const float mv = in ? p.m[at] : 0.f;
       const float dl = in ? p.delta[at] : 0.f;
+      if constexpr (Policy::kLogSumExp) {
+        lv = in && mv > 0.5f * kNegInf ? 1.f : 0.f;
+      }
       stats[lh * kTileRows + r] = lv > 0.f ? mv * kLog2e : kDeadRowM2;
       stats[(kDqHeads + lh) * kTileRows + r] = lv > 0.f ? 1.f / lv : 0.f;
       stats[(2 * kDqHeads + lh) * kTileRows + r] = dl;
@@ -247,13 +286,13 @@ __device__ __forceinline__ void dq_produce(const DqStream& p,
 // dq of each in fp32 registers. kSecond marks the block's last tile when it
 // comes from the second key source; only that instance hands a head's p
 // and ds to the policy (`tile_done`), so the context tiles' loop carries
-// none of that code.
+// none of that code. With row slots a slot past its own tile count skips
+// the stage, and the policy decides each slot's mask.
 template <bool kSecond, int D, class Policy>
-__device__ __forceinline__ void dq_stage(const DqStream& p, const Policy& pol,
-                                         unsigned char* smem,
-                                         float (&dq)[kDqSlots][D / 2], int c,
-                                         int j, int it, int n_own,
-                                         int lh0) {
+__device__ __forceinline__ void dq_stage(
+    const DqStream& p, const Policy& pol, unsigned char* smem,
+    float (&dq)[dq_slots<Policy>()][D / 2], int c, int j, int it, int n_own,
+    int lh0) {
   using L = DqStreamSmem<D>;
   // this thread's rows r0 and r0 + 8 and its key pair t, from the thread
   // index read here (values kept across the stages crowd the registers)
@@ -276,15 +315,27 @@ __device__ __forceinline__ void dq_stage(const DqStream& p, const Policy& pol,
   const int entry = reinterpret_cast<const int*>(smem + L::kExtra)[j];
   const bool tile_free = (entry & 1) != 0;
   uint32_t* bits = reinterpret_cast<uint32_t*>(smem + L::kBits) + threadIdx.x;
-  if (!tile_free && n_own != 0) {
-    *bits = pol.tile_bits(smem + L::kRowData,
-                          smem + L::kKeyData + st * kTileRows * 16,
-                          (entry >> 1) * kTileRows, kSecond, r0, t);
+  if constexpr (!Policy::kRowSlots) {
+    if (!tile_free && n_own != 0) {
+      *bits = pol.tile_bits(smem + L::kRowData,
+                            smem + L::kKeyData + st * kTileRows * 16,
+                            (entry >> 1) * kTileRows, kSecond, r0, t);
+    }
   }
 #pragma unroll
-  for (int sl = 0; sl < kDqSlots; ++sl) {
+  for (int sl = 0; sl < dq_slots<Policy>(); ++sl) {
     if (sl >= n_own) break;
     const int lh = lh0 + sl;
+    bool free = tile_free;
+    if constexpr (Policy::kRowSlots) {
+      if (j >= pol.slot_tiles(smem + L::kRowData, lh)) continue;
+      free = pol.slot_free(smem + L::kRowData, lh, j, entry);
+      if (!free) {
+        *bits = pol.slot_bits(smem + L::kRowData,
+                              smem + L::kKeyData + st * kTileRows * 16, lh,
+                              r0, t);
+      }
+    }
     const int r1 = r0 + 8;
     const uint32_t sQ = smem_u32(smem + L::kQ + lh * L::kTile);
     const uint32_t sDO = smem_u32(smem + L::kDO + lh * L::kTile);
@@ -303,7 +354,7 @@ __device__ __forceinline__ void dq_stage(const DqStream& p, const Policy& pol,
     // heads' dq they would crowd the registers)
     const float mr[2] = {sM[lh * kTileRows + r0], sM[lh * kTileRows + r1]};
     const float ilr[2] = {sIL[lh * kTileRows + r0], sIL[lh * kTileRows + r1]};
-    if (tile_free) {
+    if (free) {
       stream_dq_probs<false>(s, 0u, p.scale2, mr, ilr);
     } else {
       stream_dq_probs<true>(s, *bits, p.scale2, mr, ilr);
@@ -336,7 +387,7 @@ __device__ __forceinline__ void dq_stage(const DqStream& p, const Policy& pol,
   mbar_arrive(&full[kDqStages + st]);  // empty[st]
 }
 
-// The consumers: warpgroup 0 owns the first (nh + 1) / 2 heads of each
+// The consumers: warpgroup 0 owns the first (nh + 1) / 2 slots of each
 // chunk, warpgroup 1 the rest. The policy gives a thread's 32 mask bits of
 // a stage that needs a mask (`tile_bits`), takes a head's p and ds of the
 // second source's tile (`tile_done`) and closes a chunk (`chunk_done`,
@@ -355,12 +406,12 @@ __device__ __forceinline__ void dq_consume(const DqStream& p,
   // the listed tiles before the second source's
   const int n_first = blk.n_tiles - (Policy::kSecondSource ? 1 : 0);
   for (int c = 0; c * p.heads < G; ++c) {
-    int nh = min(p.heads, G - c * p.heads);
+    int nh = chunk_slots<Policy>(p, blk, c, G);
     const int n_own = wg == 0 ? (nh + 1) / 2 : nh / 2;
-    const int lh0 = wg == 0 ? 0 : (nh + 1) / 2;  // first local head owned
-    float dq[kDqSlots][D / 2];
+    const int lh0 = wg == 0 ? 0 : (nh + 1) / 2;  // first local slot owned
+    float dq[dq_slots<Policy>()][D / 2];
 #pragma unroll
-    for (int sl = 0; sl < kDqSlots; ++sl) {
+    for (int sl = 0; sl < dq_slots<Policy>(); ++sl) {
 #pragma unroll
       for (int i = 0; i < D / 2; ++i) dq[sl][i] = 0.f;
     }
@@ -385,7 +436,7 @@ __device__ __forceinline__ void dq_consume(const DqStream& p,
     asm volatile("mov.u32 %0, %%tid.x;" : "=r"(tx));
     const int tid = tx % 128;
 #pragma unroll
-    for (int sl = 0; sl < kDqSlots; ++sl) {
+    for (int sl = 0; sl < dq_slots<Policy>(); ++sl) {
       if (sl >= n_own) break;
       stage_tile<D>(smem + L::kRing + (lh0 + sl) * L::kTile, dq[sl], p.scale,
                     p.scale, tid / 32 * 16 + (tid % 32) / 4, tid % 4);
@@ -395,12 +446,15 @@ __device__ __forceinline__ void dq_consume(const DqStream& p,
     int cc = c;
     asm volatile("" : "+r"(cc));
     for (int sl = 0; sl < n_own; ++sl) {
-      const int h = bk.kvh * G + cc * p.heads + lh0 + sl;
+      const int h = Policy::kRowSlots ? bk.kvh * G
+                                      : bk.kvh * G + cc * p.heads + lh0 + sl;
+      const int q0 =
+          Policy::kRowSlots ? bk.q0 + (lh0 + sl) * kTileRows : bk.q0;
       copy_tile_rows<D>(
-          p.dq + (((long long)bk.b * p.H + h) * p.rows + bk.q0) * D, D,
-          smem + L::kRing + (lh0 + sl) * L::kTile, p.rows - bk.q0, tid);
+          p.dq + (((long long)bk.b * p.H + h) * p.rows + q0) * D, D,
+          smem + L::kRing + (lh0 + sl) * L::kTile, p.rows - q0, tid);
     }
-    nh = min(p.heads, G - cc * p.heads);
+    nh = chunk_slots<Policy>(p, bk, cc, G);
     // every head of the chunk has landed (a block with no key tile never
     // waited for them, and the policy's chunk_done may read them all)
     for (int lh = 0; lh < nh; ++lh) mbar_wait(&q_full[lh], cc & 1);

@@ -1,5 +1,6 @@
 // Hopper building blocks shared by the port's warp-specialised attention
-// kernels (ttt_attention.cu, dflash_attention.cu, peagle_attention.cu).
+// kernels (ttt_attention.cu, dflash_attention.cu, peagle_attention.cu,
+// lse_attention.cu).
 //
 // Replaces no TPU kernel by itself: it holds what the kernels that replace
 // the Pallas attention kernels share on this card. Those kernels are bound
@@ -20,6 +21,7 @@
 namespace {
 
 constexpr float kNegInf = -1e30f;  // finite, as in the TPU kernel
+constexpr float kDeadRowM2 = 1e30f;  // m2 of a row with no allowed key
 constexpr int kTileRows = 64;  // rows of every staged tile (wgmma's M)
 constexpr int kPanelBytes = kTileRows * 128;  // 64 rows x 64 bf16 columns
 constexpr int kHopperThreads = 384;  // consumer warpgroups 0 and 1, producer 2

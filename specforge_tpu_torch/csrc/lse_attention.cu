@@ -33,30 +33,45 @@
 // later-chunk hop has no allowed pair: its bound is the bytes of its
 // outputs.
 //
-// What the design does about that. Every product runs on the tensor cores
-// through `mma.sync.m16n8k16` (bf16 in, fp32 accumulate); no S x S tile
-// reaches device memory. The offsets are host ints, so each block knows
-// from its tile indices which tiles hold an allowed pair and visits only
-// those: a q tile of the forward and of dq walks the key tiles up to its
-// last row's limit, a key tile of dk/dv walks the q tiles from its first
-// allowed row; a later-chunk hop visits none and writes the empty-row
-// values. The forward: one block of 4 warps owns 64 query rows of one head;
-// each warp owns 16 rows and keeps its Q fragments and its O accumulator in
-// registers, with the online-softmax recurrence (m, l, o) in fp32. K/V tiles
-// of 64 keys are staged by cp.async in two buffers of padded
-// (bank-conflict-free) shared memory, so the next tile loads while this one
-// is used, and reach the tensor cores through ldmatrix (transposing where
-// the key index is the reduction). The dq kernel has the forward's shape,
-// with dO fragments and dq in registers. The dk/dv kernel gives one block
-// 64 keys of one head, K and V in shared memory, dk and dv in fp32
-// registers; it walks the q tiles in order with Q, dO and the row
-// statistics staged by cp.async in two buffers, so dk and dv are summed
-// without atomics, in a fixed order, and two runs give the same bits.
-// Not yet used: TMA, wgmma and warp specialisation.
+// What the design does about that. No S x S tile reaches device memory,
+// and the offsets are host ints, so each block knows from its tile indices
+// which tiles hold an allowed pair and visits only those; a later-chunk
+// hop visits none and writes the empty-row values (zero gradients).
+// The forward (first design, on `mma.sync.m16n8k16`, bf16 in, fp32
+// accumulate): one block of 4 warps owns 64 query rows of one head; each
+// warp owns 16 rows and keeps its Q fragments and its O accumulator in
+// registers, with the online-softmax recurrence (m, l, o) in fp32. K/V
+// tiles of 64 keys are staged by cp.async in two buffers of padded
+// (bank-conflict-free) shared memory and reach the tensor cores through
+// ldmatrix; a q tile walks the key tiles up to its last row's limit.
+// The two backward kernels run on the Hopper streams the DFlash and COD
+// backward kernels share, with an offset-causal policy each; q, k, v and
+// dO [BH, S, D] are read as [B = BH, heads = 1, S, D] by 4-D tensor maps.
+// dk/dv (dkv_stream.cuh): a block of 384 threads owns 64 keys of one head,
+// K and V landed once by TMA; its items are the q tiles from the one that
+// holds the first row allowed for its first valid key to the last; two
+// consumer warpgroups split them, each fed a ring of Q/dO stages by two
+// producer warps, and run all four products on `wgmma` with dk, dv in fp32
+// registers. The blocks run key tile first (blockIdx / BH), so the tiles
+// that reach the most q tiles start first. dq (dq_stream.cuh, row slots):
+// a block owns two adjacent q tiles of one head, one a consumer warpgroup,
+// so each K/V stage (by TMA, two producer warps) feeds both; the block
+// walks the valid key tiles its last row reaches, the earlier tile skips
+// the stages past its own, and the pairs of q tiles run latest first. The
+// row statistics are the forward's lse (m2 = lse * log2(e), 1/l = 1) and
+// dstat; a row with no allowed key (lse = -1e30) gets m2 = +1e30 and 1/l =
+// 0, so its p, ds and dq are exactly 0. A stage needs no mask when all 64
+// keys are valid and every row of the tile reaches the last of them: on an
+// earlier-chunk hop every stage, on the own chunk all but the diagonal
+// ones; elsewhere the mask is a select to -inf from each key's least
+// allowed row, staged with the keys. Sums run in a fixed order with no
+// atomics, so two runs give the same bits; rows and keys past the end are
+// zero-filled by TMA and carry no allowed pair.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <limits.h>
+
+#include "dkv_stream.cuh"
+#include "dq_stream.cuh"
 
 namespace {
 
@@ -64,32 +79,20 @@ constexpr int kBlockM = 64;  // query rows per block, 16 per warp
 constexpr int kBlockN = 64;  // keys per shared-memory tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr float kNegInf = -1e30f;  // finite, as in the TPU kernel
 
 struct Params {
   const __nv_bfloat16* q;      // [BH, Sq, D], contiguous
   const __nv_bfloat16* k;      // [BH, Sk, D], contiguous
   const __nv_bfloat16* v;      // [BH, Sk, D], contiguous
   const int* valid;            // [BH, Sk], 1 = attendable key
-  const __nv_bfloat16* dout;   // [BH, Sq, D] (backward)
-  const float* lse;            // [BH, Sq] (backward)
-  const float* dstat;          // [BH, Sq]: rowsum(dO * O) - dlse (backward)
   __nv_bfloat16* out;          // [BH, Sq, D]
   float* lse_out;              // [BH, Sq]
-  __nv_bfloat16* dq;           // [BH, Sq, D]
-  __nv_bfloat16* dk;           // [BH, Sk, D]
-  __nv_bfloat16* dv;           // [BH, Sk, D]
   int Sq, Sk, row_off, col_off;
   float scale;
 };
 
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // D[16x8] += A[16x16] * B[16x8], bf16 inputs, fp32 accumulators.
@@ -138,20 +141,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
-__device__ __forceinline__ int floor_div(int a, int b) {
-  return a >= 0 ? a / b : -((-a + b - 1) / b);
 }
 
 // Key tiles a q tile visits: those up to the last allowed column of its
@@ -388,356 +377,234 @@ __global__ void __launch_bounds__(kThreads) lse_fwd_kernel(const Params p) {
   }
 }
 
-// dq: one block owns 64 query rows of one head, 16 per warp, and walks the
-// key tiles that hold an allowed pair.
+// --------------------------------------------------------------------------
+// backward: dk, dv on the dk/dv stream
+// --------------------------------------------------------------------------
+
+struct LseDkvParams {
+  DkvStream s;       // B = BH, H = KVH = 1, rows = Sq, keys = Sk; m = lse,
+                     // delta = dstat (l unused)
+  const int* valid;  // [BH, Sk]
+  int off;           // col_off - row_off: key j is allowed for local row i
+                     // iff j + off <= i (and it is valid)
+};
+
+// The offset-causal mask of the dk/dv stream. The block's keys' data is
+// each key's least allowed local row (key + off, or INT_MAX for a key that
+// is not valid or lies past Sk), an int a key, staged once; a row's data is
+// its local index. A stage needs no mask when all 64 keys are valid (the
+// list entry's tile bit) and every row of the tile reaches the last key
+// (rows past Sq have p = 0 either way).
+struct LseRows {
+  static constexpr bool kLogSumExp = true;  // m = lse, l = 1
+  const LseDkvParams& p;
+
+  using Keys = int2;  // the least rows of this thread's two keys
+  using Row = int;    // a row's local index
+
+  __device__ __forceinline__ Keys keys(const unsigned char* key_data,
+                                       const DkvBlock&, int kr0) const {
+    const int* need = reinterpret_cast<const int*>(key_data);
+    return make_int2(need[kr0], need[kr0 + 8]);
+  }
+
+  __device__ __forceinline__ Row row(const unsigned char* mask, int r) const {
+    return reinterpret_cast<const int*>(mask)[r];
+  }
+
+  __device__ __forceinline__ bool allow(const Keys& k, int kx, Row i) const {
+    return i >= (kx ? k.y : k.x);
+  }
+
+  __device__ __forceinline__ bool stage_row(unsigned char* mask,
+                                            const DkvBlock& blk, int q0,
+                                            int r) const {
+    const int i = q0 + r;
+    reinterpret_cast<int*>(mask)[r] = i;
+    return i >= p.s.rows || blk.key0 + kTileRows - 1 + p.off <= i;
+  }
+
+  __device__ __forceinline__ bool tile_free(int tile_bit,
+                                            bool rows_free) const {
+    return tile_bit != 0 && rows_free;
+  }
+};
+
+// One block owns 64 keys of one head (dkv_stream.cuh): blockIdx / BH is
+// the key tile, so the tiles that reach the most q tiles (the first, under
+// causality) start first, and blockIdx % BH the head. It stages its keys'
+// least rows and lists the q tiles from the one that holds the first row
+// allowed for its first valid key to the last, each with the "every key
+// valid" bit; a block that no row reaches (every block of a later chunk,
+// a tile of padding) lists none and writes zeros.
 template <int D>
-__global__ void __launch_bounds__(kThreads) lse_bwd_dq_kernel(const Params p) {
-  constexpr int kStride = D + 8;
-  constexpr int kSteps = D / 16;
-  constexpr int kDTiles = D / 8;
-  constexpr int kVecPerRow = D / 8;
-  constexpr int kTile = kBlockN * kStride;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sKs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sVs = sKs + 2 * kTile;
-  __shared__ int sValids[2][kBlockN];
-
-  const int Sq = p.Sq, Sk = p.Sk;
-  const int n_qtiles = (Sq + kBlockM - 1) / kBlockM;
-  const int qtile = n_qtiles - 1 - blockIdx.x;  // longest rows first
-  const long long bh = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int row0 = qtile * kBlockM + warp * 16 + g;
-  const int row1 = row0 + 8;
-  const bool in0 = row0 < Sq;
-  const bool in1 = row1 < Sq;
-  const int lim0 = row0 + p.row_off - p.col_off;
-  const int lim1 = row1 + p.row_off - p.col_off;
-
-  uint32_t qf[kSteps][4], df[kSteps][4];
-  load_a_frags<kSteps>(qf, p.q + bh * Sq * D, D, row0, in0, in1, t);
-  load_a_frags<kSteps>(df, p.dout + bh * Sq * D, D, row0, in0, in1, t);
-  // rows past Sq get p = 0 (their `in` flag is part of the mask)
-  const float lse0 = in0 ? p.lse[bh * Sq + row0] : 0.f;
-  const float lse1 = in1 ? p.lse[bh * Sq + row1] : 0.f;
-  const float ds0 = in0 ? p.dstat[bh * Sq + row0] : 0.f;
-  const float ds1 = in1 ? p.dstat[bh * Sq + row1] : 0.f;
-
-  float dq[kDTiles][4];
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    dq[dt][0] = dq[dt][1] = dq[dt][2] = dq[dt][3] = 0.f;
+__global__ void __launch_bounds__(kDkvThreads, 1)
+    lse_bwd_dkv_kernel(const __grid_constant__ LseDkvParams p) {
+  using L = DkvStreamSmem<D>;
+  extern __shared__ unsigned char dkv_smem[];
+  unsigned char* smem = align1024(dkv_smem);
+  int* list = reinterpret_cast<int*>(smem + L::kList);
+  int* need = reinterpret_cast<int*>(smem + L::kKeys);
+  const int BH = p.s.B, Sq = p.s.rows, Sk = p.s.keys;
+  const int bh = blockIdx.x % BH;
+  const int key0 = blockIdx.x / BH * kTileRows;
+  dkv_init_block<D>(smem, bh, 0, key0);
+  // the keys' least rows, and the valid keys as two 32-bit masks behind
+  if (threadIdx.x < kTileRows) {
+    const int key = key0 + threadIdx.x;
+    const bool ok = key < Sk && p.valid[(long long)bh * Sk + key] != 0;
+    need[threadIdx.x] = ok ? key + p.off : INT_MAX;
+    const unsigned valid = __ballot_sync(0xffffffffu, ok);
+    if (threadIdx.x % 32 == 0) need[kTileRows + threadIdx.x / 32] = valid;
   }
-
-  const __nv_bfloat16* kbase = p.k + bh * Sk * D;
-  const __nv_bfloat16* vbase = p.v + bh * Sk * D;
-  const int* valid = p.valid + bh * Sk;
-
-  auto load_tile = [&](int j, int buf) {
-    const int key0 = j * kBlockN;
-    __nv_bfloat16* sK = sKs + buf * kTile;
-    __nv_bfloat16* sV = sVs + buf * kTile;
-    for (int i = threadIdx.x; i < kBlockN * kVecPerRow; i += kThreads) {
-      const int r = i / kVecPerRow;
-      const int c = (i % kVecPerRow) * 8;
-      const int key = key0 + r;
-      const long long src = key < Sk ? key : 0;
-      cp_async16(sK + r * kStride + c, kbase + src * D + c, key < Sk);
-      cp_async16(sV + r * kStride + c, vbase + src * D + c, key < Sk);
-    }
-    for (int i = threadIdx.x; i < kBlockN; i += kThreads) {
-      const int key = key0 + i;
-      sValids[buf][i] = key < Sk ? valid[key] : 0;
-    }
-    cp_async_commit();
-  };
-
-  const int n_ktiles = key_tiles_for(qtile, p);
-  if (n_ktiles > 0) load_tile(0, 0);
-  for (int j = 0; j < n_ktiles; ++j) {
-    const int key0 = j * kBlockN;
-    const int buf = j & 1;
-    if (j + 1 < n_ktiles) {
-      load_tile(j + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* sK = sKs + buf * kTile;
-    const __nv_bfloat16* sV = sVs + buf * kTile;
-    const int* sValid = sValids[buf];
-
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      // s = Q K^T and dp = dO V^T for 16 rows x 16 keys
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int e2 = 0; e2 < 2; ++e2) {
-        const int nt = 2 * kk + e2;
-        s[e2][0] = s[e2][1] = s[e2][2] = s[e2][3] = 0.f;
-        dp[e2][0] = dp[e2][1] = dp[e2][2] = dp[e2][3] = 0.f;
-        const int off = (nt * 8 + (lane & 7)) * kStride + (lane >> 3) * 8;
-#pragma unroll
-        for (int ks = 0; ks < kSteps; ks += 2) {
-          uint32_t f[4];
-          ldmatrix_x4(f, sK + off + ks * 16);
-          mma_bf16(s[e2], qf[ks], f[0], f[1]);
-          mma_bf16(s[e2], qf[ks + 1], f[2], f[3]);
-          ldmatrix_x4(f, sV + off + ks * 16);
-          mma_bf16(dp[e2], df[ks], f[0], f[1]);
-          mma_bf16(dp[e2], df[ks + 1], f[2], f[3]);
-        }
-      }
-      // ds = p * (dp - dstat), p recomputed under the offset-causal mask
-#pragma unroll
-      for (int e2 = 0; e2 < 2; ++e2) {
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int kc = (2 * kk + e2) * 8 + 2 * t + e;
-          const int col = key0 + kc;
-          const bool ok = sValid[kc] != 0;
-          const float p0 = (ok && in0 && col <= lim0)
-                               ? __expf(s[e2][e] * p.scale - lse0)
-                               : 0.f;
-          const float p1 = (ok && in1 && col <= lim1)
-                               ? __expf(s[e2][2 + e] * p.scale - lse1)
-                               : 0.f;
-          s[e2][e] = p0 * (dp[e2][e] - ds0);
-          s[e2][2 + e] = p1 * (dp[e2][2 + e] - ds1);
-        }
-      }
-      // dq += ds K: ds from registers (C -> A layout), K as B (k = key,
-      // n = head dim) through a transposing ldmatrix
-      uint32_t a[4];
-      a[0] = pack_bf16(s[0][0], s[0][1]);
-      a[1] = pack_bf16(s[0][2], s[0][3]);
-      a[2] = pack_bf16(s[1][0], s[1][1]);
-      a[3] = pack_bf16(s[1][2], s[1][3]);
-      const __nv_bfloat16* kp =
-          sK + (kk * 16 + (lane & 8) + (lane & 7)) * kStride + (lane >> 4) * 8;
-#pragma unroll
-      for (int dt = 0; dt < kDTiles; dt += 2) {
-        uint32_t f[4];
-        ldmatrix_x4_trans(f, kp + dt * 8);
-        mma_bf16(dq[dt], a, f[0], f[1]);
-        mma_bf16(dq[dt + 1], a, f[2], f[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with `buf` before it is refilled
+  __syncthreads();
+  const unsigned v0 = need[kTileRows], v1 = need[kTileRows + 1];
+  const int first = v0 ? __ffs(v0) - 1 : (v1 ? 31 + __ffs(v1) : -1);
+  // the first row allowed for the first valid key (Sq: none)
+  const int lo = first < 0 ? Sq : max(0, key0 + first + p.off);
+  const int qt0 = lo / kTileRows;
+  const int n = lo < Sq ? (Sq + kTileRows - 1) / kTileRows - qt0 : 0;
+  const int bit = (v0 & v1) == 0xffffffffu;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    list[i] = 2 * (qt0 + i) + bit;
   }
-
-  __nv_bfloat16* dqp = p.dq + bh * Sq * D;
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (in0) {
-      *reinterpret_cast<uint32_t*>(dqp + (long long)row0 * D + c) =
-          pack_bf16(dq[dt][0] * p.scale, dq[dt][1] * p.scale);
-    }
-    if (in1) {
-      *reinterpret_cast<uint32_t*>(dqp + (long long)row1 * D + c) =
-          pack_bf16(dq[dt][2] * p.scale, dq[dt][3] * p.scale);
-    }
-  }
+  if (threadIdx.x == 0) block_info<D>(smem)->n_list = n;
+  __syncthreads();
+  dkv_stream_block<D>(p.s, LseRows{p}, smem);
 }
 
-// dk/dv: one block owns 64 keys of one head, 16 per warp, and walks the q
-// tiles from the first that holds an allowed row to the last, in order.
+// --------------------------------------------------------------------------
+// backward: dq on the dq stream
+// --------------------------------------------------------------------------
+
+struct LseDqParams {
+  DqStream s;        // B = BH, H = KVH = 1, rows = Sq, two q tiles a block
+                     // (heads = 2); m = lse, delta = dstat (l unused)
+  const int* valid;  // [BH, Sk]
+  int Sk;
+  int off;           // col_off - row_off, as LseDkvParams::off
+  int n_pairs;       // the blocks of a head: ceil(Sq / 128)
+};
+
+// The offset-causal policy of the dq stream, with row slots: slot 0 and 1
+// are the block's two q tiles. The block's list holds the key tiles up to
+// the last one its last row reaches that hold a valid key, each with the
+// "every key valid" bit. The rows' data holds three ints a slot: the listed
+// tiles its rows reach (a prefix of the list), how many of those lie
+// wholly at or before its first row's limit (a prefix too), and its first
+// local row. A slot's stage needs no mask when it is in both prefixes'
+// overlap and the tile's keys are all valid; otherwise its 32 bits a
+// thread come from the stage's key data, each key's least allowed local
+// row (INT_MAX: not valid, or past Sk), an int a key, written by the
+// producer lanes.
+struct LseDq {
+  static constexpr bool kSecondSource = false;
+  static constexpr bool kRowSlots = true;   // two q tiles of one head
+  static constexpr bool kLogSumExp = true;  // m = lse, l = 1
+  const LseDqParams& p;
+
+  __device__ __forceinline__ void stage_key(unsigned char* key_data,
+                                            const DqBlock& blk, int,
+                                            int key0, int r) const {
+    const int key = key0 + r;
+    const bool ok = key < p.Sk && p.valid[(long long)blk.b * p.Sk + key] != 0;
+    reinterpret_cast<int*>(key_data)[r] = ok ? key + p.off : INT_MAX;
+  }
+
+  __device__ __forceinline__ int slot_tiles(const unsigned char* rows,
+                                            int lh) const {
+    return reinterpret_cast<const int*>(rows)[lh];
+  }
+
+  __device__ __forceinline__ bool slot_free(const unsigned char* rows, int lh,
+                                            int j, int entry) const {
+    return (entry & 1) != 0 && j < reinterpret_cast<const int*>(rows)[2 + lh];
+  }
+
+  // key 8 jj + 2 t + (e & 1) of the stage against row r0 (e < 2) or r0 + 8
+  // of slot lh
+  __device__ __forceinline__ uint32_t slot_bits(const unsigned char* rows,
+                                                const unsigned char* keys,
+                                                int lh, int r0,
+                                                int t) const {
+    const int i0 = reinterpret_cast<const int*>(rows)[4 + lh] + r0;
+    const int i1 = i0 + 8;
+    const int* need = reinterpret_cast<const int*>(keys);
+    uint32_t bits = 0u;
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const int2 n = *reinterpret_cast<const int2*>(need + 8 * jj + 2 * t);
+      bits |= (static_cast<uint32_t>(n.x <= i0) |
+               static_cast<uint32_t>(n.y <= i0) << 1 |
+               static_cast<uint32_t>(n.x <= i1) << 2 |
+               static_cast<uint32_t>(n.y <= i1) << 3)
+              << (4 * jj);
+    }
+    return bits;
+  }
+
+  __device__ __forceinline__ void chunk_done(unsigned char*, const DqBlock&,
+                                             int, bool, int, int, int) const {}
+};
+
+// One block owns two adjacent q tiles of one head (dq_stream.cuh, row
+// slots): blockIdx / BH picks the pair, the last first (under causality it
+// reaches the most key tiles), blockIdx % BH the head. It lists the key
+// tiles that hold a valid key up to the one its last row reaches (a warp
+// a tile, by ballot) and each slot's counts.
 template <int D>
-__global__ void __launch_bounds__(kThreads) lse_bwd_dkv_kernel(const Params p) {
-  constexpr int kStride = D + 8;
-  constexpr int kSteps = D / 16;
-  constexpr int kDTiles = D / 8;
-  constexpr int kVecPerRow = D / 8;
-  constexpr int kTile = kBlockN * kStride;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sV = sK + kTile;
-  __nv_bfloat16* sQs = sV + kTile;        // two stages
-  __nv_bfloat16* sDOs = sQs + 2 * kTile;  // two stages
-  __shared__ float sLse[2][kBlockN], sDs[2][kBlockN];
-
-  const int Sq = p.Sq, Sk = p.Sk;
-  const int n_qtiles = (Sq + kBlockM - 1) / kBlockM;
-  const int ktile = blockIdx.x;
-  const long long bh = blockIdx.y;
-  const int warp = threadIdx.x / 32;
+__global__ void __launch_bounds__(kDqThreads, 1)
+    lse_bwd_dq_kernel(const __grid_constant__ LseDqParams p) {
+  using L = DqStreamSmem<D>;
+  extern __shared__ unsigned char dq_smem[];
+  unsigned char* smem = align1024(dq_smem);
+  int* list = reinterpret_cast<int*>(smem + L::kExtra);
+  const int BH = p.s.B, Sq = p.s.rows, Sk = p.Sk;
+  const int bh = blockIdx.x % BH;
+  const int q0 = (p.n_pairs - 1 - blockIdx.x / BH) * 2 * kTileRows;
+  dq_init_block<D>(smem, bh, 0, q0);
+  // the last key the block's last row reaches, and the key tiles up to it
+  const int reach = min(q0 + 2 * kTileRows, Sq) - 1 - p.off;
+  const int n_kt = reach < 0 ? 0
+                             : min((Sk + kTileRows - 1) / kTileRows,
+                                   reach / kTileRows + 1);
   const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int key0 = ktile * kBlockN;
-  const int kr0 = key0 + warp * 16 + g;  // this thread's two keys
-  const int kr1 = kr0 + 8;
-  const int* valid = p.valid + bh * Sk;
-  const bool kv0 = kr0 < Sk && valid[kr0] != 0;
-  const bool kv1 = kr1 < Sk && valid[kr1] != 0;
-  // the least local row each key is allowed for: row >= key + off
-  const int off = p.col_off - p.row_off;
-
-  // K and V of this block's keys, once
-  {
-    const __nv_bfloat16* kbase = p.k + bh * Sk * D;
-    const __nv_bfloat16* vbase = p.v + bh * Sk * D;
-    for (int i = threadIdx.x; i < kBlockN * kVecPerRow; i += kThreads) {
-      const int r = i / kVecPerRow;
-      const int c = (i % kVecPerRow) * 8;
-      const int key = key0 + r;
-      const long long src = key < Sk ? key : 0;
-      cp_async16(sK + r * kStride + c, kbase + src * D + c, key < Sk);
-      cp_async16(sV + r * kStride + c, vbase + src * D + c, key < Sk);
-    }
-    cp_async_commit();
+  for (int i = threadIdx.x / 32; i < n_kt; i += kDqThreads / 32) {
+    const int key = i * kTileRows + lane;
+    const long long at = (long long)bh * Sk + key;
+    const bool a = key < Sk && p.valid[at] != 0;
+    const bool b = key + 32 < Sk && p.valid[at + 32] != 0;
+    const unsigned any = __ballot_sync(0xffffffffu, a || b);
+    const unsigned all = __ballot_sync(0xffffffffu, a && b);
+    if (lane == 0) list[i] = any != 0u ? 1 + 2 * (all == 0xffffffffu) : 0;
   }
-
-  // the q tiles that hold a row allowed for the tile's first key
-  const int need = key0 + off;
-  const int first = need <= 0 ? 0 : floor_div(need, kBlockM);
-  const int n_iters = need <= Sq - 1 ? n_qtiles - first : 0;
-  const __nv_bfloat16* qbase = p.q + bh * Sq * D;
-  const __nv_bfloat16* dbase = p.dout + bh * Sq * D;
-  auto load_q = [&](int it, int buf) {
-    const int q0 = (first + it) * kBlockM;
-    __nv_bfloat16* sQ = sQs + buf * kTile;
-    __nv_bfloat16* sDO = sDOs + buf * kTile;
-    for (int i = threadIdx.x; i < kBlockM * kVecPerRow; i += kThreads) {
-      const int r = i / kVecPerRow;
-      const int c = (i % kVecPerRow) * 8;
-      const int row = q0 + r;
-      const long long src = row < Sq ? row : 0;
-      cp_async16(sQ + r * kStride + c, qbase + src * D + c, row < Sq);
-      cp_async16(sDO + r * kStride + c, dbase + src * D + c, row < Sq);
-    }
-    for (int i = threadIdx.x; i < kBlockM; i += kThreads) {
-      const int row = q0 + i;
-      const bool in = row < Sq;
-      sLse[buf][i] = in ? p.lse[bh * Sq + row] : 0.f;
-      sDs[buf][i] = in ? p.dstat[bh * Sq + row] : 0.f;
-    }
-    cp_async_commit();
-  };
-
-  float dk[kDTiles][4], dv[kDTiles][4];
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    dk[dt][0] = dk[dt][1] = dk[dt][2] = dk[dt][3] = 0.f;
-    dv[dt][0] = dv[dt][1] = dv[dt][2] = dv[dt][3] = 0.f;
-  }
-
-  // A-operand (rows = this warp's 16 keys) addresses of K and V
-  const int a_off = (warp * 16 + (lane & 15)) * kStride + (lane >> 4) * 8;
-  if (n_iters > 0) {
-    load_q(0, 0);
-  } else {
-    cp_async_wait<0>();  // K and V were requested; nothing reads them
-  }
-  for (int it = 0; it < n_iters; ++it) {
-    const int buf = it & 1;
-    if (it + 1 < n_iters) {
-      load_q(it + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* sQ = sQs + buf * kTile;
-    const __nv_bfloat16* sDO = sDOs + buf * kTile;
-    const int q0 = (first + it) * kBlockM;
-
-#pragma unroll
-    for (int kk = 0; kk < kBlockM / 16; ++kk) {
-      // s^T = K Q^T and dp^T = V dO^T for 16 keys x 16 queries
-      float s[2][4], dp[2][4];
-#pragma unroll
-      for (int e2 = 0; e2 < 2; ++e2) {
-        s[e2][0] = s[e2][1] = s[e2][2] = s[e2][3] = 0.f;
-        dp[e2][0] = dp[e2][1] = dp[e2][2] = dp[e2][3] = 0.f;
-      }
-#pragma unroll
-      for (int ks = 0; ks < kSteps; ks += 2) {
-        uint32_t ka0[4], ka1[4], va0[4], va1[4];
-        ldmatrix_x4(ka0, sK + a_off + ks * 16);
-        ldmatrix_x4(ka1, sK + a_off + (ks + 1) * 16);
-        ldmatrix_x4(va0, sV + a_off + ks * 16);
-        ldmatrix_x4(va1, sV + a_off + (ks + 1) * 16);
-#pragma unroll
-        for (int e2 = 0; e2 < 2; ++e2) {
-          const int off_b = ((2 * kk + e2) * 8 + (lane & 7)) * kStride +
-                            (lane >> 3) * 8 + ks * 16;
-          uint32_t f[4];
-          ldmatrix_x4(f, sQ + off_b);
-          mma_bf16(s[e2], ka0, f[0], f[1]);
-          mma_bf16(s[e2], ka1, f[2], f[3]);
-          ldmatrix_x4(f, sDO + off_b);
-          mma_bf16(dp[e2], va0, f[0], f[1]);
-          mma_bf16(dp[e2], va1, f[2], f[3]);
-        }
-      }
-      // p^T under the offset-causal/valid mask, ds^T = p^T * (dp^T - dstat)
-      float pt[2][4];
-#pragma unroll
-      for (int e2 = 0; e2 < 2; ++e2) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int qi = kk * 16 + e2 * 8 + 2 * t + (i & 1);
-          const int row = q0 + qi;
-          const bool ok = i < 2 ? (kv0 && kr0 + off <= row)
-                                : (kv1 && kr1 + off <= row);
-          const float pv = (ok && row < Sq)
-                               ? __expf(s[e2][i] * p.scale - sLse[buf][qi])
-                               : 0.f;
-          pt[e2][i] = pv;
-          s[e2][i] = pv * (dp[e2][i] - sDs[buf][qi]);
-        }
-      }
-      // dv += p^T dO and dk += ds^T Q: A from registers (C -> A layout), dO
-      // and Q as B (k = query, n = head dim) through transposing ldmatrix
-      uint32_t ap[4], as[4];
-      ap[0] = pack_bf16(pt[0][0], pt[0][1]);
-      ap[1] = pack_bf16(pt[0][2], pt[0][3]);
-      ap[2] = pack_bf16(pt[1][0], pt[1][1]);
-      ap[3] = pack_bf16(pt[1][2], pt[1][3]);
-      as[0] = pack_bf16(s[0][0], s[0][1]);
-      as[1] = pack_bf16(s[0][2], s[0][3]);
-      as[2] = pack_bf16(s[1][0], s[1][1]);
-      as[3] = pack_bf16(s[1][2], s[1][3]);
-      const int toff =
-          (kk * 16 + (lane & 8) + (lane & 7)) * kStride + (lane >> 4) * 8;
-#pragma unroll
-      for (int dt = 0; dt < kDTiles; dt += 2) {
-        uint32_t f[4];
-        ldmatrix_x4_trans(f, sDO + toff + dt * 8);
-        mma_bf16(dv[dt], ap, f[0], f[1]);
-        mma_bf16(dv[dt + 1], ap, f[2], f[3]);
-        ldmatrix_x4_trans(f, sQ + toff + dt * 8);
-        mma_bf16(dk[dt], as, f[0], f[1]);
-        mma_bf16(dk[dt + 1], as, f[2], f[3]);
+  compact_list(list, n_kt, &dq_block_info<D>(smem)->n_tiles);
+  if (threadIdx.x < 2) {
+    const int lh = threadIdx.x;
+    const int r0 = q0 + lh * kTileRows;
+    const int n_list = dq_block_info<D>(smem)->n_tiles;
+    int n = 0, f = 0;
+    if (r0 < Sq) {
+      const int last = min(r0 + kTileRows, Sq) - 1 - p.off;  // any row's
+      const int every = r0 - p.off;  // every row of the slot reaches these
+      for (int j = 0; j < n_list; ++j) {
+        const int key0 = (list[j] >> 1) * kTileRows;
+        n += key0 <= last;
+        f += key0 + kTileRows - 1 <= every;
       }
     }
-    __syncthreads();  // every warp is done with `buf` before it is refilled
+    int* slot = reinterpret_cast<int*>(smem + L::kRowData);
+    slot[lh] = n;
+    slot[2 + lh] = f;
+    slot[4 + lh] = r0;
   }
-
-  const long long obase = bh * Sk * D;
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (kr0 < Sk) {
-      *reinterpret_cast<uint32_t*>(p.dk + obase + (long long)kr0 * D + c) =
-          pack_bf16(dk[dt][0] * p.scale, dk[dt][1] * p.scale);
-      *reinterpret_cast<uint32_t*>(p.dv + obase + (long long)kr0 * D + c) =
-          pack_bf16(dv[dt][0], dv[dt][1]);
-    }
-    if (kr1 < Sk) {
-      *reinterpret_cast<uint32_t*>(p.dk + obase + (long long)kr1 * D + c) =
-          pack_bf16(dk[dt][2] * p.scale, dk[dt][3] * p.scale);
-      *reinterpret_cast<uint32_t*>(p.dv + obase + (long long)kr1 * D + c) =
-          pack_bf16(dv[dt][2], dv[dt][3]);
-    }
-  }
+  __syncthreads();
+  dq_stream_block<D>(p.s, LseDq{p}, smem);
 }
+
+// --------------------------------------------------------------------------
+// launches
+// --------------------------------------------------------------------------
 
 template <int D>
 int launch_fwd(const Params& p, dim3 grid, cudaStream_t st) {
@@ -749,48 +616,8 @@ int launch_fwd(const Params& p, dim3 grid, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
-int launch_bwd_dq(const Params& p, dim3 grid, cudaStream_t st) {
-  constexpr int kSmem = 4 * kBlockN * (D + 8) * sizeof(__nv_bfloat16);
-  const cudaError_t e = cudaFuncSetAttribute(
-      lse_bwd_dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  lse_bwd_dq_kernel<D><<<grid, kThreads, kSmem, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D>
-int launch_bwd_dkv(const Params& p, dim3 grid, cudaStream_t st) {
-  constexpr int kSmem = 6 * kBlockN * (D + 8) * sizeof(__nv_bfloat16);
-  const cudaError_t e = cudaFuncSetAttribute(
-      lse_bwd_dkv_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  lse_bwd_dkv_kernel<D><<<grid, kThreads, kSmem, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int fill_params(Params& p, const void* q, const void* k, const void* v,
-                const int* valid, int BH, int Sq, int Sk, int D, int row_off,
-                int col_off) {
-  if (BH < 1 || BH > 65535 || Sq < 1 || Sk < 1 || (D != 64 && D != 128)) {
-    return cudaErrorInvalidValue;
-  }
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.valid = valid;
-  p.dout = nullptr;
-  p.lse = p.dstat = nullptr;
-  p.out = p.dq = p.dk = p.dv = nullptr;
-  p.lse_out = nullptr;
-  p.Sq = Sq;
-  p.Sk = Sk;
-  p.row_off = row_off;
-  p.col_off = col_off;
-  p.scale = 1.0f / sqrtf(static_cast<float>(D));
-  return cudaSuccess;
+bool shape_ok(int BH, int Sq, int Sk, int D) {
+  return BH >= 1 && BH <= 65535 && Sq >= 1 && Sk >= 1 && (D == 64 || D == 128);
 }
 
 }  // namespace
@@ -803,12 +630,19 @@ extern "C" int lse_attention_fwd(const void* q, const void* k, const void* v,
                                  const int* valid, void* out, float* lse,
                                  int BH, int Sq, int Sk, int D, int row_off,
                                  int col_off, void* stream) {
+  if (!shape_ok(BH, Sq, Sk, D)) return cudaErrorInvalidValue;
   Params p;
-  const int e = fill_params(p, q, k, v, valid, BH, Sq, Sk, D, row_off,
-                            col_off);
-  if (e != cudaSuccess) return e;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.valid = valid;
   p.out = static_cast<__nv_bfloat16*>(out);
   p.lse_out = lse;
+  p.Sq = Sq;
+  p.Sk = Sk;
+  p.row_off = row_off;
+  p.col_off = col_off;
+  p.scale = 1.0f / sqrtf(static_cast<float>(D));
   const dim3 grid((Sq + kBlockM - 1) / kBlockM, BH);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return D == 128 ? launch_fwd<128>(p, grid, st) : launch_fwd<64>(p, grid, st);
@@ -816,45 +650,58 @@ extern "C" int lse_attention_fwd(const void* q, const void* k, const void* v,
 
 // The backward's first kernel: dq [BH, Sq, D] (contiguous bf16) from dout
 // [BH, Sq, D] (contiguous bf16), lse and dstat [BH, Sq] fp32. The other
-// arguments are those of lse_attention_fwd.
+// arguments are those of lse_attention_fwd; q, k, v, dout and dq must be
+// 16-byte aligned (the tensor maps').
 extern "C" int lse_attention_bwd_dq(const void* q, const void* k,
                                     const void* v, const int* valid,
                                     const void* dout, const float* lse,
                                     const float* dstat, void* dq, int BH,
                                     int Sq, int Sk, int D, int row_off,
                                     int col_off, void* stream) {
-  Params p;
-  const int e = fill_params(p, q, k, v, valid, BH, Sq, Sk, D, row_off,
-                            col_off);
-  if (e != cudaSuccess) return e;
-  p.dout = static_cast<const __nv_bfloat16*>(dout);
-  p.lse = lse;
-  p.dstat = dstat;
-  p.dq = static_cast<__nv_bfloat16*>(dq);
-  const dim3 grid((Sq + kBlockM - 1) / kBlockM, BH);
+  if (!shape_ok(BH, Sq, Sk, D)) return cudaErrorInvalidValue;
+  const long long qs[3] = {(long long)Sq * D, (long long)Sq * D, D};
+  const long long ks[3] = {(long long)Sk * D, (long long)Sk * D, D};
+  LseDqParams d;
+  if (!fill_dq_stream(d.s, q, qs, k, ks, v, ks, Sk, nullptr, nullptr,
+                      nullptr, nullptr, 0, dout, lse, nullptr, dstat, dq, BH,
+                      1, 1, Sq, D, 2)) {
+    return cudaErrorInvalidValue;
+  }
+  d.valid = valid;
+  d.Sk = Sk;
+  d.off = col_off - row_off;
+  d.n_pairs = (Sq + 2 * kTileRows - 1) / (2 * kTileRows);
+  const long long blocks = (long long)BH * d.n_pairs;
+  const int smem = dq_smem_bytes(D, (Sk + kTileRows - 1) / kTileRows * 4);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 128 ? launch_bwd_dq<128>(p, grid, st)
-                  : launch_bwd_dq<64>(p, grid, st);
+  return D == 128 ? launch_hopper(lse_bwd_dq_kernel<128>, smem, d, blocks, st)
+                  : launch_hopper(lse_bwd_dq_kernel<64>, smem, d, blocks, st);
 }
 
-// The backward's second kernel: dk, dv [BH, Sk, D] (contiguous bf16).
+// The backward's second kernel: dk, dv [BH, Sk, D] (contiguous bf16). The
+// arguments are those of lse_attention_bwd_dq; dk and dv need no alignment
+// beyond their element type.
 extern "C" int lse_attention_bwd_dkv(const void* q, const void* k,
                                      const void* v, const int* valid,
                                      const void* dout, const float* lse,
                                      const float* dstat, void* dk, void* dv,
                                      int BH, int Sq, int Sk, int D,
                                      int row_off, int col_off, void* stream) {
-  Params p;
-  const int e = fill_params(p, q, k, v, valid, BH, Sq, Sk, D, row_off,
-                            col_off);
-  if (e != cudaSuccess) return e;
-  p.dout = static_cast<const __nv_bfloat16*>(dout);
-  p.lse = lse;
-  p.dstat = dstat;
-  p.dk = static_cast<__nv_bfloat16*>(dk);
-  p.dv = static_cast<__nv_bfloat16*>(dv);
-  const dim3 grid((Sk + kBlockN - 1) / kBlockN, BH);
+  if (!shape_ok(BH, Sq, Sk, D)) return cudaErrorInvalidValue;
+  const long long qs[3] = {(long long)Sq * D, (long long)Sq * D, D};
+  const long long ks[3] = {(long long)Sk * D, (long long)Sk * D, D};
+  LseDkvParams d;
+  if (!fill_stream(d.s, q, qs, k, ks, v, ks, dout, lse, nullptr, dstat, dk,
+                   dv, BH, 1, 1, Sq, Sk, D)) {
+    return cudaErrorInvalidValue;
+  }
+  d.valid = valid;
+  d.off = col_off - row_off;
+  const long long blocks =
+      (long long)BH * ((Sk + kTileRows - 1) / kTileRows);
+  const int smem = dkv_smem_bytes(D, (Sq + kTileRows - 1) / kTileRows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 128 ? launch_bwd_dkv<128>(p, grid, st)
-                  : launch_bwd_dkv<64>(p, grid, st);
+  return D == 128
+             ? launch_hopper(lse_bwd_dkv_kernel<128>, smem, d, blocks, st)
+             : launch_hopper(lse_bwd_dkv_kernel<64>, smem, d, blocks, st);
 }

@@ -463,6 +463,8 @@ struct CodDqParams {
 // pairs once a stage; a full stage needs neither.
 struct CodDq {
   static constexpr bool kSecondSource = false;
+  static constexpr bool kRowSlots = false;   // the slots are heads
+  static constexpr bool kLogSumExp = false;  // m and l
   const CodDqParams& p;
 
   // a stage that is not full carries its keys' folded properties
@@ -556,6 +558,7 @@ struct CodDkvParams {
 // caller's full-tile flag (carried in the item list) says every pair of the
 // tile pair is allowed.
 struct CodRows {
+  static constexpr bool kLogSumExp = false;  // m and l
   const CodDkvParams& p;
 
   struct Keys {

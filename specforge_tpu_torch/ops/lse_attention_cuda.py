@@ -10,8 +10,10 @@ normalised output and the row log-sum-exp, so the hops and the TTT branch
 logits merge by log-sum-exp outside (``parallel/usp.py``). A row with no
 allowed key gives out = 0 and lse = -1e30 (finite, as in the TPU kernel).
 
-The kernels are in ``csrc/lse_attention.cu``: the forward, dq and dk/dv.
-The offsets are Python ints (the rank and the hop are host values in the
+The kernels are in ``csrc/lse_attention.cu``: the forward, and dq and
+dk/dv on the Hopper dq and dk/dv streams (``csrc/dq_stream.cuh``,
+``csrc/dkv_stream.cuh``), which read q, k, v and dO by TMA: their bases
+must be 16-byte aligned. The offsets are Python ints (the rank and the hop are host values in the
 port; JAX traced them). :func:`flash_attention_lse` is a
 ``torch.autograd.Function`` whose backward takes the gradients of both
 outputs: ``dstat = rowsum(dO·O) - dlse`` is one torch reduction in the
@@ -117,6 +119,7 @@ def _check_inputs(q, k, v, key_valid) -> None:
         if tuple(x.shape) != shape or not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous {shape}, got "
                              f"{tuple(x.shape)} strides {tuple(x.stride())}")
+        _check_aligned(name, x)
     if (tuple(key_valid.shape) != (bh, sk) or key_valid.device != q.device
             or key_valid.dtype != torch.int32
             or not key_valid.is_contiguous()):
@@ -124,6 +127,14 @@ def _check_inputs(q, k, v, key_valid) -> None:
             f"key_valid must be contiguous int32 [BH, Sk] = {(bh, sk)} on "
             f"{q.device}, got {key_valid.dtype} {tuple(key_valid.shape)} on "
             f"{key_valid.device}")
+
+
+def _check_aligned(name: str, x: torch.Tensor) -> None:
+    """The kernels copy 16 bytes at a time (cp.async, TMA): a base that is
+    not 16-byte aligned raises."""
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} must start on a 16-byte boundary, got "
+                         f"address {x.data_ptr():#x}")
 
 
 def _stream(x: torch.Tensor) -> int:
@@ -170,6 +181,7 @@ def _check_backward(q, out, lse, dout, dlse) -> None:
             raise ValueError(
                 f"{name} must be contiguous {dtype} {shape} on {q.device}, "
                 f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+    _check_aligned("dout", dout)
     if dlse.numel() != bh * sq or dlse.device != q.device:
         raise ValueError(f"dlse must hold [BH, Sq, 1] = {(bh, sq, 1)} on "
                          f"{q.device}, got {tuple(dlse.shape)}")
@@ -178,7 +190,8 @@ def _check_backward(q, out, lse, dout, dlse) -> None:
 def lse_attention_bwd_dq(q, k, v, valid, row_off, col_off, dout, lse, dstat):
     """Launch the dq kernel → dq [BH, Sq, D] contiguous bf16. The operands
     are those :func:`lse_attention_bwd` checked: ``valid`` int32 [BH, Sk],
-    ``dout`` contiguous, ``dstat`` from :func:`backward_dstat`."""
+    ``dout`` contiguous and 16-byte aligned, ``dstat`` from
+    :func:`backward_dstat`."""
     bh, sq, d = q.shape
     dq = torch.empty_like(q)
     status = cuda_lib.library().lse_attention_bwd_dq(

@@ -89,8 +89,26 @@ def test_every_hopper_kernel_is_reported_by_chip_smoke():
                          for t in node.targets))
     found = sorted(_hopper_kernels())
     assert {"dflash_bwd_dq_kernel", "cod_bwd_dq_kernel",
-            "ttt_bwd_dq_kernel"} <= set(found)
+            "ttt_bwd_dq_kernel", "lse_bwd_dq_kernel",
+            "lse_bwd_dkv_kernel"} <= set(found)
     assert found == sorted(named)
+
+
+@pytest.mark.parametrize("kernel,stream", [
+    ("lse_bwd_dq_kernel", "dq_stream_block"),
+    ("lse_bwd_dkv_kernel", "dkv_stream_block"),
+])
+def test_lse_backward_kernels_run_on_the_streams(kernel, stream):
+    """The LSE ring hop's backward kernels are Hopper designs (one block an
+    SM, which HOPPER_KERNELS names: the test above) whose bodies hand the
+    block to the shared dq or dk/dv stream."""
+    text = _code_without_comments(
+        open(os.path.join(PKG, "csrc", "lse_attention.cu")).read())
+    assert kernel in re.findall(
+        r"__launch_bounds__\(\s*\w+\s*,\s*1\s*\)\s*(\w+)\s*\(", text)
+    body = text[text.index(kernel + "("):]
+    body = body[:body.index("\n}\n")]
+    assert stream + "<D>(" in body
 
 
 def test_usp_slice_is_built_and_imports_nothing_of_jax():

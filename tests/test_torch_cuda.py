@@ -1018,3 +1018,97 @@ def test_lse_attention_autograd_is_deterministic_and_refuses_bad_inputs(gen):
                                    .transpose(0, 1), k, v, valid, 0, 0)
     with pytest.raises(ValueError, match="int32"):
         lse_cuda.lse_attention_fwd(q, k, v, valid.bool(), 0, 0)
+
+
+def lse_reached_keys(valid, s_q, row_off, col_off):
+    """[BH, Sk] bool: the keys some row of the hop may attend."""
+    idx = torch.arange(valid.shape[1], device=valid.device)
+    return (valid != 0) & (idx + col_off <= s_q - 1 + row_off)[None]
+
+
+# The tile situations the Hopper backward kernels tell apart: S of 1, 63,
+# 64, 65 and 2048; offset differences (row_off - col_off) of 0, +-1, 63,
+# 65 and 2048 (an earlier chunk) that are not multiples of 64; both head
+# dims; every row dead but the last; a later chunk (all gradients 0); a key
+# tail that pads whole 64-key tiles
+@pytest.mark.parametrize("s,d,row_off,col_off,pad", [
+    (1, 128, 7, 7, 0), (1, 64, 9, 3, 0),
+    (63, 128, 100, 37, 0), (64, 64, 64, 1, 0),
+    (65, 128, 65, 66, 0), (65, 64, 130, 65, 10),
+    (2048, 128, 2048, 2048, 0), (2048, 64, 2111, 2048, 100),
+    (2048, 128, 2048, 0, 0), (200, 128, 0, 199, 0),
+    (300, 128, 0, 300, 0), (130, 128, 130, 130, 70),
+])
+def test_lse_backward_kernels_match_plain(gen, s, d, row_off, col_off, pad):
+    bh = 4
+    q, k, v, valid = lse_inputs(gen, bh, s, d, pad)
+    out, lse = lse_cuda.lse_attention_fwd(q, k, v, valid, row_off, col_off)
+    dout = torch.randn(out.shape, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    dlse = torch.randn(lse.shape, generator=gen, device="cuda")
+    counters = (lse_cuda.lse_attention_bwd_dq, lse_cuda.lse_attention_bwd_dkv)
+    before = [c.launches for c in counters]
+    grads = lse_cuda.lse_attention_bwd(q, k, v, valid, row_off, col_off, out,
+                                       lse, dout, dlse)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [x + 1 for x in before]
+    ref_grads = lse_cuda.flash_attention_lse_backward_plain(
+        q, k, v, valid, row_off, col_off, out, lse, dout, dlse)
+    for name, got, want in zip("qkv", grads, ref_grads):
+        assert got.dtype == torch.bfloat16, name
+        assert bool(torch.isfinite(got).all()), name
+        if want.any():
+            # bf16 gradients held at 2e-2 of the largest reference value
+            assert rel_err(got, want) <= 2e-2, name
+        else:
+            assert not got.any(), name
+    # rows with no allowed key: dq exactly 0; keys no row reaches: dk and
+    # dv exactly 0 (a later chunk: every gradient)
+    dead = lse[..., 0] == lse_cuda.NEG_INF
+    assert not grads[0][dead].any()
+    unreached = ~lse_reached_keys(valid, s, row_off, col_off)
+    assert not grads[1][unreached].any() and not grads[2][unreached].any()
+    if col_off - row_off >= s:
+        assert bool(dead.all()) and not any(g.any() for g in grads)
+
+
+@pytest.mark.parametrize("row_off,col_off", [(2048, 2048), (2048, 0)])
+def test_lse_backward_repeats_bit_exact_at_main_shape(gen, row_off, col_off):
+    """The USP phase's own and earlier hops (BH=16, S=2048, D=128): two
+    launches of each backward kernel give the same bits (no atomics)."""
+    q, k, v, valid = lse_inputs(gen, 16, 2048, 128, 0)
+    out, lse = lse_cuda.lse_attention_fwd(q, k, v, valid, row_off, col_off)
+    dout = torch.randn(out.shape, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    dlse = torch.randn(lse.shape, generator=gen, device="cuda")
+    args = (q, k, v, valid, row_off, col_off, dout, lse,
+            lse_cuda.backward_dstat(out, dout, dlse))
+    assert torch.equal(lse_cuda.lse_attention_bwd_dq(*args),
+                       lse_cuda.lse_attention_bwd_dq(*args))
+    for a, b in zip(lse_cuda.lse_attention_bwd_dkv(*args),
+                    lse_cuda.lse_attention_bwd_dkv(*args)):
+        assert torch.equal(a, b)
+
+
+def test_lse_backward_refuses_misaligned_layouts(gen):
+    """The tensor maps need 16-byte aligned bases: a contiguous view that
+    starts off a 16-byte boundary raises, as do dout in another dtype or
+    shape."""
+    q, k, v, valid = lse_inputs(gen, 2, 128, 64, 0)
+    out, lse = lse_cuda.lse_attention_fwd(q, k, v, valid, 128, 128)
+    dlse = torch.zeros_like(lse)
+    flat = torch.zeros(q.numel() + 1, device="cuda", dtype=torch.bfloat16)
+    shifted = flat[1:].view(q.shape)
+    assert shifted.is_contiguous()
+    with pytest.raises(ValueError, match="16-byte"):
+        lse_cuda.lse_attention_bwd(shifted, k, v, valid, 128, 128, out, lse,
+                                   out, dlse)
+    with pytest.raises(ValueError, match="16-byte"):
+        lse_cuda.lse_attention_bwd(q, k, v, valid, 128, 128, out, lse,
+                                   shifted, dlse)
+    with pytest.raises(ValueError, match="dout"):
+        lse_cuda.lse_attention_bwd(q, k, v, valid, 128, 128, out, lse,
+                                   out.float(), dlse)
+    with pytest.raises(ValueError, match="dout"):
+        lse_cuda.lse_attention_bwd(q, k, v, valid, 128, 128, out, lse,
+                                   out[:, :64], dlse)

@@ -128,10 +128,17 @@ def run_workers(case: str, workdir: str) -> None:
 
 # (S, row_off, col_off, key padding): the own chunk, an earlier one, a later
 # one, a half-overlapping one, key padding, and a ragged S (the JAX kernel
-# runs the ring's 256-row tiles, one block at these lengths)
+# runs the ring's 256-row tiles, one block at these lengths); then the tile
+# situations the card's backward kernels tell apart: offset differences
+# (row_off - col_off) of +-1, +-63 and 65, a one-row chunk, a chunk whose
+# rows are all dead but the last, and a key tail that pads a whole 64-key
+# tile
 @pytest.mark.parametrize("s,row_off,col_off,pad", [
     (48, 96, 96, 0), (48, 96, 48, 0), (48, 48, 96, 0), (48, 72, 48, 0),
     (48, 48, 48, 11), (37, 37, 0, 5),
+    (48, 49, 48, 0), (48, 48, 49, 0), (70, 133, 70, 0), (70, 70, 133, 0),
+    (130, 195, 130, 0), (1, 5, 5, 0), (1, 9, 3, 0), (48, 0, 47, 0),
+    (130, 130, 130, 66),
 ])
 def test_flash_attention_lse_matches_jax(s, row_off, col_off, pad):
     rng = np.random.default_rng(s + row_off + col_off + pad)
@@ -145,16 +152,29 @@ def test_flash_attention_lse_matches_jax(s, row_off, col_off, pad):
     dout = rng.normal(size=(bh, s, d)).astype(np.float32)
     dlse = rng.normal(size=(bh, s, 1)).astype(np.float32)
     offsets = jnp.asarray([row_off, col_off], jnp.int32)
+    # The JAX kernel's least tile is 8 rows, and in interpret mode a chunk
+    # shorter than that reads past its end (NaN; ROADMAP Queue 3). Such a
+    # chunk runs there padded to 8 rows: the pad's keys are not valid and
+    # its rows' cotangents are 0, so it adds nothing to the real rows' and
+    # keys' values, which are compared.
+    extra = max(s, 8) - s
+
+    def padded(x):
+        return np.pad(x, ((0, 0), (0, extra)) + ((0, 0),) * (x.ndim - 2))
 
     @jax.jit
     def jax_fn(q, k, v, dout, dlse):
         outs, vjp = jax.vjp(
             lambda q, k, v: jax_flash_attention_lse(
-                q, k, v, jnp.asarray(valid), offsets, 256, 256, True),
+                q, k, v, jnp.asarray(padded(valid)), offsets, 256, 256,
+                True),
             q, k, v)
         return outs, vjp((dout, dlse))
 
-    (j_out, j_lse), j_grads = jax_fn(*map(jnp.asarray, (q, k, v, dout, dlse)))
+    (j_out, j_lse), j_grads = jax_fn(
+        *(jnp.asarray(padded(x)) for x in (q, k, v, dout, dlse)))
+    j_out, j_lse = np.asarray(j_out)[:, :s], np.asarray(j_lse)[:, :s]
+    j_grads = [np.asarray(g)[:, :s] for g in j_grads]
 
     tq, tk, tv = (torch.from_numpy(x).requires_grad_(True) for x in (q, k, v))
     out, lse_ = lse.flash_attention_lse(tq, tk, tv, torch.from_numpy(valid),
@@ -168,10 +188,27 @@ def test_flash_attention_lse_matches_jax(s, row_off, col_off, pad):
                                **FWD_TOL)
     empty = np.asarray(j_lse)[..., 0] <= -1e29
     assert np.array_equal(lse_.detach().numpy()[..., 0] == lse.NEG_INF, empty)
-    if col_off > row_off:  # a later chunk: nothing is allowed
+    if col_off - row_off >= s:  # a later chunk: nothing is allowed
         assert empty.all() and not out.detach().any()
     for got, want in zip(grads, j_grads):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **GRAD_TOL)
+
+
+def test_lse_kernel_inputs_must_be_aligned():
+    """The kernels read q, k, v and dO 16 bytes at a time (TMA, cp.async):
+    the wrapper's check refuses a contiguous view that starts off a 16-byte
+    boundary, and takes an aligned one."""
+    bh, s, d = 2, 16, 64
+    q = torch.zeros((bh, s, d), dtype=torch.bfloat16)
+    valid = torch.ones((bh, s), dtype=torch.int32)
+    flat = torch.zeros(q.numel() + 16, dtype=torch.bfloat16)
+    aligned = flat[8 - flat.data_ptr() % 16 // 2:][:q.numel()].view(q.shape)
+    shifted = flat[9 - flat.data_ptr() % 16 // 2:][:q.numel()].view(q.shape)
+    assert aligned.data_ptr() % 16 == 0 and shifted.data_ptr() % 16 == 2
+    lse._check_inputs(aligned, q, q, valid)
+    for args in ((shifted, q, q), (q, shifted, q), (q, q, shifted)):
+        with pytest.raises(ValueError, match="16-byte"):
+            lse._check_inputs(*args, valid)
 
 
 # --------------------------------------------------------------------------
