@@ -298,15 +298,16 @@ def device_facts() -> str:
 #: details; a wgmma serialization note (C75xx) fails the build phase
 HOPPER_KERNELS = ("ttt_fwd_kernel", "ttt_bwd_dq_kernel", "ttt_bwd_dkv_kernel",
                   "dflash_bwd_dq_kernel", "dflash_bwd_dkv_kernel",
-                  "cod_bwd_dq_kernel", "cod_bwd_dkv_kernel",
-                  "lse_bwd_dq_kernel", "lse_bwd_dkv_kernel")
+                  "cod_fwd_kernel", "cod_bwd_dq_kernel", "cod_bwd_dkv_kernel",
+                  "lse_fwd_kernel", "lse_bwd_dq_kernel", "lse_bwd_dkv_kernel")
 #: the kernels line's entries whose kernel is one of HOPPER_KERNELS, with
 #: the route note they carry (the others are the first design: mma.sync
 #: from 4 warps, cp.async stages)
 HOPPER_ROUTE = ("ttt_flash_attention_fwd", "ttt_attention_bwd_dq",
                 "ttt_attention_bwd_dkv", "dflash_attention_bwd_dq",
-                "dflash_attention_bwd_dkv", "cod_attention_bwd_dq",
-                "cod_attention_bwd_dkv", "lse_attention_bwd_dq",
+                "dflash_attention_bwd_dkv", "cod_attention_fwd",
+                "cod_attention_bwd_dq", "cod_attention_bwd_dkv",
+                "lse_attention_fwd", "lse_attention_bwd_dq",
                 "lse_attention_bwd_dkv")
 
 
@@ -1233,9 +1234,10 @@ def cod_kernel_phase(gen) -> list:
                                                      out, m, l, dout)
         live = ref_l[:, 0] > 0                                # [B, T]
         empty_rows = int((~live).sum())
-        if out[~live].any() or l.transpose(1, 2)[~live].any():
+        if (out[~live].any() or l.transpose(1, 2)[~live].any()
+                or (m.transpose(1, 2)[~live] != pac.NEG_INF).any()):
             raise AssertionError(f"case {name}: rows without an allowed key "
-                                 "are not 0")
+                                 "are not out 0, m -1e30, l 0")
         if grads[0].transpose(1, 2)[~live].any():
             raise AssertionError(f"case {name}: dq of rows without an "
                                  "allowed key is not 0")
@@ -1259,9 +1261,11 @@ def cod_kernel_phase(gen) -> list:
         check(f"cod l case {name}", errs["l"], STAT_RTOL)
         delta = attention_cuda.backward_delta(out, dout, h)
         bwd_args = (q, k, v, tiles, dout, m, l, delta)
-        # both backward kernels: two launches give the same bits; keys no
-        # row may attend get dk/dv exactly 0 (rows with no allowed key get
-        # dq 0, checked above)
+        # every kernel: two launches give the same bits; keys no row may
+        # attend get dk/dv exactly 0 (rows with no allowed key get dq 0,
+        # checked above)
+        check_repeat(f"cod_attention_fwd case {name}",
+                     lambda: pac.cod_attention_fwd(q, k, v, tiles))
         check_repeat(f"cod_attention_bwd_dq case {name}",
                      lambda: (pac.cod_attention_bwd_dq(*bwd_args),))
         check_repeat(f"cod_attention_bwd_dkv case {name}",
@@ -1284,7 +1288,8 @@ def cod_kernel_phase(gen) -> list:
         }
         row = {
             "phase": "kernel", "name": "cod_attention", "case": name,
-            "dq_repeat": "bit-exact", "dkv_repeat": "bit-exact",
+            "fwd_repeat": "bit-exact", "dq_repeat": "bit-exact",
+            "dkv_repeat": "bit-exact",
             "unreached_keys": int((~reached).sum()),
             "full_tile_share": float(tiles.full.float().mean()),
             "run_ms": run,
@@ -1294,7 +1299,8 @@ def cod_kernel_phase(gen) -> list:
             "live_tile_share": float(tiles.table.float().mean()),
             "rel_err": errs, "max_abs_err": abs_errs,
             "tol": {"out_and_grads": f"{ATTN_TOL} * max|ref|",
-                    "m_l": STAT_RTOL, "empty_rows": "exactly 0"},
+                    "m_l": STAT_RTOL,
+                    "empty_rows": "out, dq and l exactly 0, m exactly -1e30"},
             "ms": {
                 "cod_attention_fwd": median_ms(
                     lambda: pac.cod_attention_fwd(q, k, v, tiles)),
@@ -2554,6 +2560,9 @@ def lse_kernel_phase(gen) -> list:
         check(f"lse case {name}", errs["lse"], STAT_RTOL)
         dstat = lac.backward_dstat(out, dout, dlse)
         bwd_args = (q, k, v, valid, row_off, col_off, dout, lse, dstat)
+        check_repeat(f"lse_attention_fwd case {name}",
+                     lambda: lac.lse_attention_fwd(q, k, v, valid, row_off,
+                                                   col_off))
         check_repeat(f"lse_attention_bwd_dq case {name}",
                      lambda: (lac.lse_attention_bwd_dq(*bwd_args),))
         check_repeat(f"lse_attention_bwd_dkv case {name}",
@@ -2574,7 +2583,8 @@ def lse_kernel_phase(gen) -> list:
             "BH": bh, "S": s, "D": d, "row_off": row_off, "col_off": col_off,
             "padded_keys": pad, "empty_rows": int(empty.sum()),
             "unreached_keys": int(unreached.sum()),
-            "dq_repeat": "bit-exact", "dkv_repeat": "bit-exact",
+            "fwd_repeat": "bit-exact", "dq_repeat": "bit-exact",
+            "dkv_repeat": "bit-exact",
             "rel_err": errs, "max_abs_err": abs_errs,
             "tol": {"out_and_grads": f"{ATTN_TOL} * max|ref|",
                     "lse": f"{STAT_RTOL} * (1 + max|lse|)",

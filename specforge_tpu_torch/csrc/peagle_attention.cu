@@ -27,409 +27,64 @@
 // 1.1e8, so the forward's two products are about 58 GFLOP (59 us at the bf16
 // tensor-core peak) against about 145 MB moved (43 us at 3.35 TB/s): bound
 // by operations, as are the backward kernels (3 and 4 products).
-// chip_smoke.py recomputes both terms from each run's sample.
+// chip_smoke.py recomputes both terms from each run's sample. The forward
+// adds an exponential a pair on the SM's MUFU unit, about half its
+// products' time unless the two overlap.
 //
 // What the design does about that. Every product runs on the tensor cores
-// (bf16 in, fp32 accumulate); no score tile reaches device memory. Whole
+// (`wgmma`, bf16 in, fp32 accumulate) from two consumer warpgroups of 384
+// threads, fed by two producer warps (`setmaxnreg` 24; the consumers 240)
+// through a TMA/`mbarrier` ring; no score tile reaches device memory. Whole
 // 64 x 64 tiles with no allowed pair are skipped: the caller hands a
 // [B, NT, NT] table (1 where a tile pair holds an allowed pair), built once
 // per forward from the model's mask and shared by every layer and head;
 // each block lists its live tiles from it first. The doc-major order of
 // the sample makes the live tiles few and dense (about a quarter of the
-// grid at the slice, block-diagonal when documents are packed). The
-// forward, on `mma.sync.m16n8k16`: one block of 4 warps owns a q tile of
-// 64 rows of one (batch, head); each warp keeps the Q fragments of its 16
-// rows and the properties of its thread's two rows in registers; the live
-// K/V tiles and their keys' properties are staged by cp.async in two
-// buffers of padded shared memory and reach the tensor cores through
-// ldmatrix; it does not use TMA, wgmma or warp specialisation yet. The GQA
-// kv head is read as h / (H / KVH), never repeated in memory; there are no
-// atomics, so two runs give the same bits. T need not be a multiple of 64:
-// rows and keys past T are zero-filled and carry no valid property.
-// dq is bound by its three products per live (query head, key tile) item:
-// at the slice about 13 live key tiles per q tile. The first design
-// (mma.sync from 4 warps, a block per query head, two cp.async stages, the
-// predicate on every pair, blocks in doc-major order) reached about 8% of
-// its bound. It now follows ttt_bwd_dq_kernel (dq_stream.cuh): a block of
-// 384 threads owns a q tile of one (batch, kv head) and the group's query
-// heads, four resident, so each live K/V tile is staged once for them by
-// TMA; two consumer warpgroups run the three products on `wgmma` with dq
-// in fp32 registers. The rows' folded properties are staged once a block,
-// a stage's keys' with the stage, and the predicate runs once a stage for
-// both of a warpgroup's heads, only where the caller's full-tile flag
-// (carried in the block's tile list) is not set. The blocks are issued
-// longest first, in an order of (batch, q tile) pairs the caller sorts by
-// their live key tiles on the card.
-// dk/dv is bound by its four products per live (query head, q tile) item:
-// at the slice 45,632 items over 864 blocks, at most 180 in one block; the
-// first design (mma.sync from 4 warps, two cp.async stages, the predicate
-// on every pair) reached about 10% of the tensor rate on the critical path,
-// and its grid order (key tiles doc-major, not by load) left SMs idle at
-// the end. It now follows ttt_bwd_dkv_kernel (dkv_stream.cuh): a block of
-// 384 threads owns 64 keys of one (batch, kv head), K and V by TMA once;
-// two consumer warpgroups split the group's (head, live q tile) stream,
-// each fed a ring of Q/dO stages by two producer warps, and run all four
-// products on `wgmma` with dk, dv in fp32 registers. The rows' properties
-// travel with their stage, the keys' are staged once in shared memory
-// and read per item only where the predicate runs, so they hold no
-// consumer registers across the stream (dk and dv take 128); tile pairs
-// whose every pair is allowed (a second [B, NT, NT] array from the caller,
-// carried as a bit of the block's item list: 46% of the live pairs at the
-// slice) skip the predicate. The blocks are issued longest first, in an
-// order of (batch, key tile) pairs the caller sorts by their live q tiles
-// on the card, once per forward. The kernels share the Hopper helpers of
+// grid at the slice, block-diagonal when documents are packed). A second
+// table marks the tile pairs whose every pair is allowed (46% of the live
+// pairs at the slice); it travels as a bit of each block's list, and there
+// the predicate is skipped. Elsewhere the rows' properties are folded once
+// (a row that is invalid or padding gets a doc no key has, an invalid key
+// another) and a stage's keys' travel with the stage. The GQA kv head is
+// read as h / (H / KVH), never repeated in memory; there are no atomics, so
+// two runs give the same bits. T need not be a multiple of 64: rows and
+// keys past T are zero-filled by TMA and carry no valid property.
+// The forward (fwd_stream.cuh) and dq (dq_stream.cuh): a block owns a q
+// tile of one (batch, kv head) and four query heads of the group, two per
+// consumer warpgroup (a group of eight: two chunks, in two forward blocks
+// or one after the other in a dq block), so each live K/V tile is staged
+// once for all of them; the predicate runs once a stage for both of a
+// warpgroup's heads. The forward runs S = Q K^T, the online softmax (m in
+// log2 units, one FMA and one `ex2` a score) and O += P V with P from
+// registers, one head's softmax while the tensor cores form the other's
+// products; dq runs s, dp and dq += ds K with dq in fp32 registers. Their
+// blocks are issued longest first, in an order of (batch, q tile) pairs
+// the caller sorts by their live key tiles on the card, once per forward.
+// dk/dv (dkv_stream.cuh): a block owns 64 keys of one (batch, kv head), K
+// and V by TMA once; two consumer warpgroups split the group's (head, live
+// q tile) stream, each fed a ring of Q/dO stages by two producer warps, and
+// run all four products on `wgmma` with dk, dv in fp32 registers. The
+// rows' properties travel with their stage, the keys' are staged once in
+// shared memory and read per item only where the predicate runs. Its
+// blocks are issued in an order of (batch, key tile) pairs the caller
+// sorts by their live q tiles. The kernels share the Hopper helpers of
 // hopper.cuh.
 
 #include <limits.h>
 
 #include "dkv_stream.cuh"
-#include "dq_stream.cuh"
+#include "fwd_stream.cuh"
 
 namespace {
 
-constexpr int kBlockM = 64;  // query rows per q tile, 16 per warp
-constexpr int kBlockN = 64;  // keys per shared-memory tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-
-struct Params {
-  const __nv_bfloat16* q;  // [B, H, T, D] strided
-  const __nv_bfloat16* k;  // [B, KVH, T, D] strided
-  const __nv_bfloat16* v;
-  const int4* props;       // [B, T]: (anchor, depth, doc, valid)
-  const int* tiles;        // [B, NT, NT]: 1 where a tile pair may attend
-  __nv_bfloat16* out;      // [B, T, H*D]
-  float* m;                // [B, H, T]
-  float* l;                // [B, H, T]
-  long long q_sb, q_sh, q_ss;
-  long long k_sb, k_sh, k_ss;
-  long long v_sb, v_sh, v_ss;
-  int B, H, KVH, T, NT;
-  float scale;
-};
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// D[16x8] += A[16x16] * B[16x8], bf16 inputs, fp32 accumulators.
-__device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8. With .trans each matrix arrives transposed.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
-                                                  const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
-// 16 bytes global -> shared, asynchronously; zero-filled when !full
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(d), "l"(src), "r"(full ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// The COD predicate: x = anchor, y = depth, z = doc of the anchor (-1 for
-// padding), w = valid
-__device__ __forceinline__ bool cod_allow(const int4 q, const int4 k) {
-  return q.z != -1 && q.z == k.z && q.w != 0 && k.w != 0 &&
-         ((k.y == 0 && q.x >= k.x) || (q.x == k.x && q.y >= k.y));
-}
-
-// The properties of token i of batch b; a slot past T is invalid
-__device__ __forceinline__ int4 load_prop(const Params& p, int b, int i) {
-  return i < p.T ? p.props[(long long)b * p.T + i] : make_int4(0, 0, -1, 0);
-}
-
-// The indices i < n whose flag flags[i * stride] is not 0, ascending, into
-// list; returns their number. Every thread of the block calls it.
-__device__ __forceinline__ int live_list(const int* flags, long long stride,
-                                         int n, int* list, int* sCount) {
-  for (int i = threadIdx.x; i < n; i += kThreads) {
-    list[i] = flags[i * stride] != 0 ? 1 : 0;
-  }
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    int count = 0;
-    for (int base = 0; base < n; base += 32) {
-      const int i = base + lane;
-      const bool f = i < n && list[i] != 0;
-      const unsigned mask = __ballot_sync(0xffffffffu, f);
-      __syncwarp();
-      if (f) list[count + __popc(mask & ((1u << lane) - 1u))] = i;
-      count += __popc(mask);
-      __syncwarp();
-    }
-    if (lane == 0) *sCount = count;
-  }
-  __syncthreads();
-  return *sCount;
-}
-
-// A-operand fragments of a 16-row slab (rows row0 and row0 + 8 of this
-// thread) straight from device memory; rows not `in` read as zeros
-template <int kSteps>
-__device__ __forceinline__ void load_a_frags(uint32_t f[kSteps][4],
-                                             const __nv_bfloat16* base,
-                                             long long row_stride, int row0,
-                                             bool in0, bool in1, int t) {
-#pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks) {
-    const int c = ks * 16 + 2 * t;
-    f[ks][0] = in0 ? ld32(base + row0 * row_stride + c) : 0u;
-    f[ks][1] = in1 ? ld32(base + (row0 + 8) * row_stride + c) : 0u;
-    f[ks][2] = in0 ? ld32(base + row0 * row_stride + c + 8) : 0u;
-    f[ks][3] = in1 ? ld32(base + (row0 + 8) * row_stride + c + 8) : 0u;
-  }
-}
-
-// Stage K/V tile `ktile` of (b, kvh) and its keys' properties; keys past T
-// are zero-filled (valid 0)
-template <int D>
-__device__ __forceinline__ void load_kv_tile(const Params& p, int b, int kvh,
-                                             int ktile, __nv_bfloat16* sK,
-                                             __nv_bfloat16* sV, int4* sKP) {
-  constexpr int kStride = D + 8;
-  constexpr int kVecPerRow = D / 8;
-  const int key0 = ktile * kBlockN;
-  const __nv_bfloat16* kb = p.k + b * p.k_sb + kvh * p.k_sh;
-  const __nv_bfloat16* vb = p.v + b * p.v_sb + kvh * p.v_sh;
-  for (int i = threadIdx.x; i < kBlockN * kVecPerRow; i += kThreads) {
-    const int r = i / kVecPerRow;
-    const int c = (i % kVecPerRow) * 8;
-    const int key = key0 + r;
-    const long long src = key < p.T ? key : 0;
-    cp_async16(sK + r * kStride + c, kb + src * p.k_ss + c, key < p.T);
-    cp_async16(sV + r * kStride + c, vb + src * p.v_ss + c, key < p.T);
-  }
-  if (threadIdx.x < kBlockN) {
-    const int key = key0 + threadIdx.x;
-    const long long src = (long long)b * p.T + (key < p.T ? key : 0);
-    cp_async16(sKP + threadIdx.x, p.props + src, key < p.T);
-  }
-  cp_async_commit();
-}
-
 // --------------------------------------------------------------------------
-// forward
-// --------------------------------------------------------------------------
-
-// Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4):
-//   A regs 0..3: (row g, cols 2t..2t+1), (row g+8, 2t..), (row g, 2t+8..),
-//                (row g+8, 2t+8..)
-//   B regs 0..1: (k rows 2t..2t+1, col g), (k rows 2t+8..2t+9, col g)
-//   C regs 0..3: (row g, cols 2t, 2t+1), (row g+8, cols 2t, 2t+1)
-template <int D>
-__global__ void __launch_bounds__(kThreads) cod_fwd_kernel(const Params p) {
-  constexpr int kStride = D + 8;  // padded row: conflict-free ldmatrix
-  constexpr int kSteps = D / 16;
-  constexpr int kDTiles = D / 8;
-  constexpr int kNTiles = kBlockN / 8;
-  constexpr int kTile = kBlockN * kStride;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sKs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sVs = sKs + 2 * kTile;
-  int4* sKPs = reinterpret_cast<int4*>(sVs + 2 * kTile);  // two stages
-  int* sList = reinterpret_cast<int*>(sKPs + 2 * kBlockN);  // live k tiles
-  __shared__ int sCount;
-
-  const int qtile = blockIdx.x;
-  const int b = blockIdx.y / p.H;
-  const int h = blockIdx.y % p.H;
-  const int kvh = h / (p.H / p.KVH);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int row0 = qtile * kBlockM + warp * 16 + g;
-  const int row1 = row0 + 8;
-  const bool in0 = row0 < p.T;
-  const bool in1 = row1 < p.T;
-  const int4 qp0 = load_prop(p, b, row0);
-  const int4 qp1 = load_prop(p, b, row1);
-
-  const int n_live = live_list(
-      p.tiles + ((long long)b * p.NT + qtile) * p.NT, 1, p.NT, sList, &sCount);
-
-  uint32_t qf[kSteps][4];
-  load_a_frags<kSteps>(qf, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, row0, in0,
-                       in1, t);
-
-  float o[kDTiles][4];
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-  }
-  float m0 = kNegInf, m1 = kNegInf;
-  float l0 = 0.f, l1 = 0.f;  // per-thread partial sums until the quad reduce
-
-  if (n_live > 0) load_kv_tile<D>(p, b, kvh, sList[0], sKs, sVs, sKPs);
-  for (int j = 0; j < n_live; ++j) {
-    const int buf = j & 1;
-    if (j + 1 < n_live) {
-      load_kv_tile<D>(p, b, kvh, sList[j + 1], sKs + (buf ^ 1) * kTile,
-                      sVs + (buf ^ 1) * kTile, sKPs + (buf ^ 1) * kBlockN);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* sK = sKs + buf * kTile;
-    const __nv_bfloat16* sV = sVs + buf * kTile;
-    const int4* sKP = sKPs + buf * kBlockN;
-
-    float s[kNTiles][4];
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      const __nv_bfloat16* kp = sK + (nt * 8 + (lane & 7)) * kStride +
-                                (lane >> 3) * 8;
-#pragma unroll
-      for (int ks = 0; ks < kSteps; ks += 2) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, kp + ks * 16);
-        mma_bf16(s[nt], qf[ks], kf[0], kf[1]);
-        mma_bf16(s[nt], qf[ks + 1], kf[2], kf[3]);
-      }
-    }
-
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int4 kp = sKP[nt * 8 + 2 * t + e];
-        s[nt][e] = cod_allow(qp0, kp) ? s[nt][e] * p.scale : kNegInf;
-        s[nt][2 + e] = cod_allow(qp1, kp) ? s[nt][2 + e] * p.scale : kNegInf;
-        mx0 = fmaxf(mx0, s[nt][e]);
-        mx1 = fmaxf(mx1, s[nt][2 + e]);
-      }
-    }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    const float c0 = __expf(m0 - mx0);
-    const float c1 = __expf(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    l0 *= c0;
-    l1 *= c1;
-#pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt) {
-      o[dt][0] *= c0;
-      o[dt][1] *= c0;
-      o[dt][2] *= c1;
-      o[dt][3] *= c1;
-    }
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float p0 = s[nt][e] == kNegInf ? 0.f : __expf(s[nt][e] - m0);
-        const float p1 =
-            s[nt][2 + e] == kNegInf ? 0.f : __expf(s[nt][2 + e] - m1);
-        s[nt][e] = p0;
-        s[nt][2 + e] = p1;
-        l0 += p0;
-        l1 += p1;
-      }
-    }
-
-    // O += P V: P from the score registers (C layout -> A layout), V from
-    // shared memory as B through a transposing ldmatrix
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* vp =
-          sV + (kk * 16 + (lane & 8) + (lane & 7)) * kStride + (lane >> 4) * 8;
-#pragma unroll
-      for (int dt = 0; dt < kDTiles; dt += 2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vp + dt * 8);
-        mma_bf16(o[dt], a, vf[0], vf[1]);
-        mma_bf16(o[dt + 1], a, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with `buf` before it is refilled
-  }
-
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-  const long long HD = (long long)p.H * D;
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f);
-  const float inv1 = 1.f / fmaxf(l1, 1e-30f);
-  if (in0) {
-    __nv_bfloat16* op = p.out + ((long long)b * p.T + row0) * HD + h * D;
-#pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt) {
-      *reinterpret_cast<uint32_t*>(op + dt * 8 + 2 * t) =
-          pack_bf16(o[dt][0] * inv0, o[dt][1] * inv0);
-    }
-  }
-  if (in1) {
-    __nv_bfloat16* op = p.out + ((long long)b * p.T + row1) * HD + h * D;
-#pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt) {
-      *reinterpret_cast<uint32_t*>(op + dt * 8 + 2 * t) =
-          pack_bf16(o[dt][2] * inv1, o[dt][3] * inv1);
-    }
-  }
-  if (t == 0) {
-    const long long base = ((long long)b * p.H + h) * p.T;
-    if (in0) {
-      p.m[base + row0] = m0;
-      p.l[base + row0] = l0;
-    }
-    if (in1) {
-      p.m[base + row1] = m1;
-      p.l[base + row1] = l1;
-    }
-  }
-}
-
-// --------------------------------------------------------------------------
-// backward: dq
+// forward and dq: a q tile against its live key tiles
 // --------------------------------------------------------------------------
 
 // The pair test on folded properties: a row's doc is INT_MIN + 1 when the
 // row is invalid or padding, a key's INT_MIN when it is invalid, so that a
 // pair is allowed iff the docs match and the trunk or the rollout rule
-// holds, as cod_allow
+// holds (the predicate above)
 __device__ __forceinline__ bool cod_folded_allow(int4 q, int ka, int kd,
                                                  int kc) {
   return q.z == kc && ((kd == 0 && q.x >= ka) || (q.x == ka && q.y >= kd));
@@ -446,6 +101,16 @@ __device__ __forceinline__ int4 cod_folded(const int4* props, int T, int b,
   return make_int4(x.x, x.y, ok ? x.z : (row ? INT_MIN + 1 : INT_MIN), 0);
 }
 
+struct CodFwdParams {
+  FwdStream s;         // rows = keys = T; out [B, T, H*D]
+  const int4* props;   // [B, T]
+  const int* tiles;    // [B, NT, NT]: 1 where a tile pair may attend
+  const int* full;     // [B, NT, NT]: 1 where every pair of it is allowed
+  const int* order;    // [B * NT]: (batch, q tile) pairs, longest first
+  int NT;
+  int n_chunks;        // blocks of a (q tile, kv head): ceil(group / 4)
+};
+
 struct CodDqParams {
   DqStream s;          // rows = keys = T
   const int4* props;   // [B, T]
@@ -455,17 +120,19 @@ struct CodDqParams {
   int NT;
 };
 
-// The COD policy of the dq stream. A block streams the live key tiles of
-// its q tile (row `qtile` of the batch's table), listed first with each
-// tile's full-tile flag as the entry's bit. The rows' folded properties are
-// the rows' mask data; a stage that is not full carries its keys' folded
-// properties, written by the producer lanes, and the consumers test the
-// pairs once a stage; a full stage needs neither.
-struct CodDq {
+// The COD policy of the forward and dq streams (P: their parameters). A
+// block streams the live key tiles of its q tile (row `qtile` of the
+// batch's table), listed first with each tile's full-tile flag as the
+// entry's bit. The rows' folded properties are the rows' mask data; a
+// stage that is not full carries its keys' folded properties, written by
+// the producer lanes, and the consumers test the pairs once a stage; a
+// full stage needs neither.
+template <class P>
+struct CodMask {
   static constexpr bool kSecondSource = false;
   static constexpr bool kRowSlots = false;   // the slots are heads
   static constexpr bool kLogSumExp = false;  // m and l
-  const CodDqParams& p;
+  const P& p;
 
   // a stage that is not full carries its keys' folded properties
   __device__ __forceinline__ void stage_key(unsigned char* key_data,
@@ -503,36 +170,73 @@ struct CodDq {
                                              int, bool, int, int, int) const {}
 };
 
-// One block owns one q tile of one (batch, kv head) and the group's query
-// heads (dq_stream.cuh): blockIdx / KVH picks the (batch, q tile) pair from
-// `order` (the caller sorts the pairs by their live key tiles, descending,
-// so the heaviest blocks start first), blockIdx % KVH the kv head. The
-// block writes its rows' folded properties and lists the live key tiles of
-// its q tile (row `qtile` of the batch's table).
+// The rows' folded properties and the tile list of the block of q tile q0
+// of batch b (pair = b * NT + its q tile, NT = p.NT; P: the forward's or
+// the dq stream's parameters): the live key tiles of the q tile, each with its
+// full-tile flag as the tile bit, compacted into `list` with their number
+// in *n_tiles. Every thread calls it.
+template <class P>
+__device__ __forceinline__ void cod_block_tiles(const P& p,
+                                                unsigned char* row_data,
+                                                int* list, int* n_tiles,
+                                                int NT, int pair, int b,
+                                                int q0) {
+  if (threadIdx.x < kTileRows) {
+    reinterpret_cast<int4*>(row_data)[threadIdx.x] =
+        cod_folded(p.props, p.s.rows, b, q0 + threadIdx.x, true);
+  }
+  const long long row = (long long)pair * NT;
+  for (int i = threadIdx.x; i < NT; i += blockDim.x) {
+    list[i] = p.tiles[row + i] != 0 ? 1 + 2 * (p.full[row + i] != 0) : 0;
+  }
+  compact_list(list, NT, n_tiles);
+}
+
+// One forward block owns one q tile of one (batch, kv head) and a chunk of
+// up to four query heads of its group (fwd_stream.cuh): blockIdx /
+// (KVH * n_chunks) picks the (batch, q tile) pair from `order` (the caller
+// sorts the pairs by their live key tiles, descending, so the heaviest
+// blocks start first), then the kv head and the chunk.
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    cod_fwd_kernel(const __grid_constant__ CodFwdParams p) {
+  using L = FwdStreamSmem<D>;
+  extern __shared__ unsigned char fwd_smem[];
+  unsigned char* smem = align1024(fwd_smem);
+  const int NT = p.NT;
+  const int per_pair = p.s.KVH * p.n_chunks;
+  const int pair = p.order[blockIdx.x / per_pair];
+  const int b = pair / NT;
+  const int q0 = pair % NT * kTileRows;
+  const int kvh = blockIdx.x % per_pair / p.n_chunks;
+  // the chunk's first head, counted in the group
+  const int c0 = blockIdx.x % p.n_chunks * kFwdHeads;
+  const int G = p.s.group;
+  fwd_init_block<D>(smem, b, kvh, q0, kvh * G + c0, min(kFwdHeads, G - c0));
+  cod_block_tiles(p, smem + L::kRowData,
+                  reinterpret_cast<int*>(smem + L::kExtra),
+                  &fwd_block_info<D>(smem)->n_tiles, NT, pair, b, q0);
+  fwd_stream_block<D>(p.s, CodMask<CodFwdParams>{p}, smem);
+}
+
+// One dq block owns one q tile of one (batch, kv head) and the group's
+// query heads (dq_stream.cuh): blockIdx / KVH picks the (batch, q tile)
+// pair from `order`, as the forward's, blockIdx % KVH the kv head.
 template <int D>
 __global__ void __launch_bounds__(kDqThreads, 1)
     cod_bwd_dq_kernel(const __grid_constant__ CodDqParams p) {
   using L = DqStreamSmem<D>;
   extern __shared__ unsigned char dq_smem[];
   unsigned char* smem = align1024(dq_smem);
-  int* list = reinterpret_cast<int*>(smem + L::kExtra);
   const int NT = p.NT;
   const int pair = p.order[blockIdx.x / p.s.KVH];
   const int b = pair / NT;
   const int q0 = pair % NT * kTileRows;
   dq_init_block<D>(smem, b, blockIdx.x % p.s.KVH, q0);
-  if (threadIdx.x < kTileRows) {
-    reinterpret_cast<int4*>(smem + L::kRowData)[threadIdx.x] =
-        cod_folded(p.props, p.s.rows, b, q0 + threadIdx.x, true);
-  }
-  // the live key tiles of the q tile, each with its full-tile flag as the
-  // tile bit
-  const long long row = (long long)pair * NT;
-  for (int i = threadIdx.x; i < NT; i += blockDim.x) {
-    list[i] = p.tiles[row + i] != 0 ? 1 + 2 * (p.full[row + i] != 0) : 0;
-  }
-  compact_list(list, NT, &dq_block_info<D>(smem)->n_tiles);
-  dq_stream_block<D>(p.s, CodDq{p}, smem);
+  cod_block_tiles(p, smem + L::kRowData,
+                  reinterpret_cast<int*>(smem + L::kExtra),
+                  &dq_block_info<D>(smem)->n_tiles, NT, pair, b, q0);
+  dq_stream_block<D>(p.s, CodMask<CodDqParams>{p}, smem);
 }
 
 // --------------------------------------------------------------------------
@@ -552,11 +256,11 @@ struct CodDkvParams {
 // q tile (16 bytes a row) with the row's own conditions folded into the
 // doc: a row that is invalid or padding gets a doc no key has (INT_MIN + 1);
 // an invalid key gets INT_MIN, which no row has. Then a pair is allowed iff
-// the docs match and the trunk or the rollout rule holds, as cod_allow. The
-// block's 64 keys' properties are staged once, and a thread reads its two
-// keys' for each item that needs the mask. A stage needs no mask when the
-// caller's full-tile flag (carried in the item list) says every pair of the
-// tile pair is allowed.
+// the docs match and the trunk or the rollout rule holds, as
+// cod_folded_allow. The block's 64 keys' properties are staged once, and a
+// thread reads its two keys' for each item that needs the mask. A stage
+// needs no mask when the caller's full-tile flag (carried in the item list)
+// says every pair of the tile pair is allowed.
 struct CodRows {
   static constexpr bool kLogSumExp = false;  // m and l
   const CodDkvParams& p;
@@ -652,76 +356,59 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
 // launches
 // --------------------------------------------------------------------------
 
-template <typename Kernel>
-int launch_kernel(Kernel kernel, dim3 grid, int smem, const Params& p,
-                  cudaStream_t st) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, kThreads, smem, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// K, V and key properties in two stages, then the live-tile list
-int smem_q_side(int D, int nt) {
-  return 4 * kBlockN * (D + 8) * 2 + 2 * kBlockN * 16 + nt * 4;
-}
-
-// tensors: q, k, v; strides: their element strides over (b, head, row), 9
-// values in that order; the head dim is contiguous
-int fill_params(Params& p, const void* const* tensors,
-                const long long* strides, const void* props, const int* tiles,
-                int B, int H, int KVH, int T, int D) {
-  if (B < 1 || KVH < 1 || H % KVH != 0 || (long long)B * H > 65535 ||
-      T < 1 || (D != 64 && D != 128)) {
-    return cudaErrorInvalidValue;
+// The tile count NT = ceil(T / 64) of a shape the three kernels take, or 0:
+// their shared memory grows with the tile list
+int cod_tiles_of(int B, int H, int KVH, int T, int D) {
+  if (B < 1 || KVH < 1 || H % KVH != 0 || T < 1 || (D != 64 && D != 128)) {
+    return 0;
   }
-  p.q = static_cast<const __nv_bfloat16*>(tensors[0]);
-  p.k = static_cast<const __nv_bfloat16*>(tensors[1]);
-  p.v = static_cast<const __nv_bfloat16*>(tensors[2]);
-  p.props = static_cast<const int4*>(props);
-  p.tiles = tiles;
-  p.out = nullptr;
-  p.m = p.l = nullptr;
-  long long* dst[9] = {&p.q_sb, &p.q_sh, &p.q_ss, &p.k_sb, &p.k_sh,
-                       &p.k_ss, &p.v_sb, &p.v_sh, &p.v_ss};
-  for (int i = 0; i < 9; ++i) *dst[i] = strides[i];
-  p.B = B;
-  p.H = H;
-  p.KVH = KVH;
-  p.T = T;
-  p.NT = (T + kBlockN - 1) / kBlockN;
-  p.scale = 1.0f / sqrtf(static_cast<float>(D));
-  // the backward kernels' shared memory grows with the tile list
-  if (dkv_smem_bytes(D, p.NT) > 227 * 1024 ||
-      dq_smem_bytes(D, p.NT * 4) > 227 * 1024) {
-    return cudaErrorInvalidValue;
+  const int nt = (T + kTileRows - 1) / kTileRows;
+  if (fwd_smem_bytes(D, nt * 4) > 227 * 1024 ||
+      dkv_smem_bytes(D, nt) > 227 * 1024 ||
+      dq_smem_bytes(D, nt * 4) > 227 * 1024) {
+    return 0;
   }
-  return cudaSuccess;
+  return nt;
 }
 
 }  // namespace
 
 // Forward: out [B, T, H*D] bf16, m and l [B, H, T] fp32 (all contiguous).
-// props: [B, T] int4 (anchor, depth, doc, valid) contiguous; tiles: [B, NT,
-// NT] int32 contiguous, NT = ceil(T / 64). Launches on `stream` and returns
-// cudaGetLastError().
+// tensors: q [B, H, T, D], k and v [B, KVH, T, D]; strides: their element
+// strides over (b, head, row), 9 values in that order, multiples of 8 with
+// 16-byte aligned bases and the head dim contiguous (the tensor maps').
+// props: [B, T] int4 (anchor, depth, doc, valid) contiguous; tiles and
+// full: [B, NT, NT] int32 contiguous, NT = ceil(T / 64), 1 where the tile
+// pair holds an allowed pair, and where every pair of it is allowed;
+// order: [B * NT] int32, the (batch, q tile) pairs b * NT + qtile in launch
+// order. Launches on `stream` and returns cudaGetLastError().
 extern "C" int cod_attention_fwd(const void* const* tensors,
                                  const long long* strides, const void* props,
-                                 const int* tiles, void* out, float* m,
+                                 const int* tiles, const int* full,
+                                 const int* order, void* out, float* m,
                                  float* l, int B, int H, int KVH, int T, int D,
                                  void* stream) {
-  Params p;
-  const int e = fill_params(p, tensors, strides, props, tiles, B, H, KVH, T, D);
-  if (e != cudaSuccess) return e;
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.m = m;
-  p.l = l;
-  const dim3 grid(p.NT, B * H);
+  const int NT = cod_tiles_of(B, H, KVH, T, D);
+  if (NT == 0) return cudaErrorInvalidValue;
+  const long long out_strides[3] = {(long long)T * H * D, D,
+                                    (long long)H * D};
+  CodFwdParams d;
+  if (!fill_fwd_stream(d.s, tensors[0], strides, tensors[1], strides + 3,
+                       tensors[2], strides + 6, T, out, out_strides, m, l, B,
+                       H, KVH, T, D, true)) {
+    return cudaErrorInvalidValue;
+  }
+  d.props = static_cast<const int4*>(props);
+  d.tiles = tiles;
+  d.full = full;
+  d.order = order;
+  d.NT = NT;
+  d.n_chunks = (H / KVH + kFwdHeads - 1) / kFwdHeads;
+  const long long blocks = (long long)B * NT * KVH * d.n_chunks;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int smem = smem_q_side(D, p.NT);
-  return D == 128 ? launch_kernel(cod_fwd_kernel<128>, grid, smem, p, st)
-                  : launch_kernel(cod_fwd_kernel<64>, grid, smem, p, st);
+  const int smem = fwd_smem_bytes(D, NT * 4);
+  return D == 128 ? launch_hopper(cod_fwd_kernel<128>, smem, d, blocks, st)
+                  : launch_hopper(cod_fwd_kernel<64>, smem, d, blocks, st);
 }
 
 // Backward, dq [B, H, T, D] (contiguous bf16). dout [B, T, H*D] is
@@ -739,9 +426,8 @@ extern "C" int cod_attention_bwd_dq(const void* const* tensors,
                                     const float* l, const float* delta,
                                     void* dq, int B, int H, int KVH, int T,
                                     int D, void* stream) {
-  Params p;
-  const int e = fill_params(p, tensors, strides, props, tiles, B, H, KVH, T, D);
-  if (e != cudaSuccess) return e;
+  const int NT = cod_tiles_of(B, H, KVH, T, D);
+  if (NT == 0) return cudaErrorInvalidValue;
   CodDqParams d;
   if (!fill_dq_stream(d.s, tensors[0], strides, tensors[1], strides + 3,
                       tensors[2], strides + 6, T, nullptr, nullptr, nullptr,
@@ -753,10 +439,10 @@ extern "C" int cod_attention_bwd_dq(const void* const* tensors,
   d.tiles = tiles;
   d.full = full;
   d.order = order;
-  d.NT = p.NT;
-  const long long blocks = (long long)B * p.NT * KVH;
+  d.NT = NT;
+  const long long blocks = (long long)B * NT * KVH;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int smem = dq_smem_bytes(D, p.NT * 4);
+  const int smem = dq_smem_bytes(D, NT * 4);
   return D == 128 ? launch_hopper(cod_bwd_dq_kernel<128>, smem, d, blocks, st)
                   : launch_hopper(cod_bwd_dq_kernel<64>, smem, d, blocks, st);
 }
@@ -776,9 +462,8 @@ extern "C" int cod_attention_bwd_dkv(const void* const* tensors,
                                      const float* l, const float* delta,
                                      void* dk, void* dv, int B, int H,
                                      int KVH, int T, int D, void* stream) {
-  Params p;
-  const int e = fill_params(p, tensors, strides, props, tiles, B, H, KVH, T, D);
-  if (e != cudaSuccess) return e;
+  const int NT = cod_tiles_of(B, H, KVH, T, D);
+  if (NT == 0) return cudaErrorInvalidValue;
   CodDkvParams d;
   if (!fill_stream(d.s, tensors[0], strides, tensors[1], strides + 3,
                    tensors[2], strides + 6, dout, m, l, delta, dk, dv, B, H,
@@ -789,10 +474,10 @@ extern "C" int cod_attention_bwd_dkv(const void* const* tensors,
   d.tiles = tiles;
   d.full = full;
   d.order = order;
-  d.NT = p.NT;
-  const long long blocks = (long long)B * p.NT * KVH;
+  d.NT = NT;
+  const long long blocks = (long long)B * NT * KVH;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int smem = dkv_smem_bytes(D, p.NT);
+  const int smem = dkv_smem_bytes(D, NT);
   return D == 128 ? launch_hopper(cod_bwd_dkv_kernel<128>, smem, d, blocks, st)
                   : launch_hopper(cod_bwd_dkv_kernel<64>, smem, d, blocks, st);
 }

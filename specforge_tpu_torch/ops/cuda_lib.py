@@ -32,7 +32,8 @@ BUILD_DIR = PKG_DIR / "_build"
 SOURCES = ("ttt_attention.cu", "fused_ce.cu", "dflash_attention.cu",
            "peagle_attention.cu", "lse_attention.cu")
 #: the headers the sources include
-HEADERS = ("hopper.cuh", "dkv_stream.cuh", "dq_stream.cuh")
+HEADERS = ("hopper.cuh", "dkv_stream.cuh", "dq_stream.cuh",
+           "fwd_stream.cuh")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -149,9 +150,9 @@ def library() -> ctypes.CDLL:
             lib.dflash_attention_bwd_dq.restype = i
             lib.dflash_attention_bwd_dkv.argtypes = [p] * 10 + [i] * 8 + [p]
             lib.dflash_attention_bwd_dkv.restype = i
-            # tensors (3 pointers), strides (9 int64), props, tiles, ...
-            lib.cod_attention_fwd.argtypes = [p, p, p, p, p, p, p,
-                                              *[i] * 5, p]
+            # tensors (3 pointers), strides (9 int64), props, tiles, the
+            # full-tile flags, the block order, out, m, l, ...
+            lib.cod_attention_fwd.argtypes = [p] * 9 + [i] * 5 + [p]
             lib.cod_attention_fwd.restype = i
             # ... the full-tile flags, the block order, dout, m, l, delta
             # and the outputs (dq; dk, dv)

@@ -10,14 +10,15 @@ normalised output and the row log-sum-exp, so the hops and the TTT branch
 logits merge by log-sum-exp outside (``parallel/usp.py``). A row with no
 allowed key gives out = 0 and lse = -1e30 (finite, as in the TPU kernel).
 
-The kernels are in ``csrc/lse_attention.cu``: the forward, and dq and
-dk/dv on the Hopper dq and dk/dv streams (``csrc/dq_stream.cuh``,
-``csrc/dkv_stream.cuh``), which read q, k, v and dO by TMA: their bases
-must be 16-byte aligned. The offsets are Python ints (the rank and the hop are host values in the
-port; JAX traced them). :func:`flash_attention_lse` is a
-``torch.autograd.Function`` whose backward takes the gradients of both
-outputs: ``dstat = rowsum(dO·O) - dlse`` is one torch reduction in the
-wrapper, as the JAX version computes it outside its kernels.
+The kernels are in ``csrc/lse_attention.cu``: the forward, dq and dk/dv on
+the Hopper forward, dq and dk/dv streams (``csrc/fwd_stream.cuh``,
+``csrc/dq_stream.cuh``, ``csrc/dkv_stream.cuh``), which read q, k, v and dO
+by TMA: their bases must be 16-byte aligned. The offsets are Python ints
+(the rank and the hop are host values in the port; JAX traced them).
+:func:`flash_attention_lse` is a ``torch.autograd.Function`` whose backward
+takes the gradients of both outputs: ``dstat = rowsum(dO·O) - dlse`` is
+one torch reduction in the wrapper, as the JAX version computes it outside
+its kernels.
 
 Layouts follow the JAX op: q ``[BH, Sq, D]``, k and v ``[BH, Sk, D]``,
 ``key_valid`` ``[BH, Sk]``; out ``[BH, Sq, D]`` in q's dtype and lse
@@ -130,8 +131,8 @@ def _check_inputs(q, k, v, key_valid) -> None:
 
 
 def _check_aligned(name: str, x: torch.Tensor) -> None:
-    """The kernels copy 16 bytes at a time (cp.async, TMA): a base that is
-    not 16-byte aligned raises."""
+    """The kernels copy 16 bytes at a time (TMA): a base that is not
+    16-byte aligned raises."""
     if x.data_ptr() % 16:
         raise ValueError(f"{name} must start on a 16-byte boundary, got "
                          f"address {x.data_ptr():#x}")

@@ -8,15 +8,18 @@ d_q, doc c_q of its anchor, valid v_q) may attend key k iff
     ((d_k == 0 and a_q >= a_k)        # the depth-0 trunk, causally
      or (a_q == a_k and d_q >= d_k))  # the query's own rollout
 
-The kernels are in ``csrc/peagle_attention.cu``: the forward, dq, and dk/dv.
-They read the four properties per token ([B, T, 4] int32, one 16-byte load)
-and evaluate the predicate in registers; a [B, NT, NT] table of the 64 x 64
-tile pairs that hold an allowed pair (:func:`cod_tiles`, built once per
-forward from the model's [B, T, T] mask and shared by every layer and head)
-lets them skip the rest. Beside it, :func:`cod_tiles` marks the tile pairs
-whose every pair is allowed (the backward kernels skip the predicate
-there) and orders the dk/dv kernel's (batch, key tile) blocks and the dq
-kernel's (batch, q tile) blocks longest first. A
+The kernels are in ``csrc/peagle_attention.cu``: the forward, dq, and dk/dv,
+on the Hopper forward, dq and dk/dv streams (``csrc/fwd_stream.cuh``,
+``csrc/dq_stream.cuh``, ``csrc/dkv_stream.cuh``), which read q, k and v by
+TMA: their (b, h, t) strides must be multiples of 8 elements and their bases
+16-byte aligned. They read the four properties per token ([B, T, 4] int32,
+one 16-byte load) and evaluate the predicate in registers; a [B, NT, NT]
+table of the 64 x 64 tile pairs that hold an allowed pair (:func:`cod_tiles`,
+built once per forward from the model's [B, T, T] mask and shared by every
+layer and head) lets them skip the rest. Beside it, :func:`cod_tiles` marks
+the tile pairs whose every pair is allowed (the kernels skip the predicate
+there) and orders the dk/dv kernel's (batch, key tile) blocks and the
+forward's and dq kernel's (batch, q tile) blocks longest first. A
 row with no allowed key (an invalid slot, padding) gives out 0, m = -1e30
 and l = 0, and gradient 0; the dense path averages uniformly there
 instead, which changes no loss or gradient, since those rows are masked
@@ -65,8 +68,8 @@ class CODTiles(NamedTuple):
     #: the dk/dv kernel's launch order
     order: torch.Tensor
     #: [B * NT] int32: the (batch, q tile) pairs b * NT + q, ordered by their
-    #: live key tiles (the table's row sums), descending and stable: the dq
-    #: kernel's launch order
+    #: live key tiles (the table's row sums), descending and stable: the
+    #: forward's and the dq kernel's launch order
     dq_order: torch.Tensor
 
 
@@ -229,9 +232,8 @@ def _check_inputs(q, k, v, tiles: CODTiles):
     if k.dim() != 4:
         raise ValueError(f"k must be [B, KVH, T, D], got {tuple(k.shape)}")
     kvh = k.shape[1]
-    if h % kvh or b * h > 65535:
-        raise ValueError(f"H={h} must be a multiple of KVH={kvh} "
-                         f"(and B*H <= 65535, B={b})")
+    if h % kvh:
+        raise ValueError(f"H={h} must be a multiple of KVH={kvh}")
     for name, x, heads in (("q", q, h), ("k", k, kvh), ("v", v, kvh)):
         _check_operand(name, x, (b, heads, t, d), q.device)
     nt = -(-t // TILE)
@@ -279,7 +281,8 @@ def cod_attention_fwd(q, k, v, tiles: CODTiles) -> Tensor3:
     l = torch.empty_like(m)
     status = cuda_lib.library().cod_attention_fwd(
         ptrs, strides, tiles.props.data_ptr(), tiles.table.data_ptr(),
-        out.data_ptr(), m.data_ptr(), l.data_ptr(), *_dims(q, k), _stream(q))
+        tiles.full.data_ptr(), tiles.dq_order.data_ptr(), out.data_ptr(),
+        m.data_ptr(), l.data_ptr(), *_dims(q, k), _stream(q))
     cuda_lib.check(status, "cod_attention_fwd")
     cod_attention_fwd.launches += 1
     return out, m, l

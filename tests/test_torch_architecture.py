@@ -111,6 +111,25 @@ def test_lse_backward_kernels_run_on_the_streams(kernel, stream):
     assert stream + "<D>(" in body
 
 
+@pytest.mark.parametrize("source,kernel", [
+    ("lse_attention.cu", "lse_fwd_kernel"),
+    ("peagle_attention.cu", "cod_fwd_kernel"),
+])
+def test_forwards_run_on_the_forward_stream(source, kernel):
+    """The LSE and COD forwards are Hopper designs (one block an SM, which
+    HOPPER_KERNELS names) whose bodies hand the block to the shared forward
+    stream, and the first design's mma.sync and cp.async are gone from
+    their sources."""
+    text = _code_without_comments(
+        open(os.path.join(PKG, "csrc", source)).read())
+    assert kernel in re.findall(
+        r"__launch_bounds__\(\s*\w+\s*,\s*1\s*\)\s*(\w+)\s*\(", text)
+    body = text[text.index(kernel + "("):]
+    body = body[:body.index("\n}\n")]
+    assert "fwd_stream_block<D>(" in body
+    assert "mma.sync" not in text and "cp.async.cg" not in text
+
+
 def test_usp_slice_is_built_and_imports_nothing_of_jax():
     """The LSE ring-hop source is built, and the parallel package (the
     process runtime, the rank grid, USP) is among the checked sources."""

@@ -935,6 +935,96 @@ def test_cod_dq_refuses_layouts_a_tensor_map_cannot_read(gen):
             l, delta)
 
 
+def cod_forward(q, k, v, tiles):
+    """One launch of the COD forward → (out, m, l), held against the plain
+    forward: out within 2e-2 of the largest reference value, m and l within
+    1e-3 on rows with an allowed key, and rows with none exactly out 0,
+    m -1e30, l 0; also returns the rows with an allowed key [B, T]."""
+    before = cod_cuda.cod_attention_fwd.launches
+    out, m, l = cod_cuda.cod_attention_fwd(q, k, v, tiles)
+    torch.cuda.synchronize()
+    assert cod_cuda.cod_attention_fwd.launches == before + 1
+    ref, ref_m, ref_l = cod_cuda.cod_attention_plain(q, k, v, tiles.props)
+    b, h, t, d = q.shape
+    assert out.shape == (b, t, h * d) and out.dtype == torch.bfloat16
+    assert rel_err(out, ref) <= 2e-2
+    live = ref_l[:, 0] > 0
+    rows = live[:, None].expand_as(m)
+    torch.testing.assert_close(m[rows], ref_m[rows], rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(l[rows], ref_l[rows], rtol=1e-3, atol=1e-3)
+    assert not out[~live].any()
+    assert bool((m[~rows] == cod_cuda.NEG_INF).all())
+    assert not l[~rows].any()
+    return out, m, l, live
+
+
+# groups of 1, 2, 4 and 8 query heads (a group of 8: two blocks of four)
+# and 7 (four and three) at D = 64 and 128, T from the sampler (no multiple
+# of 64); packed documents; a document with an invalid tail and a row with
+# no supervised token
+@pytest.mark.parametrize("b,h,kvh,d,s,docs,unsupervised", [
+    (2, 8, 8, 128, 200, None, ()),
+    (2, 4, 2, 64, 256, (64, 64, 64, 64), ()),
+    (2, 16, 4, 128, 256, (150,), (1,)),
+    (1, 32, 4, 128, 512, (128, 384), ()),
+    (2, 14, 2, 64, 300, (150,), (1,)),
+    (2, 16, 2, 128, 256, (100, 156), (0,)),
+])
+def test_cod_forward_matches_plain(gen, b, h, kvh, d, s, docs, unsupervised):
+    q, k, v, tiles = cod_inputs(gen, b, h, kvh, d, s, docs, unsupervised)
+    _, _, _, live = cod_forward(q, k, v, tiles)
+    if unsupervised or docs:
+        assert bool((~live).any())
+
+
+def test_cod_forward_is_bit_exact_at_the_slice(gen):
+    """Two launches at the P-EAGLE slice's shapes give the same bits, and
+    both match the plain forward."""
+    q, k, v, tiles = cod_inputs(gen, 2, 32, 8, 128, 1024)
+    assert bool(tiles.full.any())
+    out, m, l, _ = cod_forward(q, k, v, tiles)
+    for a, b in zip((out, m, l), cod_cuda.cod_attention_fwd(q, k, v, tiles)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("h,kvh,d,docs,unsupervised", [
+    (32, 8, 128, None, ()),
+    (14, 2, 64, (150,), (1,)),
+])
+def test_cod_forward_statistics_feed_the_backward(gen, h, kvh, d, docs,
+                                                 unsupervised):
+    """The backward kernels on the forward kernel's (out, m, l) give the
+    plain backward's gradients on the plain forward's, within 2e-2 of the
+    largest reference value."""
+    q, k, v, tiles = cod_inputs(gen, 2, h, kvh, d, 256, docs, unsupervised)
+    out, m, l, _ = cod_forward(q, k, v, tiles)
+    dout = torch.randn(out.shape, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    grads = cod_cuda.cod_attention_bwd(q, k, v, tiles, out, m, l, dout)
+    ref, ref_m, ref_l = cod_cuda.cod_attention_plain(q, k, v, tiles.props)
+    ref_grads = cod_cuda.cod_attention_backward_plain(
+        q, k, v, tiles.props, ref, ref_m, ref_l, dout)
+    for name, got, want in zip("qkv", grads, ref_grads):
+        assert rel_err(got, want) <= 2e-2, name
+
+
+def test_cod_forward_refuses_layouts_a_tensor_map_cannot_read(gen):
+    q, k, v, tiles = cod_inputs(gen, 1, 4, 2, 64, 100)
+    t = q.shape[2]
+    wide = torch.randn(1, 2, t, 68, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    for bad, match in ((wide[..., :64], "multiples of 8"),
+                       (wide.flatten()[4:4 + 2 * t * 64].view(1, 2, t, 64),
+                        "16-byte aligned")):
+        with pytest.raises(ValueError, match=match):
+            cod_cuda.cod_attention_fwd(q, bad, v, tiles)
+        with pytest.raises(ValueError, match=match):
+            cod_cuda.cod_attention_fwd(q, k, bad, tiles)
+    with pytest.raises(ValueError, match="dq_order"):
+        cod_cuda.cod_attention_fwd(
+            q, k, v, tiles._replace(dq_order=tiles.dq_order[:-1]))
+
+
 # --------------------------------------------------------------------------
 # offset-causal LSE attention (the USP ring hop)
 # --------------------------------------------------------------------------
@@ -1112,3 +1202,77 @@ def test_lse_backward_refuses_misaligned_layouts(gen):
     with pytest.raises(ValueError, match="dout"):
         lse_cuda.lse_attention_bwd(q, k, v, valid, 128, 128, out, lse,
                                    out[:, :64], dlse)
+
+
+def lse_forward(q, k, v, valid, row_off, col_off):
+    """One launch of the LSE forward → (out, lse), held against the plain
+    forward: out within 2e-2 of the largest reference value, lse within
+    1e-3 (relative and absolute) on rows with an allowed key, and rows with
+    none exactly out 0, lse -1e30."""
+    before = lse_cuda.lse_attention_fwd.launches
+    out, lse = lse_cuda.lse_attention_fwd(q, k, v, valid, row_off, col_off)
+    torch.cuda.synchronize()
+    assert lse_cuda.lse_attention_fwd.launches == before + 1
+    ref, ref_lse = lse_cuda.flash_attention_lse_plain(q, k, v, valid,
+                                                      row_off, col_off)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    dead = ref_lse[..., 0] == lse_cuda.NEG_INF
+    assert not out[dead].any()
+    assert bool((lse[dead] == lse_cuda.NEG_INF).all())
+    if not dead.all():
+        assert rel_err(out, ref) <= 2e-2
+        torch.testing.assert_close(lse[~dead], ref_lse[~dead], rtol=1e-3,
+                                   atol=1e-3)
+    return out, lse
+
+
+# The tile situations the forward tells apart: offset differences
+# (row_off - col_off) of 0, +-1, +-63 and 65 that are not multiples of 64;
+# one-row chunks; a key tail that pads whole 64-key tiles; both head dims;
+# an earlier chunk (every stage mask-free) and a later one (no stage)
+@pytest.mark.parametrize("s,d,row_off,col_off,pad", [
+    (256, 128, 257, 256, 0), (256, 128, 256, 257, 0),
+    (256, 64, 319, 256, 0), (256, 128, 256, 319, 0),
+    (300, 128, 365, 300, 0), (1, 128, 7, 7, 0), (1, 64, 5, 9, 0),
+    (250, 128, 250, 250, 70), (2048, 64, 2048, 0, 100),
+    (130, 64, 130, 130, 0), (200, 128, 0, 200, 0),
+])
+def test_lse_forward_matches_plain(gen, s, d, row_off, col_off, pad):
+    q, k, v, valid = lse_inputs(gen, 4, s, d, pad)
+    out, lse = lse_forward(q, k, v, valid, row_off, col_off)
+    if col_off - row_off >= s:
+        assert bool((lse == lse_cuda.NEG_INF).all()) and not out.any()
+
+
+@pytest.mark.parametrize("row_off,col_off", [(2048, 2048), (2048, 0),
+                                             (0, 2048)])
+def test_lse_forward_repeats_bit_exact_at_main_shape(gen, row_off, col_off):
+    """The USP phase's own, earlier and later hops (BH=16, S=2048, D=128):
+    two launches give the same bits (no atomics)."""
+    q, k, v, valid = lse_inputs(gen, 16, 2048, 128, 0)
+    out, lse = lse_forward(q, k, v, valid, row_off, col_off)
+    again = lse_cuda.lse_attention_fwd(q, k, v, valid, row_off, col_off)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.parametrize("s,d,row_off,col_off,pad", [
+    (256, 128, 256, 256, 0), (300, 64, 363, 300, 37),
+])
+def test_lse_forward_statistics_feed_the_backward(gen, s, d, row_off,
+                                                 col_off, pad):
+    """The backward kernels on the forward kernel's (out, lse) give the
+    plain backward's gradients on the plain forward's, within 2e-2 of the
+    largest reference value."""
+    q, k, v, valid = lse_inputs(gen, 4, s, d, pad)
+    out, lse = lse_forward(q, k, v, valid, row_off, col_off)
+    dout = torch.randn(out.shape, generator=gen, device="cuda",
+                       dtype=torch.bfloat16)
+    dlse = torch.randn(lse.shape, generator=gen, device="cuda")
+    grads = lse_cuda.lse_attention_bwd(q, k, v, valid, row_off, col_off, out,
+                                       lse, dout, dlse)
+    ref, ref_lse = lse_cuda.flash_attention_lse_plain(q, k, v, valid,
+                                                      row_off, col_off)
+    ref_grads = lse_cuda.flash_attention_lse_backward_plain(
+        q, k, v, valid, row_off, col_off, ref, ref_lse, dout, dlse)
+    for name, got, want in zip("qkv", grads, ref_grads):
+        assert rel_err(got, want) <= 2e-2, name

@@ -443,6 +443,27 @@ def test_cpu_wrappers_launch_nothing_and_kernel_checks_refuse():
                               tiles)
 
 
+@pytest.mark.parametrize("operand", ["q", "k", "v"])
+def test_cod_kernel_inputs_must_be_aligned(operand):
+    """The kernels read q, k and v by TMA: the wrapper's check refuses a
+    view that starts off a 16-byte boundary, and passes an aligned one on
+    to the device check (these tensors lie on the CPU)."""
+    _, props, _, _ = _attention_inputs()
+    tiles = pac.cod_tiles(*(t(x) for x in props))
+    b, n = tiles.props.shape[:2]
+    ops = {name: torch.zeros((b, heads, n, 64), dtype=torch.bfloat16)
+           for name, heads in (("q", 4), ("k", 2), ("v", 2))}
+    x = ops[operand]
+    flat = torch.zeros(x.numel() + 16, dtype=torch.bfloat16)
+    aligned = flat[8 - flat.data_ptr() % 16 // 2:][:x.numel()].view(x.shape)
+    shifted = flat[9 - flat.data_ptr() % 16 // 2:][:x.numel()].view(x.shape)
+    assert aligned.data_ptr() % 16 == 0 and shifted.data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        pac._check_inputs(**{**ops, operand: aligned}, tiles=tiles)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        pac._check_inputs(**{**ops, operand: shifted}, tiles=tiles)
+
+
 # --------------------------------------------------------------------------
 # the model against JAX
 # --------------------------------------------------------------------------
