@@ -26,9 +26,11 @@ Phases, each printing JSON lines:
    with no valid key (out 0, m = -1e30, l = 0 exactly), twice at the main
    shape with the same bits, and beside a second, timed-only yardstick,
    the library flash kernel over the causal block alone
-   (``library_causal_ms``); the DFlash, COD and LSE backward kernels (dq
-   and dk/dv) also twice in every case for the same bits, dq exactly 0 on
-   rows with no allowed key and dk/dv on keys no row reaches, and every
+   (``library_causal_ms``); the DFlash, COD and LSE kernels (forward, dq
+   and dk/dv) also twice in every case for the same bits, the forward's
+   rows with no allowed key (DFlash: rows of blocks not kept) exactly out
+   0, m (or lse) -1e30 and l 0, dq exactly 0 on those rows and dk/dv on
+   keys no row reaches, and every
    DFlash, COD and LSE kernel 30 launches back to back (``run_ms``); the
    LSE kernels also beside the library flash kernel over the same pairs
    where it takes them without a mask (``library_flash_ms``: causal for an
@@ -297,14 +299,16 @@ def device_facts() -> str:
 #: the kernels redesigned for Hopper whose ptxas report the build line
 #: details; a wgmma serialization note (C75xx) fails the build phase
 HOPPER_KERNELS = ("ttt_fwd_kernel", "ttt_bwd_dq_kernel", "ttt_bwd_dkv_kernel",
-                  "dflash_bwd_dq_kernel", "dflash_bwd_dkv_kernel",
+                  "dflash_fwd_kernel", "dflash_bwd_dq_kernel",
+                  "dflash_bwd_dkv_kernel",
                   "cod_fwd_kernel", "cod_bwd_dq_kernel", "cod_bwd_dkv_kernel",
                   "lse_fwd_kernel", "lse_bwd_dq_kernel", "lse_bwd_dkv_kernel")
 #: the kernels line's entries whose kernel is one of HOPPER_KERNELS, with
-#: the route note they carry (the others are the first design: mma.sync
-#: from 4 warps, cp.async stages)
+#: the route note they carry (every attention kernel; the fused CE kernels
+#: are not warp-specialised)
 HOPPER_ROUTE = ("ttt_flash_attention_fwd", "ttt_attention_bwd_dq",
-                "ttt_attention_bwd_dkv", "dflash_attention_bwd_dq",
+                "ttt_attention_bwd_dkv", "dflash_attention_fwd",
+                "dflash_attention_bwd_dq",
                 "dflash_attention_bwd_dkv", "cod_attention_fwd",
                 "cod_attention_bwd_dq", "cod_attention_bwd_dkv",
                 "lse_attention_fwd", "lse_attention_bwd_dq",
@@ -981,8 +985,11 @@ def dflash_kernel_phase(gen) -> list:
         ref_grads = dflash_attention_cuda.dflash_flash_attention_backward_plain(
             *inputs, DFLASH_BS, window, out, m, l, dout)
         kept_rows = keep.repeat_interleave(DFLASH_BS, dim=1)
-        if out[~kept_rows].any():
-            raise AssertionError(f"case {name}: rows not kept are not 0")
+        dead = (~kept_rows)[:, None].expand_as(m)
+        if (out[~kept_rows].any() or l[dead].any()
+                or (m[dead] != dflash_attention_cuda.NEG_INF).any()):
+            raise AssertionError(f"case {name}: rows not kept are not out 0, "
+                                 "m -1e30, l 0")
         # kernel A gives dq and the draft dk/dv, kernel B the context dk/dv
         pairs = {
             "dflash_attention_fwd": [(out, ref)],
@@ -1006,11 +1013,13 @@ def dflash_kernel_phase(gen) -> list:
         check(f"dflash l case {name}", errs["l"], STAT_RTOL)
         delta = attention_cuda.backward_delta(out, dout, h)
         bwd_args = (*inputs, DFLASH_BS, window, dout, m, l, delta)
-        # both backward kernels: two launches give the same bits; rows of
-        # blocks not kept get dq (and draft dk/dv) exactly 0, keys no kept
-        # row reaches context dk/dv exactly 0
+        # every kernel: two launches give the same bits; rows of blocks not
+        # kept get dq (and draft dk/dv) exactly 0, keys no kept row reaches
+        # context dk/dv exactly 0
         dq_kernel = dflash_attention_cuda.dflash_attention_bwd_dq
         dkv = dflash_attention_cuda.dflash_attention_bwd_dkv
+        check_repeat(f"dflash_attention_fwd case {name}",
+                     lambda: fwd(*inputs, DFLASH_BS, window))
         check_repeat(f"dflash_attention_bwd_dq case {name}",
                      lambda: dq_kernel(*bwd_args))
         check_repeat(f"dflash_attention_bwd_dkv case {name}",
@@ -1032,7 +1041,8 @@ def dflash_kernel_phase(gen) -> list:
         }
         row = {
             "phase": "kernel", "name": "dflash_attention", "case": name,
-            "dq_repeat": "bit-exact", "dkv_repeat": "bit-exact",
+            "fwd_repeat": "bit-exact", "dq_repeat": "bit-exact",
+            "dkv_repeat": "bit-exact",
             "rows_not_kept": int((~kept_rows).sum()),
             "unreached_keys": int(unreached[:, 0].sum()),
             "run_ms": run,

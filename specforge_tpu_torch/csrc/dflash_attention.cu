@@ -28,88 +28,58 @@
 // terms from each run's anchors.
 //
 // What the design does about that. Every product runs on the tensor cores
-// (bf16 in, fp32 accumulate); no score tile reaches device memory; nothing
-// is padded or copied (the ragged ends of the context and of the draft rows
-// are zero-filled and masked). The forward, on `mma.sync.m16n8k16`: one
-// block of 4 warps owns a q tile of 64 rows of one (batch, head), a whole
-// number of anchor blocks; each warp keeps the Q fragments of its 16 rows
-// in registers. The anchors are sorted, so the tile's context loop runs
-// only over the K tiles between the smallest lower bound and the largest
-// anchor of its kept rows; then the tile's own 64 draft rows are folded in
-// as one more tile under the block-diagonal mask (each warp skips the 8-key
-// groups outside its own blocks). K/V tiles of 64 keys are staged by
-// cp.async in two buffers of padded shared memory and reach the tensor
-// cores through ldmatrix. It does not use TMA, wgmma or warp
-// specialisation yet.
-// Kernel A, dq and the draft keys' dk/dv, is bound by its three products
-// per (query head, key tile) item: at the Domino slice about 7 key tiles
-// per q tile. The first design (mma.sync from 4 warps, a block per query
-// head, two cp.async stages, the span test on every score, the draft dk/dv
-// written per query head and summed by the wrapper) reached about 10% of
-// its bound. It now follows ttt_bwd_dq_kernel (dq_stream.cuh): a block of
-// 384 threads owns a q tile of one (batch, kv head) and the group's query
-// heads, four resident (a group of more runs in chunks), so each K/V tile
-// is staged once for them by TMA; two consumer warpgroups run the three
-// products on `wgmma` with dq in fp32 registers. A context tile inside
-// every kept row's span skips the mask (at the Domino slice most of a q
-// tile's context tiles lie below its smallest anchor). The draft keys
-// follow as one more stage of the ring; their p and ds live only on the
-// bs x bs diagonal blocks, which are staged compactly, and the block sums
-// the draft dk/dv over its group's heads in fp32 in a fixed order and
-// writes them once per kv head.
+// (`wgmma`, bf16 in, fp32 accumulate) from two consumer warpgroups of a
+// 384-thread block, fed through a TMA/`mbarrier` ring by two producer warps
+// (`setmaxnreg` 24; the consumers 240); no score tile reaches device
+// memory; nothing is padded or copied (the ragged ends of the context and
+// of the draft rows are zero-filled by TMA and masked); no atomics, so two
+// runs give the same bits.
+// The forward and kernel A (dq and the draft keys' dk/dv) share one block
+// setup (dflash_block_tiles) and one mask policy (DFlashMask): a block owns
+// a q tile of 64 rows of one (batch, kv head) and four of the group's query
+// heads at a time, two per consumer warpgroup, so each K/V tile is staged
+// once for all of them; the q tile is the grid's slow index, later tiles
+// first (later anchors reach more context). The block writes its rows'
+// spans and lists the context tiles its kept rows reach, each with a
+// "needs no mask" bit (every kept row reaches all 64 keys: at the Domino
+// slice most of a q tile's context tiles lie below its smallest anchor),
+// then its own 64 draft keys as the stream's second key source, a tile
+// always masked (block-diagonal, and by offset under a window).
+// The forward (fwd_stream.cuh) runs S = Q K^T, the online softmax (m in
+// log2 units, one FMA and one `ex2` a score) and O += P V with P from
+// registers, one head's softmax while the tensor cores form the other's
+// products; a larger group runs as blocks of four heads (D = 64's group of
+// 7 as 4 and 3). O / l leaves in bf16 straight into [B, Q, H*D], m (natural
+// log units) and l in fp32 beside it. The forward has no dead-row rule on
+// an unmasked tile, so a tile is mask-free there only if every row of the
+// q tile is kept; a q tile with no kept row lists nothing and writes out 0,
+// m = -1e30, l = 0.
+// Kernel A (dq_stream.cuh) runs s, dp and dq += ds K on `wgmma` with dq in
+// fp32 registers (a group of more than four heads in chunks). The draft
+// tile's p and ds live only on the bs x bs diagonal blocks, which are
+// staged compactly, and the block sums the draft dk/dv over its group's
+// heads in fp32 in a fixed order and writes them once per kv head.
 // Kernel B, the context keys' dk/dv, is bound by its four products per
 // (query head, q tile) item that reaches a key tile: at the Domino slice
 // 27,936 items over 192 blocks, the heaviest (key tile 0, every q tile of
-// the four heads) 256 items. The first design ran them on mma.sync from 4
-// warps with two cp.async stages and the mask per element, at about 7% of
-// the tensor rate on that block. It now follows ttt_bwd_dkv_kernel
-// (dkv_stream.cuh): a block of 384 threads owns 64 context keys of one
-// (batch, kv head), K and V by TMA once, and first lists the q tiles whose
-// kept anchors reach its keys; two consumer warpgroups split the group's
-// (head, q tile) stream, each fed a ring of Q/dO stages by two producer
-// warps, and run all four products on `wgmma` with dk, dv in fp32
-// registers. Each row's context span [lo, hi) travels with its stage; a
-// tile whose rows all reach every key of the block skips the mask (at the
-// Domino slice most do: the key tile lies below the q tile's smallest
-// anchor). The key tile is the grid's slow index, so without a window the
-// heaviest blocks start first. The kernels share the Hopper helpers of
-// hopper.cuh.
+// the four heads) 256 items. It follows ttt_bwd_dkv_kernel
+// (dkv_stream.cuh): a block owns 64 context keys of one (batch, kv head),
+// K and V by TMA once, and first lists the q tiles whose kept anchors
+// reach its keys; two consumer warpgroups split the group's (head, q tile)
+// stream, each fed a ring of Q/dO stages by two producer warps, and run
+// all four products on `wgmma` with dk, dv in fp32 registers. Each row's
+// context span [lo, hi) travels with its stage; a tile whose rows all
+// reach every key of the block skips the mask (at the Domino slice most
+// do: the key tile lies below the q tile's smallest anchor). The key tile
+// is the grid's slow index, so without a window the heaviest blocks start
+// first. The kernels share the Hopper helpers of hopper.cuh.
 
 #include <limits.h>
 
 #include "dkv_stream.cuh"
-#include "dq_stream.cuh"
+#include "fwd_stream.cuh"
 
 namespace {
-
-constexpr int kBlockM = 64;  // query rows per q tile, 16 per warp
-constexpr int kBlockN = 64;  // keys per shared-memory tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-
-struct Params {
-  const __nv_bfloat16* q;   // [B, H, Q, D] strided
-  const __nv_bfloat16* kc;  // [B, KVH, S, D] strided: context keys
-  const __nv_bfloat16* vc;
-  const __nv_bfloat16* kd;  // [B, KVH, Q, D] strided: draft keys
-  const __nv_bfloat16* vd;
-  const int* anchors;       // [B, N]
-  const int* keep;          // [B, N], 0 = block not kept
-  __nv_bfloat16* out;       // [B, Q, H*D]
-  float* m;                 // [B, H, Q]
-  float* l;                 // [B, H, Q]
-  long long q_sb, q_sh, q_ss;
-  long long kc_sb, kc_sh, kc_ss;
-  long long vc_sb, vc_sh, vc_ss;
-  long long kd_sb, kd_sh, kd_ss;
-  long long vd_sb, vd_sh, vd_ss;
-  int B, H, KVH, S, Q, N, bs, window;  // window 0: no sliding window
-  float scale;
-};
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
 
 // D[16x8] += A[16x16] * B[16x8], bf16 inputs, fp32 accumulators.
 __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
@@ -121,16 +91,8 @@ __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Four 8x8 bf16 matrices from shared memory; lane l gives the address of
-// row l % 8 of matrix l / 8. With .trans each matrix arrives transposed.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const void* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
-
+// Four 8x8 bf16 matrices from shared memory, each transposed; lane l gives
+// the address of row l % 8 of matrix l / 8.
 __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
                                                   const void* p) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -141,28 +103,10 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
       : "r"(a));
 }
 
-// 16 bytes global -> shared, asynchronously; zero-filled when !full
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(d), "l"(src), "r"(full ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // The allowed keys of query row r of batch b: context keys [x, y), draft
 // keys [z, w). Both are empty for a row past Q or of a block not kept. P is
-// the forward's Params or the dq kernel's DFlashDqParams (the anchors,
-// keep, N, S, Q, bs and window of both).
+// the forward's DFlashFwdParams or the dq kernel's DFlashDqParams (the
+// anchors, keep, N, S, Q, bs and window of both).
 template <class P>
 __device__ __forceinline__ int4 row_span(const P& p, int b, int r) {
   int lo = 0, hi = 0, dlo = 0, dhi = 0;
@@ -180,282 +124,20 @@ __device__ __forceinline__ int4 row_span(const P& p, int b, int r) {
   return make_int4(lo, hi, dlo, dhi);
 }
 
-// Every row's spans of the q tile at q0 into sSpan, and into sBounds the
-// context keys any kept row of the tile may attend: [min lo, max hi).
-__device__ __forceinline__ void tile_spans(const Params& p, int b, int q0,
-                                           int4* sSpan, int* sBounds) {
-  if (threadIdx.x < kBlockM) sSpan[threadIdx.x] = row_span(p, b, q0 + threadIdx.x);
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    int lo = INT_MAX, hi = 0;
-    for (int i = threadIdx.x; i < kBlockM; i += 32) {
-      const int4 s = sSpan[i];
-      if (s.y > s.x) {
-        lo = min(lo, s.x);
-        hi = max(hi, s.y);
-      }
-    }
-    lo = __reduce_min_sync(0xffffffffu, lo);
-    hi = __reduce_max_sync(0xffffffffu, hi);
-    if (threadIdx.x == 0) {
-      sBounds[0] = lo;
-      sBounds[1] = hi;
-    }
-  }
-  __syncthreads();
-}
-
-// The draft keys (local to the q tile) that warp `warp`'s 16 rows can reach:
-// the anchor blocks those rows lie in.
-__device__ __forceinline__ void warp_draft_range(int warp, int bs, int& lo,
-                                                 int& hi) {
-  lo = (warp * 16 / bs) * bs;
-  hi = min(((warp * 16 + 15) / bs + 1) * bs, kBlockM);
-}
-
-// A-operand fragments of a 16-row slab (rows row0 and row0 + 8 of this
-// thread) straight from device memory; rows not `in` read as zeros
-template <int kSteps>
-__device__ __forceinline__ void load_a_frags(uint32_t f[kSteps][4],
-                                             const __nv_bfloat16* base,
-                                             long long row_stride, int row0,
-                                             bool in0, bool in1, int t) {
-#pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks) {
-    const int c = ks * 16 + 2 * t;
-    f[ks][0] = in0 ? ld32(base + row0 * row_stride + c) : 0u;
-    f[ks][1] = in1 ? ld32(base + (row0 + 8) * row_stride + c) : 0u;
-    f[ks][2] = in0 ? ld32(base + row0 * row_stride + c + 8) : 0u;
-    f[ks][3] = in1 ? ld32(base + (row0 + 8) * row_stride + c + 8) : 0u;
-  }
-}
-
-// Stage tile j of a q tile's key sequence into sK/sV: the context tiles
-// t_lo, t_lo + 1, ... (j < n_ctx), then the q tile's own draft rows
-// (j == n_ctx). Rows past S (or Q) are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_kv_tile(const Params& p, int b, int kvh,
-                                             int q0, int t_lo, int n_ctx,
-                                             int j, __nv_bfloat16* sK,
-                                             __nv_bfloat16* sV) {
-  constexpr int kStride = D + 8;
-  constexpr int kVecPerRow = D / 8;
-  const bool draft = j == n_ctx;
-  const int key0 = draft ? q0 : (t_lo + j) * kBlockN;
-  const int limit = draft ? p.Q : p.S;
-  const __nv_bfloat16* kb =
-      draft ? p.kd + b * p.kd_sb + kvh * p.kd_sh : p.kc + b * p.kc_sb + kvh * p.kc_sh;
-  const __nv_bfloat16* vb =
-      draft ? p.vd + b * p.vd_sb + kvh * p.vd_sh : p.vc + b * p.vc_sb + kvh * p.vc_sh;
-  const long long kss = draft ? p.kd_ss : p.kc_ss;
-  const long long vss = draft ? p.vd_ss : p.vc_ss;
-  for (int i = threadIdx.x; i < kBlockN * kVecPerRow; i += kThreads) {
-    const int r = i / kVecPerRow;
-    const int c = (i % kVecPerRow) * 8;
-    const int key = key0 + r;
-    const long long src = key < limit ? key : 0;
-    cp_async16(sK + r * kStride + c, kb + src * kss + c, key < limit);
-    cp_async16(sV + r * kStride + c, vb + src * vss + c, key < limit);
-  }
-  cp_async_commit();
-}
-
 // --------------------------------------------------------------------------
-// forward
+// forward and backward kernel A: a q tile against its context tiles and
+// its own draft keys
 // --------------------------------------------------------------------------
 
-// Fragment layout of mma.m16n8k16 (g = lane / 4, t = lane % 4):
-//   A regs 0..3: (row g, cols 2t..2t+1), (row g+8, 2t..), (row g, 2t+8..),
-//                (row g+8, 2t+8..)
-//   B regs 0..1: (k rows 2t..2t+1, col g), (k rows 2t+8..2t+9, col g)
-//   C regs 0..3: (row g, cols 2t, 2t+1), (row g+8, cols 2t, 2t+1)
-template <int D>
-__global__ void __launch_bounds__(kThreads) dflash_fwd_kernel(const Params p) {
-  constexpr int kStride = D + 8;  // padded row: conflict-free ldmatrix
-  constexpr int kSteps = D / 16;
-  constexpr int kDTiles = D / 8;
-  constexpr int kNTiles = kBlockN / 8;
-  constexpr int kTile = kBlockN * kStride;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sKs = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sVs = sKs + 2 * kTile;
-  __shared__ int4 sSpan[kBlockM];
-  __shared__ int sBounds[2];
-
-  const int n_qtiles = (p.Q + kBlockM - 1) / kBlockM;
-  const int qtile = n_qtiles - 1 - blockIdx.x;  // later anchors (more keys) first
-  const int b = blockIdx.y / p.H;
-  const int h = blockIdx.y % p.H;
-  const int kvh = h / (p.H / p.KVH);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int q0 = qtile * kBlockM;
-  const int row0 = q0 + warp * 16 + g;
-  const int row1 = row0 + 8;
-  const bool in0 = row0 < p.Q;
-  const bool in1 = row1 < p.Q;
-
-  tile_spans(p, b, q0, sSpan, sBounds);
-  const int4 sp0 = sSpan[warp * 16 + g];
-  const int4 sp1 = sSpan[warp * 16 + g + 8];
-  const bool any_ctx = sBounds[1] > sBounds[0];
-  const int t_lo = any_ctx ? sBounds[0] / kBlockN : 0;
-  const int n_ctx = any_ctx ? (sBounds[1] + kBlockN - 1) / kBlockN - t_lo : 0;
-  int wlo, whi;
-  warp_draft_range(warp, p.bs, wlo, whi);
-
-  uint32_t qf[kSteps][4];
-  load_a_frags<kSteps>(qf, p.q + b * p.q_sb + h * p.q_sh, p.q_ss, row0, in0,
-                       in1, t);
-
-  float o[kDTiles][4];
-#pragma unroll
-  for (int dt = 0; dt < kDTiles; ++dt) {
-    o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
-  }
-  float m0 = kNegInf, m1 = kNegInf;
-  float l0 = 0.f, l1 = 0.f;  // per-thread partial sums until the quad reduce
-
-  const int n_tiles = n_ctx + 1;
-  load_kv_tile<D>(p, b, kvh, q0, t_lo, n_ctx, 0, sKs, sVs);
-  for (int j = 0; j < n_tiles; ++j) {
-    const bool draft = j == n_ctx;
-    const int key0 = draft ? q0 : (t_lo + j) * kBlockN;
-    const int lo0 = draft ? sp0.z : sp0.x, hi0 = draft ? sp0.w : sp0.y;
-    const int lo1 = draft ? sp1.z : sp1.x, hi1 = draft ? sp1.w : sp1.y;
-    const int buf = j & 1;
-    if (j + 1 < n_tiles) {
-      load_kv_tile<D>(p, b, kvh, q0, t_lo, n_ctx, j + 1,
-                      sKs + (buf ^ 1) * kTile, sVs + (buf ^ 1) * kTile);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const __nv_bfloat16* sK = sKs + buf * kTile;
-    const __nv_bfloat16* sV = sVs + buf * kTile;
-
-    float s[kNTiles][4];
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-      // draft keys outside this warp's blocks are masked: skip their product
-      if (draft && (nt * 8 >= whi || nt * 8 + 8 <= wlo)) continue;
-      const __nv_bfloat16* kp = sK + (nt * 8 + (lane & 7)) * kStride +
-                                (lane >> 3) * 8;
-#pragma unroll
-      for (int ks = 0; ks < kSteps; ks += 2) {
-        uint32_t kf[4];
-        ldmatrix_x4(kf, kp + ks * 16);
-        mma_bf16(s[nt], qf[ks], kf[0], kf[1]);
-        mma_bf16(s[nt], qf[ks + 1], kf[2], kf[3]);
-      }
-    }
-
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = key0 + nt * 8 + 2 * t + e;
-        s[nt][e] = (col >= lo0 && col < hi0) ? s[nt][e] * p.scale : kNegInf;
-        s[nt][2 + e] =
-            (col >= lo1 && col < hi1) ? s[nt][2 + e] * p.scale : kNegInf;
-        mx0 = fmaxf(mx0, s[nt][e]);
-        mx1 = fmaxf(mx1, s[nt][2 + e]);
-      }
-    }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    const float c0 = __expf(m0 - mx0);
-    const float c1 = __expf(m1 - mx1);
-    m0 = mx0;
-    m1 = mx1;
-    l0 *= c0;
-    l1 *= c1;
-#pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt) {
-      o[dt][0] *= c0;
-      o[dt][1] *= c0;
-      o[dt][2] *= c1;
-      o[dt][3] *= c1;
-    }
-#pragma unroll
-    for (int nt = 0; nt < kNTiles; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float p0 = s[nt][e] == kNegInf ? 0.f : __expf(s[nt][e] - m0);
-        const float p1 =
-            s[nt][2 + e] == kNegInf ? 0.f : __expf(s[nt][2 + e] - m1);
-        s[nt][e] = p0;
-        s[nt][2 + e] = p1;
-        l0 += p0;
-        l1 += p1;
-      }
-    }
-
-    // O += P V: P from the score registers (C layout -> A layout), V from
-    // shared memory as B through a transposing ldmatrix
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      if (draft && (kk * 16 >= whi || kk * 16 + 16 <= wlo)) continue;
-      uint32_t a[4];
-      a[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      a[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      a[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      a[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* vp =
-          sV + (kk * 16 + (lane & 8) + (lane & 7)) * kStride + (lane >> 4) * 8;
-#pragma unroll
-      for (int dt = 0; dt < kDTiles; dt += 2) {
-        uint32_t vf[4];
-        ldmatrix_x4_trans(vf, vp + dt * 8);
-        mma_bf16(o[dt], a, vf[0], vf[1]);
-        mma_bf16(o[dt + 1], a, vf[2], vf[3]);
-      }
-    }
-    __syncthreads();  // every warp is done with `buf` before it is refilled
-  }
-
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-  const long long HD = (long long)p.H * D;
-  const float inv0 = 1.f / fmaxf(l0, 1e-30f);
-  const float inv1 = 1.f / fmaxf(l1, 1e-30f);
-  if (in0) {
-    __nv_bfloat16* op = p.out + ((long long)b * p.Q + row0) * HD + h * D;
-#pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt) {
-      *reinterpret_cast<uint32_t*>(op + dt * 8 + 2 * t) =
-          pack_bf16(o[dt][0] * inv0, o[dt][1] * inv0);
-    }
-  }
-  if (in1) {
-    __nv_bfloat16* op = p.out + ((long long)b * p.Q + row1) * HD + h * D;
-#pragma unroll
-    for (int dt = 0; dt < kDTiles; ++dt) {
-      *reinterpret_cast<uint32_t*>(op + dt * 8 + 2 * t) =
-          pack_bf16(o[dt][2] * inv1, o[dt][3] * inv1);
-    }
-  }
-  if (t == 0) {
-    const long long base = ((long long)b * p.H + h) * p.Q;
-    if (in0) {
-      p.m[base + row0] = m0;
-      p.l[base + row0] = l0;
-    }
-    if (in1) {
-      p.m[base + row1] = m1;
-      p.l[base + row1] = l1;
-    }
-  }
-}
-
-// --------------------------------------------------------------------------
-// backward, kernel A: dq, and the draft keys' dk/dv summed over the group
-// --------------------------------------------------------------------------
+struct DFlashFwdParams {
+  FwdStream s;          // rows = Q, keys = S (the context); out [B, Q, H*D]
+  CUtensorMap tm_kd;    // the draft keys [B, KVH, Q, D] view: the second
+  CUtensorMap tm_vd;    // key source, and the draft values
+  const int* anchors;   // [B, N]
+  const int* keep;      // [B, N], 0 = block not kept
+  int S, Q, N, bs, window;
+  int n_chunks;         // blocks of a (q tile, kv head): ceil(group / 4)
+};
 
 struct DFlashDqParams {
   DqStream s;           // rows = Q; tm_k[0], tm_v[0]: the context (S keys),
@@ -470,29 +152,32 @@ struct DFlashDqParams {
   int band_off;         // byte offset of the draft staging in shared memory
 };
 
-// The DFlash policy of the dq stream. A block lists the context tiles that
-// its kept rows reach, then its own 64 draft keys (the second key source,
-// the block's last tile). Each row's spans (lo, hi, dlo, dhi) are the rows'
-// mask data; a context tile needs no mask when every kept row reaches all
-// of its keys (rows not kept have no allowed key, so their p is 0
-// unmasked), its list bit. The draft tile is always masked
-// (block-diagonal, and by offset under a window); each head's p and ds
-// there live only on its bs x bs diagonal blocks, which a band of width W =
-// max(bs, 16) along the diagonal holds: they are staged in bf16, [64
-// rows][W] per head, and after the chunk's last tile warpgroup 0 sums dk_d
-// = scale * sum_h ds_h^T Q_h and warpgroup 1 dv_d = sum_h p_h^T dO_h over
-// the chunk's heads in head order on mma.sync (under 5% of the block's
-// products), in fp32, through the workspace past one chunk, and writes
-// them once as [B, KVH, Q, D].
-template <int D>
-struct DFlashDq {
+// The DFlash policy of the forward and dq streams (P: their parameters). A
+// block lists the context tiles that its kept rows reach, then its own 64
+// draft keys (the second key source, the block's last tile). Each row's
+// spans (lo, hi, dlo, dhi) are the rows' mask data; a context tile needs no
+// mask when every kept row reaches all of its keys (and, in the forward,
+// every row is kept: dflash_block_tiles), its list bit. The draft tile is
+// always masked (block-diagonal, and by offset under a window). The
+// forward stream reaches the draft keys' maps through the policy
+// (`second_keys`, `second_values`); the dq stream holds its own.
+template <class P>
+struct DFlashMask {
   static constexpr bool kSecondSource = true;  // the draft keys, last
   static constexpr bool kRowSlots = false;      // the slots are heads
   static constexpr bool kLogSumExp = false;     // m and l
-  const DFlashDqParams& p;
+  const P& p;
 
   __device__ __forceinline__ void stage_key(unsigned char*, const DqBlock&,
                                             int, int, int) const {}
+
+  __device__ __forceinline__ const CUtensorMap* second_keys() const {
+    return &p.tm_kd;
+  }
+
+  __device__ __forceinline__ const CUtensorMap* second_values() const {
+    return &p.tm_vd;
+  }
 
   // key key0 + 8 jj + 2 t + (e & 1) against row r0 (e < 2) or r0 + 8
   __device__ __forceinline__ uint32_t tile_bits(const unsigned char* rows,
@@ -514,7 +199,18 @@ struct DFlashDq {
     }
     return bits;
   }
+};
 
+// Kernel A's policy: the DFlash mask, and the draft keys' dk/dv. Each
+// head's p and ds on the draft tile live only on its bs x bs diagonal
+// blocks, which a band of width W = max(bs, 16) along the diagonal holds:
+// they are staged in bf16, [64 rows][W] per head, and after the chunk's
+// last tile warpgroup 0 sums dk_d = scale * sum_h ds_h^T Q_h and
+// warpgroup 1 dv_d = sum_h p_h^T dO_h over the chunk's heads in head order
+// on mma.sync (under 5% of the block's products), in fp32, through the
+// workspace past one chunk, and writes them once as [B, KVH, Q, D].
+template <int D>
+struct DFlashDq : DFlashMask<DFlashDqParams> {
   // the draft tile's p and ds of head lh, this thread's band entries
   __device__ __forceinline__ void tile_done(unsigned char* smem, int lh,
                                             const float (&pr)[32],
@@ -624,25 +320,21 @@ struct DFlashDq {
   }
 };
 
-// One block owns one q tile (64 rows) of one (batch, kv head) and the
-// group's query heads (dq_stream.cuh); the q tile is the grid's slow index,
-// later tiles (later anchors, more context keys) first. The block writes
-// its rows' spans, reduces them over its kept rows and lists its tiles.
-template <int D>
-__global__ void __launch_bounds__(kDqThreads, 1)
-    dflash_bwd_dq_kernel(const __grid_constant__ DFlashDqParams p) {
-  using L = DqStreamSmem<D>;
-  extern __shared__ unsigned char dq_smem[];
-  unsigned char* smem = align1024(dq_smem);
-  DqBlock* info = dq_block_info<D>(smem);
-  int* setup = dq_setup<D>(smem);
-  int* list = reinterpret_cast<int*>(smem + L::kExtra);
-  const int BK = p.s.B * p.s.KVH;
-  const int n_qtiles = (p.s.rows + kTileRows - 1) / kTileRows;
-  const int q0 = (n_qtiles - 1 - blockIdx.x / BK) * kTileRows;
-  const int b = blockIdx.x % BK / p.s.KVH;
-  dq_init_block<D>(smem, b, blockIdx.x % p.s.KVH, q0);
-  int4* spans = reinterpret_cast<int4*>(smem + L::kRowData);
+// The rows' spans and the tile list of the block of q tile q0 of batch b
+// (P: the forward's or the dq stream's parameters): each row's spans into
+// `spans`; over the kept rows (a draft span) the first context tile and
+// the mask-free range into `setup` (three ints of scratch); the context
+// tiles they reach, each with its "needs no mask" bit, then the draft tile
+// (the q tile's own rows of the second source) into `list`, with their
+// number in *n_tiles. kForward: a row inside Q that is not kept also makes
+// every tile masked (the forward's p on an unmasked tile is not 0 for it,
+// the dq stream's is), and a q tile with no kept row lists nothing. Every
+// thread calls it.
+template <bool kForward, class P>
+__device__ __forceinline__ void dflash_block_tiles(const P& p, int4* spans,
+                                                   int* setup, int* list,
+                                                   int* n_tiles, int b,
+                                                   int q0) {
   if (threadIdx.x < kTileRows) {
     spans[threadIdx.x] = row_span(p, b, q0 + threadIdx.x);
   }
@@ -651,6 +343,7 @@ __global__ void __launch_bounds__(kDqThreads, 1)
     // over the kept rows (a draft span): the context keys any of them
     // attends, [lo, hi), and the largest lo and smallest hi
     int lo = INT_MAX, hi = 0, max_lo = 0, min_hi = INT_MAX;
+    [[maybe_unused]] bool kept = false, dead = false;  // the forward's
     for (int i = threadIdx.x; i < kTileRows; i += 32) {
       const int4 s = spans[i];
       if (s.w > s.z) {
@@ -661,34 +354,92 @@ __global__ void __launch_bounds__(kDqThreads, 1)
           hi = max(hi, s.y);
         }
       }
+      if constexpr (kForward) {
+        kept |= s.w > s.z;
+        dead |= s.w <= s.z && q0 + i < p.Q;
+      }
     }
     lo = __reduce_min_sync(0xffffffffu, lo);
     hi = __reduce_max_sync(0xffffffffu, hi);
     max_lo = __reduce_max_sync(0xffffffffu, max_lo);
     min_hi = __reduce_min_sync(0xffffffffu, min_hi);
+    if constexpr (kForward) {
+      if (__any_sync(0xffffffffu, dead)) min_hi = 0;  // no tile mask-free
+      kept = __any_sync(0xffffffffu, kept);
+    }
     if (threadIdx.x == 0) {
       const bool any = hi > lo;
       setup[0] = any ? lo / kTileRows : 0;  // the first context tile
       setup[1] = max_lo;
       setup[2] = min_hi;
-      info->n_tiles = any ? (hi + kTileRows - 1) / kTileRows - setup[0] + 1
-                          : 1;  // and the draft tile
+      *n_tiles = any ? (hi + kTileRows - 1) / kTileRows - setup[0] + 1
+                     : 1;  // and the draft tile
+      if constexpr (kForward) {
+        if (!kept) *n_tiles = 0;
+      }
     }
   }
   __syncthreads();
   // the context tiles, each with its "needs no mask" bit, then the draft
   // keys (the q tile's own rows of the second source)
-  const int n_tiles = info->n_tiles;
-  for (int j = threadIdx.x; j < n_tiles; j += blockDim.x) {
+  const int n = *n_tiles;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
     const int tile = setup[0] + j;
     const int key0 = tile * kTileRows;
-    list[j] = j + 1 == n_tiles
-                  ? 2 * (q0 / kTileRows)
-                  : 2 * tile + (setup[1] <= key0 &&
-                                key0 + kTileRows <= setup[2]);
+    list[j] = j + 1 == n ? 2 * (q0 / kTileRows)
+                         : 2 * tile + (setup[1] <= key0 &&
+                                       key0 + kTileRows <= setup[2]);
   }
   __syncthreads();
-  dq_stream_block<D>(p.s, DFlashDq<D>{p}, smem);
+}
+
+// One forward block owns one q tile of one (batch, kv head) and a chunk of
+// up to four query heads of its group (fwd_stream.cuh): the q tile is the
+// grid's slow index, later tiles (later anchors, more context keys) first,
+// then the batch, the kv head and the chunk. The DFlash policy never
+// writes key data, so the block setup's scratch lies there.
+template <int D>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    dflash_fwd_kernel(const __grid_constant__ DFlashFwdParams p) {
+  using L = FwdStreamSmem<D>;
+  extern __shared__ unsigned char fwd_smem[];
+  unsigned char* smem = align1024(fwd_smem);
+  const int per_tile = p.s.B * p.s.KVH * p.n_chunks;
+  const int n_qtiles = (p.Q + kTileRows - 1) / kTileRows;
+  const int q0 = (n_qtiles - 1 - blockIdx.x / per_tile) * kTileRows;
+  const int i = blockIdx.x % per_tile;
+  const int b = i / (p.s.KVH * p.n_chunks);
+  const int kvh = i / p.n_chunks % p.s.KVH;
+  // the chunk's first head, counted in the group
+  const int c0 = i % p.n_chunks * kFwdHeads;
+  const int G = p.s.group;
+  fwd_init_block<D>(smem, b, kvh, q0, kvh * G + c0, min(kFwdHeads, G - c0));
+  dflash_block_tiles<true>(p, reinterpret_cast<int4*>(smem + L::kRowData),
+                           reinterpret_cast<int*>(smem + L::kKeyData),
+                           reinterpret_cast<int*>(smem + L::kExtra),
+                           &fwd_block_info<D>(smem)->n_tiles, b, q0);
+  fwd_stream_block<D>(p.s, DFlashMask<DFlashFwdParams>{p}, smem);
+}
+
+// One dq block owns one q tile (64 rows) of one (batch, kv head) and the
+// group's query heads (dq_stream.cuh); the q tile is the grid's slow index,
+// later tiles first, as the forward's.
+template <int D>
+__global__ void __launch_bounds__(kDqThreads, 1)
+    dflash_bwd_dq_kernel(const __grid_constant__ DFlashDqParams p) {
+  using L = DqStreamSmem<D>;
+  extern __shared__ unsigned char dq_smem[];
+  unsigned char* smem = align1024(dq_smem);
+  const int BK = p.s.B * p.s.KVH;
+  const int n_qtiles = (p.s.rows + kTileRows - 1) / kTileRows;
+  const int q0 = (n_qtiles - 1 - blockIdx.x / BK) * kTileRows;
+  const int b = blockIdx.x % BK / p.s.KVH;
+  dq_init_block<D>(smem, b, blockIdx.x % p.s.KVH, q0);
+  dflash_block_tiles<false>(p, reinterpret_cast<int4*>(smem + L::kRowData),
+                            dq_setup<D>(smem),
+                            reinterpret_cast<int*>(smem + L::kExtra),
+                            &dq_block_info<D>(smem)->n_tiles, b, q0);
+  dq_stream_block<D>(p.s, DFlashDq<D>{{p}}, smem);
 }
 
 // --------------------------------------------------------------------------
@@ -773,8 +524,8 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
   const int key0 = blockIdx.x / BK * kTileRows;
   dkv_init_block<D>(smem, b, blockIdx.x % p.s.KVH, key0);
 
-  const int n_qtiles = (p.s.rows + kBlockM - 1) / kBlockM;
-  const int blocks_per_tile = kBlockM >> p.bs_shift;
+  const int n_qtiles = (p.s.rows + kTileRows - 1) / kTileRows;
+  const int blocks_per_tile = kTileRows >> p.bs_shift;
   for (int i = threadIdx.x; i < n_qtiles; i += blockDim.x) {
     int lo = INT_MAX, hi = 0;
     const int n_end = min((i + 1) * blocks_per_tile, p.N);
@@ -799,76 +550,62 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
 // launches
 // --------------------------------------------------------------------------
 
-template <typename Kernel>
-int launch_kernel(Kernel kernel, dim3 grid, int smem, const Params& p,
-                  cudaStream_t st) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, kThreads, smem, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-int smem_fwd(int D) { return 4 * kBlockN * (D + 8) * 2; }
-
-// tensors: q, k_ctx, v_ctx, k_drf, v_drf; strides: their element strides
-// over (b, head, row), 15 values in that order; the head dim is contiguous
-int fill_params(Params& p, const void* const* tensors,
-                const long long* strides, const int* anchors, const int* keep,
-                int B, int H, int KVH, int S, int N, int bs, int window,
+// The query rows Q = N * bs of a shape the kernels take, or 0
+int dflash_rows(int B, int H, int KVH, int S, int N, int bs, int window,
                 int D) {
-  if (B < 1 || KVH < 1 || H % KVH != 0 || (long long)B * H > 65535 ||
-      S < 1 || N < 1 || bs < 1 || kBlockM % bs != 0 || window < 0 ||
-      (D != 64 && D != 128) || (long long)N * bs > INT_MAX / 2) {
-    return cudaErrorInvalidValue;
+  if (B < 1 || KVH < 1 || H % KVH != 0 || S < 1 || N < 1 || bs < 1 ||
+      kTileRows % bs != 0 || window < 0 || (D != 64 && D != 128) ||
+      (long long)N * bs > INT_MAX / 2) {
+    return 0;
   }
-  p.q = static_cast<const __nv_bfloat16*>(tensors[0]);
-  p.kc = static_cast<const __nv_bfloat16*>(tensors[1]);
-  p.vc = static_cast<const __nv_bfloat16*>(tensors[2]);
-  p.kd = static_cast<const __nv_bfloat16*>(tensors[3]);
-  p.vd = static_cast<const __nv_bfloat16*>(tensors[4]);
-  p.anchors = anchors;
-  p.keep = keep;
-  p.out = nullptr;
-  p.m = p.l = nullptr;
-  long long* dst[15] = {&p.q_sb,  &p.q_sh,  &p.q_ss,  &p.kc_sb, &p.kc_sh,
-                        &p.kc_ss, &p.vc_sb, &p.vc_sh, &p.vc_ss, &p.kd_sb,
-                        &p.kd_sh, &p.kd_ss, &p.vd_sb, &p.vd_sh, &p.vd_ss};
-  for (int i = 0; i < 15; ++i) *dst[i] = strides[i];
-  p.B = B;
-  p.H = H;
-  p.KVH = KVH;
-  p.S = S;
-  p.N = N;
-  p.bs = bs;
-  p.Q = N * bs;
-  p.window = window;
-  p.scale = 1.0f / sqrtf(static_cast<float>(D));
-  return cudaSuccess;
+  return N * bs;
 }
 
 }  // namespace
 
 // Forward: out [B, Q, H*D] bf16, m and l [B, H, Q] fp32 (all contiguous).
-// anchors, keep: [B, N] int32 contiguous; window 0 = no sliding window.
-// Launches on `stream` and returns cudaGetLastError().
+// tensors: q [B, H, Q, D], k_ctx and v_ctx [B, KVH, S, D], k_drf and v_drf
+// [B, KVH, Q, D]; strides: their element strides over (b, head, row), 15
+// values in that order, multiples of 8 with 16-byte aligned bases and the
+// head dim contiguous (the tensor maps'). anchors, keep: [B, N] int32
+// contiguous; window 0 = no sliding window. Launches on `stream` and
+// returns cudaGetLastError().
 extern "C" int dflash_attention_fwd(const void* const* tensors,
                                     const long long* strides,
                                     const int* anchors, const int* keep,
                                     void* out, float* m, float* l, int B,
                                     int H, int KVH, int S, int N, int bs,
                                     int window, int D, void* stream) {
-  Params p;
-  const int e = fill_params(p, tensors, strides, anchors, keep, B, H, KVH, S,
-                            N, bs, window, D);
-  if (e != cudaSuccess) return e;
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.m = m;
-  p.l = l;
-  const dim3 grid((p.Q + kBlockM - 1) / kBlockM, B * H);
+  const int Q = dflash_rows(B, H, KVH, S, N, bs, window, D);
+  if (Q == 0) return cudaErrorInvalidValue;
+  const long long out_strides[3] = {(long long)Q * H * D, D,
+                                    (long long)H * D};
+  DFlashFwdParams d;
+  if (!fill_fwd_stream(d.s, tensors[0], strides, tensors[1], strides + 3,
+                       tensors[2], strides + 6, S, out, out_strides, m, l, B,
+                       H, KVH, Q, D, true) ||
+      !encode_bhsd(&d.tm_kd, tensors[3], B, KVH, Q, D, strides[9],
+                   strides[10], strides[11]) ||
+      !encode_bhsd(&d.tm_vd, tensors[4], B, KVH, Q, D, strides[12],
+                   strides[13], strides[14])) {
+    return cudaErrorInvalidValue;
+  }
+  d.anchors = anchors;
+  d.keep = keep;
+  d.S = S;
+  d.Q = Q;
+  d.N = N;
+  d.bs = bs;
+  d.window = window;
+  d.n_chunks = (H / KVH + kFwdHeads - 1) / kFwdHeads;
+  const long long blocks =
+      (long long)((Q + kTileRows - 1) / kTileRows) * B * KVH * d.n_chunks;
+  // the tile list: every context tile, then the draft tile
+  const int smem =
+      fwd_smem_bytes(D, ((S + kTileRows - 1) / kTileRows + 1) * 4);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 128 ? launch_kernel(dflash_fwd_kernel<128>, grid, smem_fwd(128), p, st)
-                  : launch_kernel(dflash_fwd_kernel<64>, grid, smem_fwd(64), p, st);
+  return D == 128 ? launch_hopper(dflash_fwd_kernel<128>, smem, d, blocks, st)
+                  : launch_hopper(dflash_fwd_kernel<64>, smem, d, blocks, st);
 }
 
 // Backward kernel A: dq [B, H, Q, D] and the draft keys' dk, dv summed
@@ -886,15 +623,13 @@ extern "C" int dflash_attention_bwd_dq(
     const float* delta, void* dq, void* dkd, void* dvd, float* ws, int heads,
     int B, int H, int KVH, int S, int N, int bs, int window, int D,
     void* stream) {
-  Params p;
-  const int e = fill_params(p, tensors, strides, anchors, keep, B, H, KVH, S,
-                            N, bs, window, D);
-  if (e != cudaSuccess) return e;
+  const int Q = dflash_rows(B, H, KVH, S, N, bs, window, D);
+  if (Q == 0) return cudaErrorInvalidValue;
   DFlashDqParams d;
   if (!fill_dq_stream(d.s, tensors[0], strides, tensors[1], strides + 3,
                       tensors[2], strides + 6, S, tensors[3], strides + 9,
-                      tensors[4], strides + 12, p.Q, dout, m, l, delta, dq,
-                      B, H, KVH, p.Q, D, heads) ||
+                      tensors[4], strides + 12, Q, dout, m, l, delta, dq,
+                      B, H, KVH, Q, D, heads) ||
       (H / KVH > heads && ws == nullptr)) {
     return cudaErrorInvalidValue;
   }
@@ -904,7 +639,7 @@ extern "C" int dflash_attention_bwd_dq(
   d.dvd = static_cast<__nv_bfloat16*>(dvd);
   d.ws = ws;
   d.S = S;
-  d.Q = p.Q;
+  d.Q = Q;
   d.N = N;
   d.bs = bs;
   d.window = window;
@@ -921,7 +656,7 @@ extern "C" int dflash_attention_bwd_dq(
                                        : DqStreamSmem<64>::kExtra);
   const int smem = dq_smem_bytes(D, list + (in_q ? 0 : band));
   const long long blocks =
-      (long long)((p.Q + kTileRows - 1) / kTileRows) * B * KVH;
+      (long long)((Q + kTileRows - 1) / kTileRows) * B * KVH;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return D == 128
              ? launch_hopper(dflash_bwd_dq_kernel<128>, smem, d, blocks, st)
@@ -937,14 +672,12 @@ extern "C" int dflash_attention_bwd_dkv(
     const int* keep, const void* dout, const float* m, const float* l,
     const float* delta, void* dkc, void* dvc, int B, int H, int KVH, int S,
     int N, int bs, int window, int D, void* stream) {
-  Params p;
-  const int e = fill_params(p, tensors, strides, anchors, keep, B, H, KVH, S,
-                            N, bs, window, D);
-  if (e != cudaSuccess) return e;
+  const int Q = dflash_rows(B, H, KVH, S, N, bs, window, D);
+  if (Q == 0) return cudaErrorInvalidValue;
   DkvParams d;
   if (!fill_stream(d.s, tensors[0], strides, tensors[1], strides + 3,
                    tensors[2], strides + 6, dout, m, l, delta, dkc, dvc, B,
-                   H, KVH, p.Q, S, D)) {
+                   H, KVH, Q, S, D)) {
     return cudaErrorInvalidValue;
   }
   d.anchors = anchors;
@@ -953,8 +686,9 @@ extern "C" int dflash_attention_bwd_dkv(
   d.bs_shift = 0;
   while ((1 << d.bs_shift) < bs) ++d.bs_shift;
   d.window = window;
-  const long long blocks = (long long)((S + kBlockN - 1) / kBlockN) * B * KVH;
-  const int smem = dkv_smem_bytes(D, (p.Q + kBlockM - 1) / kBlockM);
+  const long long blocks =
+      (long long)((S + kTileRows - 1) / kTileRows) * B * KVH;
+  const int smem = dkv_smem_bytes(D, (Q + kTileRows - 1) / kTileRows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return D == 128 ? launch_hopper(dflash_bwd_dkv_kernel<128>, smem, d,
                                   blocks, st)

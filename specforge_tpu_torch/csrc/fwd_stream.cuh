@@ -1,9 +1,11 @@
-// The forward stream shared by the LSE ring-hop forward (lse_attention.cu)
-// and the COD attention forward (peagle_attention.cu).
+// The forward stream shared by the LSE ring-hop forward (lse_attention.cu),
+// the COD attention forward (peagle_attention.cu) and the DFlash block
+// attention forward (dflash_attention.cu).
 //
 // Replaces, with the mask policy of each source, the Pallas kernels
 // `_lse_fwd_kernel` of specforge_tpu/ops/attention_pallas.py and
-// `_fwd_kernel` of specforge_tpu/ops/peagle_pallas.py: per row, the
+// `_fwd_kernel` of specforge_tpu/ops/peagle_pallas.py and of
+// specforge_tpu/ops/dflash_pallas.py: per row, the
 // online-softmax forward over the key tiles the policy allows, s = scale *
 // q.k, with (m, l, O) carried in fp32 (m in log2 units) and O / l written
 // in bf16 beside the row statistics.
@@ -50,8 +52,11 @@
 // rows reach (`slot_tiles`) with its own mask-free decision and mask bits
 // (`slot_free`, `slot_bits`), and passes the rest on. The policies are the
 // dq stream's, so each family's mask is written once for its forward and
-// its dq kernel. A second key source (Policy::kSecondSource, the dq
-// stream's last listed tile from other keys) is not taken here yet.
+// its dq kernel. A policy with a second key source (Policy::kSecondSource:
+// DFlash's draft keys) has the list's last tile read from the policy's own
+// tensor maps (`second_keys`, `second_values`; FwdStream holds one source,
+// so the other clients' parameters stay as they were) and masked by the
+// policy's second spans (`tile_bits(..., true, ...)`), as in the dq stream.
 #pragma once
 
 #include <string.h>
@@ -256,12 +261,21 @@ __device__ __forceinline__ void fwd_produce(const FwdStream& p,
     const int key0 = (entry >> 1) * kTileRows;
     if (r == 0) {
       unsigned char* dst = smem + L::kRing + st * L::kStage;
+      const CUtensorMap* km = &p.tm_k;
+      const CUtensorMap* vm = &p.tm_v;
+      if constexpr (Policy::kSecondSource) {
+        // the list's last tile is the second key source's
+        if (j + 1 == blk.n_tiles) {
+          km = pol.second_keys();
+          vm = pol.second_values();
+        }
+      }
       mbar_expect_tx(&full[st], 2 * L::kTile);
       for (int pn = 0; pn < kPanels; ++pn) {
-        tma_load(dst + pn * kPanelBytes, &p.tm_k, &full[st], pn * 64, key0,
+        tma_load(dst + pn * kPanelBytes, km, &full[st], pn * 64, key0,
                  blk.kvh, blk.b);
-        tma_load(dst + L::kTile + pn * kPanelBytes, &p.tm_v, &full[st],
-                 pn * 64, key0, blk.kvh, blk.b);
+        tma_load(dst + L::kTile + pn * kPanelBytes, vm, &full[st], pn * 64,
+                 key0, blk.kvh, blk.b);
       }
     }
     pol.stage_key(smem + L::kKeyData + st * kTileRows * 16, blk, entry,
@@ -331,8 +345,11 @@ __device__ __forceinline__ void fwd_consume(const FwdStream& p,
     } else {
       free = (entry & 1) != 0;
       if (!free) {
+        // the second key source's tile (the list's last) has its own spans
+        bool second = false;
+        if constexpr (Policy::kSecondSource) second = j + 1 == blk.n_tiles;
         *bits = pol.tile_bits(smem + L::kRowData, keys,
-                              (entry >> 1) * kTileRows, false, r0, t);
+                              (entry >> 1) * kTileRows, second, r0, t);
       }
     }
     float sa[32], sb[32];
@@ -443,8 +460,6 @@ template <int D, class Policy>
 __device__ __forceinline__ void fwd_stream_block(const FwdStream& p,
                                                  const Policy& pol,
                                                  unsigned char* smem) {
-  static_assert(!Policy::kSecondSource,
-                "the forward stream reads one key source");
   using L = FwdStreamSmem<D>;
   if (threadIdx.x >= 256) {
     reg_dealloc<kProducerRegs>();

@@ -192,8 +192,8 @@ def _check_inputs(q, k_ctx, v_ctx, k_drf, v_drf, anchors, keep, block_size,
     if k_ctx.dim() != 4:
         raise ValueError(f"k_ctx must be [B, KVH, S, D], got {tuple(k_ctx.shape)}")
     kvh, s = k_ctx.shape[1], k_ctx.shape[2]
-    if s < 1 or h % kvh or b * h > 65535:
-        raise ValueError(f"bad shapes: H={h}, KVH={kvh}, B={b}, S={s}")
+    if s < 1 or h % kvh:
+        raise ValueError(f"bad shapes: H={h}, KVH={kvh}, S={s}")
     if sliding_window is not None and sliding_window < 1:
         raise ValueError(f"sliding_window must be positive, got {sliding_window}")
     for name, x, rows in (("q", q, None), ("k_ctx", k_ctx, s),

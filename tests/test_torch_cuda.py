@@ -691,6 +691,119 @@ def test_dflash_dq_refuses_layouts_a_tensor_map_cannot_read(gen):
                                                 delta)
 
 
+def dflash_forward(inputs, window, bs=16):
+    """One launch of the DFlash forward → (out, m, l), held against the
+    plain forward: out within 2e-2 of the largest reference value (bf16
+    products of bf16-rounded p, sums in another order), m and l within 1e-3
+    on rows of kept blocks, and rows of blocks not kept exactly out 0, m
+    -1e30, l 0."""
+    q = inputs[0]
+    before = dflash_cuda.dflash_flash_attention_fwd.launches
+    out, m, l = dflash_cuda.dflash_flash_attention_fwd(*inputs, bs, window)
+    torch.cuda.synchronize()
+    assert dflash_cuda.dflash_flash_attention_fwd.launches == before + 1
+    ref, ref_m, ref_l = dflash_cuda.dflash_flash_attention_plain(
+        *inputs, bs, window)
+    b, h, q_len, d = q.shape
+    assert out.shape == (b, q_len, h * d) and out.dtype == torch.bfloat16
+    assert m.shape == l.shape == (b, h, q_len)
+    assert rel_err(out, ref) <= 2e-2
+    kept = inputs[6].repeat_interleave(bs, dim=1).bool()
+    rows = kept[:, None].expand_as(m)
+    torch.testing.assert_close(m[rows], ref_m[rows], rtol=1e-3, atol=1e-3)
+    torch.testing.assert_close(l[rows], ref_l[rows], rtol=1e-3, atol=1e-3)
+    assert not out[~kept].any()
+    assert bool((m[~rows] == dflash_cuda.NEG_INF).all())
+    assert not l[~rows].any()
+    return out, m, l
+
+
+def test_dflash_forward_is_bit_exact_at_the_domino_slice(gen):
+    """Two launches at the Domino slice's shapes give the same bits, and
+    both match the plain forward."""
+    inputs = dflash_inputs(gen, 2, 32, 8, 768, 256, 128)
+    out, m, l = dflash_forward(inputs, None)
+    again = dflash_cuda.dflash_flash_attention_fwd(*inputs, 16)
+    for got, rep in zip((out, m, l), again):
+        assert torch.equal(got, rep)
+
+
+# groups of 1, 4, 7 (two blocks: four heads and three) and 8 query heads;
+# D = 64 and 128; anchor blocks of 4, 8, 16, 32 and 64 rows; contexts that
+# are no multiple of the 64-key tile and q lengths that are no multiple of
+# the 64-row tile; sliding windows that bite (anchors past 2w)
+@pytest.mark.parametrize("b,h,kvh,s,n,d,window,bs", [
+    (2, 8, 8, 130, 12, 128, None, 16),
+    (2, 16, 4, 700, 40, 64, None, 4),
+    (2, 14, 2, 333, 24, 64, None, 8),
+    (1, 32, 4, 1000, 40, 128, 200, 16),
+    (2, 16, 2, 257, 20, 128, 48, 8),
+    (2, 16, 4, 300, 10, 128, None, 32),
+    (1, 8, 2, 500, 5, 128, 100, 64),
+    (2, 32, 8, 300, 18, 128, 64, 4),
+])
+def test_dflash_forward_matches_plain(gen, b, h, kvh, s, n, d, window, bs):
+    inputs = dflash_inputs(gen, b, h, kvh, s, n, d, bs)
+    anchors, keep = inputs[5], inputs[6]
+    if window:
+        assert bool(((anchors.long() - (window - 1)) > 0)[keep].any())
+    dflash_forward(inputs, window, bs)
+    if b > 1:
+        assert bool((~keep.bool()).any())
+
+
+def test_dflash_forward_q_tile_with_no_kept_row(gen):
+    """A q tile whose four anchor blocks are all not kept (the block lists
+    no tile) and a q tile with kept and dropped blocks both give exact
+    zeros on the dropped rows, m -1e30 and l 0, and the plain values on the
+    others."""
+    inputs = list(dflash_inputs(gen, 2, 8, 2, 300, 16, 128))
+    keep = torch.ones(2, 16, dtype=torch.int32)
+    keep[0, 4:8] = 0        # the whole second q tile of row 0
+    keep[1, 13] = 0         # one block of row 1's last q tile
+    keep[1, :4] = 0         # row 1's first q tile
+    inputs[6] = keep.cuda()
+    out, m, l = dflash_forward(inputs, None)
+    assert not out[0, 64:128].any() and not out[1, :64].any()
+    assert bool((m[0, :, 64:128] == dflash_cuda.NEG_INF).all())
+    assert not l[0, :, 64:128].any()
+    assert out[1, 192:208].any() and not out[1, 208:224].any()
+
+
+def test_dflash_forward_reads_strided_views(gen):
+    """q (transposed) and the draft keys and values cut from one merged
+    qkv, the context keys and values from one merged kv, as the draft model
+    makes them: all read through their strides."""
+    b, h, kvh, s, n, d = 2, 8, 2, 300, 20, 128
+    inputs = list(dflash_inputs(gen, b, h, kvh, s, n, d))
+    assert not inputs[0].is_contiguous() and not inputs[4].is_contiguous()
+    kv = torch.randn(b, s, 2 * kvh * d, generator=gen, device="cuda",
+                     dtype=torch.bfloat16)
+    inputs[1] = kv[..., :kvh * d].view(b, s, kvh, d).transpose(1, 2)
+    inputs[2] = kv[..., kvh * d:].view(b, s, kvh, d).transpose(1, 2)
+    out, m, l = dflash_forward(inputs, None)
+    dense = [x.contiguous() if x.is_floating_point() else x for x in inputs]
+    for got, want in zip((out, m, l),
+                         dflash_cuda.dflash_flash_attention_fwd(*dense, 16)):
+        assert torch.equal(got, want)
+
+
+def test_dflash_forward_refuses_layouts_a_tensor_map_cannot_read(gen):
+    inputs = list(dflash_inputs(gen, 1, 4, 2, 128, 8, 64))
+    q_len = 8 * 16
+    for at, rows in ((1, 128), (4, q_len)):
+        wide = torch.randn(1, 2, rows, 68, generator=gen, device="cuda",
+                           dtype=torch.bfloat16)
+        for bad, match in (
+                (wide[..., :64], "multiples of 8"),
+                (wide.flatten()[4:4 + 2 * rows * 64].view(1, 2, rows, 64),
+                 "16-byte aligned")):
+            args = list(inputs)
+            args[at] = bad
+            with pytest.raises(ValueError, match=match):
+                dflash_cuda.dflash_flash_attention_fwd(*args, 16)
+
+
 # --------------------------------------------------------------------------
 # P-EAGLE COD attention
 # --------------------------------------------------------------------------
