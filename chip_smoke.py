@@ -14,7 +14,8 @@ Phases, each printing JSON lines:
 3. kernels, at the shapes of the slices: each kernel (the TTT attention and
    fused CE forwards, the fused CE backward and the two TTT attention
    backward kernels; the DFlash block-attention forward and its two
-   backward kernels in cases (a)-(e) of ``DFLASH_CASES``; the COD attention
+   backward kernels in cases (a)-(g) of ``DFLASH_CASES``, (f) and (g) at
+   blocks of 7; the COD attention
    forward and its two backward kernels in cases (a)-(e) of
    ``COD_CASES``; the LSE ring-hop forward and its two backward kernels in
    cases (a)-(e) of ``LSE_CASES``) is held against
@@ -64,6 +65,17 @@ Phases, each printing JSON lines:
    times, peak memory and one profiled micro-step; then one optimizer step
    of the ``dflash`` strategy on ``configs/qwen3-8b-dflash.json`` (512
    anchors, the ``loss_terms`` normalisation) against its plain path;
+   then DSpark (``dspark_training``): the same ``cli train`` run with the
+   ``dspark`` strategy on ``configs/qwen3-8b-dspark.json`` (a gated Markov
+   head of rank 64 and a confidence head; the feature files also carry
+   ``target_last_hidden_states``), 5 launches of each DFlash kernel per
+   micro-batch, the kernel path against the chunked plain path, all nine
+   ratio metrics finite, the timings, peak memory and one profiled
+   micro-step; and one optimizer step at ``configs/qwen3-4b-dspark.json``
+   (``dspark_block7_training``: blocks of 7, so the kernels' pitch of 8; a
+   vanilla Markov head of rank 256, a confidence head with Markov, its
+   own random target [151936, 2560]) against its plain path, its launches
+   counted;
 7. slice 4, P-EAGLE: the three COD attention kernels against their plain
    versions in cases (a)-(e) of ``COD_CASES`` (among the kernels of phase
    3); then ``cli.main(["train", ...])`` on
@@ -317,16 +329,18 @@ HOPPER_ROUTE = ("ttt_flash_attention_fwd", "ttt_attention_bwd_dq",
 
 def ptxas_report(log: str) -> tuple:
     """ptxas's registers and spills per entry function of HOPPER_KERNELS
-    (keyed by kernel and head dim) and every wgmma serialization note →
-    (report, notes)."""
+    (keyed by kernel and head dim, and ``, true`` for a build with its bool
+    template flag set: the DFlash kernels' pitched builds) and every wgmma
+    serialization note → (report, notes)."""
     report, notes, current = {}, [], None
     for line in log.splitlines():
         found = re.search(r"Compiling entry function '(\w+)'", line)
         if found:
             name = found.group(1)
             kernel = next((k for k in HOPPER_KERNELS if k in name), None)
-            dim = re.search(r"ILi(\d+)E", name)
-            current = (f"{kernel}<{dim.group(1) if dim else '?'}>"
+            args = re.search(r"ILi(\d+)E(Lb([01])E)?", name)
+            flag = ", true" if args and args.group(3) == "1" else ""
+            current = (f"{kernel}<{args.group(1) if args else '?'}{flag}>"
                        if kernel else None)
         if re.search(r"\bC75\d\d\b", line) or "serialized" in line:
             notes.append(line.strip())
@@ -825,24 +839,30 @@ def ce_backward_phase(gen) -> dict:
 # the DFlash block-attention kernels against their plain versions
 # --------------------------------------------------------------------------
 
-#: (name, B, H, KVH, D, S, N, sliding window): (a) the Domino slice; (b)
-#: configs/qwen3-8b-dflash.json's 512 anchors at S=2048; (c) the sliding
-#: window of configs/qwen3.6-27b-dflash.json, which bites at S=8192; (d)
-#: head dim 64 (configs/qwen2.5-0.5b-dflash.json's heads); (e) a context that
-#: is no multiple of the 64-key tile
+#: (name, B, H, KVH, D, S, N, sliding window, block size): (a) the Domino
+#: slice; (b) configs/qwen3-8b-dflash.json's 512 anchors at S=2048; (c) the
+#: sliding window of configs/qwen3.6-27b-dflash.json, which bites at
+#: S=8192; (d) head dim 64 (configs/qwen2.5-0.5b-dflash.json's heads); (e) a
+#: context that is no multiple of the 64-key tile; (f) blocks of 7, the
+#: kernels' pitch of 8, at configs/qwen3-4b-dspark.json's heads; (g) the
+#: same at configs/glm-5.2-dspark.json's head layout (D = 64)
 DFLASH_CASES = (
-    ("a_domino", 2, 32, 8, 128, 768, 256, None),
-    ("b_dflash_s2048", 2, 32, 8, 128, 2048, 512, None),
-    ("c_sliding_w4096", 1, 32, 8, 128, 8192, 512, 4096),
-    ("d_head_dim_64", 2, 14, 2, 64, 768, 256, None),
-    ("e_s700", 2, 32, 8, 128, 700, 256, None),
+    ("a_domino", 2, 32, 8, 128, 768, 256, None, 16),
+    ("b_dflash_s2048", 2, 32, 8, 128, 2048, 512, None, 16),
+    ("c_sliding_w4096", 1, 32, 8, 128, 8192, 512, 4096, 16),
+    ("d_head_dim_64", 2, 14, 2, 64, 768, 256, None, 16),
+    ("e_s700", 2, 32, 8, 128, 700, 256, None, 16),
+    ("f_block7", 2, 32, 8, 128, 768, 256, None, 7),
+    ("g_block7_d64", 2, 64, 16, 64, 768, 256, None, 7),
 )
-DFLASH_BS = 16
+#: the cases timed beside the library yardstick
+DFLASH_LIBRARY_CASES = ("a_domino", "b_dflash_s2048", "f_block7",
+                        "g_block7_d64")
 DFLASH_KERNELS = ("dflash_attention_fwd", "dflash_attention_bwd_dq",
                   "dflash_attention_bwd_dkv")
 
 
-def dflash_case_inputs(gen, b, h, kvh, d, s, n):
+def dflash_case_inputs(gen, b, h, kvh, d, s, n, bs):
     """Anchors from the port's sampler over a loss mask of the response part
     (the last three quarters; row 1 has fewer candidates than slots, so its
     last slots are not kept; row 0's first anchor is moved to 0) and bf16
@@ -856,7 +876,7 @@ def dflash_case_inputs(gen, b, h, kvh, d, s, n):
         torch.Generator().manual_seed(int(gen.initial_seed()) + s), loss_mask,
         n)
     anchors[0, 0] = 0
-    q_len = n * DFLASH_BS
+    q_len = n * bs
 
     def rnd(*shape):
         return torch.randn(*shape, generator=gen, device="cuda",
@@ -871,11 +891,11 @@ def dflash_case_inputs(gen, b, h, kvh, d, s, n):
             anchors.cuda(), keep.cuda())
 
 
-def dflash_spans(anchors, keep, s, window):
+def dflash_spans(anchors, keep, s, window, bs):
     """Allowed keys per query row [B, Q] from the anchors: context keys
     [lo, hi) and draft keys (the row's own block, or offsets <= its own under
-    a sliding window): (context pairs, draft pairs) per row."""
-    bs = DFLASH_BS
+    a sliding window): (context pairs, draft pairs) per row. The kernels'
+    padding rows and keys (a block size below its pitch) are no pairs."""
     a = anchors.long().repeat_interleave(bs, dim=1)
     kept = keep.repeat_interleave(bs, dim=1)
     off = torch.arange(a.shape[1], device=a.device) % bs
@@ -900,7 +920,7 @@ def dflash_reached_keys(anchors, keep, s, window) -> torch.Tensor:
     return diff.cumsum(dim=1)[:, :s] > 0
 
 
-def dflash_bounds(inputs, window) -> dict:
+def dflash_bounds(inputs, window, bs) -> dict:
     """The least times of the three kernels for these anchors: each input
     read once and each output written once over the card's memory rate;
     the tensor-core products over the allowed (row, key) pairs at the bf16
@@ -908,7 +928,7 @@ def dflash_bounds(inputs, window) -> dict:
     q, k_ctx, _, _, _, anchors, keep = inputs
     b, h, q_len, d = q.shape
     kvh, s = k_ctx.shape[1], k_ctx.shape[2]
-    ctx, drf = dflash_spans(anchors, keep, s, window)
+    ctx, drf = dflash_spans(anchors, keep, s, window, bs)
     p_ctx, p_drf = int(ctx.sum()) * h, int(drf.sum()) * h
     product = 2 * d
     q_bytes = b * h * q_len * d * 2          # q, out, dO or dq
@@ -937,14 +957,14 @@ def dflash_bounds(inputs, window) -> dict:
     }
 
 
-def dflash_sdpa_yardstick(inputs, window, dout):
+def dflash_sdpa_yardstick(inputs, window, dout, bs):
     """One library call computing the same function, and its backward:
     SDPA over cat(k_ctx, k_drf) with the boolean dense DFlash mask and
     enable_gqa. Timed only (rows of blocks not kept differ: SDPA has no
     exact-zero rule for them)."""
     q, k_ctx, v_ctx, k_drf, v_drf, anchors, keep = inputs
     b, h, q_len, d = q.shape
-    mask = dflash_dense_mask(anchors, keep, k_ctx.shape[2], DFLASH_BS, window)
+    mask = dflash_dense_mask(anchors, keep, k_ctx.shape[2], bs, window)
     qr = q.detach().requires_grad_(True)
     k_cat = torch.cat([k_ctx, k_drf], dim=2).requires_grad_(True)
     v_cat = torch.cat([v_ctx, v_drf], dim=2).requires_grad_(True)
@@ -961,30 +981,31 @@ def dflash_sdpa_yardstick(inputs, window, dout):
 
 def dflash_kernel_phase(gen) -> list:
     """The three DFlash kernels against their plain versions in cases
-    (a)-(e), in bf16: the output and every gradient within ATTN_TOL of the
+    (a)-(g), in bf16: the output and every gradient within ATTN_TOL of the
     plain version's largest value, (m, l) within STAT_RTOL. Each case is
-    timed (kernel, plain); case (a), the Domino slice's launch, also gives
-    the library yardstick and the bound the kernels line reports."""
+    timed (kernel, plain; the library yardstick in DFLASH_LIBRARY_CASES);
+    case (a), the Domino slice's launch, gives the times and the bound the
+    kernels line reports."""
     fwd = dflash_attention_cuda.dflash_flash_attention_fwd
     results = {}
-    for name, b, h, kvh, d, s, n, window in DFLASH_CASES:
-        inputs = dflash_case_inputs(gen, b, h, kvh, d, s, n)
+    for name, b, h, kvh, d, s, n, window, bs in DFLASH_CASES:
+        inputs = dflash_case_inputs(gen, b, h, kvh, d, s, n, bs)
         keep = inputs[-1]
         if window:
             lo_bites = bool(((inputs[5].long() - (window - 1)) > 0)[keep].any())
             if not lo_bites:
                 raise AssertionError(f"case {name}: the window does not bite")
-        out, m, l = fwd(*inputs, DFLASH_BS, window)
+        out, m, l = fwd(*inputs, bs, window)
         dout = torch.randn(out.shape, generator=gen, device="cuda",
                            dtype=torch.bfloat16)
         grads = dflash_attention_cuda.dflash_flash_attention_bwd(
-            *inputs, DFLASH_BS, window, out, m, l, dout)
+            *inputs, bs, window, out, m, l, dout)
         torch.cuda.synchronize()
         ref, ref_m, ref_l = dflash_attention_cuda.dflash_flash_attention_plain(
-            *inputs, DFLASH_BS, window)
+            *inputs, bs, window)
         ref_grads = dflash_attention_cuda.dflash_flash_attention_backward_plain(
-            *inputs, DFLASH_BS, window, out, m, l, dout)
-        kept_rows = keep.repeat_interleave(DFLASH_BS, dim=1)
+            *inputs, bs, window, out, m, l, dout)
+        kept_rows = keep.repeat_interleave(bs, dim=1)
         dead = (~kept_rows)[:, None].expand_as(m)
         if (out[~kept_rows].any() or l[dead].any()
                 or (m[dead] != dflash_attention_cuda.NEG_INF).any()):
@@ -1012,14 +1033,14 @@ def dflash_kernel_phase(gen) -> list:
         check(f"dflash m case {name}", errs["m"], STAT_RTOL)
         check(f"dflash l case {name}", errs["l"], STAT_RTOL)
         delta = attention_cuda.backward_delta(out, dout, h)
-        bwd_args = (*inputs, DFLASH_BS, window, dout, m, l, delta)
+        bwd_args = (*inputs, bs, window, dout, m, l, delta)
         # every kernel: two launches give the same bits; rows of blocks not
         # kept get dq (and draft dk/dv) exactly 0, keys no kept row reaches
         # context dk/dv exactly 0
         dq_kernel = dflash_attention_cuda.dflash_attention_bwd_dq
         dkv = dflash_attention_cuda.dflash_attention_bwd_dkv
         check_repeat(f"dflash_attention_fwd case {name}",
-                     lambda: fwd(*inputs, DFLASH_BS, window))
+                     lambda: fwd(*inputs, bs, window))
         check_repeat(f"dflash_attention_bwd_dq case {name}",
                      lambda: dq_kernel(*bwd_args))
         check_repeat(f"dflash_attention_bwd_dkv case {name}",
@@ -1035,7 +1056,7 @@ def dflash_kernel_phase(gen) -> list:
                                  "are not 0")
         run = {
             "dflash_attention_fwd": run_ms(
-                lambda: fwd(*inputs, DFLASH_BS, window)),
+                lambda: fwd(*inputs, bs, window)),
             "dflash_attention_bwd_dq": run_ms(lambda: dq_kernel(*bwd_args)),
             "dflash_attention_bwd_dkv": run_ms(lambda: dkv(*bwd_args)),
         }
@@ -1047,13 +1068,15 @@ def dflash_kernel_phase(gen) -> list:
             "unreached_keys": int(unreached[:, 0].sum()),
             "run_ms": run,
             "B": b, "H": h, "KVH": kvh, "D": d, "S": s, "N": n,
+            "block_size": bs,
+            "block_pitch": dflash_attention_cuda.block_pitch(bs),
             "sliding_window": window, "kept_blocks": int(keep.sum()),
             "rel_err": errs, "max_abs_err": abs_errs,
             "tol": {"out_and_grads": f"{ATTN_TOL} * max|ref|",
                     "m_l": STAT_RTOL},
             "ms": {
                 "dflash_attention_fwd": median_ms(
-                    lambda: fwd(*inputs, DFLASH_BS, window)),
+                    lambda: fwd(*inputs, bs, window)),
                 "dflash_attention_bwd_dq": median_ms(
                     lambda: dflash_attention_cuda.dflash_attention_bwd_dq(
                         *bwd_args)),
@@ -1063,16 +1086,28 @@ def dflash_kernel_phase(gen) -> list:
             },
             "plain_fwd_ms": median_ms(
                 lambda: dflash_attention_cuda.dflash_flash_attention_plain(
-                    *inputs, DFLASH_BS, window), runs=5, warmup=1),
+                    *inputs, bs, window), runs=5, warmup=1),
             "plain_bwd_ms": median_ms(
                 lambda: dflash_attention_cuda
                 .dflash_flash_attention_backward_plain(
-                    *inputs, DFLASH_BS, window, out, m, l, dout),
+                    *inputs, bs, window, out, m, l, dout),
                 runs=5, warmup=1),
-            "bound": dflash_bounds(inputs, window),
+            "bound": dflash_bounds(inputs, window, bs),
         }
-        if name in ("a_domino", "b_dflash_s2048"):
-            lib_fwd, lib_bwd = dflash_sdpa_yardstick(inputs, window, dout)
+        # the device's time by kernel over 5 rounds of the three wrappers:
+        # at a block size below its pitch, the copies into and out of the
+        # pitched layout beside the kernels themselves
+        def rounds():
+            for _ in range(5):
+                fwd(*inputs, bs, window)
+                dq_kernel(*bwd_args)
+                dkv(*bwd_args)
+            torch.cuda.synchronize()
+
+        row["profile_5_rounds"] = profile_device(rounds, top=12)
+        if name in DFLASH_LIBRARY_CASES:
+            lib_fwd, lib_bwd = dflash_sdpa_yardstick(inputs, window, dout,
+                                                     bs)
             row["library_fwd_ms"] = median_ms(lib_fwd)
             row["library_bwd_ms"] = median_ms(lib_bwd)
         emit(row)
@@ -1866,9 +1901,19 @@ def run_training(cfg_path: Path, device, seed: int, workdir: Path, *,
 DOMINO_CONFIG = REPO / "configs" / "qwen3-8b-domino.json"
 DOMINO_EXAMPLE = REPO / "examples" / "qwen3-8b-domino-offline.json"
 DFLASH_CONFIG = REPO / "configs" / "qwen3-8b-dflash.json"
-#: the Domino run: 16 files of 512-768 tokens, 4 optimizer steps of 2
-#: micro-batches; the DFlash step: 4 files, one optimizer step
-FAMILY_FILES = {"domino": 16, "dflash": 4}
+DSPARK_CONFIG = REPO / "configs" / "qwen3-8b-dspark.json"
+DSPARK7_CONFIG = REPO / "configs" / "qwen3-4b-dspark.json"
+#: the Domino and DSpark runs: 16 files of 512-768 tokens, 4 optimizer
+#: steps of 2 micro-batches; the DFlash step and the DSpark step at blocks
+#: of 7: 4 files, one optimizer step
+FAMILY_FILES = {"domino": 16, "dflash": 4, "dspark": 16, "dspark_block7": 4}
+#: the run through cli train (the others run one window of the trainer)
+FAMILY_CLI = ("domino", "dspark")
+#: DSpark's ratio metrics, each logged as train/<name>
+DSPARK_METRICS = ("acc", "ce_loss", "l1_loss", "confidence_loss",
+                  "confidence_abs_error", "teacher_agreement",
+                  "teacher_top1_prob", "draft_top1_prob",
+                  "tau_probabilistic")
 DFLASH_COUNTERS = {
     "dflash_attention_fwd": dflash_attention_cuda.dflash_flash_attention_fwd,
     "dflash_attention_bwd_dq": dflash_attention_cuda.dflash_attention_bwd_dq,
@@ -1878,10 +1923,11 @@ DFLASH_COUNTERS = {
 
 def write_dflash_features(root: Path, n_capture: int, hidden: int,
                           vocab: int, seed: int, n_files: int, min_len: int,
-                          max_len: int) -> None:
+                          max_len: int, last_hidden: bool = False) -> None:
     """Offline DFlash feature files (``input_ids``, ``loss_mask`` over the
-    response part, ``hidden_states`` [S, n_capture·hidden] bf16), written by
-    the port's writer from a CPU generator."""
+    response part, ``hidden_states`` [S, n_capture·hidden] bf16 and, for
+    DSpark, ``target_last_hidden_states`` [S, hidden] bf16), written by the
+    port's writer from a CPU generator."""
     gen = torch.Generator().manual_seed(seed)
     root.mkdir(parents=True, exist_ok=True)
     for i in range(n_files):
@@ -1895,6 +1941,9 @@ def write_dflash_features(root: Path, n_capture: int, hidden: int,
             "hidden_states": torch.randn(n, n_capture * hidden,
                                          generator=gen).to(torch.bfloat16),
         }
+        if last_hidden:
+            tensors["target_last_hidden_states"] = torch.randn(
+                n, hidden, generator=gen).to(torch.bfloat16)
         save_feature_file(str(root / f"sample-{i:04d}.sft"), tensors,
                           {"target_repr": "hidden_state"})
 
@@ -1904,7 +1953,9 @@ def family_run_json(kind: str, workdir: Path, draft_config: Path,
     """``examples/qwen3-8b-domino-offline.json``, read as data, pointed at
     this run's directories, with accumulation 2 (from 8) and a log line per
     step; for ``dflash`` the same run with the dflash strategy and its
-    default 512 anchors. The checkpoint is written at the epoch's end."""
+    default 512 anchors, for ``dspark`` and ``dspark_block7`` with the
+    dspark strategy (the example's 256 anchors). The checkpoint is written
+    at the epoch's end."""
     raw = json.loads(DOMINO_EXAMPLE.read_text())
     raw["run_id"] = kind
     raw["output_dir"] = str(workdir / "runs")
@@ -1915,6 +1966,8 @@ def family_run_json(kind: str, workdir: Path, draft_config: Path,
     raw["training"].update(accumulation_steps=ACCUM, log_interval=1)
     if kind == "dflash":
         raw["training"].update(strategy="dflash", num_anchors=512)
+    elif kind.startswith("dspark"):
+        raw["training"].update(strategy="dspark")
     raw["tracking"] = {"backend": "jsonl"}
     path = workdir / "run.json"
     path.write_text(json.dumps(raw, indent=2))
@@ -1952,26 +2005,31 @@ def compare_curves(kernel: list, plain: list) -> list:
 def run_family_training(kind: str, cfg_path: Path, device, seed: int,
                         workdir: Path, *, max_length=768, min_len=512,
                         head_std=0.02, overrides=()) -> tuple:
-    """Slice 3 end to end for ``kind`` ("domino" or "dflash"); returns the
-    results and the DFlash kernels' launch counts of its main path, set to
-    0 just before it and read just after.
+    """Slice 3 end to end for ``kind`` ("domino", "dflash", "dspark" or
+    "dspark_block7"); returns the results and the DFlash kernels' launch
+    counts of its main path, set to 0 just before it and read just after.
 
-    domino: the main path is ``cli.main(["train", ...])`` (4 steps and the
-    end-of-epoch checkpoint); then a fresh kernel-path trainer gives step
-    1's loss and gradients and the timings, and a plain-path trainer (the
-    draft config's ``attention_backend: "chunked"``, same initial weights
-    and anchors) its own, and its loss curve from the trainer's train step.
-    dflash: the main path is the kernel-path trainer's train step over its
-    one window (no checkpoint), then the same plain-path comparison."""
+    domino, dspark: the main path is ``cli.main(["train", ...])`` (4 steps
+    and the end-of-epoch checkpoint); then a fresh kernel-path trainer
+    gives step 1's loss and gradients and the timings, and a plain-path
+    trainer (the draft config's ``attention_backend: "chunked"``, same
+    initial weights and anchors) its own, and its loss curve from the
+    trainer's train step. dflash, dspark_block7: the main path is the
+    kernel-path trainer's train step over its one window (no checkpoint),
+    then the same plain-path comparison. DSpark's feature files also hold
+    the target's last hidden state, and every step's nine ratio metrics
+    must be finite."""
     from specforge_tpu_torch.models.draft.dflash import DFlashConfig
 
     raw_cfg = json.loads(Path(cfg_path).read_text())
     cfg = DFlashConfig.from_dict(raw_cfg)
     on_card = device.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
+    dspark = kind.startswith("dspark")
     write_dflash_features(workdir / "train", len(cfg.resolved_target_layer_ids),
                           cfg.hidden_size, cfg.vocab_size, seed,
-                          FAMILY_FILES[kind], min_len, max_length)
+                          FAMILY_FILES[kind], min_len, max_length,
+                          last_hidden=dspark)
     target = write_target_dir(workdir / "target", cfg.vocab_size,
                               cfg.hidden_size, device, seed, head_std)
     run_json = family_run_json(kind, workdir, cfg_path, target, max_length)
@@ -1992,7 +2050,7 @@ def run_family_training(kind: str, cfg_path: Path, device, seed: int,
         torch.cuda.reset_peak_memory_stats()
     sync()
     t0 = time.perf_counter()
-    if kind == "domino":
+    if kind in FAMILY_CLI:
         device_args = [] if on_card else ["--device", str(device)]
         rc = cli.main(["train", "-c", str(run_json), *device_args,
                        *[a for o in overrides for a in ("--set", o)]])
@@ -2057,6 +2115,20 @@ def run_family_training(kind: str, cfg_path: Path, device, seed: int,
         torch.cuda.empty_cache()
     results["loss_curve"] = compare_curves(kernel_steps, plain_steps)
     results["optimizer_steps"] = len(kernel_steps)
+    if dspark:
+        for r in kernel_steps + plain_steps:
+            bad = [m for m in DSPARK_METRICS
+                   if not math.isfinite(r[f"train/{m}"])]
+            if bad:
+                raise AssertionError(f"step {r['step']}: {bad} not finite")
+        results["ratio_metrics"] = [
+            {m: r[f"train/{m}"] for m in DSPARK_METRICS}
+            for r in kernel_steps]
+    if kind in FAMILY_CLI:
+        b, n = BATCH, load_config(str(run_json), overrides).training.num_anchors
+        ms = results["micro_step_ms"]
+        results["draft_tokens_per_s"] = b * n * cfg.block_size / (ms / 1e3)
+        results["context_tokens_per_s"] = b * max_length / (ms / 1e3)
     if kind == "domino":
         t = load_config(str(run_json), overrides).training
         lambdas = [r["train/lambda_base"] for r in kernel_steps]
@@ -2067,10 +2139,6 @@ def run_family_training(kind: str, cfg_path: Path, device, seed: int,
         for step, (got, want) in enumerate(zip(lambdas, expected), 1):
             check(f"step {step} lambda_base", abs(got - want), 1e-6)
         results["lambda_base"] = lambdas
-        b, n = BATCH, t.num_anchors
-        ms = results["micro_step_ms"]
-        results["draft_tokens_per_s"] = b * n * cfg.block_size / (ms / 1e3)
-        results["context_tokens_per_s"] = b * max_length / (ms / 1e3)
     shutil.rmtree(runs, ignore_errors=True)
     return results, counts
 
@@ -3194,18 +3262,23 @@ def main() -> int:
           **training})
     torch.cuda.empty_cache()
 
-    layers = json.loads(DOMINO_CONFIG.read_text())["num_hidden_layers"]
     family_counts = {}
     for kind, cfg_path in (("domino", DOMINO_CONFIG),
-                           ("dflash", DFLASH_CONFIG)):
+                           ("dflash", DFLASH_CONFIG),
+                           ("dspark", DSPARK_CONFIG),
+                           ("dspark_block7", DSPARK7_CONFIG)):
+        draft = json.loads(cfg_path.read_text())
         with tempfile.TemporaryDirectory() as tmp:
             results, family_counts[kind] = run_family_training(
                 kind, cfg_path, torch.device("cuda"), args.seed, Path(tmp))
         check_family_counts(family_counts[kind], results["micro_batches"],
-                            layers)
+                            draft["num_hidden_layers"])
         emit({"phase": f"{kind}_training",
               "config": str(DOMINO_EXAMPLE.relative_to(REPO)),
               "draft_config": str(cfg_path.relative_to(REPO)),
+              "block_size": draft["block_size"],
+              "block_pitch": dflash_attention_cuda.block_pitch(
+                  draft["block_size"]),
               "batch": BATCH, "max_length": 768,
               "accumulation_steps": ACCUM, "launches": family_counts[kind],
               "tolerances": {"step1_loss_rtol": TRAIN_STEP1_RTOL,

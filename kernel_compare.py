@@ -22,8 +22,10 @@ kernels timed at the shape of its main path, each through that tree's own
   and any reduction), and their means over the branch counts;
 - ``dflash``: case (a) of ``chip_smoke.DFLASH_CASES``, the Domino slice
   (B=2, H=32, KVH=8, D=128, S=768, 256 anchors of 16, from
-  ``dflash_case_inputs``): the forward, dq (with the draft keys' dk/dv),
-  the context keys' dk/dv and the whole ``dflash_flash_attention_bwd``
+  ``dflash_case_inputs``; the block size is the case's last field, or
+  ``DFLASH_BS`` in a tree whose cases lack it): the forward, dq (with the
+  draft keys' dk/dv), the context keys' dk/dv and the whole
+  ``dflash_flash_attention_bwd``
   (delta, both kernels and any reduction: a tree whose dq kernel leaves
   the draft dk/dv per query head sums them there);
 - ``cod``: case (a) of ``chip_smoke.COD_CASES``, the P-EAGLE slice (B=2,
@@ -57,7 +59,9 @@ With ``--sass`` it times nothing: each tree's kernel sources
 ``cuobjdump -sass`` prints each kernel's machine code, which is compared
 across the trees with the constant-bank offsets of the parameters masked
 (a changed parameter struct moves them): one line per tree with a digest
-per kernel and head dim, then one line naming the kernels whose code
+per kernel and head dim (``<128>``; a build with a bool template flag set,
+the DFlash kernels' pitched builds, ``<128, true>``; the flag cleared
+keeps the name ``<128>``), then one line naming the kernels whose code
 differs between the first tree and each other.
 """
 
@@ -137,9 +141,11 @@ def ttt():
 
 def dflash():
     from specforge_tpu_torch.ops import dflash_attention_cuda as dc
-    name, b, h, kvh, d, s, n, window = cs.DFLASH_CASES[0]
-    inputs = cs.dflash_case_inputs(gen, b, h, kvh, d, s, n)
-    bs = cs.DFLASH_BS
+    # a tree's cases may end in their block size, else DFLASH_BS holds it
+    case = cs.DFLASH_CASES[0]
+    name, b, h, kvh, d, s, n, window = case[:8]
+    inputs = cs.dflash_case_inputs(gen, b, h, kvh, d, s, n, *case[8:])
+    bs = case[8] if len(case) > 8 else cs.DFLASH_BS
     out, m, l = dc.dflash_flash_attention_fwd(*inputs, bs, window)
     dout = randn_like(out)
     args = (*inputs, bs, window, dout, m, l, ac.backward_delta(out, dout, h))
@@ -291,9 +297,14 @@ with tempfile.TemporaryDirectory(prefix="kernel-sass-") as tmp:
                 for i in range(run.start(), run.end()):
                     ident = name[run.end():run.end() + int(name[i:run.end()])]
                     if re.fullmatch(r"[a-z][a-z_]*_kernel", ident):
-                        dim = re.match(r"ILi(\d+)E",
-                                       name[run.end() + len(ident):])
-                        key = f"{ident}<{dim.group(1) if dim else ''}>"
+                        args = re.match(r"ILi(\d+)E(Lb([01])E)?",
+                                        name[run.end() + len(ident):])
+                        # a bool template flag set names its build (the
+                        # DFlash kernels' kPitched); cleared, it is the
+                        # build without it
+                        key = f"{ident}<{args.group(1) if args else ''}"
+                        pitched = args and args.group(3) == "1"
+                        key += ", true>" if pitched else ">"
                         break
                 if key != name.strip():
                     break

@@ -1,11 +1,10 @@
 """Built-in algorithm registrations of the port: eagle3, dflash, domino,
-peagle.
+dspark, peagle.
 
 Counterpart of ``specforge_tpu/algorithms/builtin.py``, for EAGLE3 (and
 EAGLE3.1, which is eagle3 with ``fc_norm: true`` in the draft config), the
-DFlash family's dflash and domino, and P-EAGLE. The JAX package's other
-algorithms are known by name and refused with the slice of the port that
-brings them.
+DFlash family's dflash, domino and dspark, and P-EAGLE: every algorithm of
+the JAX package.
 """
 
 from __future__ import annotations
@@ -27,13 +26,6 @@ from specforge_tpu_torch.algorithms.registry import (
     AlgorithmRegistration,
     AlgorithmRegistry,
 )
-
-#: algorithms of the JAX package not ported yet → the slice that brings them
-QUEUED = {
-    "dspark": "the DSpark draft, after the P-EAGLE and USP slices "
-              "(ROADMAP.md, Queue 1 item 4)",
-}
-
 
 def _eagle3_build_draft(config_dict: Dict[str, Any], dtype=torch.bfloat16,
                         attention_backend: str = "dense", device=None,
@@ -129,11 +121,12 @@ def _dflash_build_draft(draft_cls_name: str):
         """The family reads its attention backend from the draft config
         (``attention_backend``: "auto", "pallas" or "chunked"), not from
         ``training.attention_backend``, as the JAX package does."""
-        from specforge_tpu_torch.models.draft import dflash, domino
+        from specforge_tpu_torch.models.draft import dflash, domino, dspark
 
         config = dflash.DFlashConfig.from_dict(config_dict)
         cls = {"DFlashDraftModel": dflash.DFlashDraftModel,
-               "DominoDraftModel": domino.DominoDraftModel}[draft_cls_name]
+               "DominoDraftModel": domino.DominoDraftModel,
+               "DSparkDraftModel": dspark.DSparkDraftModel}[draft_cls_name]
         draft = cls(
             config, dtype=dtype,
             attention_backend=config_dict.get("attention_backend", "auto"),
@@ -163,9 +156,14 @@ def _dflash_family_training_model(wrapper_name: str):
         if wrapper_name == "OnlineDFlashModel":
             kwargs["loss_type"] = options.get("loss_type", "dflash")
             kwargs["dpace_alpha"] = float(options.get("dpace_alpha", 0.5))
-        else:
+        elif wrapper_name == "OnlineDominoModel":
             kwargs["shift_label"] = bool(
                 options.get("shift_label", draft.config.shift_label))
+        else:
+            for key, default in (("dspark_ce_loss_alpha", 0.1),
+                                 ("dspark_l1_loss_alpha", 0.9),
+                                 ("dspark_confidence_head_alpha", 1.0)):
+                kwargs[key] = float(options.get(key, default))
         return getattr(dflash_family, wrapper_name)(**kwargs)
 
     return build
@@ -185,8 +183,13 @@ def _dflash_family_strategy(strategy_name: str):
 
 
 def _dflash_registration(name: str, draft_arch: str, wrapper_name: str,
-                         strategy_name: str) -> AlgorithmRegistration:
-    features = frozenset({"input_ids", "loss_mask", "hidden_states"})
+                         strategy_name: str, last_hidden_feature=None
+                         ) -> AlgorithmRegistration:
+    """The family's registration; DSpark also reads the target's last
+    hidden state (``last_hidden_feature``)."""
+    features = frozenset({"input_ids", "loss_mask", "hidden_states",
+                          *([last_hidden_feature] if last_hidden_feature
+                            else [])})
     return AlgorithmRegistration(
         spec=AlgorithmSpec(
             name=name,
@@ -203,6 +206,7 @@ def _dflash_registration(name: str, draft_arch: str, wrapper_name: str,
                 format="specforge_dflash_states_v1",
                 feature_names=tuple(sorted(features)),
                 aux_feature="hidden_states",
+                last_hidden_feature=last_hidden_feature,
             ),
             capabilities=AlgorithmCapabilities(),
         ),
@@ -220,6 +224,9 @@ DFLASH = _dflash_registration("dflash", "DFlashDraftModel",
                               "OnlineDFlashModel", "DFlashTrainStrategy")
 DOMINO = _dflash_registration("domino", "DominoDraftModel",
                               "OnlineDominoModel", "DominoTrainStrategy")
+DSPARK = _dflash_registration("dspark", "DSparkDraftModel",
+                              "OnlineDSparkModel", "DSparkTrainStrategy",
+                              last_hidden_feature="target_last_hidden_states")
 
 
 # --- peagle ----------------------------------------------------------------
@@ -305,4 +312,4 @@ PEAGLE = AlgorithmRegistration(
 
 
 def builtin_algorithm_registry() -> AlgorithmRegistry:
-    return AlgorithmRegistry([EAGLE3, DFLASH, DOMINO, PEAGLE], queued=QUEUED)
+    return AlgorithmRegistry([EAGLE3, DFLASH, DOMINO, DSPARK, PEAGLE])

@@ -1,17 +1,21 @@
-"""DFlash-family training wrappers (DFlash and Domino).
+"""DFlash-family training wrappers (DFlash, Domino and DSpark).
 
-Counterpart of ``OnlineDFlashModel`` and ``OnlineDominoModel`` in
-``specforge_tpu/algorithms/common/dflash_family.py``: anchors from doubly
-supervised positions, mask-token query blocks, same-position labels (block
-position k → token anchor+k, or anchor+1+k under Domino's ``shift_label``),
-the frozen target ``lm_head``/``embed_tokens`` passed in as tensors, and the
-per-family losses:
+Counterpart of ``OnlineDFlashModel``, ``OnlineDominoModel`` and
+``OnlineDSparkModel`` in ``specforge_tpu/algorithms/common/dflash_family.py``:
+anchors from doubly supervised positions, mask-token query blocks,
+same-position labels (block position k → token anchor+k, or anchor+1+k under
+Domino's ``shift_label`` and for DSpark), the frozen target
+``lm_head``/``embed_tokens`` passed in as tensors, and the per-family
+losses:
 
 - DFlash: masked CE (optional exponential position decay, optional D-PACE
   confidence weights) with the ``loss_terms`` (numerator, denominator)
   contract for normalising the gradient over the accumulation window;
 - Domino: GRU-corrected final CE blended with the base CE by a decaying
-  ``lambda_base``; per-block accept-length telemetry.
+  ``lambda_base``; per-block accept-length telemetry;
+- DSpark: Markov-corrected CE + L1(draft probs, teacher probs) +
+  confidence-head BCE, token-pooled over one global denominator, with nine
+  ratio metrics.
 
 ``forward`` samples the anchors from ``generator`` (a ``torch.Generator``)
 unless ``anchors=(positions, keep)`` is given; the parity tests hand in the
@@ -34,6 +38,7 @@ from specforge_tpu_torch.ops.fused_objective import (
     dflash_objective_fused,
     domino_objective_fused,
     dpace_weight,
+    dspark_objective_fused,
     linear_rows,
     masked_cross_entropy,
 )
@@ -339,3 +344,215 @@ class OnlineDominoModel(OnlineDFlashModel):
             "accuracy_denom": accuracy_den,
         }
         return loss, accuracy, metrics
+
+
+def _confidence_bce(conf_pred, accept_probability, loss_weights):
+    """(BCE numerator, |sigmoid - p| numerator) of the confidence head's
+    logits against the (constant) acceptance probability."""
+    ap = accept_probability.detach()
+    logits = conf_pred.float()
+    per_token = (torch.clamp(logits, min=0) - logits * ap
+                 + torch.log1p(torch.exp(-logits.abs())))
+    return ((per_token * loss_weights).sum(),
+            ((torch.sigmoid(logits) - ap).abs() * loss_weights).sum())
+
+
+class OnlineDSparkModel(OnlineDFlashModel):
+    """DSpark: Markov-corrected CE + L1 to the teacher's probabilities +
+    confidence BCE."""
+
+    def __init__(self, draft_model, mask_token_id: int,
+                 dspark_ce_loss_alpha: float = 0.1,
+                 dspark_l1_loss_alpha: float = 0.9,
+                 dspark_confidence_head_alpha: float = 1.0, **kwargs):
+        super().__init__(draft_model, mask_token_id, **kwargs)
+        self.dspark_ce_loss_alpha = float(dspark_ce_loss_alpha)
+        self.dspark_l1_loss_alpha = float(dspark_l1_loss_alpha)
+        self.dspark_confidence_head_alpha = float(dspark_confidence_head_alpha)
+
+    def _labels_and_mask(self, input_ids, loss_mask, anchor_positions, keep):
+        """Labels at anchor+1+k (0 in blocks not kept), the eval mask (a
+        cumulative product over the block) and the clamped label indices."""
+        b, seq_len = input_ids.shape
+        offsets = torch.arange(1, self.block_size + 1,
+                               device=input_ids.device)
+        label_indices = anchor_positions.long()[..., None] + offsets
+        safe = label_indices.clamp(0, seq_len - 1)
+        safe = torch.where(keep[..., None], safe, torch.zeros_like(safe))
+        target_ids = input_ids.long().gather(1, safe.view(b, -1)).view(
+            safe.shape)
+        eval_mask = ((label_indices < seq_len)
+                     & (self._gather_loss_mask(loss_mask, safe) > 0.5)
+                     & keep[..., None])
+        eval_mask = torch.cumprod(eval_mask.to(torch.int32), dim=-1) > 0
+        return target_ids, eval_mask, safe
+
+    def forward(
+        self,
+        input_ids,
+        hidden_states,
+        loss_mask,
+        lm_head_weight,
+        embed_weight,
+        generator: Optional[torch.Generator] = None,
+        target_last_hidden_states: Optional[torch.Tensor] = None,
+        *,
+        anchors: Optional[Anchors] = None,
+    ):
+        b, seq_len = input_ids.shape
+        if loss_mask.dim() == 3:
+            loss_mask = loss_mask[..., 0]
+        anchor_positions, keep, output_hidden = self._forward_draft_blocks(
+            input_ids, hidden_states, loss_mask, embed_weight, generator,
+            anchors)
+        target_ids, eval_mask, safe = self._labels_and_mask(
+            input_ids, loss_mask, anchor_positions, keep)
+        anchor_tokens = input_ids.long().gather(
+            1, anchor_positions.long().clamp(0, seq_len - 1))
+        prev_token_ids = torch.cat([anchor_tokens[..., None],
+                                    target_ids[..., :-1]], dim=-1)
+        n = anchor_positions.shape[1]
+        hidden_4d = output_hidden.view(b, n, self.block_size, -1)
+        loss_weights = eval_mask.float()
+        decay = self._decay(0, input_ids.device)
+        if decay is not None:
+            loss_weights = loss_weights * decay
+        loss_den = loss_weights.sum()
+
+        aligned = None
+        need_target = (self.dspark_l1_loss_alpha > 0
+                       or self.dspark_confidence_head_alpha > 0)
+        if need_target and target_last_hidden_states is not None:
+            # the target state that predicts each label token sits one
+            # position before it; in the compute dtype (features keep
+            # their stored one)
+            pred_idx = torch.clamp(safe - 1, min=0).view(b, -1)
+            h = target_last_hidden_states.shape[-1]
+            aligned = target_last_hidden_states.gather(
+                1, pred_idx[..., None].expand(-1, -1, h)).view(
+                    b, n, self.block_size, h).to(hidden_4d.dtype)
+
+        if self.fused_objective:
+            return self._fused_call(hidden_4d, prev_token_ids, target_ids,
+                                    loss_weights, eval_mask, aligned,
+                                    lm_head_weight, loss_den)
+        totals = checkpointed_chunk_reduce(
+            self._chunk_terms(lm_head_weight), hidden_4d, prev_token_ids,
+            target_ids, loss_weights, eval_mask, aligned,
+            chunk_size=self.objective_chunk_blocks, axis=1)
+        (ce_num, l1_num, conf_num, conf_err, correct_num, eval_den, _ce_pos,
+         _correct_pos, _pos_den, agree_num, t_top1, d_top1, tau_num,
+         tau_den) = totals
+        global_den = torch.clamp(loss_den.detach(), min=1e-6)
+        loss = (self.dspark_ce_loss_alpha * ce_num
+                + self.dspark_l1_loss_alpha * l1_num
+                + self.dspark_confidence_head_alpha * conf_num) / global_den
+        return self._dspark_outputs(
+            loss, ce_num, l1_num, conf_num, conf_err, correct_num, eval_den,
+            agree_num, t_top1, d_top1, tau_num, tau_den, loss_den)
+
+    def _chunk_terms(self, lm_head_weight):
+        """The unfused objective of one anchor chunk (checkpointed: its
+        logits are recomputed in the backward pass)."""
+        draft = self.draft_model
+
+        def fn(hidden, prev_ids, target_ids, lw, em, ath):
+            base_logits = linear_rows(hidden, lm_head_weight.to(hidden.dtype))
+            draft_logits = draft.apply_logits_head(
+                base_logits, prev_token_ids=prev_ids, hidden_states=hidden)
+            ce = masked_cross_entropy(draft_logits, target_ids)
+            zero = torch.zeros((), device=hidden.device)
+            l1_num = conf_num = conf_err = zero
+            agree_num = t_top1 = d_top1 = tau_num = tau_den = zero
+            accept_probability = None
+            emf = em.float()
+            predicted = draft_logits.argmax(dim=-1)
+            if ath is not None:
+                target_logits = linear_rows(
+                    ath, lm_head_weight.to(ath.dtype)).detach()
+                target_probs = torch.softmax(target_logits.float(), dim=-1)
+                teacher_ids = target_logits.argmax(dim=-1)
+                draft_probs = torch.softmax(draft_logits.float(), dim=-1)
+                l1_per_token = (draft_probs - target_probs).abs().sum(dim=-1)
+                accept_probability = torch.clamp(1.0 - 0.5 * l1_per_token,
+                                                 0.0, 1.0)
+                if self.dspark_l1_loss_alpha > 0:
+                    l1_num = (l1_per_token * lw).sum()
+                agree_num = ((predicted == teacher_ids).float() * emf).sum()
+                t_top1 = (target_probs.amax(dim=-1) * emf).sum()
+                d_top1 = (draft_probs.amax(dim=-1).detach() * emf).sum()
+                valid_blocks = em.any(dim=-1).float()
+                accepted_exp = torch.cumprod(
+                    accept_probability.detach() * emf, dim=-1).sum(dim=-1)
+                tau_num = ((accepted_exp + 1.0) * valid_blocks).sum()
+                tau_den = valid_blocks.sum()
+            conf_pred = draft.predict_confidence(hidden,
+                                                 prev_token_ids=prev_ids)
+            if (conf_pred is not None
+                    and self.dspark_confidence_head_alpha > 0):
+                if accept_probability is None:
+                    raise ValueError("DSpark confidence loss requires "
+                                     "target_last_hidden_states")
+                conf_num, conf_err = _confidence_bce(
+                    conf_pred, accept_probability, lw)
+            correct = ((predicted == target_ids) & em).float()
+            return (
+                (ce * lw).sum(), l1_num, conf_num, conf_err.detach(),
+                correct.sum(), emf.sum(),
+                (ce.detach() * emf).sum(dim=(0, 1)),
+                correct.sum(dim=(0, 1)), emf.sum(dim=(0, 1)), agree_num,
+                t_top1, d_top1, tau_num, tau_den,
+            )
+
+        return fn
+
+    def _fused_call(self, hidden_4d, prev_token_ids, target_ids, loss_weights,
+                    eval_mask, aligned, lm_head_weight, loss_den):
+        """The fused objective: the draft's and the teacher's full-vocab
+        softmaxes run once each inside :func:`dspark_objective_fused`; the
+        small confidence BCE is ordinary autograd outside it, on the op's
+        constant acceptance probability."""
+        draft = self.draft_model
+        (vocab_num, ce_num, l1_num, correct_num, eval_den, _ce_pos,
+         _correct_pos, _pos_den, agree_num, t_top1, d_top1, tau_num, tau_den,
+         accept_probability) = dspark_objective_fused(
+            hidden_4d, draft.markov_latents(prev_token_ids, hidden_4d),
+            draft.markov_kernel(), aligned, target_ids, loss_weights,
+            eval_mask, lm_head_weight, self.dspark_ce_loss_alpha,
+            self.dspark_l1_loss_alpha, self.objective_chunk_blocks)
+        zero = torch.zeros((), device=hidden_4d.device)
+        conf_num = conf_err = zero
+        conf_pred = draft.predict_confidence(hidden_4d,
+                                             prev_token_ids=prev_token_ids)
+        if conf_pred is not None and self.dspark_confidence_head_alpha > 0:
+            if aligned is None:
+                raise ValueError("DSpark confidence loss requires "
+                                 "target_last_hidden_states")
+            conf_num, conf_err = _confidence_bce(conf_pred,
+                                                 accept_probability,
+                                                 loss_weights)
+        global_den = torch.clamp(loss_den.detach(), min=1e-6)
+        loss = (vocab_num
+                + self.dspark_confidence_head_alpha * conf_num) / global_den
+        return self._dspark_outputs(
+            loss, ce_num, l1_num, conf_num, conf_err.detach(), correct_num,
+            eval_den, agree_num, t_top1, d_top1, tau_num, tau_den, loss_den)
+
+    @staticmethod
+    def _dspark_outputs(loss, ce_num, l1_num, conf_num, conf_err, correct_num,
+                        eval_den, agree_num, t_top1, d_top1, tau_num, tau_den,
+                        loss_den):
+        ratio_metrics = {
+            "acc": (correct_num, eval_den),
+            "ce_loss": (ce_num.detach(), loss_den),
+            "l1_loss": (l1_num.detach(), loss_den),
+            "confidence_loss": (conf_num.detach(), loss_den),
+            "confidence_abs_error": (conf_err, loss_den),
+            "teacher_agreement": (agree_num, eval_den),
+            "teacher_top1_prob": (t_top1, eval_den),
+            "draft_top1_prob": (d_top1, eval_den),
+            "tau_probabilistic": (tau_num, tau_den),
+        }
+        accuracy = correct_num / torch.clamp(eval_den, min=1.0)
+        return loss, accuracy, {"ratio_metrics": ratio_metrics,
+                                "accuracy_denom": eval_den}

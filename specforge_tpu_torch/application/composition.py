@@ -15,9 +15,9 @@ draft parameter. EAGLE3 under ``attention_backend: "usp"`` runs on
 (``parallel/multihost.py``): the rank grid and its groups first, then the
 draft over them; every rank loads the same samples, the primary rank derives
 the vocab mapping and owns the tracker. What the port has not reached yet
-(FSDP2 ``dp``/``fsdp`` meshes, online runs, other algorithms, a warm start,
-an eval pass for the DFlash family and P-EAGLE) is refused with the slice
-that brings it.
+(FSDP2 ``dp``/``fsdp`` meshes, online runs, a warm start) is refused with
+the slice that brings it, and an eval pass for the DFlash family and
+P-EAGLE, which their JAX strategies do not define, is refused by name.
 """
 
 from __future__ import annotations
@@ -156,6 +156,9 @@ def _strategy_options(config: Config) -> Dict[str, Any]:
         "dpace_alpha": t.dpace_alpha,
         "lambda_start": t.lambda_base_start,
         "decay_ratio": t.lambda_base_decay_ratio,
+        "dspark_ce_loss_alpha": t.dspark_ce_loss_alpha,
+        "dspark_l1_loss_alpha": t.dspark_l1_loss_alpha,
+        "dspark_confidence_head_alpha": t.dspark_confidence_head_alpha,
         "mask_token_id": t.mask_token_id,
         # peagle
         "num_depths": t.num_depths,
@@ -274,8 +277,9 @@ def build_training_run(config: Config, registry=None, frozen_override=None,
     if config.data.eval_data_path and not hasattr(strategy, "eval_outputs"):
         raise NotImplementedError(
             f"an eval pass for {t.strategy!r}: the JAX strategies of the "
-            "DFlash family and P-EAGLE define none (ROADMAP.md, Queue 1 "
-            "item 4)"
+            "DFlash family (DSpark's too) and P-EAGLE define none, and the "
+            "JAX evaluator calls one all the same (ROADMAP.md, Queue 3, "
+            "specforge_tpu/eval/evaluator.py:50)"
         )
     if config.data.pack_documents and not getattr(
             strategy, "supports_packed_documents", False):

@@ -3,13 +3,18 @@
 :func:`params_from_jax` takes the flax variable tree as numpy arrays (the
 caller runs ``jax.device_get``; this package never imports JAX) and returns
 the ``state_dict`` of the port's counterpart (``OnlineEagle3Model``,
-``OnlineDFlashModel``, ``OnlineDominoModel`` or ``OnlinePEagleModel``):
+``OnlineDFlashModel``, ``OnlineDominoModel``, ``OnlineDSparkModel`` or
+``OnlinePEagleModel``):
 
 - a flax ``Dense`` kernel, a ``MergedProj`` kernel and a ``KernelParam``
   kernel are [in, out] and become torch's [out, in] weight (Domino's
-  ``embed_proj_1`` kernel [emb, V], used as ``act @ kernel`` in JAX, is the
-  port's [V, emb] weight used as ``act @ weight^T``: the same product);
-- a bias, ``nn.Embed``'s ``embedding``, RMSNorm's ``weight``, the GRU's
+  ``embed_proj_1`` kernel [emb, V] and DSpark's ``markov_w2`` kernel [r, V],
+  used as ``act @ kernel`` in JAX, are the port's [V, emb] and [V, r]
+  weights used as ``act @ weight^T``: the same product; DSpark's
+  ``gate_proj``, ``joint_proj`` and ``confidence_head.proj`` are Dense
+  layers with a bias);
+- a bias, ``nn.Embed``'s ``embedding`` (DSpark's ``markov_w1`` [V, r]
+  too), RMSNorm's ``weight``, the GRU's
   ``weight_ih``/``weight_hh`` (already torch's [3·hd, in] layout) and
   P-EAGLE's ``mask_hidden`` [1, 1, 3·hidden] keep their layout;
 - the merged ``qkv_proj`` and ``gate_up_proj`` stay merged, as in the JAX

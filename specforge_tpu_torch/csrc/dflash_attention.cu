@@ -73,6 +73,34 @@
 // do: the key tile lies below the q tile's smallest anchor). The key tile
 // is the grid's slow index, so without a window the heaviest blocks start
 // first. The kernels share the Hopper helpers of hopper.cuh.
+//
+// Block sizes. The kernels take any block size bs from 1 to 64 (the TPU
+// kernel takes any; DSpark's configs use 7). The q tile, the draft band
+// and kernel B's q-tile list all need a block that divides the 64-row
+// tile, so the kernels work on a block pitch: each block of bs rows is
+// laid out at the smallest power of two >= bs (8 for 7), and rows and
+// draft keys at offsets bs..pitch-1 are padding. The wrapper
+// (ops/dflash_attention_cuda.py) copies q and the draft keys and values
+// into that layout, and dO, m, l and delta in the backward (a padded row
+// gets m = -1e30, l = 0, so the dq stream's dead-row rule holds for it),
+// and copies out, m, l, dq and the draft dk/dv back; with bs a power of
+// two it copies nothing and the layout is the caller's. The kernels are
+// templated on kPitched: a padded row is dead (row_span, and kernel B's
+// DFlashRows) like a row of a block not kept, and a padded draft key is
+// outside every row's draft span [n * pitch, n * pitch + bs); the builds
+// with kPitched false are the kernels without padding. What the pitch
+// costs: pitch / bs of the rows (8/7 at bs 7) in every product, the copies
+// (at the qwen3-4b-dspark shapes, B=2, H=32, N=256, D=128, about 30 MB
+// each way for q, a seventh of that for each draft tensor), and the
+// forward's and kernel B's mask-free context tiles: the forward's
+// unmasked tiles have no dead-row rule, so a q tile is mask-free only
+// when every row is kept, and kernel B's stage needs no mask only when
+// every row of it reaches every key of the block, which a padded row
+// does not; with bs < pitch every 64-row tile holds padded rows, so every
+// stage of both is masked (kernel A keeps its mask-free tiles: it decides
+// over the kept rows, and its dead-row rule gives the others p = 0).
+// chip_smoke.py times the cases f_block7 and g_block7_d64 beside the
+// bs-16 ones, and profiles the copies beside the kernels.
 
 #include <limits.h>
 
@@ -104,21 +132,24 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4],
 }
 
 // The allowed keys of query row r of batch b: context keys [x, y), draft
-// keys [z, w). Both are empty for a row past Q or of a block not kept. P is
-// the forward's DFlashFwdParams or the dq kernel's DFlashDqParams (the
-// anchors, keep, N, S, Q, bs and window of both).
-template <class P>
+// keys [z, w). Both are empty for a row past Q, of a block not kept or
+// (kPitched) at a padded offset bs..pitch-1 of its block. P is the
+// forward's DFlashFwdParams or the dq kernel's DFlashDqParams (the anchors,
+// keep, N, S, Q, pitch, bs and window of both).
+template <bool kPitched, class P>
 __device__ __forceinline__ int4 row_span(const P& p, int b, int r) {
   int lo = 0, hi = 0, dlo = 0, dhi = 0;
   if (r < p.Q) {
-    const int n = r / p.bs;
+    const int n = r / p.pitch;
     const long long i = (long long)b * p.N + n;
-    if (p.keep[i] != 0) {
+    if (p.keep[i] != 0 && (!kPitched || r % p.pitch < p.bs)) {
       const int a = p.anchors[i];
       hi = min(max(a, 0), p.S);
-      if (p.window > 0) lo = min(max(a + r % p.bs - (p.window - 1), 0), hi);
-      dlo = n * p.bs;
-      dhi = p.window > 0 ? r + 1 : dlo + p.bs;
+      if (p.window > 0) {
+        lo = min(max(a + r % p.pitch - (p.window - 1), 0), hi);
+      }
+      dlo = n * p.pitch;
+      dhi = p.window > 0 ? r + 1 : dlo + (kPitched ? p.bs : p.pitch);
     }
   }
   return make_int4(lo, hi, dlo, dhi);
@@ -135,8 +166,9 @@ struct DFlashFwdParams {
   CUtensorMap tm_vd;    // key source, and the draft values
   const int* anchors;   // [B, N]
   const int* keep;      // [B, N], 0 = block not kept
-  int S, Q, N, bs, window;
+  int S, Q, N, pitch, window;  // Q = N * pitch rows (block_pitch)
   int n_chunks;         // blocks of a (q tile, kv head): ceil(group / 4)
+  int bs;               // the real rows of a block: pitch, or fewer
 };
 
 struct DFlashDqParams {
@@ -147,9 +179,10 @@ struct DFlashDqParams {
   __nv_bfloat16* dkd;   // [B, KVH, Q, D]: the draft keys' dk, group-summed
   __nv_bfloat16* dvd;   // [B, KVH, Q, D]
   float* ws;            // [2, B, KVH, Q, D] fp32 when the group spans chunks
-  int S, Q, N, bs, window;
-  int band_shift;       // log2 of the draft band's width, max(bs, 16)
+  int S, Q, N, pitch, window;  // Q = N * pitch rows (block_pitch)
+  int band_shift;       // log2 of the draft band's width, max(pitch, 16)
   int band_off;         // byte offset of the draft staging in shared memory
+  int bs;               // the real rows of a block: pitch, or fewer
 };
 
 // The DFlash policy of the forward and dq streams (P: their parameters). A
@@ -202,8 +235,8 @@ struct DFlashMask {
 };
 
 // Kernel A's policy: the DFlash mask, and the draft keys' dk/dv. Each
-// head's p and ds on the draft tile live only on its bs x bs diagonal
-// blocks, which a band of width W = max(bs, 16) along the diagonal holds:
+// head's p and ds on the draft tile live only on its pitch x pitch diagonal
+// blocks, which a band of width W = max(pitch, 16) along the diagonal holds:
 // they are staged in bf16, [64 rows][W] per head, and after the chunk's
 // last tile warpgroup 0 sums dk_d = scale * sum_h ds_h^T Q_h and
 // warpgroup 1 dv_d = sum_h p_h^T dO_h over the chunk's heads in head order
@@ -326,17 +359,17 @@ struct DFlashDq : DFlashMask<DFlashDqParams> {
 // the mask-free range into `setup` (three ints of scratch); the context
 // tiles they reach, each with its "needs no mask" bit, then the draft tile
 // (the q tile's own rows of the second source) into `list`, with their
-// number in *n_tiles. kForward: a row inside Q that is not kept also makes
-// every tile masked (the forward's p on an unmasked tile is not 0 for it,
-// the dq stream's is), and a q tile with no kept row lists nothing. Every
-// thread calls it.
-template <bool kForward, class P>
+// number in *n_tiles. kForward: a row inside Q that is not kept (a padded
+// row included) also makes every tile masked (the forward's p on an
+// unmasked tile is not 0 for it, the dq stream's is), and a q tile with no
+// kept row lists nothing. Every thread calls it.
+template <bool kForward, bool kPitched, class P>
 __device__ __forceinline__ void dflash_block_tiles(const P& p, int4* spans,
                                                    int* setup, int* list,
                                                    int* n_tiles, int b,
                                                    int q0) {
   if (threadIdx.x < kTileRows) {
-    spans[threadIdx.x] = row_span(p, b, q0 + threadIdx.x);
+    spans[threadIdx.x] = row_span<kPitched>(p, b, q0 + threadIdx.x);
   }
   __syncthreads();
   if (threadIdx.x < 32) {
@@ -398,7 +431,7 @@ __device__ __forceinline__ void dflash_block_tiles(const P& p, int4* spans,
 // grid's slow index, later tiles (later anchors, more context keys) first,
 // then the batch, the kv head and the chunk. The DFlash policy never
 // writes key data, so the block setup's scratch lies there.
-template <int D>
+template <int D, bool kPitched>
 __global__ void __launch_bounds__(kFwdThreads, 1)
     dflash_fwd_kernel(const __grid_constant__ DFlashFwdParams p) {
   using L = FwdStreamSmem<D>;
@@ -414,7 +447,8 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   const int c0 = i % p.n_chunks * kFwdHeads;
   const int G = p.s.group;
   fwd_init_block<D>(smem, b, kvh, q0, kvh * G + c0, min(kFwdHeads, G - c0));
-  dflash_block_tiles<true>(p, reinterpret_cast<int4*>(smem + L::kRowData),
+  dflash_block_tiles<true, kPitched>(
+      p, reinterpret_cast<int4*>(smem + L::kRowData),
                            reinterpret_cast<int*>(smem + L::kKeyData),
                            reinterpret_cast<int*>(smem + L::kExtra),
                            &fwd_block_info<D>(smem)->n_tiles, b, q0);
@@ -424,7 +458,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 // One dq block owns one q tile (64 rows) of one (batch, kv head) and the
 // group's query heads (dq_stream.cuh); the q tile is the grid's slow index,
 // later tiles first, as the forward's.
-template <int D>
+template <int D, bool kPitched>
 __global__ void __launch_bounds__(kDqThreads, 1)
     dflash_bwd_dq_kernel(const __grid_constant__ DFlashDqParams p) {
   using L = DqStreamSmem<D>;
@@ -435,7 +469,8 @@ __global__ void __launch_bounds__(kDqThreads, 1)
   const int q0 = (n_qtiles - 1 - blockIdx.x / BK) * kTileRows;
   const int b = blockIdx.x % BK / p.s.KVH;
   dq_init_block<D>(smem, b, blockIdx.x % p.s.KVH, q0);
-  dflash_block_tiles<false>(p, reinterpret_cast<int4*>(smem + L::kRowData),
+  dflash_block_tiles<false, kPitched>(
+      p, reinterpret_cast<int4*>(smem + L::kRowData),
                             dq_setup<D>(smem),
                             reinterpret_cast<int*>(smem + L::kExtra),
                             &dq_block_info<D>(smem)->n_tiles, b, q0);
@@ -450,13 +485,16 @@ struct DkvParams {
   DkvStream s;         // rows = Q, keys = S
   const int* anchors;  // [B, N]
   const int* keep;     // [B, N], 0 = block not kept
-  int N, bs_shift, window;  // block_size = 1 << bs_shift (it divides 64)
+  int N, bs_shift, window;  // the block pitch = 1 << bs_shift
+  int bs;              // the real rows of a block: the pitch, or fewer
 };
 
 // The DFlash mask of the dk/dv stream: a row's allowed context keys are one
 // interval [lo, hi) (the x, y of row_span), staged with its q tile as 16
 // bytes a row; a stage needs no mask when every row of the tile reaches
-// every key of the block's tile (kept, lo <= key0, hi >= key0 + 64).
+// every key of the block's tile (kept, lo <= key0, hi >= key0 + 64). A
+// padded row (kPitched) reaches none.
+template <bool kPitched>
 struct DFlashRows {
   static constexpr bool kLogSumExp = false;  // m and l
   const DkvParams& p;
@@ -486,7 +524,8 @@ struct DFlashRows {
     int lo = 0, hi = 0;
     if (row < p.s.rows) {
       const long long i = (long long)blk.b * p.N + (row >> p.bs_shift);
-      if (p.keep[i] != 0) {
+      if (p.keep[i] != 0 &&
+          (!kPitched || (row & ((1 << p.bs_shift) - 1)) < p.bs)) {
         const int a = p.anchors[i];
         hi = min(max(a, 0), p.s.keys);
         if (p.window > 0) {
@@ -512,7 +551,7 @@ struct DFlashRows {
 // keys (a row of block n reaches at most [a_n - (w - 1), a_n); all of
 // [0, a_n) without a window), then streams the group's query heads over
 // them (dkv_stream.cuh).
-template <int D>
+template <int D, bool kPitched>
 __global__ void __launch_bounds__(kDkvThreads, 1)
     dflash_bwd_dkv_kernel(const __grid_constant__ DkvParams p) {
   using L = DkvStreamSmem<D>;
@@ -543,27 +582,37 @@ __global__ void __launch_bounds__(kDkvThreads, 1)
     list[i] = (hi > lo && lo < key0 + kTileRows && hi > key0) ? 1 : 0;
   }
   compact_list(list, n_qtiles, &block_info<D>(smem)->n_list);
-  dkv_stream_block<D>(p.s, DFlashRows{p}, smem);
+  dkv_stream_block<D>(p.s, DFlashRows<kPitched>{p}, smem);
 }
 
 // --------------------------------------------------------------------------
 // launches
 // --------------------------------------------------------------------------
 
-// The query rows Q = N * bs of a shape the kernels take, or 0
+// The rows a block of bs query rows takes in the kernels' layout: the
+// smallest power of two >= bs (so it divides the 64-row q tile)
+int block_pitch(int bs) {
+  int pitch = 1;
+  while (pitch < bs) pitch <<= 1;
+  return pitch;
+}
+
+// The query rows Q = N * block_pitch(bs) of a shape the kernels take, or 0
 int dflash_rows(int B, int H, int KVH, int S, int N, int bs, int window,
                 int D) {
   if (B < 1 || KVH < 1 || H % KVH != 0 || S < 1 || N < 1 || bs < 1 ||
-      kTileRows % bs != 0 || window < 0 || (D != 64 && D != 128) ||
-      (long long)N * bs > INT_MAX / 2) {
+      bs > kTileRows || window < 0 || (D != 64 && D != 128) ||
+      (long long)N * block_pitch(bs) > INT_MAX / 2) {
     return 0;
   }
-  return N * bs;
+  return N * block_pitch(bs);
 }
 
 }  // namespace
 
-// Forward: out [B, Q, H*D] bf16, m and l [B, H, Q] fp32 (all contiguous).
+// Forward: out [B, Q, H*D] bf16, m and l [B, H, Q] fp32 (all contiguous),
+// in the pitched layout: Q = N * block_pitch(bs) rows, block n's rows at
+// n * pitch .. n * pitch + bs - 1 and padding after them (bs from 1 to 64).
 // tensors: q [B, H, Q, D], k_ctx and v_ctx [B, KVH, S, D], k_drf and v_drf
 // [B, KVH, Q, D]; strides: their element strides over (b, head, row), 15
 // values in that order, multiples of 8 with 16-byte aligned bases and the
@@ -595,6 +644,7 @@ extern "C" int dflash_attention_fwd(const void* const* tensors,
   d.S = S;
   d.Q = Q;
   d.N = N;
+  d.pitch = Q / N;
   d.bs = bs;
   d.window = window;
   d.n_chunks = (H / KVH + kFwdHeads - 1) / kFwdHeads;
@@ -604,19 +654,30 @@ extern "C" int dflash_attention_fwd(const void* const* tensors,
   const int smem =
       fwd_smem_bytes(D, ((S + kTileRows - 1) / kTileRows + 1) * 4);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 128 ? launch_hopper(dflash_fwd_kernel<128>, smem, d, blocks, st)
-                  : launch_hopper(dflash_fwd_kernel<64>, smem, d, blocks, st);
+  if (D == 128) {
+    return d.pitch != bs
+               ? launch_hopper(dflash_fwd_kernel<128, true>, smem, d, blocks,
+                               st)
+               : launch_hopper(dflash_fwd_kernel<128, false>, smem, d,
+                               blocks, st);
+  }
+  return d.pitch != bs
+             ? launch_hopper(dflash_fwd_kernel<64, true>, smem, d, blocks, st)
+             : launch_hopper(dflash_fwd_kernel<64, false>, smem, d, blocks,
+                             st);
 }
 
 // Backward kernel A: dq [B, H, Q, D] and the draft keys' dk, dv summed
 // over each group's query heads [B, KVH, Q, D] (all contiguous bf16). dout
 // [B, Q, H*D] is contiguous; m, l, delta are [B, H, Q] fp32. `heads` is the
 // number of query heads a block keeps resident: 4, or 2 where the draft
-// staging (64 x max(bs, 16) bf16 of p and of ds a head) does not fit beside
-// four at D = 128; ws is an fp32 workspace [2, B, KVH, Q, D] when H / KVH >
-// heads (else unused). The other arguments are those of the forward; the
-// strides of all five operands must be multiples of 8 elements and their
-// bases 16-byte aligned (the tensor maps').
+// staging (64 x max(pitch, 16) bf16 of p and of ds a head) does not fit
+// beside four at D = 128; ws is an fp32 workspace [2, B, KVH, Q, D] when
+// H / KVH > heads (else unused). The other arguments are those of the
+// forward, in its pitched layout (the padded rows of dout, m, l and delta
+// hold 0, -1e30, 0 and 0: dead rows); the strides of all five operands
+// must be multiples of 8 elements and their bases 16-byte aligned (the
+// tensor maps').
 extern "C" int dflash_attention_bwd_dq(
     const void* const* tensors, const long long* strides, const int* anchors,
     const int* keep, const void* dout, const float* m, const float* l,
@@ -641,10 +702,11 @@ extern "C" int dflash_attention_bwd_dq(
   d.S = S;
   d.Q = Q;
   d.N = N;
+  d.pitch = Q / N;
   d.bs = bs;
   d.window = window;
   d.band_shift = 4;
-  while ((1 << d.band_shift) < bs) ++d.band_shift;
+  while ((1 << d.band_shift) < d.pitch) ++d.band_shift;
   // the tile list (the context tiles and the draft tile), then the draft
   // staging, unless that fits in the Q tiles' unused slots
   const int list = ((S + kTileRows - 1) / kTileRows + 1 + 3) / 4 * 16;
@@ -658,9 +720,18 @@ extern "C" int dflash_attention_bwd_dq(
   const long long blocks =
       (long long)((Q + kTileRows - 1) / kTileRows) * B * KVH;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 128
-             ? launch_hopper(dflash_bwd_dq_kernel<128>, smem, d, blocks, st)
-             : launch_hopper(dflash_bwd_dq_kernel<64>, smem, d, blocks, st);
+  if (D == 128) {
+    return d.pitch != bs
+               ? launch_hopper(dflash_bwd_dq_kernel<128, true>, smem, d,
+                               blocks, st)
+               : launch_hopper(dflash_bwd_dq_kernel<128, false>, smem, d,
+                               blocks, st);
+  }
+  return d.pitch != bs
+             ? launch_hopper(dflash_bwd_dq_kernel<64, true>, smem, d, blocks,
+                             st)
+             : launch_hopper(dflash_bwd_dq_kernel<64, false>, smem, d,
+                             blocks, st);
 }
 
 // Backward kernel B: the context keys' dk, dv [B, KVH, S, D] (contiguous
@@ -684,14 +755,22 @@ extern "C" int dflash_attention_bwd_dkv(
   d.keep = keep;
   d.N = N;
   d.bs_shift = 0;
-  while ((1 << d.bs_shift) < bs) ++d.bs_shift;
+  while ((1 << d.bs_shift) < Q / N) ++d.bs_shift;
   d.window = window;
+  d.bs = bs;
   const long long blocks =
       (long long)((S + kTileRows - 1) / kTileRows) * B * KVH;
   const int smem = dkv_smem_bytes(D, (Q + kTileRows - 1) / kTileRows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return D == 128 ? launch_hopper(dflash_bwd_dkv_kernel<128>, smem, d,
-                                  blocks, st)
-                  : launch_hopper(dflash_bwd_dkv_kernel<64>, smem, d, blocks,
-                                  st);
+  const bool pitched = (1 << d.bs_shift) != bs;
+  if (D == 128) {
+    return pitched ? launch_hopper(dflash_bwd_dkv_kernel<128, true>, smem, d,
+                                   blocks, st)
+                   : launch_hopper(dflash_bwd_dkv_kernel<128, false>, smem,
+                                   d, blocks, st);
+  }
+  return pitched ? launch_hopper(dflash_bwd_dkv_kernel<64, true>, smem, d,
+                                 blocks, st)
+                 : launch_hopper(dflash_bwd_dkv_kernel<64, false>, smem, d,
+                                 blocks, st);
 }

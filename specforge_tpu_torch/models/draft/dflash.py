@@ -75,6 +75,11 @@ class DFlashConfig(DraftModelConfig):
     # domino head
     emb_dim: int = 0
     gru_hidden_dim: int = 0
+    # dspark heads
+    markov_rank: int = 0
+    markov_head_type: str = "vanilla"
+    enable_confidence_head: bool = False
+    confidence_head_with_markov: bool = False
 
     @classmethod
     def from_dict(cls, obj: Dict[str, Any]) -> "DFlashConfig":
@@ -278,7 +283,7 @@ class DFlashDraftModel(nn.Module):
             torch.Generator(device=device).manual_seed(seed))
 
     def _init_draft_head(self, device) -> None:
-        """Override point for the Domino head."""
+        """Override point for the Domino and DSpark heads."""
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -312,3 +317,10 @@ class DFlashDraftModel(nn.Module):
                            draft_position_ids, anchor_positions,
                            block_keep_mask)
         return self.norm(hidden)
+
+    # --- auxiliary-head seams (overridden by Domino and DSpark) -----------
+    def predict_confidence(self, hidden_states: torch.Tensor, *,
+                           prev_token_ids: Optional[torch.Tensor] = None
+                           ) -> Optional[torch.Tensor]:
+        """Per-position acceptance logits; the base draft has no head."""
+        return None

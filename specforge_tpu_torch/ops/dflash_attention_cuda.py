@@ -19,6 +19,14 @@ are ``[B, H, Q]`` fp32. The inputs may be strided views (the draft's merged
 ``qkv_proj`` output); the kernels read them through their strides and
 repeat no kv head. Unlike the JAX wrapper, a shape the kernels do not take
 raises: there is no fallback to another path.
+
+The kernels take any block size from 1 to 64. They lay each block out at a
+pitch, the smallest power of two not below the block size
+(:func:`block_pitch`: 8 for DSpark's 7), so that a block divides their
+64-row q tile; where the two differ, the wrappers copy q and the draft keys
+and values (and, in the backward, dout and the row statistics) into that
+layout with zero padding rows, and copy the results back. A padded row is
+dead in the kernels (m = -1e30, l = 0) and never reaches the caller.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ from specforge_tpu_torch.ops.masks import dflash_chunk_mask
 
 NEG_INF = -1e30   # finite, as in the kernels
 HEAD_DIMS = (64, 128)
-Q_TILE = 64       # query rows of a kernel's q tile; block_size must divide it
+Q_TILE = 64       # query rows of a kernel's q tile; a block's pitch divides it
 #: elements of one plain-version score chunk [B, H, rows, S + rows] (fp32)
 PLAIN_CHUNK_ELEMENTS = 1 << 26
 
@@ -155,6 +163,37 @@ def dflash_flash_attention_backward_plain(
 # the kernels
 # --------------------------------------------------------------------------
 
+def block_pitch(block_size: int) -> int:
+    """Rows a block takes in the kernels' layout: the smallest power of two
+    not below ``block_size`` (the rows past ``block_size`` are padding)."""
+    return 1 << (block_size - 1).bit_length()
+
+
+def _pitch_rows(x: torch.Tensor, dim: int, block_size: int,
+                fill: float = 0.0) -> torch.Tensor:
+    """``x`` with rows ``[N * block_size]`` along ``dim`` → a contiguous copy
+    with rows ``[N * pitch]``, each block's padding rows set to ``fill``; ``x``
+    itself where the pitch is the block size."""
+    pitch = block_pitch(block_size)
+    if pitch == block_size:
+        return x
+    blocks = x.unflatten(dim, (-1, block_size))
+    shape = list(blocks.shape)
+    shape[dim + 1] = pitch
+    out = blocks.new_full(shape, fill)
+    out.narrow(dim + 1, 0, block_size).copy_(blocks)
+    return out.flatten(dim, dim + 1)
+
+
+def _unpitch_rows(x: torch.Tensor, dim: int, block_size: int) -> torch.Tensor:
+    """The inverse of :func:`_pitch_rows`: the real rows, contiguous."""
+    pitch = block_pitch(block_size)
+    if pitch == block_size:
+        return x
+    return x.unflatten(dim, (-1, pitch)).narrow(dim + 1, 0, block_size).flatten(
+        dim, dim + 1)
+
+
 def _check_operand(name: str, x: torch.Tensor, shape, device) -> None:
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, q on {device}")
@@ -173,8 +212,9 @@ def _check_operand(name: str, x: torch.Tensor, shape, device) -> None:
 
 def _check_inputs(q, k_ctx, v_ctx, k_drf, v_drf, anchors, keep, block_size,
                   sliding_window):
-    """Validate what the kernels take → (pointer array, stride array,
-    int32 anchors, int32 keep, window)."""
+    """Validate what the kernels take → (the five operands, q and the draft
+    keys and values in the pitched layout; int32 anchors, int32 keep,
+    window)."""
     if q.dim() != 4:
         raise ValueError(f"q must be [B, H, Q, D], got {tuple(q.shape)}")
     b, h, q_len, d = q.shape
@@ -183,9 +223,10 @@ def _check_inputs(q, k_ctx, v_ctx, k_drf, v_drf, anchors, keep, block_size,
     if anchors.dim() != 2 or anchors.shape[0] != b:
         raise ValueError(f"anchors must be [B, N], got {tuple(anchors.shape)}")
     n = anchors.shape[1]
-    if block_size < 1 or Q_TILE % block_size:
+    if not 1 <= block_size <= Q_TILE:
         raise ValueError(
-            f"block_size {block_size} must divide the q tile of {Q_TILE} rows")
+            f"block_size {block_size} must lie in 1..{Q_TILE} (its pitch "
+            f"must divide the q tile of {Q_TILE} rows)")
     if q_len != n * block_size:
         raise ValueError(f"q has {q_len} rows, expected N*block_size = "
                          f"{n * block_size}")
@@ -204,12 +245,19 @@ def _check_inputs(q, k_ctx, v_ctx, k_drf, v_drf, anchors, keep, block_size,
     if tuple(keep.shape) != (b, n) or anchors.device != q.device or (
             keep.device != q.device):
         raise ValueError(f"anchors and keep must be [B, N] on {q.device}")
-    tensors = (q, k_ctx, v_ctx, k_drf, v_drf)
+    tensors = (_pitch_rows(q, 2, block_size), k_ctx, v_ctx,
+               _pitch_rows(k_drf, 2, block_size),
+               _pitch_rows(v_drf, 2, block_size))
+    return (tensors, anchors.to(torch.int32).contiguous(),
+            keep.to(torch.int32).contiguous(), sliding_window or 0)
+
+
+def _pointers(tensors):
+    """The operands' (pointer array, stride array over (b, head, row))."""
     ptrs = (ctypes.c_void_p * 5)(*[x.data_ptr() for x in tensors])
     strides = (ctypes.c_longlong * 15)(
         *[st for x in tensors for st in x.stride()[:3]])
-    return (ptrs, strides, anchors.to(torch.int32).contiguous(),
-            keep.to(torch.int32).contiguous(), sliding_window or 0)
+    return ptrs, strides
 
 
 def _dims(q, k_ctx, anchors, block_size, window):
@@ -236,12 +284,13 @@ def dflash_flash_attention_fwd(
             sliding_window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    ptrs, strides, a32, k32, window = _check_inputs(
+    tensors, a32, k32, window = _check_inputs(
         q, k_ctx, v_ctx, k_drf, v_drf, anchors, keep, block_size,
         sliding_window)
-    b, h, q_len, d = q.shape
-    out = torch.empty((b, q_len, h * d), dtype=q.dtype, device=q.device)
-    m = torch.empty((b, h, q_len), dtype=torch.float32, device=q.device)
+    ptrs, strides = _pointers(tensors)
+    b, h, rows, d = tensors[0].shape
+    out = torch.empty((b, rows, h * d), dtype=q.dtype, device=q.device)
+    m = torch.empty((b, h, rows), dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
     status = cuda_lib.library().dflash_attention_fwd(
         ptrs, strides, a32.data_ptr(), k32.data_ptr(), out.data_ptr(),
@@ -249,7 +298,8 @@ def dflash_flash_attention_fwd(
         *_dims(q, k_ctx, anchors, block_size, window), _stream(q))
     cuda_lib.check(status, "dflash_attention_fwd")
     dflash_flash_attention_fwd.launches += 1
-    return out, m, l
+    return (_unpitch_rows(out, 1, block_size), _unpitch_rows(m, 2, block_size),
+            _unpitch_rows(l, 2, block_size))
 
 
 #: kernel launches so far (plain CPU calls do not count)
@@ -258,28 +308,52 @@ dflash_flash_attention_fwd.launches = 0
 
 def _dq_heads(d: int, block_size: int) -> int:
     """Query heads a dq block keeps resident: four, or two where the draft
-    staging (64 x max(block_size, 16) bf16 of p and of ds a head) does not
-    fit beside four at D = 128."""
-    return 4 if d == 64 or block_size <= 16 else 2
+    staging (64 x max(pitch, 16) bf16 of p and of ds a head) does not fit
+    beside four at D = 128."""
+    return 4 if d == 64 or block_pitch(block_size) <= 16 else 2
 
 
-def dflash_attention_bwd_dq(q, k_ctx, v_ctx, k_drf, v_drf, anchors, keep,
-                            block_size, sliding_window, dout, m, l, delta):
-    """Launch kernel A → (dq [B, H, Q, D], draft dk, draft dv [B, KVH, Q,
-    D]), contiguous bf16, the draft gradients summed over each group's
-    query heads in the kernel. ``dout`` is contiguous [B, Q, H*D],
-    ``delta`` from :func:`backward_delta`."""
-    ptrs, strides, a32, k32, window = _check_inputs(
+def _check_stats(name: str, x: torch.Tensor, shape, device) -> None:
+    if (x.device != device or x.dtype != torch.float32
+            or tuple(x.shape) != tuple(shape) or not x.is_contiguous()):
+        raise ValueError(
+            f"{name} must be contiguous float32 {tuple(shape)} on {device}, "
+            f"got {x.dtype} {tuple(x.shape)} on {x.device}")
+
+
+def _bwd_operands(q, k_ctx, v_ctx, k_drf, v_drf, anchors, keep, block_size,
+                  sliding_window, dout, m, l, delta):
+    """Validate the backward kernels' operands → (the five operands, int32
+    anchors, int32 keep, window, dout, m, l, delta), all in the pitched
+    layout (padded rows: dout 0, m -1e30, l 0, delta 0, dead rows)."""
+    tensors, a32, k32, window = _check_inputs(
         q, k_ctx, v_ctx, k_drf, v_drf, anchors, keep, block_size,
         sliding_window)
     b, h, q_len, d = q.shape
+    if (dout.device != q.device or dout.dtype != q.dtype
+            or tuple(dout.shape) != (b, q_len, h * d)):
+        raise ValueError(f"dout must be {q.dtype} [B, Q, H*D] on {q.device}")
+    for name, x in (("m", m), ("l", l), ("delta", delta)):
+        _check_stats(name, x, (b, h, q_len), q.device)
+    return (tensors, a32, k32, window,
+            _pitch_rows(dout.contiguous(), 1, block_size),
+            _pitch_rows(m, 2, block_size, NEG_INF),
+            _pitch_rows(l, 2, block_size), _pitch_rows(delta, 2, block_size))
+
+
+def _launch_bwd_dq(q, k_ctx, anchors, block_size, operands):
+    """Kernel A on pitched operands → pitched (dq, draft dk, draft dv)."""
+    tensors, a32, k32, window, dout, m, l, delta = operands
+    ptrs, strides = _pointers(tensors)
+    b, h, rows, d = tensors[0].shape
     kvh = k_ctx.shape[1]
     heads = _dq_heads(d, block_size)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    dkd = torch.empty((b, kvh, q_len, d), dtype=k_drf.dtype, device=q.device)
+    dq = torch.empty((b, h, rows, d), dtype=q.dtype, device=q.device)
+    dkd = torch.empty((b, kvh, rows, d), dtype=tensors[3].dtype,
+                      device=q.device)
     dvd = torch.empty_like(dkd)
     # past one chunk of resident heads the group sums go through fp32
-    ws = (torch.empty((2, b, kvh, q_len, d), dtype=torch.float32,
+    ws = (torch.empty((2, b, kvh, rows, d), dtype=torch.float32,
                       device=q.device) if h // kvh > heads else None)
     status = cuda_lib.library().dflash_attention_bwd_dq(
         ptrs, strides, a32.data_ptr(), k32.data_ptr(), dout.data_ptr(),
@@ -292,18 +366,10 @@ def dflash_attention_bwd_dq(q, k_ctx, v_ctx, k_drf, v_drf, anchors, keep,
     return dq, dkd, dvd
 
 
-#: kernel launches so far
-dflash_attention_bwd_dq.launches = 0
-
-
-def dflash_attention_bwd_dkv(q, k_ctx, v_ctx, k_drf, v_drf, anchors, keep,
-                             block_size, sliding_window, dout, m, l, delta):
-    """Launch kernel B → (dk, dv) of the context keys [B, KVH, S, D]
-    contiguous bf16, summed over each group's query heads in the kernel.
-    The operands are those of :func:`dflash_attention_bwd_dq`."""
-    ptrs, strides, a32, k32, window = _check_inputs(
-        q, k_ctx, v_ctx, k_drf, v_drf, anchors, keep, block_size,
-        sliding_window)
+def _launch_bwd_dkv(q, k_ctx, anchors, block_size, operands):
+    """Kernel B on pitched operands → (dk, dv) of the context keys."""
+    tensors, a32, k32, window, dout, m, l, delta = operands
+    ptrs, strides = _pointers(tensors)
     dkc = torch.empty(k_ctx.shape, dtype=k_ctx.dtype, device=q.device)
     dvc = torch.empty_like(dkc)
     status = cuda_lib.library().dflash_attention_bwd_dkv(
@@ -316,16 +382,34 @@ def dflash_attention_bwd_dkv(q, k_ctx, v_ctx, k_drf, v_drf, anchors, keep,
     return dkc, dvc
 
 
+def dflash_attention_bwd_dq(q, k_ctx, v_ctx, k_drf, v_drf, anchors, keep,
+                            block_size, sliding_window, dout, m, l, delta):
+    """Launch kernel A → (dq [B, H, Q, D], draft dk, draft dv [B, KVH, Q,
+    D]), contiguous bf16, the draft gradients summed over each group's
+    query heads in the kernel. ``dout`` is [B, Q, H*D], ``m``, ``l`` the
+    forward's, ``delta`` from :func:`backward_delta`."""
+    dq, dkd, dvd = _launch_bwd_dq(q, k_ctx, anchors, block_size, _bwd_operands(
+        q, k_ctx, v_ctx, k_drf, v_drf, anchors, keep, block_size,
+        sliding_window, dout, m, l, delta))
+    return tuple(_unpitch_rows(x, 2, block_size) for x in (dq, dkd, dvd))
+
+
+#: kernel launches so far
+dflash_attention_bwd_dq.launches = 0
+
+
+def dflash_attention_bwd_dkv(q, k_ctx, v_ctx, k_drf, v_drf, anchors, keep,
+                             block_size, sliding_window, dout, m, l, delta):
+    """Launch kernel B → (dk, dv) of the context keys [B, KVH, S, D]
+    contiguous bf16, summed over each group's query heads in the kernel.
+    The operands are those of :func:`dflash_attention_bwd_dq`."""
+    return _launch_bwd_dkv(q, k_ctx, anchors, block_size, _bwd_operands(
+        q, k_ctx, v_ctx, k_drf, v_drf, anchors, keep, block_size,
+        sliding_window, dout, m, l, delta))
+
+
 #: kernel launches so far
 dflash_attention_bwd_dkv.launches = 0
-
-
-def _check_stats(name: str, x: torch.Tensor, shape, device) -> None:
-    if (x.device != device or x.dtype != torch.float32
-            or tuple(x.shape) != tuple(shape) or not x.is_contiguous()):
-        raise ValueError(
-            f"{name} must be contiguous float32 {tuple(shape)} on {device}, "
-            f"got {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
 def dflash_flash_attention_bwd(
@@ -338,7 +422,8 @@ def dflash_flash_attention_bwd(
     CPU tensors take :func:`dflash_flash_attention_backward_plain`; CUDA
     tensors launch the two backward kernels or raise. ``delta`` is one
     torch reduction; kernel A sums the draft dk/dv over each group's query
-    heads itself."""
+    heads itself. The operands are put in the pitched layout once for both
+    kernels."""
     if q.device.type == "cpu":
         return dflash_flash_attention_backward_plain(
             q, k_ctx, v_ctx, k_drf, v_drf, anchors, keep, block_size,
@@ -346,19 +431,17 @@ def dflash_flash_attention_bwd(
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     b, h, q_len, d = q.shape
-    for name, x in (("out", out), ("dout", dout)):
-        if (x.device != q.device or x.dtype != q.dtype
-                or tuple(x.shape) != (b, q_len, h * d)):
-            raise ValueError(f"{name} must be {q.dtype} [B, Q, H*D] on "
-                             f"{q.device}")
-    _check_stats("m", m, (b, h, q_len), q.device)
-    _check_stats("l", l, (b, h, q_len), q.device)
-    dout = dout.contiguous()
-    args = (q, k_ctx, v_ctx, k_drf, v_drf, anchors, keep, block_size,
-            sliding_window, dout, m, l, backward_delta(out, dout, h))
-    dq, dkd, dvd = dflash_attention_bwd_dq(*args)
-    dkc, dvc = dflash_attention_bwd_dkv(*args)
-    return dq, dkc, dvc, dkd, dvd
+    if (out.device != q.device or out.dtype != q.dtype
+            or tuple(out.shape) != (b, q_len, h * d)):
+        raise ValueError(f"out must be {q.dtype} [B, Q, H*D] on {q.device}")
+    operands = _bwd_operands(
+        q, k_ctx, v_ctx, k_drf, v_drf, anchors, keep, block_size,
+        sliding_window, dout, m, l, backward_delta(out, dout, h))
+    dq, dkd, dvd = _launch_bwd_dq(q, k_ctx, anchors, block_size, operands)
+    dkc, dvc = _launch_bwd_dkv(q, k_ctx, anchors, block_size, operands)
+    return (_unpitch_rows(dq, 2, block_size), dkc, dvc,
+            _unpitch_rows(dkd, 2, block_size),
+            _unpitch_rows(dvd, 2, block_size))
 
 
 class _DFlashFlashAttention(torch.autograd.Function):

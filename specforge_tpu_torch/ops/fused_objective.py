@@ -1,10 +1,12 @@
 """Fused frozen-vocab objectives of the DFlash family, with input gradients
 computed in the forward pass.
 
-Counterpart of the DFlash and Domino parts of
+Counterpart of the DFlash, Domino and DSpark parts of
 ``specforge_tpu/ops/fused_objective.py``. The objective ends in
-``CE(hidden @ W_frozen^T)`` (plus, for Domino, a low-rank correction); the
-head is frozen and every downstream scale is known in the forward pass, so
+``CE(hidden @ W_frozen^T)`` (plus, for Domino and DSpark, a low-rank
+correction, and for DSpark an L1 distance to the teacher's probabilities);
+the head is frozen and every downstream scale is known in the forward pass,
+so
 
     d loss_num / d logits = w_eff * (softmax(logits) - onehot(target))
 
@@ -265,3 +267,145 @@ def domino_objective_fused(hidden4d, corr_act, p1_weight, target_ids,
                                   weight_mask, eval_weight_mask,
                                   float(lambda_base), head_weight,
                                   int(chunk_blocks))
+
+
+# --- DSpark (Markov-biased CE + L1 to the teacher's probabilities) ----------
+
+class _DSparkObjective(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, hidden4d, latent, w2_weight, ath, target_ids,
+                loss_weights, eval_mask, head_weight, ce_alpha, l1_alpha,
+                chunk_blocks):
+        n = hidden4d.shape[1]
+        cs = n // _resolve_chunks(n, chunk_blocks)
+        dtype = hidden4d.dtype
+        device = hidden4d.device
+        has_markov, has_target = latent is not None, ath is not None
+        use_l1 = has_target and l1_alpha > 0
+        w_cast = head_weight.to(dtype)
+        w2_cast = w2_weight.to(dtype) if has_markov else None
+        k = hidden4d.shape[2]
+        # ce, l1, correct, eval_den, agree, t_top1, d_top1, tau_num, tau_den
+        sums = torch.zeros(9, dtype=torch.float32, device=device)
+        pos = torch.zeros(3, k, dtype=torch.float32, device=device)
+        d_hidden = torch.empty_like(hidden4d)
+        d_latent = torch.empty_like(latent) if has_markov else None
+        dw2 = (torch.zeros(w2_weight.shape, dtype=torch.float32,
+                           device=device) if has_markov else None)
+        accept = torch.zeros(target_ids.shape, dtype=torch.float32,
+                             device=device)
+        zero = torch.zeros((), dtype=torch.float32, device=device)
+        for start in range(0, n, cs):
+            sl = slice(start, start + cs)
+            h = hidden4d[:, sl]
+            tgt = target_ids[:, sl].long()
+            lw = loss_weights[:, sl]
+            em = eval_mask[:, sl].bool()
+            emf = em.float()
+            draft_logits = linear_rows(h, w_cast)
+            if has_markov:
+                lat = latent[:, sl]
+                draft_logits = draft_logits + linear_rows(lat, w2_cast)
+            predicted = draft_logits.argmax(dim=-1)
+            nlq, p = _ce_stats(draft_logits, tgt)
+            del draft_logits
+            correct = ((predicted == tgt) & em).float()
+            l1_num = agree = t_top1 = d_top1 = tau_num = tau_den = zero
+            diff = None
+            if has_target:
+                target_logits = linear_rows(ath[:, sl], w_cast)
+                teacher_ids = target_logits.argmax(dim=-1)
+                q = torch.softmax(target_logits.float(), dim=-1)
+                del target_logits
+                t_top1 = (q.amax(dim=-1) * emf).sum()
+                diff = p - q
+                del q
+                l1 = diff.abs().sum(dim=-1)
+                ap = torch.clamp(1.0 - 0.5 * l1, 0.0, 1.0)
+                accept[:, sl] = ap
+                if l1_alpha > 0:
+                    l1_num = (l1 * lw).sum()
+                agree = ((predicted == teacher_ids).float() * emf).sum()
+                d_top1 = (p.amax(dim=-1) * emf).sum()
+                valid_blocks = em.any(dim=-1).float()
+                accepted_exp = torch.cumprod(ap * emf, dim=-1).sum(dim=-1) + 1.0
+                tau_num = (accepted_exp * valid_blocks).sum()
+                tau_den = valid_blocks.sum()
+            sums += torch.stack([
+                (nlq * lw).sum(), l1_num, correct.sum(), emf.sum(), agree,
+                t_top1, d_top1, tau_num, tau_den,
+            ])
+            pos += torch.stack([(nlq * emf).sum(dim=(0, 1)),
+                                correct.sum(dim=(0, 1)), emf.sum(dim=(0, 1))])
+            # forward gradient of vocab_num w.r.t. the draft logits:
+            #   ce_alpha·lw·(p - onehot) + l1_alpha·lw·p·(s - <s, p>),
+            # s = sign(p - q), in fp32, then cast once
+            if use_l1:
+                diff.sign_()
+                sdot = (diff * p).sum(dim=-1, keepdim=True)
+                diff.sub_(sdot).mul_(p).mul_((l1_alpha * lw)[..., None])
+            else:
+                diff = None
+            p.scatter_add_(-1, tgt[..., None],
+                           torch.full_like(p[..., :1], -1.0))
+            p.mul_((ce_alpha * lw)[..., None])
+            if diff is not None:
+                p.add_(diff)
+                del diff
+            dl = p.to(dtype)
+            del p
+            d_hidden[:, sl] = torch.matmul(dl, w_cast)
+            if has_markov:
+                d_latent[:, sl] = torch.matmul(dl, w2_cast)
+                v, r = dl.shape[-1], lat.shape[-1]
+                # in the compute dtype (fp32 accumulation inside the
+                # product), summed over chunks in fp32
+                dw2 += torch.matmul(dl.reshape(-1, v).t(),
+                                    lat.reshape(-1, r)).float()
+            del dl
+        (ce_num, l1_num, correct_num, eval_den, agree_num, t_top1, d_top1,
+         tau_num, tau_den) = sums.unbind()
+        ce_pos, correct_pos, pos_den = pos.unbind()
+        vocab_num = ce_alpha * ce_num + l1_alpha * l1_num
+        ctx.save_for_backward(d_hidden, d_latent, dw2)
+        ctx.w2_dtype = w2_weight.dtype if has_markov else None
+        outs = (ce_num, l1_num, correct_num, eval_den, ce_pos, correct_pos,
+                pos_den, agree_num, t_top1, d_top1, tau_num, tau_den, accept)
+        ctx.mark_non_differentiable(*outs)
+        return (vocab_num, *outs)
+
+    @staticmethod
+    def backward(ctx, g, *_):
+        d_hidden, d_latent, dw2 = ctx.saved_tensors
+        return (
+            (d_hidden.float() * g).to(d_hidden.dtype),
+            None if d_latent is None else (d_latent.float() * g).to(
+                d_latent.dtype),
+            None if dw2 is None else (dw2 * g).to(ctx.w2_dtype),
+            None, None, None, None, None, None, None, None,
+        )
+
+
+def dspark_objective_fused(hidden4d, latent, w2_weight, ath, target_ids,
+                           loss_weights, eval_mask, head_weight,
+                           ce_alpha: float, l1_alpha: float,
+                           chunk_blocks: int = 0):
+    """→ (vocab_num, ce_num, l1_num, correct_num, eval_den, ce_pos,
+    correct_pos, pos_den, agree_num, t_top1, d_top1, tau_num, tau_den,
+    accept_probability).
+
+    hidden4d [B, N, K, h]; latent [B, N, K, r], the Markov latent, and
+    w2_weight the trainable bias projection [V, r] (logit bias = latent @
+    w2^T), both None without a Markov head; ath [B, N, K, h] the aligned
+    teacher hidden state, or None; target_ids, loss_weights (decay
+    applied), eval_mask [B, N, K]; head_weight frozen [V, h]. Only
+    ``vocab_num = ce_alpha·ce_num + l1_alpha·l1_num`` carries a gradient
+    (to hidden4d, latent and w2_weight); the rest is telemetry and the
+    acceptance probability [B, N, K] (0 without a teacher), which the
+    confidence BCE uses outside. Both full-vocab softmaxes (the draft's and
+    the teacher's) run once per chunk; the L1 input gradient is formed
+    forward as ``p·(s - <s, p>)`` with ``s = sign(p - q)``."""
+    return _DSparkObjective.apply(hidden4d, latent, w2_weight, ath,
+                                  target_ids, loss_weights, eval_mask,
+                                  head_weight, float(ce_alpha),
+                                  float(l1_alpha), int(chunk_blocks))

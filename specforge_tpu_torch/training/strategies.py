@@ -1,7 +1,7 @@
 """Training strategies: TrainBatch tensors → loss + metrics.
 
 Counterpart of ``specforge_tpu/training/strategies.py`` (``StepOutput``,
-``linear_lambda_base`` and the EAGLE3, DFlash, Domino and P-EAGLE
+``linear_lambda_base`` and the EAGLE3, DFlash, Domino, DSpark and P-EAGLE
 strategies). The JAX strategy receives its parameters explicitly; here the
 strategy holds the training model, whose parameters live on its device, and
 moves each batch there. ``forward_loss`` may be handed substitute tensors for the model's
@@ -241,6 +241,8 @@ class DFlashTrainStrategy:
     name = "dflash"
     required_features = {"input_ids", "hidden_states", "loss_mask"}
     uses_loss_terms = True
+    #: batch features the model takes after the generator (DSpark's teacher)
+    model_features: Tuple[str, ...] = ()
 
     def __init__(self, model, *, seed: int = 0) -> None:
         self.model = model
@@ -262,7 +264,7 @@ class DFlashTrainStrategy:
             loss_mask = loss_mask[..., 0]
         args = (tensors["input_ids"], tensors["hidden_states"], loss_mask,
                 frozen["target_head_weight"], frozen["target_embed_weight"],
-                None, *extra)
+                None, *[tensors[k] for k in self.model_features], *extra)
         kwargs = {"anchors": self.sample_anchors(loss_mask, ctx)}
         return _apply(self.model, params, args, kwargs)
 
@@ -309,6 +311,19 @@ class DominoTrainStrategy(DFlashTrainStrategy):
         metrics = {k: v.detach() for k, v in model_metrics.items()}
         metrics["accuracy"] = accuracy.detach()
         return StepOutput(loss=loss, metrics=metrics)
+
+
+class DSparkTrainStrategy(DFlashTrainStrategy):
+    """DSpark strategy: the DFlash spine with the target's last hidden
+    state as the teacher (its L1 and confidence terms), passed as the
+    model's last argument. The loss is token-pooled in the model; there
+    are no ``loss_terms``."""
+
+    name = "dspark"
+    required_features = {"input_ids", "hidden_states", "loss_mask",
+                         "target_last_hidden_states"}
+    uses_loss_terms = False
+    model_features = ("target_last_hidden_states",)
 
 
 class PEagleTrainStrategy:

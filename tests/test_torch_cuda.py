@@ -420,36 +420,44 @@ def rel_err(got, want):
 
 # (a) the Domino slice's shapes; (c) the sliding window of
 # configs/qwen3.6-27b-dflash.json (w=4096 bites at S=8192); (e) a context
-# that is no multiple of the 64-key tile, at D=64
-@pytest.mark.parametrize("b,h,kvh,s,n,d,window", [
-    (2, 32, 8, 768, 256, 128, None),
-    (1, 32, 8, 8192, 512, 128, 4096),
-    (2, 14, 2, 700, 40, 64, None),
+# that is no multiple of the 64-key tile, at D=64; block sizes that are no
+# power of two, taken at the kernels' pitch: 7 at configs/qwen3-4b-dspark's
+# shapes, 5 at D = 64, 12 under a biting window, 48 (a pitch of 64)
+@pytest.mark.parametrize("b,h,kvh,s,n,d,window,bs", [
+    (2, 32, 8, 768, 256, 128, None, 16),
+    (1, 32, 8, 8192, 512, 128, 4096, 16),
+    (2, 14, 2, 700, 40, 64, None, 16),
+    (2, 32, 8, 768, 256, 128, None, 7),
+    (2, 16, 4, 300, 20, 64, None, 5),
+    (1, 16, 2, 1000, 40, 128, 200, 12),
+    (2, 8, 2, 257, 10, 128, 48, 48),
 ])
-def test_dflash_kernels_match_plain(gen, b, h, kvh, s, n, d, window):
-    inputs = dflash_inputs(gen, b, h, kvh, s, n, d)
+def test_dflash_kernels_match_plain(gen, b, h, kvh, s, n, d, window, bs):
+    inputs = dflash_inputs(gen, b, h, kvh, s, n, d, bs)
     counters = (dflash_cuda.dflash_flash_attention_fwd,
                 dflash_cuda.dflash_attention_bwd_dq,
                 dflash_cuda.dflash_attention_bwd_dkv)
     before = [c.launches for c in counters]
-    out, m, l = dflash_cuda.dflash_flash_attention_fwd(*inputs, 16, window)
+    out, m, l = dflash_cuda.dflash_flash_attention_fwd(*inputs, bs, window)
     dout = torch.randn(out.shape, generator=gen, device="cuda",
                        dtype=torch.bfloat16)
-    grads = dflash_cuda.dflash_flash_attention_bwd(*inputs, 16, window, out,
+    grads = dflash_cuda.dflash_flash_attention_bwd(*inputs, bs, window, out,
                                                    m, l, dout)
     torch.cuda.synchronize()
     assert [c.launches for c in counters] == [x + 1 for x in before]
+    q_len = n * bs
+    assert out.shape == (b, q_len, h * d) and m.shape == (b, h, q_len)
     ref, ref_m, ref_l = dflash_cuda.dflash_flash_attention_plain(
-        *inputs, 16, window)
+        *inputs, bs, window)
     # bf16 outputs and gradients: products of bf16-rounded p and ds, sums in
     # another order; held at 2e-2 of the largest reference value
     assert rel_err(out, ref) <= 2e-2
     torch.testing.assert_close(m, ref_m, rtol=1e-3, atol=1e-3)
     torch.testing.assert_close(l, ref_l, rtol=1e-3, atol=1e-3)
-    not_kept = ~inputs[-1].repeat_interleave(16, dim=1)
+    not_kept = ~inputs[-1].repeat_interleave(bs, dim=1)
     assert not out[not_kept].any()
     ref_grads = dflash_cuda.dflash_flash_attention_backward_plain(
-        *inputs, 16, window, out, m, l, dout)
+        *inputs, bs, window, out, m, l, dout)
     for name, got, want, x in zip("q kc vc kd vd".split(), grads, ref_grads,
                                   inputs):
         assert got.shape == x.shape and got.dtype == torch.bfloat16, name
@@ -474,26 +482,29 @@ def test_dflash_autograd_is_deterministic_and_refuses_bad_shapes(gen):
     with pytest.raises(TypeError):
         dflash_cuda.dflash_flash_attention(q.float(), kc, vc, kd, vd, anchors,
                                            keep, 16)
+    # a block of 65 rows has no pitch that divides the 64-row q tile
+    q, kc, vc, kd, vd, anchors, keep = dflash_inputs(gen, 1, 4, 2, 64, 4, 64,
+                                                     65)
     with pytest.raises(ValueError, match="block_size"):
         dflash_cuda.dflash_flash_attention(q, kc, vc, kd, vd, anchors, keep,
-                                           48)
+                                           65)
 
 
-def dflash_dkv(inputs, window, gen):
+def dflash_dkv(inputs, window, gen, bs=16):
     """One launch of the context dk/dv kernel on the forward's statistics →
     (its operands, dk, dv, the plain dk, dv)."""
     q = inputs[0]
-    out, m, l = dflash_cuda.dflash_flash_attention_fwd(*inputs, 16, window)
+    out, m, l = dflash_cuda.dflash_flash_attention_fwd(*inputs, bs, window)
     dout = torch.randn(out.shape, generator=gen, device="cuda",
                        dtype=torch.bfloat16)
     delta = attention_cuda.backward_delta(out, dout, q.shape[1])
-    args = (*inputs, 16, window, dout, m, l, delta)
+    args = (*inputs, bs, window, dout, m, l, delta)
     before = dflash_cuda.dflash_attention_bwd_dkv.launches
     dk, dv = dflash_cuda.dflash_attention_bwd_dkv(*args)
     torch.cuda.synchronize()
     assert dflash_cuda.dflash_attention_bwd_dkv.launches == before + 1
     ref = dflash_cuda.dflash_flash_attention_backward_plain(
-        *inputs, 16, window, out, m, l, dout)
+        *inputs, bs, window, out, m, l, dout)
     return args, dk, dv, ref[1], ref[2]
 
 
@@ -521,20 +532,25 @@ def test_dflash_dkv_is_bit_exact_at_the_domino_slice(gen):
 
 # groups of 1, 4, 7 and 8 query heads; contexts that are no multiple of the
 # 64-key tile; D = 64 and 128; a sliding window that bites (anchors past
-# 2w, so a row's lower bound moves off 0)
-@pytest.mark.parametrize("b,h,kvh,s,n,d,window", [
-    (2, 8, 8, 130, 12, 128, None),
-    (2, 16, 4, 700, 40, 64, None),
-    (2, 14, 2, 333, 24, 64, None),
-    (1, 32, 4, 1000, 40, 128, 200),
-    (2, 16, 2, 257, 20, 128, 48),
+# 2w, so a row's lower bound moves off 0); blocks of 7, 5, 12 and 48 rows
+# (the kernels' pitch; padded rows reach no key)
+@pytest.mark.parametrize("b,h,kvh,s,n,d,window,bs", [
+    (2, 8, 8, 130, 12, 128, None, 16),
+    (2, 16, 4, 700, 40, 64, None, 16),
+    (2, 14, 2, 333, 24, 64, None, 16),
+    (1, 32, 4, 1000, 40, 128, 200, 16),
+    (2, 16, 2, 257, 20, 128, 48, 16),
+    (2, 32, 8, 768, 256, 128, None, 7),
+    (2, 14, 2, 333, 24, 64, None, 5),
+    (1, 16, 4, 1000, 40, 128, 200, 12),
+    (2, 16, 2, 257, 10, 128, 48, 48),
 ])
-def test_dflash_dkv_matches_plain(gen, b, h, kvh, s, n, d, window):
-    inputs = dflash_inputs(gen, b, h, kvh, s, n, d)
+def test_dflash_dkv_matches_plain(gen, b, h, kvh, s, n, d, window, bs):
+    inputs = dflash_inputs(gen, b, h, kvh, s, n, d, bs)
     anchors, keep = inputs[5], inputs[6]
     if window:
         assert bool(((anchors.long() - (window - 1)) > 0)[keep].any())
-    _, dk, dv, ref_dk, ref_dv = dflash_dkv(inputs, window, gen)
+    _, dk, dv, ref_dk, ref_dv = dflash_dkv(inputs, window, gen, bs)
     for got, want in ((dk, ref_dk), (dv, ref_dv)):
         assert got.shape == (b, kvh, s, d) and got.dtype == torch.bfloat16
         # bf16 products of bf16-rounded p and ds, sums in another order
@@ -622,7 +638,9 @@ def test_dflash_dq_is_bit_exact_at_the_domino_slice(gen):
 # groups of 1, 4, 7 and 8 query heads (7 and 8 in two chunks of resident
 # heads); D = 64 and 128; contexts that are no multiple of the 64-key tile;
 # a sliding window that bites; anchor blocks of 32 and 64 rows (two heads
-# resident, the draft staging in the free Q slots)
+# resident, the draft staging in the free Q slots); blocks of 7, 5, 12 and
+# 48 rows at the kernels' pitch (padded rows dead, padded draft keys
+# reached by no row)
 @pytest.mark.parametrize("b,h,kvh,s,n,d,window,bs", [
     (2, 8, 8, 130, 12, 128, None, 16),
     (2, 16, 4, 700, 40, 64, None, 16),
@@ -631,6 +649,10 @@ def test_dflash_dq_is_bit_exact_at_the_domino_slice(gen):
     (2, 16, 2, 257, 20, 128, 48, 16),
     (2, 16, 4, 300, 10, 128, None, 32),
     (1, 8, 2, 500, 5, 128, 100, 64),
+    (2, 32, 8, 768, 256, 128, None, 7),
+    (2, 14, 2, 333, 24, 64, None, 5),
+    (1, 16, 4, 1000, 40, 128, 200, 12),
+    (2, 16, 2, 257, 10, 128, 48, 48),
 ])
 def test_dflash_dq_matches_plain(gen, b, h, kvh, s, n, d, window, bs):
     inputs = dflash_inputs(gen, b, h, kvh, s, n, d, bs)

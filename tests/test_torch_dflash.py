@@ -1,4 +1,5 @@
-"""The PyTorch port's DFlash family (DFlash and Domino) against the JAX
+"""The PyTorch port's DFlash family (DFlash and Domino; DSpark's own tests
+are in test_torch_dspark.py, its train steps here) against the JAX
 package, on the CPU.
 
 Tiny shapes (vocab 64, hidden 32, 4 heads over 2 kv heads, S 24, blocks of
@@ -14,6 +15,7 @@ sampler drew (torch cannot replay ``jax.random``). On CPU tensors the port's
 kernel wrappers take their plain versions. Each tolerance is the matching
 JAX test's unless stated."""
 
+import dataclasses
 import json
 import os
 
@@ -29,6 +31,13 @@ from specforge_tpu.algorithms.common.dflash_family import (
 from specforge_tpu.algorithms.common.dflash_family import (
     OnlineDominoModel as JaxOnlineDominoModel,
 )
+from specforge_tpu.algorithms.common.dflash_family import (
+    OnlineDSparkModel as JaxOnlineDSparkModel,
+)
+from specforge_tpu.algorithms.builtin import (
+    builtin_algorithm_registry as jax_builtin_algorithm_registry,
+)
+from specforge_tpu.algorithms.contracts import FeatureMode as JaxFeatureMode
 from specforge_tpu.algorithms.providers import (
     dflash_capture_layers as jax_dflash_capture_layers,
 )
@@ -39,6 +48,7 @@ from specforge_tpu.models.draft.dflash import (
 )
 from specforge_tpu.models.draft.domino import GRU as JaxGRU
 from specforge_tpu.models.draft.domino import DominoDraftModel as JaxDominoDraft
+from specforge_tpu.models.draft.dspark import DSparkDraftModel as JaxDSparkDraft
 from specforge_tpu.ops import fused_objective as jax_fo
 from specforge_tpu.ops import masks as jax_masks
 from specforge_tpu.ops.attention import dflash_attention as jax_dflash_attention
@@ -57,6 +67,9 @@ from specforge_tpu.training.strategies import (
     DominoTrainStrategy as JaxDominoTrainStrategy,
 )
 from specforge_tpu.training.strategies import (
+    DSparkTrainStrategy as JaxDSparkTrainStrategy,
+)
+from specforge_tpu.training.strategies import (
     linear_lambda_base as jax_linear_lambda_base,
 )
 from specforge_tpu.training.train_step import TrainState as JaxTrainState
@@ -67,7 +80,9 @@ from specforge_tpu_torch.algorithms.builtin import builtin_algorithm_registry
 from specforge_tpu_torch.algorithms.common.dflash_family import (
     OnlineDFlashModel,
     OnlineDominoModel,
+    OnlineDSparkModel,
 )
+from specforge_tpu_torch.algorithms.contracts import FeatureMode
 from specforge_tpu_torch.algorithms.providers import dflash_capture_layers
 from specforge_tpu_torch.convert import params_from_jax
 from specforge_tpu_torch.models.draft.dflash import (
@@ -76,6 +91,7 @@ from specforge_tpu_torch.models.draft.dflash import (
     build_target_layer_ids,
 )
 from specforge_tpu_torch.models.draft.domino import GRU, DominoDraftModel
+from specforge_tpu_torch.models.draft.dspark import DSparkDraftModel
 from specforge_tpu_torch.ops import dflash_attention_cuda as dac
 from specforge_tpu_torch.ops import fused_objective as fo
 from specforge_tpu_torch.ops import masks
@@ -85,6 +101,7 @@ from specforge_tpu_torch.training import optimizer as pt_opt
 from specforge_tpu_torch.training.strategies import (
     DFlashTrainStrategy,
     DominoTrainStrategy,
+    DSparkTrainStrategy,
     linear_lambda_base,
 )
 from specforge_tpu_torch.training.train_step import TrainState, make_train_step
@@ -99,6 +116,17 @@ BASE_CFG = dict(
 )
 DOMINO_CFG = dict(projector_type="domino", emb_dim=16, gru_hidden_dim=16,
                   pure_draft_prefix_len=1)
+DSPARK_CFG = dict(projector_type="dspark", markov_rank=8,
+                  markov_head_type="gated", enable_confidence_head=True)
+#: kind → (JAX draft, JAX wrapper, JAX strategy, draft, wrapper, strategy)
+FAMILY = {
+    "dflash": (JaxDFlashDraft, JaxOnlineDFlashModel, JaxDFlashTrainStrategy,
+               DFlashDraftModel, OnlineDFlashModel, DFlashTrainStrategy),
+    "domino": (JaxDominoDraft, JaxOnlineDominoModel, JaxDominoTrainStrategy,
+               DominoDraftModel, OnlineDominoModel, DominoTrainStrategy),
+    "dspark": (JaxDSparkDraft, JaxOnlineDSparkModel, JaxDSparkTrainStrategy,
+               DSparkDraftModel, OnlineDSparkModel, DSparkTrainStrategy),
+}
 ATTN_FWD = dict(rtol=2e-5, atol=2e-6)    # test_dflash_family.py:126-129
 ATTN_GRAD = dict(rtol=3e-5, atol=3e-6)   # test_dflash_family.py:143-146
 MODEL_GRAD = dict(rtol=5e-4, atol=1e-5)  # test_dflash_family.py:179-180
@@ -190,9 +218,9 @@ def test_dense_and_chunk_masks_match_jax(sliding):
 # attention: the chunked path and the kernels' plain versions
 # --------------------------------------------------------------------------
 
-def _attention_inputs(s, d=8, seed=2):
+def _attention_inputs(s, d=8, seed=2, bs=BS):
     rng = np.random.default_rng(seed)
-    b, h, kvh, n, bs = 2, 4, 2, 4, 4
+    b, h, kvh, n = 2, 4, 2, 4
     q_len = n * bs
 
     def arr(*shape):
@@ -237,26 +265,33 @@ def test_chunked_attention_matches_jax(sliding):
         close(g, r, err_msg=name, **ATTN_GRAD)
 
 
-@pytest.mark.parametrize("sliding,s", [(None, 24), (5, 24), (None, 21),
-                                       (5, 21)])
-def test_plain_kernel_versions_match_pallas_interpret(sliding, s):
+@pytest.mark.parametrize("sliding,s,bs", [
+    pytest.param(None, 24, BS, id="None-24"),
+    pytest.param(5, 24, BS, id="5-24"),
+    pytest.param(None, 21, BS, id="None-21"),
+    pytest.param(5, 21, BS, id="5-21"),
+    # block sizes that are no power of two (DSpark's 7): the kernels' pitch
+    pytest.param(None, 24, 7, id="None-24-bs7"),
+    pytest.param(5, 21, 5, id="5-21-bs5"),
+])
+def test_plain_kernel_versions_match_pallas_interpret(sliding, s, bs):
     """The plain forward and backward of the three kernels against the JAX
     Pallas kernels in interpret mode: the output and all five gradients,
-    with a block that is not kept, an anchor at 0, GQA and (S=21) a context
-    that is no multiple of the tile."""
-    tensors, anchors, keep, ct = _attention_inputs(s)
+    with a block that is not kept, an anchor at 0, GQA, (S=21) a context
+    that is no multiple of the tile and blocks of 7 and 5 rows."""
+    tensors, anchors, keep, ct = _attention_inputs(s, bs=bs)
     out, grads = _port_value_and_grads(
-        lambda *x: dac.dflash_flash_attention(*x, t(anchors), t(keep), BS,
+        lambda *x: dac.dflash_flash_attention(*x, t(anchors), t(keep), bs,
                                               sliding),
         tensors, ct)
     ref, ref_grads = _jax_value_and_grads(
         lambda *x: jax_dflash_flash_attention(
-            *x, jnp.asarray(anchors), jnp.asarray(keep), BS,
+            *x, jnp.asarray(anchors), jnp.asarray(keep), bs,
             sliding_window=sliding, tq=8, tk=8, interpret=True),
         tensors, ct)
     close(out, ref, **ATTN_FWD)
     # the rows of the block not kept are exactly 0, as are its gradients
-    q_rows = slice((N_ANCHORS - 1) * BS, N_ANCHORS * BS)
+    q_rows = slice((N_ANCHORS - 1) * bs, N_ANCHORS * bs)
     assert not out[1, q_rows].any() and not grads[0][1, :, q_rows].any()
     for name, g, r in zip("q kc vc kd vd".split(), grads, ref_grads):
         close(g, r, err_msg=name, **ATTN_GRAD)
@@ -310,13 +345,22 @@ def test_cpu_wrappers_launch_nothing_and_kernel_checks_refuse():
 
     with pytest.raises(ValueError, match="head dim"):
         check(d=32)
-    with pytest.raises(ValueError, match="block_size"):
-        check(d=64, bs=48)
+    for bs in (0, 65):
+        with pytest.raises(ValueError, match="block_size"):
+            check(d=64, bs=bs)
     with pytest.raises(TypeError, match="bfloat16"):
         check(d=64, dtype=torch.float32)
-    _, strides, a32, k32, window = check(d=64)
+    tensors, a32, k32, window = check(d=64)
+    _, strides = dac._pointers(tensors)
     assert a32.dtype == k32.dtype == torch.int32 and window == 0
     assert list(strides)[:3] == [4 * 16 * 64, 16 * 64, 64]
+    # blocks of 7 (up to 64) are taken at a pitch of 8: q and the draft
+    # keys and values are copied into it with zero padding rows
+    tensors, _, _, _ = check(d=64, bs=7)
+    assert [tuple(x.shape[2:]) for x in tensors] == [
+        (4 * 8, 64), (S, 64), (S, 64), (4 * 8, 64), (4 * 8, 64)]
+    assert [dac.block_pitch(bs) for bs in (1, 5, 7, 8, 12, 48, 64)] == [
+        1, 8, 8, 8, 16, 64, 64]
 
 
 def test_masked_attention_matches_jax():
@@ -472,16 +516,28 @@ def test_config_and_capture_layers_match_jax():
             DFlashConfig.from_dict({**BASE_CFG, **bad})
 
 
-def test_registry_has_the_family_and_refuses_dspark():
+def test_registry_has_the_family_and_resolves_dspark():
+    """Every algorithm of the JAX package resolves; DSpark's feature
+    contract adds the target's last hidden state (its schema's
+    last_hidden_feature), as the JAX registration does."""
     registry = builtin_algorithm_registry()
-    assert {"eagle3", "dflash", "domino"} <= set(registry.names)
-    for name in ("dflash", "domino"):
+    assert registry.names == jax_builtin_algorithm_registry().names
+    for name in ("dflash", "domino", "dspark"):
         reg = registry.resolve(name)
+        ref = jax_builtin_algorithm_registry().resolve(name)
         assert reg.providers.frozen_requirements == {
             "target_head_weight", "target_embed_weight"}
-        assert reg.spec.offline_schema.aux_feature == "hidden_states"
-    with pytest.raises(NotImplementedError, match="DSpark.*ROADMAP"):
-        registry.resolve("dspark")
+        assert (dataclasses.asdict(reg.spec.offline_schema)
+                == dataclasses.asdict(ref.spec.offline_schema))
+        for mode in (FeatureMode.OFFLINE, FeatureMode.STREAMING):
+            assert (reg.spec.contract_for(mode).required_features
+                    == ref.spec.contract_for(JaxFeatureMode(mode.value))
+                    .required_features)
+    schema = registry.resolve("dspark").spec.offline_schema
+    assert schema.aux_feature == "hidden_states"
+    assert schema.last_hidden_feature == "target_last_hidden_states"
+    with pytest.raises(KeyError, match="unknown algorithm"):
+        registry.resolve("medusa")
 
 
 # --------------------------------------------------------------------------
@@ -508,8 +564,7 @@ def _inputs(seed=0):
 
 def _jax_model(kind, backend, extra, **kwargs):
     cfg = JaxDFlashConfig.from_dict({**BASE_CFG, **extra})
-    draft_cls = JaxDominoDraft if kind == "domino" else JaxDFlashDraft
-    wrapper = JaxOnlineDominoModel if kind == "domino" else JaxOnlineDFlashModel
+    draft_cls, wrapper = FAMILY[kind][:2]
     draft = draft_cls(cfg, dtype=jnp.float32, attn_chunk_blocks=2,
                       attention_backend=backend)
     return wrapper(draft_model=draft, mask_token_id=MASK_TOKEN, block_size=BS,
@@ -518,8 +573,7 @@ def _jax_model(kind, backend, extra, **kwargs):
 
 def _port_model(kind, backend, extra, **kwargs):
     cfg = DFlashConfig.from_dict({**BASE_CFG, **extra})
-    draft_cls = DominoDraftModel if kind == "domino" else DFlashDraftModel
-    wrapper = OnlineDominoModel if kind == "domino" else OnlineDFlashModel
+    draft_cls, wrapper = FAMILY[kind][3:5]
     draft = draft_cls(cfg, dtype=torch.float32, attention_backend=backend,
                       attn_chunk_blocks=2, device="cpu")
     return wrapper(draft, MASK_TOKEN, block_size=BS, num_anchors=N_ANCHORS,
@@ -628,24 +682,30 @@ def test_linear_lambda_base_matches_jax():
             jax_linear_lambda_base(jnp.asarray(step, jnp.int32), 10, 0.7, 0.5))
 
 
-@pytest.mark.parametrize("kind", ["dflash", "domino"])
+@pytest.mark.parametrize("kind", ["dflash", "domino", "dspark"])
 def test_train_steps_match_jax(kind):
     """Two optimizer steps of 2 micro-batches: the loss (for DFlash the
     ``loss_terms`` numerator over the window's summed denominator), the
-    grad norm, every updated parameter and (Domino) the decaying
-    lambda_base."""
-    extra = DOMINO_CFG if kind == "domino" else {}
+    grad norm, every updated parameter, (Domino) the decaying lambda_base
+    and (DSpark, whose batches carry the target's last hidden state) its
+    nine ratio metrics."""
+    extra = {"domino": DOMINO_CFG, "dspark": DSPARK_CFG}.get(kind, {})
     accum, total = 2, 10
     rng = np.random.default_rng(5)
     tensors, frozen = _inputs()
-    batches = [{
-        "input_ids": rng.integers(0, V - 1, size=(accum, 2, S)).astype(
-            np.int32),
-        "hidden_states": rng.normal(
-            size=(accum, 2, S, tensors["hidden_states"].shape[-1])).astype(
-                np.float32),
-        "loss_mask": (rng.random((accum, 2, S)) > 0.2).astype(np.int32),
-    } for _ in range(2)]
+    batches = []
+    for _ in range(2):
+        batches.append({
+            "input_ids": rng.integers(0, V - 1, size=(accum, 2, S)).astype(
+                np.int32),
+            "hidden_states": rng.normal(
+                size=(accum, 2, S, tensors["hidden_states"].shape[-1])
+            ).astype(np.float32),
+            "loss_mask": (rng.random((accum, 2, S)) > 0.2).astype(np.int32),
+        })
+        if kind == "dspark":
+            batches[-1]["target_last_hidden_states"] = rng.normal(
+                size=(accum, 2, S, H)).astype(np.float32)
     opt_kw = dict(lr=1e-3, warmup_ratio=0.0, adam_eps=1e-3)
     strategy_kw = {"seed": 7}
     if kind == "domino":
@@ -657,9 +717,11 @@ def test_train_steps_match_jax(kind):
     init_args += [jnp.asarray(frozen["target_head_weight"]),
                   jnp.asarray(frozen["target_embed_weight"]),
                   jax.random.PRNGKey(0)]
+    if kind == "dspark":
+        init_args.append(
+            jnp.asarray(batches[0]["target_last_hidden_states"][0]))
     variables = jax.device_get(_jax_init(kind, extra, {}, init_args))
-    jstrategy = (JaxDominoTrainStrategy if kind == "domino"
-                 else JaxDFlashTrainStrategy)(jmodel, **strategy_kw)
+    jstrategy = FAMILY[kind][2](jmodel, **strategy_kw)
     tx = jax_opt.build_optimizer(jax_opt.OptimizerConfig(**opt_kw), total)
     jstate = JaxTrainState.create(variables["params"], {}, tx)
     jstep = jax_make_train_step(
@@ -670,8 +732,7 @@ def test_train_steps_match_jax(kind):
 
     model = _port_model(kind, "pallas", extra)
     model.load_state_dict(params_from_jax(variables))
-    strategy = (DominoTrainStrategy if kind == "domino"
-                else DFlashTrainStrategy)(model, **strategy_kw)
+    strategy = FAMILY[kind][5](model, **strategy_kw)
     # the anchors JAX draws for this step: fold_in(PRNGKey(seed), step)
     strategy.sample_anchors = lambda loss_mask, ctx: _jax_anchors(
         jax.random.fold_in(jax.random.PRNGKey(7), ctx.global_step),
@@ -684,8 +745,15 @@ def test_train_steps_match_jax(kind):
                                              total))
     pfrozen = {k: t(v) for k, v in frozen.items()}
     keys = ["train/loss", "train/grad_norm", "train/lr", "train/accuracy"]
-    keys += (["train/lambda_base", "train/final_loss", "train/accept_len"]
-             if kind == "domino" else ["train/acc"])
+    keys += {
+        "dflash": ["train/acc"],
+        "domino": ["train/lambda_base", "train/final_loss",
+                   "train/accept_len"],
+        "dspark": [f"train/{k}" for k in (
+            "acc", "ce_loss", "l1_loss", "confidence_loss",
+            "confidence_abs_error", "teacher_agreement", "teacher_top1_prob",
+            "draft_top1_prob", "tau_probabilistic")],
+    }[kind]
     for batch in batches:
         jstate, jmetrics = jstep(jstate, {k: jnp.asarray(v)
                                           for k, v in batch.items()}, jfrozen)

@@ -95,16 +95,35 @@ FAMILY_DRAFT = {
 }
 
 
-@pytest.mark.parametrize("kind", ["domino", "dflash"])
+DSPARK_HEADS = {
+    "dspark": {"markov_rank": 8, "markov_head_type": "gated",
+               "enable_confidence_head": True},
+    "dspark_block7": {"markov_rank": 8, "markov_head_type": "vanilla",
+                      "enable_confidence_head": True,
+                      "confidence_head_with_markov": True},
+}
+
+
+@pytest.mark.parametrize("kind", ["domino", "dflash", "dspark",
+                                  "dspark_block7"])
 def test_family_training_runs_on_the_cpu_at_small_size(smoke, tmp_path, kind):
-    """The DFlash-family phase: for domino, cli train (4 steps, one
-    checkpoint, the metrics file, a decaying lambda_base) and then the
-    kernel-path and plain-path trainers; for dflash, one step of the
+    """The DFlash-family phases: for domino and dspark, cli train (4 steps,
+    one checkpoint, the metrics file; Domino's decaying lambda_base,
+    DSpark's nine ratio metrics) and then the kernel-path and plain-path
+    trainers; for dflash and dspark at blocks of 7, one step of the
     trainer's train step (through build_training_run) against the plain
     path; no launch on CPU tensors."""
     draft = dict(FAMILY_DRAFT)
     if kind == "dflash":
         draft["architectures"] = ["DFlashDraftModel"]
+    if kind.startswith("dspark"):
+        draft["architectures"] = ["DSparkDraftModel"]
+        draft["dflash_config"] = {"mask_token_id": 255,
+                                  "target_layer_ids": [1, 5],
+                                  "projector_type": "dspark",
+                                  **DSPARK_HEADS[kind]}
+        if kind == "dspark_block7":
+            draft["block_size"] = 7
     cfg_path = tmp_path / "draft.json"
     cfg_path.write_text(json.dumps(draft))
     results, counts = smoke.run_family_training(
@@ -112,7 +131,7 @@ def test_family_training_runs_on_the_cpu_at_small_size(smoke, tmp_path, kind):
         max_length=64, min_len=40, head_std=0.2,
         overrides=['model.compute_dtype="float32"', "training.num_anchors=8",
                    "training.objective_chunk_blocks=4"])
-    steps = 4 if kind == "domino" else 1
+    steps = 4 if kind in smoke.FAMILY_CLI else 1
     assert results["optimizer_steps"] == steps
     assert results["micro_batches"] == 2 * steps
     assert counts == dict.fromkeys(smoke.DFLASH_COUNTERS, 0)
@@ -128,11 +147,16 @@ def test_family_training_runs_on_the_cpu_at_small_size(smoke, tmp_path, kind):
         # lambda_base is 1 at step 1: the correction head gets no gradient
         assert results["step1_grads"][
             "draft_model.embed_proj_1.weight"]["both_zero"]
-        assert results["checkpoint"]["dir"] == "domino-step4"
         assert results["lambda_base"] == [1.0, 0.5, 0.0, 0.0]
+    if kind in smoke.FAMILY_CLI:
+        assert results["checkpoint"]["dir"] == f"{kind}-step4"
         # 8 anchors of 4 draft tokens against 64 context positions per row
         assert results["draft_tokens_per_s"] == pytest.approx(
             results["context_tokens_per_s"] * 32 / 64)
+    if kind.startswith("dspark"):
+        assert len(results["ratio_metrics"]) == steps
+        assert all(set(r) == set(smoke.DSPARK_METRICS)
+                   for r in results["ratio_metrics"])
 
 
 def test_family_cli_needs_cuda_and_refuses_an_eval_pass(smoke, tmp_path,

@@ -503,7 +503,7 @@ def test_default_device_entry_points_raise_without_cuda(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("override,slice_name", [
-    ("training.strategy=\"dspark\"", "DSpark"),
+    ("training.dp_size=2", "parallelism"),
     ("deployment.mode=\"disaggregated\"", "online"),
     ("training.fsdp_size=2", "parallelism"),
     ("model.draft_checkpoint_path=\"draft\"", "warm_start_draft"),
