@@ -3,7 +3,8 @@
 
 Usage: ``python3 chip_smoke.py [--seed N]`` from the repository root.
 ``python3 chip_smoke.py --usp-only`` runs phases 1, 2 and 8's training
-alone (on a machine with a card per rank its ranks talk NCCL).
+alone, ``--mesh-only`` phases 1, 2 and 9 (on a machine with a card per
+rank their ranks talk NCCL).
 
 Phases, each printing JSON lines:
 
@@ -45,12 +46,12 @@ Phases, each printing JSON lines:
    batches run through the plain dense attention and reference CE;
 5. slice 2, training: ``specforge_tpu_torch.cli.main(["train", ...])`` on
    ``examples/qwen3-8b-eagle3-offline.json`` pointed at feature files and a
-   random HF-layout target directory written here, for 4 optimizer steps of
+   random HF-layout target directory written here, for 2 optimizer steps of
    2 micro-batches (B=2, S=2048, TTT 7, compact teacher), with an eval and
    checkpoints; exactly 7 launches of every kernel per micro-batch (and of
    the forward kernels per eval forward); the kernel path against the plain
    path (dense attention, reference CE) from the same initial weights; a
-   resume from the step-2 checkpoint that must reach the same weights; the
+   resume from the step-1 checkpoint that must reach the same weights; the
    micro-step and optimizer-step times of the trainer's own train step,
    peak memory with and without ``compute_params_dtype``, and one profiled
    micro-step;
@@ -82,10 +83,10 @@ Phases, each printing JSON lines:
    ``examples/qwen3-8b-peagle-single-chip.json`` with
    ``configs/qwen3-8b-peagle.json`` at full width (B=2, S up to 1024, 8
    depths, so T=3456 sampled rows; factored moments, ``adam_b1`` 0, bf16
-   moments, the row-sparse embedding update; accumulation 2, so 4
+   moments, the row-sparse embedding update; accumulation 2, so 2
    optimizer steps): exactly 4 launches of each COD kernel and 1 of each
    fused CE kernel per micro-batch, a second run and a resume from the
-   step-2 checkpoint that reach the same weights bit-exactly, the dense
+   step-1 checkpoint that reach the same weights bit-exactly, the dense
    embedding update against the row-sparse one, the kernel path against
    the dense plain path from the same weights and samples, the timings,
    peak memory and one profiled micro-step, and one optimizer step over
@@ -99,19 +100,33 @@ Phases, each printing JSON lines:
    grid started as processes with the SPECFORGE_* env (``--usp-rank``),
    sharing one card over host-staged gloo, or over NCCL with a card each
    where the machine has four (B=1, S=4096, TTT 7, compact
-   teacher; accumulation 2, so 4 optimizer steps, checkpoints at steps 2
-   and 4): 14 launches of each LSE kernel and 7 of each fused CE kernel per
+   teacher; accumulation 2, so 2 optimizer steps, checkpoints at steps 1
+   and 2): 14 launches of each LSE kernel and 7 of each fused CE kernel per
    micro-batch on every rank and none of the TTT kernels, the same losses
    and bit-identical weights on every rank, only rank 0 writing, a 4-rank
-   resume from step 2 that reaches the final weights bit-exactly, and the
+   resume from step 1 that reaches the final weights bit-exactly, and the
    USP run against one process on the TTT kernels over the same batches
    and weights; the transport, per-rank timings, collectives' share and
    memory beside the single process's;
-9. the kernels line, then the card line, then ``{"ok": true, ...}``.
+9. slice 14, data parallelism and fsdp: ``cli.main(["train", ...])`` on 4
+   ranks (``--mesh-rank``) for each run of ``MESH_RUNS``, in one launch:
+   EAGLE3 at dp 2 × fsdp 2 (``examples/qwen3-8b-eagle3-offline.json``,
+   global batch 4 at S 2048, accumulation 2, 4 optimizer steps, eval,
+   checkpoints at steps 2 and 4, a 4-rank resume from step 2 that reaches
+   the final weights bit-exactly), P-EAGLE at fsdp 4 (factored Adam, the
+   row-sparse embedding), Domino at dp 2 × fsdp 2 and EAGLE3 under USP at
+   fsdp 2 × sp_ring 2, a step each; the launches of every kernel on every
+   rank, the same losses and bit-identical whole weights on every rank,
+   only rank 0 writing, each run against one process of the same global
+   batch (losses; EAGLE3's step-1 gradients), the bytes of a rank's
+   masters and moments against one process's, and per rank the
+   micro-step, whole-step and collectives' times and memory;
+10. the kernels line, then the card line, then ``{"ok": true, ...}``.
 
-Phase 8's training runs right after the build, before the kernel phases:
-its 4 ranks need most of the card's memory, and this process holds none of
-it yet; its LSE kernels are held against their plain versions in phase 3.
+Phases 9 and 8's training run right after the build, before the kernel
+phases: their 4 ranks need most of the card's memory, and this process
+holds none of it yet; the LSE kernels are held against their plain
+versions in phase 3.
 
 Any failed check raises: the script then exits non-zero with a traceback and
 prints no result. Without a CUDA device it exits non-zero at once.
@@ -149,6 +164,7 @@ from specforge_tpu_torch.application.composition import build_training_run
 from specforge_tpu_torch.config.schema import load_config
 from specforge_tpu_torch.data.collator import CollatorConfig, PaddingCollator
 from specforge_tpu_torch.eval.evaluator import Evaluator
+from specforge_tpu_torch.models.draft.dflash import DFlashConfig
 from specforge_tpu_torch.models.draft.llama_eagle3 import (
     Eagle3Config,
     LlamaEagle3Draft,
@@ -167,6 +183,7 @@ from specforge_tpu_torch.ops.masks import (
     dflash_dense_mask,
     sample_anchor_positions,
 )
+from specforge_tpu_torch.parallel.fsdp import state_bytes
 from specforge_tpu_torch.runtime.data_plane.feature_dataloader import (
     FeatureDataLoader,
 )
@@ -227,12 +244,19 @@ TRAIN_STEP1_RTOL = 1e-2
 TRAIN_DRIFT_RTOL = 5e-2
 GRAD_COSINE = 0.99
 GRAD_NORM_RTOL = 2e-2
-# the training slice: examples/qwen3-8b-eagle3-offline.json, cut to 4
-# optimizer steps of 2 micro-batches
-TRAIN_FILES, EVAL_FILES, ACCUM = 16, 4, 2
+# the training slice: examples/qwen3-8b-eagle3-offline.json, cut to 2
+# optimizer steps of 2 micro-batches (4 before the mesh phase joined the
+# script)
+TRAIN_FILES, EVAL_FILES, ACCUM = 8, 4, 2
+
+
+#: the script's start, for each phase line's ``elapsed_s``
+START = time.perf_counter()
 
 
 def emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -1651,8 +1675,8 @@ def write_target_dir(root: Path, vocab_size: int, hidden_size: int, device,
 def training_run_json(workdir: Path, draft_config: Path, target: Path,
                       max_length: int) -> Path:
     """``examples/qwen3-8b-eagle3-offline.json``, read as data, pointed at
-    this run's directories and cut to 4 optimizer steps of 2 micro-batches
-    (save every 2 steps, eval at the end of the epoch)."""
+    this run's directories and cut to 2 optimizer steps of 2 micro-batches
+    (save every step, eval at the end of the epoch)."""
     raw = json.loads(EXAMPLE.read_text())
     raw["run_id"] = "smoke"
     raw["output_dir"] = str(workdir / "runs")
@@ -1662,7 +1686,7 @@ def training_run_json(workdir: Path, draft_config: Path, target: Path,
                        eval_data_path=str(workdir / "eval"),
                        max_length=max_length, num_workers=2)
     raw["training"].update(num_epochs=1, accumulation_steps=ACCUM,
-                           save_interval=2, eval_interval=0, log_interval=1)
+                           save_interval=1, eval_interval=0, log_interval=1)
     raw["tracking"] = {"backend": "jsonl"}
     path = workdir / "run.json"
     path.write_text(json.dumps(raw, indent=2))
@@ -1803,7 +1827,7 @@ def run_training(cfg_path: Path, device, seed: int, workdir: Path, *,
         config = load_config(str(run_json), overrides + list(extra))
         return build_training_run(config, device=None if on_card else device)
 
-    # the main path: cli train, 4 optimizer steps + eval + checkpoints
+    # the main path: cli train, 2 optimizer steps + eval + checkpoints
     results = {}
     for fn in KERNEL_COUNTERS.values():
         fn.launches = 0
@@ -1824,12 +1848,12 @@ def run_training(cfg_path: Path, device, seed: int, workdir: Path, *,
     final_dir = CheckpointManager.resolve_step_dir(str(runs))
     final = CheckpointManager.load_state(final_dir)["params"]
 
-    # resume: a fresh kernel-path run from the uninterrupted run's step-2
+    # resume: a fresh kernel-path run from the uninterrupted run's step-1
     # checkpoint. Until its fit restores that checkpoint it holds the same
     # initial weights as the cli run, so it first gives the kernel path's
     # step-1 loss and gradients (kept on the host until the plain path's)
     resumed = trainer_for('run_id="resumed"', "training.save_interval=0",
-                          f"training.resume_from={runs / 'smoke-step2'}")
+                          f"training.resume_from={runs / 'smoke-step1'}")
     window = first_window(resumed)
     loss_k, grads_k = window_grads(resumed, window)
     grads_k = {k: g.cpu() for k, g in grads_k.items()}
@@ -1841,7 +1865,7 @@ def run_training(cfg_path: Path, device, seed: int, workdir: Path, *,
     if not exact:
         check("resumed weights vs uninterrupted (max|err| / max|w|)", worst,
               1e-6)
-    results["resume"] = {"from": "smoke-step2", "steps": resumed.state.step,
+    results["resume"] = {"from": "smoke-step1", "steps": resumed.state.step,
                          "bit_exact": exact, "max_rel_err": worst}
     results.update(measure_kernel_path(resumed, window, sync))
     del resumed
@@ -2019,8 +2043,6 @@ def run_family_training(kind: str, cfg_path: Path, device, seed: int,
     then the same plain-path comparison. DSpark's feature files also hold
     the target's last hidden state, and every step's nine ratio metrics
     must be finite."""
-    from specforge_tpu_torch.models.draft.dflash import DFlashConfig
-
     raw_cfg = json.loads(Path(cfg_path).read_text())
     cfg = DFlashConfig.from_dict(raw_cfg)
     on_card = device.type == "cuda"
@@ -2149,9 +2171,10 @@ def run_family_training(kind: str, cfg_path: Path, device, seed: int,
 
 PEAGLE_CONFIG = REPO / "configs" / "qwen3-8b-peagle.json"
 PEAGLE_EXAMPLE = REPO / "examples" / "qwen3-8b-peagle-single-chip.json"
-#: 16 files of 768-1024 tokens: 4 optimizer steps of 2 micro-batches of 2;
-#: the packed step: 16 documents of 128-256 tokens, 4 to a row
-PEAGLE_FILES, PACK_FILES, DOCS_PER_ROW = 16, 16, 4
+#: 8 files of 768-1024 tokens: 2 optimizer steps of 2 micro-batches of 2
+#: (4 steps before the mesh phase joined the script); the packed step: 16
+#: documents of 128-256 tokens, 4 to a row
+PEAGLE_FILES, PACK_FILES, DOCS_PER_ROW = 8, 16, 4
 PEAGLE_COUNTERS = {
     "cod_attention_fwd": peagle_attention_cuda.cod_attention_fwd,
     "cod_attention_bwd_dq": peagle_attention_cuda.cod_attention_bwd_dq,
@@ -2183,7 +2206,7 @@ def peagle_run_json(workdir: Path, draft_config: Path, target: Path,
                        eval_data_path=None, max_length=max_length,
                        num_workers=2)
     raw["training"].update(num_epochs=1, accumulation_steps=ACCUM,
-                           row_sparse_embedding=True, save_interval=2,
+                           row_sparse_embedding=True, save_interval=1,
                            eval_interval=0, log_interval=1)
     raw["tracking"] = {"backend": "jsonl"}
     path = workdir / "run.json"
@@ -2229,13 +2252,13 @@ def run_peagle_training(cfg_path: Path, device, seed: int, workdir: Path, *,
     main path (the ``cli train`` run), set to 0 just before it and read just
     after.
 
-    The main path is ``cli.main(["train", ...])``: 4 optimizer steps with
-    the row-sparse embedding update and checkpoints at steps 2 and 4. Then
+    The main path is ``cli.main(["train", ...])``: 2 optimizer steps with
+    the row-sparse embedding update and checkpoints at steps 1 and 2. Then
     a fresh kernel-path trainer gives step 1's loss and gradients, runs the
-    same 4 steps timed (which must reach the cli run's weights: two runs
+    same 2 steps timed (which must reach the cli run's weights: two runs
     give the same bits), keeping the embedding after step 1, and the
     micro-step and optimizer-step timings; a trainer resumed from the
-    step-2 checkpoint must reach the final weights bit-exactly; a trainer
+    step-1 checkpoint must reach the final weights bit-exactly; a trainer
     with the dense embedding update takes step 1, whose touched rows must
     match the row-sparse ones and whose untouched rows stay as they were;
     the plain path (the draft config's ``attention_backend: "dense"`` and
@@ -2295,7 +2318,7 @@ def run_peagle_training(cfg_path: Path, device, seed: int, workdir: Path, *,
     final = CheckpointManager.load_state(str(final_dir))["params"]
     shutil.rmtree(final_dir)
 
-    # a fresh kernel-path trainer: step 1's gradients, the same 4 steps
+    # a fresh kernel-path trainer: step 1's gradients, the same 2 steps
     # timed, then the micro-step and optimizer timings
     trainer = trainer_for('run_id="kernel"', "training.save_interval=0")
     window = first_window(trainer)
@@ -2312,20 +2335,20 @@ def run_peagle_training(cfg_path: Path, device, seed: int, workdir: Path, *,
     repeat_exact = all(torch.equal(trainer.state.params[n].detach().cpu(), w)
                        for n, w in final.items())
     if not repeat_exact:
-        raise AssertionError("a second run of the same 4 steps did not "
+        raise AssertionError("a second run of the same 2 steps did not "
                              "reach the cli run's weights bit-exactly")
     results["repeat_bit_exact"] = repeat_exact
     results["step_ms"] = [r["step_ms"] for r in timed]
-    results["optimizer_step_ms_median_steps_2_4"] = statistics.median(
+    results["step_ms_after_step_1"] = statistics.median(
         results["step_ms"][1:])
     del timed
     results.update(measure_kernel_path(trainer, window, sync))
     del trainer
     free()
 
-    # resume from the step-2 checkpoint: the final weights bit-exactly
+    # resume from the step-1 checkpoint: the final weights bit-exactly
     resumed = trainer_for('run_id="resumed"', "training.save_interval=0",
-                          f"training.resume_from={runs / 'peagle-step2'}")
+                          f"training.resume_from={runs / 'peagle-step1'}")
     resumed.fit()
     exact = all(torch.equal(resumed.state.params[n].detach().cpu(), w)
                 for n, w in final.items())
@@ -2334,7 +2357,7 @@ def run_peagle_training(cfg_path: Path, device, seed: int, workdir: Path, *,
     if not exact:
         raise AssertionError(f"resumed weights differ from the uninterrupted "
                              f"run's (max|err| / max|w| {worst})")
-    results["resume"] = {"from": "peagle-step2", "steps": resumed.state.step,
+    results["resume"] = {"from": "peagle-step1", "steps": resumed.state.step,
                          "bit_exact": exact, "max_rel_err": worst}
     del resumed, final
     shutil.rmtree(runs, ignore_errors=True)
@@ -2436,7 +2459,7 @@ LSE_KERNELS = ("lse_attention_fwd", "lse_attention_bwd_dq",
 #: 4096 tokens (at 8192 the 4 ranks ran out of the card's 80 GB: 18.9 GB
 #: allocated a rank in the first forward), a 2×2 grid, accumulation 2 and
 #: 8 files (4 steps)
-USP_GRID, USP_MAX_LEN, USP_MIN_LEN, USP_FILES = (2, 2), 4096, 3584, 8
+USP_GRID, USP_MAX_LEN, USP_MIN_LEN, USP_FILES = (2, 2), 4096, 3584, 4
 #: a ring chunk of the USP phase: U·S_loc = 2048 positions
 USP_CHUNK = USP_MAX_LEN // USP_GRID[1]
 #: (name, BH, S, D, row_off, col_off, padded key tail), one rank's 16 heads
@@ -2741,7 +2764,7 @@ def usp_run_json(workdir: Path, draft_config: Path, target: Path,
                        max_length=max_length, num_workers=2)
     raw["training"].update(sp_ulysses_size=USP_GRID[0],
                            sp_ring_size=USP_GRID[1], num_epochs=1,
-                           accumulation_steps=ACCUM, save_interval=2,
+                           accumulation_steps=ACCUM, save_interval=1,
                            log_interval=1)
     raw["tracking"] = {"backend": "jsonl"}
     path = workdir / "run.json"
@@ -2762,7 +2785,7 @@ def usp_rank(workdir: Path, device, overrides=()) -> None:
     """One rank of the USP phase (``chip_smoke.py --usp-rank WORKDIR``,
     started 4 times with the SPECFORGE_* env): ``cli.main(["train", ...])``
     with its launch counts set to 0 just before and read just after, then a
-    trainer resumed from the step-2 checkpoint (its step-1 loss and
+    trainer resumed from the step-1 checkpoint (its step-1 loss and
     gradients first, from the same initial weights), its micro-step,
     optimizer-step and whole-step times, the collectives' share and the
     memory; everything into ``rank{N}.json`` (rank 0 also writes the step-1
@@ -2834,12 +2857,12 @@ def usp_rank(workdir: Path, device, overrides=()) -> None:
         if on_card:
             torch.cuda.empty_cache()
 
-        # resumed from step 2: first step 1's loss and gradients from the
+        # resumed from step 1: first step 1's loss and gradients from the
         # same initial weights, then the last two steps
         resumed = trainer_for(
             'run_id="usp_resumed"', "training.save_interval=0",
             f'output_dir="{workdir / "resumed"}"',
-            f"training.resume_from={workdir / 'runs' / 'usp-step2'}")
+            f"training.resume_from={workdir / 'runs' / 'usp-step1'}")
         window = first_window(resumed)
         loss, grads = window_grads(resumed, window)
         out["step1_loss"] = loss
@@ -2886,12 +2909,9 @@ def usp_rank(workdir: Path, device, overrides=()) -> None:
         del micro, grads
         if on_card:
             torch.cuda.reset_peak_memory_stats()
-        whole = []
-        for _ in range(2):
-            (resumed.state, _), ms, coll = timed(lambda: resumed.train_step(
-                resumed.state, stack_window(window), resumed.frozen))
-            whole.append({"ms": ms, "collectives_ms": coll})
-        out["whole_steps"] = whole
+        (resumed.state, _), ms, coll = timed(lambda: resumed.train_step(
+            resumed.state, stack_window(window), resumed.frozen))
+        out["whole_steps"] = [{"ms": ms, "collectives_ms": coll}]
         if on_card:
             out["train_step_peak_bytes"] = torch.cuda.max_memory_allocated()
         barrier("usp-memory")  # every rank holds its state now
@@ -2910,11 +2930,20 @@ def start_usp_ranks(workdir: Path, device, overrides) -> list:
     with the SPECFORGE_* env, wait for all within USP_TIMEOUT (killing them
     past it) → their ``rank{N}.json`` records; raise with the ranks' logs if
     one failed."""
+    return start_ranks(workdir, device, overrides, "--usp-rank",
+                       USP_GRID[0] * USP_GRID[1], USP_TIMEOUT, "USP")
+
+
+def start_ranks(workdir: Path, device, overrides, flag: str, ranks: int,
+                timeout: float, what: str) -> list:
+    """Start ``ranks`` processes of ``chip_smoke.py <flag> WORKDIR`` with
+    the SPECFORGE_* env, wait for all within ``timeout`` seconds (killing
+    them past it) → their ``rank{N}.json`` records; raise with the ranks'
+    logs if one failed."""
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
-    ranks = USP_GRID[0] * USP_GRID[1]
-    cmd = [sys.executable, str(Path(__file__).resolve()), "--usp-rank",
+    cmd = [sys.executable, str(Path(__file__).resolve()), flag,
            str(workdir), "--seed", "0"]
     if device.type != "cuda":
         cmd += ["--device", str(device)]
@@ -2924,15 +2953,15 @@ def start_usp_ranks(workdir: Path, device, overrides) -> list:
         env = dict(os.environ, SPECFORGE_COORDINATOR=f"localhost:{port}",
                    SPECFORGE_NUM_PROCESSES=str(ranks),
                    SPECFORGE_PROCESS_ID=str(rank))
-        if device.type == "cpu":  # 4 ranks share the host's cores
+        if device.type == "cpu":  # the ranks share the host's cores
             env["OMP_NUM_THREADS"] = "1"
-        else:  # 4 ranks share the card's memory: no stranded segments
+        else:  # the ranks share the card's memory: no stranded segments
             env["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
         log = open(workdir / f"rank{rank}.log", "w")
         procs.append((subprocess.Popen(cmd, env=env, stdout=log,
                                        stderr=subprocess.STDOUT), log))
     failed = []
-    deadline = time.monotonic() + USP_TIMEOUT
+    deadline = time.monotonic() + timeout
     try:
         for rank, (proc, _) in enumerate(procs):
             try:
@@ -2948,10 +2977,14 @@ def start_usp_ranks(workdir: Path, device, overrides) -> list:
                 proc.wait()
             log.close()
     if failed:
-        logs = "\n".join(f"--- rank {r}\n"
-                         + (workdir / f"rank{r}.log").read_text()[-4000:]
-                         for r in range(ranks))
-        raise AssertionError(f"USP ranks {failed} failed or timed out\n{logs}")
+        def excerpt(r):  # the rank's JSON progress lines, then its tail
+            text = (workdir / f"rank{r}.log").read_text()
+            return "".join(line for line in text.splitlines(True)
+                           if line.startswith("{")) + text[-3000:]
+
+        logs = "\n".join(f"--- rank {r}\n{excerpt(r)}" for r in range(ranks))
+        raise AssertionError(f"{what} ranks {failed} failed or timed out\n"
+                             f"{logs}")
     return [json.loads((workdir / f"rank{r}.json").read_text())
             for r in range(ranks)]
 
@@ -2978,9 +3011,9 @@ def run_usp_training(cfg_path: Path, device, seed: int, workdir: Path, *,
 
     The main path is ``cli.main(["train", ...])`` on 4 ranks of a 2×2 grid
     (``start_usp_ranks``; over host-staged gloo when they share one card):
-    4 optimizer steps with checkpoints at steps 2 and 4. The ranks must
+    2 optimizer steps with checkpoints at steps 1 and 2. The ranks must
     report the same per-step loss and bit-identical final weights, only
-    rank 0 may write, and a 4-rank resume from step 2 must reach the final
+    rank 0 may write, and a 4-rank resume from step 1 must reach the final
     weights bit-exactly. Then one process runs the same batches from the
     same initial weights with the TTT kernels (``attention_backend:
     "pallas"``, B = 1, S = ``max_length``): its step-1 loss and gradients
@@ -3018,7 +3051,7 @@ def run_usp_training(cfg_path: Path, device, seed: int, workdir: Path, *,
             raise AssertionError(f"rank {rec['rank']}: final weights differ "
                                  "from rank 0's")
         if rec["resumed_digest"] != rank0["digest"]:
-            raise AssertionError(f"rank {rec['rank']}: the resume from step 2 "
+            raise AssertionError(f"rank {rec['rank']}: the resume from step 1 "
                                  "did not reach the final weights bit-exactly")
         if rec["step1_loss"] != rank0["step1_loss"]:
             raise AssertionError(f"rank {rec['rank']}: step-1 loss differs")
@@ -3029,7 +3062,7 @@ def run_usp_training(cfg_path: Path, device, seed: int, workdir: Path, *,
     if roles != [(True, True)] + [(False, False)] * (len(records) - 1):
         raise AssertionError(f"IO roles {roles}: only rank 0 writes")
     written = sorted(p.name for p in (workdir / "runs").iterdir())
-    if written != ["usp-step2", "usp-step4", "usp.latest",
+    if written != ["usp-step1", "usp-step2", "usp.latest",
                    "usp.metrics.jsonl", "usp.vocab_mapping.npz"]:
         raise AssertionError(f"the USP run wrote {written}")
     grads_usp = torch.load(workdir / "usp_step1_grads.pt", weights_only=True)
@@ -3103,13 +3136,473 @@ def run_usp_training(cfg_path: Path, device, seed: int, workdir: Path, *,
         },
         "optimizer_steps": len(steps),
         "micro_batches": micro_batches,
-        "resume": {"from": "usp-step2", "steps": rank0["resumed_steps"],
+        "resume": {"from": "usp-step1", "steps": rank0["resumed_steps"],
                    "bit_exact": True},
         "ranks_bit_identical": True,
     })
     counts = {name: sum(r["launches"][name] for r in records)
               for name in LSE_KERNELS}
     results["rank_launches"] = [r["launches"] for r in records]
+    return results, counts
+
+
+# --------------------------------------------------------------------------
+# slice 14: data parallelism and fsdp (and with USP) on 4 ranks
+# --------------------------------------------------------------------------
+
+MESH_RANKS = 4
+MESH_TIMEOUT = 900  # seconds for the 4 ranks
+#: name → (draft config, example run, layout, global batch, accumulation,
+#: files, shortest and longest sample): EAGLE3 at dp 2 × fsdp 2 for 4 steps
+#: (a 4-rank resume from step 2, eval), P-EAGLE at fsdp 4, Domino at dp 2 ×
+#: fsdp 2 and EAGLE3 under USP at fsdp 2 × sp_ring 2 for a step each
+MESH_RUNS = {
+    "eagle3": (CONFIG, EXAMPLE, {"dp_size": 2, "fsdp_size": 2}, 4, ACCUM, 32,
+               1536, MAX_LEN),
+    "peagle": (PEAGLE_CONFIG, PEAGLE_EXAMPLE, {"fsdp_size": 4}, 4, 1, 4, 768,
+               1024),
+    "domino": (DOMINO_CONFIG, DOMINO_EXAMPLE, {"dp_size": 2, "fsdp_size": 2},
+               4, 1, 4, 512, 768),
+    "usp": (CONFIG, USP_EXAMPLE, {"fsdp_size": 2, "sp_ulysses_size": 1,
+                                  "sp_ring_size": 2}, 2, 1, 2, 3584,
+            USP_MAX_LEN),
+}
+MESH_EVAL_FILES = 4
+#: the drafts' layers and the EAGLE3 runs' tokens when the 4 ranks share
+#: one card (each rank holds the frozen target tables, the gathered weights
+#: and a window's whole fp32 gradients): Domino at 5 layers and the USP run
+#: at 4096 tokens ran out of the card's 80 GB (18.8 and 18.6 GB allocated a
+#: rank), EAGLE3 at 2048 tokens filled it (19.0 GB a rank) and ran out in a
+#: later run
+MESH_ONE_CARD_LAYERS = {"domino": 2, "peagle": 2}
+MESH_ONE_CARD_MAX_LEN = {"eagle3": 1024, "usp": 2048}
+MESH_COUNTERS = {**USP_COUNTERS, **DFLASH_COUNTERS, **PEAGLE_COUNTERS}
+
+
+def mesh_run_json(workdir: Path, name: str, target: Path, cfg: Path,
+                  max_length: int, mesh: bool) -> Path:
+    """The example run of ``MESH_RUNS[name]``, read as data, pointed at this
+    run's directories and draft config ``cfg``, at its global batch and
+    accumulation, ``max_length`` tokens, one epoch and a log line per step;
+    on its layout (``mesh``), or in one process on the TTT kernels."""
+    example, layout, batch, accum = MESH_RUNS[name][1:5]
+    raw = json.loads(example.read_text())
+    run_id = f"{'mesh' if mesh else 'single'}_{name}"
+    raw["run_id"] = run_id
+    raw["output_dir"] = str(workdir / f"runs_{run_id}")
+    raw["model"].update(target_model_path=str(target),
+                        draft_config_path=str(cfg))
+    raw["data"].update(train_data_path=str(workdir / name),
+                       eval_data_path=(str(workdir / f"{name}_eval")
+                                       if name == "eagle3" else None),
+                       max_length=max_length, num_workers=2)
+    raw["training"].update(batch_size=batch, accumulation_steps=accum,
+                           num_epochs=1, log_interval=1, eval_interval=0,
+                           save_interval=2 if name == "eagle3" else 0)
+    if name == "peagle":
+        raw["training"]["row_sparse_embedding"] = True
+    if mesh:
+        raw["training"].update(layout)
+    else:
+        # the mapping the mesh run derived from the same files
+        raw["model"]["vocab_mapping_path"] = str(
+            workdir / f"runs_mesh_{name}" / f"mesh_{name}.vocab_mapping.npz")
+        raw["training"].update(dp_size=1, fsdp_size=1, sp_ulysses_size=1,
+                               sp_ring_size=1)
+        if name == "usp":
+            raw["training"]["attention_backend"] = "pallas"
+    raw["tracking"] = {"backend": "jsonl"}
+    path = workdir / f"{run_id}.json"
+    path.write_text(json.dumps(raw, indent=2))
+    return path
+
+
+def whole_weights_digest(trainer) -> str:
+    """sha256 over every trainable tensor, whole (gathered from its fsdp
+    shards; every rank takes part), in name order."""
+    shards = trainer.shards
+    h = hashlib.sha256()
+    for name in sorted(trainer.state.params):
+        p = trainer.state.params[name]
+        dim = shards.dim(name) if shards is not None else None
+        whole = p if dim is None else shards.gather(p, dim)
+        h.update(name.encode())
+        h.update(whole.detach().float().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_micro_step(trainer, tensors, sync) -> dict:
+    """One micro-step alone (forward and backward, the weights' gathers),
+    its collectives timed on their own (``usp.TIMED``)."""
+    from specforge_tpu_torch.parallel import usp
+
+    sync()
+    usp.reset_collective_stats()
+    usp.TIMED = True
+    try:
+        t0 = time.perf_counter()
+        trainer.train_step.micro_step(trainer.state, tensors, trainer.frozen)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        usp.TIMED = False
+    return {"micro_step_ms": ms,
+            "collectives_ms_per_micro_step": usp.COLLECTIVES["seconds"] * 1e3,
+            "collective_bytes_per_micro_step": usp.COLLECTIVES["bytes"]}
+
+
+def mesh_rank(workdir: Path, device, overrides=()) -> None:
+    """One rank of the mesh phase (``chip_smoke.py --mesh-rank WORKDIR``,
+    started 4 times with the SPECFORGE_* env): for each run of
+    ``mesh_runs.json``, ``cli.main(["train", ...])`` with its launch counts
+    set to 0 just before and read just after, its whole weights' digest,
+    the bytes of this rank's masters and optimizer state, its timings and
+    memory; for EAGLE3 also step 1's gradients from the same initial
+    weights (gathered whole; rank 0 saves them) and a 4-rank resume from
+    its step-2 checkpoint. Everything into ``rank{N}.json``."""
+    from specforge_tpu_torch.application import composition
+    from specforge_tpu_torch.parallel import usp
+    from specforge_tpu_torch.parallel.multihost import (
+        barrier,
+        maybe_initialize_distributed,
+        process_index,
+        shutdown,
+    )
+
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    device = maybe_initialize_distributed(device)
+    rank = process_index()
+    overrides = list(overrides)
+    device_args = [] if on_card else ["--device", str(device)]
+    build = composition.build_training_run
+
+    def trainer_for(name, *extra):
+        config = load_config(str(workdir / f"mesh_{name}.json"),
+                             overrides + list(extra))
+        return build_training_run(config, device=None if on_card else device)
+
+    out = {"rank": rank}
+    try:
+        for name in json.loads((workdir / "mesh_runs.json").read_text()):
+            built = []
+
+            def capture(*args, **kwargs):
+                trainer = build(*args, **kwargs)
+                step, losses, steps = trainer.train_step, [], []
+
+                def recorded(state, batch, frozen):
+                    # each whole step timed to the loss on the host: the
+                    # gathers, the micro-steps, the window's reduce-scatters
+                    # and all-reduces, the update
+                    sync()
+                    usp.reset_collective_stats()
+                    t0 = time.perf_counter()
+                    state, metrics = step(state, batch, frozen)
+                    losses.append(float(metrics["train/loss"]))
+                    steps.append({
+                        "ms": (time.perf_counter() - t0) * 1e3,
+                        "collectives_ms": usp.COLLECTIVES["seconds"] * 1e3,
+                        "collective_bytes": usp.COLLECTIVES["bytes"]})
+                    return state, metrics
+
+                recorded.__dict__.update(step.__dict__)
+                trainer.train_step, trainer.losses = recorded, losses
+                trainer.step_times = steps
+                built.append(trainer)
+                return trainer
+
+            composition.build_training_run = capture
+            for fn in MESH_COUNTERS.values():
+                fn.launches = 0
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            sync()
+            t0 = time.perf_counter()
+            rc = cli.main(["train", "-c", str(workdir / f"mesh_{name}.json"),
+                           *device_args,
+                           *[a for o in overrides for a in ("--set", o)]])
+            sync()
+            rec = {"cli_train_s": time.perf_counter() - t0,
+                   "launches": {n: fn.launches
+                                for n, fn in MESH_COUNTERS.items()}}
+            composition.build_training_run = build
+            if rc != 0:
+                raise AssertionError(f"rank {rank}: cli train of {name} "
+                                     f"exited {rc}")
+            trainer = built.pop()
+            rec.update(
+                transport=trainer.mesh.transport,
+                coords=trainer.mesh.config.coords(rank),
+                batch_block=trainer.mesh.batch_block,
+                writes_checkpoints=trainer.checkpoints.primary,
+                tracks=type(trainer.tracker).__name__ != "NoOpTracker",
+                losses=list(trainer.losses), steps=trainer.state.step,
+                whole_steps=list(trainer.step_times),
+                digest=whole_weights_digest(trainer),
+                state_bytes=state_bytes(trainer.state),
+                sharded=sorted(n for n, d in trainer.shards.dims.items()
+                               if d is not None))
+            if on_card:
+                rec["cli_train_peak_bytes"] = torch.cuda.max_memory_allocated()
+            window = first_window(trainer)
+            if name == "eagle3":
+                del trainer
+                gc.collect()
+                if on_card:
+                    torch.cuda.empty_cache()
+                trainer = trainer_for(
+                    name, 'run_id="mesh_resumed"', "training.save_interval=0",
+                    f'output_dir="{workdir / "runs_mesh_resumed"}"',
+                    "data.eval_data_path=null",
+                    "training.resume_from="
+                    f"{workdir / 'runs_mesh_eagle3' / 'mesh_eagle3-step2'}")
+            rec.update(mesh_micro_step(trainer, window[0], sync))
+            if name == "eagle3":
+                # step 1 from the same initial weights, before the resume
+                if on_card:
+                    torch.cuda.reset_peak_memory_stats()
+                grads, stats = trainer.train_step.accumulate(
+                    trainer.state, stack_window(window), trainer.frozen)
+                if on_card:
+                    rec["train_step_peak_bytes"] = (
+                        torch.cuda.max_memory_allocated())
+                rec["step1_loss"] = float(stats["loss"] / stats["norm"])
+                shards = trainer.shards
+                whole = {n: (g if shards.dim(n) is None
+                             else shards.gather(g, shards.dim(n))).cpu()
+                         for n, g in grads.items()}
+                if rank == 0:
+                    torch.save(whole, workdir / "mesh_step1_grads.pt")
+                del whole, grads, stats
+                trainer.fit()
+                rec["resumed_digest"] = whole_weights_digest(trainer)
+                rec["resumed_steps"] = trainer.state.step
+            barrier(f"mesh-{name}-memory")  # every rank holds its state
+            if on_card:
+                free, total = torch.cuda.mem_get_info()
+                rec["card_used_bytes"] = total - free
+            del trainer, window
+            gc.collect()  # the recording wrapper makes a reference cycle
+            if on_card:
+                torch.cuda.empty_cache()
+            barrier(f"mesh-{name}-done")
+            out[name] = rec
+            print(json.dumps({"mesh_run": name, "rank": rank, **{
+                k: rec.get(k) for k in ("cli_train_s", "micro_step_ms",
+                                        "whole_steps", "cli_train_peak_bytes",
+                                        "card_used_bytes")}}), flush=True)
+        (workdir / f"rank{rank}.json").write_text(json.dumps(out))
+    finally:
+        composition.build_training_run = build
+        shutdown()
+
+
+def mesh_expected_launches(name: str, micro: int, evals: int,
+                           layers: int) -> dict:
+    """Launches each kernel makes on one rank of a run: per micro-batch TTT
+    of each EAGLE3 kernel (and of the forwards per eval forward), a DFlash
+    kernel per layer (Domino), a COD kernel per layer and a fused CE kernel
+    (P-EAGLE), TTT·sp_ring of each LSE kernel and TTT of each fused CE
+    kernel (USP); none of the others."""
+    out = dict.fromkeys(MESH_COUNTERS, 0)
+    if name == "eagle3":
+        for k in KERNEL_COUNTERS:
+            out[k] = TTT * (micro + (0 if k in BACKWARD_KERNELS else evals))
+    elif name == "usp":
+        ring = MESH_RUNS[name][2]["sp_ring_size"]
+        for k in LSE_KERNELS:
+            out[k] = TTT * ring * micro
+        out["fused_ce_fwd"] = out["fused_ce_bwd"] = TTT * micro
+    elif name == "domino":
+        for k in DFLASH_COUNTERS:
+            out[k] = layers * micro
+    else:
+        for k in PEAGLE_COUNTERS:
+            out[k] = (1 if k.startswith("fused_ce") else layers) * micro
+    return out
+
+
+def run_mesh_training(device, seed: int, workdir: Path, *, head_std=0.02,
+                      overrides=()) -> tuple:
+    """Slice 14 end to end → (results by run, the launch counts of each
+    run's main path summed over the ranks).
+
+    The main path is ``cli.main(["train", ...])`` on 4 ranks
+    (``start_ranks``; over host-staged gloo when they share one card, NCCL
+    with a card each) for each run of ``MESH_RUNS``, in one launch. The
+    ranks must report the same per-step losses and bit-identical whole
+    weights, only rank 0 may write, and the EAGLE3 resume from step 2 must
+    reach the final weights bit-exactly (``check_mesh_counts`` holds each
+    rank's launches to ``mesh_expected_launches``). Then one process runs each
+    run's global batch from the same initial weights on the TTT kernels:
+    its per-step losses (and EAGLE3's step-1 gradients) against the
+    mesh's, its state's bytes beside a rank's, and its whole-step time."""
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    eagle_cfg = Eagle3Config.from_file(MESH_RUNS["eagle3"][0])
+    target = write_target_dir(workdir / "target", eagle_cfg.vocab_size,
+                              eagle_cfg.resolved_target_hidden_size, device,
+                              seed, head_std)
+    # the ranks share the one card when there are fewer cards than ranks
+    shared = on_card and torch.cuda.device_count() < MESH_RANKS
+    layers, max_len = {}, {}
+    for name, (cfg_path, *_, files, lo, hi) in MESH_RUNS.items():
+        if shared and name in MESH_ONE_CARD_MAX_LEN:
+            hi = MESH_ONE_CARD_MAX_LEN[name]
+            lo = min(lo, hi - hi // 4)
+        max_len[name] = hi
+        draft = json.loads(cfg_path.read_text())
+        layers[name] = draft.get("num_hidden_layers", 1)
+        if shared and name in MESH_ONE_CARD_LAYERS:
+            layers[name] = MESH_ONE_CARD_LAYERS[name]
+            draft["num_hidden_layers"] = layers[name]
+            if "layer_types" in draft:
+                draft["layer_types"] = draft["layer_types"][:layers[name]]
+            cfg_path = workdir / f"{name}_draft.json"
+            cfg_path.write_text(json.dumps(draft, indent=2))
+        if name == "domino":
+            dcfg = DFlashConfig.from_dict(json.loads(cfg_path.read_text()))
+            write_dflash_features(workdir / name,
+                                  len(dcfg.resolved_target_layer_ids),
+                                  dcfg.hidden_size, dcfg.vocab_size, seed,
+                                  files, lo, hi)
+        else:
+            write_features(workdir / name, eagle_cfg, seed, files, lo, hi)
+        mesh_run_json(workdir, name, target, cfg_path, hi, mesh=True)
+        mesh_run_json(workdir, name, target, cfg_path, hi, mesh=False)
+    write_features(workdir / "eagle3_eval", eagle_cfg, seed + 100,
+                   MESH_EVAL_FILES, max_len["eagle3"] - max_len["eagle3"] // 4,
+                   max_len["eagle3"])
+    (workdir / "mesh_runs.json").write_text(json.dumps(list(MESH_RUNS)))
+    overrides = list(overrides)
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    records = start_ranks(workdir, device, overrides, "--mesh-rank",
+                          MESH_RANKS, MESH_TIMEOUT, "mesh")
+    results = {"ranks_s": time.perf_counter() - t0, "runs": {}}
+    counts = {}
+    for name, (_, _, layout, batch, accum, files, *_) in MESH_RUNS.items():
+        hi = max_len[name]
+        recs = [r[name] for r in records]
+        rank0 = recs[0]
+        steps = step_records(workdir / f"runs_mesh_{name}", f"mesh_{name}")
+        micro = len(steps) * accum
+        evals = MESH_EVAL_FILES // batch if name == "eagle3" else 0
+        for r, rec in enumerate(recs):
+            if rec["losses"] != rank0["losses"]:
+                raise AssertionError(f"{name} rank {r}: per-step losses "
+                                     "differ from rank 0's")
+            if rec["digest"] != rank0["digest"]:
+                raise AssertionError(f"{name} rank {r}: whole weights "
+                                     "differ from rank 0's")
+            if name == "eagle3" and (rec["resumed_digest"] != rank0["digest"]
+                                     or rec["step1_loss"]
+                                     != rank0["step1_loss"]):
+                raise AssertionError(f"{name} rank {r}: the resume from step "
+                                     "2 did not reach the final weights "
+                                     "bit-exactly, or step 1 differs")
+        roles = [(r["writes_checkpoints"], r["tracks"]) for r in recs]
+        if roles != [(True, True)] + [(False, False)] * (MESH_RANKS - 1):
+            raise AssertionError(f"{name}: IO roles {roles}")
+        if [s["train/loss"] for s in steps] != rank0["losses"]:
+            raise AssertionError(f"{name}: rank 0's tracker disagrees")
+        counts[name] = {k: sum(r["launches"][k] for r in recs)
+                        for k in MESH_COUNTERS}
+        res = {"layout": layout, "global_batch": batch,
+               "layers": layers[name],
+               "accumulation_steps": accum, "files": files,
+               "max_length": hi, "optimizer_steps": len(steps),
+               "transport": rank0["transport"],
+               "sharded_tensors": len(rank0["sharded"]),
+               "micro_batches": micro, "eval_forwards": evals,
+               "rank_launches": [rec["launches"] for rec in recs],
+               "ranks": [{k: rec.get(k) for k in (
+                   "coords", "batch_block", "micro_step_ms",
+                   "collectives_ms_per_micro_step",
+                   "collective_bytes_per_micro_step", "whole_steps",
+                   "cli_train_s", "cli_train_peak_bytes",
+                   "train_step_peak_bytes", "card_used_bytes",
+                   "state_bytes")} for rec in recs],
+               "ranks_bit_identical": True}
+
+        # one process, the same global batch and initial weights
+        single = build_training_run(
+            load_config(str(workdir / f"single_{name}.json"), overrides),
+            device=None if on_card else device)
+        window = first_window(single)
+        if name == "eagle3":
+            loss_s, grads_s = window_grads(single, window)
+            check("step-1 loss, mesh vs one process",
+                  abs(rank0["step1_loss"] - loss_s) / abs(loss_s),
+                  TRAIN_STEP1_RTOL)
+            grads_m = torch.load(workdir / "mesh_step1_grads.pt",
+                                 weights_only=True)
+            res["step1_grads"] = compare_grads(
+                grads_m, {k: g.cpu() for k, g in grads_s.items()})
+            del grads_s, grads_m
+            res["resume"] = {"from": "mesh_eagle3-step2",
+                             "steps": rank0["resumed_steps"],
+                             "bit_exact": True}
+            res["final_eval"] = final_eval(CheckpointManager.resolve_step_dir(
+                str(workdir / "runs_mesh_eagle3")))
+            if not all(math.isfinite(v) for v in res["final_eval"].values()):
+                raise AssertionError(f"eval not finite: {res['final_eval']}")
+        single_steps = train_windows(single)
+        curve = []
+        for k, p in zip(steps, single_steps, strict=True):
+            rel = abs(k["train/loss"] - p["train/loss"]) / abs(p["train/loss"])
+            if not (math.isfinite(k["train/loss"])
+                    and math.isfinite(p["train/loss"])):
+                raise AssertionError(f"{name} step {k['step']}: loss not "
+                                     "finite")
+            check(f"{name} step {k['step']} train/loss, mesh vs one process",
+                  rel, TRAIN_STEP1_RTOL if k["step"] == 1 else
+                  TRAIN_DRIFT_RTOL)
+            curve.append({"step": k["step"], "loss": k["train/loss"],
+                          "single_loss": p["train/loss"], "rel_diff": rel,
+                          "grad_norm": k["train/grad_norm"],
+                          "single_grad_norm": p["train/grad_norm"]})
+        res["loss_curve"] = curve
+        one = state_bytes(single.state)
+        whole = []
+        for _ in range(2 if name == "eagle3" else 1):
+            sync()
+            t0 = time.perf_counter()
+            single.state, _ = single.train_step(
+                single.state, stack_window(window), single.frozen)
+            sync()
+            whole.append((time.perf_counter() - t0) * 1e3)
+        del single, window
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        tokens = batch * accum * hi  # the global batch's padded positions
+        # a rank's whole steps after the first (its warm-up), when it has
+        whole_mesh = statistics.median(statistics.median(
+            w["ms"] for w in r["whole_steps"][1:] or r["whole_steps"])
+            for r in recs)
+        fsdp = layout.get("fsdp_size", 1)
+        res.update({
+            "single_process": {"state_bytes": one, "whole_step_ms_all": whole,
+                               "whole_step_ms": statistics.median(whole),
+                               "tokens_per_s": tokens / (
+                                   statistics.median(whole) / 1e3)},
+            "whole_step_ms": whole_mesh,
+            "tokens_per_s": tokens / (whole_mesh / 1e3),
+            # a rank's state against one process's: about 1/fsdp
+            "state_bytes_ratio": {
+                k: rank0["state_bytes"][k] / one[k] for k in one if one[k]},
+            "fsdp": fsdp,
+        })
+        for k, ratio in res["state_bytes_ratio"].items():
+            if fsdp > 1 and not ratio < 1.0:
+                raise AssertionError(f"{name}: a rank holds {ratio} of the "
+                                     f"one process's {k} bytes")
+        results["runs"][name] = res
+        shutil.rmtree(workdir / f"runs_single_{name}", ignore_errors=True)
     return results, counts
 
 
@@ -3153,11 +3646,63 @@ def check_training_counts(counts: dict, micro_batches: int,
                 f"{TTT * forwards} ({TTT} per {per})")
 
 
+def check_mesh_counts(results: dict) -> None:
+    """Every rank of every run launched each kernel as
+    ``mesh_expected_launches`` says."""
+    for name, res in results["runs"].items():
+        expected = mesh_expected_launches(name, res["micro_batches"],
+                                          res["eval_forwards"], res["layers"])
+        for rank, launches in enumerate(res["rank_launches"]):
+            for kernel, n in launches.items():
+                if n != expected[kernel]:
+                    raise AssertionError(
+                        f"{name} rank {rank}: {kernel} launched {n} times, "
+                        f"expected {expected[kernel]}")
+
+
+def mesh_phase(seed: int) -> None:
+    """Phase 9's training (``run_mesh_training`` on the card) and its
+    line."""
+    with tempfile.TemporaryDirectory() as tmp:
+        results, counts = run_mesh_training(torch.device("cuda"), seed,
+                                            Path(tmp))
+    check_mesh_counts(results)
+    shared = next(iter(results["runs"].values()))["transport"] == "gloo"
+    emit({"phase": "mesh_training",
+          "ranks": MESH_RANKS,
+          "configs": {name: {"draft_config": str(run[0].relative_to(REPO)),
+                             "run": str(run[1].relative_to(REPO))}
+                      for name, run in MESH_RUNS.items()},
+          "cards": "the 4 ranks share one card" if shared else
+                   "4 cards, one a rank",
+          "reduced": {
+              "eagle3": "4 optimizer steps of 2 micro-batches of the global "
+                        "batch 4, 32 files, checkpoints at steps 2 and 4",
+              "peagle": "one step of the global batch 4, 4 files of "
+                        "768-1024 tokens, row-sparse embedding",
+              "domino": "one step of the global batch 4, 4 files of "
+                        "512-768 tokens",
+              "usp": "one step of the global batch 2",
+              "one_card": {"layers": MESH_ONE_CARD_LAYERS,
+                           "max_length": MESH_ONE_CARD_MAX_LEN,
+                           "why": "the 4 ranks share the card's 80 GB"}
+              if shared else None},
+          "launches_summed_over_ranks": counts,
+          "tolerances": {"step1_loss_rtol": TRAIN_STEP1_RTOL,
+                         "later_loss_rtol": TRAIN_DRIFT_RTOL,
+                         "grad_cosine": GRAD_COSINE,
+                         "grad_norm_rtol": GRAD_NORM_RTOL},
+          **results})
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
-    # one rank of the USP phase, started by the phase itself
+    # one rank of the USP or the mesh phase, started by the phase itself
     parser.add_argument("--usp-rank", metavar="WORKDIR",
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--mesh-rank", metavar="WORKDIR",
                         help=argparse.SUPPRESS)
     parser.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
     parser.add_argument("--set", action="append", default=[],
@@ -3166,9 +3711,16 @@ def main() -> int:
     # machine with a card per rank, its ranks talk NCCL
     parser.add_argument("--usp-only", action="store_true",
                         help="run only the USP training phase")
+    # the mesh phase alone (its ranks and the one process beside them): on
+    # a machine with a card per rank, its ranks talk NCCL
+    parser.add_argument("--mesh-only", action="store_true",
+                        help="run only the dp x fsdp (and USP) mesh phase")
     args = parser.parse_args()
     if args.usp_rank:
         usp_rank(Path(args.usp_rank), torch.device(args.device), args.set)
+        return 0
+    if args.mesh_rank:
+        mesh_rank(Path(args.mesh_rank), torch.device(args.device), args.set)
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3176,7 +3728,12 @@ def main() -> int:
 
     smi = device_facts()
     build()
-    # the USP phase first: its 4 ranks may share the card, and this process
+    if not args.usp_only:
+        mesh_phase(args.seed)
+        if args.mesh_only:
+            print(smi, flush=True)
+            return 0
+    # the USP phase next: its 4 ranks may share the card, and this process
     # holds none of its memory yet (the kernel phases leave some behind)
     with tempfile.TemporaryDirectory() as tmp:
         results, usp_counts = run_usp_training(
@@ -3196,9 +3753,10 @@ def main() -> int:
                           "the 4 ranks share one card" if shared else
                           "4 cards, one a rank"),
                       "accumulation_steps": "2, not 8",
-                      "steps": f"4 optimizer steps over {USP_FILES} files "
-                               f"of {USP_MIN_LEN}-{USP_MAX_LEN} tokens",
-                      "checkpoints": "at steps 2 and 4"},
+                      "steps": f"2 optimizer steps over {USP_FILES} files "
+                               f"of {USP_MIN_LEN}-{USP_MAX_LEN} tokens (4 "
+                               "before the mesh phase joined the script)",
+                      "checkpoints": "at steps 1 and 2"},
           "launches_summed_over_ranks": usp_counts,
           "tolerances": {"step1_loss_rtol": TRAIN_STEP1_RTOL,
                          "later_loss_rtol": TRAIN_DRIFT_RTOL,

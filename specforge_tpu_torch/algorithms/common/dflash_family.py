@@ -19,7 +19,10 @@ losses:
 
 ``forward`` samples the anchors from ``generator`` (a ``torch.Generator``)
 unless ``anchors=(positions, keep)`` is given; the parity tests hand in the
-anchors the JAX sampler drew. The vocab objective is the fused one
+anchors the JAX sampler drew. On a mesh (``mesh``, set by the composition)
+every sum a loss or metric divides is summed over all ranks first
+(``mesh_sums``), so each is the global batch's value on every rank and
+each rank's gradient its own share. The vocab objective is the fused one
 (:mod:`specforge_tpu_torch.ops.fused_objective`) by default, or the
 checkpointed chunk reduction when ``fused_objective`` is False.
 """
@@ -43,6 +46,7 @@ from specforge_tpu_torch.ops.fused_objective import (
     masked_cross_entropy,
 )
 from specforge_tpu_torch.ops.masks import sample_anchor_positions
+from specforge_tpu_torch.parallel.usp import mesh_sums
 
 VALID_LOSS_TYPES = (
     "dflash",
@@ -82,6 +86,8 @@ class OnlineDFlashModel(nn.Module):
         self.loss_type = loss_type
         self.dpace_alpha = float(dpace_alpha)
         self.fused_objective = fused_objective
+        #: the rank grid whose ranks hold the rest of the global batch
+        self.mesh = None
 
     # --- shared block machinery -------------------------------------------
     def _anchors(self, loss_mask, generator, anchors) -> Anchors:
@@ -210,6 +216,9 @@ class OnlineDFlashModel(nn.Module):
         loss_denominator = (
             loss_den if self.loss_type == "dflash"
             else torch.tensor(float(b), device=loss_num.device))
+        loss_num, loss_denominator, correct_num, accuracy_den = mesh_sums(
+            (loss_num, loss_denominator, correct_num, accuracy_den),
+            self.mesh)
         loss = loss_num / torch.clamp(loss_denominator, min=1e-6)
         accuracy = correct_num / torch.clamp(accuracy_den, min=1e-6)
         metrics = {
@@ -275,10 +284,10 @@ class OnlineDominoModel(OnlineDFlashModel):
             corr_act = draft.correction_activation(prev_emb, hidden4d)
             (blend_num, final_num, base_num, loss_den, correct_num,
              base_correct, accuracy_den, accept_num, base_accept_num,
-             accept_den) = domino_objective_fused(
+             accept_den) = mesh_sums(domino_objective_fused(
                 hidden4d, corr_act, draft.logits_head_kernel(), target_ids,
                 weight_mask, eval_weight_mask, lambda_base, lm_head_weight,
-                self.objective_chunk_blocks)
+                self.objective_chunk_blocks), self.mesh)
             valid_token_count = loss_den + 1e-6
             return self._domino_outputs(
                 blend_num / valid_token_count, final_num / valid_token_count,
@@ -314,11 +323,11 @@ class OnlineDominoModel(OnlineDFlashModel):
             )
 
         (final_num, base_num, loss_den, correct_num, base_correct,
-         accuracy_den, accept_num, base_accept_num, accept_den) = (
+         accuracy_den, accept_num, base_accept_num, accept_den) = mesh_sums(
             checkpointed_chunk_reduce(
                 chunk_fn, hidden4d, prev_ids, target_ids, weight_mask,
                 eval_weight_mask, chunk_size=self.objective_chunk_blocks,
-                axis=1))
+                axis=1), self.mesh)
         valid_token_count = loss_den + 1e-6
         final_loss = final_num / valid_token_count
         base_loss = base_num / valid_token_count
@@ -440,9 +449,9 @@ class OnlineDSparkModel(OnlineDFlashModel):
             self._chunk_terms(lm_head_weight), hidden_4d, prev_token_ids,
             target_ids, loss_weights, eval_mask, aligned,
             chunk_size=self.objective_chunk_blocks, axis=1)
-        (ce_num, l1_num, conf_num, conf_err, correct_num, eval_den, _ce_pos,
-         _correct_pos, _pos_den, agree_num, t_top1, d_top1, tau_num,
-         tau_den) = totals
+        (ce_num, l1_num, conf_num, conf_err, correct_num, eval_den, agree_num,
+         t_top1, d_top1, tau_num, tau_den, loss_den) = mesh_sums(
+            totals[:6] + totals[9:] + (loss_den,), self.mesh)
         global_den = torch.clamp(loss_den.detach(), min=1e-6)
         loss = (self.dspark_ce_loss_alpha * ce_num
                 + self.dspark_l1_loss_alpha * l1_num
@@ -531,6 +540,11 @@ class OnlineDSparkModel(OnlineDFlashModel):
             conf_num, conf_err = _confidence_bce(conf_pred,
                                                  accept_probability,
                                                  loss_weights)
+        (vocab_num, ce_num, l1_num, conf_num, conf_err, correct_num, eval_den,
+         agree_num, t_top1, d_top1, tau_num, tau_den, loss_den) = mesh_sums(
+            (vocab_num, ce_num, l1_num, conf_num, conf_err, correct_num,
+             eval_den, agree_num, t_top1, d_top1, tau_num, tau_den, loss_den),
+            self.mesh)
         global_den = torch.clamp(loss_den.detach(), min=1e-6)
         loss = (vocab_num
                 + self.dspark_confidence_head_alpha * conf_num) / global_den

@@ -21,10 +21,12 @@ Under the ``"usp"`` backend every rank of the sequence group receives its
 own cut of the batch (``SequenceShard.take``, made by the strategy on the
 host): its chunk and the halo of ``length - 1`` positions after it that the
 shifts and the teacher slices read. It computes the teacher over both, RoPE
-at global positions, and each
-loss and metric as a function of numerators and denominators summed over
-the group (``sp_sum``: the global value on every rank, each rank's gradient
-its own share). The JAX model computes the same in one global program.
+at global positions. On a mesh (``mesh``: USP, dp, fsdp or all of them)
+each rank holds its own batch block and sequence chunk, and each loss and
+metric is a function of numerators and denominators summed over all ranks
+(``mesh_sums``, one call a forward: the global value on every rank, each
+rank's gradient its own share). The JAX model computes the same in one
+global program.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from torch import nn
 
 from specforge_tpu_torch.models.draft.llama_eagle3 import LlamaEagle3Draft
 from specforge_tpu_torch.ops.attention import make_causal_bias
-from specforge_tpu_torch.ops.lk_loss import compute_acceptance_rate, compute_lk_loss
+from specforge_tpu_torch.ops.lk_loss import acceptance_sums, compute_lk_loss
 from specforge_tpu_torch.ops.loss import (
     log_softmax_loss,
     log_softmax_loss_reference,
@@ -45,7 +47,7 @@ from specforge_tpu_torch.ops.teacher import (
     compute_target_p_padded,
     compute_target_p_padded_from_hidden,
 )
-from specforge_tpu_torch.parallel.usp import SequenceShard, sp_sum
+from specforge_tpu_torch.parallel.usp import SequenceShard, mesh_sums
 from specforge_tpu_torch.utils import shift_pad
 
 #: "fused" = the fused CE (kernel on CUDA, its plain version on CPU);
@@ -96,6 +98,9 @@ class OnlineEagle3Model(nn.Module):
             log_softmax_loss if loss_backend == "fused"
             else log_softmax_loss_reference
         )
+        #: the rank grid whose ranks hold the other parts of the global
+        #: batch (set by the composition); under ``"usp"`` the draft's
+        self.mesh = None
 
     def forward(
         self,
@@ -119,16 +124,18 @@ class OnlineEagle3Model(nn.Module):
         draft = self.draft_model
         t2d, d2t = draft.t2d, draft.d2t
         batch_size = input_ids.shape[0]
-        mesh = draft.mesh if draft.attention_backend == "usp" else None
+        mesh = self.mesh
+        if mesh is None and draft.attention_backend == "usp":
+            mesh = draft.mesh
         if shard is None:
-            if mesh is not None and mesh.sp_size > 1:
+            if draft.attention_backend == "usp" and draft.mesh.sp_size > 1:
                 raise ValueError("attention_backend='usp' takes this rank's "
                                  "SequenceShard and its local tensors")
             shard = SequenceShard.of(None, input_ids.shape[1], 0)
         seq_len, s_loc = shard.global_size, shard.size
-
-        def reduce(x):
-            return sp_sum(x, mesh)
+        # this rank's rows of the global batch
+        blocks = mesh.config.batch_blocks if mesh is not None else 1
+        global_batch = batch_size * blocks
 
         with torch.no_grad():
             # the teacher of the positions the window holds, padded past
@@ -184,47 +191,53 @@ class OnlineEagle3Model(nn.Module):
             pred_draft = torch.argmax(logits, dim=-1)
             pred_target = pred_draft + d2t[pred_draft]
             lm = cur_loss_mask[:, :s_loc, 0].float()
-            correct = reduce(torch.sum((pred_target == step_token_ids).float()
-                                       * lm))
-            denom = torch.clamp(reduce(torch.sum(lm)), min=1e-6)
-
-            # the mean over this chunk's B*S_loc rows, as its share of the
-            # mean over all B*S rows
-            kl_loss = reduce(self.loss_fn(logits, step_target_p,
-                                          step_position_mask)
-                             * (s_loc / seq_len))
+            correct = torch.sum((pred_target == step_token_ids).float() * lm)
+            # the mean over this rank's b*S_loc rows, as its share of the
+            # mean over all B*S rows of the global batch
+            kl_loss = self.loss_fn(logits, step_target_p,
+                                   step_position_mask) * (
+                                       s_loc / seq_len / blocks)
             # without an LK loss the acceptance rate is a metric only: it
             # reads detached logits, so autograd keeps none of its fp32
             # softmax intermediates (the JAX model's stop_gradient lets XLA
             # drop its backward the same way)
-            acceptance_rate, log_acceptance_rate = compute_acceptance_rate(
+            acc_num, log_num, pos_den = acceptance_sums(
                 logits if self.lk_loss_type is not None else logits.detach(),
-                step_target_p, step_position_mask, ratio=step_ratio,
-                reduce=reduce,
-            )
+                step_target_p, step_position_mask, ratio=step_ratio)
+            steps.append((correct, torch.sum(lm), kl_loss, acc_num, log_num,
+                          pos_den))
+            if idx != self.length - 1:
+                cur_input_ids = shift_pad(cur_input_ids, left=False)
+                cur_position_mask = shift_pad(cur_position_mask, left=False)
+                cur_loss_mask = shift_pad(cur_loss_mask, left=False)
+
+        # every step's numerators and denominators summed over the mesh in
+        # one call: the global batch's values on every rank
+        sums = mesh_sums([x for step in steps for x in step], mesh)
+        outputs = []
+        for idx in range(self.length):
+            correct, denom, kl_loss, acc_num, log_num, pos_den = sums[
+                6 * idx:6 * idx + 6]
+            denom = torch.clamp(denom, min=1e-6)
+            acc_den = torch.clamp(pos_den, min=1e-8)
+            acceptance_rate = acc_num / acc_den
             if self.lk_loss_type is None:
                 loss = kl_loss
             else:
                 loss = compute_lk_loss(
-                    kl_loss, acceptance_rate, log_acceptance_rate,
+                    kl_loss, acceptance_rate, log_num / acc_den,
                     self.lk_loss_type, self.kl_scale, self.kl_decay,
                 )
-            pos_den = reduce(torch.sum(step_position_mask.float()))
-            steps.append((
+            outputs.append((
                 loss,
                 acceptance_rate.detach(),
                 correct / denom,
                 correct,
                 denom,
                 loss.detach(),
-                torch.tensor(float(batch_size * seq_len),
-                             device=logits.device),
+                torch.tensor(float(global_batch * seq_len),
+                             device=loss.device),
                 acceptance_rate.detach() * pos_den,
                 pos_den,
             ))
-            if idx != self.length - 1:
-                cur_input_ids = shift_pad(cur_input_ids, left=False)
-                cur_position_mask = shift_pad(cur_position_mask, left=False)
-                cur_loss_mask = shift_pad(cur_loss_mask, left=False)
-
-        return TTTOutputs(*(torch.stack(col) for col in zip(*steps)))
+        return TTTOutputs(*(torch.stack(col) for col in zip(*outputs)))

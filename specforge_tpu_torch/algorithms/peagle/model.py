@@ -34,11 +34,13 @@ from specforge_tpu_torch.models.draft.peagle import (
     cod_capacities,
 )
 from specforge_tpu_torch.ops.loss import log_softmax_loss
+from specforge_tpu_torch.ops.masks import block_uniform
 from specforge_tpu_torch.ops.peagle_attention_cuda import (
     cod_allow_dense,
     cod_tiles,
 )
 from specforge_tpu_torch.ops.teacher import draft_gather_indices
+from specforge_tpu_torch.parallel.usp import mesh_sum, mesh_sums
 
 
 def document_ids_from_lengths(lengths: torch.Tensor,
@@ -67,6 +69,7 @@ def generate_cod_sample_indices(
     down_sample_ratio: float,
     down_sample_ratio_min: float,
     filter_position_zero: bool = True,
+    block: Tuple[int, int] = (0, 1),
 ) -> CODSample:
     """The COD sample of every row, in depth-major order → fields [B, T].
 
@@ -74,7 +77,28 @@ def generate_cod_sample_indices(
     uniformly from the positions whose depth-(d-1) target was kept and
     supervised, whose anchor (target - d) lies in the same document. The
     uniform values are drawn on the generator's device and moved to the
-    mask's, so a CPU generator gives the same sample on every device."""
+    mask's, so a CPU generator gives the same sample on every device; they
+    are drawn for the global batch, one [B·n, S] draw per depth, and the
+    rows of batch block ``block = (first, n)`` kept (``block_uniform``)."""
+    b, s = loss_mask.shape
+    uniforms = [block_uniform(generator, (b, s), block).to(loss_mask.device)
+                for _ in range(1, num_depths)]
+    return cod_sample_from_uniform(uniforms, loss_mask, doc_ids, num_depths,
+                                   down_sample_ratio, down_sample_ratio_min,
+                                   filter_position_zero)
+
+
+def cod_sample_from_uniform(
+    uniforms,                     # per depth 1..D-1: [B, S] in [0, 1)
+    loss_mask: torch.Tensor,
+    doc_ids: torch.Tensor,
+    num_depths: int,
+    down_sample_ratio: float,
+    down_sample_ratio_min: float,
+    filter_position_zero: bool = True,
+) -> CODSample:
+    """The sample of :func:`generate_cod_sample_indices` from its uniform
+    values."""
     b, s = loss_mask.shape
     device = loss_mask.device
     caps = cod_capacities(s, num_depths, down_sample_ratio,
@@ -100,9 +124,8 @@ def generate_cod_sample_indices(
         sample_size = torch.minimum(
             (valid_length.to(torch.float32) * ratio).to(torch.int64),
             n_eligible)
-        rand = torch.rand((b, s), generator=generator,
-                          device=generator.device).to(device)
-        rand = torch.where(eligible, rand, torch.full_like(rand, 2.0))
+        rand = torch.where(eligible, uniforms[d - 1],
+                           torch.full_like(uniforms[d - 1], 2.0))
         order = torch.argsort(rand, dim=1, stable=True)[:, :cap]
         slot_keep = (torch.arange(cap, device=device)[None, :]
                      < torch.clamp(sample_size, max=cap)[:, None])
@@ -177,6 +200,9 @@ class OnlinePEagleModel(nn.Module):
         self.down_sample_ratio = down_sample_ratio
         self.down_sample_ratio_min = down_sample_ratio_min
         self.loss_fn = log_softmax_loss
+        #: the rank grid whose ranks hold the rest of the global batch: the
+        #: loss's denominator and the metric sums are summed over it
+        self.mesh = None
 
     def sampled_length(self, seq_length: int) -> int:
         return sum(cod_capacities(seq_length, self.num_depths,
@@ -266,11 +292,13 @@ class OnlinePEagleModel(nn.Module):
         target_p = torch.softmax(target_logits.float(), dim=-1).detach()
         position_mask = sampled_loss_mask[..., None]
         total_positions = position_mask.shape[0] * position_mask.shape[1]
-        # one masked mean over the whole batch: supervised positions pool
-        # across rows (the denominator-weighted mean of per-row losses)
-        denominator = torch.clamp(sampled_loss_mask.sum(), min=1e-6)
-        loss = self.loss_fn(logits, target_p, position_mask) * (
-            total_positions / denominator)
+        # one masked mean over the whole (global) batch: supervised
+        # positions pool across rows (the denominator-weighted mean of
+        # per-row losses); on a mesh each rank's term is its share
+        denominator = torch.clamp(mesh_sum(sampled_loss_mask.sum(),
+                                           self.mesh), min=1e-6)
+        loss = mesh_sum(self.loss_fn(logits, target_p, position_mask) * (
+            total_positions / denominator), self.mesh)
 
         pred_ids = logits.argmax(dim=-1)
         target_ids = target_p.argmax(dim=-1)
@@ -292,4 +320,7 @@ class OnlinePEagleModel(nn.Module):
             count_total = count_total + d_total
         metrics["full_acc_sum"] = correct_total
         metrics["full_acc_total"] = count_total
+        sums = [k for k in metrics if k.startswith(("position_", "full_"))]
+        metrics.update(zip(sums, mesh_sums([metrics[k] for k in sums],
+                                           self.mesh)))
         return loss, metrics

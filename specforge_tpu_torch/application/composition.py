@@ -10,14 +10,19 @@ and the tracker, and returns the :class:`Trainer`. EAGLE3 copies the target
 embedding into its draft and freezes it (the frozen table cast to bf16);
 P-EAGLE copies it too but trains it in fp32; the DFlash family reads the
 target head and embedding from ``frozen`` at every step and trains every
-draft parameter. EAGLE3 under ``attention_backend: "usp"`` runs on
-``sp_ulysses × sp_ring`` processes started with the multi-process env
+draft parameter. A run on a mesh of ``dp × fsdp × sp_ulysses × sp_ring``
+ranks (``fsdp_size: 0`` takes the processes left over, as in the JAX
+package; the sequence axes only under EAGLE3's ``attention_backend:
+"usp"``) runs one process per rank, started with the multi-process env
 (``parallel/multihost.py``): the rank grid and its groups first, then the
-draft over them; every rank loads the same samples, the primary rank derives
-the vocab mapping and owns the tracker. What the port has not reached yet
-(FSDP2 ``dp``/``fsdp`` meshes, online runs, a warm start) is refused with
-the slice that brings it, and an eval pass for the DFlash family and
-P-EAGLE, which their JAX strategies do not define, is refused by name.
+draft over them; the rank of batch block ``d·fsdp + f`` loads that
+block's rows of every global batch (``training.batch_size`` is the global
+batch), the ranks of one block (its sequence group) the same samples; the
+primary rank derives the vocab mapping and owns the tracker. The trainer
+shards the state over fsdp (``parallel/fsdp.py``). What the port has not
+reached yet (online runs, a warm start) is refused with the slice that
+brings it, and an eval pass for the DFlash family and P-EAGLE, which their
+JAX strategies do not define, is refused by name.
 """
 
 from __future__ import annotations
@@ -122,12 +127,7 @@ def _refuse_unported(config: Config) -> None:
     if t.attention_backend == "usp" and t.strategy != "eagle3":
         raise NotImplementedError(
             f"attention_backend='usp' is EAGLE3's; {t.strategy!r} has no "
-            "sequence-parallel path in the port (ROADMAP.md, Queue 1 item 6)"
-        )
-    if t.dp_size > 1 or t.fsdp_size > 1:
-        raise NotImplementedError(
-            f"a training mesh (dp_size={t.dp_size}, fsdp_size={t.fsdp_size}) "
-            "comes with the parallelism slice (ROADMAP.md, Queue 1 item 6)"
+            "sequence-parallel path, in the JAX package or the port"
         )
     if config.model.draft_checkpoint_path:
         raise NotImplementedError(
@@ -217,34 +217,51 @@ def _derive_vocab_mapping(config: Config, cache: str, vocab: int,
     return t2d, d2t
 
 
+def mesh_config(config: Config, procs: int) -> MeshConfig:
+    """The rank grid of a run on ``procs`` processes: ``fsdp_size`` 0 takes
+    ``procs // (dp·sp_ulysses·sp_ring)`` (JAX ``composition.py:238-240``);
+    the sequence axes count only under ``attention_backend: "usp"``."""
+    t = config.training
+    usp = t.attention_backend == "usp"
+    sp_u, sp_r = (t.sp_ulysses_size, t.sp_ring_size) if usp else (1, 1)
+    fsdp = t.fsdp_size or max(procs // (t.dp_size * sp_u * sp_r), 1)
+    return MeshConfig(dp=t.dp_size, fsdp=fsdp, sp_ulysses=sp_u, sp_ring=sp_r)
+
+
 def _build_mesh(config: Config, device: torch.device):
-    """The USP rank grid (None without USP), after the checks of the JAX
-    composition: one process per rank of ``sp_ulysses × sp_ring``, and a
-    ``max_length`` that divides into the chunks."""
+    """The rank grid (None for one process without USP), after the checks
+    of the JAX composition: a ``max_length`` that divides into the USP
+    chunks, a global batch that divides into the ``dp·fsdp`` batch blocks,
+    and one process per rank."""
     t = config.training
     procs = process_count()
-    if t.attention_backend != "usp":
-        if procs > 1:
-            raise NotImplementedError(
-                f"{procs} processes without attention_backend='usp': data "
-                "parallelism (dp/fsdp) comes with the parallelism slice "
-                "(ROADMAP.md, Queue 1 item 6)"
-            )
-        return None
-    mesh_cfg = MeshConfig(sp_ulysses=t.sp_ulysses_size,
-                          sp_ring=t.sp_ring_size)
-    if config.data.max_length % mesh_cfg.world_size != 0:
+    mesh_cfg = mesh_config(config, procs)
+    sp = mesh_cfg.sp_ulysses * mesh_cfg.sp_ring
+    if config.data.max_length % sp != 0:
         raise ValueError(
             f"data.max_length={config.data.max_length} must be divisible by "
-            f"sp_ulysses*sp_ring={mesh_cfg.world_size} for USP"
+            f"sp_ulysses*sp_ring={sp} for USP"
+        )
+    if sp > 1 and t.batch_size != mesh_cfg.batch_blocks:
+        raise ValueError(
+            f"USP takes one row per batch block: training.batch_size="
+            f"{t.batch_size} must be dp*fsdp={mesh_cfg.batch_blocks}"
+        )
+    if t.batch_size % mesh_cfg.batch_blocks != 0:
+        raise ValueError(
+            f"training.batch_size={t.batch_size} (global) must be divisible "
+            f"by dp*fsdp={mesh_cfg.batch_blocks} batch blocks"
         )
     if mesh_cfg.world_size != procs:
         raise ValueError(
-            f"attention_backend=usp needs one process per rank of "
-            f"sp_ulysses*sp_ring={mesh_cfg.world_size}, have {procs} (start "
-            "each with SPECFORGE_COORDINATOR, SPECFORGE_NUM_PROCESSES and "
-            "SPECFORGE_PROCESS_ID)"
+            f"the mesh dp={mesh_cfg.dp} x fsdp={mesh_cfg.fsdp} x "
+            f"sp_ulysses={mesh_cfg.sp_ulysses} x sp_ring={mesh_cfg.sp_ring} "
+            f"needs one process per rank, {mesh_cfg.world_size}, have {procs} "
+            "(start each with SPECFORGE_COORDINATOR, SPECFORGE_NUM_PROCESSES "
+            "and SPECFORGE_PROCESS_ID)"
         )
+    if procs == 1 and t.attention_backend != "usp":
+        return None
     return build_mesh(mesh_cfg, device)
 
 
@@ -268,11 +285,13 @@ def build_training_run(config: Config, registry=None, frozen_override=None,
     draft, draft_config = providers.build_draft(
         resolved.draft_config_dict, dtype=compute_dtype,
         attention_backend=t.attention_backend, device=device, seed=t.seed,
-        **({"mesh": mesh} if mesh is not None else {}),
+        **({"mesh": mesh} if t.attention_backend == "usp" else {}),
     )
     if options.get("mask_token_id") is None:
         options["mask_token_id"] = getattr(draft_config, "mask_token_id", 0)
     model = providers.build_training_model(draft, options)
+    # the ranks whose losses and metrics sum into the global batch's
+    model.mesh = mesh
     strategy = providers.build_strategy(model, options)
     if config.data.eval_data_path and not hasattr(strategy, "eval_outputs"):
         raise NotImplementedError(
@@ -321,21 +340,23 @@ def build_training_run(config: Config, registry=None, frozen_override=None,
     # bytes and turns the teacher's head product into an fp32 FFMA GEMM.
     # The values are the same: every consumer casts to its compute dtype,
     # and the teacher accumulates in fp32 either way.
+    # this rank's rows of every global batch
+    rows = t.batch_size // (mesh.config.batch_blocks if mesh else 1)
+    per_row = config.data.docs_per_row if config.data.pack_documents else 1
     if config.data.pack_documents:
         collate = PackingCollator(PackingCollatorConfig(
-            max_length=config.data.max_length, rows=t.batch_size,
+            max_length=config.data.max_length, rows=rows,
             max_docs_per_row=config.data.docs_per_row))
-        loader_batch = t.batch_size * config.data.docs_per_row
     else:
         collate = PaddingCollator(
             CollatorConfig(max_length=config.data.max_length))
-        loader_batch = t.batch_size
+    loader_batch = rows * per_row
     metadata = {"target_repr": contract.target_representation}
 
     def make_loader(root):
         # every rank of a sequence group loads the same samples
         refs = shard_refs_for_process(OfflineManifestReader(root).read(),
-                                      t.batch_size, grid=mesh)
+                                      t.batch_size * per_row, grid=mesh)
         return FeatureDataLoader(
             FileFeatureStore(), collate, refs=refs,
             batch_size=loader_batch, num_workers=config.data.num_workers,

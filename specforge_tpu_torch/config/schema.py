@@ -329,8 +329,12 @@ class TrainingConfig(Section):
             )
         sp = self.sp_ulysses_size * self.sp_ring_size
         if self.attention_backend == "usp":
-            if self.batch_size != 1:
-                raise ConfigError("USP requires training.batch_size=1")
+            # one row per batch block, as the JAX package's batch_size=1
+            # for its one block
+            if self.batch_size != self.dp_size * max(self.fsdp_size, 1):
+                raise ConfigError(
+                    "USP takes one row per batch block: training.batch_size "
+                    "must be dp_size * fsdp_size (1 without them)")
             if sp <= 1:
                 raise ConfigError(
                     "USP requires sp_ulysses_size * sp_ring_size > 1"

@@ -7,7 +7,12 @@ headline metric is
 
     eval/simulated_acc_len = Σ_i Π_{j ≤ i} a_j
 
-with a_j the set-wide per-TTT-position acceptance rates.
+with a_j the set-wide per-TTT-position acceptance rates. On a mesh every
+rank evaluates its own block of each global batch, and the model sums each
+batch's numerators and denominators over the ranks (``mesh_sum``), so every
+rank accumulates the global batch's values: the same sums, the same metrics
+and the same number of batches on every rank (``shard_refs_for_process``
+drops a trailing partial global batch everywhere).
 """
 
 from __future__ import annotations
@@ -27,14 +32,18 @@ class Evaluator:
 
     @torch.no_grad()
     def run(
-        self, batches: Iterable[TrainBatch], frozen: Dict[str, Any]
+        self, batches: Iterable[TrainBatch], frozen: Dict[str, Any],
+        params: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Dict[str, float]:
-        """Evaluate the strategy's model (on its device) over ``batches``."""
+        """Evaluate the strategy's model (on its device) over ``batches``;
+        ``params`` stand in for the model's own (the whole weights gathered
+        from their fsdp shards)."""
         sums: Dict[str, np.ndarray] = {}
         n_batches = 0
         for batch in batches:
             metadata = {**self.metadata, **batch.metadata}
-            out = self.strategy.eval_outputs(batch.tensors, frozen, metadata)
+            out = self.strategy.eval_outputs(batch.tensors, frozen, metadata,
+                                             params=params)
             for key, value in out.items():
                 value = value.double().cpu().numpy()
                 sums[key] = value if key not in sums else sums[key] + value

@@ -47,18 +47,23 @@ def _acceptance_per_token(
     return total
 
 
-def _masked_mean(
-    values_per_token: torch.Tensor, position_mask: torch.Tensor, eps: float,
-    reduce: Optional[Callable] = None,
-) -> torch.Tensor:
-    """Masked mean; ``reduce`` sums the numerator and the denominator over
-    the ranks of a sequence group before the clamp and the division."""
-    mask = position_mask.squeeze(-1).to(values_per_token.dtype)
-    numerator = torch.sum(values_per_token * mask)
-    denominator = torch.sum(mask)
-    if reduce is not None:
-        numerator, denominator = reduce(numerator), reduce(denominator)
-    return numerator / torch.clamp(denominator, min=eps)
+def acceptance_sums(
+    logits: torch.Tensor,
+    target_probs: torch.Tensor,
+    position_mask: torch.Tensor,
+    ratio: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The masked sums of the acceptance and the log-acceptance per token,
+    and the mask's sum: the numerators and the denominator of
+    :func:`compute_acceptance_rate`, for a caller that sums them over the
+    ranks of a mesh first."""
+    acc_per_token = _acceptance_per_token(logits, target_probs, ratio)
+    log_acc_per_token = torch.where(
+        acc_per_token > 0, torch.log(acc_per_token),
+        torch.zeros_like(acc_per_token))
+    mask = position_mask.squeeze(-1).to(acc_per_token.dtype)
+    return (torch.sum(acc_per_token * mask),
+            torch.sum(log_acc_per_token * mask), torch.sum(mask))
 
 
 def compute_acceptance_rate(
@@ -74,17 +79,15 @@ def compute_acceptance_rate(
     The un-renormalized teacher restricted to the draft vocab is
     ``target_probs`` (optionally factored as ``target_probs * ratio``); draft
     probabilities come from a full softmax of the draft logits in fp32.
-    ``reduce`` sums numerators and denominators over a sequence group (the
-    ``reduce_axes`` psum of the JAX version).
+    ``reduce`` sums numerators and denominators over the ranks of a mesh
+    (the ``reduce_axes`` psum of the JAX version).
     """
-    acc_per_token = _acceptance_per_token(logits, target_probs, ratio)
-    acceptance_rate = _masked_mean(acc_per_token, position_mask, eps, reduce)
-    log_acc_per_token = torch.where(
-        acc_per_token > 0, torch.log(acc_per_token), torch.zeros_like(acc_per_token)
-    )
-    log_acceptance_rate = _masked_mean(log_acc_per_token, position_mask, eps,
-                                       reduce)
-    return acceptance_rate, log_acceptance_rate
+    acc_num, log_num, den = acceptance_sums(logits, target_probs,
+                                            position_mask, ratio)
+    if reduce is not None:
+        acc_num, log_num, den = reduce(acc_num), reduce(log_num), reduce(den)
+    den = torch.clamp(den, min=eps)
+    return acc_num / den, log_num / den
 
 
 def compute_lk_loss(

@@ -12,7 +12,10 @@ Counterpart of ``specforge_tpu/ops/masks.py``:
 The JAX sampler draws from ``jax.random``, which torch cannot replay: here
 the random values come from an explicit :class:`torch.Generator` (the
 strategies key it on (seed, step)), and the parity tests feed the anchors
-JAX sampled into the port instead.
+JAX sampled (or JAX's uniform values, :func:`anchors_from_uniform`) into
+the port instead. The values are drawn for the global batch and each rank
+keeps its block's rows (:func:`block_uniform`), so a run on a mesh samples
+what one process samples for the same global batch.
 """
 
 from __future__ import annotations
@@ -22,20 +25,48 @@ from typing import Optional, Tuple
 import torch
 
 
+def block_uniform(generator: torch.Generator, shape: Tuple[int, ...],
+                  block: Tuple[int, int] = (0, 1)) -> torch.Tensor:
+    """Uniform values of one batch block's rows: ``shape[0] · n`` rows are
+    drawn for the ``n`` blocks of the global batch and block ``first``'s
+    ``shape[0]`` rows kept, ``block = (first, n)``; on the generator's
+    device."""
+    b = shape[0]
+    first, n = block
+    rand = torch.rand((b * n,) + tuple(shape[1:]), generator=generator,
+                      device=generator.device)
+    return rand[first * b:(first + 1) * b]
+
+
 def sample_anchor_positions(
     generator: torch.Generator,
     loss_mask: torch.Tensor,
     num_anchors: int,
+    block: Tuple[int, int] = (0, 1),
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Sample ``num_anchors`` anchors per row from the positions s where both
     ``loss_mask[s]`` and ``loss_mask[s+1]`` are set.
 
-    ``loss_mask``: [B, S] (or [B, S, 1]). The uniform values are drawn on
-    the generator's device and moved to the mask's, so a CPU generator gives
+    ``loss_mask``: [B, S] (or [B, S, 1]), the rows of batch block ``block``
+    (:func:`block_uniform`). The uniform values are drawn on the
+    generator's device and moved to the mask's, so a CPU generator gives
     the same anchors on every device.
 
     Returns (anchor_positions [B, N] int32 sorted ascending with the slots
     not kept 0, keep_mask [B, N] bool)."""
+    if loss_mask.dim() == 3:
+        loss_mask = loss_mask[..., 0]
+    b, s = loss_mask.shape
+    rand = block_uniform(generator, (b, max(s - 1, 0)), block)
+    return anchors_from_uniform(rand.to(loss_mask.device), loss_mask,
+                                num_anchors)
+
+
+def anchors_from_uniform(rand: torch.Tensor, loss_mask: torch.Tensor,
+                         num_anchors: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The anchors of :func:`sample_anchor_positions` from its uniform
+    values ``rand`` [B, S - 1]."""
     if loss_mask.dim() == 3:
         loss_mask = loss_mask[..., 0]
     b, s = loss_mask.shape
@@ -44,8 +75,6 @@ def sample_anchor_positions(
         loss_mask[:, 1:num_candidates + 1] > 0.5
     )
     counts = valid.sum(dim=1)
-    rand = torch.rand(valid.shape, generator=generator,
-                      device=generator.device).to(loss_mask.device)
     rand = torch.where(valid, rand, torch.full_like(rand, 2.0))
     order = torch.argsort(rand, dim=1)[:, :num_anchors].to(torch.int32)
     if order.shape[1] < num_anchors:  # fewer candidates than slots

@@ -11,21 +11,36 @@ one program. The port runs one process per rank and keeps that order: rank
   heads for sequence, ``all_to_all``);
 - the **ring group**: the ranks that differ only in r (the K/V chunks
   rotate around it);
-- the **sequence group**: the ranks that differ in u or r (one batch block;
-  gradients and loss metrics are summed over it).
+- the **fsdp group**: the ranks that differ only in f (they hold the shards
+  of one tensor: all-gather of the weights, reduce-scatter of the
+  gradients);
+- the **replica group**: the ranks that hold the same shard, so differ in
+  d, u or r (the reduce-scattered gradients are summed over it).
+
+Every rank holds a different (batch block, sequence chunk) of the global
+batch, so the loss and metric sums, and the sums of the gradients that
+stay whole, run over all ranks, the default group
+(``parallel/usp.py:mesh_sum``): there is no group of a batch block or of a
+sequence chunk to sum over.
 
 USP shards the sequence over ``(sp_ring, sp_ulysses)``, ring-major
 (``specforge_tpu/parallel/usp.py:272``): rank (u, r) holds sequence chunk
-``r·U + u``. The fsdp sharding rules are not ported yet (``dp_size`` and
-``fsdp_size`` above 1 are refused by the composition).
+``r·U + u``. The batch rides ``(dp, fsdp)``: the rank of batch block
+``d·fsdp + f`` loads that block's rows of every global batch
+(``multihost.shard_refs_for_process``). Parameters follow
+:func:`param_partition_spec`, the JAX package's rule: the largest
+dimension divisible by ``fsdp`` carries the shard, and a tensor below
+``MIN_SHARD_BYTES`` or with no such dimension stays whole
+(``parallel/fsdp.py`` keeps and moves the shards).
 """
 
 from __future__ import annotations
 
 import itertools
 import logging
+import math
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -35,6 +50,26 @@ from specforge_tpu_torch.parallel.multihost import transport
 logger = logging.getLogger("specforge_tpu_torch.mesh")
 
 MESH_AXES = ("dp", "fsdp", "sp_ulysses", "sp_ring")
+
+#: a tensor smaller than this stays whole on every rank
+#: (``specforge_tpu/parallel/mesh.py:35``)
+MIN_SHARD_BYTES = 2 ** 18
+
+
+def param_partition_spec(shape: Sequence[int], itemsize: int, fsdp: int,
+                         min_shard_bytes: int = MIN_SHARD_BYTES
+                         ) -> Optional[int]:
+    """The dimension of a tensor of ``shape`` that carries the fsdp shard,
+    or None for a tensor kept whole: the largest dimension divisible by
+    ``fsdp`` (the last of equal ones), as ``param_partition_spec`` of
+    ``specforge_tpu/parallel/mesh.py:69-89`` puts ``"fsdp"`` there."""
+    shape = tuple(shape)
+    if fsdp <= 1 or not shape:
+        return None
+    if math.prod(shape) * itemsize < min_shard_bytes:
+        return None
+    candidates = [(n, i) for i, n in enumerate(shape) if n % fsdp == 0]
+    return max(candidates)[1] if candidates else None
 
 
 @dataclass(frozen=True)
@@ -63,6 +98,11 @@ class MeshConfig:
     def rank_of(self, d: int, f: int, u: int, r: int) -> int:
         return ((d * self.fsdp + f) * self.sp_ulysses + u) * self.sp_ring + r
 
+    @property
+    def batch_blocks(self) -> int:
+        """The number of blocks the global batch is cut into: dp·fsdp."""
+        return self.dp * self.fsdp
+
 
 @dataclass
 class Mesh:
@@ -76,8 +116,14 @@ class Mesh:
     transport: str
     ulysses_group: Optional[dist.ProcessGroup] = None
     ring_group: Optional[dist.ProcessGroup] = None
-    sp_group: Optional[dist.ProcessGroup] = None
+    fsdp_group: Optional[dist.ProcessGroup] = None
+    replica_group: Optional[dist.ProcessGroup] = None
     ring_ranks: Tuple[int, ...] = ()
+    fsdp_ranks: Tuple[int, ...] = ()
+
+    @property
+    def world_size(self) -> int:
+        return self.config.world_size
 
     @property
     def ulysses_rank(self) -> int:
@@ -103,6 +149,20 @@ class Mesh:
     def chunk_index(self) -> int:
         """The sequence chunk this rank holds: ``r·U + u``."""
         return self.ring_rank * self.ulysses_size + self.ulysses_rank
+
+    @property
+    def fsdp_rank(self) -> int:
+        return self.config.coords(self.rank)[1]
+
+    @property
+    def fsdp_size(self) -> int:
+        return self.config.fsdp
+
+    @property
+    def batch_block(self) -> Tuple[int, int]:
+        """(this rank's batch block ``d·fsdp + f``, the number of blocks)."""
+        d, f = self.config.coords(self.rank)[:2]
+        return d * self.config.fsdp + f, self.config.batch_blocks
 
 
 def _groups(config: MeshConfig, vary: Tuple[int, ...]) -> List[List[int]]:
@@ -133,18 +193,21 @@ def build_mesh(config: MeshConfig, device: torch.device) -> Mesh:
         raise ValueError(
             f"mesh {config} needs {config.world_size} ranks, have {world}")
     if world == 1:
-        return Mesh(config, 0, device, "local")
+        return Mesh(config, 0, device, "local", fsdp_ranks=(0,))
     rank = dist.get_rank()
     mesh = Mesh(config, rank, device, transport())
     for attr, vary in (("ulysses_group", (2,)), ("ring_group", (3,)),
-                       ("sp_group", (2, 3))):
+                       ("fsdp_group", (1,)), ("replica_group", (0, 2, 3))):
         for ranks in _groups(config, vary):
             group = dist.new_group(ranks)
             if rank in ranks:
                 setattr(mesh, attr, group)
                 if attr == "ring_group":
                     mesh.ring_ranks = tuple(ranks)
-    logger.info("mesh %s: rank %d at %s, sequence chunk %d, transport %s",
-                dict(zip(MESH_AXES, config.shape)), rank,
-                config.coords(rank), mesh.chunk_index, mesh.transport)
+                elif attr == "fsdp_group":
+                    mesh.fsdp_ranks = tuple(ranks)
+    logger.info("mesh %s: rank %d at %s, batch block %d, sequence chunk %d, "
+                "transport %s", dict(zip(MESH_AXES, config.shape)), rank,
+                config.coords(rank), mesh.batch_block[0], mesh.chunk_index,
+                mesh.transport)
     return mesh

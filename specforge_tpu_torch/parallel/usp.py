@@ -28,11 +28,11 @@ the CPU (:func:`~specforge_tpu_torch.parallel.multihost.plan_transport`, the
 mesh's ``transport``). :data:`COLLECTIVES` counts the calls, bytes and host
 seconds spent in them.
 
-:func:`sp_sum` sums a value over the sequence group in the forward and
-passes its gradient through unchanged: a loss term or metric that is a
-function of globally summed numerators and denominators is then the same on
-every rank, and each rank's gradient is its own chunk's share, summed over
-the group by the train step.
+:func:`mesh_sum` sums a value over every rank of the mesh (each holds its
+own batch block and sequence chunk) in the forward and passes its gradient
+through unchanged: a loss term or metric that is a function of globally
+summed numerators and denominators is then the same on every rank, and each
+rank's gradient is its own share, summed over the ranks by the train step.
 """
 
 from __future__ import annotations
@@ -66,7 +66,7 @@ def reset_collective_stats() -> None:
     COLLECTIVES.update(calls=0, bytes=0, seconds=0.0)
 
 
-class _Staged:
+class Staged:
     """A collective over the mesh's transport: NCCL on the tensors' own
     device, or gloo on host copies copied back after the call."""
 
@@ -98,7 +98,7 @@ class _Staged:
 def all_to_all(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """``all_to_all_single`` over the Ulysses group: chunk i of the leading
     axis goes to Ulysses rank i; chunk i of the result came from it."""
-    call = _Staged(mesh, [x])
+    call = Staged(mesh, [x])
     src = call.stage(x)
     out = torch.empty_like(src)
     dist.all_to_all_single(out, src, group=mesh.ulysses_group)
@@ -109,7 +109,7 @@ def ring_shift(tensors: Sequence[torch.Tensor], mesh: Mesh
                ) -> List[torch.Tensor]:
     """Send each tensor to the next ring rank and receive the previous
     rank's (``ppermute`` with ``i → i+1``), all in one batch of P2P ops."""
-    call = _Staged(mesh, tensors)
+    call = Staged(mesh, tensors)
     r, ring = mesh.ring_rank, mesh.ring_ranks
     dst, src = ring[(r + 1) % len(ring)], ring[(r - 1) % len(ring)]
     sends = [call.stage(t) for t in tensors]
@@ -123,26 +123,27 @@ def ring_shift(tensors: Sequence[torch.Tensor], mesh: Mesh
     return [call.done(v) for v in recvs]
 
 
-def all_reduce_sum(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """The sum of ``x`` over the sequence group, as a new tensor; every
-    rank gets the same bits."""
-    call = _Staged(mesh, [x])
+def all_reduce_sum(x: torch.Tensor, mesh: Mesh,
+                   group: Optional[dist.ProcessGroup] = None) -> torch.Tensor:
+    """The sum of ``x`` over ``group`` (every rank of the mesh when None),
+    as a new tensor; every rank gets the same bits."""
+    call = Staged(mesh, [x])
     y = call.stage(x).clone()
-    dist.all_reduce(y, group=mesh.sp_group)
+    dist.all_reduce(y, group=group)
     return call.done(y)
 
 
 def all_gather_seq(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """[B, S_loc, ...] → [B, U·S_loc, ...] over the Ulysses group, in
     Ulysses rank order (no gradient)."""
-    call = _Staged(mesh, [x])
+    call = Staged(mesh, [x])
     src = call.stage(x)
     parts = [torch.empty_like(src) for _ in range(mesh.ulysses_size)]
     dist.all_gather(parts, src, group=mesh.ulysses_group)
     return call.done(torch.cat(parts, dim=1))
 
 
-class _SPSum(torch.autograd.Function):
+class _MeshSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mesh):
         return all_reduce_sum(x, mesh)
@@ -152,13 +153,24 @@ class _SPSum(torch.autograd.Function):
         return g, None
 
 
-def sp_sum(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
-    """Sum over the sequence group in the forward, the gradient passed
+def mesh_sum(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
+    """Sum over every rank of the mesh in the forward, the gradient passed
     through unchanged (each rank keeps its own share); ``x`` itself without
-    a mesh or in a group of one."""
-    if mesh is None or mesh.sp_size == 1:
+    a mesh or in a mesh of one rank."""
+    if mesh is None or mesh.world_size == 1:
         return x
-    return _SPSum.apply(x, mesh)
+    return _MeshSum.apply(x, mesh)
+
+
+def mesh_sums(values: Sequence[torch.Tensor], mesh: Optional[Mesh]
+              ) -> List[torch.Tensor]:
+    """Each 0-d value summed over every rank of the mesh, all in one
+    all-reduce (fp32), gradients passed through; the values themselves
+    without a mesh or in a mesh of one rank."""
+    if mesh is None or mesh.world_size == 1:
+        return list(values)
+    summed = mesh_sum(torch.stack([v.float() for v in values]), mesh)
+    return list(summed.unbind(0))
 
 
 # --------------------------------------------------------------------------

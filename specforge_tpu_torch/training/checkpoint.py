@@ -13,14 +13,18 @@ and layout; the orbax pytree becomes one ``torch.save`` file:
     {output_dir}/{run_id}.latest                  — step number of newest save
     {output_dir}/{run_id}.best_meta.json          — best eval metric + step
 
-Resume validates the full contract (strategy, world size, batch/accum/total
-steps, model fingerprints) and refuses a silently divergent resume.
+Resume validates the contract (strategy, global batch, accum/total steps,
+model fingerprints) and refuses a silently divergent resume; the world
+size is recorded but not compared, since the files are the same whatever
+the topology that wrote them.
 Rotation keeps ``max_checkpoints`` newest, never deleting the best. The
 payload holds only tensors, numbers and dicts, and is read back with
 ``weights_only=True``. One process writes it: in a multi-process run the
-ranks hold the same state (USP sums gradients over the sequence group before
-the step), so the primary rank writes the files and the markers between two
-barriers, and every rank reads them on resume.
+ranks of a replica group hold the same state (the train step sums the
+gradients over all ranks before the step), and under fsdp rank 0's fsdp
+group gathers each sharded tensor whole (``gather``), so the primary rank
+writes the files a one-process run writes and the markers between two
+barriers, and every rank reads them on resume (its slices under fsdp).
 """
 
 from __future__ import annotations
@@ -138,28 +142,34 @@ class CheckpointManager:
         contract: ResumeContract,
         progress: Progress,
         metrics: Optional[Dict[str, float]] = None,
+        gather: Optional[Callable[[Any], Optional[Dict[str, Any]]]] = None,
     ) -> str:
         """Write ``state`` (a TrainState) under ``{run_id}-step{step}``:
-        the primary writes, every rank waits for it."""
+        the primary writes, every rank waits for it. ``gather(state)``,
+        called on every rank, gives the whole payload of a sharded state
+        (on the primary)."""
         step_dir = self.step_dir(step)
         self._barrier(f"ckpt-pre-{step}")
+        payload = gather(state) if gather is not None else None
         if self.primary:
-            self._write(state, step, contract, progress, metrics)
+            self._write(state, step, contract, progress, metrics, payload)
         self._barrier(f"ckpt-post-{step}")
         return step_dir
 
-    def _write(self, state, step, contract, progress, metrics) -> None:
+    def _write(self, state, step, contract, progress, metrics,
+               payload=None) -> None:
         step_dir = self.step_dir(step)
         if os.path.exists(step_dir):
             shutil.rmtree(step_dir)
         state_dir = os.path.join(step_dir, "state")
         os.makedirs(state_dir)
-        payload = _to_cpu({
-            "params": dict(state.params),
-            "buffers": dict(state.buffers),
-            "opt_state": state.opt_state,
-            "step": int(state.step),
-        })
+        if payload is None:
+            payload = _to_cpu({
+                "params": dict(state.params),
+                "buffers": dict(state.buffers),
+                "opt_state": state.opt_state,
+                "step": int(state.step),
+            })
         tmp = os.path.join(state_dir, STATE_FILE + ".tmp")
         torch.save(payload, tmp)
         os.replace(tmp, os.path.join(state_dir, STATE_FILE))
@@ -300,7 +310,8 @@ class CheckpointManager:
             meta = json.load(f)
         if contract is not None:
             contract.validate_against(
-                ResumeContract.from_json(meta["contract"]), ignore=("run_id",))
+                ResumeContract.from_json(meta["contract"]),
+                ignore=("run_id", "world_size"))
         return (self.load_state(step_dir), Progress.from_json(meta["progress"]),
                 meta.get("metrics", {}))
 
@@ -313,5 +324,5 @@ class CheckpointManager:
         validating the resume contract when given."""
         saved_contract, progress, metrics = self.read_saved_contract(step)
         if contract is not None:
-            contract.validate_against(saved_contract)
+            contract.validate_against(saved_contract, ignore=("world_size",))
         return self.load_state(self.step_dir(step)), progress, metrics

@@ -27,7 +27,12 @@ functions on tensors with optax's semantics (not ``torch.optim.AdamW`` and
   gradient on that path.
 
 Parameters *are* the fp32 masters; the update is applied to them in place,
-which saves a second copy of every master. Frozen leaves (the
+which saves a second copy of every master. Under fsdp (``shards``, a
+:class:`~specforge_tpu_torch.parallel.fsdp.ShardPlan`) each rank holds and
+updates its slices of the masters and moments; each sum that covers a whole
+tensor (the global norm, a factored statistic summed along a sharded
+dimension, the row sum of a sharded ``nu_row``) is summed over the fsdp
+group, and a whole tensor enters the global norm once. Frozen leaves (the
 target-copied embedding) are not handed to the optimizer at all: they get
 no state and no update, as under optax's ``multi_transform`` with
 ``set_to_zero``.
@@ -93,20 +98,30 @@ def build_lr_schedule(config: OptimizerConfig, total_steps: int) -> Callable:
     return schedule
 
 
-def global_norm(grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares over every tensor (fp32 scalar)."""
-    total = None
-    for g in grads.values():
+def global_norm(grads: Mapping[str, torch.Tensor], shards=None
+                ) -> torch.Tensor:
+    """sqrt of the sum of squares over every tensor (fp32 scalar). Under
+    ``shards`` the squares of the sharded tensors' slices are summed over
+    the fsdp group; a whole tensor is counted once."""
+    total = part = None
+    for name, g in grads.items():
         sq = torch.sum(g.float() * g.float())
-        total = sq if total is None else total + sq
+        if shards is not None and shards.dim(name) is not None:
+            part = sq if part is None else part + sq
+        else:
+            total = sq if total is None else total + sq
+    if part is not None:
+        part = shards.fsdp_sum(part)
+        total = part if total is None else total + part
     return torch.sqrt(total)
 
 
 def clip_by_global_norm(
-    grads: Tensors, max_norm: float, norm: Optional[torch.Tensor] = None
+    grads: Tensors, max_norm: float, norm: Optional[torch.Tensor] = None,
+    shards=None,
 ) -> Tensors:
     """``g · max_norm / ‖g‖`` when ``‖g‖ ≥ max_norm``, else ``g`` unchanged."""
-    norm = global_norm(grads) if norm is None else norm
+    norm = global_norm(grads, shards) if norm is None else norm
     trigger = norm < max_norm
     return {k: torch.where(trigger, g, (g / norm) * max_norm)
             for k, g in grads.items()}
@@ -139,6 +154,7 @@ class AdamW:
         self.moments_dtype = getattr(torch, config.moments_dtype)
 
     def is_factored(self, p: torch.Tensor) -> bool:
+        """Whether ``p`` (at its whole shape) keeps factored moments."""
         return (self.config.factored_second_moments and p.dim() >= 2
                 and min(p.shape[-2:]) >= self.config.factored_min_dim)
 
@@ -163,15 +179,17 @@ class AdamW:
     @torch.no_grad()
     def step(self, params: Mapping[str, torch.Tensor], grads: Tensors,
              state: dict, grad_norm: Optional[torch.Tensor] = None,
-             clip: bool = True) -> dict:
+             clip: bool = True, shards=None) -> dict:
         """Apply one update to ``params`` in place → the new state.
         ``grads`` are fp32; ``grad_norm`` (their global norm) is reused by
         the clip when given; ``clip=False`` takes grads the caller has
         clipped already (the row-sparse path, whose norm spans the
-        embedding rows too)."""
+        embedding rows too). Under ``shards`` the parameters, gradients and
+        moments are this rank's slices."""
         cfg = self.config
         if clip:
-            grads = clip_by_global_norm(grads, cfg.max_grad_norm, grad_norm)
+            grads = clip_by_global_norm(grads, cfg.max_grad_norm, grad_norm,
+                                        shards)
         b1, b2, eps, wd = cfg.adam_b1, cfg.adam_b2, cfg.adam_eps, cfg.weight_decay
         count = state["count"] + 1
         c = torch.tensor(float(count), dtype=torch.float32)
@@ -184,7 +202,7 @@ class AdamW:
             g = grads[name]
             bc1d, bc2d = bc1.to(p.device), bc2.to(p.device)
             if cfg.factored_second_moments:
-                u = self._factored(name, g, state, new, bc1d, bc2d)
+                u = self._factored(name, g, state, new, bc1d, bc2d, shards)
             elif lowp:
                 mu = (b1 * state["mu"][name].float() + (1 - b1) * g).to(
                     self.moments_dtype)
@@ -201,9 +219,12 @@ class AdamW:
             p.add_(torch.tensor(lr, dtype=torch.float32, device=p.device) * u)
         return new
 
-    def _factored(self, name, g, state, new, bc1, bc2) -> torch.Tensor:
+    def _factored(self, name, g, state, new, bc1, bc2, shards=None
+                  ) -> torch.Tensor:
         """The update of one tensor under factored second moments
-        (``_scale_by_factored_adam``), its new moments into ``new``."""
+        (``_scale_by_factored_adam``), its new moments into ``new``. A sum
+        along a dimension ``shards`` splits is summed over the fsdp
+        group."""
         b1, b2, eps = self.config.adam_b1, self.config.adam_b2, self.config.adam_eps
         f32, dt = torch.float32, self.moments_dtype
         mhat = g
@@ -212,12 +233,21 @@ class AdamW:
             new["mu"][name] = mu
             mhat = mu.to(f32) / bc1
         if name in state["nu_row"]:
+            d = shards.dim(name) if shards is not None else None
+            n = g.dim()
+
+            def whole(x, along):  # a sum along dim ``along`` of g
+                return shards.fsdp_sum(x) if d == along else x
+
             gg = g * g
-            r = b2 * state["nu_row"][name] + (1 - b2) * gg.sum(dim=-1)
-            cv = b2 * state["nu_col"][name] + (1 - b2) * gg.sum(dim=-2)
+            r = b2 * state["nu_row"][name] + (1 - b2) * whole(
+                gg.sum(dim=-1), n - 1)
+            cv = b2 * state["nu_col"][name] + (1 - b2) * whole(
+                gg.sum(dim=-2), n - 2)
             new["nu_row"][name], new["nu_col"][name] = r, cv
-            denom = torch.clamp(r.sum(dim=-1, keepdim=True)[..., None],
-                                min=1e-30)
+            denom = torch.clamp(
+                whole(r.sum(dim=-1, keepdim=True), n - 2)[..., None],
+                min=1e-30)
             vhat = (r[..., :, None] * cv[..., None, :]) / denom
         else:
             nu = (b2 * state["nu"][name].to(f32) + (1 - b2) * g * g).to(dt)
@@ -251,12 +281,17 @@ def segment_sum_rows(ids: torch.Tensor, rows: torch.Tensor
 @torch.no_grad()
 def sparse_embed_update(config: OptimizerConfig, schedule: Callable,
                         state: dict, table: torch.Tensor, uids: torch.Tensor,
-                        g_rows: torch.Tensor) -> dict:
+                        g_rows: torch.Tensor,
+                        table_slice: Optional[Tuple[int, int, int]] = None
+                        ) -> dict:
     """One factored-Adam step on the ``uids`` rows of ``table`` (the fp32
     master, updated in place) from their summed, normalised and
     clip-scaled gradients ``g_rows`` [U, H] → the new state. Untouched rows
     get no update (the dense path's g = 0 there) while their ``nu_row``
-    decays by b2, as in the dense factored step."""
+    decays by b2, as in the dense factored step. ``table_slice = (dim, lo,
+    n)``: ``table`` is the [lo, lo + n) slice of the whole table along
+    ``dim`` (an fsdp shard); the state and the rows stay whole, so every
+    rank computes the same update and applies its own slice of it."""
     b2, eps = config.adam_b2, config.adam_eps
     count = state["count"] + 1
     c = torch.tensor(float(count), dtype=torch.float32)
@@ -270,7 +305,15 @@ def sparse_embed_update(config: OptimizerConfig, schedule: Callable,
     update = g_rows / (torch.sqrt(vhat / bc2) + eps)
     lr = torch.tensor(schedule(state["count"]), dtype=torch.float32,
                       device=table.device)
-    table.index_add_(0, uids, -lr * update)
+    rows = uids
+    if table_slice is not None:
+        dim, lo, n = table_slice
+        if dim == 0:
+            mine = (uids >= lo) & (uids < lo + n)
+            rows, update = uids[mine] - lo, update[mine]
+        else:
+            update = update[:, lo:lo + n]
+    table.index_add_(0, rows, -lr * update)
     return {"count": count, "nu_row": nu_row, "nu_col": nu_col}
 
 

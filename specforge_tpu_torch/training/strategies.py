@@ -53,6 +53,9 @@ class StepOutput:
 class StepContext:
     global_step: Any = 0
     total_steps: Optional[int] = None
+    #: (this rank's batch block, the number of blocks): a sampler draws for
+    #: the global batch and keeps the block's rows
+    batch_block: Tuple[int, int] = (0, 1)
 
 
 def linear_lambda_base(global_step, total_steps: int,
@@ -83,6 +86,10 @@ def _step_generator(seed: int, ctx: Optional["StepContext"]) -> torch.Generator:
     step = ctx.global_step if ctx is not None else 0
     key = ((int(seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF)
     return torch.Generator().manual_seed(key)
+
+
+def _batch_block(ctx: Optional["StepContext"]) -> Tuple[int, int]:
+    return ctx.batch_block if ctx is not None else (0, 1)
 
 
 def _apply(model, params, args, kwargs):
@@ -126,6 +133,13 @@ class Eagle3TrainStrategy:
         self.ploss_decay = ploss_decay
         self.compact_teacher = compact_teacher
         self.compact_teacher_chunk_size = compact_teacher_chunk_size
+
+    def lookup_ids(self, tensors) -> Dict[str, torch.Tensor]:
+        """The rows of the draft's embedding a micro-batch can look up: its
+        ids, and 0, which the shifts pad with."""
+        ids = tensors["input_ids"].reshape(-1)
+        return {"draft_model.embed_tokens.weight":
+                torch.cat([ids, ids.new_zeros(1)])}
 
     def _shard(self, seq_len: int) -> SequenceShard:
         draft = self.model.draft_model
@@ -213,12 +227,14 @@ class Eagle3TrainStrategy:
         tensors: Dict[str, torch.Tensor],
         frozen: Dict[str, torch.Tensor],
         metadata: Optional[Dict[str, Any]] = None,
+        params: Optional[Dict[str, torch.Tensor]] = None,
     ) -> Dict[str, torch.Tensor]:
         """Batch-size-invariant eval sums: per-TTT-position numerators and
-        denominators, divided only after reduction over the eval set. The
+        denominators, divided only after reduction over the eval set (on a
+        mesh the model sums them over the ranks: the global batch's). The
         eval pass uses the full-vocab head, as the JAX strategy does."""
         args, kwargs = self._inputs(tensors, frozen, metadata, compact=False)
-        out = self.model(*args, **kwargs)
+        out = _apply(self.model, params, args, kwargs)
         return {
             "corrects": out.metric_corrects,
             "denoms": out.metric_denoms,
@@ -251,8 +267,9 @@ class DFlashTrainStrategy:
     def sample_anchors(self, loss_mask: torch.Tensor,
                        ctx: Optional[StepContext]):
         """(positions [B, N] int32, keep [B, N] bool) for this step."""
-        return sample_anchor_positions(_step_generator(self.seed, ctx),
-                                       loss_mask, self.model.num_anchors)
+        return sample_anchor_positions(
+            _step_generator(self.seed, ctx), loss_mask,
+            self.model.num_anchors, _batch_block(ctx))
 
     def _run(self, tensors, frozen, ctx, params, *extra):
         _validate_batch(self, tensors)
@@ -348,6 +365,13 @@ class PEagleTrainStrategy:
         self.model = model
         self.seed = seed
 
+    def lookup_ids(self, tensors) -> Dict[str, torch.Tensor]:
+        """The rows of the embedding a micro-batch can look up: its ids, 0
+        (the teacher shift's pad) and the mask token."""
+        ids = tensors["input_ids"].reshape(-1)
+        return {self.sparse_embed_path: torch.cat(
+            [ids, ids.new_tensor([0, self.model.mask_token_id])])}
+
     def sparse_embed_delta_shape(self, tensors) -> Tuple[int, int, int]:
         """[B, T_sampled, H] shape of the zeros whose gradient is the
         per-position embedding gradient (T is fixed by the sampler)."""
@@ -365,7 +389,7 @@ class PEagleTrainStrategy:
             _step_generator(self.seed, ctx), loss_mask.reshape(b, s),
             document_ids_from_lengths(lengths.reshape(b, -1), s),
             model.num_depths, model.down_sample_ratio,
-            model.down_sample_ratio_min)
+            model.down_sample_ratio_min, block=_batch_block(ctx))
 
     def forward_loss(
         self,

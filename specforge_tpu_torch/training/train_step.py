@@ -29,11 +29,21 @@ optimizer step is explicit.
   dense gradients and those rows, one clip scale serves both; then the
   dense factored step, then the sparse one. No dense [V, H] gradient is
   formed on this path.
-- With a ``mesh`` whose sequence group holds more than one rank (USP), each
-  rank's gradients are its own chunk's share of the global loss; they are
-  summed over the group (one all-reduce per parameter and window, fp32)
-  before the division, the global norm and the clip, so every rank takes
-  the same optimizer step.
+- With a ``mesh`` of more than one rank (dp, fsdp, USP or a mix), each
+  rank's gradients are its own batch block's and sequence chunk's share of
+  the global loss (the model sums every loss and metric over the ranks).
+  A :class:`~specforge_tpu_torch.parallel.fsdp.ShardPlan` sums them over
+  all ranks once per window, before the division, the global norm and the
+  clip (fp32, one parameter at a time): reduce-scattered over the fsdp
+  group and summed over the replica group when the parameter is sharded,
+  summed over every rank when it is whole. Under fsdp each micro-step
+  gathers the sharded parameters, cast first, into whole tensors and
+  differentiates with respect to those (an embedding table the strategy
+  only looks rows up in, ``lookup_ids``, moves just those rows); the
+  optimizer updates this rank's slices. On the row-sparse path every rank
+  gathers the touched ids and rows of every rank, in (micro-step, rank)
+  order, the order of one process's batch. Every rank of a replica group
+  takes the same steps, bit for bit.
 """
 
 from __future__ import annotations
@@ -53,7 +63,7 @@ from specforge_tpu_torch.training.optimizer import (
     sparse_embed_update,
     split_trainable,
 )
-from specforge_tpu_torch.parallel.usp import all_reduce_sum
+from specforge_tpu_torch.parallel.fsdp import ShardPlan
 from specforge_tpu_torch.training.strategies import StepContext
 from specforge_tpu_torch.utils import model_device
 
@@ -84,22 +94,29 @@ class TrainState:
     @classmethod
     def create(cls, model: nn.Module, optimizer: AdamW,
                trainable_mask: Optional[Mapping[str, bool]] = None,
-               sparse_embed_path: Optional[str] = None) -> "TrainState":
+               sparse_embed_path: Optional[str] = None,
+               shards: Optional[ShardPlan] = None) -> "TrainState":
         """Optimizer state for the trainable parameters; with
         ``sparse_embed_path`` the table named there gets the sparse state
-        (``{"dense": ..., "sparse_embed": ...}``) and the rest the dense."""
+        (``{"dense": ..., "sparse_embed": ...}``) and the rest the dense.
+        With a sharding ``shards`` (the model already sharded) the state
+        is made for the whole shapes and each rank keeps its slices."""
         trainable, _frozen = split_trainable(model, trainable_mask)
+        sharded = shards is not None and shards.sharded
+        whole = shards.meta(trainable) if sharded else trainable
         if sparse_embed_path is None:
-            opt_state = optimizer.init(trainable)
+            opt_state = optimizer.init(whole)
         else:
             if sparse_embed_path not in trainable:
                 raise ValueError(f"sparse-embed path {sparse_embed_path} not "
                                  "found among trainable params")
-            dense = {k: p for k, p in trainable.items()
+            dense = {k: p for k, p in whole.items()
                      if k != sparse_embed_path}
             opt_state = {"dense": optimizer.init(dense),
                          "sparse_embed": init_sparse_embed_state(
-                             trainable[sparse_embed_path])}
+                             whole[sparse_embed_path])}
+        if sharded:
+            opt_state = shards.materialize(opt_state, model_device(model))
         return cls(params=trainable, buffers=dict(model.named_buffers()),
                    opt_state=opt_state, step=0)
 
@@ -116,6 +133,7 @@ def make_train_step(
     compute_params_dtype: Optional[Any] = None,
     sparse_embed: Optional[SparseEmbedPlan] = None,
     mesh=None,
+    shards: Optional[ShardPlan] = None,
 ) -> Callable:
     """Build ``train_step(state, batch, frozen) -> (state, metrics)``.
 
@@ -125,7 +143,8 @@ def make_train_step(
     returned function carries its parts as ``micro_step(state, tensors,
     frozen)``, ``accumulate(state, batch, frozen)`` (neither changes the
     state) and ``update(state, grads, stats)`` (the clip and the optimizer
-    step, in place)."""
+    step, in place). On a ``mesh`` of several ranks ``shards`` is the
+    model's :class:`ShardPlan`."""
     metadata = dict(metadata or {})
     grads_dtype = _dtype(grads_dtype)
     compute_params_dtype = (
@@ -133,26 +152,37 @@ def make_train_step(
         else None
     )
     model = strategy.model
-    sp_group = mesh is not None and mesh.sp_size > 1
+    gathered = shards is not None and shards.sharded
+    block = mesh.batch_block if mesh is not None else (0, 1)
     uses_loss_terms = getattr(strategy, "uses_loss_terms", False)
     embed_path = getattr(strategy, "sparse_embed_path", None)
     sparse_path = sparse_embed.path if sparse_embed is not None else None
+    lookup_ids = getattr(strategy, "lookup_ids", lambda tensors: None)
+
+    def cast(name, p):
+        if (compute_params_dtype is not None and p.dtype == torch.float32
+                and name != embed_path):
+            return p.to(compute_params_dtype)
+        return p
 
     def micro(state: TrainState, tensors, frozen, ctx):
-        params = None
-        if compute_params_dtype is not None:
-            params = {
-                name: p.to(compute_params_dtype)
-                if p.dtype == torch.float32 and name != embed_path else p
-                for name, p in model.named_parameters()
-            }
         names = [n for n in state.params if n != sparse_path]
-        targets = [state.params[n] for n in names]
+        params = None
+        if gathered:
+            params, leaves = shards.gather_params(
+                model, cast, set(names), lookup_ids(tensors))
+            targets = [leaves.get(n, state.params[n]) for n in names]
+        else:
+            if compute_params_dtype is not None:
+                params = {name: cast(name, p)
+                          for name, p in model.named_parameters()}
+            targets = [state.params[n] for n in names]
         if sparse_embed is not None:
             # the table is a constant of this graph; its rows' gradient
             # arrives through embed_delta
             params = dict(params or {})
-            params[sparse_path] = state.params[sparse_path].detach()
+            params[sparse_path] = params.get(
+                sparse_path, state.params[sparse_path]).detach()
             delta = torch.zeros(sparse_embed.delta_shape_fn(tensors),
                                 dtype=torch.float32,
                                 device=model_device(model), requires_grad=True)
@@ -186,7 +216,8 @@ def make_train_step(
                    frozen: Mapping[str, torch.Tensor]):
         """One micro-batch's forward and backward → (gradients in
         ``grads_dtype``, stats)."""
-        ctx = StepContext(global_step=state.step, total_steps=total_steps)
+        ctx = StepContext(global_step=state.step, total_steps=total_steps,
+                          batch_block=block)
         grads, stats, _ = micro(state, tensors, frozen, ctx)
         return grads, stats
 
@@ -198,8 +229,11 @@ def make_train_step(
         norm: the number of micro-batches, or the summed ``loss_terms``
         denominator for a strategy that ``uses_loss_terms``). On the
         row-sparse path ``stats["sparse_embed"]`` holds the touched rows'
-        ids and their summed gradients, divided by the norm too."""
-        ctx = StepContext(global_step=state.step, total_steps=total_steps)
+        ids and their summed gradients, divided by the norm too. On a mesh
+        the gradients are this rank's slices of their sums over all
+        ranks."""
+        ctx = StepContext(global_step=state.step, total_steps=total_steps,
+                          batch_block=block)
         n_micro = next(iter(batch.values())).shape[0]
         grads, stats, sparse = micro(
             state, {k: v[0] for k, v in batch.items()}, frozen, ctx)
@@ -220,11 +254,11 @@ def make_train_step(
             norm = torch.tensor(float(n_micro), device=stats["denom"].device)
         stats["norm"] = norm
         if sparse_embed is not None:
-            stats["sparse_embed"] = segment_sum_rows(
-                torch.cat(ids), torch.cat(rows) / norm)
-        if sp_group:
-            for name in grads:  # one parameter at a time: one extra copy
-                grads[name] = all_reduce_sum(grads[name].float(), mesh)
+            ids, rows = ((torch.cat(ids), torch.cat(rows)) if shards is None
+                         else shards.gather_rows(ids, rows))
+            stats["sparse_embed"] = segment_sum_rows(ids, rows / norm)
+        if shards is not None:
+            shards.reduce_grads(grads)
         # optimizer math is fp32 regardless of the grad storage dtype
         return {k: g.float() / norm for k, g in grads.items()}, stats
 
@@ -232,13 +266,15 @@ def make_train_step(
         """Clip and one optimizer step on ``state`` (its parameters in
         place, its ``opt_state`` replaced) → the global grad norm."""
         if sparse_embed is None:
-            grad_norm = global_norm(grads)
+            grad_norm = global_norm(grads, shards)
             state.opt_state = optimizer.step(state.params, grads,
-                                             state.opt_state, grad_norm)
+                                             state.opt_state, grad_norm,
+                                             shards=shards)
             return grad_norm
         uids, summed = stats["sparse_embed"]
-        # clip by the global norm over the dense grads and the embedding rows
-        grad_norm = torch.sqrt(global_norm(grads) ** 2
+        # clip by the global norm over the dense grads and the embedding
+        # rows (whole on every rank: counted once)
+        grad_norm = torch.sqrt(global_norm(grads, shards) ** 2
                                + torch.sum(summed * summed))
         max_norm = sparse_embed.opt_config.max_grad_norm
         scale = torch.where(grad_norm < max_norm, torch.ones_like(grad_norm),
@@ -247,11 +283,13 @@ def make_train_step(
         dense = {k: p for k, p in state.params.items() if k != sparse_path}
         state.opt_state = {
             "dense": optimizer.step(dense, grads, state.opt_state["dense"],
-                                    clip=False),
+                                    clip=False, shards=shards),
             "sparse_embed": sparse_embed_update(
                 sparse_embed.opt_config, sparse_embed.schedule,
                 state.opt_state["sparse_embed"], state.params[sparse_path],
-                uids, summed * scale),
+                uids, summed * scale,
+                shards.slice_of(sparse_path) if shards is not None
+                else None),
         }
         return grad_norm
 

@@ -4,12 +4,16 @@ Counterpart of ``specforge_tpu/training/trainer.py``: loader → accumulation
 grouping → train step → logging/eval/checkpointing, with mid-epoch
 seek/resume and perf counters. The model lives in the strategy (its
 parameters on its device); each micro-batch moves there inside the
-strategy. In a multi-process USP run (``mesh``) every rank of the sequence
-group loads the same samples and runs the same steps; the train step sums
-the gradients over the group, the primary rank writes checkpoints and
-markers between barriers (the tracker of the other ranks is a no-op), and
-every rank restores on resume. FSDP2 ``dp``/``fsdp`` meshes and durable
-acknowledgements (``ack_fn``) come with later slices (ROADMAP.md, Queue 1).
+strategy. In a multi-process run (``mesh``: dp, fsdp, USP or a mix) each
+rank loads its batch block's rows of every global batch (the ranks of a
+sequence group the same samples) and runs the same steps; the trainer
+shards the model and its state over fsdp (``parallel/fsdp.py``), the train
+step sums the gradients over the ranks, the primary rank writes whole
+checkpoints and markers between barriers (the tracker of the other ranks
+is a no-op), and every rank restores its slices on resume. Progress counts
+samples of the global batch and the resume contract holds the global
+batch, so a checkpoint moves between topologies. Durable acknowledgements
+(``ack_fn``) come with a later slice (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from typing import Any, Dict, Iterable, List, Optional
 import torch
 
 from specforge_tpu_torch.eval.evaluator import Evaluator
+from specforge_tpu_torch.parallel.fsdp import ShardPlan
 from specforge_tpu_torch.parallel.multihost import (
     barrier,
     is_primary,
@@ -94,6 +99,12 @@ class Trainer:
     ) -> None:
         self.strategy = strategy
         self.mesh = mesh
+        #: the loader's batch is this block's rows of a global batch
+        self.batch_blocks = mesh.config.batch_blocks if mesh else 1
+        self.shards = None
+        if mesh is not None and mesh.world_size > 1:
+            self.shards = ShardPlan(strategy.model, mesh)
+            self.shards.shard_model_(strategy.model)
         self.train_loader = train_loader
         self.eval_loader = eval_loader
         self.config = config
@@ -125,7 +136,9 @@ class Trainer:
                                                self.lr_schedule)
         self.state = TrainState.create(
             strategy.model, self.optimizer, trainable_mask,
-            sparse_embed_path=self.sparse_plan.path if self.sparse_plan else None)
+            sparse_embed_path=(self.sparse_plan.path if self.sparse_plan
+                               else None),
+            shards=self.shards)
         self.train_step = make_train_step(
             strategy,
             self.optimizer,
@@ -137,6 +150,7 @@ class Trainer:
             compute_params_dtype=config.compute_params_dtype,
             sparse_embed=self.sparse_plan,
             mesh=mesh,
+            shards=self.shards,
         )
         self.checkpoints = CheckpointManager(
             config.output_dir, config.run_id,
@@ -149,10 +163,13 @@ class Trainer:
 
     # --- contract --------------------------------------------------------
     def resume_contract(self) -> ResumeContract:
+        """The run's contract; the batch is the global one, and the world
+        size, which may differ, is not compared on resume."""
         return ResumeContract(
             strategy=self.strategy.name,
             world_size=process_count(),
-            train_batch_size=getattr(self.train_loader, "batch_size", 0),
+            train_batch_size=getattr(self.train_loader, "batch_size", 0)
+            * self.batch_blocks,
             accum_steps=self.config.accum_steps,
             total_steps=self.total_steps,
             run_id=self.config.run_id,
@@ -210,8 +227,8 @@ class Trainer:
             for epoch in range(start_epoch, cfg.num_epochs):
                 self.progress.epoch = epoch
                 self.train_loader.seek(
-                    self.progress.samples_consumed if epoch == start_epoch
-                    else 0
+                    self.progress.samples_consumed // self.batch_blocks
+                    if epoch == start_epoch else 0
                 )
                 if epoch != start_epoch:
                     self.progress.samples_consumed = 0
@@ -229,7 +246,8 @@ class Trainer:
                     )
                     perf.compute_s += time.monotonic() - t0
                     n_samples = len(sample_ids)
-                    self.progress.samples_consumed += n_samples
+                    self.progress.samples_consumed += (n_samples
+                                                       * self.batch_blocks)
                     self.progress.global_step = step + 1
                     perf.steps += 1
                     perf.samples += n_samples
@@ -271,14 +289,22 @@ class Trainer:
     def _evaluate(self, step: int) -> Dict[str, float]:
         if self.eval_loader is None:
             return {}
-        metrics = self.evaluator.run(self.eval_loader, self.frozen)
+        params = (self.shards.whole_params(self.strategy.model)
+                  if self.shards is not None and self.shards.sharded
+                  else None)
+        metrics = self.evaluator.run(self.eval_loader, self.frozen, params)
+        del params
         if metrics:
             self.tracker.log(metrics, step)
         return metrics
 
     def _save(self, step: int, metrics: Dict[str, float]) -> None:
+        gather = (self.shards.whole_state
+                  if self.shards is not None and self.shards.sharded
+                  else None)
         self.checkpoints.save(
-            self.state, step, self.resume_contract(), self.progress, metrics
+            self.state, step, self.resume_contract(), self.progress, metrics,
+            gather=gather,
         )
         self.checkpoints.maybe_update_best(step, metrics)
 
@@ -291,6 +317,7 @@ class Trainer:
         else:
             payload, progress, _ = self.checkpoints.restore(
                 step, contract=self.resume_contract())
+        shards = self.shards
         for group in ("params", "buffers"):
             live = getattr(self.state, group)
             saved = payload[group]
@@ -300,9 +327,13 @@ class Trainer:
                     f"{sorted(set(saved) ^ set(live))}"
                 )
             for name, tensor in saved.items():
+                if shards is not None and group == "params":
+                    tensor = shards.local(tensor, shards.dim(name))
                 live[name].copy_(tensor)
-        self.state.opt_state = _restore_tree(self.state.opt_state,
-                                             payload["opt_state"])
+        saved = payload["opt_state"]
+        if shards is not None:
+            saved = shards.local_tree(saved)
+        self.state.opt_state = _restore_tree(self.state.opt_state, saved)
         self.state.step = int(payload["step"])
         self.progress = progress
         logger.info(

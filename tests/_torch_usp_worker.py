@@ -14,7 +14,15 @@ Cases:
   ``attention.npz``, then ``OnlineEagle3Model`` under ``"usp"`` on the batch
   and weights of ``model.npz`` / ``model_state.pt``;
 - ``train``: ``cli.main(["train", "-c", run.json, "--device", "cpu"])``,
-  then this rank's trained weights and its IO roles.
+  then this rank's trained weights and its IO roles;
+- ``mesh``: the runs listed in ``runs.json``, one ``cli.main(["train",
+  ...])`` each on the mesh its config asks for (dp, fsdp, USP), in order;
+  a run may name an ``.npz`` of the uniform values JAX's sampler drew for
+  each step's global batch (``anchors_<step>`` [B, S - 1], or
+  ``cod_<step>`` [D - 1, B, S]), which replace the port's draws, each rank
+  taking its batch block's rows. After each run: its weights gathered
+  whole, the bytes of this rank's masters and optimizer state, its IO
+  roles and place, into ``<name>_rank<N>.npz`` and ``.json``.
 """
 
 import json
@@ -125,7 +133,93 @@ def train(workdir: str, rank: int) -> None:
         }, f)
 
 
-CASES = {"attention_and_model": attention_and_model, "train": train}
+def _feed_uniforms(strategy, path: str) -> None:
+    """Make ``strategy`` sample from the uniform values in ``path`` (JAX's
+    draws for each step's global batch), keeping its block's rows."""
+    from specforge_tpu_torch.algorithms.peagle.model import (
+        cod_sample_from_uniform,
+        document_ids_from_lengths,
+    )
+    from specforge_tpu_torch.ops.masks import anchors_from_uniform
+
+    drawn = np.load(path)
+
+    def rows(x, ctx, b):
+        first = ctx.batch_block[0]
+        return torch.from_numpy(x[..., first * b:(first + 1) * b, :])
+
+    if hasattr(strategy, "sample_anchors"):
+        def sample_anchors(loss_mask, ctx):
+            rand = rows(drawn[f"anchors_{ctx.global_step}"], ctx,
+                        loss_mask.shape[0])
+            return anchors_from_uniform(rand, loss_mask,
+                                        strategy.model.num_anchors)
+
+        strategy.sample_anchors = sample_anchors
+    else:
+        def draw_sample(loss_mask, lengths, ctx):
+            b, s = loss_mask.shape[:2]
+            model = strategy.model
+            return cod_sample_from_uniform(
+                list(rows(drawn[f"cod_{ctx.global_step}"], ctx, b)),
+                loss_mask.reshape(b, s),
+                document_ids_from_lengths(lengths.reshape(b, -1), s),
+                model.num_depths, model.down_sample_ratio,
+                model.down_sample_ratio_min)
+
+        strategy.draw_sample = draw_sample
+
+
+def mesh(workdir: str, rank: int) -> None:
+    from specforge_tpu_torch import cli
+    from specforge_tpu_torch.application import composition
+    from specforge_tpu_torch.parallel.fsdp import state_bytes
+    from specforge_tpu_torch.training.tracking import NoOpTracker
+
+    build = composition.build_training_run
+    with open(os.path.join(workdir, "runs.json")) as f:
+        runs = json.load(f)
+    for run in runs:
+        built = []
+
+        def capture(*args, **kwargs):
+            trainer = build(*args, **kwargs)
+            if run.get("uniforms"):
+                _feed_uniforms(trainer.strategy,
+                               os.path.join(workdir, run["uniforms"]))
+            built.append(trainer)
+            return trainer
+
+        composition.build_training_run = capture
+        try:
+            rc = cli.main(["train", "-c", os.path.join(workdir, run["config"]),
+                           "--device", "cpu"])
+        finally:
+            composition.build_training_run = build
+        trainer = built[0]
+        shards = trainer.shards
+        whole = {}
+        for name, p in trainer.state.params.items():
+            dim = shards.dim(name)
+            whole[name] = (p if dim is None else shards.gather(p, dim)
+                           ).detach().float().numpy()
+        stem = os.path.join(workdir, f"{run['name']}_rank{rank}")
+        np.savez(stem + ".npz", **whole)
+        with open(stem + ".json", "w") as f:
+            json.dump({
+                "rc": rc, "steps": trainer.state.step,
+                "writes_checkpoints": trainer.checkpoints.primary,
+                "tracks": not isinstance(trainer.tracker, NoOpTracker),
+                "coords": list(trainer.mesh.config.coords(rank)),
+                "batch_block": list(trainer.mesh.batch_block),
+                "transport": trainer.mesh.transport,
+                "bytes": state_bytes(trainer.state),
+                "dims": shards.dims,
+            }, f)
+
+
+CASES = {"attention_and_model": attention_and_model, "train": train,
+         "mesh": mesh}
 
 
 def main() -> None:

@@ -136,12 +136,13 @@ def test_forwards_run_on_the_forward_stream(source, kernel):
 
 def test_usp_slice_is_built_and_imports_nothing_of_jax():
     """The LSE ring-hop source is built, and the parallel package (the
-    process runtime, the rank grid, USP) is among the checked sources."""
+    process runtime, the rank grid, USP, fsdp) is among the checked
+    sources."""
     assert "lse_attention.cu" in cuda_lib.SOURCES
     parallel = sorted(p for p in _sources()
                       if os.sep + "parallel" + os.sep in p)
     assert [os.path.basename(p) for p in parallel] == [
-        "__init__.py", "mesh.py", "multihost.py", "usp.py"]
+        "__init__.py", "fsdp.py", "mesh.py", "multihost.py", "usp.py"]
     for path in parallel:
         assert not {m for m in _top_level_imports(path) if m in FORBIDDEN}
 

@@ -1411,3 +1411,101 @@ def test_lse_forward_statistics_feed_the_backward(gen, s, d, row_off,
         q, k, v, valid, row_off, col_off, ref, ref_lse, dout, dlse)
     for name, got, want in zip("qkv", grads, ref_grads):
         assert rel_err(got, want) <= 2e-2, name
+
+
+# --------------------------------------------------------------------------
+# fsdp: the shard collectives and the sharded optimizer, 2 gloo ranks on
+# the one card (host-staged, as chip_smoke.py's mesh phase runs them)
+# --------------------------------------------------------------------------
+
+def _fsdp_rank(rank, port, factored):
+    """One of 2 ranks at fsdp 2 on ``cuda:0``: a gather of every shard is
+    the whole tensor; a reduce-scatter of each rank's gradient is its slice
+    of their sum; the AdamW step on the slices (the global norm and the
+    factored statistics summed over the fsdp group) is the slice of the
+    step on the whole tensors."""
+    import torch.distributed as dist
+
+    from specforge_tpu_torch.parallel.fsdp import ShardPlan
+    from specforge_tpu_torch.parallel.mesh import MeshConfig, build_mesh
+    from specforge_tpu_torch.training.optimizer import (
+        AdamW,
+        OptimizerConfig,
+        global_norm,
+    )
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    try:
+        mesh = build_mesh(MeshConfig(fsdp=2), torch.device("cuda", 0))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        model = torch.nn.ModuleDict({
+            "wide": torch.nn.Linear(512, 256, bias=False),   # dim 1
+            "tall": torch.nn.Linear(128, 1024, bias=False),  # dim 0
+            "small": torch.nn.Linear(256, 8),                # whole
+        }).cuda()
+        for p in model.parameters():
+            p.data = torch.randn(p.shape, generator=gen, device="cuda")
+        whole = {n: p.detach().clone() for n, p in model.named_parameters()}
+        grads = {n: torch.randn(p.shape, generator=gen, device="cuda")
+                 for n, p in whole.items()}
+        plan = ShardPlan(model, mesh)
+        assert plan.dims == {"wide.weight": 1, "tall.weight": 0,
+                             "small.weight": None, "small.bias": None}
+        plan.shard_model_(model)
+        for n, p in model.named_parameters():
+            dim = plan.dim(n)
+            assert torch.equal(plan.gather(p, dim) if dim is not None else p,
+                               whole[n])
+        # each rank's share: rank + 1 times the gradient, summing to 3
+        mine = {n: g * (rank + 1) for n, g in grads.items()}
+        plan.reduce_grads(mine)
+        for n, g in mine.items():
+            assert torch.equal(g, plan.local(grads[n] * 3, plan.dim(n)))
+
+        cfg = OptimizerConfig(lr=1e-2, warmup_ratio=0.0, max_grad_norm=1.0,
+                              factored_second_moments=factored,
+                              factored_min_dim=8,
+                              adam_b1=0.0 if factored else 0.9)
+        opt = AdamW(cfg, total_steps=10)
+        ref_params = {n: p.clone() for n, p in whole.items()}
+        ref_state = opt.init(ref_params)
+        params = dict(model.named_parameters())
+        state = plan.materialize(opt.init(plan.meta(params)), "cuda")
+        for step in range(2):
+            g_whole = {n: g * (step + 1) for n, g in grads.items()}
+            g_local = {n: plan.local(g, plan.dim(n))
+                       for n, g in g_whole.items()}
+            ref_state = opt.step(ref_params, g_whole, ref_state,
+                                 global_norm(g_whole))
+            state = opt.step(params, g_local, state,
+                             global_norm(g_local, plan), shards=plan)
+            for n, p in params.items():
+                torch.testing.assert_close(
+                    p.detach(), plan.local(ref_params[n], plan.dim(n)),
+                    rtol=1e-6, atol=1e-7, msg=n)
+        for path, leaf in (("nu_row", "wide.weight"), ("nu_col", "tall.weight"),
+                           ("nu", "small.bias")):
+            kind = path if factored else "nu"
+            if leaf in state[kind]:
+                torch.testing.assert_close(
+                    state[kind][leaf],
+                    plan.local(ref_state[kind][leaf],
+                               plan.opt_leaf_dim((kind, leaf))),
+                    rtol=1e-6, atol=1e-12)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("factored", [False, True])
+def test_fsdp_collectives_and_sharded_optimizer(gen, factored):
+    """Two gloo ranks on the card (``torch.multiprocessing.spawn``)."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    mp.spawn(_fsdp_rank, args=(port, factored), nprocs=2, join=True)

@@ -56,7 +56,7 @@ def test_slice_runs_on_the_cpu_at_small_size(smoke, tmp_path):
 
 def test_training_runs_on_the_cpu_at_small_size(smoke, tmp_path):
     """The training phase: cli train, the plain path from the same initial
-    weights, the resume from step 2 and the launch-count check (no launch
+    weights, the resume from step 1 and the launch-count check (no launch
     on CPU tensors)."""
     cfg = Eagle3Config(vocab_size=2048, draft_vocab_size=512, hidden_size=128,
                        intermediate_size=384, num_attention_heads=4,
@@ -66,18 +66,18 @@ def test_training_runs_on_the_cpu_at_small_size(smoke, tmp_path):
     results, counts = smoke.run_training(
         cfg_path, torch.device("cpu"), 0, tmp_path / "work", max_length=64,
         min_len=40, head_std=0.2, overrides=['model.compute_dtype="float32"'])
-    assert results["optimizer_steps"] == 4 and results["micro_batches"] == 8
+    assert results["optimizer_steps"] == 2 and results["micro_batches"] == 4
     assert counts == dict.fromkeys(smoke.KERNEL_COUNTERS, 0)
     with pytest.raises(AssertionError, match="launches"):
-        smoke.check_training_counts(counts, 8, 2)
+        smoke.check_training_counts(counts, 4, 2)
     smoke.check_training_counts(
-        {name: smoke.TTT * (8 if name in smoke.BACKWARD_KERNELS else 10)
-         for name in counts}, 8, 2)
+        {name: smoke.TTT * (4 if name in smoke.BACKWARD_KERNELS else 6)
+         for name in counts}, 4, 2)
     # fp32 on both paths: the kernels' plain versions and the dense path
     # differ only in the order of their sums
     assert all(step["rel_diff"] < 1e-4 for step in results["loss_curve"])
     assert all(g["cosine"] > 0.9999 for g in results["step1_grads"].values())
-    assert results["resume"]["steps"] == 4
+    assert results["resume"]["steps"] == 2
     assert results["resume"]["max_rel_err"] < 1e-6
     assert "eval/simulated_acc_len" in results["final_eval"]
 
@@ -191,8 +191,8 @@ PEAGLE_DRAFT = {
 
 def test_peagle_training_runs_on_the_cpu_at_small_size(smoke, tmp_path):
     """The P-EAGLE phase: cli train with factored moments, adam_b1 0, bf16
-    moments and the row-sparse embedding update (4 steps, checkpoints at 2
-    and 4), a second run reaching the same weights, the resume from step 2
+    moments and the row-sparse embedding update (2 steps, checkpoints at 1
+    and 2), a second run reaching the same weights, the resume from step 1
     through the factored and row-sparse optimizer state, the dense
     embedding update against the row-sparse one, the dense plain path, the
     packed step; no launch on CPU tensors."""
@@ -202,15 +202,15 @@ def test_peagle_training_runs_on_the_cpu_at_small_size(smoke, tmp_path):
         cfg_path, torch.device("cpu"), 0, tmp_path / "work", max_length=64,
         min_len=40, pack_len=(8, 16), head_std=0.2,
         overrides=['model.compute_dtype="float32"'])
-    assert results["optimizer_steps"] == 4 and results["micro_batches"] == 8
+    assert results["optimizer_steps"] == 2 and results["micro_batches"] == 4
     assert counts == dict.fromkeys(smoke.PEAGLE_COUNTERS, 0)
     with pytest.raises(AssertionError, match="launches"):
-        smoke.check_peagle_counts(counts, 8, 2)
+        smoke.check_peagle_counts(counts, 4, 2)
     smoke.check_peagle_counts(
-        {n: (8 if n.startswith("fused_ce") else 16) for n in counts}, 8, 2)
-    assert results["checkpoint"]["dir"] == "peagle-step4"
+        {n: (4 if n.startswith("fused_ce") else 8) for n in counts}, 4, 2)
+    assert results["checkpoint"]["dir"] == "peagle-step2"
     assert results["repeat_bit_exact"] and results["resume"]["bit_exact"]
-    assert results["resume"]["steps"] == 4
+    assert results["resume"]["steps"] == 2
     assert results["embedding_update"]["sparse_vs_dense_rel_err"] < 1e-5
     assert results["embedding_update"]["touched_rows"] > 0
     # fp32 on both paths: the kernels' plain versions and the dense path
@@ -268,7 +268,7 @@ def test_usp_training_runs_on_the_cpu_at_small_size(smoke, tmp_path):
     results, counts = smoke.run_usp_training(
         cfg_path, torch.device("cpu"), 0, tmp_path / "work", max_length=64,
         min_len=48, head_std=0.2, overrides=['model.compute_dtype="float32"'])
-    assert results["optimizer_steps"] == 4 and results["micro_batches"] == 8
+    assert results["optimizer_steps"] == 2 and results["micro_batches"] == 4
     assert results["transport"] == "gloo"
     assert counts == dict.fromkeys(smoke.LSE_KERNELS, 0)
     assert sorted(r["chunk"] for r in results["ranks"]) == [0, 1, 2, 3]
@@ -277,14 +277,73 @@ def test_usp_training_runs_on_the_cpu_at_small_size(smoke, tmp_path):
     assert all(step["rel_diff"] < 1e-4 for step in results["loss_curve"])
     assert all(g["cosine"] > 0.9999 for g in results["step1_grads"].values())
     with pytest.raises(AssertionError, match="lse_attention_fwd"):
-        smoke.check_usp_counts(results["rank_launches"], 8)
+        smoke.check_usp_counts(results["rank_launches"], 4)
     per_micro = {n: smoke.TTT * (2 if n.startswith("lse") else 1)
                  for n in smoke.USP_COUNTERS if not n.startswith("ttt")}
-    launches = {n: 8 * per_micro.get(n, 0) for n in smoke.USP_COUNTERS}
-    smoke.check_usp_counts([launches] * 4, 8)
+    launches = {n: 4 * per_micro.get(n, 0) for n in smoke.USP_COUNTERS}
+    smoke.check_usp_counts([launches] * 4, 4)
     launches["ttt_flash_attention_fwd"] = 1
     with pytest.raises(AssertionError, match="ttt_flash_attention_fwd"):
-        smoke.check_usp_counts([launches], 8)
+        smoke.check_usp_counts([launches], 4)
+
+
+def test_mesh_training_runs_on_the_cpu_at_small_size(smoke, tmp_path,
+                                                    monkeypatch):
+    """The mesh phase: 4 ranks (``chip_smoke.py --mesh-rank``, gloo on the
+    CPU) run cli train for EAGLE3 at dp 2 × fsdp 2 (4 steps, eval, a resume
+    from step 2), P-EAGLE at fsdp 4, Domino at dp 2 × fsdp 2 and EAGLE3 at
+    fsdp 2 × sp_ring 2, agree bit-exactly and match one process of the same
+    global batch; each rank holds less than one process's state; the
+    launch-count check (no launch on CPU tensors)."""
+    common = dict(vocab_size=2048, hidden_size=128, intermediate_size=256,
+                  num_attention_heads=4, num_key_value_heads=2, head_dim=32,
+                  num_hidden_layers=2, max_position_embeddings=4096)
+    drafts = {
+        "eagle3": Eagle3Config(vocab_size=2048, draft_vocab_size=512,
+                               hidden_size=128, intermediate_size=384,
+                               num_attention_heads=4, num_key_value_heads=2,
+                               max_position_embeddings=4096).to_dict(),
+        "peagle": dict(common, architectures=["PEagleDraftModel"],
+                       draft_vocab_size=512),
+        "domino": dict(common, architectures=["DominoDraftModel"],
+                       num_target_layers=8, block_size=4,
+                       mask_token_id=2047, projector_type="domino",
+                       emb_dim=32, gru_hidden_dim=32, pure_draft_prefix_len=1,
+                       shift_label=True),
+    }
+    paths = {}
+    for name, draft in drafts.items():
+        paths[name] = tmp_path / f"{name}.json"
+        paths[name].write_text(json.dumps(draft))
+    runs = {name: (paths["eagle3" if name == "usp" else name], *run[1:6],
+                   40, 64) for name, run in smoke.MESH_RUNS.items()}
+    monkeypatch.setattr(smoke, "MESH_RUNS", runs)
+    results, counts = smoke.run_mesh_training(
+        torch.device("cpu"), 0, tmp_path / "work", head_std=0.2,
+        overrides=['model.compute_dtype="float32"'])
+    assert sorted(results["runs"]) == ["domino", "eagle3", "peagle", "usp"]
+    eagle3 = results["runs"]["eagle3"]
+    assert eagle3["optimizer_steps"] == 4 and eagle3["micro_batches"] == 8
+    assert eagle3["resume"]["bit_exact"] and eagle3["final_eval"]
+    # fp32 on both sides: the mesh and one process differ only in the
+    # order of their sums
+    assert all(g["cosine"] > 0.9999 for g in eagle3["step1_grads"].values())
+    for name, res in results["runs"].items():
+        assert res["transport"] == "gloo" and res["ranks_bit_identical"]
+        assert all(s["rel_diff"] < 1e-4 for s in res["loss_curve"]), name
+        if res["fsdp"] > 1:
+            assert res["sharded_tensors"] > 0
+            assert res["state_bytes_ratio"]["masters"] < 1.0, name
+        assert counts[name] == dict.fromkeys(smoke.MESH_COUNTERS, 0)
+    with pytest.raises(AssertionError, match="launched 0 times"):
+        smoke.check_mesh_counts(results)
+    for name, res in results["runs"].items():
+        res["rank_launches"] = [smoke.mesh_expected_launches(
+            name, res["micro_batches"], res["eval_forwards"],
+            res["layers"])] * 4
+    smoke.check_mesh_counts(results)
+    assert results["runs"]["usp"]["rank_launches"][0][
+        "lse_attention_fwd"] == smoke.TTT * 2
 
 
 def test_ce_backward_check_rejects_broken_gradients(smoke):

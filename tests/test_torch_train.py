@@ -503,9 +503,7 @@ def test_default_device_entry_points_raise_without_cuda(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("override,slice_name", [
-    ("training.dp_size=2", "parallelism"),
     ("deployment.mode=\"disaggregated\"", "online"),
-    ("training.fsdp_size=2", "parallelism"),
     ("model.draft_checkpoint_path=\"draft\"", "warm_start_draft"),
     ("tracking.backend=\"wandb\"", "ROADMAP"),
 ])
@@ -514,6 +512,27 @@ def test_unported_options_name_their_slice(tmp_path, override, slice_name):
     path.write_text(json.dumps(run_config(tmp_path, "unported")))
     with pytest.raises(NotImplementedError, match=slice_name):
         build_training_run(load_config(str(path), [override]),
+                           frozen_override=frozen_tables(), device="cpu")
+
+
+@pytest.mark.parametrize("overrides,error,match", [
+    # the mesh needs one process per rank
+    (["training.dp_size=2"], ValueError, "one process per rank, 2, have 1"),
+    (["training.fsdp_size=2"], ValueError, "one process per rank, 2, have 1"),
+    # the global batch cuts into dp·fsdp blocks
+    (["training.dp_size=2", "training.fsdp_size=2", "training.batch_size=6"],
+     ValueError, "divisible by dp\\*fsdp=4"),
+    # USP is EAGLE3's, under dp too
+    (["training.strategy=\"domino\"", "training.attention_backend=\"usp\"",
+      "training.sp_ring_size=2", "training.dp_size=2",
+      "training.batch_size=2"], NotImplementedError, "EAGLE3's"),
+])
+def test_mesh_refusals(tmp_path, overrides, error, match):
+    """What a dp/fsdp mesh still refuses, in one process."""
+    path = tmp_path / "run.json"
+    path.write_text(json.dumps(run_config(tmp_path, "mesh")))
+    with pytest.raises(error, match=match):
+        build_training_run(load_config(str(path), overrides),
                            frozen_override=frozen_tables(), device="cpu")
 
 

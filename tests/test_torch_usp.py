@@ -85,10 +85,11 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def run_workers(case: str, workdir: str) -> None:
+def run_workers(case: str, workdir: str,
+                timeout: float = WORKER_TIMEOUT) -> None:
     """Start the 4 ranks of ``case``, wait for all of them within
-    WORKER_TIMEOUT, kill them past it, and fail with their output if any
-    failed."""
+    ``timeout`` seconds, kill them past it, and fail with their output if
+    any failed."""
     port = _free_port()
     procs = []
     for rank in range(RANKS):
@@ -104,7 +105,7 @@ def run_workers(case: str, workdir: str) -> None:
     try:
         for rank, (proc, _) in enumerate(procs):
             try:
-                if proc.wait(timeout=WORKER_TIMEOUT) != 0:
+                if proc.wait(timeout=timeout) != 0:
                     failed.append(rank)
             except subprocess.TimeoutExpired:
                 failed.append(rank)
@@ -621,8 +622,11 @@ def test_usp_needs_one_process_per_rank(tmp_path):
 
 @pytest.mark.parametrize("override", ["training.dp_size=2",
                                       "training.fsdp_size=2"])
-def test_dp_and_fsdp_stay_refused(tmp_path, override):
+def test_usp_mesh_needs_one_process_per_rank(tmp_path, override):
+    """USP under dp or fsdp (one row a batch block) in one process: the
+    mesh of 2 × 2 × 2 ranks needs that many processes."""
     _, path = _port_config(tmp_path)
-    with pytest.raises(NotImplementedError, match="parallelism slice"):
-        build_training_run(load_config(str(path), [override]),
-                           frozen_override={}, device="cpu")
+    with pytest.raises(ValueError, match="one process per rank, 8, have 1"):
+        build_training_run(load_config(str(path), [
+            override, "training.batch_size=2"]),
+            frozen_override={}, device="cpu")
