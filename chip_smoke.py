@@ -4,7 +4,8 @@
 Usage: ``python3 chip_smoke.py [--seed N]`` from the repository root.
 ``python3 chip_smoke.py --usp-only`` runs phases 1, 2 and 8's training
 alone, ``--mesh-only`` phases 1, 2 and 9 (on a machine with a card per
-rank their ranks talk NCCL).
+rank their ranks talk NCCL), ``--leftovers-only`` phases 1, 2 and 10's
+training runs.
 
 Phases, each printing JSON lines:
 
@@ -19,7 +20,9 @@ Phases, each printing JSON lines:
    blocks of 7; the COD attention
    forward and its two backward kernels in cases (a)-(e) of
    ``COD_CASES``; the LSE ring-hop forward and its two backward kernels in
-   cases (a)-(e) of ``LSE_CASES``) is held against
+   cases (a)-(e) of ``LSE_CASES``; the TTT forward and backward also at
+   the head layouts of ``HEAD_LAYOUTS``, the GQA groups of 8, 7 and 1 of
+   phase 10's drafts) is held against
    its plain PyTorch version on the card, in the working dtype, and timed
    with CUDA events (median of 20 runs after 3 warm-ups) beside the plain
    version, one PyTorch library call as a yardstick, and its bound (the
@@ -53,8 +56,8 @@ Phases, each printing JSON lines:
    path (dense attention, reference CE) from the same initial weights; a
    resume from the step-1 checkpoint that must reach the same weights; the
    micro-step and optimizer-step times of the trainer's own train step,
-   peak memory with and without ``compute_params_dtype``, and one profiled
-   micro-step;
+   peak memory with and without ``compute_params_dtype``, one profiled
+   micro-step, and a warm start from the step-1 checkpoint (phase 10);
 6. slice 3, the DFlash family: ``cli.main(["train", ...])`` on
    ``examples/qwen3-8b-domino-offline.json`` with ``configs/qwen3-8b-domino.json``
    at full width (B=2, S up to 768, 256 anchors of 16; accumulation 2, so 4
@@ -113,7 +116,8 @@ Phases, each printing JSON lines:
    EAGLE3 at dp 2 × fsdp 2 (``examples/qwen3-8b-eagle3-offline.json``,
    global batch 4 at S 2048, accumulation 2, 4 optimizer steps, eval,
    checkpoints at steps 2 and 4, a 4-rank resume from step 2 that reaches
-   the final weights bit-exactly), P-EAGLE at fsdp 4 (factored Adam, the
+   the final weights bit-exactly; on one shared card 2 steps and a resume
+   from step 1), P-EAGLE at fsdp 4 (factored Adam, the
    row-sparse embedding), Domino at dp 2 × fsdp 2 and EAGLE3 under USP at
    fsdp 2 × sp_ring 2, a step each; the launches of every kernel on every
    rank, the same losses and bit-identical whole weights on every rank,
@@ -121,7 +125,24 @@ Phases, each printing JSON lines:
    batch (losses; EAGLE3's step-1 gradients), the bytes of a rank's
    masters and moments against one process's, and per rank the
    micro-step, whole-step and collectives' times and memory;
-10. the kernels line, then the card line, then ``{"ok": true, ...}``.
+10. slice 15, the offline leftovers (``offline_leftovers``): for each draft
+   of ``LEFTOVER_RUNS`` at full width, ``cli.main(["train", ...])`` on
+   ``examples/qwen3-8b-eagle3-offline.json`` (B=2, S=2048, TTT 7, compact
+   teacher) with exactly 7 launches of every TTT and fused CE kernel per
+   micro-batch; then a kernel-path trainer whose step-1 loss and gradients
+   repeat bit for bit and equal the ``cli`` run's step-1 loss, and the
+   plain path (the chunked dense attention, reference CE) from the same
+   weights at step 1. ``configs/llama3-70b-eagle3.json`` (llama3 RoPE, 64
+   heads over 8): 2 steps of 2 micro-batches from reference ``.ckpt``
+   features (two gzipped), warm-started from a ``model.safetensors`` in the
+   export's torch-key layout written here (the loaded weights bit-identical
+   to the file's), with the micro-step, optimizer-step, memory and a
+   profiled micro-step; ``configs/qwen2.5-vl-7b-eagle3.json`` (mrope over
+   [3, S] position ids of a vision span) and
+   ``configs/deepseek-v2-lite-eagle3.json`` (yarn), a step each; and phase
+   5's warm start from its own step-1 directory (the masters bit-identical
+   to the saved ones, a fresh optimizer);
+11. the kernels line, then the card line, then ``{"ok": true, ...}``.
 
 Phases 9 and 8's training run right after the build, before the kernel
 phases: their 4 ranks need most of the card's memory, and this process
@@ -136,6 +157,7 @@ from __future__ import annotations
 
 import argparse
 import gc
+import gzip
 import hashlib
 import json
 import math
@@ -149,6 +171,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -163,6 +186,7 @@ from specforge_tpu_torch.algorithms.peagle.model import (
 from specforge_tpu_torch.application.composition import build_training_run
 from specforge_tpu_torch.config.schema import load_config
 from specforge_tpu_torch.data.collator import CollatorConfig, PaddingCollator
+from specforge_tpu_torch.data.vlm import mrope_position_ids, spans_from_token_ids
 from specforge_tpu_torch.eval.evaluator import Evaluator
 from specforge_tpu_torch.models.draft.dflash import DFlashConfig
 from specforge_tpu_torch.models.draft.llama_eagle3 import (
@@ -248,6 +272,12 @@ GRAD_NORM_RTOL = 2e-2
 # optimizer steps of 2 micro-batches (4 before the mesh phase joined the
 # script)
 TRAIN_FILES, EVAL_FILES, ACCUM = 8, 4, 2
+#: reference features gzipped (level 1): the first files
+GZ_FILES = 2
+#: Qwen2.5-VL's image token, and the vision span of a sample (one image of
+#: 16 x 16 merged patches)
+IMAGE_TOKEN_ID = 151655
+VISION_GRID = (1, 16, 16)
 
 
 #: the script's start, for each phase line's ``elapsed_s``
@@ -404,8 +434,16 @@ def build() -> None:
 # kernels against their plain versions
 # --------------------------------------------------------------------------
 
-def attention_inputs(gen, s, n_branches, padded):
-    b, h, kvh, d = BATCH, 32, 8, 128
+#: query and kv heads of the TTT kernels' main path (Qwen3-8B, a group of
+#: 4) and of the drafts ``offline_leftovers`` trains: Llama-3-70B (a group
+#: of 8, two 4-head blocks), Qwen2.5-VL-7B (7: blocks of 4 and 3) and
+#: DeepSeek-V2-Lite (1)
+MAIN_HEADS = (32, 8)
+HEAD_LAYOUTS = ((64, 8), (28, 4), (16, 16))
+
+
+def attention_inputs(gen, s, n_branches, padded, heads=MAIN_HEADS):
+    (h, kvh), b, d = heads, BATCH, 128
     dev, bf = "cuda", torch.bfloat16
 
     def rnd(*shape):
@@ -491,8 +529,12 @@ def attention_kernel_phase(gen) -> dict:
     cases += [(MAX_LEN, 0, False, False), (MAX_LEN, 6, False, False),
               (MAX_LEN - 1, 0, True, False), (MAX_LEN - 1, 6, True, False),
               (MAX_LEN, 0, False, True), (MAX_LEN, 2, True, True)]
-    for s, nb, padded, empty in cases:
-        q, keys, values, key_valid = attention_inputs(gen, s, nb, padded)
+    cases = [c + (MAIN_HEADS,) for c in cases]
+    cases += [(MAX_LEN, nb, True, False, heads) for heads in HEAD_LAYOUTS
+              for nb in (0, TTT - 1)]
+    for s, nb, padded, empty, heads in cases:
+        q, keys, values, key_valid = attention_inputs(gen, s, nb, padded,
+                                                      heads)
         if empty:
             key_valid[0] = 0
         out, m, l = fwd(q, keys, values, key_valid)
@@ -513,8 +555,8 @@ def attention_kernel_phase(gen) -> dict:
         dead_exact = (bool((out_rows[dead] == 0).all())
                       and bool((m[dead] == attention_cuda.NEG_INF).all())
                       and bool((l[dead] == 0).all()))
-        check(f"ttt attention S={s} NB={nb} padded={padded} empty={empty}",
-              err, ATTN_TOL)
+        check(f"ttt attention S={s} NB={nb} padded={padded} empty={empty} "
+              f"heads={heads}", err, ATTN_TOL)
         check(f"ttt attention m S={s} NB={nb}", m_err, STAT_RTOL)
         check(f"ttt attention l S={s} NB={nb}", l_err, STAT_RTOL)
         check(f"ttt attention empty rows S={s} NB={nb} (out 0, m -1e30, l 0)",
@@ -522,10 +564,11 @@ def attention_kernel_phase(gen) -> dict:
         worst = max(worst, err)
         row = {"phase": "kernel", "name": "ttt_flash_attention_fwd",
                "S": s, "branches": nb, "padded": padded,
-               "empty_batch_row": empty, "rows_with_no_key": int(dead.sum()),
+               "empty_batch_row": empty, "heads": list(heads),
+               "rows_with_no_key": int(dead.sum()),
                "max_abs_err": err, "m_rel_err": m_err, "l_rel_err": l_err,
                "tol": ATTN_TOL}
-        if s == MAX_LEN and padded and not empty:
+        if s == MAX_LEN and padded and not empty and heads == MAIN_HEADS:
             # the main path's seven launches: one per branch count 0..6
             row["ms"] = median_ms(lambda: fwd(q, keys, values, key_valid))
             row["plain_ms"] = median_ms(
@@ -542,7 +585,8 @@ def attention_kernel_phase(gen) -> dict:
                       0.0 if row["repeat_bit_exact"] else 1.0, 0.0)
                 del again
             timed.append(row)
-        if s == MAX_LEN and nb == 0 and not padded and not empty:
+        if (s == MAX_LEN and nb == 0 and not padded and not empty
+                and heads == MAIN_HEADS):
             row["library_causal_ms"], row["library_causal_backend"] = (
                 sdpa_causal_yardstick(q, keys, values))
             causal = row
@@ -691,15 +735,20 @@ def sdpa_backward_yardstick(q, keys, values, key_valid, dout):
 
 def attention_backward_phase(gen) -> list:
     """The two TTT backward kernels against the plain backward, at the main
-    path's shapes (0..6 branches, padded key_valid; S=2047; unpadded)."""
+    path's shapes (0..6 branches, padded key_valid; S=2047; unpadded), and
+    at the head layouts of ``HEAD_LAYOUTS`` (0 and 6 branches)."""
     fwd = attention_cuda.ttt_flash_attention_fwd
     worst = {"dq": 0.0, "dkv": 0.0}
     timed = []
-    cases = [(MAX_LEN, nb, True) for nb in range(TTT)]
-    cases += [(MAX_LEN - 1, 0, True), (MAX_LEN - 1, 6, True),
-              (MAX_LEN, 6, False)]
-    for s, nb, padded in cases:
-        q, keys, values, key_valid = attention_inputs(gen, s, nb, padded)
+    cases = [(MAX_LEN, nb, True, MAIN_HEADS) for nb in range(TTT)]
+    cases += [(MAX_LEN - 1, 0, True, MAIN_HEADS),
+              (MAX_LEN - 1, 6, True, MAIN_HEADS),
+              (MAX_LEN, 6, False, MAIN_HEADS)]
+    cases += [(MAX_LEN, nb, True, heads) for heads in HEAD_LAYOUTS
+              for nb in (0, TTT - 1)]
+    for s, nb, padded, heads in cases:
+        q, keys, values, key_valid = attention_inputs(gen, s, nb, padded,
+                                                      heads)
         out, m, l = fwd(q, keys, values, key_valid)
         dout = torch.randn(out.shape, generator=gen, device="cuda",
                            dtype=torch.bfloat16)
@@ -720,16 +769,18 @@ def attention_backward_phase(gen) -> list:
         }
         for name, e in err.items():
             check(f"ttt attention backward {name} S={s} NB={nb} "
-                  f"padded={padded} (max|err| / max|ref|)", e, ATTN_BWD_RTOL)
+                  f"padded={padded} heads={heads} (max|err| / max|ref|)", e,
+                  ATTN_BWD_RTOL)
             worst[name] = max(worst[name], e)
         row = {"phase": "kernel", "name": "ttt_attention_bwd", "S": s,
-               "branches": nb, "padded": padded, "rel_err_dq": err["dq"],
+               "branches": nb, "padded": padded, "heads": list(heads),
+               "rel_err_dq": err["dq"],
                "rel_err_dkv": err["dkv"],
                "max_abs_err_dq": max_err(dq, ref_dq),
                "max_abs_err_dkv": max(max_err(dks[0], ref_dks[0]),
                                       max_err(dvs[0], ref_dvs[0])),
                "tol": f"{ATTN_BWD_RTOL} * max|ref|"}
-        if s == MAX_LEN and padded:
+        if s == MAX_LEN and padded and heads == MAIN_HEADS:
             valid = key_valid.to(torch.int32)
             delta = attention_cuda.backward_delta(out, dout, q.shape[1])
             args = (q, keys, values, valid, dout, m, l, delta)
@@ -1431,11 +1482,16 @@ def cod_kernel_phase(gen) -> list:
 # --------------------------------------------------------------------------
 
 def write_features(root: Path, cfg: Eagle3Config, seed: int, n_files: int,
-                   min_len: int, max_len: int, response_only=False) -> None:
+                   min_len: int, max_len: int, response_only=False,
+                   fmt: str = "sft") -> None:
     """Offline feature files in the layout of tests/_fixtures.py, written by
     the port's writer from a CPU generator. The loss mask is random, or
     with ``response_only`` 0 over a prompt of a tenth to a third of the
-    sample and 1 over the response after it."""
+    sample and 1 over the response after it. ``fmt="ckpt"`` writes them as
+    the reference does (``torch.save`` dicts, the first ``GZ_FILES``
+    gzipped at level 1); ``fmt="mrope"`` gives each sample one vision span
+    (its image-token run located by ``spans_from_token_ids``) and its [3, S]
+    ``position_ids`` from ``mrope_position_ids``."""
     gen = torch.Generator().manual_seed(seed)
     h = cfg.resolved_target_hidden_size
     root.mkdir(parents=True, exist_ok=True)
@@ -1454,7 +1510,23 @@ def write_features(root: Path, cfg: Eagle3Config, seed: int, n_files: int,
                 torch.bfloat16),
             "target": torch.randn(n, h, generator=gen).to(torch.bfloat16),
         }
-        save_feature_file(str(root / f"sample-{i:04d}.sft"), tensors,
+        path = root / f"sample-{i:04d}"
+        if fmt == "ckpt":
+            if i < GZ_FILES:
+                with gzip.open(f"{path}.ckpt.gz", "wb", compresslevel=1) as f:
+                    torch.save(tensors, f)
+            else:
+                torch.save(tensors, f"{path}.ckpt")
+            continue
+        if fmt == "mrope":
+            t, hh, w = VISION_GRID
+            start = n // 8
+            tensors["input_ids"][start:start + t * hh * w] = IMAGE_TOKEN_ID
+            spans = spans_from_token_ids(tensors["input_ids"].numpy(),
+                                         IMAGE_TOKEN_ID, [VISION_GRID])
+            tensors["position_ids"] = torch.from_numpy(
+                mrope_position_ids(n, spans))
+        save_feature_file(f"{path}.sft", tensors,
                           {"target_repr": "hidden_state"})
 
 
@@ -1802,6 +1874,40 @@ def measure_kernel_path(trainer, window, sync) -> dict:
     return results
 
 
+def check_run_dir_warm_start(trainer_for, step_dir: Path) -> dict:
+    """A fresh run warm-started (``model.draft_checkpoint_path``) from a
+    step directory of the port's own: its masters and vocab buffers equal
+    the saved ones bit for bit, and its optimizer starts fresh (step 0,
+    every moment 0)."""
+    saved = CheckpointManager.load_state(str(step_dir))
+    warm = trainer_for('run_id="warm"',
+                       f'model.draft_checkpoint_path="{step_dir}"')
+    differing = [n for n, w in saved["params"].items() if not torch.equal(
+        warm.state.params[n].detach().cpu(), w)]
+    differing += [n for n in ("draft_model.t2d", "draft_model.d2t")
+                  if not torch.equal(warm.state.buffers[n].cpu(),
+                                     saved["buffers"][n])]
+    fresh = warm.state.step == 0 and opt_state_is_fresh(warm.state.opt_state)
+    del warm
+    check("run-directory warm start: tensors differing from the saved "
+          "masters", float(len(differing)), 0.0)
+    check("run-directory warm start: optimizer not fresh",
+          0.0 if fresh else 1.0, 0.0)
+    return {"from": step_dir.name, "tensors": len(saved["params"]) + 2,
+            "bit_identical": not differing, "optimizer_fresh": fresh}
+
+
+def opt_state_is_fresh(tree) -> bool:
+    """Every floating tensor of an optimizer state is 0 (no step taken)."""
+    if isinstance(tree, dict):
+        return all(opt_state_is_fresh(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return all(opt_state_is_fresh(v) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.is_floating_point():
+        return not bool(tree.any())
+    return True
+
+
 def run_training(cfg_path: Path, device, seed: int, workdir: Path, *,
                  max_length=MAX_LEN, min_len=1536, head_std=0.02,
                  overrides=()) -> dict:
@@ -1871,6 +1977,8 @@ def run_training(cfg_path: Path, device, seed: int, workdir: Path, *,
     del resumed
     if on_card:
         torch.cuda.empty_cache()
+    results["run_dir_warm_start"] = check_run_dir_warm_start(
+        trainer_for, runs / "smoke-step1")
 
     # the plain path from the same initial weights: dense attention and the
     # reference CE, through the same Trainer
@@ -3154,8 +3262,9 @@ MESH_RANKS = 4
 MESH_TIMEOUT = 900  # seconds for the 4 ranks
 #: name → (draft config, example run, layout, global batch, accumulation,
 #: files, shortest and longest sample): EAGLE3 at dp 2 × fsdp 2 for 4 steps
-#: (a 4-rank resume from step 2, eval), P-EAGLE at fsdp 4, Domino at dp 2 ×
-#: fsdp 2 and EAGLE3 under USP at fsdp 2 × sp_ring 2 for a step each
+#: (a 4-rank resume from the middle checkpoint, eval), P-EAGLE at fsdp 4,
+#: Domino at dp 2 × fsdp 2 and EAGLE3 under USP at fsdp 2 × sp_ring 2 for a
+#: step each
 MESH_RUNS = {
     "eagle3": (CONFIG, EXAMPLE, {"dp_size": 2, "fsdp_size": 2}, 4, ACCUM, 32,
                1536, MAX_LEN),
@@ -3176,14 +3285,19 @@ MESH_EVAL_FILES = 4
 #: later run
 MESH_ONE_CARD_LAYERS = {"domino": 2, "peagle": 2}
 MESH_ONE_CARD_MAX_LEN = {"eagle3": 1024, "usp": 2048}
+#: and EAGLE3's files there: 2 steps instead of 4 (a resume from step 1),
+#: since a step over host-staged gloo takes 10-13 s and the whole script
+#: must end within its 1,200 s
+MESH_ONE_CARD_FILES = {"eagle3": 16}
 MESH_COUNTERS = {**USP_COUNTERS, **DFLASH_COUNTERS, **PEAGLE_COUNTERS}
 
 
 def mesh_run_json(workdir: Path, name: str, target: Path, cfg: Path,
-                  max_length: int, mesh: bool) -> Path:
+                  max_length: int, files: int, mesh: bool) -> Path:
     """The example run of ``MESH_RUNS[name]``, read as data, pointed at this
     run's directories and draft config ``cfg``, at its global batch and
-    accumulation, ``max_length`` tokens, one epoch and a log line per step;
+    accumulation, ``max_length`` tokens, one epoch over ``files`` files
+    and a log line per step (EAGLE3 checkpoints halfway and at the end);
     on its layout (``mesh``), or in one process on the TTT kernels."""
     example, layout, batch, accum = MESH_RUNS[name][1:5]
     raw = json.loads(example.read_text())
@@ -3198,7 +3312,8 @@ def mesh_run_json(workdir: Path, name: str, target: Path, cfg: Path,
                        max_length=max_length, num_workers=2)
     raw["training"].update(batch_size=batch, accumulation_steps=accum,
                            num_epochs=1, log_interval=1, eval_interval=0,
-                           save_interval=2 if name == "eagle3" else 0)
+                           save_interval=(files // (batch * accum) // 2
+                                          if name == "eagle3" else 0))
     if name == "peagle":
         raw["training"]["row_sparse_embedding"] = True
     if mesh:
@@ -3259,7 +3374,7 @@ def mesh_rank(workdir: Path, device, overrides=()) -> None:
     the bytes of this rank's masters and optimizer state, its timings and
     memory; for EAGLE3 also step 1's gradients from the same initial
     weights (gathered whole; rank 0 saves them) and a 4-rank resume from
-    its step-2 checkpoint. Everything into ``rank{N}.json``."""
+    its middle checkpoint. Everything into ``rank{N}.json``."""
     from specforge_tpu_torch.application import composition
     from specforge_tpu_torch.parallel import usp
     from specforge_tpu_torch.parallel.multihost import (
@@ -3347,6 +3462,7 @@ def mesh_rank(workdir: Path, device, overrides=()) -> None:
                 rec["cli_train_peak_bytes"] = torch.cuda.max_memory_allocated()
             window = first_window(trainer)
             if name == "eagle3":
+                middle = f"mesh_eagle3-step{trainer.state.step // 2}"
                 del trainer
                 gc.collect()
                 if on_card:
@@ -3356,7 +3472,7 @@ def mesh_rank(workdir: Path, device, overrides=()) -> None:
                     f'output_dir="{workdir / "runs_mesh_resumed"}"',
                     "data.eval_data_path=null",
                     "training.resume_from="
-                    f"{workdir / 'runs_mesh_eagle3' / 'mesh_eagle3-step2'}")
+                    f"{workdir / 'runs_mesh_eagle3' / middle}")
             rec.update(mesh_micro_step(trainer, window[0], sync))
             if name == "eagle3":
                 # step 1 from the same initial weights, before the resume
@@ -3432,7 +3548,8 @@ def run_mesh_training(device, seed: int, workdir: Path, *, head_std=0.02,
     (``start_ranks``; over host-staged gloo when they share one card, NCCL
     with a card each) for each run of ``MESH_RUNS``, in one launch. The
     ranks must report the same per-step losses and bit-identical whole
-    weights, only rank 0 may write, and the EAGLE3 resume from step 2 must
+    weights, only rank 0 may write, and the EAGLE3 resume from its middle
+    checkpoint must
     reach the final weights bit-exactly (``check_mesh_counts`` holds each
     rank's launches to ``mesh_expected_launches``). Then one process runs each
     run's global batch from the same initial weights on the TTT kernels:
@@ -3446,8 +3563,11 @@ def run_mesh_training(device, seed: int, workdir: Path, *, head_std=0.02,
                               seed, head_std)
     # the ranks share the one card when there are fewer cards than ranks
     shared = on_card and torch.cuda.device_count() < MESH_RANKS
-    layers, max_len = {}, {}
+    layers, max_len, n_files = {}, {}, {}
     for name, (cfg_path, *_, files, lo, hi) in MESH_RUNS.items():
+        if shared:
+            files = MESH_ONE_CARD_FILES.get(name, files)
+        n_files[name] = files
         if shared and name in MESH_ONE_CARD_MAX_LEN:
             hi = MESH_ONE_CARD_MAX_LEN[name]
             lo = min(lo, hi - hi // 4)
@@ -3469,8 +3589,8 @@ def run_mesh_training(device, seed: int, workdir: Path, *, head_std=0.02,
                                   files, lo, hi)
         else:
             write_features(workdir / name, eagle_cfg, seed, files, lo, hi)
-        mesh_run_json(workdir, name, target, cfg_path, hi, mesh=True)
-        mesh_run_json(workdir, name, target, cfg_path, hi, mesh=False)
+        mesh_run_json(workdir, name, target, cfg_path, hi, files, mesh=True)
+        mesh_run_json(workdir, name, target, cfg_path, hi, files, mesh=False)
     write_features(workdir / "eagle3_eval", eagle_cfg, seed + 100,
                    MESH_EVAL_FILES, max_len["eagle3"] - max_len["eagle3"] // 4,
                    max_len["eagle3"])
@@ -3484,8 +3604,8 @@ def run_mesh_training(device, seed: int, workdir: Path, *, head_std=0.02,
                           MESH_RANKS, MESH_TIMEOUT, "mesh")
     results = {"ranks_s": time.perf_counter() - t0, "runs": {}}
     counts = {}
-    for name, (_, _, layout, batch, accum, files, *_) in MESH_RUNS.items():
-        hi = max_len[name]
+    for name, (_, _, layout, batch, accum, *_) in MESH_RUNS.items():
+        hi, files = max_len[name], n_files[name]
         recs = [r[name] for r in records]
         rank0 = recs[0]
         steps = step_records(workdir / f"runs_mesh_{name}", f"mesh_{name}")
@@ -3501,9 +3621,10 @@ def run_mesh_training(device, seed: int, workdir: Path, *, head_std=0.02,
             if name == "eagle3" and (rec["resumed_digest"] != rank0["digest"]
                                      or rec["step1_loss"]
                                      != rank0["step1_loss"]):
-                raise AssertionError(f"{name} rank {r}: the resume from step "
-                                     "2 did not reach the final weights "
-                                     "bit-exactly, or step 1 differs")
+                raise AssertionError(f"{name} rank {r}: the resume from the "
+                                     "middle checkpoint did not reach the "
+                                     "final weights bit-exactly, or step 1 "
+                                     "differs")
         roles = [(r["writes_checkpoints"], r["tracks"]) for r in recs]
         if roles != [(True, True)] + [(False, False)] * (MESH_RANKS - 1):
             raise AssertionError(f"{name}: IO roles {roles}")
@@ -3543,7 +3664,7 @@ def run_mesh_training(device, seed: int, workdir: Path, *, head_std=0.02,
             res["step1_grads"] = compare_grads(
                 grads_m, {k: g.cpu() for k, g in grads_s.items()})
             del grads_s, grads_m
-            res["resume"] = {"from": "mesh_eagle3-step2",
+            res["resume"] = {"from": f"mesh_eagle3-step{len(steps) // 2}",
                              "steps": rank0["resumed_steps"],
                              "bit_exact": True}
             res["final_eval"] = final_eval(CheckpointManager.resolve_step_dir(
@@ -3668,6 +3789,7 @@ def mesh_phase(seed: int) -> None:
                                             Path(tmp))
     check_mesh_counts(results)
     shared = next(iter(results["runs"].values()))["transport"] == "gloo"
+    eagle3 = results["runs"]["eagle3"]
     emit({"phase": "mesh_training",
           "ranks": MESH_RANKS,
           "configs": {name: {"draft_config": str(run[0].relative_to(REPO)),
@@ -3676,8 +3798,12 @@ def mesh_phase(seed: int) -> None:
           "cards": "the 4 ranks share one card" if shared else
                    "4 cards, one a rank",
           "reduced": {
-              "eagle3": "4 optimizer steps of 2 micro-batches of the global "
-                        "batch 4, 32 files, checkpoints at steps 2 and 4",
+              "eagle3": (f"{eagle3['optimizer_steps']} optimizer steps of "
+                         f"{eagle3['accumulation_steps']} micro-batches of the "
+                         f"global batch {eagle3['global_batch']}, "
+                         f"{eagle3['files']} files, checkpoints at steps "
+                         f"{eagle3['optimizer_steps'] // 2} and "
+                         f"{eagle3['optimizer_steps']}"),
               "peagle": "one step of the global batch 4, 4 files of "
                         "768-1024 tokens, row-sparse embedding",
               "domino": "one step of the global batch 4, 4 files of "
@@ -3685,7 +3811,9 @@ def mesh_phase(seed: int) -> None:
               "usp": "one step of the global batch 2",
               "one_card": {"layers": MESH_ONE_CARD_LAYERS,
                            "max_length": MESH_ONE_CARD_MAX_LEN,
-                           "why": "the 4 ranks share the card's 80 GB"}
+                           "files": MESH_ONE_CARD_FILES,
+                           "why": "the 4 ranks share the card's 80 GB "
+                                  "(layers, tokens) and its time (files)"}
               if shared else None},
           "launches_summed_over_ranks": counts,
           "tolerances": {"step1_loss_rtol": TRAIN_STEP1_RTOL,
@@ -3694,6 +3822,259 @@ def mesh_phase(seed: int) -> None:
                          "grad_norm_rtol": GRAD_NORM_RTOL},
           **results})
     torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------------
+# slice 15: the offline leftovers — every RoPE type, reference features and
+# warm start — on the Llama-3-70B, Qwen2.5-VL-7B and DeepSeek-V2-Lite drafts
+# --------------------------------------------------------------------------
+
+LLAMA_CONFIG = REPO / "configs" / "llama3-70b-eagle3.json"
+QWEN_VL_CONFIG = REPO / "configs" / "qwen2.5-vl-7b-eagle3.json"
+DEEPSEEK_CONFIG = REPO / "configs" / "deepseek-v2-lite-eagle3.json"
+#: run name → its draft config and how the phase drives it: feature files,
+#: accumulation (so optimizer steps = files / (BATCH · accum)), the feature
+#: format (reference ``.ckpt``, ``.sft`` with mrope's [3, S] position ids,
+#: or plain ``.sft``), a warm start from an export written here, and the
+#: timings (the micro-step, optimizer step, peak memory, a profiled
+#: micro-step)
+LEFTOVER_RUNS = {
+    "llama3_70b": dict(config=LLAMA_CONFIG, files=TRAIN_FILES, accum=ACCUM,
+                       features="ckpt", warm_start=True, timed=True),
+    "qwen2_5_vl_7b": dict(config=QWEN_VL_CONFIG, files=BATCH, accum=1,
+                          features="mrope", warm_start=False, timed=False),
+    "deepseek_v2_lite": dict(config=DEEPSEEK_CONFIG, files=BATCH, accum=1,
+                             features="sft", warm_start=False, timed=False),
+}
+def write_warm_start_export(root: Path, cfg_path: Path, device, seed: int
+                            ) -> dict:
+    """A trained draft's ``model.safetensors`` in the export's torch-key
+    layout (the SGLang layout: bf16, ``q_proj``/``k_proj``/``v_proj`` and
+    ``gate_proj``/``up_proj`` split out of the merged projections, no
+    embedding, a vocab map), made from a seeded draft → the values the
+    port's parameters must take, by port name (bf16, on the host)."""
+    cfg = Eagle3Config.from_file(cfg_path)
+    draft = LlamaEagle3Draft(cfg, device=device, seed=seed + 7)
+    draft.set_vocab_maps(*vocab_map(cfg, seed + 7))
+    d = cfg.resolved_head_dim
+    q_rows = cfg.num_attention_heads * d
+    kv_rows = cfg.num_key_value_heads * d
+    expected, tensors = {}, {}
+    for name, p in draft.named_parameters():
+        if name == "embed_tokens.weight":
+            continue
+        value = p.detach().to(torch.bfloat16).cpu()
+        expected[name] = value
+        stem = name.rsplit(".", 2)[0]
+        if name.endswith("qkv_proj.weight"):
+            pieces = value.split([q_rows, kv_rows, kv_rows])
+            for part, piece in zip(("q_proj", "k_proj", "v_proj"), pieces):
+                tensors[f"{stem}.{part}.weight"] = piece
+        elif name.endswith("gate_up_proj.weight"):
+            for part, piece in zip(("gate_proj", "up_proj"), value.chunk(2)):
+                tensors[f"{stem}.{part}.weight"] = piece
+        else:
+            tensors[name] = value
+    tensors["t2d"] = draft.t2d.cpu()
+    tensors["d2t"] = draft.d2t.cpu()
+    del draft
+    root.mkdir(parents=True, exist_ok=True)
+    save_feature_file(str(root / "model.safetensors"), tensors)
+    return expected
+
+
+def leftover_run_json(workdir: Path, cfg_path: Path, target: Path,
+                      max_length: int, accum: int,
+                      warm_start: Optional[Path]) -> Path:
+    """``examples/qwen3-8b-eagle3-offline.json``, read as data, pointed at
+    this run's draft config, features and target, one epoch with no eval
+    and no checkpoint but the epoch's last, and the warm start when
+    given."""
+    raw = json.loads(EXAMPLE.read_text())
+    raw["run_id"] = "smoke"
+    raw["output_dir"] = str(workdir / "runs")
+    raw["model"].update(target_model_path=str(target),
+                        draft_config_path=str(cfg_path))
+    if warm_start is not None:
+        raw["model"]["draft_checkpoint_path"] = str(warm_start)
+    raw["data"].update(train_data_path=str(workdir / "train"),
+                       eval_data_path=None, max_length=max_length,
+                       num_workers=2)
+    raw["training"].update(num_epochs=1, accumulation_steps=accum,
+                           save_interval=0, eval_interval=0, log_interval=1)
+    raw["tracking"] = {"backend": "jsonl"}
+    path = workdir / "run.json"
+    path.write_text(json.dumps(raw, indent=2))
+    return path
+
+
+def run_leftover(spec: dict, device, seed: int, workdir: Path, *,
+                 max_length=MAX_LEN, min_len=1536, head_std=0.02,
+                 overrides=()) -> tuple:
+    """One draft of ``LEFTOVER_RUNS`` through ``cli train`` (the counted main
+    path), then its kernel-path trainer (the warm-started weights against
+    the export's, the step-1 loss and gradients twice for the same bits and
+    against the ``cli`` run's step 1; the timings) and its plain-path
+    trainer (chunked attention, reference CE) from the same weights →
+    (results, launch counts)."""
+    t_start = time.perf_counter()
+    cfg_path = spec["config"]
+    cfg = Eagle3Config.from_file(cfg_path)
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    write_features(workdir / "train", cfg, seed, spec["files"], min_len,
+                   max_length, fmt=spec["features"])
+    target = write_target_dir(workdir / "target", cfg.vocab_size,
+                              cfg.resolved_target_hidden_size, device, seed,
+                              head_std)
+    warm_dir = workdir / "export" if spec["warm_start"] else None
+    expected = (write_warm_start_export(warm_dir, cfg_path, device, seed)
+                if warm_dir is not None else None)
+    run_json = leftover_run_json(workdir, cfg_path, target, max_length,
+                                 spec["accum"], warm_dir)
+    runs = workdir / "runs"
+    overrides = list(overrides)
+    device_args = [] if on_card else ["--device", str(device)]
+    results = {"setup_s": time.perf_counter() - t_start,
+               "feature_files": sorted(p.name for p in
+                                       (workdir / "train").iterdir())}
+
+    def trainer_for(*extra):
+        config = load_config(str(run_json), overrides + list(extra))
+        return build_training_run(config, device=None if on_card else device)
+
+    # the main path: cli train
+    for fn in KERNEL_COUNTERS.values():
+        fn.launches = 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    rc = cli.main(["train", "-c", str(run_json), *device_args,
+                   *[a for o in overrides for a in ("--set", o)]])
+    sync()
+    results["cli_train_s"] = time.perf_counter() - t0
+    counts = {name: fn.launches for name, fn in KERNEL_COUNTERS.items()}
+    if rc != 0:
+        raise AssertionError(f"cli train exited {rc}")
+    if on_card:
+        results["cli_train_peak_bytes"] = torch.cuda.max_memory_allocated()
+    steps = step_records(runs, "smoke")
+    micro_batches = spec["files"] // BATCH
+    if len(steps) * spec["accum"] != micro_batches:
+        raise AssertionError(f"{len(steps)} optimizer steps of "
+                             f"{spec['accum']} micro-batches, expected "
+                             f"{micro_batches} micro-batches")
+    for k in steps:
+        if not (math.isfinite(k["train/loss"])
+                and math.isfinite(k["train/grad_norm"])):
+            raise AssertionError(f"step {k['step']}: loss not finite")
+    # the vocab mapping the cli run derived from the features: the trainers
+    # below read it instead of deriving it again
+    derived = runs / "smoke.vocab_mapping.npz"
+    if derived.exists():
+        mapping = workdir / "vocab_mapping.npz"
+        shutil.move(derived, mapping)
+        overrides.append(f'model.vocab_mapping_path="{mapping}"')
+    shutil.rmtree(runs)
+
+    # the kernel path: the same weights as the cli run's (warm-started, or
+    # drawn from the same seed)
+    kernel = trainer_for('run_id="kernel"')
+    if expected is not None:
+        mismatched = [n for n, v in expected.items() if not torch.equal(
+            kernel.state.params[f"draft_model.{n}"].detach().cpu(),
+            v.float())]
+        check("warm-started weights differing from the export's",
+              float(len(mismatched)), 0.0)
+        results["warm_start"] = {"from": "model.safetensors (export layout)",
+                                 "tensors": len(expected),
+                                 "bit_identical": not mismatched}
+    window = first_window(kernel)
+    loss_k, grads_k = window_grads(kernel, window)
+    loss_again, grads_again = window_grads(kernel, window)
+    repeat = loss_again == loss_k and all(
+        torch.equal(g, grads_again[n]) for n, g in grads_k.items())
+    check("step-1 loss and gradients, repeated (bits differing)",
+          0.0 if repeat else 1.0, 0.0)
+    check("step-1 loss, kernel trainer vs the cli run (bits differing)",
+          0.0 if loss_k == steps[0]["train/loss"] else 1.0, 0.0)
+    results["repeat_bit_exact"] = repeat
+    del grads_again
+    grads_k = {k: g.cpu() for k, g in grads_k.items()}
+    if spec["timed"]:
+        results.update(measure_kernel_path(kernel, window, sync))
+    del kernel
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the plain path from the same weights: chunked attention (the dense
+    # backend at S >= 1024) and the reference CE
+    plain = trainer_for('run_id="plain"',
+                        'training.attention_backend="dense"')
+    plain.strategy.model.loss_fn = log_softmax_loss_reference
+    loss_p, grads_p = window_grads(plain, window)
+    del plain
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    check("step-1 loss, kernel vs plain", rel, TRAIN_STEP1_RTOL)
+    results["step1"] = {"loss": loss_k, "plain_loss": loss_p,
+                        "rel_diff": rel}
+    grads = compare_grads(grads_k, grads_p)
+    del grads_k, grads_p
+    cosines = [g["cosine"] for g in grads.values() if g["cosine"] is not None]
+    results["step1_grads"] = {
+        "min_cosine": min(cosines),
+        "max_norm_rel_diff": max(g["norm_rel_diff"] for g in grads.values()
+                                 if g["cosine"] is not None),
+        "parameters": len(grads)}
+    if on_card:
+        torch.cuda.empty_cache()
+    results.update({
+        "optimizer_steps": len(steps),
+        "micro_batches": micro_batches,
+        "loss_curve": [{"step": k["step"], "loss": k["train/loss"],
+                        "grad_norm": k["train/grad_norm"]} for k in steps],
+        "seconds": time.perf_counter() - t_start,
+    })
+    if "micro_step_ms" in results:
+        results["tokens_per_s"] = BATCH * max_length / (
+            results["micro_step_ms"] / 1e3)
+    return results, counts
+
+
+def offline_leftovers_phase(seed: int, run_dir_warm_start: dict) -> None:
+    """Every run of ``LEFTOVER_RUNS`` at full width, one line each, then the
+    phase's line with the run-directory warm start of the EAGLE3 training
+    phase."""
+    t0 = time.perf_counter()
+    launches = {}
+    for name, spec in LEFTOVER_RUNS.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            results, counts = run_leftover(spec, torch.device("cuda"), seed,
+                                           Path(tmp))
+        check_training_counts(counts, results["micro_batches"], 0)
+        launches[name] = counts
+        draft = json.loads(spec["config"].read_text())
+        emit({"phase": f"offline_leftovers_{name}",
+              "config": str(EXAMPLE.relative_to(REPO)),
+              "draft_config": str(spec["config"].relative_to(REPO)),
+              "rope": draft.get("rope_scaling"),
+              "heads": [draft["num_attention_heads"],
+                        draft["num_key_value_heads"]],
+              "features": spec["features"], "batch": BATCH,
+              "max_length": MAX_LEN, "ttt_length": TTT,
+              "accumulation_steps": spec["accum"], "launches": counts,
+              "reduced": {"steps": f"{spec['files'] // BATCH // spec['accum']}"
+                                   " optimizer steps, no eval",
+                          "weights": "random, from --seed"},
+              "tolerances": {"step1_loss_rtol": TRAIN_STEP1_RTOL,
+                             "grad_cosine": GRAD_COSINE,
+                             "grad_norm_rtol": GRAD_NORM_RTOL},
+              **results})
+        torch.cuda.empty_cache()
+    emit({"phase": "offline_leftovers", "launches": launches,
+          "run_dir_warm_start": run_dir_warm_start,
+          "seconds": time.perf_counter() - t0})
 
 
 def main() -> int:
@@ -3715,6 +4096,10 @@ def main() -> int:
     # a machine with a card per rank, its ranks talk NCCL
     parser.add_argument("--mesh-only", action="store_true",
                         help="run only the dp x fsdp (and USP) mesh phase")
+    # the offline leftovers' drafts alone (no run-directory warm start: the
+    # EAGLE3 training phase makes its checkpoint)
+    parser.add_argument("--leftovers-only", action="store_true",
+                        help="run only the offline_leftovers training runs")
     args = parser.parse_args()
     if args.usp_rank:
         usp_rank(Path(args.usp_rank), torch.device(args.device), args.set)
@@ -3728,6 +4113,10 @@ def main() -> int:
 
     smi = device_facts()
     build()
+    if args.leftovers_only:
+        offline_leftovers_phase(args.seed, None)
+        print(smi, flush=True)
+        return 0
     if not args.usp_only:
         mesh_phase(args.seed)
         if args.mesh_only:
@@ -3863,6 +4252,8 @@ def main() -> int:
                          "embedding_update_rtol": EMBED_UPDATE_RTOL},
           **results})
     torch.cuda.empty_cache()
+
+    offline_leftovers_phase(args.seed, training["run_dir_warm_start"])
 
     # each kernel's launches from its own main path: the EAGLE3 kernels from
     # the EAGLE3 training run, the DFlash kernels from the Domino run, the

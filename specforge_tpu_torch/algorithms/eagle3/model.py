@@ -36,6 +36,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
+from specforge_tpu_torch.data.collator import position_ids_seq_second
 from specforge_tpu_torch.models.draft.llama_eagle3 import LlamaEagle3Draft
 from specforge_tpu_torch.ops.attention import make_causal_bias
 from specforge_tpu_torch.ops.lk_loss import acceptance_sums, compute_lk_loss
@@ -167,7 +168,9 @@ class OnlineEagle3Model(nn.Module):
                 shard.start, shard.start + s_loc, device=input_ids.device
             ).expand(batch_size, s_loc)
         else:
-            position_ids = shard.chunk(position_ids)
+            position_ids = shard.chunk(position_ids_seq_second(position_ids))
+            if position_ids.dim() == 3:  # mrope → rope's [3, B, S]
+                position_ids = position_ids.permute(2, 0, 1)
 
         cache = ((), ())
         cur_input_ids = shard.window(input_ids)

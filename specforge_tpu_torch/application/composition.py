@@ -3,8 +3,10 @@
 Counterpart of ``specforge_tpu/application/composition.py`` for offline
 runs of EAGLE3, the DFlash family (dflash, domino) and P-EAGLE: resolves the
 algorithm registration, builds the draft, training model and strategy
-through the providers, loads the frozen target tables and the vocab mapping
-(from a file, or derived from the training features), wires the loaders
+through the providers, warm-starts the draft from
+``model.draft_checkpoint_path`` when set, loads the frozen target tables
+and the vocab mapping (from a file, or derived from the training
+features), wires the loaders
 (``PaddingCollator``, or ``PackingCollator`` under ``data.pack_documents``)
 and the tracker, and returns the :class:`Trainer`. EAGLE3 copies the target
 embedding into its draft and freezes it (the frozen table cast to bf16);
@@ -19,10 +21,10 @@ draft over them; the rank of batch block ``d·fsdp + f`` loads that
 block's rows of every global batch (``training.batch_size`` is the global
 batch), the ranks of one block (its sequence group) the same samples; the
 primary rank derives the vocab mapping and owns the tracker. The trainer
-shards the state over fsdp (``parallel/fsdp.py``). What the port has not
-reached yet (online runs, a warm start) is refused with the slice that
-brings it, and an eval pass for the DFlash family and P-EAGLE, which their
-JAX strategies do not define, is refused by name.
+shards the state over fsdp (``parallel/fsdp.py``). What the port has
+not reached yet (online runs) is refused with the slice that brings it,
+and an eval pass for the DFlash family and P-EAGLE, which their JAX
+strategies do not define, is refused by name.
 """
 
 from __future__ import annotations
@@ -63,6 +65,7 @@ from specforge_tpu_torch.runtime.data_plane.offline_reader import (
 from specforge_tpu_torch.training.model_loading import (
     draft_config_fingerprint,
     frozen_input_fingerprint,
+    warm_start_draft,
 )
 from specforge_tpu_torch.training.optimizer import (
     OptimizerConfig,
@@ -128,11 +131,6 @@ def _refuse_unported(config: Config) -> None:
         raise NotImplementedError(
             f"attention_backend='usp' is EAGLE3's; {t.strategy!r} has no "
             "sequence-parallel path, in the JAX package or the port"
-        )
-    if config.model.draft_checkpoint_path:
-        raise NotImplementedError(
-            "model.draft_checkpoint_path (warm_start_draft) is not ported "
-            "yet; see ROADMAP.md, Queue 1"
         )
 
 
@@ -293,6 +291,12 @@ def build_training_run(config: Config, registry=None, frozen_override=None,
     # the ranks whose losses and metrics sum into the global batch's
     model.mesh = mesh
     strategy = providers.build_strategy(model, options)
+    if config.model.draft_checkpoint_path:
+        # before any optimizer state, and under fsdp before the trainer
+        # slices the masters: every rank loads the same whole weights
+        warm_start_draft(model, config.model.draft_checkpoint_path)
+        logger.info("warm-started draft weights from %s",
+                    config.model.draft_checkpoint_path)
     if config.data.eval_data_path and not hasattr(strategy, "eval_outputs"):
         raise NotImplementedError(
             f"an eval pass for {t.strategy!r}: the JAX strategies of the "

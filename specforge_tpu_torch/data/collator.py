@@ -53,6 +53,31 @@ def _pad_to(x: torch.Tensor, length: int, pad_value=0) -> torch.Tensor:
     return F.pad(x, pad, value=pad_value)
 
 
+def _pad_position_ids(x: torch.Tensor, length: int) -> torch.Tensor:
+    """[S] rope or [3, S] mrope (vision) position ids, padded with 0 (or
+    cut) on the sequence (last) axis; stacked batch-first, [B, 3, S], and
+    the model moves the axis to rope's [3, B, S]."""
+    x = x.to(torch.int32)
+    if x.dim() == 1:
+        return _pad_to(x, length)
+    if x.dim() != 2 or x.shape[0] != 3:
+        raise ValueError(
+            f"position_ids must be [S] or [3, S], got {tuple(x.shape)}")
+    return _pad_to(x.T, length).T.contiguous()
+
+
+def position_ids_seq_second(x: torch.Tensor) -> torch.Tensor:
+    """Batched position ids with the sequence on the second axis, as every
+    other batch tensor has it: mrope's [B, 3, S] → [B, S, 3]; [B, S] ids as
+    they are. :func:`position_ids_from_seq_second` undoes it."""
+    return x.movedim(1, 2) if x.dim() == 3 else x
+
+
+def position_ids_from_seq_second(x: torch.Tensor) -> torch.Tensor:
+    """[B, S, 3] → the collator's [B, 3, S]; [B, S] ids as they are."""
+    return x.movedim(2, 1) if x.dim() == 3 else x
+
+
 class PaddingCollator:
     """List of per-sample tensor dicts → TrainBatch of [B, max_length, ...]."""
 
@@ -81,12 +106,7 @@ class PaddingCollator:
                 elif name == "attention_mask":
                     x = _pad_to(x.reshape(-1).to(torch.int32), L)
                 elif name == "position_ids":
-                    if x.dim() != 1:
-                        raise ValueError(
-                            "only [S] position_ids are supported by the port "
-                            f"(mrope comes later), got {tuple(x.shape)}"
-                        )
-                    x = _pad_to(x.to(torch.int32), L)
+                    x = _pad_position_ids(x, L)
                 elif x.dim() == 1:
                     x = _pad_to(x, L)
                 else:

@@ -35,10 +35,15 @@ from torch import nn
 from specforge_tpu_torch.models.draft.base import DraftModelConfig
 from specforge_tpu_torch.ops.attention import (
     make_causal_bias,
-    ttt_branch_attention_reference,
+    ttt_branch_attention,
 )
 from specforge_tpu_torch.ops.attention_cuda import ttt_flash_attention
-from specforge_tpu_torch.ops.rope import RopeSpec, apply_rope, rope_cos_sin
+from specforge_tpu_torch.ops.rope import (
+    RopeSpec,
+    apply_multimodal_rope,
+    apply_rope,
+    rope_cos_sin,
+)
 from specforge_tpu_torch.parallel.usp import (
     ulysses_scatter_heads,
     usp_ttt_attention_scattered,
@@ -138,7 +143,8 @@ class Eagle3Attention(nn.Module):
 
         hidden_2h [B, S, 2*hidden]; cache: (keys, values) tuples of earlier
         branches [B, KVH, S, D]; bias [B, 1, S, S] (dense backend) or None;
-        position_ids [B, S]; key_valid [B, S] (kernel backends).
+        position_ids [B, S] (or mrope's [3, B, S]); key_valid [B, S] (kernel
+        backends).
         Returns (attn_out [B, S, hidden], new_cache).
 
         Under ``"usp"`` S is this rank's chunk, position_ids are global,
@@ -157,10 +163,16 @@ class Eagle3Attention(nn.Module):
 
         lck = len(cache[0])
         seq = s * self.mesh.sp_size if self.mesh is not None else s
-        cos, sin = rope_cos_sin(
-            self.rope_spec, position_ids + lck, seq + lck, dtype=q.dtype
-        )
-        q, k = apply_rope(q, k, cos, sin)
+        spec = self.rope_spec
+        if spec.scaling_type == "mrope" and position_ids.dim() == 2:
+            # text only: all three mrope axes share the positions
+            position_ids = position_ids.expand(3, *position_ids.shape)
+        cos, sin = rope_cos_sin(spec, position_ids + lck, seq + lck,
+                                dtype=q.dtype)
+        if spec.scaling_type == "mrope":
+            q, k = apply_multimodal_rope(q, k, cos, sin, spec.mrope_section)
+        else:
+            q, k = apply_rope(q, k, cos, sin)
         if self.attention_backend == "usp":
             mesh, g = self.mesh, h // kvh
             keys = tuple(cache[0]) + (ulysses_scatter_heads(
@@ -175,7 +187,7 @@ class Eagle3Attention(nn.Module):
         if self.attention_backend == "pallas":
             attn_out = ttt_flash_attention(q, keys, values, key_valid=key_valid)
         else:
-            attn_out = ttt_branch_attention_reference(q, keys, values, bias)
+            attn_out = ttt_branch_attention(q, keys, values, bias)
         return self.o_proj(attn_out), (keys, values)
 
 

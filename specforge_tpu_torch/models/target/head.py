@@ -4,7 +4,8 @@ Counterpart of ``specforge_tpu/models/target/head.py``: offline capture
 stores the target's final hidden state; the trainer re-runs the frozen head
 and owns the teacher shift. :meth:`TargetHead.from_pretrained` reads the
 head (or the embedding) from a local HF checkpoint directory through its
-safetensors index, with the port's own safetensors reader.
+safetensors index, with the port's own safetensors reader, and folds a
+muP target's ``logits_mup_width_multiplier`` into the head.
 """
 
 from __future__ import annotations
@@ -71,15 +72,23 @@ class TargetHead:
                 and tied_fallback):
             lm_head_key = "model.embed_tokens.weight"
         weight = read_safetensors_tensor(shard_path, lm_head_key).to(dtype)
-        is_head = lm_head_key == "lm_head.weight" or tied_fallback
-        mup = raw.get("logits_mup_width_multiplier") or (
-            raw.get("text_config") or {}
-        ).get("logits_mup_width_multiplier")
-        if is_head and mup:
-            raise NotImplementedError(
-                "muP targets (logits_mup_width_multiplier) are not ported "
-                "yet; see ROADMAP.md, Queue 1"
-            )
+        # muP targets: the width multiplier is folded into the frozen head
+        # once, so teacher logits recomputed from the captured hidden state
+        # match the target's serving logits. Only the real lm_head is
+        # folded: an embedding read through this loader stays unscaled.
+        if lm_head_key == "lm_head.weight" or tied_fallback:
+            mup = raw.get("logits_mup_width_multiplier") or (
+                raw.get("text_config") or {}
+            ).get("logits_mup_width_multiplier")
+            if mup:
+                if raw.get("tie_word_embeddings", False):
+                    raise ValueError(
+                        "cannot fold logits_mup_width_multiplier into a "
+                        "tied embedding/lm_head"
+                    )
+                # the JAX package divides by the multiplier rounded to the
+                # head's dtype (a weakly typed scalar); so does the port
+                weight = weight / torch.tensor(float(mup), dtype=weight.dtype)
         return cls(weight)
 
 

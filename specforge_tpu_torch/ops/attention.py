@@ -1,5 +1,6 @@
-"""Dense TTT branch attention (the ``"dense"`` backend), the causal bias,
-and the DFlash family's chunked block attention (the ``"chunked"`` backend).
+"""TTT branch attention (the ``"dense"`` backend: dense, or chunked over
+queries for long sequences), the causal bias, and the DFlash family's
+chunked block attention (the ``"chunked"`` backend).
 
 Counterpart of ``specforge_tpu/ops/attention.py``. At TTT step ``t`` the
 query attends (a) fully causally to the step-0 keys/values and (b) to exactly
@@ -56,21 +57,24 @@ def ttt_branch_attention_reference(
     """Dense TTT branch attention.
 
     Args:
-        q: [B, H, S, D] roped queries of the current step.
-        keys/values: per-branch [B, KVH, S, D]; branch 0 is the full causal
-            block, branches 1..t contribute one diagonal key each.
-        bias: [B, 1, S, S] additive bias for the causal block.
+        q: [B, H, Sq, D] roped queries of the current step (Sq = S, or a
+            chunk of the queries).
+        keys/values: branch 0 is the full causal block [B, KVH, S, D];
+            branches 1..t contribute one diagonal key each, [B, KVH, Sq, D]
+            aligned with the queries.
+        bias: [B, 1, Sq, S] additive bias for the causal block.
 
     Returns:
-        [B, S, H*D] attention output in q's dtype.
+        [B, Sq, H*D] attention output in q's dtype.
     """
-    b, h, s, d = q.shape
+    b, h, sq, d = q.shape
     kvh = keys[0].shape[1]
+    s = keys[0].shape[2]
     g = h // kvh
     scale = 1.0 / (d ** 0.5)
-    qg = q.reshape(b, kvh, g, s, d).float()
+    qg = q.reshape(b, kvh, g, sq, d).float()
 
-    # causal block: [B, KVH, G, S, S] in fp32 (products of the working dtype)
+    # causal block: [B, KVH, G, Sq, S] in fp32 (products of the working dtype)
     w0 = torch.einsum("bkgsd,bktd->bkgst", qg, keys[0].float()) * scale
     w0 = w0 + bias[:, :, None].float()
     extras = [
@@ -83,7 +87,54 @@ def ttt_branch_attention_reference(
     out = torch.einsum("bkgst,bktd->bkgsd", p[..., :s], values[0])
     for i, vi in enumerate(values[1:]):
         out = out + p[..., s + i, None] * vi[:, :, None]
-    return out.reshape(b, h, s, d).transpose(1, 2).reshape(b, s, h * d)
+    return out.reshape(b, h, sq, d).transpose(1, 2).reshape(b, sq, h * d)
+
+
+#: queries a chunk of the chunked path holds
+ATTENTION_Q_CHUNK = 256
+
+#: sequences at or above this length (and a multiple of
+#: :data:`ATTENTION_Q_CHUNK`) take the chunked path
+CHUNKED_ATTENTION_MIN_SEQ = 1024
+
+
+def ttt_branch_attention_chunked(
+    q: torch.Tensor,
+    keys: Sequence[torch.Tensor],
+    values: Sequence[torch.Tensor],
+    bias: torch.Tensor,
+) -> torch.Tensor:
+    """TTT branch attention over chunks of :data:`ATTENTION_Q_CHUNK`
+    queries, each the dense path under activation checkpointing, so the
+    scores held at a time are O(chunk · S) and the backward recomputes them
+    (the long-sequence plain path). The branch diagonals are aligned with
+    the queries, so a chunk reads only its own slice of each branch. S must
+    be a multiple of the chunk."""
+    outs = []
+    for start in range(0, q.shape[2], ATTENTION_Q_CHUNK):
+        rows = slice(start, start + ATTENTION_Q_CHUNK)
+        outs.append(checkpoint(
+            ttt_branch_attention_reference, q[:, :, rows],
+            [keys[0]] + [ki[:, :, rows] for ki in keys[1:]],
+            [values[0]] + [vi[:, :, rows] for vi in values[1:]],
+            bias[:, :, rows],
+            use_reentrant=False,
+        ))
+    return torch.cat(outs, dim=1)
+
+
+def ttt_branch_attention(
+    q: torch.Tensor,
+    keys: Sequence[torch.Tensor],
+    values: Sequence[torch.Tensor],
+    bias: torch.Tensor,
+) -> torch.Tensor:
+    """The ``"dense"`` backend: dense for short sequences, chunked from
+    :data:`CHUNKED_ATTENTION_MIN_SEQ` on."""
+    s = q.shape[2]
+    if s >= CHUNKED_ATTENTION_MIN_SEQ and s % ATTENTION_Q_CHUNK == 0:
+        return ttt_branch_attention_chunked(q, keys, values, bias)
+    return ttt_branch_attention_reference(q, keys, values, bias)
 
 
 def dflash_attention(

@@ -1,7 +1,8 @@
-"""FeatureDataLoader: refs → fetch → collate → TrainBatch.
+"""FeatureDataLoader: refs → materialize → collate → TrainBatch.
 
 Counterpart of ``specforge_tpu/runtime/data_plane/feature_dataloader.py``
-(the offline, list-of-refs mode): store fetches run on background threads
+(the offline, list-of-refs mode): materialization (the store fetch and an
+optional per-sample ``transform(tensors, ref)``) runs on background threads
 with ordered handoff, so training sees a deterministic sequence; an
 incomplete final batch is dropped. ``seek`` positions the next pass after a
 number of samples, for a mid-epoch resume. Batches stay on the host; the
@@ -13,10 +14,15 @@ from __future__ import annotations
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 
+import torch
+
 from specforge_tpu_torch.runtime.contracts import SampleRef, TrainBatch
 from specforge_tpu_torch.runtime.data_plane.feature_store import FeatureStore
 
+Transform = Callable[[Dict[str, torch.Tensor], SampleRef],
+                     Dict[str, torch.Tensor]]
 Collate = Callable[..., TrainBatch]
+
 
 class FeatureDataLoader:
     def __init__(
@@ -26,6 +32,7 @@ class FeatureDataLoader:
         *,
         refs: Sequence[SampleRef],
         batch_size: int = 1,
+        transform: Optional[Transform] = None,
         num_workers: int = 2,
         prefetch_batches: int = 2,
         metadata: Optional[Dict[str, Any]] = None,
@@ -34,6 +41,7 @@ class FeatureDataLoader:
         self.collate = collate
         self.refs = list(refs)
         self.batch_size = batch_size
+        self.transform = transform
         self.num_workers = max(0, num_workers)
         #: batches fetched ahead of the one being collated
         self.prefetch_batches = max(1, prefetch_batches)
@@ -57,20 +65,26 @@ class FeatureDataLoader:
         if self.num_workers == 0:
             for ref_batch in self._batched_refs():
                 yield self._collate_batch(
-                    ref_batch, [self.store.fetch(r) for r in ref_batch]
+                    ref_batch, [self._materialize(r) for r in ref_batch]
                 )
             return
         with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
             pending = []
             for ref_batch in self._batched_refs():
                 pending.append(
-                    (ref_batch, [pool.submit(self.store.fetch, r)
+                    (ref_batch, [pool.submit(self._materialize, r)
                                  for r in ref_batch])
                 )
                 if len(pending) > self.prefetch_batches:
                     yield self._collate_ready(*pending.pop(0))
             while pending:
                 yield self._collate_ready(*pending.pop(0))
+
+    def _materialize(self, ref: SampleRef) -> Dict[str, torch.Tensor]:
+        tensors = self.store.fetch(ref)
+        if self.transform is not None:
+            tensors = self.transform(tensors, ref)
+        return tensors
 
     def _collate_ready(self, ref_batch, futures) -> TrainBatch:
         return self._collate_batch(ref_batch, [f.result() for f in futures])

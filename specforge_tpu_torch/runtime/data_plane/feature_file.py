@@ -1,8 +1,9 @@
-"""On-disk feature files for offline training (``{sample_id}.sft``).
+"""On-disk feature files for offline training (``{sample_id}.sft``, and the
+reference's ``.ckpt`` / ``.ckpt.gz``).
 
-Counterpart of ``specforge_tpu/runtime/data_plane/feature_file.py``, for the
-``.sft`` format only. The files use the safetensors layout, read and written
-here directly so the port needs neither ``safetensors`` nor ``ml_dtypes``:
+Counterpart of ``specforge_tpu/runtime/data_plane/feature_file.py``. The
+native ``.sft`` files use the safetensors layout, read and written here
+directly so the port needs neither ``safetensors`` nor ``ml_dtypes``:
 
     8-byte little-endian header length N | N bytes of JSON header | raw data
 
@@ -10,10 +11,17 @@ The header maps each tensor name to ``{"dtype", "shape", "data_offsets"}``
 (offsets into the data section) plus an optional ``"__metadata__"`` dict of
 strings; it is padded with spaces to a multiple of 8 bytes. Tensors are
 ``torch`` tensors on the CPU; bf16 travels as its raw 2-byte patterns.
+
+The reference writes its offline hidden states as ``torch.save`` pickles of
+a dict of tensors (gzipped for ``.ckpt.gz``); :func:`load_feature_file`
+reads them with ``weights_only=True``, bf16 as it was stored, with empty
+metadata, and :func:`convert_ckpt_to_safetensors` rewrites one as ``.sft``.
 """
 
 from __future__ import annotations
 
+import gzip
+import io
 import json
 import os
 import struct
@@ -117,13 +125,25 @@ def read_safetensors_tensor(path: str, name: str) -> torch.Tensor:
         info["shape"])
 
 
+def _load_torch_ckpt(path: str) -> Dict[str, torch.Tensor]:
+    """A reference-format ``torch.save`` dict (gzip for ``.gz``) as CPU
+    tensors; a value that is not a tensor becomes one."""
+    if path.endswith(".gz"):
+        with gzip.open(path, "rb") as f:
+            src = io.BytesIO(f.read())
+    else:
+        src = path
+    obj = torch.load(src, map_location="cpu", weights_only=True)
+    return {key: value.detach().contiguous() if isinstance(value, torch.Tensor)
+            else torch.as_tensor(value)
+            for key, value in obj.items()}
+
+
 def load_feature_file(path: str) -> Tuple[Dict[str, torch.Tensor], Dict[str, str]]:
-    """Load tensors (CPU) and metadata of one ``.sft`` feature file."""
-    if not path.endswith(".sft"):
-        raise ValueError(
-            f"{path}: only .sft feature files are read by the port (the "
-            "reference .ckpt reader is not ported yet)"
-        )
+    """Load tensors (CPU) and metadata of one feature file: ``.sft``
+    (native), or ``.ckpt`` / ``.ckpt.gz`` (reference, no metadata)."""
+    if path.endswith((".ckpt", ".ckpt.gz")):
+        return _load_torch_ckpt(path), {}
     with open(path, "rb") as f:
         header, metadata, start = _read_header(f)
         f.seek(start)
@@ -139,3 +159,10 @@ def load_feature_file(path: str) -> Tuple[Dict[str, torch.Tensor], Dict[str, str
             raw = torch.empty(0, dtype=torch.uint8)
         tensors[name] = raw.view(dtype).reshape(info["shape"])
     return tensors, metadata
+
+
+def convert_ckpt_to_safetensors(
+    src: str, dst: str, metadata: Optional[Mapping[str, str]] = None
+) -> None:
+    """Rewrite a reference ``.ckpt`` / ``.ckpt.gz`` feature file as ``.sft``."""
+    save_feature_file(dst, _load_torch_ckpt(src), metadata)

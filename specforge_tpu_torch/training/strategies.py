@@ -21,6 +21,10 @@ from specforge_tpu_torch.algorithms.peagle.model import (
     document_ids_from_lengths,
     generate_cod_sample_indices,
 )
+from specforge_tpu_torch.data.collator import (
+    position_ids_from_seq_second,
+    position_ids_seq_second,
+)
 from specforge_tpu_torch.models.target.head import (
     apply_target_head,
     target_head_preprocess,
@@ -92,6 +96,16 @@ def _batch_block(ctx: Optional["StepContext"]) -> Tuple[int, int]:
     return ctx.batch_block if ctx is not None else (0, 1)
 
 
+def _take(shard: SequenceShard, name: str, x: torch.Tensor,
+          lookahead: int = 0) -> torch.Tensor:
+    """``shard.take`` over the sequence axis (for position ids, as
+    :func:`position_ids_seq_second` puts it)."""
+    if name == "position_ids":
+        return position_ids_from_seq_second(
+            shard.take(position_ids_seq_second(x), lookahead))
+    return shard.take(x, lookahead)
+
+
 def _apply(model, params, args, kwargs):
     if params is None:
         return model(*args, **kwargs)
@@ -152,7 +166,7 @@ class Eagle3TrainStrategy:
         _validate_batch(self, tensors)
         shift = (metadata or {}).get("target_repr") == "hidden_state"
         shard = self._shard(tensors["input_ids"].shape[1])
-        tensors = {k: shard.take(v, int(shift and k in self.shifted))
+        tensors = {k: _take(shard, k, v, int(shift and k in self.shifted))
                    if k in self.positional else v
                    for k, v in tensors.items()}
         device = model_device(self.model)

@@ -267,6 +267,17 @@ def test_ttt_attention_backward_edge_shapes(gen, s, d, n_keys, h, kvh):
     assert_backward_matches_plain(q, keys, values, valid, gen)
 
 
+@pytest.mark.parametrize("h,kvh", [(64, 8), (28, 4), (16, 16)])
+def test_ttt_kernels_at_the_offline_drafts_head_layouts(gen, h, kvh):
+    """The forward and both backward kernels at the head layouts of the
+    Llama-3-70B (a group of 8: two 4-head blocks), Qwen2.5-VL-7B (7: blocks
+    of 4 and 3) and DeepSeek-V2-Lite (1) EAGLE3 drafts, at the main path's
+    S = 2048 with 6 branches."""
+    q, keys, values, valid = attention_inputs(gen, 2, h, kvh, 2048, 128, 7)
+    assert_forward_matches_plain(q, keys, values, valid)
+    assert_backward_matches_plain(q, keys, values, valid, gen)
+
+
 @pytest.mark.parametrize("n_keys", [1, 8])
 def test_ttt_attention_backward_fully_masked_rows(gen, n_keys):
     """key_valid padded at the end and masking the first keys of batch 0:

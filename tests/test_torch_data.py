@@ -200,8 +200,9 @@ def test_manifest_refs_are_lazy(tmp_path):
 ])
 def test_ref_for_file_matches_jax(tmp_path, name, read_specs):
     """``ref_for_file`` in both modes, on an ``.sft`` written from a seed and
-    on ``.ckpt`` names (specs are read only for ``.sft``; the reference
-    ``.ckpt`` reader is not ported, so such a ref is not fetched)."""
+    on ``.ckpt`` names (specs are read only for ``.sft``; these ``.ckpt``
+    files are empty, so their refs are not fetched here:
+    ``tests/test_torch_data_plane.py`` reads real ones)."""
     path = str(tmp_path / name)
     rng = np.random.default_rng(5)
     arrays = sample_arrays(rng, 11)

@@ -254,8 +254,20 @@ def test_rope_spec_from_config_and_unported_types():
 
     spec = pt_rope.RopeSpec.from_config(Cfg)
     assert spec == pt_rope.RopeSpec(**jax_rope.RopeSpec.from_config(Cfg).__dict__)
-    with pytest.raises(NotImplementedError):
-        pt_rope.rope_cos_sin(spec, torch.zeros(1, 4, dtype=torch.int32), 4)
+    # yarn is ported (tests/test_torch_rope.py covers every type); a type
+    # neither package knows raises in both
+    pos = np.arange(8, dtype=np.int32)[None]
+    cos, _ = pt_rope.rope_cos_sin(spec, t(pos), 8)
+    cos_j, _ = jax_rope.rope_cos_sin(jax_rope.RopeSpec.from_config(Cfg),
+                                     jnp.asarray(pos), 8)
+    np.testing.assert_allclose(cos.numpy(), np.asarray(cos_j), rtol=1e-5,
+                               atol=1e-6)
+    bogus = pt_rope.RopeSpec(head_dim=128, scaling_type="bogus")
+    with pytest.raises(ValueError, match="Unknown RoPE"):
+        pt_rope.rope_cos_sin(bogus, torch.zeros(1, 4, dtype=torch.int32), 4)
+    with pytest.raises(ValueError, match="Unknown RoPE"):
+        jax_rope.inv_freq_and_scale(
+            jax_rope.RopeSpec(head_dim=128, scaling_type="bogus"), 4)
 
 
 def teacher_case(seed=6):

@@ -56,8 +56,8 @@ def test_slice_runs_on_the_cpu_at_small_size(smoke, tmp_path):
 
 def test_training_runs_on_the_cpu_at_small_size(smoke, tmp_path):
     """The training phase: cli train, the plain path from the same initial
-    weights, the resume from step 1 and the launch-count check (no launch
-    on CPU tensors)."""
+    weights, the resume from step 1, a warm start from step 1 and the
+    launch-count check (no launch on CPU tensors)."""
     cfg = Eagle3Config(vocab_size=2048, draft_vocab_size=512, hidden_size=128,
                        intermediate_size=384, num_attention_heads=4,
                        num_key_value_heads=2, max_position_embeddings=4096)
@@ -80,6 +80,11 @@ def test_training_runs_on_the_cpu_at_small_size(smoke, tmp_path):
     assert results["resume"]["steps"] == 2
     assert results["resume"]["max_rel_err"] < 1e-6
     assert "eval/simulated_acc_len" in results["final_eval"]
+    # a warm start from the run's step-1 directory: its masters, a fresh
+    # optimizer
+    assert results["run_dir_warm_start"] == {
+        "from": "smoke-step1", "tensors": results["run_dir_warm_start"][
+            "tensors"], "bit_identical": True, "optimizer_fresh": True}
 
 
 FAMILY_DRAFT = {
@@ -287,6 +292,85 @@ def test_usp_training_runs_on_the_cpu_at_small_size(smoke, tmp_path):
         smoke.check_usp_counts([launches], 4)
 
 
+@pytest.mark.parametrize("name", ["llama3_70b", "qwen2_5_vl_7b",
+                                  "deepseek_v2_lite"])
+def test_offline_leftovers_run_on_the_cpu_at_small_size(smoke, tmp_path,
+                                                       monkeypatch, name):
+    """The offline_leftovers phase: each draft of ``LEFTOVER_RUNS`` cut to
+    hidden 128 with its own RoPE type (llama3, mrope on [3, S] position ids
+    over a vision span, yarn) and its layout of heads, through cli train
+    (Llama: reference ``.ckpt`` features, two gzipped, and a warm start
+    from an export written by the phase), the kernel-path trainer (its
+    warm-started weights, a bit-exact repeat) and the plain path; the
+    launch-count check (no launch on CPU tensors)."""
+    spec = dict(smoke.LEFTOVER_RUNS[name])
+    draft = json.loads(spec["config"].read_text())
+    heads, kv_heads = draft["num_attention_heads"], draft["num_key_value_heads"]
+    g = heads // kv_heads
+    small_kv = 4 if g == 1 else 1
+    draft.update(hidden_size=128, intermediate_size=256, vocab_size=2048,
+                 draft_vocab_size=512, head_dim=32,
+                 num_attention_heads=small_kv * g,
+                 num_key_value_heads=small_kv)
+    if name == "qwen2_5_vl_7b":
+        draft["rope_scaling"] = {"type": "mrope", "mrope_section": [4, 6, 6]}
+        monkeypatch.setattr(smoke, "IMAGE_TOKEN_ID", 7)
+        monkeypatch.setattr(smoke, "VISION_GRID", (1, 2, 4))
+    cfg_path = tmp_path / "draft.json"
+    cfg_path.write_text(json.dumps(draft))
+    spec["config"] = cfg_path
+    results, counts = smoke.run_leftover(
+        spec, torch.device("cpu"), 0, tmp_path / "work", max_length=64,
+        min_len=40, head_std=0.2, overrides=['model.compute_dtype="float32"'])
+    steps = spec["files"] // smoke.BATCH // spec["accum"]
+    assert results["optimizer_steps"] == steps
+    assert len(results["loss_curve"]) == steps
+    assert counts == dict.fromkeys(smoke.KERNEL_COUNTERS, 0)
+    smoke.check_training_counts(
+        dict.fromkeys(counts, smoke.TTT * results["micro_batches"]),
+        results["micro_batches"], 0)
+    assert results["repeat_bit_exact"]
+    # fp32 on both paths: the plain versions and the dense path differ only
+    # in the order of their sums
+    assert results["step1"]["rel_diff"] < 1e-4
+    assert results["step1_grads"]["min_cosine"] > 0.9999
+    if name == "llama3_70b":
+        assert results["warm_start"]["bit_identical"]
+        assert results["feature_files"][:2] == ["sample-0000.ckpt.gz",
+                                                "sample-0001.ckpt.gz"]
+        assert results["feature_files"][2].endswith(".ckpt")
+        assert "micro_step_ms" in results
+    else:
+        assert "warm_start" not in results
+
+
+def test_usp_training_takes_mrope_positions_on_the_cpu(smoke, tmp_path,
+                                                       monkeypatch):
+    """The USP phase on an mrope draft whose features carry [3, S] position
+    ids over a vision span: every rank cuts its chunk (and halo) of the 3-D
+    ids on their sequence axis, and the 4 ranks match one process."""
+    cfg = dict(vocab_size=2048, draft_vocab_size=512, hidden_size=128,
+               intermediate_size=384, num_attention_heads=4,
+               num_key_value_heads=2, head_dim=32,
+               max_position_embeddings=4096,
+               rope_scaling={"type": "mrope", "mrope_section": [4, 6, 6]})
+    cfg_path = tmp_path / "draft.json"
+    cfg_path.write_text(json.dumps(cfg))
+    monkeypatch.setattr(smoke, "IMAGE_TOKEN_ID", 7)
+    monkeypatch.setattr(smoke, "VISION_GRID", (1, 2, 4))
+    write = smoke.write_features
+    monkeypatch.setattr(smoke, "write_features",
+                        lambda *a, **k: write(*a, **k, fmt="mrope"))
+    results, _ = smoke.run_usp_training(
+        cfg_path, torch.device("cpu"), 0, tmp_path / "work", max_length=64,
+        min_len=48, head_std=0.2, overrides=['model.compute_dtype="float32"'])
+    specs, _ = smoke.read_feature_specs(
+        str(next((tmp_path / "work" / "train").glob("*.sft"))))
+    assert specs["position_ids"].shape[0] == 3
+    assert all(step["rel_diff"] < 1e-4 for step in results["loss_curve"])
+    assert all(g["cosine"] > 0.9999 for g in results["step1_grads"].values())
+
+
 def test_mesh_training_runs_on_the_cpu_at_small_size(smoke, tmp_path,
                                                     monkeypatch):
     """The mesh phase: 4 ranks (``chip_smoke.py --mesh-rank``, gloo on the
@@ -325,6 +409,7 @@ def test_mesh_training_runs_on_the_cpu_at_small_size(smoke, tmp_path,
     eagle3 = results["runs"]["eagle3"]
     assert eagle3["optimizer_steps"] == 4 and eagle3["micro_batches"] == 8
     assert eagle3["resume"]["bit_exact"] and eagle3["final_eval"]
+    assert eagle3["resume"]["from"] == "mesh_eagle3-step2"
     # fp32 on both sides: the mesh and one process differ only in the
     # order of their sums
     assert all(g["cosine"] > 0.9999 for g in eagle3["step1_grads"].values())
