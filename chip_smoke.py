@@ -5,7 +5,8 @@ Usage: ``python3 chip_smoke.py [--seed N]`` from the repository root.
 ``python3 chip_smoke.py --usp-only`` runs phases 1, 2 and 8's training
 alone, ``--mesh-only`` phases 1, 2 and 9 (on a machine with a card per
 rank their ranks talk NCCL), ``--leftovers-only`` phases 1, 2 and 10's
-training runs.
+training runs, ``--capture-only`` phases 1, 2, 5a and 5 (capture at all
+36 target layers, training, export).
 
 Phases, each printing JSON lines:
 
@@ -47,9 +48,27 @@ Phases, each printing JSON lines:
    compact teacher; the kernel launch counters must show 7 launches of each
    forward kernel per forward, and the metrics must agree with the same
    batches run through the plain dense attention and reference CE;
+5a. slice 16, capture (``capture``): a random target in the shape of
+   Qwen3-8B (``QWEN3_8B_TARGET``: 36 layers, 8.2 B parameters, 16.4 GB
+   bf16 from ``--seed``; ``CAPTURE_DEPTH`` layers in the default run)
+   written as an HF directory of safetensors shards with an index by the
+   port's writer; conversations from the seed (1536-2048 tokens, words
+   from a synthetic lexicon) rendered by the port's ``qwen`` template and
+   parser (``build_dataset``) with a stand-in tokenizer whose ids spread
+   over the whole vocabulary; the eagle layout captured at the draft's
+   default layers ((1, 17, 32) at 36) through the port's loader and
+   runner (``prepare.capture``) into phase 5's train and eval
+   directories, and the vocab mapping derived from the captured ids;
+   every captured tensor finite, the files read back through the data
+   plane in the right shapes with the parser's ids and loss masks, a
+   sample captured alone against its row of a padded batch and one
+   batch's bf16 capture against an fp32 run of the same forward
+   (``CAPTURE_REL_L2``); the load and capture seconds, tokens/s and peak
+   memory;
 5. slice 2, training: ``specforge_tpu_torch.cli.main(["train", ...])`` on
-   ``examples/qwen3-8b-eagle3-offline.json`` pointed at feature files and a
-   random HF-layout target directory written here, for 2 optimizer steps of
+   ``examples/qwen3-8b-eagle3-offline.json`` pointed at phase 5a's
+   captured features, its target (whose head and embedding the trainer
+   reads) and its vocab mapping, for 2 optimizer steps of
    2 micro-batches (B=2, S=2048, TTT 7, compact teacher), with an eval and
    checkpoints; exactly 7 launches of every kernel per micro-batch (and of
    the forward kernels per eval forward); the kernel path against the plain
@@ -58,6 +77,12 @@ Phases, each printing JSON lines:
    micro-step and optimizer-step times of the trainer's own train step,
    peak memory with and without ``compute_params_dtype``, one profiled
    micro-step, and a warm start from the step-1 checkpoint (phase 10);
+   slice 16's export (``check_exports``): ``cli.main(["export", ...])`` of
+   the run's final checkpoint to the SGLang layout and ``export_to_hf``
+   with the target as ``embedding_source``, their required keys and
+   ``config.json``, every weight read back through
+   ``draft_state_from_export`` bit-identical to the checkpoint's cast to
+   bf16 and the HF embedding the target's;
 6. slice 3, the DFlash family: ``cli.main(["train", ...])`` on
    ``examples/qwen3-8b-domino-offline.json`` with ``configs/qwen3-8b-domino.json``
    at full width (B=2, S up to 768, 256 anchors of 16; accumulation 2, so 4
@@ -135,8 +160,9 @@ Phases, each printing JSON lines:
    weights at step 1. ``configs/llama3-70b-eagle3.json`` (llama3 RoPE, 64
    heads over 8): 2 steps of 2 micro-batches from reference ``.ckpt``
    features (two gzipped), warm-started from a ``model.safetensors`` in the
-   export's torch-key layout written here (the loaded weights bit-identical
-   to the file's), with the micro-step, optimizer-step, memory and a
+   SGLang export layout written here by the exporter's ``serving_state``
+   (the loaded weights bit-identical to the file's), with the micro-step,
+   optimizer-step, memory and a
    profiled micro-step; ``configs/qwen2.5-vl-7b-eagle3.json`` (mrope over
    [3, S] position ids of a vision span) and
    ``configs/deepseek-v2-lite-eagle3.json`` (yarn), a step each; and phase
@@ -170,9 +196,11 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -183,17 +211,37 @@ from specforge_tpu_torch.algorithms.peagle.model import (
     document_ids_from_lengths,
     generate_cod_sample_indices,
 )
+from specforge_tpu_torch.algorithms.builtin import builtin_algorithm_registry
 from specforge_tpu_torch.application.composition import build_training_run
 from specforge_tpu_torch.config.schema import load_config
 from specforge_tpu_torch.data.collator import CollatorConfig, PaddingCollator
+from specforge_tpu_torch.data.parse import (
+    build_dataset,
+    build_parser_for_template,
+)
 from specforge_tpu_torch.data.vlm import mrope_position_ids, spans_from_token_ids
 from specforge_tpu_torch.eval.evaluator import Evaluator
+from specforge_tpu_torch.export.exporter import (
+    REQUIRED_SGLANG_KEYS,
+    export_to_hf,
+    serving_state,
+)
+from specforge_tpu_torch.models.model_loading import draft_state_from_export
 from specforge_tpu_torch.models.draft.dflash import DFlashConfig
 from specforge_tpu_torch.models.draft.llama_eagle3 import (
     Eagle3Config,
     LlamaEagle3Draft,
 )
 from specforge_tpu_torch.models.draft.peagle import PEagleConfig, cod_capacities
+from specforge_tpu_torch.models.target.head import TargetHead
+from specforge_tpu_torch.models.target.transformer import (
+    target_capture_forward,
+)
+from specforge_tpu_torch.offline_capture import prepare
+from specforge_tpu_torch.offline_capture.capture import (
+    OfflineCaptureConfig,
+    OfflineCaptureRunner,
+)
 from specforge_tpu_torch.ops import (
     attention_cuda,
     cuda_lib,
@@ -212,6 +260,7 @@ from specforge_tpu_torch.runtime.data_plane.feature_dataloader import (
     FeatureDataLoader,
 )
 from specforge_tpu_torch.runtime.data_plane.feature_file import (
+    load_feature_file,
     read_feature_specs,
     save_feature_file,
 )
@@ -280,13 +329,19 @@ IMAGE_TOKEN_ID = 151655
 VISION_GRID = (1, 16, 16)
 
 
-#: the script's start, for each phase line's ``elapsed_s``
+#: the script's start, for each phase line's ``elapsed_s``, and the time of
+#: the last phase line, for its ``phase_s`` (the seconds since the line
+#: before it: the phase's own)
 START = time.perf_counter()
+_LAST_LINE = [START]
 
 
 def emit(obj) -> None:
     if "phase" in obj:
-        obj = {**obj, "elapsed_s": time.perf_counter() - START}
+        now = time.perf_counter()
+        obj = {**obj, "elapsed_s": now - START,
+               "phase_s": now - _LAST_LINE[0]}
+        _LAST_LINE[0] = now
     print(json.dumps(obj), flush=True)
 
 
@@ -1745,15 +1800,19 @@ def write_target_dir(root: Path, vocab_size: int, hidden_size: int, device,
 
 
 def training_run_json(workdir: Path, draft_config: Path, target: Path,
-                      max_length: int) -> Path:
+                      max_length: int,
+                      vocab_mapping: Optional[Path] = None) -> Path:
     """``examples/qwen3-8b-eagle3-offline.json``, read as data, pointed at
-    this run's directories and cut to 2 optimizer steps of 2 micro-batches
+    this run's directories (and vocab mapping, else the run derives one
+    from the features) and cut to 2 optimizer steps of 2 micro-batches
     (save every step, eval at the end of the epoch)."""
     raw = json.loads(EXAMPLE.read_text())
     raw["run_id"] = "smoke"
     raw["output_dir"] = str(workdir / "runs")
     raw["model"].update(target_model_path=str(target),
                         draft_config_path=str(draft_config))
+    if vocab_mapping is not None:
+        raw["model"]["vocab_mapping_path"] = str(vocab_mapping)
     raw["data"].update(train_data_path=str(workdir / "train"),
                        eval_data_path=str(workdir / "eval"),
                        max_length=max_length, num_workers=2)
@@ -1908,23 +1967,18 @@ def opt_state_is_fresh(tree) -> bool:
     return True
 
 
-def run_training(cfg_path: Path, device, seed: int, workdir: Path, *,
-                 max_length=MAX_LEN, min_len=1536, head_std=0.02,
-                 overrides=()) -> dict:
-    """Slice 2 end to end; returns the results and the launch counts of the
-    main path (the ``cli train`` run), which are set to 0 just before it and
-    read just after."""
-    cfg = Eagle3Config.from_file(cfg_path)
+def run_training(cfg_path: Path, device, seed: int, workdir: Path,
+                 captured: dict, *, max_length=MAX_LEN, overrides=()) -> dict:
+    """Slice 2 end to end on the features ``capture_phase`` captured into
+    ``workdir`` (its target's head and embedding, its vocab mapping), and
+    slice 16's exports of the run's final checkpoint; returns the results
+    and the launch counts of the main path (the ``cli train`` run), which
+    are set to 0 just before it and read just after."""
     on_card = device.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    write_features(workdir / "train", cfg, seed, TRAIN_FILES, min_len,
-                   max_length)
-    write_features(workdir / "eval", cfg, seed + 100, EVAL_FILES, min_len,
-                   max_length)
-    target = write_target_dir(workdir / "target", cfg.vocab_size,
-                              cfg.resolved_target_hidden_size, device, seed,
-                              head_std)
-    run_json = training_run_json(workdir, cfg_path, target, max_length)
+    target = captured["target"]
+    run_json = training_run_json(workdir, cfg_path, target, max_length,
+                                 captured["vocab_mapping"])
     runs = workdir / "runs"
     overrides = list(overrides)
     device_args = [] if on_card else ["--device", str(device)]
@@ -1953,6 +2007,10 @@ def run_training(cfg_path: Path, device, seed: int, workdir: Path, *,
     kernel_steps = step_records(runs, "smoke")
     final_dir = CheckpointManager.resolve_step_dir(str(runs))
     final = CheckpointManager.load_state(final_dir)["params"]
+    # slice 16: the run's final checkpoint exported both ways, while its
+    # root holds this one run
+    results["export"] = check_exports(runs, Path(final_dir), cfg_path,
+                                      target, workdir / "export", device)
 
     # resume: a fresh kernel-path run from the uninterrupted run's step-1
     # checkpoint. Until its fit restores that checkpoint it holds the same
@@ -2024,6 +2082,470 @@ def run_training(cfg_path: Path, device, seed: int, workdir: Path, *,
     })
     shutil.rmtree(runs, ignore_errors=True)
     return results, counts
+
+
+# --------------------------------------------------------------------------
+# slice 16: capture → train → export: the dense Qwen3-8B target, offline
+# capture through the qwen template, the parser and the runner, then the
+# training phase on the captured features and cli export of its checkpoint
+# --------------------------------------------------------------------------
+
+#: Qwen3-8B's config.json (Qwen/Qwen3-8B on the HF hub): the target the
+#: capture phase writes, with random weights from --seed
+QWEN3_8B_TARGET = {
+    "architectures": ["Qwen3ForCausalLM"], "model_type": "qwen3",
+    "vocab_size": 151936, "hidden_size": 4096, "intermediate_size": 12288,
+    "num_hidden_layers": 36, "num_attention_heads": 32,
+    "num_key_value_heads": 8, "head_dim": 128, "rms_norm_eps": 1e-6,
+    "rope_theta": 1000000.0, "max_position_embeddings": 40960,
+    "hidden_act": "silu", "attention_bias": False,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+}
+#: the target's depth in the default run, for its 1,200 s: at 36 layers
+#: the whole script took 1,133 s on one H100 (the capture phase 45 s of
+#: it, the target's 16.4 GB written and read back); at 12 the target is
+#: 7.1 GB and the capture layers (1, 5, 8) by the same rule.
+#: ``--capture-only`` runs all 36
+CAPTURE_DEPTH = 12
+#: padded rows a capture forward takes: a layer's fp32 scores are then
+#: 4 · 32 · 2048² · 4 B = 2.1 GB, with the softmax's copy 4.3 GB
+CAPTURE_BATCH = 4
+#: decoder layers a safetensors shard of the target holds (1.5 GB)
+SHARD_LAYERS = 4
+#: the target's weights: HF's initializer_range for Qwen3, RMSNorm
+#: weights 1; the residual stream grows to a std of about 10 over 36
+#: layers and stays finite
+TARGET_STD = 0.02
+#: the bf16 capture against an fp32 run of the same forward, and a sample
+#: captured alone against its row in a padded batch: relative L2 error of
+#: each captured tensor (aux layers, last hidden) over the real tokens.
+#: bf16 rounds each activation to 2^-9 and the error grows with depth and
+#: width over random layers: 36-layer CPU runs at widths 512, 1024 and
+#: 2048 gave 1.3%, 1.8% and 3.4% at the last layer, so about 7% at 4096;
+#: two bf16 runs in another order differ by as much
+CAPTURE_REL_L2 = 0.1
+#: the stand-in tokenizer's lexicon: distinct words, drawn Zipf-like
+LEXICON_WORDS = 50000
+
+
+class SpreadTokenizer:
+    """A stand-in word tokenizer (the machine with the card has no
+    tokenizer package) whose ids spread over the target's whole
+    vocabulary: each whitespace-separated piece of text is one token, its
+    id the piece's CRC-32 modulo the vocabulary size. No BOS, as Qwen3's
+    tokenizer has none."""
+
+    bos_token_id = None
+
+    def __init__(self, vocab_size: int):
+        self.vocab_size = vocab_size
+
+    def encode(self, text, add_special_tokens=False):
+        return [zlib.crc32(piece.encode()) % self.vocab_size
+                for piece in text.split()]
+
+
+def synthetic_conversations(n: int, tokenizer, seed: int, min_len: int,
+                            max_len: int) -> list:
+    """``n`` conversation records from the seed: user and assistant turns
+    of words drawn Zipf-like from a synthetic lexicon, added until the
+    rendered sample (the qwen template) reaches a length drawn from
+    [min_len, max_len]; ``build_dataset`` cuts one past max_len."""
+    rng = np.random.default_rng(seed + 5)
+    codes = rng.integers(ord("a"), ord("z") + 1, size=(LEXICON_WORDS, 10))
+    lexicon = ["".join(map(chr, row[:k])) for row, k in zip(
+        codes, rng.integers(2, 11, size=LEXICON_WORDS))]
+    weights = 1.0 / np.arange(1, LEXICON_WORDS + 1) ** 1.05
+    weights /= weights.sum()
+    parser = build_parser_for_template(tokenizer, "qwen")
+
+    def words(lo, hi):
+        picks = rng.choice(LEXICON_WORDS, size=int(rng.integers(lo, hi)),
+                           p=weights)
+        return " ".join(lexicon[i] for i in picks)
+
+    # turns of up to 1/16 (user) and 1/5 (assistant) of the longest sample
+    user, assistant = (1, max(2, max_len // 16)), (2, max(3, max_len // 5))
+    records = []
+    for _ in range(n):
+        goal = int(rng.integers(min_len, max_len + 1))
+        messages = []
+        while len(parser.parse(messages, 1 << 30).input_ids) < goal:
+            messages.append({"role": "user", "content": words(*user)})
+            messages.append({"role": "assistant",
+                             "content": words(*assistant)})
+        records.append({"messages": messages})
+    return records
+
+
+def write_capture_target(root: Path, config: dict, device, seed: int,
+                         std: float) -> Path:
+    """A random HF checkpoint directory of ``config`` (a dense qwen3
+    target): bf16 weights drawn on ``device`` from the seed, norms 1,
+    written as safetensors shards (the embedding, head and final norm in
+    the first, ``SHARD_LAYERS`` decoder layers in each of the others) with
+    their ``model.safetensors.index.json``, by the port's writer."""
+    root.mkdir(parents=True, exist_ok=True)
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    h, inter = config["hidden_size"], config["intermediate_size"]
+    heads, kv, d = (config["num_attention_heads"],
+                    config["num_key_value_heads"], config["head_dim"])
+    layers = config["num_hidden_layers"]
+
+    def rand(*shape):
+        return (torch.randn(*shape, generator=gen, device=device) * std).to(
+            torch.bfloat16).cpu()
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.bfloat16)
+
+    groups = [range(lo, min(lo + SHARD_LAYERS, layers))
+              for lo in range(0, layers, SHARD_LAYERS)]
+    n_shards = 1 + len(groups)
+    weight_map, total = {}, 0
+
+    def save(index: int, tensors: dict) -> None:
+        nonlocal total
+        name = f"model-{index + 1:05d}-of-{n_shards:05d}.safetensors"
+        save_feature_file(str(root / name), tensors)
+        weight_map.update(dict.fromkeys(tensors, name))
+        total += sum(t.numel() * t.element_size() for t in tensors.values())
+
+    save(0, {"model.embed_tokens.weight": rand(config["vocab_size"], h),
+             "lm_head.weight": rand(config["vocab_size"], h),
+             "model.norm.weight": ones(h)})
+    for shard, group in enumerate(groups, start=1):
+        tensors = {}
+        for i in group:
+            p = f"model.layers.{i}"
+            tensors.update({
+                f"{p}.self_attn.q_proj.weight": rand(heads * d, h),
+                f"{p}.self_attn.k_proj.weight": rand(kv * d, h),
+                f"{p}.self_attn.v_proj.weight": rand(kv * d, h),
+                f"{p}.self_attn.o_proj.weight": rand(h, heads * d),
+                f"{p}.self_attn.q_norm.weight": ones(d),
+                f"{p}.self_attn.k_norm.weight": ones(d),
+                f"{p}.input_layernorm.weight": ones(h),
+                f"{p}.post_attention_layernorm.weight": ones(h),
+                f"{p}.mlp.gate_proj.weight": rand(inter, h),
+                f"{p}.mlp.up_proj.weight": rand(inter, h),
+                f"{p}.mlp.down_proj.weight": rand(h, inter),
+            })
+        save(shard, tensors)
+        del tensors
+    (root / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {"total_size": total}, "weight_map": weight_map}))
+    (root / "config.json").write_text(json.dumps(config, indent=2))
+    return root
+
+
+def rel_l2(got: torch.Tensor, ref: torch.Tensor) -> float:
+    got, ref = got.double(), ref.double()
+    return float((got - ref).norm() / ref.norm())
+
+
+def capture_errors(got: torch.Tensor, ref: torch.Tensor, layers, hidden: int
+                   ) -> dict:
+    """Relative L2 error of each captured layer's slice of an aux concat
+    [..., L·H] and of the last hidden, from (aux, last) pairs."""
+    (aux, last), (aux_ref, last_ref) = got, ref
+    out = {f"layer_{layer}": rel_l2(aux[..., j * hidden:(j + 1) * hidden],
+                                    aux_ref[..., j * hidden:(j + 1) * hidden])
+           for j, layer in enumerate(layers)}
+    out["last_hidden"] = rel_l2(last, last_ref)
+    return out
+
+
+def capture_phase(cfg_path: Path, device, seed: int, workdir: Path, *,
+                  target_config=QWEN3_8B_TARGET, depth=None,
+                  max_length=MAX_LEN, min_len=1536, batch=CAPTURE_BATCH,
+                  std=TARGET_STD) -> tuple:
+    """Slice 16's capture: a random target of ``target_config`` (cut to
+    ``depth`` layers) written as an HF directory; conversations from the
+    seed rendered by the qwen template and parser (``build_dataset``)
+    with ``SpreadTokenizer``; the eagle layout captured at the draft's
+    default layers through the runner and ``prepare.capture`` into
+    ``workdir``'s train and eval directories, with the vocab mapping
+    derived from the captured ids. Checks: every captured tensor finite;
+    the files read back through the data plane (manifest and store) in the
+    right shapes with the parser's ids and loss masks; a sample captured
+    alone against its row of a padded batch, and one batch's bf16 capture
+    against an fp32 run of the same forward (``CAPTURE_REL_L2``) →
+    (results, what the training phase reads)."""
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    config = dict(target_config)
+    if depth is not None:
+        config["num_hidden_layers"] = depth
+    t0 = time.perf_counter()
+    target = write_capture_target(workdir / "target", config, device, seed,
+                                  std)
+    results = {"target": {k: config[k] for k in (
+        "model_type", "vocab_size", "hidden_size", "intermediate_size",
+        "num_hidden_layers", "num_attention_heads", "num_key_value_heads",
+        "head_dim", "rope_theta")},
+        "target_bytes": sum(p.stat().st_size for p in target.iterdir()),
+        "target_write_s": time.perf_counter() - t0}
+
+    # conversations → the qwen template and parser
+    t0 = time.perf_counter()
+    tokenizer = SpreadTokenizer(config["vocab_size"])
+    n_train, n_eval = TRAIN_FILES, EVAL_FILES
+    records = synthetic_conversations(n_train + n_eval, tokenizer, seed,
+                                      min_len, max_length)
+    parsed = build_dataset(records, tokenizer, "qwen", max_length)
+    if len(parsed) != n_train + n_eval:
+        raise AssertionError(f"{len(parsed)} supervised samples of "
+                             f"{n_train + n_eval} conversations")
+    samples = [{"input_ids": p.input_ids, "loss_mask": p.loss_mask}
+               for p in parsed]
+    results["tokenize_s"] = time.perf_counter() - t0
+
+    # the runner holds the target; prepare.capture applies the capture-
+    # layer rule and writes each set of files
+    providers = builtin_algorithm_registry().resolve("eagle3").providers
+    layers = providers.resolve_capture_layers(
+        Eagle3Config.from_file(cfg_path), config["num_hidden_layers"])
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    runner = OfflineCaptureRunner(
+        OfflineCaptureConfig(str(target), str(workdir / "train"), layers,
+                             max_length, batch),
+        device=None if on_card else device)
+    sync()
+    results["target_load_s"] = time.perf_counter() - t0
+    written, capture_s = {}, 0.0
+    for name, part in (("train", samples[:n_train]),
+                       ("eval", samples[n_train:])):
+        t0 = time.perf_counter()
+        out = prepare.capture(
+            part, target_model=str(target), output_dir=str(workdir / name),
+            algorithm="eagle3", draft_config=str(cfg_path),
+            max_length=max_length, batch_size=batch, runner=runner)
+        sync()
+        capture_s += time.perf_counter() - t0
+        written[name] = out
+    if tuple(written["train"].capture_layers) != tuple(layers):
+        raise AssertionError(f"capture layers {written['train']} != {layers}")
+    real = sum(len(s["input_ids"]) for s in samples)
+    results.update({
+        "capture_layers": list(layers), "batch": batch,
+        "samples": len(samples), "real_tokens": real,
+        "sample_lengths": [len(s["input_ids"]) for s in samples],
+        "capture_s": capture_s,
+        "capture_tokens_per_s": real / capture_s,
+    })
+
+    # one padded batch: the forward alone, timed, and its fp32 run
+    ids = np.zeros((batch, max_length), np.int64)
+    mask = np.zeros((batch, max_length), np.int64)
+    for j, s in enumerate(samples[:batch]):
+        ids[j, :len(s["input_ids"])] = s["input_ids"]
+        mask[j, :len(s["input_ids"])] = 1
+    times = []
+    for _ in range(3):
+        sync()
+        t0 = time.perf_counter()
+        bf16 = runner._run_batch(ids, mask)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    results["forward_ms"] = statistics.median(times)
+    results["forward_padded_tokens_per_s"] = batch * max_length / (
+        results["forward_ms"] / 1e3)
+    if on_card:
+        results["peak_bytes"] = torch.cuda.max_memory_allocated()
+    fp32 = target_capture_forward(
+        runner.params, runner.target_config,
+        torch.as_tensor(ids, device=runner.device),
+        torch.as_tensor(mask, device=runner.device), layers,
+        compute_dtype=torch.float32)
+    valid = torch.as_tensor(mask, dtype=torch.bool)
+    fp32 = tuple(t.cpu()[valid] for t in fp32)
+    errors = capture_errors(tuple(t[valid] for t in bf16), fp32, layers,
+                            config["hidden_size"])
+    del fp32
+    for name, err in errors.items():
+        check(f"bf16 capture vs fp32, {name} (relative L2)", err,
+              CAPTURE_REL_L2)
+    results["bf16_vs_fp32_rel_l2"] = errors
+
+    # the first sample alone (one row, its own length) against its file
+    n0 = len(samples[0]["input_ids"])
+    alone = OfflineCaptureRunner(
+        OfflineCaptureConfig(str(target), str(workdir / "alone"), layers,
+                             n0, 1),
+        target_config=runner.target_config, target_params=runner.params)
+    alone = alone._run_batch(samples[0]["input_ids"][None], np.ones((1, n0)))
+    stored, _ = load_feature_file(str(workdir / "train" /
+                                      "sample-000000.sft"))
+    errors = capture_errors((alone[0][0], alone[1][0]),
+                            (stored["hidden_state"], stored["target"]),
+                            layers, config["hidden_size"])
+    for name, err in errors.items():
+        check(f"sample alone vs its padded row, {name} (relative L2)", err,
+              CAPTURE_REL_L2)
+    results["alone_vs_batch_rel_l2"] = errors
+    del runner, alone, bf16
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # read back through the data plane: the manifest, the file store
+    store = FileFeatureStore()
+    h = config["hidden_size"]
+    checked = 0
+    for name, part in (("train", samples[:n_train]),
+                       ("eval", samples[n_train:])):
+        refs = [FileFeatureStore.ref_for_file(path, read_specs=True)
+                for path in OfflineManifestReader(
+                    str(workdir / name)).list_files()]
+        if len(refs) != len(part):
+            raise AssertionError(f"{name}: {len(refs)} files, expected "
+                                 f"{len(part)}")
+        for ref, sample in zip(refs, part):
+            n = len(sample["input_ids"])
+            shapes = {k: tuple(f.spec.shape) for k, f in ref.features.items()}
+            want = {"input_ids": (n,), "loss_mask": (n,),
+                    "hidden_state": (n, len(layers) * h), "target": (n, h)}
+            if shapes != want:
+                raise AssertionError(f"{ref.sample_id}: shapes {shapes}, "
+                                     f"expected {want}")
+            if ref.metadata.get("capture_layers") != ",".join(
+                    map(str, layers)):
+                raise AssertionError(f"{ref.sample_id}: metadata "
+                                     f"{dict(ref.metadata)}")
+            tensors = store.fetch(ref)
+            for key in ("hidden_state", "target"):
+                if tensors[key].dtype != torch.bfloat16 or not bool(
+                        torch.isfinite(tensors[key]).all()):
+                    raise AssertionError(f"{ref.sample_id}: {key} not "
+                                         "finite bf16")
+            if not (np.array_equal(tensors["input_ids"].numpy(),
+                                   sample["input_ids"])
+                    and np.array_equal(tensors["loss_mask"].numpy(),
+                                       sample["loss_mask"])):
+                raise AssertionError(f"{ref.sample_id}: ids or loss mask "
+                                     "differ from the parser's")
+            checked += 1
+    results["files_checked"] = checked
+
+    mapping = Path(written["train"].vocab_mapping_path)
+    t2d, _ = load_vocab_mapping(str(mapping))
+    seen = np.unique(np.concatenate([s["input_ids"]
+                                     for s in samples[:n_train]]))
+    results["vocab"] = {
+        "distinct_ids": int(seen.size),
+        "id_range": [int(seen.min()), int(seen.max())],
+        "draft_ids_seen": int(t2d[seen].sum()),
+        "draft_vocab": int(t2d.sum())}
+    return results, {"target": target, "vocab_mapping": mapping,
+                     "capture_layers": layers}
+
+
+def check_exports(runs: Path, step_dir: Path, cfg_path: Path, target: Path,
+                  out: Path, device) -> dict:
+    """Slice 16's export: ``cli export`` of the run root (its final
+    checkpoint) to the SGLang layout, and ``export_to_hf`` with the target
+    as ``embedding_source``; the required keys and ``config.json`` (the
+    draft config) of each; every weight read back through
+    ``draft_state_from_export`` bit-identical to the checkpoint's cast to
+    bf16, the vocab buffers equal, the HF embedding the target's."""
+    on_card = device.type == "cuda"
+    saved = CheckpointManager.load_state(str(step_dir))
+    prefix = "draft_model."
+    params = {k[len(prefix):]: v for k, v in saved["params"].items()}
+    buffers = {k[len(prefix):]: v for k, v in saved["buffers"].items()}
+    draft_cfg = json.loads(cfg_path.read_text())
+    results = {"from": step_dir.name}
+    t0 = time.perf_counter()
+    rc = cli.main(["export", str(runs), "-o", str(out / "sglang"), "--to",
+                   "sglang", "--draft-config", str(cfg_path),
+                   *([] if on_card else ["--device", str(device)])])
+    results["sglang_s"] = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli export exited {rc}")
+    t0 = time.perf_counter()
+    export_to_hf(str(runs), str(out / "hf"), draft_config_path=str(cfg_path),
+                 embedding_source=str(target),
+                 device=None if on_card else device)
+    results["hf_s"] = time.perf_counter() - t0
+    for fmt in ("sglang", "hf"):
+        tensors, _ = load_feature_file(str(out / fmt / "model.safetensors"))
+        missing = [k for k in REQUIRED_SGLANG_KEYS if k not in tensors]
+        check(f"{fmt} export: required keys missing", float(len(missing)),
+              0.0)
+        config = json.loads((out / fmt / "config.json").read_text())
+        check(f"{fmt} export: config.json differs from the draft config",
+              0.0 if config == draft_cfg else 1.0, 0.0)
+        loaded = draft_state_from_export(tensors, {**params, **buffers})
+        differing = [n for n, v in params.items() if n not in loaded
+                     or not torch.equal(loaded[n],
+                                        v.to(torch.bfloat16).to(v.dtype))]
+        differing += [n for n, v in buffers.items()
+                      if not torch.equal(loaded[n], v)]
+        check(f"{fmt} export: tensors differing from the checkpoint's in "
+              "bf16", float(len(differing)), 0.0)
+        not_bf16 = [k for k, v in tensors.items()
+                    if v.is_floating_point() and v.dtype != torch.bfloat16]
+        check(f"{fmt} export: floating tensors not bf16",
+              float(len(not_bf16)), 0.0)
+        if fmt == "hf":
+            embed = TargetHead.from_pretrained(
+                str(target), lm_head_key="model.embed_tokens.weight").weight
+            check("hf export: embedding differs from the target's",
+                  0.0 if torch.equal(tensors["embed_tokens.weight"], embed)
+                  else 1.0, 0.0)
+        elif "embed_tokens.weight" in tensors:
+            raise AssertionError("sglang export carries an embedding")
+        results[fmt] = {
+            "tensors": len(tensors),
+            "bytes": (out / fmt / "model.safetensors").stat().st_size,
+            "bit_identical": True}
+    shutil.rmtree(out)
+    return results
+
+
+def capture_and_train_phase(seed: int, depth: int) -> tuple:
+    """Slice 16 on the card: ``capture_phase`` at Qwen3-8B width and
+    ``depth`` layers, then the training phase on its features (with the
+    exports), a line each → (training results, launch counts)."""
+    device = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        results, captured = capture_phase(CONFIG, device, seed, Path(tmp),
+                                          depth=depth)
+        full = QWEN3_8B_TARGET["num_hidden_layers"]
+        emit({"phase": "capture", "draft_config": str(CONFIG.relative_to(
+                  REPO)),
+              "layout": "eagle", "template": "qwen",
+              "reduced": {
+                  "weights": f"random, from --seed (std {TARGET_STD})",
+                  "depth": None if depth == full else
+                  f"{depth} of {full} layers (the default run's 1,200 s; "
+                  "--capture-only runs all 36), capture layers by the "
+                  "same rule",
+                  "samples": f"{TRAIN_FILES} train and {EVAL_FILES} eval "
+                             "conversations of 1536-2048 tokens"},
+              "tolerances": {"rel_l2": CAPTURE_REL_L2},
+              **results})
+        torch.cuda.empty_cache()
+        training, counts = run_training(CONFIG, device, seed, Path(tmp),
+                                        captured)
+    check_training_counts(counts, training["micro_batches"],
+                          training["eval_forwards"])
+    emit({"phase": "training", "config": str(EXAMPLE.relative_to(REPO)),
+          "draft_config": str(CONFIG.relative_to(REPO)), "batch": BATCH,
+          "max_length": MAX_LEN, "ttt_length": TTT,
+          "accumulation_steps": ACCUM, "launches": counts,
+          "features": "captured (phase capture)",
+          "tolerances": {"step1_loss_rtol": TRAIN_STEP1_RTOL,
+                         "later_loss_rtol": TRAIN_DRIFT_RTOL,
+                         "grad_cosine": GRAD_COSINE,
+                         "grad_norm_rtol": GRAD_NORM_RTOL},
+          **training})
+    torch.cuda.empty_cache()
+    return training, counts
 
 
 # --------------------------------------------------------------------------
@@ -3848,36 +4370,23 @@ LEFTOVER_RUNS = {
 }
 def write_warm_start_export(root: Path, cfg_path: Path, device, seed: int
                             ) -> dict:
-    """A trained draft's ``model.safetensors`` in the export's torch-key
-    layout (the SGLang layout: bf16, ``q_proj``/``k_proj``/``v_proj`` and
-    ``gate_proj``/``up_proj`` split out of the merged projections, no
-    embedding, a vocab map), made from a seeded draft → the values the
-    port's parameters must take, by port name (bf16, on the host)."""
+    """A trained draft's ``model.safetensors`` in the SGLang export layout
+    (the exporter's ``serving_state``: bf16, ``q_proj``/``k_proj``/
+    ``v_proj`` and ``gate_proj``/``up_proj`` split out of the merged
+    projections; no embedding, a vocab map), made from a seeded draft and
+    written by the port's writer, with no checkpoint in between → the
+    values the port's parameters must take, by port name (bf16, on the
+    host)."""
     cfg = Eagle3Config.from_file(cfg_path)
     draft = LlamaEagle3Draft(cfg, device=device, seed=seed + 7)
     draft.set_vocab_maps(*vocab_map(cfg, seed + 7))
-    d = cfg.resolved_head_dim
-    q_rows = cfg.num_attention_heads * d
-    kv_rows = cfg.num_key_value_heads * d
-    expected, tensors = {}, {}
-    for name, p in draft.named_parameters():
-        if name == "embed_tokens.weight":
-            continue
-        value = p.detach().to(torch.bfloat16).cpu()
-        expected[name] = value
-        stem = name.rsplit(".", 2)[0]
-        if name.endswith("qkv_proj.weight"):
-            pieces = value.split([q_rows, kv_rows, kv_rows])
-            for part, piece in zip(("q_proj", "k_proj", "v_proj"), pieces):
-                tensors[f"{stem}.{part}.weight"] = piece
-        elif name.endswith("gate_up_proj.weight"):
-            for part, piece in zip(("gate_proj", "up_proj"), value.chunk(2)):
-                tensors[f"{stem}.{part}.weight"] = piece
-        else:
-            tensors[name] = value
-    tensors["t2d"] = draft.t2d.cpu()
-    tensors["d2t"] = draft.d2t.cpu()
-    del draft
+    params = {name: p.detach() for name, p in draft.named_parameters()
+              if name != "embed_tokens.weight"}
+    expected = {name: p.to(torch.bfloat16).cpu()
+                for name, p in params.items()}
+    tensors = serving_state(params, {"t2d": draft.t2d, "d2t": draft.d2t},
+                            device=device)
+    del draft, params
     root.mkdir(parents=True, exist_ok=True)
     save_feature_file(str(root / "model.safetensors"), tensors)
     return expected
@@ -4100,6 +4609,10 @@ def main() -> int:
     # EAGLE3 training phase makes its checkpoint)
     parser.add_argument("--leftovers-only", action="store_true",
                         help="run only the offline_leftovers training runs")
+    # capture at Qwen3-8B width and all 36 layers, the training phase on
+    # the captured features and the exports of its checkpoint, alone
+    parser.add_argument("--capture-only", action="store_true",
+                        help="run only capture, training and export")
     args = parser.parse_args()
     if args.usp_rank:
         usp_rank(Path(args.usp_rank), torch.device(args.device), args.set)
@@ -4115,6 +4628,11 @@ def main() -> int:
     build()
     if args.leftovers_only:
         offline_leftovers_phase(args.seed, None)
+        print(smi, flush=True)
+        return 0
+    if args.capture_only:
+        capture_and_train_phase(args.seed,
+                                QWEN3_8B_TARGET["num_hidden_layers"])
         print(smi, flush=True)
         return 0
     if not args.usp_only:
@@ -4193,21 +4711,7 @@ def main() -> int:
     del kernel, plain
     torch.cuda.empty_cache()
 
-    with tempfile.TemporaryDirectory() as tmp:
-        training, counts = run_training(CONFIG, torch.device("cuda"),
-                                        args.seed, Path(tmp))
-    check_training_counts(counts, training["micro_batches"],
-                          training["eval_forwards"])
-    emit({"phase": "training", "config": str(EXAMPLE.relative_to(REPO)),
-          "draft_config": str(CONFIG.relative_to(REPO)), "batch": BATCH,
-          "max_length": MAX_LEN, "ttt_length": TTT,
-          "accumulation_steps": ACCUM, "launches": counts,
-          "tolerances": {"step1_loss_rtol": TRAIN_STEP1_RTOL,
-                         "later_loss_rtol": TRAIN_DRIFT_RTOL,
-                         "grad_cosine": GRAD_COSINE,
-                         "grad_norm_rtol": GRAD_NORM_RTOL},
-          **training})
-    torch.cuda.empty_cache()
+    training, counts = capture_and_train_phase(args.seed, CAPTURE_DEPTH)
 
     family_counts = {}
     for kind, cfg_path in (("domino", DOMINO_CONFIG),

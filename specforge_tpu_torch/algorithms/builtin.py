@@ -21,7 +21,11 @@ from specforge_tpu_torch.algorithms.contracts import (
     FeatureMode,
     OfflineStorageSchema,
 )
-from specforge_tpu_torch.algorithms.providers import AlgorithmProviders
+from specforge_tpu_torch.algorithms.providers import (
+    AlgorithmProviders,
+    dflash_capture_layers,
+    eagle_capture_layers,
+)
 from specforge_tpu_torch.algorithms.registry import (
     AlgorithmRegistration,
     AlgorithmRegistry,
@@ -40,6 +44,12 @@ def _eagle3_build_draft(config_dict: Dict[str, Any], dtype=torch.bfloat16,
                              attention_backend=attention_backend,
                              device=device, seed=seed, mesh=mesh)
     return draft, config
+
+
+def _eagle3_config(config_dict: Dict[str, Any]):
+    from specforge_tpu_torch.models.draft.llama_eagle3 import Eagle3Config
+
+    return Eagle3Config.from_dict(config_dict)
 
 
 def _eagle3_build_training_model(draft, options: Dict[str, Any]):
@@ -108,6 +118,8 @@ EAGLE3 = AlgorithmRegistration(
         build_draft=_eagle3_build_draft,
         build_training_model=_eagle3_build_training_model,
         build_strategy=_eagle3_build_strategy,
+        draft_config=_eagle3_config,
+        resolve_capture_layers=eagle_capture_layers,
         frozen_requirements=frozenset({"target_head_weight"}),
     ),
 )
@@ -136,6 +148,12 @@ def _dflash_build_draft(draft_cls_name: str):
         return draft, config
 
     return build
+
+
+def _dflash_config(config_dict: Dict[str, Any]):
+    from specforge_tpu_torch.models.draft.dflash import DFlashConfig
+
+    return DFlashConfig.from_dict(config_dict)
 
 
 def _dflash_family_training_model(wrapper_name: str):
@@ -214,6 +232,8 @@ def _dflash_registration(name: str, draft_arch: str, wrapper_name: str,
             build_draft=_dflash_build_draft(draft_arch),
             build_training_model=_dflash_family_training_model(wrapper_name),
             build_strategy=_dflash_family_strategy(strategy_name),
+            draft_config=_dflash_config,
+            resolve_capture_layers=dflash_capture_layers,
             frozen_requirements=frozenset(
                 {"target_head_weight", "target_embed_weight"}),
         ),
@@ -249,6 +269,12 @@ def _peagle_build_draft(config_dict: Dict[str, Any], dtype=torch.bfloat16,
         device=device, seed=seed,
     )
     return draft, config
+
+
+def _peagle_config(config_dict: Dict[str, Any]):
+    from specforge_tpu_torch.models.draft.peagle import PEagleConfig
+
+    return PEagleConfig.from_dict(config_dict)
 
 
 def _peagle_build_training_model(draft, options: Dict[str, Any]):
@@ -306,6 +332,8 @@ PEAGLE = AlgorithmRegistration(
         build_draft=_peagle_build_draft,
         build_training_model=_peagle_build_training_model,
         build_strategy=_peagle_build_strategy,
+        draft_config=_peagle_config,
+        resolve_capture_layers=eagle_capture_layers,
         frozen_requirements=frozenset({"target_head_weight"}),
     ),
 )

@@ -1,14 +1,21 @@
-"""Command-line interface: ``python -m specforge_tpu_torch.cli train``.
+"""Command-line interface: ``python -m specforge_tpu_torch.cli train`` and
+``export``.
 
-Counterpart of ``specforge_tpu/cli.py`` for ``train``: a config file,
-dotted ``--set`` overrides and the ``--plan`` dry run, offline, on CUDA
-unless ``--device`` names another device. A sequence-parallel run
+Counterpart of ``specforge_tpu/cli.py`` for ``train`` and ``export``.
+``train``: a config file, dotted ``--set`` overrides and the ``--plan`` dry
+run, offline, on CUDA unless ``--device`` names another device.
+``export CHECKPOINT -o OUT --to {sglang,hf}``: a step directory, or a run
+root with one run, written as a serving directory (``--draft-config`` gives
+its ``config.json``, ``--vocab-mapping`` its ``t2d``/``d2t``); the HF
+layout of a draft without an embedding takes the target's through the
+Python API (``export_to_hf(..., embedding_source=...)``), as in the JAX
+package. A sequence-parallel run
 (``attention_backend: "usp"``) starts this command once per rank with
 ``SPECFORGE_COORDINATOR=host:port``, ``SPECFORGE_NUM_PROCESSES`` and
 ``SPECFORGE_PROCESS_ID``, as the JAX multi-host recipe does; each rank
 leaves the process group it made on exit. SIGTERM unwinds as an
-exception, so the trainer's cleanup runs. ``export`` and ``benchmark`` are
-not ported yet (ROADMAP.md, Queue 1).
+exception, so the trainer's cleanup runs. ``benchmark`` is not ported
+yet (ROADMAP.md, Queue 1).
 """
 
 from __future__ import annotations
@@ -61,6 +68,20 @@ def _train(args) -> int:
     return 0
 
 
+def _export(args) -> int:
+    from specforge_tpu_torch.export.exporter import export_checkpoint
+
+    export_checkpoint(
+        checkpoint=args.checkpoint,
+        output_dir=args.output,
+        fmt=args.to,
+        draft_config_path=args.draft_config,
+        vocab_mapping_path=args.vocab_mapping,
+        device=args.device,
+    )
+    return 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     logging.basicConfig(
         level=logging.INFO,
@@ -83,6 +104,18 @@ def main(argv: Optional[List[str]] = None) -> int:
         help="torch device to train on (default: CUDA, which must exist)",
     )
     p_train.set_defaults(func=_train)
+
+    p_export = sub.add_parser("export", help="export a trained draft")
+    p_export.add_argument("checkpoint", help="checkpoint dir or run root")
+    p_export.add_argument("-o", "--output", required=True)
+    p_export.add_argument("--to", choices=["hf", "sglang"], default="sglang")
+    p_export.add_argument("--draft-config")
+    p_export.add_argument("--vocab-mapping")
+    p_export.add_argument(
+        "--device", default=None,
+        help="torch device for the casts (default: CUDA, which must exist)",
+    )
+    p_export.set_defaults(func=_export)
     args = parser.parse_args(argv)
     return args.func(args)
 

@@ -19,7 +19,7 @@ import torch
 
 from specforge_tpu_torch.runtime.data_plane.feature_file import (
     read_safetensors_keys,
-    read_safetensors_tensor,
+    read_safetensors_tensors,
 )
 from specforge_tpu_torch.utils import shift_pad
 
@@ -71,7 +71,8 @@ class TargetHead:
         if (lm_head_key not in read_safetensors_keys(shard_path)
                 and tied_fallback):
             lm_head_key = "model.embed_tokens.weight"
-        weight = read_safetensors_tensor(shard_path, lm_head_key).to(dtype)
+        weight = read_safetensors_tensors(shard_path, [lm_head_key])[
+            lm_head_key].to(dtype)
         # muP targets: the width multiplier is folded into the frozen head
         # once, so teacher logits recomputed from the captured hidden state
         # match the target's serving logits. Only the real lm_head is

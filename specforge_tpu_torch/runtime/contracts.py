@@ -113,6 +113,30 @@ class SampleRef:
         )
 
 
+@dataclass(frozen=True)
+class PromptTask:
+    """One prompt awaiting capture. ``payload`` must be JSON-safe."""
+
+    prompt_id: str
+    payload: Mapping[str, Any]
+    epoch: int = 0
+    attempt: int = 0
+
+    def __post_init__(self) -> None:
+        assert_no_tensors(self.payload,
+                          where=f"PromptTask({self.prompt_id}).payload")
+
+    def to_json(self) -> Dict[str, Any]:
+        return {"prompt_id": self.prompt_id, "payload": dict(self.payload),
+                "epoch": self.epoch, "attempt": self.attempt}
+
+    @classmethod
+    def from_json(cls, obj: Mapping[str, Any]) -> "PromptTask":
+        return cls(prompt_id=obj["prompt_id"], payload=dict(obj["payload"]),
+                   epoch=int(obj.get("epoch", 0)),
+                   attempt=int(obj.get("attempt", 0)))
+
+
 @dataclass
 class TrainBatch:
     """The only contract object allowed to carry tensors."""

@@ -62,14 +62,15 @@ def save_feature_file(
         t = tensors[name].detach().cpu().contiguous()
         if t.dtype not in _CODES:
             raise TypeError(f"feature {name!r} has unsupported dtype {t.dtype}")
-        raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
+        # the tensor's own bytes, written without a copy
+        raw = t.reshape(-1).view(torch.uint8).numpy()
         header[name] = {
             "dtype": _CODES[t.dtype],
             "shape": list(t.shape),
-            "data_offsets": [offset, offset + len(raw)],
+            "data_offsets": [offset, offset + raw.nbytes],
         }
         blobs.append(raw)
-        offset += len(raw)
+        offset += raw.nbytes
     head = json.dumps(header, separators=(",", ":")).encode()
     head += b" " * (-len(head) % 8)
     tmp = f"{path}.tmp.{os.getpid()}"
@@ -107,22 +108,28 @@ def read_safetensors_keys(path: str) -> Tuple[str, ...]:
     return tuple(header)
 
 
-def read_safetensors_tensor(path: str, name: str) -> torch.Tensor:
-    """One tensor of a safetensors file (a target checkpoint shard), read
-    without loading the others."""
+def read_safetensors_tensors(path: str, names) -> Dict[str, torch.Tensor]:
+    """The tensors ``names`` of a safetensors file (a target checkpoint
+    shard), each read on its own in file order, without loading the
+    others."""
+    out: Dict[str, torch.Tensor] = {}
     with open(path, "rb") as f:
         header, _, start = _read_header(f)
-        if name not in header:
-            raise KeyError(f"{name!r} not in {path}")
-        info = header[name]
-        lo, hi = info["data_offsets"]
-        f.seek(start + lo)
-        data = bytearray(f.read(hi - lo))
-    dtype = _DTYPES[info["dtype"]]
-    if not data:
-        return torch.empty(info["shape"], dtype=dtype)
-    return torch.frombuffer(data, dtype=torch.uint8).view(dtype).reshape(
-        info["shape"])
+        missing = [n for n in names if n not in header]
+        if missing:
+            raise KeyError(f"{missing} not in {path}")
+        for name in sorted(names, key=lambda n: header[n]["data_offsets"][0]):
+            info = header[name]
+            lo, hi = info["data_offsets"]
+            dtype = _DTYPES[info["dtype"]]
+            if hi == lo:
+                out[name] = torch.empty(info["shape"], dtype=dtype)
+                continue
+            f.seek(start + lo)
+            data = bytearray(f.read(hi - lo))
+            out[name] = torch.frombuffer(data, dtype=torch.uint8).view(
+                dtype).reshape(info["shape"])
+    return out
 
 
 def _load_torch_ckpt(path: str) -> Dict[str, torch.Tensor]:

@@ -1520,3 +1520,150 @@ def test_fsdp_collectives_and_sharded_optimizer(gen, factored):
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     mp.spawn(_fsdp_rank, args=(port, factored), nprocs=2, join=True)
+
+
+#: Qwen3-8B's width (hidden, intermediate, heads, kv heads, head dim)
+QWEN3_8B_WIDTH = dict(hidden_size=4096, intermediate_size=12288,
+                      num_attention_heads=32, num_key_value_heads=8,
+                      head_dim=128)
+
+
+def random_target(layers, vocab=4096, std=0.02):
+    """A random dense qwen3 target's config and bf16 params on the card
+    (the chip script's ``write_capture_target`` weights, in memory)."""
+    from specforge_tpu_torch.models.target.transformer import TargetConfig
+
+    cfg = TargetConfig(vocab_size=vocab, num_hidden_layers=layers,
+                       rope_theta=1e6, qk_norm=True, model_type="qwen3",
+                       **QWEN3_8B_WIDTH)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    h, inter, d = cfg.hidden_size, cfg.intermediate_size, cfg.head_dim
+    heads, kv = cfg.num_attention_heads, cfg.num_key_value_heads
+
+    def rand(*shape):
+        return (torch.randn(*shape, generator=g, device="cuda") * std).to(
+            torch.bfloat16)
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.bfloat16, device="cuda")
+
+    params = {"model.embed_tokens.weight": rand(vocab, h),
+              "model.norm.weight": ones(h)}
+    for i in range(layers):
+        p = f"model.layers.{i}"
+        params.update({
+            f"{p}.self_attn.q_proj.weight": rand(heads * d, h),
+            f"{p}.self_attn.k_proj.weight": rand(kv * d, h),
+            f"{p}.self_attn.v_proj.weight": rand(kv * d, h),
+            f"{p}.self_attn.o_proj.weight": rand(h, heads * d),
+            f"{p}.self_attn.q_norm.weight": ones(d),
+            f"{p}.self_attn.k_norm.weight": ones(d),
+            f"{p}.input_layernorm.weight": ones(h),
+            f"{p}.post_attention_layernorm.weight": ones(h),
+            f"{p}.mlp.gate_proj.weight": rand(inter, h),
+            f"{p}.mlp.up_proj.weight": rand(inter, h),
+            f"{p}.mlp.down_proj.weight": rand(h, inter)})
+    return cfg, params
+
+
+def test_capture_forward_at_qwen3_8b_width_matches_its_fp32_run(gen, tmp_path):
+    """Three layers of Qwen3-8B width on the card: the bf16 capture against
+    the same forward in fp32 (relative L2 of each captured tensor over the
+    real tokens within 5e-2: bf16 rounds each activation to 2^-9, and CPU
+    runs of 1-12 random layers at widths up to 2048 stayed near 1%), and
+    the runner's files equal to its padded batch's rows."""
+    import numpy as np
+
+    from specforge_tpu_torch.models.target.transformer import (
+        target_capture_forward,
+    )
+    from specforge_tpu_torch.offline_capture.capture import (
+        OfflineCaptureConfig,
+        OfflineCaptureRunner,
+    )
+    from specforge_tpu_torch.runtime.data_plane.feature_file import (
+        load_feature_file,
+    )
+
+    cfg, params = random_target(3)
+    b, s, layers = 2, 512, (0, 1, 2)
+    ids = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                        device="cuda")
+    mask = torch.ones(b, s, dtype=torch.int64, device="cuda")
+    mask[1, 300:] = 0
+    bf16 = target_capture_forward(params, cfg, ids, mask, layers)
+    fp32 = target_capture_forward(params, cfg, ids, mask, layers,
+                                  compute_dtype=torch.float32)
+    valid = mask.bool()
+    for got, ref in zip(bf16, fp32):
+        assert got.dtype == torch.bfloat16 and ref.dtype == torch.float32
+        got, ref = got[valid].double(), ref[valid].double()
+        assert bool(torch.isfinite(got).all())
+        assert float((got - ref).norm() / ref.norm()) < 5e-2
+
+    runner = OfflineCaptureRunner(
+        OfflineCaptureConfig("unused", str(tmp_path), layers, s, b),
+        target_config=cfg, target_params=params)
+    lengths = (s, 300)
+    samples = [{"input_ids": ids[j, :n].cpu().numpy(),
+                "loss_mask": np.ones(n, np.int64)}
+               for j, n in enumerate(lengths)]
+    paths = runner.run(samples)
+    for j, (path, n) in enumerate(zip(paths, lengths)):
+        tensors, meta = load_feature_file(path)
+        assert meta["capture_layers"] == "0,1,2"
+        assert torch.equal(tensors["hidden_state"], bf16[0][j, :n].cpu())
+        assert torch.equal(tensors["target"], bf16[1][j, :n].cpu())
+
+
+def test_export_round_trip_at_qwen3_8b_width(gen, tmp_path):
+    """The Qwen3-8B EAGLE3 draft's checkpoint exported on the card (the
+    casts and splits there) in both layouts, then warm-started into a fresh
+    draft: every weight the checkpoint's cast to bf16, bit for bit."""
+    import types
+    from pathlib import Path
+
+    from specforge_tpu_torch.export.exporter import export_checkpoint
+    from specforge_tpu_torch.models.draft.llama_eagle3 import (
+        Eagle3Config,
+        LlamaEagle3Draft,
+    )
+    from specforge_tpu_torch.runtime.data_plane.feature_file import (
+        save_feature_file,
+    )
+    from specforge_tpu_torch.training.checkpoint import (
+        CheckpointManager,
+        Progress,
+        ResumeContract,
+    )
+    from specforge_tpu_torch.training.model_loading import warm_start_draft
+
+    config = Path(__file__).resolve().parents[1] / "configs" / (
+        "qwen3-8b-eagle3.json")
+    cfg = Eagle3Config.from_file(config)
+    draft = LlamaEagle3Draft(cfg, device="cuda", seed=1)
+    params = {f"draft_model.{n}": p.detach().cpu()
+              for n, p in draft.named_parameters() if "embed" not in n}
+    buffers = {f"draft_model.{n}": b.cpu()
+               for n, b in draft.named_buffers()}
+    state = types.SimpleNamespace(params=params, buffers=buffers,
+                                  opt_state={}, step=1)
+    CheckpointManager(str(tmp_path / "runs"), "r").save(
+        state, 1, ResumeContract("eagle3", 1, 2, 1, 1, "r"), Progress())
+    target = tmp_path / "target"
+    target.mkdir()
+    save_feature_file(str(target / "model.safetensors"), {
+        "model.embed_tokens.weight": draft.embed_tokens.weight.detach().to(
+            torch.bfloat16).cpu()})
+    for fmt in ("sglang", "hf"):
+        out = str(tmp_path / fmt)
+        export_checkpoint(str(tmp_path / "runs"), out, fmt,
+                          draft_config_path=str(config),
+                          **({"embedding_source": str(target)}
+                             if fmt == "hf" else {}))
+        fresh = LlamaEagle3Draft(cfg, device="cuda", seed=2)
+        warm_start_draft(fresh, out)
+        for name, value in params.items():
+            got = dict(fresh.named_parameters())[name[len("draft_model."):]]
+            assert torch.equal(got.detach().cpu(),
+                               value.to(torch.bfloat16).to(got.dtype)), name

@@ -54,18 +54,47 @@ def test_slice_runs_on_the_cpu_at_small_size(smoke, tmp_path):
     assert len(kernel["eval"]) == 3 * smoke.TTT + 1
 
 
+#: the capture phase's target cut to the CPU: a qwen3 of 4 layers at the
+#: tiny draft's width
+TINY_TARGET = dict(vocab_size=2048, hidden_size=128, intermediate_size=256,
+                   num_hidden_layers=4, num_attention_heads=4,
+                   num_key_value_heads=2, head_dim=32)
+
+
 def test_training_runs_on_the_cpu_at_small_size(smoke, tmp_path):
-    """The training phase: cli train, the plain path from the same initial
-    weights, the resume from step 1, a warm start from step 1 and the
-    launch-count check (no launch on CPU tensors)."""
+    """The capture phase (a random qwen3 target written as shards with an
+    index, conversations through the qwen template and parser, the runner,
+    the read-back, alone-vs-batch and fp32 checks, the vocab mapping),
+    then the training phase on its features: cli train, the exports of the
+    final checkpoint, the plain path from the same initial weights, the
+    resume from step 1, a warm start from step 1 and the launch-count
+    check (no launch on CPU tensors)."""
     cfg = Eagle3Config(vocab_size=2048, draft_vocab_size=512, hidden_size=128,
                        intermediate_size=384, num_attention_heads=4,
                        num_key_value_heads=2, max_position_embeddings=4096)
     cfg_path = tmp_path / "draft.json"
     cfg_path.write_text(json.dumps(cfg.to_dict()))
+    work = tmp_path / "work"
+    capture, captured = smoke.capture_phase(
+        cfg_path, torch.device("cpu"), 0, work,
+        target_config={**smoke.QWEN3_8B_TARGET, **TINY_TARGET},
+        max_length=64, min_len=40, std=0.2)
+    assert capture["capture_layers"] == [1, 1, 0]  # (1, n//2-1, n-4), n = 4
+    assert capture["files_checked"] == smoke.TRAIN_FILES + smoke.EVAL_FILES
+    assert all(40 <= n <= 64 for n in capture["sample_lengths"])
+    assert len(list((work / "target").glob("*.safetensors"))) == 2
+    assert capture["vocab"]["draft_vocab"] == 512
+    # the stand-in tokenizer's ids spread over the whole vocabulary
+    assert capture["vocab"]["id_range"][1] > 1900
+    for errors in (capture["bf16_vs_fp32_rel_l2"],
+                   capture["alone_vs_batch_rel_l2"]):
+        assert set(errors) == {"layer_1", "layer_0", "last_hidden"}
     results, counts = smoke.run_training(
-        cfg_path, torch.device("cpu"), 0, tmp_path / "work", max_length=64,
-        min_len=40, head_std=0.2, overrides=['model.compute_dtype="float32"'])
+        cfg_path, torch.device("cpu"), 0, work, captured, max_length=64,
+        overrides=['model.compute_dtype="float32"'])
+    for fmt in ("sglang", "hf"):
+        assert results["export"][fmt]["bit_identical"]
+    assert results["export"]["from"] == "smoke-step2"
     assert results["optimizer_steps"] == 2 and results["micro_batches"] == 4
     assert counts == dict.fromkeys(smoke.KERNEL_COUNTERS, 0)
     with pytest.raises(AssertionError, match="launches"):
