@@ -5,8 +5,9 @@ Usage: ``python3 chip_smoke.py [--seed N]`` from the repository root.
 ``python3 chip_smoke.py --usp-only`` runs phases 1, 2 and 8's training
 alone, ``--mesh-only`` phases 1, 2 and 9 (on a machine with a card per
 rank their ranks talk NCCL), ``--leftovers-only`` phases 1, 2 and 10's
-training runs, ``--capture-only`` phases 1, 2, 5a and 5 (capture at all
-36 target layers, training, export).
+training runs (with 10a), ``--capture-only`` phases 1, 2, 5a, 5, 5b and
+10a with its training run (the captures at all 36 and all 27 target
+layers, training, export, the families).
 
 Phases, each printing JSON lines:
 
@@ -83,6 +84,14 @@ Phases, each printing JSON lines:
    ``config.json``, every weight read back through
    ``draft_state_from_export`` bit-identical to the checkpoint's cast to
    bf16 and the HF embedding the target's;
+5b. slice 17, the target families (``target_families``): each tiny
+   target of ``tests/_torch_targets.TINY_FAMILIES`` (gemma3, phi3,
+   gpt-oss, deepseek v2 (greedy and group-limited), v3, kimi_k2, glm4_moe,
+   llama4, qwen3_next, longcat_flash, the Qwen2.5-VL text tower,
+   qwen3_moe; written from the seed) through the port's fp32 capture
+   forward on the card against the same forward on the CPU, and each MoE
+   family's ``moe_impl="dense"`` against ``gathered`` on the card, with no
+   TF32, within ``MOE_IMPL_TOL`` and with the same routing;
 6. slice 3, the DFlash family: ``cli.main(["train", ...])`` on
    ``examples/qwen3-8b-domino-offline.json`` with ``configs/qwen3-8b-domino.json``
    at full width (B=2, S up to 768, 256 anchors of 16; accumulation 2, so 4
@@ -165,9 +174,23 @@ Phases, each printing JSON lines:
    optimizer-step, memory and a
    profiled micro-step; ``configs/qwen2.5-vl-7b-eagle3.json`` (mrope over
    [3, S] position ids of a vision span) and
-   ``configs/deepseek-v2-lite-eagle3.json`` (yarn), a step each; and phase
-   5's warm start from its own step-1 directory (the masters bit-identical
-   to the saved ones, a fresh optimizer);
+   ``configs/deepseek-v2-lite-eagle3.json`` (yarn), a step each, the
+   DeepSeek draft on the features of 10a (one step of 2 micro-batches);
+   and phase 5's warm start from its own step-1 directory (the masters
+   bit-identical to the saved ones, a fresh optimizer);
+10a. slice 17, the MoE capture (``capture_moe``): phase 5a's capture from
+   a random target in the shape of DeepSeek-V2-Lite
+   (``DEEPSEEK_V2_LITE_TARGET``: MLA, 64 routed experts of which 6 a
+   token and 2 shared, the first layer dense; 27 layers, 15.7 B
+   parameters, 31.4 GB bf16; ``MOE_CAPTURE_DEPTH`` layers in the default
+   run), one padded batch of 4 conversations through the runner with
+   ``moe_impl="gathered"``, with phase 5a's checks and three of its own:
+   each MoE layer's routing in the bf16 run and in the sample alone
+   agreeing with the fp32 run's and the batch's on at least
+   ``MOE_ROUTE_AGREEMENT`` of the assignments, and each MoE layer of the
+   fp32 batch alone, fed the same input, through ``moe_impl="dense"`` and
+   ``gathered``: routed identically and within ``MOE_IMPL_TOL`` (the whole
+   forward through both is reported);
 11. the kernels line, then the card line, then ``{"ok": true, ...}``.
 
 Phases 9 and 8's training run right after the build, before the kernel
@@ -182,9 +205,12 @@ prints no result. Without a CUDA device it exits non-zero at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import gc
 import gzip
 import hashlib
+import importlib.util
 import json
 import math
 import os
@@ -235,6 +261,8 @@ from specforge_tpu_torch.models.draft.llama_eagle3 import (
 from specforge_tpu_torch.models.draft.peagle import PEagleConfig, cod_capacities
 from specforge_tpu_torch.models.target.head import TargetHead
 from specforge_tpu_torch.models.target.transformer import (
+    TargetConfig,
+    load_target_params,
     target_capture_forward,
 )
 from specforge_tpu_torch.offline_capture import prepare
@@ -280,6 +308,23 @@ from specforge_tpu_torch.training.vocab_mapping import (
 )
 
 REPO = Path(__file__).resolve().parent
+
+
+def _repo_module(relpath: str):
+    """A module of the repository loaded from its file (a package named
+    ``tests`` installed elsewhere would shadow the repository's)."""
+    spec = importlib.util.spec_from_file_location(Path(relpath).stem,
+                                                  REPO / relpath)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+#: the target families' tensors and tiny checkpoints (slice 17)
+_targets = _repo_module("tests/_torch_targets.py")
+MOE_FAMILIES, TINY_FAMILIES = _targets.MOE_FAMILIES, _targets.TINY_FAMILIES
+layer_shapes, tensor_shapes = _targets.layer_shapes, _targets.tensor_shapes
+write_family_target = _targets.write_family_target
 CONFIG = REPO / "configs" / "qwen3-8b-eagle3.json"
 EXAMPLE = REPO / "examples" / "qwen3-8b-eagle3-offline.json"
 
@@ -2124,6 +2169,57 @@ TARGET_STD = 0.02
 #: 2048 gave 1.3%, 1.8% and 3.4% at the last layer, so about 7% at 4096;
 #: two bf16 runs in another order differ by as much
 CAPTURE_REL_L2 = 0.1
+#: the fields of a target's config.json each capture line reports
+TARGET_FIELDS = (
+    "model_type", "vocab_size", "hidden_size", "intermediate_size",
+    "moe_intermediate_size", "num_hidden_layers", "num_attention_heads",
+    "num_key_value_heads", "head_dim", "q_lora_rank", "kv_lora_rank",
+    "qk_nope_head_dim", "qk_rope_head_dim", "v_head_dim", "n_routed_experts",
+    "num_experts_per_tok", "n_shared_experts", "first_k_dense_replace",
+    "topk_method", "scoring_func", "rope_theta", "rope_scaling")
+#: DeepSeek-V2-Lite's config.json (deepseek-ai/DeepSeek-V2-Lite on the HF
+#: hub): the MoE target slice 17's capture writes, with random weights
+#: from --seed; configs/deepseek-v2-lite-eagle3.json is its EAGLE3 draft
+DEEPSEEK_V2_LITE_TARGET = {
+    "architectures": ["DeepseekV2ForCausalLM"], "model_type": "deepseek_v2",
+    "vocab_size": 102400, "hidden_size": 2048, "intermediate_size": 10944,
+    "moe_intermediate_size": 1408, "num_hidden_layers": 27,
+    "num_attention_heads": 16, "num_key_value_heads": 16,
+    "q_lora_rank": None, "kv_lora_rank": 512, "qk_nope_head_dim": 128,
+    "qk_rope_head_dim": 64, "v_head_dim": 128, "n_routed_experts": 64,
+    "num_experts_per_tok": 6, "n_shared_experts": 2, "moe_layer_freq": 1,
+    "first_k_dense_replace": 1, "topk_method": "greedy", "n_group": 1,
+    "topk_group": 1, "norm_topk_prob": False, "scoring_func": "softmax",
+    "routed_scaling_factor": 1.0, "hidden_act": "silu",
+    "max_position_embeddings": 163840, "rms_norm_eps": 1e-6,
+    "rope_theta": 10000, "rope_scaling": {
+        "type": "yarn", "factor": 40, "beta_fast": 32, "beta_slow": 1,
+        "mscale": 0.707, "mscale_all_dim": 0.707,
+        "original_max_position_embeddings": 4096},
+    "attention_bias": False, "tie_word_embeddings": False,
+    "bos_token_id": 100000, "eos_token_id": 100001,
+    "torch_dtype": "bfloat16",
+}
+#: the MoE target's depth in the default run, for its 1,200 s: 1 dense and
+#: 5 MoE layers, 3.4 B parameters (6.9 GB). At 8 layers (9.2 GB) a whole
+#: run reached its last phase line at 1,226 s on one H100, over the 1,165
+#: s it is allowed. ``--capture-only`` runs all 27 (15.7 B, 31.4 GB) and
+#: captures at (1, 12, 23) by the EAGLE3 rule
+MOE_CAPTURE_DEPTH = 6
+#: the capture layers at that depth, by the run's override: the EAGLE3
+#: rule gives (1, 2, 2) at 6 layers
+MOE_CAPTURE_LAYERS = (1, 2, 4)
+#: decoder layers a shard of the MoE target holds (2.3 GB)
+MOE_SHARD_LAYERS = 2
+#: the least share of each MoE layer's (token, expert) assignments a bf16
+#: capture shares with the fp32 run, and a sample alone with its padded
+#: row: CPU runs of a DeepSeek-V2-Lite-shaped target (4-27 layers at widths
+#: 256-2048) agreed on 98.1-99.5%, and their relative L2 errors stayed
+#: under 1.7% (so ``CAPTURE_REL_L2`` holds for the MoE target too)
+MOE_ROUTE_AGREEMENT = 0.95
+#: the fp32 capture through ``moe_impl="dense"`` against ``gathered``, per
+#: element |d - g| <= tol * (1 + |g|): the CPU parity tests' 2e-4
+MOE_IMPL_TOL = 2e-4
 #: the stand-in tokenizer's lexicon: distinct words, drawn Zipf-like
 LEXICON_WORDS = 50000
 
@@ -2179,63 +2275,59 @@ def synthetic_conversations(n: int, tokenizer, seed: int, min_len: int,
 
 
 def write_capture_target(root: Path, config: dict, device, seed: int,
-                         std: float) -> Path:
-    """A random HF checkpoint directory of ``config`` (a dense qwen3
-    target): bf16 weights drawn on ``device`` from the seed, norms 1,
-    written as safetensors shards (the embedding, head and final norm in
-    the first, ``SHARD_LAYERS`` decoder layers in each of the others) with
-    their ``model.safetensors.index.json``, by the port's writer."""
+                         std: float, shard_layers: int = SHARD_LAYERS
+                         ) -> Path:
+    """A random HF checkpoint directory of ``config`` (any family: the
+    tensors of ``tests/_torch_targets.tensor_shapes``): bf16 weights drawn
+    on ``device`` from the seed (a shard's in one draw), norms 1 (a
+    zero-centred norm's 0), biases 0, written as safetensors shards (the
+    embedding, head and final norm in the first, ``shard_layers`` decoder
+    layers in each of the others) with their
+    ``model.safetensors.index.json``, by the port's writer."""
     root.mkdir(parents=True, exist_ok=True)
+    (root / "config.json").write_text(json.dumps(config, indent=2))
+    tc = TargetConfig.from_file(str(root))
     gen = torch.Generator(device=device).manual_seed(seed + 3)
-    h, inter = config["hidden_size"], config["intermediate_size"]
-    heads, kv, d = (config["num_attention_heads"],
-                    config["num_key_value_heads"], config["head_dim"])
-    layers = config["num_hidden_layers"]
+    fill = {"norm1": 1.0, "norm0": 0.0, "bias": 0.0}
 
-    def rand(*shape):
-        return (torch.randn(*shape, generator=gen, device=device) * std).to(
-            torch.bfloat16).cpu()
+    def values(shapes: dict) -> dict:
+        drawn = [k for k, (_, kind) in shapes.items()
+                 if kind in ("weight", "embed")]
+        sizes = [math.prod(shapes[k][0]) for k in drawn]
+        flat = (torch.randn(sum(sizes), generator=gen, device=device)
+                * std).to(torch.bfloat16).cpu()
+        out = {k: t.view(shapes[k][0])
+               for k, t in zip(drawn, torch.split(flat, sizes))}
+        for k, (shape, kind) in shapes.items():
+            if k not in out:
+                if kind not in fill:
+                    raise ValueError(f"no full-width value for a {kind} "
+                                     "tensor")
+                out[k] = torch.full(shape, fill[kind], dtype=torch.bfloat16)
+        return out
 
-    def ones(n):
-        return torch.ones(n, dtype=torch.bfloat16)
-
-    groups = [range(lo, min(lo + SHARD_LAYERS, layers))
-              for lo in range(0, layers, SHARD_LAYERS)]
+    layers = tc.num_hidden_layers
+    groups = [range(lo, min(lo + shard_layers, layers))
+              for lo in range(0, layers, shard_layers)]
     n_shards = 1 + len(groups)
     weight_map, total = {}, 0
 
-    def save(index: int, tensors: dict) -> None:
+    def save(index: int, shapes: dict) -> None:
         nonlocal total
+        tensors = values(shapes)
         name = f"model-{index + 1:05d}-of-{n_shards:05d}.safetensors"
         save_feature_file(str(root / name), tensors)
         weight_map.update(dict.fromkeys(tensors, name))
         total += sum(t.numel() * t.element_size() for t in tensors.values())
 
-    save(0, {"model.embed_tokens.weight": rand(config["vocab_size"], h),
-             "lm_head.weight": rand(config["vocab_size"], h),
-             "model.norm.weight": ones(h)})
+    shapes = tensor_shapes(tc, config)
+    save(0, {k: v for k, v in shapes.items()
+             if not k.startswith("model.layers.")})
     for shard, group in enumerate(groups, start=1):
-        tensors = {}
-        for i in group:
-            p = f"model.layers.{i}"
-            tensors.update({
-                f"{p}.self_attn.q_proj.weight": rand(heads * d, h),
-                f"{p}.self_attn.k_proj.weight": rand(kv * d, h),
-                f"{p}.self_attn.v_proj.weight": rand(kv * d, h),
-                f"{p}.self_attn.o_proj.weight": rand(h, heads * d),
-                f"{p}.self_attn.q_norm.weight": ones(d),
-                f"{p}.self_attn.k_norm.weight": ones(d),
-                f"{p}.input_layernorm.weight": ones(h),
-                f"{p}.post_attention_layernorm.weight": ones(h),
-                f"{p}.mlp.gate_proj.weight": rand(inter, h),
-                f"{p}.mlp.up_proj.weight": rand(inter, h),
-                f"{p}.mlp.down_proj.weight": rand(h, inter),
-            })
-        save(shard, tensors)
-        del tensors
+        save(shard, {k: v for i in group
+                     for k, v in layer_shapes(tc, config, i).items()})
     (root / "model.safetensors.index.json").write_text(json.dumps(
         {"metadata": {"total_size": total}, "weight_map": weight_map}))
-    (root / "config.json").write_text(json.dumps(config, indent=2))
     return root
 
 
@@ -2256,21 +2348,121 @@ def capture_errors(got: torch.Tensor, ref: torch.Tensor, layers, hidden: int
     return out
 
 
+def route_agreement(got: torch.Tensor, ref: torch.Tensor, experts: int
+                    ) -> float:
+    """The share of ``ref``'s (token, expert) assignments [T, k] that
+    ``got`` makes too."""
+    got = F.one_hot(got, experts).sum(dim=1)
+    ref = F.one_hot(ref, experts).sum(dim=1)
+    return float((got * ref).sum() / ref.sum())
+
+
+def route_agreements(got: dict, ref: dict, experts: int, got_rows=None,
+                     ref_rows=None) -> dict:
+    """``route_agreement`` of each MoE layer's recorded routing (over the
+    token rows ``got_rows`` and ``ref_rows`` of each, all when None)."""
+    every = slice(None)
+    return {f"layer_{layer}": route_agreement(
+                got[layer][every if got_rows is None else got_rows].cpu(),
+                ref[layer][every if ref_rows is None else ref_rows].cpu(),
+                experts)
+            for layer in sorted(ref)}
+
+
+@contextlib.contextmanager
+def fp32_matmuls():
+    """fp32 products in fp32 (no TF32) inside the block."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def moe_impl_checks(params: dict, tc: TargetConfig, ids, mask, layers,
+                    stream: torch.Tensor, fp32: tuple, fp32_routes: dict
+                    ) -> dict:
+    """``moe_impl="dense"`` against ``gathered`` on an fp32 batch, with no
+    TF32. Each MoE layer alone, fed the residual stream the gathered fp32
+    run fed it (``stream``: every layer's output, the embedding first):
+    both impls route every token alike and agree within ``MOE_IMPL_TOL``.
+    The whole forward through ``dense`` against the gathered run's
+    captures (``fp32``, over the real tokens) is reported, not held: the
+    two impls' rounding differences reach the later layers' routers and
+    flip near-tied choices there. A deepseek-style target (its layers cut
+    out one at a time as a one-layer MoE target)."""
+    if tc.moe_variant != "deepseek":
+        raise ValueError(f"{tc.moe_variant!r}: one-layer cuts take a "
+                         "deepseek-style target")
+    h = tc.hidden_size
+    experts = tc.num_experts + tc.zero_expert_num
+    valid = mask.bool().cpu()
+    one = dataclasses.replace(tc, num_hidden_layers=1,
+                              first_k_dense_replace=0)
+    per_layer = {}
+    with fp32_matmuls():
+        for i in range(tc.num_hidden_layers):
+            if not tc.is_moe_layer(i):
+                continue
+            prefix = f"model.layers.{i}."
+            cut = {k.replace(prefix, "model.layers.0."): v
+                   for k, v in params.items() if k.startswith(prefix)}
+            cut.update({k: params[k] for k in ("model.embed_tokens.weight",
+                                               "model.norm.weight")})
+            runs = {}
+            for impl in ("gathered", "dense"):
+                routing = {}
+                out, _ = target_capture_forward(
+                    cut, one, ids, mask, (0,), compute_dtype=torch.float32,
+                    moe_impl=impl, routing=routing,
+                    inputs_embeds=stream[..., i * h:(i + 1) * h])
+                runs[impl] = (out.cpu()[valid], routing[0])
+            (got, got_route), (ref, ref_route) = runs["dense"], \
+                runs["gathered"]
+            check(f"layer {i} alone, dense vs gathered routing (differing)",
+                  0.0 if torch.equal(got_route, ref_route) else 1.0, 0.0)
+            excess = float(((got - ref).abs()
+                            - MOE_IMPL_TOL * (1 + ref.abs())).max())
+            check(f"layer {i} alone, dense vs gathered (|d - g| - "
+                  f"{MOE_IMPL_TOL} * (1 + |g|))", excess, 0.0)
+            per_layer[f"layer_{i}"] = max_err(got, ref)
+        routes = {}
+        dense = target_capture_forward(
+            params, tc, ids, mask, layers, compute_dtype=torch.float32,
+            moe_impl="dense", routing=routes)
+    dense = tuple(t.cpu()[valid] for t in dense)
+    rows = valid.reshape(-1).to(ids.device)
+    return {"layers_alone_max_abs_err": per_layer,
+            "whole_route_agreement": route_agreements(
+                routes, fp32_routes, experts, rows, rows),
+            "whole_rel_l2": capture_errors(dense, fp32, layers, h)}
+
+
 def capture_phase(cfg_path: Path, device, seed: int, workdir: Path, *,
                   target_config=QWEN3_8B_TARGET, depth=None,
                   max_length=MAX_LEN, min_len=1536, batch=CAPTURE_BATCH,
-                  std=TARGET_STD) -> tuple:
-    """Slice 16's capture: a random target of ``target_config`` (cut to
-    ``depth`` layers) written as an HF directory; conversations from the
-    seed rendered by the qwen template and parser (``build_dataset``)
-    with ``SpreadTokenizer``; the eagle layout captured at the draft's
-    default layers through the runner and ``prepare.capture`` into
+                  std=TARGET_STD, n_train=TRAIN_FILES, n_eval=EVAL_FILES,
+                  capture_layers=None, shard_layers=SHARD_LAYERS) -> tuple:
+    """Slices 16 and 17's capture: a random target of ``target_config``
+    (cut to ``depth`` layers) written as an HF directory; conversations
+    from the seed rendered by the qwen template and parser
+    (``build_dataset``) with ``SpreadTokenizer``; the eagle layout captured
+    at the draft's default layers (or ``capture_layers``) through the
+    runner (``moe_impl="gathered"``) and ``prepare.capture`` into
     ``workdir``'s train and eval directories, with the vocab mapping
     derived from the captured ids. Checks: every captured tensor finite;
     the files read back through the data plane (manifest and store) in the
     right shapes with the parser's ids and loss masks; a sample captured
     alone against its row of a padded batch, and one batch's bf16 capture
-    against an fp32 run of the same forward (``CAPTURE_REL_L2``) →
+    against an fp32 run of the same forward (``CAPTURE_REL_L2``). An MoE
+    target's routing is recorded in those runs: the share of (token,
+    expert) assignments each MoE layer's bf16 run and lone sample agree on
+    with the fp32 run and the batch (at least ``MOE_ROUTE_AGREEMENT``),
+    and ``moe_impl="dense"`` against ``gathered`` (``moe_impl_checks``) →
     (results, what the training phase reads)."""
     on_card = device.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
@@ -2279,18 +2471,16 @@ def capture_phase(cfg_path: Path, device, seed: int, workdir: Path, *,
         config["num_hidden_layers"] = depth
     t0 = time.perf_counter()
     target = write_capture_target(workdir / "target", config, device, seed,
-                                  std)
-    results = {"target": {k: config[k] for k in (
-        "model_type", "vocab_size", "hidden_size", "intermediate_size",
-        "num_hidden_layers", "num_attention_heads", "num_key_value_heads",
-        "head_dim", "rope_theta")},
-        "target_bytes": sum(p.stat().st_size for p in target.iterdir()),
-        "target_write_s": time.perf_counter() - t0}
+                                  std, shard_layers)
+    results = {"target": {k: config[k] for k in TARGET_FIELDS
+                          if k in config},
+               "target_bytes": sum(p.stat().st_size
+                                   for p in target.iterdir()),
+               "target_write_s": time.perf_counter() - t0}
 
     # conversations → the qwen template and parser
     t0 = time.perf_counter()
     tokenizer = SpreadTokenizer(config["vocab_size"])
-    n_train, n_eval = TRAIN_FILES, EVAL_FILES
     records = synthetic_conversations(n_train + n_eval, tokenizer, seed,
                                       min_len, max_length)
     parsed = build_dataset(records, tokenizer, "qwen", max_length)
@@ -2299,13 +2489,17 @@ def capture_phase(cfg_path: Path, device, seed: int, workdir: Path, *,
                              f"{n_train + n_eval} conversations")
     samples = [{"input_ids": p.input_ids, "loss_mask": p.loss_mask}
                for p in parsed]
+    parts = [(name, part) for name, part in (("train", samples[:n_train]),
+                                             ("eval", samples[n_train:]))
+             if part]
     results["tokenize_s"] = time.perf_counter() - t0
 
     # the runner holds the target; prepare.capture applies the capture-
     # layer rule and writes each set of files
     providers = builtin_algorithm_registry().resolve("eagle3").providers
     layers = providers.resolve_capture_layers(
-        Eagle3Config.from_file(cfg_path), config["num_hidden_layers"])
+        Eagle3Config.from_file(cfg_path), config["num_hidden_layers"],
+        capture_layers)
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     sync()
@@ -2313,17 +2507,18 @@ def capture_phase(cfg_path: Path, device, seed: int, workdir: Path, *,
     runner = OfflineCaptureRunner(
         OfflineCaptureConfig(str(target), str(workdir / "train"), layers,
                              max_length, batch),
-        device=None if on_card else device)
+        moe_impl="gathered", device=None if on_card else device)
     sync()
     results["target_load_s"] = time.perf_counter() - t0
+    tc = runner.target_config
     written, capture_s = {}, 0.0
-    for name, part in (("train", samples[:n_train]),
-                       ("eval", samples[n_train:])):
+    for name, part in parts:
         t0 = time.perf_counter()
         out = prepare.capture(
             part, target_model=str(target), output_dir=str(workdir / name),
             algorithm="eagle3", draft_config=str(cfg_path),
-            max_length=max_length, batch_size=batch, runner=runner)
+            capture_layers=capture_layers, max_length=max_length,
+            batch_size=batch, runner=runner)
         sync()
         capture_s += time.perf_counter() - t0
         written[name] = out
@@ -2332,6 +2527,7 @@ def capture_phase(cfg_path: Path, device, seed: int, workdir: Path, *,
     real = sum(len(s["input_ids"]) for s in samples)
     results.update({
         "capture_layers": list(layers), "batch": batch,
+        "moe_impl": runner.moe_impl,
         "samples": len(samples), "real_tokens": real,
         "sample_lengths": [len(s["input_ids"]) for s in samples],
         "capture_s": capture_s,
@@ -2356,27 +2552,63 @@ def capture_phase(cfg_path: Path, device, seed: int, workdir: Path, *,
         results["forward_ms"] / 1e3)
     if on_card:
         results["peak_bytes"] = torch.cuda.max_memory_allocated()
-    fp32 = target_capture_forward(
-        runner.params, runner.target_config,
-        torch.as_tensor(ids, device=runner.device),
-        torch.as_tensor(mask, device=runner.device), layers,
-        compute_dtype=torch.float32)
+    moe = tc.num_experts > 0
+    ids_t = torch.as_tensor(ids, device=runner.device)
+    mask_t = torch.as_tensor(mask, device=runner.device)
     valid = torch.as_tensor(mask, dtype=torch.bool)
-    fp32 = tuple(t.cpu()[valid] for t in fp32)
-    errors = capture_errors(tuple(t[valid] for t in bf16), fp32, layers,
-                            config["hidden_size"])
-    del fp32
+    routes = {"bf16": {}, "fp32": {}, "alone": {}}
+    experts = tc.num_experts + tc.zero_expert_num
+    # an MoE target's fp32 run keeps every layer's output: each MoE
+    # layer's input for the dense-vs-gathered check
+    every = tuple(range(-1, tc.num_hidden_layers)) if moe else layers
+    if moe:  # the bf16 batch's routing, in the runner's forward once more
+        target_capture_forward(runner.params, tc, ids_t, mask_t, layers,
+                               routing=routes["bf16"])
+    with fp32_matmuls():
+        stream, last = target_capture_forward(
+            runner.params, tc, ids_t, mask_t, every,
+            compute_dtype=torch.float32, routing=routes["fp32"])
+    h = config["hidden_size"]
+    slots = [every.index(layer) for layer in layers]
+    fp32 = (torch.cat([stream[..., j * h:(j + 1) * h] for j in slots],
+                      dim=-1).cpu()[valid], last.cpu()[valid])
+    errors = capture_errors(tuple(t[valid] for t in bf16), fp32, layers, h)
     for name, err in errors.items():
         check(f"bf16 capture vs fp32, {name} (relative L2)", err,
               CAPTURE_REL_L2)
     results["bf16_vs_fp32_rel_l2"] = errors
+    if moe:
+        results["dense_vs_gathered"] = moe_impl_checks(
+            runner.params, tc, ids_t, mask_t, layers, stream, fp32,
+            routes["fp32"])
+        rows = valid.reshape(-1).to(runner.device)
+        agreement = route_agreements(routes["bf16"], routes["fp32"],
+                                     experts, rows, rows)
+        for name, share in agreement.items():
+            check(f"bf16 vs fp32 routing agreement, {name} (1 - share)",
+                  1.0 - share, 1.0 - MOE_ROUTE_AGREEMENT)
+        results["bf16_vs_fp32_route_agreement"] = agreement
+    del fp32, stream, last
 
     # the first sample alone (one row, its own length) against its file
     n0 = len(samples[0]["input_ids"])
     alone = OfflineCaptureRunner(
         OfflineCaptureConfig(str(target), str(workdir / "alone"), layers,
                              n0, 1),
-        target_config=runner.target_config, target_params=runner.params)
+        target_config=tc, target_params=runner.params, moe_impl="gathered")
+    if moe:
+        target_capture_forward(
+            runner.params, tc,
+            torch.as_tensor(samples[0]["input_ids"][None],
+                            device=runner.device), None, layers,
+            routing=routes["alone"])
+        agreement = route_agreements(routes["alone"], routes["bf16"],
+                                     experts, ref_rows=slice(0, n0))
+        for name, share in agreement.items():
+            check(f"sample alone vs its padded row, routing agreement, "
+                  f"{name} (1 - share)", 1.0 - share,
+                  1.0 - MOE_ROUTE_AGREEMENT)
+        results["alone_vs_batch_route_agreement"] = agreement
     alone = alone._run_batch(samples[0]["input_ids"][None], np.ones((1, n0)))
     stored, _ = load_feature_file(str(workdir / "train" /
                                       "sample-000000.sft"))
@@ -2387,7 +2619,7 @@ def capture_phase(cfg_path: Path, device, seed: int, workdir: Path, *,
         check(f"sample alone vs its padded row, {name} (relative L2)", err,
               CAPTURE_REL_L2)
     results["alone_vs_batch_rel_l2"] = errors
-    del runner, alone, bf16
+    del runner, alone, bf16, routes
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
@@ -2396,8 +2628,7 @@ def capture_phase(cfg_path: Path, device, seed: int, workdir: Path, *,
     store = FileFeatureStore()
     h = config["hidden_size"]
     checked = 0
-    for name, part in (("train", samples[:n_train]),
-                       ("eval", samples[n_train:])):
+    for name, part in parts:
         refs = [FileFeatureStore.ref_for_file(path, read_specs=True)
                 for path in OfflineManifestReader(
                     str(workdir / name)).list_files()]
@@ -4357,16 +4588,17 @@ DEEPSEEK_CONFIG = REPO / "configs" / "deepseek-v2-lite-eagle3.json"
 #: run name → its draft config and how the phase drives it: feature files,
 #: accumulation (so optimizer steps = files / (BATCH · accum)), the feature
 #: format (reference ``.ckpt``, ``.sft`` with mrope's [3, S] position ids,
-#: or plain ``.sft``), a warm start from an export written here, and the
-#: timings (the micro-step, optimizer step, peak memory, a profiled
-#: micro-step)
+#: or those ``moe_capture_phase`` captures from the DeepSeek-V2-Lite-shaped
+#: target), a warm start from an export written here, and the timings (the
+#: micro-step, optimizer step, peak memory, a profiled micro-step)
 LEFTOVER_RUNS = {
     "llama3_70b": dict(config=LLAMA_CONFIG, files=TRAIN_FILES, accum=ACCUM,
                        features="ckpt", warm_start=True, timed=True),
     "qwen2_5_vl_7b": dict(config=QWEN_VL_CONFIG, files=BATCH, accum=1,
                           features="mrope", warm_start=False, timed=False),
-    "deepseek_v2_lite": dict(config=DEEPSEEK_CONFIG, files=BATCH, accum=1,
-                             features="sft", warm_start=False, timed=False),
+    "deepseek_v2_lite": dict(config=DEEPSEEK_CONFIG, files=CAPTURE_BATCH,
+                             accum=ACCUM, features="captured",
+                             warm_start=False, timed=False),
 }
 def write_warm_start_export(root: Path, cfg_path: Path, device, seed: int
                             ) -> dict:
@@ -4419,30 +4651,38 @@ def leftover_run_json(workdir: Path, cfg_path: Path, target: Path,
 
 def run_leftover(spec: dict, device, seed: int, workdir: Path, *,
                  max_length=MAX_LEN, min_len=1536, head_std=0.02,
-                 overrides=()) -> tuple:
+                 overrides=(), captured: Optional[dict] = None) -> tuple:
     """One draft of ``LEFTOVER_RUNS`` through ``cli train`` (the counted main
     path), then its kernel-path trainer (the warm-started weights against
     the export's, the step-1 loss and gradients twice for the same bits and
     against the ``cli`` run's step 1; the timings) and its plain-path
     trainer (chunked attention, reference CE) from the same weights →
-    (results, launch counts)."""
+    (results, launch counts). ``captured``: what ``capture_phase`` captured
+    into ``workdir`` (its target, whose head and embedding the trainers
+    read, and its vocab mapping), in place of random features and a random
+    head."""
     t_start = time.perf_counter()
     cfg_path = spec["config"]
     cfg = Eagle3Config.from_file(cfg_path)
     on_card = device.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    write_features(workdir / "train", cfg, seed, spec["files"], min_len,
-                   max_length, fmt=spec["features"])
-    target = write_target_dir(workdir / "target", cfg.vocab_size,
-                              cfg.resolved_target_hidden_size, device, seed,
-                              head_std)
+    overrides = list(overrides)
+    if captured is not None:
+        target = captured["target"]
+        overrides.append(
+            f'model.vocab_mapping_path="{captured["vocab_mapping"]}"')
+    else:
+        write_features(workdir / "train", cfg, seed, spec["files"], min_len,
+                       max_length, fmt=spec["features"])
+        target = write_target_dir(workdir / "target", cfg.vocab_size,
+                                  cfg.resolved_target_hidden_size, device,
+                                  seed, head_std)
     warm_dir = workdir / "export" if spec["warm_start"] else None
     expected = (write_warm_start_export(warm_dir, cfg_path, device, seed)
                 if warm_dir is not None else None)
     run_json = leftover_run_json(workdir, cfg_path, target, max_length,
                                  spec["accum"], warm_dir)
     runs = workdir / "runs"
-    overrides = list(overrides)
     device_args = [] if on_card else ["--device", str(device)]
     results = {"setup_s": time.perf_counter() - t_start,
                "feature_files": sorted(p.name for p in
@@ -4551,35 +4791,151 @@ def run_leftover(spec: dict, device, seed: int, workdir: Path, *,
     return results, counts
 
 
+def emit_leftover(name: str, spec: dict, results: dict, counts: dict
+                  ) -> None:
+    check_training_counts(counts, results["micro_batches"], 0)
+    draft = json.loads(spec["config"].read_text())
+    emit({"phase": f"offline_leftovers_{name}",
+          "config": str(EXAMPLE.relative_to(REPO)),
+          "draft_config": str(spec["config"].relative_to(REPO)),
+          "rope": draft.get("rope_scaling"),
+          "heads": [draft["num_attention_heads"],
+                    draft["num_key_value_heads"]],
+          "features": spec["features"], "batch": BATCH,
+          "max_length": MAX_LEN, "ttt_length": TTT,
+          "accumulation_steps": spec["accum"], "launches": counts,
+          "reduced": {"steps": f"{spec['files'] // BATCH // spec['accum']}"
+                               " optimizer steps, no eval",
+                      "weights": "random, from --seed"},
+          "tolerances": {"step1_loss_rtol": TRAIN_STEP1_RTOL,
+                         "grad_cosine": GRAD_COSINE,
+                         "grad_norm_rtol": GRAD_NORM_RTOL},
+          **results})
+
+
+def moe_capture_phase(seed: int, depth: int) -> dict:
+    """Slice 17 on the card: ``capture_phase`` from a random target in
+    DeepSeek-V2-Lite's shape cut to ``depth`` layers (its line
+    ``capture_moe``), then ``LEFTOVER_RUNS["deepseek_v2_lite"]``, its
+    EAGLE3 draft, trained on the captured features and the target's head
+    and embedding (its ``offline_leftovers`` line) → the training run's
+    launch counts."""
+    device = torch.device("cuda")
+    spec = LEFTOVER_RUNS["deepseek_v2_lite"]
+    full = DEEPSEEK_V2_LITE_TARGET["num_hidden_layers"]
+    dense = DEEPSEEK_V2_LITE_TARGET["first_k_dense_replace"]
+    with tempfile.TemporaryDirectory() as tmp:
+        results, captured = capture_phase(
+            spec["config"], device, seed, Path(tmp),
+            target_config=DEEPSEEK_V2_LITE_TARGET, depth=depth,
+            n_train=spec["files"], n_eval=0,
+            capture_layers=None if depth == full else MOE_CAPTURE_LAYERS,
+            shard_layers=MOE_SHARD_LAYERS)
+        emit({"phase": "capture_moe",
+              "draft_config": str(spec["config"].relative_to(REPO)),
+              "layout": "eagle", "template": "qwen",
+              "reduced": {
+                  "weights": f"random, from --seed (std {TARGET_STD})",
+                  "depth": None if depth == full else
+                  f"{depth} of {full} layers ({dense} dense, "
+                  f"{depth - dense} MoE; the default run's 1,200 s; "
+                  f"--capture-only runs all {full}), capture layers "
+                  f"{list(MOE_CAPTURE_LAYERS)} by the run's override (the "
+                  "EAGLE3 rule gives [1, 2, 2] at 6)",
+                  "samples": f"{spec['files']} conversations of 1536-2048 "
+                             "tokens, one padded batch"},
+              "tolerances": {"rel_l2": CAPTURE_REL_L2,
+                             "route_agreement": MOE_ROUTE_AGREEMENT,
+                             "dense_vs_gathered": (
+                                 f"each MoE layer alone: |d - g| <= "
+                                 f"{MOE_IMPL_TOL} * (1 + |g|), the same "
+                                 "routing")},
+              **results})
+        torch.cuda.empty_cache()
+        results, counts = run_leftover(spec, device, seed, Path(tmp),
+                                       captured=captured)
+    emit_leftover("deepseek_v2_lite", spec, results, counts)
+    torch.cuda.empty_cache()
+    return counts
+
+
+def target_families_phase(seed: int, device=None) -> dict:
+    """Slice 17's families on the card: each target of
+    ``tests/_torch_targets.TINY_FAMILIES`` (the CPU parity tests' tiny
+    checkpoints, from the seed) through the port's fp32 forward on CUDA
+    against its fp32 forward on the CPU, and for the MoE families
+    ``moe_impl="dense"`` against ``gathered`` on CUDA with the same
+    routing, all without TF32, within ``MOE_IMPL_TOL`` → per family the
+    largest errors."""
+    device = device or torch.device("cuda")
+    results = {}
+    gen = np.random.default_rng(seed)
+    with tempfile.TemporaryDirectory() as tmp, fp32_matmuls():
+        for family in TINY_FAMILIES:
+            root = write_family_target(Path(tmp) / family, family, seed)
+            tc = TargetConfig.from_file(root)
+            ids = torch.as_tensor(gen.integers(0, tc.vocab_size, (2, 16)))
+            mask = torch.ones_like(ids)
+            mask[1, 11:] = 0
+            layers = (-1, 1, tc.num_hidden_layers - 1)
+            valid = mask.bool()
+            runs = {}
+            for where, impl in (("cpu", "gathered"), ("cuda", "gathered"),
+                                ("cuda", "dense")):
+                if impl == "dense" and family not in MOE_FAMILIES:
+                    continue
+                dev = torch.device("cpu") if where == "cpu" else device
+                params = load_target_params(root, tc, torch.float32, dev)
+                routing = {}
+                out = target_capture_forward(params, tc, ids, mask, layers,
+                                             moe_impl=impl, routing=routing)
+                runs[where, impl] = ([t.cpu()[valid] for t in out],
+                                     {k: v.cpu() for k, v in routing.items()})
+            errors = {}
+            for name, pair in (("cuda_vs_cpu", ("cpu", "gathered")),
+                               ("dense_vs_gathered", ("cuda", "dense"))):
+                if pair not in runs:
+                    continue
+                ref, ref_routes = runs["cuda", "gathered"]
+                got, got_routes = runs[pair]
+                excess = max(float(((a - b).abs()
+                                    - MOE_IMPL_TOL * (1 + b.abs())).max())
+                             for a, b in zip(got, ref))
+                check(f"{family}: {name} (|a - b| - {MOE_IMPL_TOL} * "
+                      "(1 + |b|))", excess, 0.0)
+                same = all(torch.equal(got_routes[k], ref_routes[k])
+                           for k in ref_routes)
+                check(f"{family}: {name}, MoE layers routing differently",
+                      0.0 if same else 1.0, 0.0)
+                errors[name] = max(max_err(a, b) for a, b in zip(got, ref))
+            results[family] = errors
+    return results
+
+
+def emit_target_families(seed: int) -> None:
+    emit({"phase": "target_families",
+          "families": target_families_phase(seed),
+          "tolerance": f"|a - b| <= {MOE_IMPL_TOL} * (1 + |b|), fp32, "
+                       "no TF32"})
+    torch.cuda.empty_cache()
+
+
 def offline_leftovers_phase(seed: int, run_dir_warm_start: dict) -> None:
-    """Every run of ``LEFTOVER_RUNS`` at full width, one line each, then the
+    """Every run of ``LEFTOVER_RUNS`` at full width, one line each (the
+    DeepSeek-V2-Lite draft's after ``moe_capture_phase``'s own), then the
     phase's line with the run-directory warm start of the EAGLE3 training
     phase."""
     t0 = time.perf_counter()
     launches = {}
     for name, spec in LEFTOVER_RUNS.items():
+        if spec["features"] == "captured":
+            launches[name] = moe_capture_phase(seed, MOE_CAPTURE_DEPTH)
+            continue
         with tempfile.TemporaryDirectory() as tmp:
             results, counts = run_leftover(spec, torch.device("cuda"), seed,
                                            Path(tmp))
-        check_training_counts(counts, results["micro_batches"], 0)
         launches[name] = counts
-        draft = json.loads(spec["config"].read_text())
-        emit({"phase": f"offline_leftovers_{name}",
-              "config": str(EXAMPLE.relative_to(REPO)),
-              "draft_config": str(spec["config"].relative_to(REPO)),
-              "rope": draft.get("rope_scaling"),
-              "heads": [draft["num_attention_heads"],
-                        draft["num_key_value_heads"]],
-              "features": spec["features"], "batch": BATCH,
-              "max_length": MAX_LEN, "ttt_length": TTT,
-              "accumulation_steps": spec["accum"], "launches": counts,
-              "reduced": {"steps": f"{spec['files'] // BATCH // spec['accum']}"
-                                   " optimizer steps, no eval",
-                          "weights": "random, from --seed"},
-              "tolerances": {"step1_loss_rtol": TRAIN_STEP1_RTOL,
-                             "grad_cosine": GRAD_COSINE,
-                             "grad_norm_rtol": GRAD_NORM_RTOL},
-              **results})
+        emit_leftover(name, spec, results, counts)
         torch.cuda.empty_cache()
     emit({"phase": "offline_leftovers", "launches": launches,
           "run_dir_warm_start": run_dir_warm_start,
@@ -4610,9 +4966,12 @@ def main() -> int:
     parser.add_argument("--leftovers-only", action="store_true",
                         help="run only the offline_leftovers training runs")
     # capture at Qwen3-8B width and all 36 layers, the training phase on
-    # the captured features and the exports of its checkpoint, alone
+    # the captured features and the exports of its checkpoint, the target
+    # families, then the MoE capture at all 27 layers of DeepSeek-V2-Lite
+    # and its draft's training on those features, alone
     parser.add_argument("--capture-only", action="store_true",
-                        help="run only capture, training and export")
+                        help="run only the captures (all layers), their "
+                             "training runs, export and the families")
     args = parser.parse_args()
     if args.usp_rank:
         usp_rank(Path(args.usp_rank), torch.device(args.device), args.set)
@@ -4633,6 +4992,9 @@ def main() -> int:
     if args.capture_only:
         capture_and_train_phase(args.seed,
                                 QWEN3_8B_TARGET["num_hidden_layers"])
+        emit_target_families(args.seed)
+        moe_capture_phase(args.seed,
+                          DEEPSEEK_V2_LITE_TARGET["num_hidden_layers"])
         print(smi, flush=True)
         return 0
     if not args.usp_only:
@@ -4712,6 +5074,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     training, counts = capture_and_train_phase(args.seed, CAPTURE_DEPTH)
+    emit_target_families(args.seed)
 
     family_counts = {}
     for kind, cfg_path in (("domino", DOMINO_CONFIG),

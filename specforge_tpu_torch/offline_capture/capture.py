@@ -1,18 +1,19 @@
 """Offline feature capture: target prefill → per-sample feature files.
 
 Counterpart of ``specforge_tpu/offline_capture/capture.py``: runs the
-frozen dense target's prefill (``models/target/transformer.py``) over the
-tokenised dataset on one device, CUDA unless the caller names another,
-captures the algorithm's feature layout (EAGLE family: the 3-layer aux
-concat as ``hidden_state`` and ``target`` = the post-norm last hidden;
+frozen target's prefill (``models/target/transformer.py``, every family of
+the JAX package, MoE targets with ``moe_impl`` ``gathered`` or ``dense``)
+over the tokenised dataset on one device, CUDA unless the caller names
+another, captures the algorithm's feature layout (EAGLE family: the 3-layer
+aux concat as ``hidden_state`` and ``target`` = the post-norm last hidden;
 DFlash family: the N-layer concat as ``hidden_states`` and
-``target_last_hidden_states``), and writes one ``.sft`` per sample with
-the JAX runner's metadata. Batches are padded to a static ``max_length``
-and ``batch_size`` rows, as in the JAX package; features are trimmed back
-to each sample's true length before writing.
+``target_last_hidden_states``), and writes one ``.sft`` per sample with the
+JAX runner's metadata. Batches are padded to a static ``max_length`` and
+``batch_size`` rows, as in the JAX package; features are trimmed back to
+each sample's true length before writing.
 
-A capture mesh and EP MoE are refused by name: the port captures dense
-targets on one device (``ROADMAP.md`` Queue 1 items 7c and 6).
+A capture mesh and EP MoE are refused by name: the port captures on one
+device (``ROADMAP.md`` Queue 1 item 7d).
 """
 
 from __future__ import annotations
@@ -26,7 +27,9 @@ import numpy as np
 import torch
 
 from specforge_tpu_torch.models.target.transformer import (
+    EP_LATER,
     TargetConfig,
+    check_moe_impl,
     load_target_params,
     target_capture_forward,
 )
@@ -63,22 +66,17 @@ class OfflineCaptureRunner:
         target_config: Optional[TargetConfig] = None,
         target_params: Optional[Dict[str, torch.Tensor]] = None,
         mesh=None,
-        moe_impl: Optional[str] = None,
+        moe_impl: str = "gathered",
         device: DeviceLike = None,
     ) -> None:
         """The target's weights are loaded (or ``target_params`` taken) on
-        one device: CUDA unless ``device`` names another."""
+        one device: CUDA unless ``device`` names another. ``moe_impl``:
+        how an MoE target's layers combine their experts, ``gathered`` or
+        ``dense`` (``ep`` is refused)."""
         if mesh is not None:
-            raise NotImplementedError(
-                "a capture mesh: the port captures on one device "
-                "(multi-device capture comes with ROADMAP.md Queue 1 items "
-                "7c and 6)"
-            )
-        if moe_impl is not None:
-            raise NotImplementedError(
-                f"moe_impl={moe_impl!r}: the port's targets are dense (MoE "
-                "targets and EP come with ROADMAP.md Queue 1 items 7c and 6)"
-            )
+            raise NotImplementedError(f"a capture mesh: {EP_LATER}")
+        check_moe_impl(moe_impl)
+        self.moe_impl = moe_impl
         self.config = config
         if config.layout not in _LAYOUTS:
             raise ValueError(f"unknown layout {config.layout!r}")
@@ -101,7 +99,7 @@ class OfflineCaptureRunner:
             self.params, self.target_config,
             torch.as_tensor(input_ids, device=self.device),
             torch.as_tensor(attention_mask, device=self.device),
-            tuple(self.config.capture_layers),
+            tuple(self.config.capture_layers), moe_impl=self.moe_impl,
         )
         return aux.cpu(), last.cpu()
 

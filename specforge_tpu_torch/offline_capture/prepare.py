@@ -1,12 +1,14 @@
 """Offline feature capture over a dataset: ``python -m
 specforge_tpu_torch.offline_capture.prepare``.
 
-Counterpart of ``scripts/prepare_hidden_states.py``: runs
-the frozen dense target's prefill (``OfflineCaptureRunner``) over the
-records of a JSONL file, writes one ``.sft`` per sample in the algorithm's
-layout, and derives the shared vocab mapping (``vocab_mapping.npz``) from
-the captured ids when the draft's vocabulary is smaller than the target's.
-It runs on CUDA unless ``--device`` names another device.
+Counterpart of ``scripts/prepare_hidden_states.py``: runs the frozen
+target's prefill (``OfflineCaptureRunner``, any family the JAX package
+captures from; ``--moe-impl dense|gathered`` for an MoE target,
+``gathered`` by default) over the records of a JSONL file, writes one
+``.sft`` per sample in the algorithm's layout, and derives the shared vocab
+mapping (``vocab_mapping.npz``) from the captured ids when the draft's
+vocabulary is smaller than the target's. It runs on CUDA unless
+``--device`` names another device.
 
 The port imports no tokenizer package, so this entry point reads records
 that are already tokenised (``input_ids`` with ``loss_mask``), truncated to
@@ -14,8 +16,8 @@ that are already tokenised (``input_ids`` with ``loss_mask``), truncated to
 ``build_dataset`` drops one. Conversations go through the Python API:
 ``data.parse.build_dataset(records, tokenizer, template, max_length)`` with
 any tokenizer object, then :func:`capture`. ``--shard-over-devices`` and
-``--moe-impl`` are refused by name: the port captures dense targets on one
-device.
+``--moe-impl ep`` are refused by name: the port captures on one device
+(``ROADMAP.md`` Queue 1 item 7d).
 
 Usage:
     python -m specforge_tpu_torch.offline_capture.prepare \\
@@ -33,6 +35,8 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+
+from specforge_tpu_torch.models.target.transformer import EP_LATER
 
 ALGORITHMS = ("eagle3", "peagle", "dflash", "domino", "dspark")
 
@@ -63,7 +67,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     parser.add_argument("--shard-over-devices", action="store_true",
                         help="refused: the port captures on one device")
     parser.add_argument("--moe-impl", choices=("dense", "gathered", "ep"),
-                        help="refused: the port's targets are dense")
+                        default="gathered",
+                        help="how an MoE target combines its experts "
+                             "(ep is refused: one device)")
     parser.add_argument("--device", default=None,
                         help="torch device (default: CUDA, which must exist)")
     return parser.parse_args(argv)
@@ -111,6 +117,7 @@ def capture(
     max_length: int = 2048,
     batch_size: int = 4,
     device=None,
+    moe_impl: str = "gathered",
     runner=None,
 ) -> CaptureResult:
     """Capture ``samples`` (``input_ids``, ``loss_mask``) into
@@ -148,7 +155,7 @@ def capture(
     if runner is None:
         runner = OfflineCaptureRunner(capture_config,
                                       target_config=target_config,
-                                      device=device)
+                                      moe_impl=moe_impl, device=device)
     else:
         if (tuple(runner.config.capture_layers) != layers
                 or runner.config.layout != layout):
@@ -158,7 +165,8 @@ def capture(
                 f"({layout})")
         runner = OfflineCaptureRunner(capture_config,
                                       target_config=target_config,
-                                      target_params=runner.params)
+                                      target_params=runner.params,
+                                      moe_impl=runner.moe_impl)
     written = runner.run(samples)
 
     mapping_path = None
@@ -176,21 +184,17 @@ def capture(
 def main(argv: Optional[Sequence[str]] = None) -> int:
     args = parse_args(argv)
     if args.shard_over_devices:
-        raise SystemExit(
-            "--shard-over-devices: the port captures on one device "
-            "(multi-device capture comes with ROADMAP.md Queue 1 items 7c "
-            "and 6)")
-    if args.moe_impl:
-        raise SystemExit(
-            "--moe-impl: the port's targets are dense (MoE targets and EP "
-            "come with ROADMAP.md Queue 1 items 7c and 6)")
+        raise SystemExit(f"--shard-over-devices: {EP_LATER}")
+    if args.moe_impl == "ep":
+        raise SystemExit(f"--moe-impl ep: {EP_LATER}")
     samples = read_tokenized(args.data, args.max_length, args.limit)
     print(f"read {len(samples)} tokenised samples")
     result = capture(
         samples, target_model=args.target_model, output_dir=args.output_dir,
         algorithm=args.algorithm, draft_config=args.draft_config,
         capture_layers=args.capture_layers, max_length=args.max_length,
-        batch_size=args.batch_size, device=args.device)
+        batch_size=args.batch_size, device=args.device,
+        moe_impl=args.moe_impl)
     layout = result.runner.config.layout
     print(f"capture layers: {result.capture_layers} (layout={layout})")
     print(f"wrote {len(result.written)} feature files")

@@ -110,25 +110,30 @@ def read_safetensors_keys(path: str) -> Tuple[str, ...]:
 
 def read_safetensors_tensors(path: str, names) -> Dict[str, torch.Tensor]:
     """The tensors ``names`` of a safetensors file (a target checkpoint
-    shard), each read on its own in file order, without loading the
-    others."""
+    shard): the bytes from the first of them to the last read in one go
+    into one buffer, each tensor a view of it (a copy where its offset
+    does not suit its dtype's alignment)."""
     out: Dict[str, torch.Tensor] = {}
     with open(path, "rb") as f:
         header, _, start = _read_header(f)
         missing = [n for n in names if n not in header]
         if missing:
             raise KeyError(f"{missing} not in {path}")
-        for name in sorted(names, key=lambda n: header[n]["data_offsets"][0]):
-            info = header[name]
-            lo, hi = info["data_offsets"]
-            dtype = _DTYPES[info["dtype"]]
-            if hi == lo:
-                out[name] = torch.empty(info["shape"], dtype=dtype)
-                continue
-            f.seek(start + lo)
-            data = bytearray(f.read(hi - lo))
-            out[name] = torch.frombuffer(data, dtype=torch.uint8).view(
-                dtype).reshape(info["shape"])
+        spans = [header[n]["data_offsets"] for n in names]
+        base = min((lo for lo, _ in spans), default=0)
+        blob = torch.empty(max((hi for _, hi in spans), default=0) - base,
+                           dtype=torch.uint8)
+        f.seek(start + base)
+        if f.readinto(blob.numpy()) != blob.numel():
+            raise ValueError(f"{path} ends before its tensors' data")
+    for name in names:
+        info = header[name]
+        lo, hi = info["data_offsets"]
+        dtype = _DTYPES[info["dtype"]]
+        raw = blob[lo - base:hi - base]
+        if (lo - base) % dtype.itemsize:
+            raw = raw.clone()
+        out[name] = raw.view(dtype).reshape(info["shape"])
     return out
 
 

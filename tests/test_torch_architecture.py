@@ -1,9 +1,10 @@
 """Import rules of the PyTorch port, checked on the source (AST).
 
-The port and its chip smoke script import neither JAX (nor flax, optax,
-orbax) nor anything of the JAX package, and none of the libraries the
-machine with the card lacks (safetensors, ml_dtypes, pydantic). Every CUDA
-source under csrc/ is built, and none uses an atomic operation.
+The port, its chip smoke script and the test helper that script loads
+import neither JAX (nor flax, optax, orbax) nor anything of the JAX
+package, and none of the libraries the machine with the card lacks
+(safetensors, ml_dtypes, pydantic). Every CUDA source under csrc/ is
+built, and none uses an atomic operation.
 """
 
 import ast
@@ -27,6 +28,8 @@ def _sources():
                 yield os.path.join(root, name)
     yield os.path.join(REPO, "chip_smoke.py")
     yield os.path.join(REPO, "kernel_compare.py")
+    # the target shapes and tiny checkpoints chip_smoke.py loads
+    yield os.path.join(REPO, "tests", "_torch_targets.py")
 
 
 def _top_level_imports(path):

@@ -5,14 +5,14 @@ entry point against the JAX package, on the CPU.
 norms) targets, saved as tiny HF checkpoints by ``transformers`` and read
 by both packages' loaders, equals JAX's in fp32 at
 ``tests/test_target_transformer.py``'s 2e-4 (padded keys masked); the
-loader on single-file, sharded and tied checkpoints, a VL text tower's key
-prefix and the muP fold; the refusals of an unsupported family, a capture
-mesh and EP; both runners on one checkpoint in the eagle and dflash layouts
-(files agreeing at 2e-4, equal metadata, each package reading the other's
-files); ``python -m specforge_tpu_torch.offline_capture.prepare`` on
-tokenised records with its vocab mapping against JAX's
-``derive_vocab_mapping``; and the loop end to end on the CPU:
-conversations → capture → ``cli train`` → ``cli export`` → warm start."""
+loader on single-file, sharded and tied checkpoints and the muP fold; the
+refusals of an unsupported family, a capture mesh and EP; both runners on
+one checkpoint in the eagle and dflash layouts (files agreeing at 2e-4,
+equal metadata, each package reading the other's files); ``python -m
+specforge_tpu_torch.offline_capture.prepare`` on tokenised records with its
+vocab mapping against JAX's ``derive_vocab_mapping``; and the loop end to
+end on the CPU: conversations → capture → ``cli train`` → ``cli export`` →
+warm start."""
 
 import json
 import os
@@ -153,20 +153,25 @@ def test_loader_matches_jax(tmp_path, case):
 
 
 def test_refusals(tmp_path):
+    """``bailing_moe`` is refused with the JAX package's reason; EP, a
+    capture mesh, ``--moe-impl ep`` and ``--shard-over-devices`` are
+    refused citing ROADMAP item 7d; the loader needs CUDA unless asked."""
     root = save_target(tmp_path / "llama", "llama")
     cfg_path = os.path.join(root, "config.json")
-    moe = dict(json.load(open(cfg_path)), model_type="qwen3_moe")
-    (tmp_path / "moe").mkdir()
-    json.dump(moe, open(tmp_path / "moe" / "config.json", "w"))
-    with pytest.raises(ValueError, match="qwen3_moe.*item 7c"):
-        pt_tf.TargetConfig.from_file(str(tmp_path / "moe"))
+    bailing = dict(json.load(open(cfg_path)), model_type="bailing_moe")
+    (tmp_path / "bailing").mkdir()
+    json.dump(bailing, open(tmp_path / "bailing" / "config.json", "w"))
+    reason = jax_tf.UNSUPPORTED_MODEL_TYPES["bailing_moe"]
+    with pytest.raises(ValueError, match="bailing_moe") as err:
+        pt_tf.TargetConfig.from_file(str(tmp_path / "bailing"))
+    assert reason in str(err.value)
     config = OfflineCaptureConfig(root, str(tmp_path / "out"), (1, 1, 1))
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(NotImplementedError, match="mesh.*item 7d"):
         OfflineCaptureRunner(config, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="moe_impl='ep'"):
+    with pytest.raises(NotImplementedError, match="moe_impl='ep'.*item 7d"):
         OfflineCaptureRunner(config, moe_impl="ep", device="cpu")
     for flag in (["--shard-over-devices"], ["--moe-impl", "ep"]):
-        with pytest.raises(SystemExit, match="7c and 6"):
+        with pytest.raises(SystemExit, match="item 7d"):
             prepare.main(["--target-model", root, "--data", "x.jsonl",
                           "--output-dir", str(tmp_path / "o"), *flag])
     with pytest.raises(RuntimeError, match="no CUDA device"):

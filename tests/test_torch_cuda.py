@@ -1667,3 +1667,112 @@ def test_export_round_trip_at_qwen3_8b_width(gen, tmp_path):
             got = dict(fresh.named_parameters())[name[len("draft_model."):]]
             assert torch.equal(got.detach().cpu(),
                                value.to(torch.bfloat16).to(got.dtype)), name
+
+
+def deepseek_target(layers=2, vocab=4096, std=0.02, dtype=torch.bfloat16):
+    """A random target in DeepSeek-V2-Lite's layout at its full width (MLA
+    with the kv latent, 64 routed experts of which 6 a token, 2 shared,
+    the first layer dense), ``layers`` deep, on the card: its config and
+    params (the chip script's ``write_capture_target`` values)."""
+    import importlib.util
+    import os
+
+    from specforge_tpu_torch.models.target.transformer import TargetConfig
+
+    # loaded from its file: a package named tests installed elsewhere on
+    # the card's machine shadows this directory
+    spec = importlib.util.spec_from_file_location(
+        "_torch_targets",
+        os.path.join(os.path.dirname(__file__), "_torch_targets.py"))
+    targets = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(targets)
+    tensor_shapes = targets.tensor_shapes
+    cfg = TargetConfig(
+        vocab_size=vocab, hidden_size=2048, intermediate_size=10944,
+        num_hidden_layers=layers, num_attention_heads=16,
+        num_key_value_heads=16, max_position_embeddings=163840,
+        rope_scaling={"type": "yarn", "factor": 40, "beta_fast": 32,
+                      "beta_slow": 1, "mscale": 0.707,
+                      "mscale_all_dim": 0.707,
+                      "original_max_position_embeddings": 4096},
+        model_type="deepseek_v2", attn_variant="mla", kv_lora_rank=512,
+        qk_nope_head_dim=128, qk_rope_head_dim=64, v_head_dim=128,
+        rope_interleave=True, moe_variant="deepseek", num_experts=64,
+        num_experts_per_tok=6, n_shared_experts=2, first_k_dense_replace=1,
+        moe_intermediate_size=1408)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    params = {}
+    for key, (shape, kind) in tensor_shapes(cfg, {}).items():
+        if kind in ("weight", "embed"):
+            params[key] = (torch.randn(*shape, generator=g, device="cuda")
+                           * std).to(dtype)
+        else:
+            params[key] = torch.ones(shape, dtype=dtype, device="cuda")
+    return cfg, params
+
+
+def test_deepseek_moe_forward_on_the_card_matches_the_cpu(gen):
+    """Two layers of the DeepSeek-V2-Lite layout in fp32 (no TF32): the
+    card's capture forward against the CPU's within 2e-4 · (1 + |ref|),
+    every token routed to the same experts, through both MoE impls."""
+    from specforge_tpu_torch.models.target.transformer import (
+        target_capture_forward,
+    )
+
+    cfg, params = deepseek_target(dtype=torch.float32)
+    b, s, layers = 2, 128, (-1, 0, 1)
+    ids = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                        device="cuda")
+    mask = torch.ones(b, s, dtype=torch.int64, device="cuda")
+    mask[1, 90:] = 0
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        runs = {}
+        for impl in ("gathered", "dense"):
+            routing = {}
+            out = target_capture_forward(params, cfg, ids, mask, layers,
+                                         moe_impl=impl, routing=routing)
+            runs[impl] = ([t.cpu() for t in out], routing)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    cpu = {k: v.cpu() for k, v in params.items()}
+    del params
+    routing = {}
+    ref = target_capture_forward(cpu, cfg, ids.cpu(), mask.cpu(), layers,
+                                 routing=routing)
+    valid = mask.bool().cpu()
+    for impl, (out, got_routing) in runs.items():
+        assert sorted(got_routing) == [1]
+        assert torch.equal(got_routing[1].cpu(), routing[1]), impl
+        for got, want in zip(out, ref):
+            got, want = got[valid], want[valid]
+            assert bool(((got - want).abs()
+                         <= 2e-4 * (1 + want.abs())).all()), impl
+
+
+def test_gathered_moe_repeats_bit_for_bit(gen):
+    """The gathered expert mix combines the experts without atomics: two
+    bf16 captures of a padded batch at the DeepSeek-V2-Lite layout's full
+    width give the same bits and the same routing."""
+    from specforge_tpu_torch.models.target.transformer import (
+        target_capture_forward,
+    )
+
+    cfg, params = deepseek_target()
+    b, s = 4, 512
+    ids = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                        device="cuda")
+    mask = torch.ones(b, s, dtype=torch.int64, device="cuda")
+    mask[2:, 400:] = 0
+    runs = []
+    for _ in range(2):
+        routing = {}
+        out = target_capture_forward(params, cfg, ids, mask, (0, 1),
+                                     routing=routing)
+        runs.append((out, routing))
+    (first, r1), (second, r2) = runs
+    for a, b_ in zip(first, second):
+        assert bool(torch.isfinite(a).all())
+        assert torch.equal(a, b_)
+    assert torch.equal(r1[1], r2[1])

@@ -321,6 +321,18 @@ def test_usp_training_runs_on_the_cpu_at_small_size(smoke, tmp_path):
         smoke.check_usp_counts([launches], 4)
 
 
+#: the MoE capture's target cut to the CPU: DeepSeek-V2-Lite's layout (no
+#: q LoRA, greedy softmax routing, a dense first layer) at the tiny draft's
+#: width, 4 layers, 8 routed experts
+TINY_MOE_TARGET = dict(vocab_size=2048, hidden_size=128,
+                       intermediate_size=256, moe_intermediate_size=32,
+                       num_hidden_layers=4, num_attention_heads=4,
+                       num_key_value_heads=4, kv_lora_rank=32,
+                       qk_nope_head_dim=32, qk_rope_head_dim=16,
+                       v_head_dim=32, n_routed_experts=8,
+                       num_experts_per_tok=2, n_shared_experts=1)
+
+
 @pytest.mark.parametrize("name", ["llama3_70b", "qwen2_5_vl_7b",
                                   "deepseek_v2_lite"])
 def test_offline_leftovers_run_on_the_cpu_at_small_size(smoke, tmp_path,
@@ -329,7 +341,8 @@ def test_offline_leftovers_run_on_the_cpu_at_small_size(smoke, tmp_path,
     hidden 128 with its own RoPE type (llama3, mrope on [3, S] position ids
     over a vision span, yarn) and its layout of heads, through cli train
     (Llama: reference ``.ckpt`` features, two gzipped, and a warm start
-    from an export written by the phase), the kernel-path trainer (its
+    from an export written by the phase; DeepSeek-V2-Lite: features the
+    MoE capture takes from its target first), the kernel-path trainer (its
     warm-started weights, a bit-exact repeat) and the plain path; the
     launch-count check (no launch on CPU tensors)."""
     spec = dict(smoke.LEFTOVER_RUNS[name])
@@ -348,9 +361,34 @@ def test_offline_leftovers_run_on_the_cpu_at_small_size(smoke, tmp_path,
     cfg_path = tmp_path / "draft.json"
     cfg_path.write_text(json.dumps(draft))
     spec["config"] = cfg_path
+    captured = None
+    if name == "deepseek_v2_lite":
+        # slice 17: the draft trains on features captured from a
+        # DeepSeek-V2-shaped MoE target (MLA, 8 routed and a shared
+        # expert), through the MoE capture's checks
+        capture, captured = smoke.capture_phase(
+            cfg_path, torch.device("cpu"), 0, tmp_path / "work",
+            target_config={**smoke.DEEPSEEK_V2_LITE_TARGET,
+                           **TINY_MOE_TARGET},
+            n_train=spec["files"], n_eval=0, max_length=64, min_len=40,
+            std=0.2, shard_layers=smoke.MOE_SHARD_LAYERS)
+        assert capture["capture_layers"] == [1, 1, 0]
+        assert capture["files_checked"] == spec["files"]
+        assert len(list((tmp_path / "work" / "target").glob(
+            "*.safetensors"))) == 3
+        assert capture["moe_impl"] == "gathered"
+        moe = capture["dense_vs_gathered"]
+        assert set(moe["layers_alone_max_abs_err"]) == {
+            "layer_1", "layer_2", "layer_3"}
+        # fp32 on the CPU: the whole forward routes alike through both
+        assert set(moe["whole_route_agreement"].values()) == {1.0}
+        for agreement in (capture["bf16_vs_fp32_route_agreement"],
+                          capture["alone_vs_batch_route_agreement"]):
+            assert set(agreement) == {"layer_1", "layer_2", "layer_3"}
     results, counts = smoke.run_leftover(
         spec, torch.device("cpu"), 0, tmp_path / "work", max_length=64,
-        min_len=40, head_std=0.2, overrides=['model.compute_dtype="float32"'])
+        min_len=40, head_std=0.2, overrides=['model.compute_dtype="float32"'],
+        captured=captured)
     steps = spec["files"] // smoke.BATCH // spec["accum"]
     assert results["optimizer_steps"] == steps
     assert len(results["loss_curve"]) == steps
@@ -371,6 +409,17 @@ def test_offline_leftovers_run_on_the_cpu_at_small_size(smoke, tmp_path,
         assert "micro_step_ms" in results
     else:
         assert "warm_start" not in results
+
+
+def test_target_families_phase_runs_on_the_cpu(smoke):
+    """The target_families phase with the CPU standing in for the card:
+    every family of the CPU parity tests, both impls of each MoE family."""
+    results = smoke.target_families_phase(0, torch.device("cpu"))
+    assert set(results) == set(smoke.TINY_FAMILIES)
+    for family, errors in results.items():
+        assert errors["cuda_vs_cpu"] == 0.0
+        assert ("dense_vs_gathered" in errors) == (
+            family in smoke.MOE_FAMILIES)
 
 
 def test_usp_training_takes_mrope_positions_on_the_cpu(smoke, tmp_path,
