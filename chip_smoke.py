@@ -7,7 +7,8 @@ alone, ``--mesh-only`` phases 1, 2 and 9 (on a machine with a card per
 rank their ranks talk NCCL), ``--leftovers-only`` phases 1, 2 and 10's
 training runs (with 10a), ``--capture-only`` phases 1, 2, 5a, 5, 5b and
 10a with its training run (the captures at all 36 and all 27 target
-layers, training, export, the families).
+layers, training, export, the families), ``--online-only`` phases 1, 2
+and 5c, its target at all 36 layers.
 
 Phases, each printing JSON lines:
 
@@ -84,6 +85,25 @@ Phases, each printing JSON lines:
    ``config.json``, every weight read back through
    ``draft_state_from_export`` bit-identical to the checkpoint's cast to
    bf16 and the HF embedding the target's;
+5c. slice 18, the online runtime (``online``): ``python -m
+   specforge_tpu_torch.cli train -c examples/qwen3-8b-eagle3-online.json
+   --managed-local`` with its paths, ports and steps overridden, so the
+   port's launch plan starts the store server the build phase made, a
+   capture server holding phase 5a's target (``CAPTURE_DEPTH`` layers) on
+   the card, the producer (8 tokenised prompts of 1536-2048 tokens from
+   the seed) and the consumer, which trains ``configs/qwen3-8b-eagle3.json``
+   for 2 steps of 2 micro-batches of 2; beside the stack this process asks
+   the server for the producer's batches with the ``inline`` sink. Checks:
+   the supervisor exits 0 (so do the producer and consumer), the server
+   ran on the card, 7 launches of every TTT and fused CE kernel a
+   micro-batch in the consumer (its jsonl tracker's ``perf/launches``), 0
+   objects left in the store and the ledger's durable step 2, the first
+   batch's features bit-identical to ``OfflineCaptureRunner._run_batch``
+   here at the same padded shape, and the online step-1 loss within
+   ``TRAIN_STEP1_RTOL`` of an offline ``cli train`` run over the same
+   features in the inbox's order; the server's time to ready, the
+   producer's samples/s, the store's bytes, the consumer's step times and
+   both processes' peak memory;
 5b. slice 17, the target families (``target_families``): each tiny
    target of ``tests/_torch_targets.TINY_FAMILIES`` (gemma3, phi3,
    gpt-oss, deepseek v2 (greedy and group-limited), v3, kimi_k2, glm4_moe,
@@ -141,24 +161,26 @@ Phases, each printing JSON lines:
    and 2): 14 launches of each LSE kernel and 7 of each fused CE kernel per
    micro-batch on every rank and none of the TTT kernels, the same losses
    and bit-identical weights on every rank, only rank 0 writing, a 4-rank
-   resume from step 1 that reaches the final weights bit-exactly, and the
-   USP run against one process on the TTT kernels over the same batches
-   and weights; the transport, per-rank timings, collectives' share and
-   memory beside the single process's;
+   resume from step 1 that reaches the final weights bit-exactly (on one
+   shared card: steps of one micro-batch, a checkpoint at the end, no
+   resume), and the USP run against one process on the TTT kernels over
+   the same batches and weights; the transport, per-rank timings,
+   collectives' share and memory beside the single process's;
 9. slice 14, data parallelism and fsdp: ``cli.main(["train", ...])`` on 4
    ranks (``--mesh-rank``) for each run of ``MESH_RUNS``, in one launch:
    EAGLE3 at dp 2 × fsdp 2 (``examples/qwen3-8b-eagle3-offline.json``,
    global batch 4 at S 2048, accumulation 2, 4 optimizer steps, eval,
    checkpoints at steps 2 and 4, a 4-rank resume from step 2 that reaches
-   the final weights bit-exactly; on one shared card 2 steps and a resume
-   from step 1), P-EAGLE at fsdp 4 (factored Adam, the
-   row-sparse embedding), Domino at dp 2 × fsdp 2 and EAGLE3 under USP at
-   fsdp 2 × sp_ring 2, a step each; the launches of every kernel on every
-   rank, the same losses and bit-identical whole weights on every rank,
-   only rank 0 writing, each run against one process of the same global
-   batch (losses; EAGLE3's step-1 gradients), the bytes of a rank's
-   masters and moments against one process's, and per rank the
-   micro-step, whole-step and collectives' times and memory;
+   the final weights bit-exactly; on one shared card 2 steps of one
+   micro-batch and a resume from step 1), P-EAGLE at fsdp 4 (factored
+   Adam, the row-sparse embedding), Domino at dp 2 × fsdp 2 and EAGLE3
+   under USP at fsdp 2 × sp_ring 2 (not on one shared card), a step each;
+   the launches of every kernel on every rank, the same losses and
+   bit-identical whole weights on every rank, only rank 0 writing, each
+   run against one process of the same global batch (losses; EAGLE3's
+   step-1 gradients), the bytes of a rank's masters and moments against
+   one process's, and per rank the whole-step and collectives' times (and
+   a micro-step's, not on one shared card) and memory;
 10. slice 15, the offline leftovers (``offline_leftovers``): for each draft
    of ``LEFTOVER_RUNS`` at full width, ``cli.main(["train", ...])`` on
    ``examples/qwen3-8b-eagle3-offline.json`` (B=2, S=2048, TTT 7, compact
@@ -221,6 +243,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import zlib
 from pathlib import Path
@@ -513,8 +536,27 @@ def ptxas_report(log: str) -> tuple:
 
 
 def build() -> None:
+    """The kernel library, and beside it the feature store server
+    (``g++``, in a thread) the online phase's stack runs."""
+    from specforge_tpu_torch.runtime.data_plane import network_store
+
     t0 = time.perf_counter()
+    store = {}
+
+    def build_store():
+        t = time.perf_counter()
+        try:
+            store["path"] = str(network_store.server_binary())
+        except BaseException as exc:  # noqa: BLE001 — raised below
+            store["error"] = exc
+        store["seconds"] = time.perf_counter() - t
+
+    store_thread = threading.Thread(target=build_store)
+    store_thread.start()
     cuda_lib.library()
+    store_thread.join()
+    if "error" in store:
+        raise store["error"]
     log = cuda_lib.build_log or ""
     ptxas = [
         line.strip() for line in log.splitlines()
@@ -525,7 +567,8 @@ def build() -> None:
           "nvcc_seconds": cuda_lib.build_seconds,
           "sources": list(cuda_lib.SOURCES), "headers": list(cuda_lib.HEADERS),
           "hopper_kernels": report, "wgmma_serialization": notes,
-          "ptxas": ptxas})
+          "store_server": str(Path(store["path"]).relative_to(REPO)),
+          "store_server_seconds": store["seconds"], "ptxas": ptxas})
     if notes:
         raise AssertionError(f"ptxas serialized wgmma: {notes}")
 
@@ -2093,11 +2136,8 @@ def run_training(cfg_path: Path, device, seed: int, workdir: Path,
           TRAIN_STEP1_RTOL)
     results["step1_grads"] = compare_grads(grads_k, grads_p)
     del grads_k, grads_p
-    plain.fit()
+    plain_steps = train_windows(plain)
     del plain
-    plain_steps = step_records(runs, "plain")
-    for step_dir in runs.glob("plain-step*"):
-        shutil.rmtree(step_dir)
     curve = []
     for k, p in zip(kernel_steps, plain_steps, strict=True):
         rel = abs(k["train/loss"] - p["train/loss"]) / abs(p["train/loss"])
@@ -2148,10 +2188,11 @@ QWEN3_8B_TARGET = {
 }
 #: the target's depth in the default run, for its 1,200 s: at 36 layers
 #: the whole script took 1,133 s on one H100 (the capture phase 45 s of
-#: it, the target's 16.4 GB written and read back); at 12 the target is
-#: 7.1 GB and the capture layers (1, 5, 8) by the same rule.
-#: ``--capture-only`` runs all 36
-CAPTURE_DEPTH = 12
+#: it, the target's 16.4 GB written and read back); at 12 layers (7.1 GB)
+#: it ran past 1,200 s once the online phase served the same target; at 6
+#: the target is 3.9 GB and the capture layers (1, 2, 2) by the same rule.
+#: ``--capture-only`` (and ``--online-only``) run all 36
+CAPTURE_DEPTH = 6
 #: padded rows a capture forward takes: a layer's fp32 scores are then
 #: 4 · 32 · 2048² · 4 B = 2.1 GB, with the softmax's copy 4.3 GB
 CAPTURE_BATCH = 4
@@ -2741,7 +2782,8 @@ def check_exports(runs: Path, step_dir: Path, cfg_path: Path, target: Path,
 def capture_and_train_phase(seed: int, depth: int) -> tuple:
     """Slice 16 on the card: ``capture_phase`` at Qwen3-8B width and
     ``depth`` layers, then the training phase on its features (with the
-    exports), a line each → (training results, launch counts)."""
+    exports), then slice 18's online phase from the same target, a line
+    each → (training results, launch counts)."""
     device = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:
         results, captured = capture_phase(CONFIG, device, seed, Path(tmp),
@@ -2763,20 +2805,446 @@ def capture_and_train_phase(seed: int, depth: int) -> tuple:
         torch.cuda.empty_cache()
         training, counts = run_training(CONFIG, device, seed, Path(tmp),
                                         captured)
-    check_training_counts(counts, training["micro_batches"],
-                          training["eval_forwards"])
-    emit({"phase": "training", "config": str(EXAMPLE.relative_to(REPO)),
-          "draft_config": str(CONFIG.relative_to(REPO)), "batch": BATCH,
-          "max_length": MAX_LEN, "ttt_length": TTT,
-          "accumulation_steps": ACCUM, "launches": counts,
-          "features": "captured (phase capture)",
-          "tolerances": {"step1_loss_rtol": TRAIN_STEP1_RTOL,
-                         "later_loss_rtol": TRAIN_DRIFT_RTOL,
-                         "grad_cosine": GRAD_COSINE,
-                         "grad_norm_rtol": GRAD_NORM_RTOL},
-          **training})
+        check_training_counts(counts, training["micro_batches"],
+                              training["eval_forwards"])
+        emit({"phase": "training", "config": str(EXAMPLE.relative_to(REPO)),
+              "draft_config": str(CONFIG.relative_to(REPO)), "batch": BATCH,
+              "max_length": MAX_LEN, "ttt_length": TTT,
+              "accumulation_steps": ACCUM, "launches": counts,
+              "features": "captured (phase capture)",
+              "tolerances": {"step1_loss_rtol": TRAIN_STEP1_RTOL,
+                             "later_loss_rtol": TRAIN_DRIFT_RTOL,
+                             "grad_cosine": GRAD_COSINE,
+                             "grad_norm_rtol": GRAD_NORM_RTOL},
+              **training})
+        torch.cuda.empty_cache()
+        online = online_phase(CONFIG, captured, Path(tmp) / "online", seed,
+                              device)
+        emit_online(online, depth)
+    training["online_launches"] = online["launches"]
     torch.cuda.empty_cache()
     return training, counts
+
+
+def emit_online(results: dict, depth: int) -> None:
+    full = QWEN3_8B_TARGET["num_hidden_layers"]
+    emit({"phase": "online", "config": str(ONLINE_EXAMPLE.relative_to(REPO)),
+          "draft_config": str(CONFIG.relative_to(REPO)),
+          "command": "python -m specforge_tpu_torch.cli train -c "
+                     f"{ONLINE_EXAMPLE.relative_to(REPO)} --set ... "
+                     "--managed-local",
+          "batch": ONLINE_BATCH, "accumulation_steps": ONLINE_ACCUM,
+          "ttt_length": TTT, "max_length": MAX_LEN,
+          "reduced": {
+              "weights": f"random, from --seed (std {TARGET_STD})",
+              "depth": None if depth == full else
+              f"{depth} of {full} target layers (the capture phase's "
+              "target; --online-only runs all 36)",
+              "overrides": "model.target_model_path, draft_config_path and "
+                           "vocab_mapping_path, data.prompt_path, "
+                           "output_dir, runtime.store_endpoint and "
+                           "control_dir, deployment.server_urls (free "
+                           "ports, the run's directory); "
+                           f"training.accumulation_steps {ONLINE_ACCUM}, "
+                           f"not 8; total_steps {ONLINE_STEPS}, not 5000; "
+                           f"save_interval {ONLINE_STEPS}, not 1000; "
+                           "log_interval 1, not 50",
+              "prompts": f"{ONLINE_PROMPTS} tokenised prompts of "
+                         "1536-2048 tokens from --seed"},
+          "tolerances": {"step1_loss_rtol": TRAIN_STEP1_RTOL,
+                         "features": "bit-identical"},
+          **results})
+
+
+def online_only_phase(seed: int) -> None:
+    """``--online-only``: the online phase alone, from a random target of
+    all 36 Qwen3-8B layers written here, the vocab mapping derived from
+    the prompts."""
+    device = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        target = write_capture_target(Path(tmp) / "target", QWEN3_8B_TARGET,
+                                      device, seed, TARGET_STD)
+        written = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        results = online_phase(CONFIG, {"target": target,
+                                        "vocab_mapping": None},
+                               Path(tmp) / "online", seed, device)
+    results["target_write_s"] = written
+    emit_online(results, QWEN3_8B_TARGET["num_hidden_layers"])
+
+
+# --------------------------------------------------------------------------
+# slice 18: the online disaggregated runtime
+# --------------------------------------------------------------------------
+
+ONLINE_EXAMPLE = REPO / "examples" / "qwen3-8b-eagle3-online.json"
+#: tokenised prompts the producer captures: 2 optimizer steps of 2
+#: micro-batches of 2
+ONLINE_PROMPTS = 8
+ONLINE_BATCH, ONLINE_ACCUM, ONLINE_STEPS = 2, 2, 2
+#: seconds the managed stack may take (the target's load included)
+ONLINE_TIMEOUT = 600
+#: seconds the capture server may take to answer /health
+ONLINE_READY_TIMEOUT = 300
+
+
+def free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def json_blocks(text: str) -> list:
+    """The JSON objects a process printed: one-line objects, and objects
+    printed over several lines (``{`` and ``}`` alone on their lines)."""
+    out, block = [], None
+    for line in text.splitlines():
+        if block is not None:
+            block.append(line)
+            if line == "}":
+                out.append(json.loads("\n".join(block)))
+                block = None
+        elif line == "{":
+            block = [line]
+        elif line.startswith("{") and line.endswith("}"):
+            with contextlib.suppress(ValueError):
+                out.append(json.loads(line))
+    return out
+
+
+def http_json(url: str, body=None, timeout: float = 300.0) -> dict:
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={
+        "Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        return json.loads(resp.read())
+
+
+def inline_tensors(spec: dict) -> dict:
+    """The tensors of an ``inline`` sink's ``spec_capture``."""
+    import base64
+
+    return {name: torch.frombuffer(
+                bytearray(base64.b64decode(spec["data"][name])),
+                dtype=getattr(torch, meta["dtype"])).reshape(meta["shape"])
+            for name, meta in spec["features"].items()}
+
+
+class StackWatch:
+    """A thread beside the managed stack: polls the capture server's
+    /health (the time to ready, the last answer), and once it answers asks
+    for every prompt batch of the producer's first lease with the
+    ``inline`` sink, so the features come back to this process."""
+
+    def __init__(self, url: str, batches: list, t0: float):
+        self.url, self.batches, self.t0 = url, batches, t0
+        self.ready_s = None
+        self.health = None
+        self.inline = []
+        self.error = None
+        self.done = False
+        self._stop = False
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self):
+        try:
+            while not self._stop:
+                try:
+                    self.health = http_json(f"{self.url}/health", timeout=2)
+                except OSError:
+                    if self.ready_s is not None and self.done:
+                        return  # the stack is going down
+                    time.sleep(0.25)
+                    continue
+                if self.ready_s is None:
+                    self.ready_s = time.perf_counter() - self.t0
+                    for batch in self.batches:
+                        body = {"samples": [
+                            {"input_ids": t.payload["input_ids"],
+                             "loss_mask": t.payload["loss_mask"],
+                             "sample_id": t.prompt_id} for t in batch],
+                            "spec_capture": {"sink": "inline"}}
+                        results = http_json(f"{self.url}/generate_batch",
+                                            body)["results"]
+                        self.inline.append([
+                            inline_tensors(r["meta_info"]["spec_capture"])
+                            for r in results])
+                    self.done = True
+                time.sleep(0.5)
+        except BaseException as exc:  # noqa: BLE001 — read by the phase
+            self.error = exc
+
+    def stop(self):
+        self._stop = True
+        self._thread.join(timeout=30)
+
+
+def online_prompt_records(vocab_size: int, seed: int, n: int, min_len: int,
+                          max_length: int) -> list:
+    """``n`` tokenised prompts of ``min_len``-``max_length`` tokens, made
+    from the seed as the capture phase makes its conversations."""
+    tokenizer = SpreadTokenizer(vocab_size)
+    parsed = build_dataset(synthetic_conversations(
+        n, tokenizer, seed + 18, min_len, max_length), tokenizer, "qwen",
+        max_length)
+    if len(parsed) != n:
+        raise AssertionError(f"{len(parsed)} supervised prompts of {n}")
+    return [{"input_ids": [int(t) for t in p.input_ids],
+             "loss_mask": [int(m) for m in p.loss_mask]} for p in parsed]
+
+
+def metric_steps(path: Path) -> list:
+    return [r for r in (json.loads(line) for line in
+                        path.read_text().splitlines())
+            if "train/loss" in r]
+
+
+def online_phase(cfg_path: Path, captured: dict, workdir: Path, seed: int,
+                 device, *, n_prompts=ONLINE_PROMPTS, min_len=1536,
+                 max_length=MAX_LEN, timeout=ONLINE_TIMEOUT) -> dict:
+    """Slice 18 on the card: ``python -m specforge_tpu_torch.cli train -c
+    <run file> --managed-local`` (role ``auto``) on
+    ``examples/qwen3-8b-eagle3-online.json`` with its paths, ports and
+    steps overridden, so the port's launch plan starts the store server it
+    built, a capture server holding ``captured["target"]``, the producer
+    and the consumer, which trains ``cfg_path`` on the TTT and fused CE
+    kernels. Beside the stack, this process asks the capture server for
+    the producer's prompt batches with the ``inline`` sink. Checks: the
+    supervisor (so every worker) exits 0 and the server ran on the
+    device; every kernel of the consumer's path launched TTT times a
+    micro-step (read from its jsonl tracker, on the card); the store holds
+    0 objects after the acks and the ledger's durable step is the last
+    step; the first batch's inline features bit-identical to the port's
+    ``OfflineCaptureRunner._run_batch`` run here on the same padded shape;
+    the online step-1 loss within ``TRAIN_STEP1_RTOL`` of an offline ``cli
+    train`` run over the same features in the inbox's order, from the same
+    draft initialisation. ``captured["vocab_mapping"]`` None: derived from
+    the prompts' ids here."""
+    from specforge_tpu_torch.data.prompt_builder import prepare_prompt_tasks
+    from specforge_tpu_torch.inference.batch_partition import (
+        TargetBatchPartition,
+    )
+    from specforge_tpu_torch.inference.capture_server import (
+        CaptureEngine,
+        resolve_batch_shape,
+    )
+    from specforge_tpu_torch.runtime.data_plane.network_store import (
+        server_binary,
+    )
+    from specforge_tpu_torch.training.vocab_mapping import (
+        derive_vocab_mapping,
+    )
+
+    on_card = device.type == "cuda"
+    t_phase = time.perf_counter()
+    workdir.mkdir(parents=True, exist_ok=True)
+    target = Path(captured["target"])
+    tc = TargetConfig.from_file(str(target))
+    records = online_prompt_records(tc.vocab_size, seed, n_prompts, min_len,
+                                    max_length)
+    prompts = workdir / "prompts.jsonl"
+    prompts.write_text("".join(json.dumps(r) + "\n" for r in records))
+    mapping = captured.get("vocab_mapping")
+    draft = json.loads(cfg_path.read_text())
+    if mapping is None:
+        mapping = workdir / "vocab_mapping.npz"
+        save_vocab_mapping(str(mapping), *derive_vocab_mapping(
+            (np.asarray(r["input_ids"]) for r in records), tc.vocab_size,
+            draft["draft_vocab_size"]))
+
+    store_port, server_port = free_port(), free_port()
+    server_url = f"http://127.0.0.1:{server_port}"
+    out = workdir / "runs"
+    overrides = [
+        f'model.target_model_path="{target}"',
+        f'model.draft_config_path="{cfg_path}"',
+        f'model.vocab_mapping_path="{mapping}"',
+        f'data.prompt_path="{prompts}"', f"data.max_length={max_length}",
+        f'output_dir="{out}"',
+        f'runtime.store_endpoint="127.0.0.1:{store_port}"',
+        f'runtime.control_dir="{workdir / "control"}"',
+        f'deployment.server_urls=["{server_url}"]',
+        f"training.batch_size={ONLINE_BATCH}",
+        f"training.accumulation_steps={ONLINE_ACCUM}",
+        f"training.total_steps={ONLINE_STEPS}",
+        f"training.save_interval={ONLINE_STEPS}", "training.log_interval=1",
+    ]
+    config = load_config(str(ONLINE_EXAMPLE), overrides)
+    device_args = [] if on_card else ["--device", str(device)]
+    # the producer's first lease and its batches, as its worker makes them
+    tasks = prepare_prompt_tasks(records, epoch=0,
+                                 prompt_seed=config.training.seed)
+    lease = config.runtime.capture_batch_size
+    batches = TargetBatchPartition(
+        max_batch_tokens=config.runtime.capture_batch_tokens,
+        max_batch_size=lease).partition(tasks[:lease])
+
+    t0 = time.perf_counter()
+    server_binary()  # built by the build phase: the supervisor reuses it
+    results = {"store_server_build_s": time.perf_counter() - t0}
+    argv = [sys.executable, "-m", "specforge_tpu_torch.cli", "train", "-c",
+            str(ONLINE_EXAMPLE), *[a for o in overrides for a in ("--set", o)],
+            "--managed-local", *device_args]
+    stdout_path, stderr_path = workdir / "stack.out", workdir / "stack.err"
+    t0 = time.perf_counter()
+    with open(stdout_path, "w") as so, open(stderr_path, "w") as se:
+        proc = subprocess.Popen(argv, cwd=REPO, stdout=so, stderr=se,
+                                start_new_session=True)
+        watch = StackWatch(server_url, batches, t0)
+        try:
+            rc = proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            os.killpg(proc.pid, 9)
+            proc.wait()
+            raise AssertionError(f"the managed stack ran past {timeout} s")
+        finally:
+            watch.stop()
+            # the stack's processes are the supervisor's session
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(proc.pid, 9)
+    results["stack_s"] = time.perf_counter() - t0
+    stdout, stderr = stdout_path.read_text(), stderr_path.read_text()
+    if rc != 0:
+        raise AssertionError(f"the managed stack exited {rc}:\n"
+                             f"{stdout[-3000:]}\n{stderr[-6000:]}")
+    if watch.error is not None or not watch.done:
+        raise AssertionError(f"the inline capture failed: {watch.error!r}")
+    health = watch.health
+    if not health["device"].startswith(device.type):
+        raise AssertionError(f"the capture server ran on {health['device']}")
+    printed = json_blocks(stdout)
+    producer = next(b for b in printed if "samples_produced" in b)
+    consumer = next(b for b in printed if "store/objects" in b)
+    if producer["samples_produced"] != n_prompts:
+        raise AssertionError(f"{producer['samples_produced']} samples "
+                             f"produced of {n_prompts}")
+    if consumer["store/objects"] != 0:
+        raise AssertionError(f"{consumer['store/objects']} objects left in "
+                             "the store after the acks")
+    state = out / config.run_id / "consumer_state"
+    import sqlite3
+
+    with contextlib.closing(sqlite3.connect(state / "consumer.sqlite")) as db:
+        durable = db.execute("SELECT value FROM markers WHERE name = "
+                             "'global_step'").fetchone()[0]
+        acked = db.execute("SELECT COUNT(*) FROM acked").fetchone()[0]
+    if durable != ONLINE_STEPS or acked != n_prompts:
+        raise AssertionError(f"the ledger's durable step {durable} and "
+                             f"{acked} acked samples, expected "
+                             f"{ONLINE_STEPS} and {n_prompts}")
+    steps = metric_steps(out / f"{config.run_id}.metrics.jsonl")
+    if [r["step"] for r in steps] != list(range(1, ONLINE_STEPS + 1)):
+        raise AssertionError(f"online steps {[r['step'] for r in steps]}")
+    micro = ONLINE_STEPS * ONLINE_ACCUM
+    launches = {name: int(sum(r.get(f"perf/launches/{fn.__name__}", 0)
+                              for r in steps))
+                for name, fn in KERNEL_COUNTERS.items()}
+    expected = TTT * micro if on_card else 0
+    for name, n in launches.items():
+        if n != expected:
+            raise AssertionError(
+                f"{name}: {n} launches in the online consumer, expected "
+                f"{expected} ({TTT} per micro-batch)")
+
+    # the first batch's features against the runner in this process, on
+    # the same padded shape
+    providers = builtin_algorithm_registry().resolve("eagle3").providers
+    layers = tuple(providers.resolve_capture_layers(
+        providers.draft_config(draft), tc.num_hidden_layers, None))
+    t0 = time.perf_counter()
+    runner = OfflineCaptureRunner(
+        OfflineCaptureConfig(str(target), str(workdir / "unused"), layers,
+                             max_length, 1),
+        device=None if on_card else device)
+    first = batches[0]
+    lengths = [min(len(t.payload["input_ids"]), max_length) for t in first]
+    bsz, seq = resolve_batch_shape(len(first), max(lengths), max_length,
+                                   CaptureEngine.SEQ_BUCKETS,
+                                   CaptureEngine.BATCH_BUCKETS)
+    ids = np.zeros((bsz, seq), np.int64)
+    mask = np.zeros((bsz, seq), np.int64)
+    for i, (task, n) in enumerate(zip(first, lengths)):
+        ids[i, :n] = task.payload["input_ids"][:n]
+        mask[i, :n] = 1
+    aux, last = runner._run_batch(ids, mask)
+    del runner
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    differing = []
+    for i, (got, n) in enumerate(zip(watch.inline[0], lengths)):
+        for name, ref in (("hidden_state", aux[i, :n]),
+                          ("target", last[i, :n])):
+            if not torch.equal(got[name], ref.to(torch.bfloat16)):
+                differing.append((i, name, max_err(got[name], ref)))
+    if differing:
+        raise AssertionError(f"the server's features differ from the "
+                             f"runner's at the same shape: {differing}")
+    results["features"] = {"batch": [bsz, seq], "samples": len(first),
+                           "bit_identical": True,
+                           "runner_s": time.perf_counter() - t0}
+
+    # offline: the same features in the inbox's order, one window
+    order = [json.loads(line)["sample_id"] for line in
+             (state / "inboxes-g0" / "rank0.jsonl").read_text().splitlines()
+             if json.loads(line).get("kind") == "ref"]
+    captured_by_id = {t.prompt_id: tensors
+                      for batch, got in zip(batches, watch.inline)
+                      for t, tensors in zip(batch, got)}
+    features = workdir / "offline_features"
+    features.mkdir()
+    for i, sid in enumerate(order[:ONLINE_BATCH * ONLINE_ACCUM]):
+        save_feature_file(str(features / f"{i:04d}.sft"),
+                          captured_by_id[sid], {"target_repr": "hidden_state"})
+    off_out = workdir / "offline_runs"
+    t0 = time.perf_counter()
+    cli.main(["train", "-c", str(ONLINE_EXAMPLE),
+              *[a for o in overrides for a in ("--set", o)],
+              "--set", 'training.role="all"',
+              "--set", f'data.train_data_path="{features}"',
+              "--set", f'output_dir="{off_out}"', *device_args])
+    results["offline_run_s"] = time.perf_counter() - t0
+    offline = metric_steps(off_out / f"{config.run_id}.metrics.jsonl")
+    online_loss, offline_loss = steps[0]["train/loss"], offline[0][
+        "train/loss"]
+    rel = abs(online_loss - offline_loss) / abs(offline_loss)
+    if not rel <= TRAIN_STEP1_RTOL:
+        raise AssertionError(f"online step-1 loss {online_loss} against "
+                             f"offline {offline_loss}: {rel}")
+
+    results.update({
+        "supervisor_rc": rc,
+        "server": {k: health.get(k) for k in (
+            "device", "device_name", "max_memory_allocated", "coalesce")},
+        "server_ready_s": watch.ready_s,
+        "producer": producer,
+        "consumer": {
+            "step_s": [3600.0 / r["perf/steps_per_hour"] for r in steps],
+            "compute_s": [r["perf/compute_s_per_step"] for r in steps],
+            "data_wait_s": [r["perf/data_wait_s_per_step"] for r in steps],
+            "ack_s": [r["perf/ack_s_per_step"] for r in steps],
+            "loss": [r["train/loss"] for r in steps],
+            "max_memory_allocated": steps[-1].get(
+                "perf/max_memory_allocated"),
+        },
+        "store": {k.split("/", 1)[1]: v for k, v in consumer.items()
+                  if k.startswith("store/")},
+        "ledger": {"durable_step": durable, "acked": acked},
+        "launches": launches,
+        "step1_loss": {"online": online_loss, "offline": offline_loss,
+                       "rel_diff": rel},
+        "capture_layers": list(layers),
+        "prompt_lengths": [len(r["input_ids"]) for r in records],
+        "prompt_batches": [len(b) for b in batches],
+        "online_s": time.perf_counter() - t_phase,
+    })
+    return results
 
 
 # --------------------------------------------------------------------------
@@ -3321,6 +3789,11 @@ LSE_KERNELS = ("lse_attention_fwd", "lse_attention_bwd_dq",
 #: allocated a rank in the first forward), a 2×2 grid, accumulation 2 and
 #: 8 files (4 steps)
 USP_GRID, USP_MAX_LEN, USP_MIN_LEN, USP_FILES = (2, 2), 4096, 3584, 4
+#: when the 4 ranks share one card (host-staged gloo, 10-13 s a step): 2
+#: steps of one micro-batch over 2 files, and no 4-rank resume (the mesh
+#: phase resumes its 4 EAGLE3 ranks from a sharded checkpoint), for the
+#: script's 1,200 s
+USP_ONE_CARD_ACCUM, USP_ONE_CARD_FILES = 1, 2
 #: a ring chunk of the USP phase: U·S_loc = 2048 positions
 USP_CHUNK = USP_MAX_LEN // USP_GRID[1]
 #: (name, BH, S, D, row_off, col_off, padded key tail), one rank's 16 heads
@@ -3611,11 +4084,12 @@ def lse_kernel_phase(gen) -> list:
 
 
 def usp_run_json(workdir: Path, draft_config: Path, target: Path,
-                 max_length: int) -> Path:
+                 max_length: int, accum: int = ACCUM,
+                 save_interval: int = 1) -> Path:
     """``examples/qwen3-8b-eagle3-usp-32k.json``, read as data, pointed at
     this run's directories and cut to ``max_length`` tokens, a 2×2 grid,
-    accumulation 2, one epoch, a log line per step and a checkpoint every 2
-    steps."""
+    accumulation ``accum``, one epoch, a log line per step and a checkpoint
+    every ``save_interval`` steps (0: at the end only)."""
     raw = json.loads(USP_EXAMPLE.read_text())
     raw["run_id"] = "usp"
     raw["output_dir"] = str(workdir / "runs")
@@ -3625,8 +4099,8 @@ def usp_run_json(workdir: Path, draft_config: Path, target: Path,
                        max_length=max_length, num_workers=2)
     raw["training"].update(sp_ulysses_size=USP_GRID[0],
                            sp_ring_size=USP_GRID[1], num_epochs=1,
-                           accumulation_steps=ACCUM, save_interval=1,
-                           log_interval=1)
+                           accumulation_steps=accum,
+                           save_interval=save_interval, log_interval=1)
     raw["tracking"] = {"backend": "jsonl"}
     path = workdir / "run.json"
     path.write_text(json.dumps(raw, indent=2))
@@ -3646,10 +4120,11 @@ def usp_rank(workdir: Path, device, overrides=()) -> None:
     """One rank of the USP phase (``chip_smoke.py --usp-rank WORKDIR``,
     started 4 times with the SPECFORGE_* env): ``cli.main(["train", ...])``
     with its launch counts set to 0 just before and read just after, then a
-    trainer resumed from the step-1 checkpoint (its step-1 loss and
-    gradients first, from the same initial weights), its micro-step,
-    optimizer-step and whole-step times, the collectives' share and the
-    memory; everything into ``rank{N}.json`` (rank 0 also writes the step-1
+    trainer resumed from the step-1 checkpoint (a fresh one when the ranks
+    share one card) — its step-1 loss and gradients
+    first, from the same initial weights — its micro-step, optimizer-step
+    and whole-step times, the collectives' share and the memory;
+    everything into ``rank{N}.json`` (rank 0 also writes the step-1
     gradients)."""
     from specforge_tpu_torch.application import composition
     from specforge_tpu_torch.parallel import usp
@@ -3719,11 +4194,13 @@ def usp_rank(workdir: Path, device, overrides=()) -> None:
             torch.cuda.empty_cache()
 
         # resumed from step 1: first step 1's loss and gradients from the
-        # same initial weights, then the last two steps
+        # same initial weights, then the last step
+        resume = not share_one_card(device, USP_GRID[0] * USP_GRID[1])
         resumed = trainer_for(
             'run_id="usp_resumed"', "training.save_interval=0",
             f'output_dir="{workdir / "resumed"}"',
-            f"training.resume_from={workdir / 'runs' / 'usp-step1'}")
+            *[f"training.resume_from={workdir / 'runs' / 'usp-step1'}"]
+            * resume)
         window = first_window(resumed)
         loss, grads = window_grads(resumed, window)
         out["step1_loss"] = loss
@@ -3731,9 +4208,10 @@ def usp_rank(workdir: Path, device, overrides=()) -> None:
             torch.save({k: g.cpu() for k, g in grads.items()},
                        workdir / "usp_step1_grads.pt")
         del grads
-        resumed.fit()
-        out["resumed_digest"] = weights_digest(resumed.state.params)
-        out["resumed_steps"] = resumed.state.step
+        if resume:
+            resumed.fit()
+            out["resumed_digest"] = weights_digest(resumed.state.params)
+            out["resumed_steps"] = resumed.state.step
 
         # timings on the resumed trainer (its state changes from here): the
         # micro-steps of one window, the update alone, then two whole steps
@@ -3793,6 +4271,12 @@ def start_usp_ranks(workdir: Path, device, overrides) -> list:
     one failed."""
     return start_ranks(workdir, device, overrides, "--usp-rank",
                        USP_GRID[0] * USP_GRID[1], USP_TIMEOUT, "USP")
+
+
+def share_one_card(device, ranks: int) -> bool:
+    """Whether ``ranks`` processes on ``device`` share one card (there are
+    fewer cards than ranks)."""
+    return device.type == "cuda" and torch.cuda.device_count() < ranks
 
 
 def start_ranks(workdir: Path, device, overrides, flag: str, ranks: int,
@@ -3875,19 +4359,25 @@ def run_usp_training(cfg_path: Path, device, seed: int, workdir: Path, *,
     2 optimizer steps with checkpoints at steps 1 and 2. The ranks must
     report the same per-step loss and bit-identical final weights, only
     rank 0 may write, and a 4-rank resume from step 1 must reach the final
-    weights bit-exactly. Then one process runs the same batches from the
-    same initial weights with the TTT kernels (``attention_backend:
-    "pallas"``, B = 1, S = ``max_length``): its step-1 loss and gradients
-    and its loss curve against the USP run's, and its timings."""
+    weights bit-exactly. When the ranks share one card the steps take one
+    micro-batch each, the run checkpoints at its end only and no rank
+    resumes (``USP_ONE_CARD_*``). Then one process runs the same batches
+    from the same initial weights with the TTT kernels
+    (``attention_backend: "pallas"``, B = 1, S = ``max_length``): its
+    step-1 loss and gradients and its loss curve against the USP run's, and
+    its timings."""
     cfg = Eagle3Config.from_file(cfg_path)
     on_card = device.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
-    write_features(workdir / "train", cfg, seed, USP_FILES, min_len,
-                   max_length)
+    resume = not share_one_card(device, USP_GRID[0] * USP_GRID[1])
+    accum, files = (ACCUM, USP_FILES) if resume else (
+        USP_ONE_CARD_ACCUM, USP_ONE_CARD_FILES)
+    write_features(workdir / "train", cfg, seed, files, min_len, max_length)
     target = write_target_dir(workdir / "target", cfg.vocab_size,
                               cfg.resolved_target_hidden_size, device, seed,
                               head_std)
-    run_json = usp_run_json(workdir, cfg_path, target, max_length)
+    run_json = usp_run_json(workdir, cfg_path, target, max_length, accum,
+                            save_interval=int(resume))
     overrides = list(overrides)
     results = {}
     if on_card:
@@ -3903,7 +4393,7 @@ def run_usp_training(cfg_path: Path, device, seed: int, workdir: Path, *,
     results["ranks_s"] = time.perf_counter() - t0
     rank0 = records[0]
     steps = step_records(workdir / "runs", "usp")
-    micro_batches = len(steps) * ACCUM
+    micro_batches = len(steps) * accum
     for rec in records:
         if rec["losses"] != rank0["losses"]:
             raise AssertionError(f"rank {rec['rank']}: per-step losses "
@@ -3911,7 +4401,7 @@ def run_usp_training(cfg_path: Path, device, seed: int, workdir: Path, *,
         if rec["digest"] != rank0["digest"]:
             raise AssertionError(f"rank {rec['rank']}: final weights differ "
                                  "from rank 0's")
-        if rec["resumed_digest"] != rank0["digest"]:
+        if resume and rec["resumed_digest"] != rank0["digest"]:
             raise AssertionError(f"rank {rec['rank']}: the resume from step 1 "
                                  "did not reach the final weights bit-exactly")
         if rec["step1_loss"] != rank0["step1_loss"]:
@@ -3923,8 +4413,9 @@ def run_usp_training(cfg_path: Path, device, seed: int, workdir: Path, *,
     if roles != [(True, True)] + [(False, False)] * (len(records) - 1):
         raise AssertionError(f"IO roles {roles}: only rank 0 writes")
     written = sorted(p.name for p in (workdir / "runs").iterdir())
-    if written != ["usp-step1", "usp-step2", "usp.latest",
-                   "usp.metrics.jsonl", "usp.vocab_mapping.npz"]:
+    if written != ["usp-step1"] * resume + [
+            "usp-step2", "usp.latest", "usp.metrics.jsonl",
+            "usp.vocab_mapping.npz"]:
         raise AssertionError(f"the USP run wrote {written}")
     grads_usp = torch.load(workdir / "usp_step1_grads.pt", weights_only=True)
     for name in ("runs", "resumed"):
@@ -3973,7 +4464,7 @@ def run_usp_training(cfg_path: Path, device, seed: int, workdir: Path, *,
     if on_card:
         torch.cuda.empty_cache()
 
-    tokens = ACCUM * max_length  # the global sequence of a step
+    tokens = accum * max_length  # the global sequence of a step
     whole_usp = statistics.median(
         [statistics.median(w["ms"] for w in r["whole_steps"])
          for r in records])
@@ -3997,8 +4488,9 @@ def run_usp_training(cfg_path: Path, device, seed: int, workdir: Path, *,
         },
         "optimizer_steps": len(steps),
         "micro_batches": micro_batches,
+        "accumulation_steps": accum, "files": files,
         "resume": {"from": "usp-step1", "steps": rank0["resumed_steps"],
-                   "bit_exact": True},
+                   "bit_exact": True} if resume else None,
         "ranks_bit_identical": True,
     })
     counts = {name: sum(r["launches"][name] for r in records)
@@ -4034,25 +4526,32 @@ MESH_EVAL_FILES = 4
 #: one card (each rank holds the frozen target tables, the gathered weights
 #: and a window's whole fp32 gradients): Domino at 5 layers and the USP run
 #: at 4096 tokens ran out of the card's 80 GB (18.8 and 18.6 GB allocated a
-#: rank), EAGLE3 at 2048 tokens filled it (19.0 GB a rank) and ran out in a
-#: later run
+#: rank; the USP run fit at 2048), EAGLE3 at 2048 tokens filled it (19.0 GB
+#: a rank) and ran out in a later run
 MESH_ONE_CARD_LAYERS = {"domino": 2, "peagle": 2}
-MESH_ONE_CARD_MAX_LEN = {"eagle3": 1024, "usp": 2048}
-#: and EAGLE3's files there: 2 steps instead of 4 (a resume from step 1),
-#: since a step over host-staged gloo takes 10-13 s and the whole script
-#: must end within its 1,200 s
-MESH_ONE_CARD_FILES = {"eagle3": 16}
+MESH_ONE_CARD_MAX_LEN = {"eagle3": 1024}
+#: and, since a step over host-staged gloo takes 10-13 s and a checkpoint's
+#: gather about as long while the whole script must end within its 1,200
+#: s: EAGLE3's steps there take one micro-batch each over 8 files (2 steps
+#: instead of 4, a resume from step 1), no rank times a micro-step
+#: alone, and the USP run (fsdp 2 × sp_ring 2; 50-70 s there) is left to
+#: the 4-card run, the USP phase driving USP on 4 ranks of the one card
+MESH_ONE_CARD_FILES = {"eagle3": 8}
+MESH_ONE_CARD_ACCUM = {"eagle3": 1}
+MESH_ONE_CARD_SKIP = ("usp",)
 MESH_COUNTERS = {**USP_COUNTERS, **DFLASH_COUNTERS, **PEAGLE_COUNTERS}
 
 
 def mesh_run_json(workdir: Path, name: str, target: Path, cfg: Path,
-                  max_length: int, files: int, mesh: bool) -> Path:
+                  max_length: int, files: int, accum: int,
+                  mesh: bool) -> Path:
     """The example run of ``MESH_RUNS[name]``, read as data, pointed at this
-    run's directories and draft config ``cfg``, at its global batch and
-    accumulation, ``max_length`` tokens, one epoch over ``files`` files
-    and a log line per step (EAGLE3 checkpoints halfway and at the end);
-    on its layout (``mesh``), or in one process on the TTT kernels."""
-    example, layout, batch, accum = MESH_RUNS[name][1:5]
+    run's directories and draft config ``cfg``, at its global batch,
+    accumulation ``accum``, ``max_length`` tokens, one epoch over ``files``
+    files and a log line per step (EAGLE3 checkpoints halfway and at the
+    end); on its layout (``mesh``), or in one process on the TTT
+    kernels."""
+    example, layout, batch = MESH_RUNS[name][1:4]
     raw = json.loads(example.read_text())
     run_id = f"{'mesh' if mesh else 'single'}_{name}"
     raw["run_id"] = run_id
@@ -4226,7 +4725,8 @@ def mesh_rank(workdir: Path, device, overrides=()) -> None:
                     "data.eval_data_path=null",
                     "training.resume_from="
                     f"{workdir / 'runs_mesh_eagle3' / middle}")
-            rec.update(mesh_micro_step(trainer, window[0], sync))
+            if not share_one_card(device, MESH_RANKS):
+                rec.update(mesh_micro_step(trainer, window[0], sync))
             if name == "eagle3":
                 # step 1 from the same initial weights, before the resume
                 if on_card:
@@ -4315,12 +4815,15 @@ def run_mesh_training(device, seed: int, workdir: Path, *, head_std=0.02,
                               eagle_cfg.resolved_target_hidden_size, device,
                               seed, head_std)
     # the ranks share the one card when there are fewer cards than ranks
-    shared = on_card and torch.cuda.device_count() < MESH_RANKS
-    layers, max_len, n_files = {}, {}, {}
-    for name, (cfg_path, *_, files, lo, hi) in MESH_RUNS.items():
+    shared = share_one_card(device, MESH_RANKS)
+    runs = [n for n in MESH_RUNS if not (shared and n in MESH_ONE_CARD_SKIP)]
+    layers, max_len, n_files, accums = {}, {}, {}, {}
+    for name in runs:
+        cfg_path, *_, accum, files, lo, hi = MESH_RUNS[name]
         if shared:
             files = MESH_ONE_CARD_FILES.get(name, files)
-        n_files[name] = files
+            accum = MESH_ONE_CARD_ACCUM.get(name, accum)
+        n_files[name], accums[name] = files, accum
         if shared and name in MESH_ONE_CARD_MAX_LEN:
             hi = MESH_ONE_CARD_MAX_LEN[name]
             lo = min(lo, hi - hi // 4)
@@ -4342,12 +4845,14 @@ def run_mesh_training(device, seed: int, workdir: Path, *, head_std=0.02,
                                   files, lo, hi)
         else:
             write_features(workdir / name, eagle_cfg, seed, files, lo, hi)
-        mesh_run_json(workdir, name, target, cfg_path, hi, files, mesh=True)
-        mesh_run_json(workdir, name, target, cfg_path, hi, files, mesh=False)
+        mesh_run_json(workdir, name, target, cfg_path, hi, files, accum,
+                      mesh=True)
+        mesh_run_json(workdir, name, target, cfg_path, hi, files, accum,
+                      mesh=False)
     write_features(workdir / "eagle3_eval", eagle_cfg, seed + 100,
                    MESH_EVAL_FILES, max_len["eagle3"] - max_len["eagle3"] // 4,
                    max_len["eagle3"])
-    (workdir / "mesh_runs.json").write_text(json.dumps(list(MESH_RUNS)))
+    (workdir / "mesh_runs.json").write_text(json.dumps(runs))
     overrides = list(overrides)
     if on_card:
         gc.collect()
@@ -4357,8 +4862,9 @@ def run_mesh_training(device, seed: int, workdir: Path, *, head_std=0.02,
                           MESH_RANKS, MESH_TIMEOUT, "mesh")
     results = {"ranks_s": time.perf_counter() - t0, "runs": {}}
     counts = {}
-    for name, (_, _, layout, batch, accum, *_) in MESH_RUNS.items():
-        hi, files = max_len[name], n_files[name]
+    for name in runs:
+        layout, batch = MESH_RUNS[name][2:4]
+        hi, files, accum = max_len[name], n_files[name], accums[name]
         recs = [r[name] for r in records]
         rank0 = recs[0]
         steps = step_records(workdir / f"runs_mesh_{name}", f"mesh_{name}")
@@ -4561,12 +5067,20 @@ def mesh_phase(seed: int) -> None:
                         "768-1024 tokens, row-sparse embedding",
               "domino": "one step of the global batch 4, 4 files of "
                         "512-768 tokens",
-              "usp": "one step of the global batch 2",
+              "usp": "one step of the global batch 2"
+                     if "usp" in results["runs"] else
+                     "not run: the ranks share one card (the USP phase "
+                     "drives USP on 4 ranks there)",
               "one_card": {"layers": MESH_ONE_CARD_LAYERS,
                            "max_length": MESH_ONE_CARD_MAX_LEN,
                            "files": MESH_ONE_CARD_FILES,
+                           "accumulation_steps": MESH_ONE_CARD_ACCUM,
+                           "skipped": list(MESH_ONE_CARD_SKIP),
+                           "micro_step_timed": False,
                            "why": "the 4 ranks share the card's 80 GB "
-                                  "(layers, tokens) and its time (files)"}
+                                  "(layers, tokens) and its time (files, "
+                                  "accumulation, the USP run, the "
+                                  "micro-step's timing)"}
               if shared else None},
           "launches_summed_over_ranks": counts,
           "tolerances": {"step1_loss_rtol": TRAIN_STEP1_RTOL,
@@ -4972,6 +5486,10 @@ def main() -> int:
     parser.add_argument("--capture-only", action="store_true",
                         help="run only the captures (all layers), their "
                              "training runs, export and the families")
+    # the online stack alone, its target at all 36 layers
+    parser.add_argument("--online-only", action="store_true",
+                        help="run only the online phase (all 36 target "
+                             "layers)")
     args = parser.parse_args()
     if args.usp_rank:
         usp_rank(Path(args.usp_rank), torch.device(args.device), args.set)
@@ -4987,6 +5505,10 @@ def main() -> int:
     build()
     if args.leftovers_only:
         offline_leftovers_phase(args.seed, None)
+        print(smi, flush=True)
+        return 0
+    if args.online_only:
+        online_only_phase(args.seed)
         print(smi, flush=True)
         return 0
     if args.capture_only:
@@ -5014,18 +5536,22 @@ def main() -> int:
           "draft_config": str(CONFIG.relative_to(REPO)),
           "grid": {"sp_ulysses": USP_GRID[0], "sp_ring": USP_GRID[1]},
           "batch": 1, "max_length": USP_MAX_LEN, "ttt_length": TTT,
-          "accumulation_steps": ACCUM,
           "reduced": {"max_length": f"{USP_MAX_LEN}, not 32768 (8192 ran "
                                     "out of memory with the 4 ranks on one "
                                     "card)",
                       "grid": "sp 2x2, not 2x4: " + (
                           "the 4 ranks share one card" if shared else
                           "4 cards, one a rank"),
-                      "accumulation_steps": "2, not 8",
-                      "steps": f"2 optimizer steps over {USP_FILES} files "
-                               f"of {USP_MIN_LEN}-{USP_MAX_LEN} tokens (4 "
-                               "before the mesh phase joined the script)",
-                      "checkpoints": "at steps 1 and 2"},
+                      "accumulation_steps":
+                          f"{results['accumulation_steps']}, not 8" + (
+                              " (2 on 4 cards; the script's time)"
+                              if shared else ""),
+                      "steps": f"{results['optimizer_steps']} optimizer "
+                               f"steps over {results['files']} files of "
+                               f"{USP_MIN_LEN}-{USP_MAX_LEN} tokens",
+                      "checkpoints": "at steps 1 and 2" if results["resume"]
+                      else "at the end; no 4-rank resume on one card (the "
+                           "script's time; the mesh phase resumes 4 ranks)"},
           "launches_summed_over_ranks": usp_counts,
           "tolerances": {"step1_loss_rtol": TRAIN_STEP1_RTOL,
                          "later_loss_rtol": TRAIN_DRIFT_RTOL,
@@ -5132,6 +5658,9 @@ def main() -> int:
     counts.update(usp_counts)
     for k in kernels:
         k["launches"] = counts[k["name"]]
+        if k["name"] in training["online_launches"]:
+            # the same kernel on slice 18's path, the online consumer
+            k["online_launches"] = training["online_launches"][k["name"]]
         k["kernel_ms"] = k["ms"]
         if k["name"] in HOPPER_ROUTE:
             k["route_note"] = "wgmma, TMA"

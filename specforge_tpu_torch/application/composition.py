@@ -21,10 +21,11 @@ draft over them; the rank of batch block ``d·fsdp + f`` loads that
 block's rows of every global batch (``training.batch_size`` is the global
 batch), the ranks of one block (its sequence group) the same samples; the
 primary rank derives the vocab mapping and owns the tracker. The trainer
-shards the state over fsdp (``parallel/fsdp.py``). What the port has
-not reached yet (online runs) is refused with the slice that brings it,
-and an eval pass for the DFlash family and P-EAGLE, which their JAX
-strategies do not define, is refused by name.
+shards the state over fsdp (``parallel/fsdp.py``). An online consumer
+(``application/disaggregated.py``) builds the same run around its own
+streaming train loader and durable-ack hook (``train_loader_fn``,
+``ack_fn``), one epoch of the stream. An eval pass for the DFlash family
+and P-EAGLE, which their JAX strategies do not define, is refused by name.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import json
 import logging
 import os
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -120,13 +121,8 @@ def _load_draft_config_dict(config: Config) -> Dict[str, Any]:
 
 
 def _refuse_unported(config: Config) -> None:
-    """Raise for what a config asks of slices the port has not reached."""
+    """Raise for what a config asks that neither package has."""
     t = config.training
-    if config.deployment.mode != "colocated" or t.role not in ("all", "auto"):
-        raise NotImplementedError(
-            "online (disaggregated) runs come with the capture and online "
-            "slice (ROADMAP.md, Queue 1 item 7)"
-        )
     if t.attention_backend == "usp" and t.strategy != "eagle3":
         raise NotImplementedError(
             f"attention_backend='usp' is EAGLE3's; {t.strategy!r} has no "
@@ -264,11 +260,16 @@ def _build_mesh(config: Config, device: torch.device):
 
 
 def build_training_run(config: Config, registry=None, frozen_override=None,
-                       device: DeviceLike = None) -> Trainer:
-    """Build a fully wired offline Trainer: CUDA unless the caller names
-    another device (``device="cpu"`` in the tests); without a card and
-    without a device named this raises. Under the multi-process env this
-    process is one rank (its own card when there is one per rank)."""
+                       device: DeviceLike = None, *,
+                       train_loader_fn: Optional[Callable] = None,
+                       ack_fn: Optional[Callable] = None) -> Trainer:
+    """Build a fully wired Trainer: CUDA unless the caller names another
+    device (``device="cpu"`` in the tests); without a card and without a
+    device named this raises. Under the multi-process env this process is
+    one rank (its own card when there is one per rank). Offline, the train
+    loader reads ``data.train_data_path``; an online consumer passes
+    ``train_loader_fn(collate, rows, metadata)`` (its streaming loader of
+    ``rows`` samples a batch, one epoch) and the trainer's ``ack_fn``."""
     device = resolve_device(device)
     _refuse_unported(config)
     device = maybe_initialize_distributed(device)
@@ -335,7 +336,8 @@ def build_training_run(config: Config, registry=None, frozen_override=None,
     # the JAX package
     frozen = {k: v.to(device) for k, v in frozen.items()}
 
-    if not config.data.train_data_path:
+    online = train_loader_fn is not None
+    if not online and not config.data.train_data_path:
         raise ValueError("data.train_data_path is required for offline runs")
     contract = resolved.registration.spec.contract_for(FeatureMode.OFFLINE)
     # features stay in their stored dtype (bf16 captures): the JAX package
@@ -367,7 +369,8 @@ def build_training_run(config: Config, registry=None, frozen_override=None,
             prefetch_batches=config.data.prefetch_batches, metadata=metadata,
         )
 
-    train_loader = make_loader(config.data.train_data_path)
+    train_loader = (train_loader_fn(collate, loader_batch, metadata)
+                    if online else make_loader(config.data.train_data_path))
     eval_loader = (make_loader(config.data.eval_data_path)
                    if config.data.eval_data_path else None)
     # the primary rank alone writes metrics and markers
@@ -377,7 +380,8 @@ def build_training_run(config: Config, registry=None, frozen_override=None,
         run_id=config.run_id, project=config.tracking.project,
     )
     trainer_config = TrainerConfig(
-        num_epochs=t.num_epochs,
+        # a stream is consumed once
+        num_epochs=1 if online else t.num_epochs,
         accum_steps=t.accumulation_steps,
         grads_dtype=t.grads_dtype,
         compute_params_dtype=t.compute_params_dtype,
@@ -429,4 +433,5 @@ def build_training_run(config: Config, registry=None, frozen_override=None,
         metadata=metadata,
         contract_fingerprints=fingerprints,
         mesh=mesh,
+        ack_fn=ack_fn,
     )

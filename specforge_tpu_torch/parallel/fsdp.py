@@ -109,14 +109,14 @@ class ShardPlan:
             p.data = self.local(p.data, self.dims[name])
 
     # --- collectives ------------------------------------------------------
-    def gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+    def gather(self, x: torch.Tensor, dim: int, device=None) -> torch.Tensor:
         """The whole tensor from the fsdp group's slices of it along
-        ``dim`` (no gradient)."""
+        ``dim`` (no gradient), on ``device`` (default: ``x``'s)."""
         call = Staged(self.mesh, [x])
         src = call.stage(x.detach().movedim(dim, 0))
         out = src.new_empty((src.shape[0] * self.fsdp,) + src.shape[1:])
         _all_gather(out, src, group=self.mesh.fsdp_group)
-        return call.done(out).movedim(0, dim).contiguous()
+        return call.done(out, device).movedim(0, dim).contiguous()
 
     def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's slice along ``dim`` of the sum of ``x`` over the
@@ -307,16 +307,17 @@ class ShardPlan:
         """The checkpoint payload of a sharded ``TrainState``, whole on the
         CPU, as one process saves it: gathered by the ranks of rank 0's
         fsdp group, one tensor at a time → the payload there, None on the
-        other ranks."""
+        other ranks. A gather over host-staged gloo stays on the host."""
         if 0 not in self.mesh.fsdp_ranks:
             return None
         return {
             "params": {n: (p if self.dims[n] is None
-                           else self.gather(p, self.dims[n])).detach().cpu()
+                           else self.gather(p, self.dims[n], "cpu")
+                           ).detach().cpu()
                        for n, p in state.params.items()},
             "buffers": {n: b.detach().cpu() for n, b in state.buffers.items()},
             "opt_state": self._map(state.opt_state, lambda t, dim: (
-                t if dim is None else self.gather(t, dim)).cpu()),
+                t if dim is None else self.gather(t, dim, "cpu")).cpu()),
             "step": int(state.step),
         }
 

@@ -85,8 +85,9 @@ class Staged:
         x = x.contiguous()
         return x.cpu() if self.host else x
 
-    def done(self, x: torch.Tensor) -> torch.Tensor:
-        out = x.to(self.device) if self.host else x
+    def done(self, x: torch.Tensor, device=None) -> torch.Tensor:
+        """The result on ``device`` (default: the tensors' own)."""
+        out = x.to(device or self.device)
         if self.sync:
             torch.cuda.synchronize(self.device)
         now = time.perf_counter()  # a call may return several tensors

@@ -25,6 +25,9 @@ gradients over all ranks before the step), and under fsdp rank 0's fsdp
 group gathers each sharded tensor whole (``gather``), so the primary rank
 writes the files a one-process run writes and the markers between two
 barriers, and every rank reads them on resume (its slices under fsdp).
+``save_contract`` rewrites only a step's ``contract.json`` and the markers,
+for a run whose state at that step is on disk already (an interval's
+checkpoint that falls on the epoch's end).
 """
 
 from __future__ import annotations
@@ -152,12 +155,28 @@ class CheckpointManager:
         self._barrier(f"ckpt-pre-{step}")
         payload = gather(state) if gather is not None else None
         if self.primary:
-            self._write(state, step, contract, progress, metrics, payload)
+            self._write_state(state, step, payload)
+            self._write_meta(step, contract, progress, metrics)
         self._barrier(f"ckpt-post-{step}")
         return step_dir
 
-    def _write(self, state, step, contract, progress, metrics,
-               payload=None) -> None:
+    def save_contract(
+        self,
+        step: int,
+        contract: ResumeContract,
+        progress: Progress,
+        metrics: Optional[Dict[str, float]] = None,
+    ) -> str:
+        """Rewrite only the contract, progress and metrics of step
+        ``step``, whose state this run has written: the primary writes,
+        every rank waits for it."""
+        self._barrier(f"ckpt-contract-pre-{step}")
+        if self.primary:
+            self._write_meta(step, contract, progress, metrics)
+        self._barrier(f"ckpt-contract-post-{step}")
+        return self.step_dir(step)
+
+    def _write_state(self, state, step, payload=None) -> None:
         step_dir = self.step_dir(step)
         if os.path.exists(step_dir):
             shutil.rmtree(step_dir)
@@ -173,6 +192,9 @@ class CheckpointManager:
         tmp = os.path.join(state_dir, STATE_FILE + ".tmp")
         torch.save(payload, tmp)
         os.replace(tmp, os.path.join(state_dir, STATE_FILE))
+
+    def _write_meta(self, step, contract, progress, metrics) -> None:
+        step_dir = self.step_dir(step)
         meta = {
             "contract": contract.to_json(),
             "progress": progress.to_json(),

@@ -12,8 +12,10 @@ step sums the gradients over the ranks, the primary rank writes whole
 checkpoints and markers between barriers (the tracker of the other ranks
 is a no-op), and every rank restores its slices on resume. Progress counts
 samples of the global batch and the resume contract holds the global
-batch, so a checkpoint moves between topologies. Durable acknowledgements
-(``ack_fn``) come with a later slice (ROADMAP.md, Queue 1).
+batch, so a checkpoint moves between topologies. An online run's loader
+streams its refs, and ``ack_fn(sample_ids, step)`` runs after each
+optimizer step's checkpoint block, so that durable acknowledgements never
+run ahead of the restorable state; its time goes into the perf record.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from __future__ import annotations
 import logging
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, Iterable, List, Optional
+from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import torch
 
@@ -96,8 +98,10 @@ class Trainer:
         metadata: Optional[Dict[str, Any]] = None,
         contract_fingerprints: Optional[Dict[str, Any]] = None,
         mesh=None,
+        ack_fn: Optional[Callable[[List[str], int], None]] = None,
     ) -> None:
         self.strategy = strategy
+        self.ack_fn = ack_fn
         self.mesh = mesh
         #: the loader's batch is this block's rows of a global batch
         self.batch_blocks = mesh.config.batch_blocks if mesh else 1
@@ -114,7 +118,11 @@ class Trainer:
         self.contract_fingerprints = dict(contract_fingerprints or {})
 
         if config.total_steps is None:
-            per_epoch = len(train_loader) // config.accum_steps
+            try:
+                per_epoch = len(train_loader) // config.accum_steps
+            except TypeError as e:
+                raise ValueError(
+                    "total_steps must be given for streaming loaders") from e
             config.total_steps = per_epoch * config.num_epochs
         self.total_steps = config.total_steps
 
@@ -160,6 +168,7 @@ class Trainer:
         self.evaluator = Evaluator(strategy, self.metadata)
         self.profiler = StepProfiler(config.profiling, config.run_id)
         self.progress = Progress()
+        self._saved_step: Optional[int] = None  # the last state written
 
     # --- contract --------------------------------------------------------
     def resume_contract(self) -> ResumeContract:
@@ -226,10 +235,11 @@ class Trainer:
         try:
             for epoch in range(start_epoch, cfg.num_epochs):
                 self.progress.epoch = epoch
-                self.train_loader.seek(
-                    self.progress.samples_consumed // self.batch_blocks
-                    if epoch == start_epoch else 0
-                )
+                if getattr(self.train_loader, "supports_seek", False):
+                    self.train_loader.seek(
+                        self.progress.samples_consumed // self.batch_blocks
+                        if epoch == start_epoch else 0
+                    )
                 if epoch != start_epoch:
                     self.progress.samples_consumed = 0
 
@@ -271,6 +281,12 @@ class Trainer:
                             and new_step % cfg.checkpoint_interval == 0):
                         last_metrics = _pull(last_metrics_dev)
                         self._save(new_step, last_metrics)
+                    if self.ack_fn is not None:
+                        # after the checkpoint block: durable acks never run
+                        # ahead of the restorable state
+                        t0 = time.monotonic()
+                        self.ack_fn(sample_ids, new_step)
+                        perf.ack_s += time.monotonic() - t0
                     data_t0 = time.monotonic()
 
                 # end of epoch: eval + checkpoint (progress records the NEXT
@@ -299,13 +315,20 @@ class Trainer:
         return metrics
 
     def _save(self, step: int, metrics: Dict[str, float]) -> None:
-        gather = (self.shards.whole_state
-                  if self.shards is not None and self.shards.sharded
-                  else None)
-        self.checkpoints.save(
-            self.state, step, self.resume_contract(), self.progress, metrics,
-            gather=gather,
-        )
+        if self._saved_step == step:
+            # the interval's checkpoint of this step holds this state (an
+            # epoch that ends on it): only its contract and progress change
+            self.checkpoints.save_contract(
+                step, self.resume_contract(), self.progress, metrics)
+        else:
+            gather = (self.shards.whole_state
+                      if self.shards is not None and self.shards.sharded
+                      else None)
+            self.checkpoints.save(
+                self.state, step, self.resume_contract(), self.progress,
+                metrics, gather=gather,
+            )
+            self._saved_step = step
         self.checkpoints.maybe_update_best(step, metrics)
 
     @torch.no_grad()

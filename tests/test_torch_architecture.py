@@ -50,6 +50,52 @@ def test_no_jax_or_jax_package_imports(path):
     assert not bad, f"{os.path.relpath(path, REPO)} imports {bad}"
 
 
+def _string_constants(path):
+    """Every string constant of a module but its docstrings."""
+    tree = ast.parse(open(path).read(), filename=path)
+    docstrings = {
+        id(node.body[0].value) for node in ast.walk(tree)
+        if isinstance(node, (ast.Module, ast.FunctionDef, ast.ClassDef))
+        and node.body and isinstance(node.body[0], ast.Expr)
+        and isinstance(node.body[0].value, ast.Constant)}
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docstrings):
+            yield node.value
+
+
+@pytest.mark.parametrize("relpath", [
+    "launch_plan.py", os.path.join("inference", "capture_server_main.py"),
+    "cli.py"])
+def test_launched_commands_name_only_the_port(relpath):
+    """The commands the port's supervisor builds start the port's modules,
+    never the JAX package's (``specforge_tpu.``)."""
+    strings = list(_string_constants(os.path.join(PKG, relpath)))
+    assert not [s for s in strings if re.search(r"specforge_tpu\.", s)]
+    if relpath == "launch_plan.py":
+        assert "specforge_tpu_torch.cli" in strings
+        assert ("specforge_tpu_torch.inference.capture_server_main"
+                in strings)
+
+
+def test_the_managed_plan_starts_the_ports_modules():
+    from specforge_tpu_torch.config.schema import Config
+    from specforge_tpu_torch.launch_plan import build_launch_plan
+
+    config = Config.model_validate({
+        "model": {"draft_config": {"hidden_size": 8}},
+        "training": {"role": "auto"},
+        "runtime": {"store_backend": "network",
+                    "store_endpoint": "127.0.0.1:38100"},
+        "deployment": {"mode": "disaggregated",
+                       "server_urls": ["http://127.0.0.1:38200"]}})
+    plan = build_launch_plan(config, "run.json", managed_local=True)
+    modules = [c.argv[2] for c in plan.commands if c.argv[1:2] == ("-m",)]
+    assert modules == ["specforge_tpu_torch.inference.capture_server_main",
+                       "specforge_tpu_torch.cli", "specforge_tpu_torch.cli"]
+    assert "specforge_tpu_torch" in plan.commands[0].argv[0]
+
+
 def test_every_cuda_source_is_built():
     csrc = os.path.join(PKG, "csrc")
     on_disk = sorted(

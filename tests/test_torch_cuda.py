@@ -1776,3 +1776,205 @@ def test_gathered_moe_repeats_bit_for_bit(gen):
         assert bool(torch.isfinite(a).all())
         assert torch.equal(a, b_)
     assert torch.equal(r1[1], r2[1])
+
+
+# --------------------------------------------------------------------------
+# the online runtime on the card
+# --------------------------------------------------------------------------
+
+def small_target(layers=2, vocab=1024, hidden=256):
+    """A random dense qwen3 target of ``layers`` at a small width, bf16 on
+    the card: its config and params."""
+    from specforge_tpu_torch.models.target.transformer import TargetConfig
+
+    cfg = TargetConfig(vocab_size=vocab, num_hidden_layers=layers,
+                       rope_theta=1e6, qk_norm=True, model_type="qwen3",
+                       hidden_size=hidden, intermediate_size=2 * hidden,
+                       num_attention_heads=4, num_key_value_heads=2,
+                       head_dim=64)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    d, inter = 64, 2 * hidden
+
+    def rand(*shape):
+        return (torch.randn(*shape, generator=g, device="cuda") * 0.05).to(
+            torch.bfloat16)
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.bfloat16, device="cuda")
+
+    params = {"model.embed_tokens.weight": rand(vocab, hidden),
+              "model.norm.weight": ones(hidden)}
+    for i in range(layers):
+        p = f"model.layers.{i}"
+        params.update({
+            f"{p}.self_attn.q_proj.weight": rand(4 * d, hidden),
+            f"{p}.self_attn.k_proj.weight": rand(2 * d, hidden),
+            f"{p}.self_attn.v_proj.weight": rand(2 * d, hidden),
+            f"{p}.self_attn.o_proj.weight": rand(hidden, 4 * d),
+            f"{p}.self_attn.q_norm.weight": ones(d),
+            f"{p}.self_attn.k_norm.weight": ones(d),
+            f"{p}.input_layernorm.weight": ones(hidden),
+            f"{p}.post_attention_layernorm.weight": ones(hidden),
+            f"{p}.mlp.gate_proj.weight": rand(inter, hidden),
+            f"{p}.mlp.up_proj.weight": rand(inter, hidden),
+            f"{p}.mlp.down_proj.weight": rand(hidden, inter)})
+    return cfg, params
+
+
+def _post(port, path, body):
+    import json
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=300) as resp:
+        return json.loads(resp.read())
+
+
+def test_capture_server_features_equal_the_runners_bit_for_bit(gen):
+    """Three layers of Qwen3-8B width behind the port's capture server on
+    the card: a padded batch's inline features are the runner's
+    ``_run_batch`` at the same shape cast to bf16, bit for bit."""
+    import base64
+
+    import numpy as np
+
+    from specforge_tpu_torch.inference.capture_server import (
+        CaptureEngine,
+        CaptureServer,
+    )
+    from specforge_tpu_torch.offline_capture.capture import (
+        OfflineCaptureConfig,
+        OfflineCaptureRunner,
+    )
+
+    cfg, params = random_target(3)
+    layers = (0, 1, 2)
+    engine = CaptureEngine("unused", layers, max_length=512,
+                           target_config=cfg, target_params=params)
+    server = CaptureServer(engine).start()
+    try:
+        rng = np.random.default_rng(0)
+        samples = [{"input_ids": rng.integers(0, 4096, n).tolist(),
+                    "loss_mask": [1] * n, "sample_id": f"s{i}"}
+                   for i, n in enumerate((300, 512, 77))]
+        out = _post(server.port, "/generate_batch", {
+            "samples": samples, "spec_capture": {"sink": "inline"}})
+    finally:
+        server.stop()
+    runner = OfflineCaptureRunner(
+        OfflineCaptureConfig("unused", "unused", layers, 512, 1),
+        target_config=cfg, target_params=params)
+    ids, mask, lengths = engine.pad_batch(
+        [(np.asarray(s["input_ids"]), None) for s in samples])
+    assert ids.shape == (4, 512)  # the batch and sequence buckets
+    aux, last = runner._run_batch(ids, mask)
+    for i, (result, n) in enumerate(zip(out["results"], lengths)):
+        spec = result["meta_info"]["spec_capture"]
+        for name, ref in (("hidden_state", aux[i, :n]),
+                          ("target", last[i, :n])):
+            got = torch.frombuffer(
+                bytearray(base64.b64decode(spec["data"][name])),
+                dtype=torch.bfloat16).reshape(spec["features"][name][
+                    "shape"])
+            assert torch.equal(got, ref.to(torch.bfloat16)), (i, name)
+
+
+def test_online_run_on_the_card(gen, tmp_path):
+    """``run_producer`` then ``run_consumer`` on ``cuda:0``: a capture
+    server holding a small random target, the store server built by
+    ``g++``, an EAGLE3 draft of head dim 64 on the TTT and fused CE kernels
+    (TTT 7 launches of each a micro-step), every sample released."""
+    import json
+    import socket
+    import subprocess
+    import time
+
+    import numpy as np
+
+    from specforge_tpu_torch.application.disaggregated import (
+        run_consumer,
+        run_producer,
+    )
+    from specforge_tpu_torch.config.schema import Config
+    from specforge_tpu_torch.inference.capture_server import (
+        CaptureEngine,
+        CaptureServer,
+    )
+    from specforge_tpu_torch.runtime.data_plane.network_store import (
+        NetworkFeatureStore,
+        server_binary,
+    )
+
+    cfg, params = small_target()
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        store_port = s.getsockname()[1]
+    store = subprocess.Popen([str(server_binary()), "--port",
+                              str(store_port)],
+                             stdout=subprocess.DEVNULL,
+                             stderr=subprocess.DEVNULL)
+    server = CaptureServer(CaptureEngine(
+        "unused", (0, 1, 1), max_length=256, target_config=cfg,
+        target_params=params)).start()
+    try:
+        for _ in range(200):
+            try:
+                socket.create_connection(("127.0.0.1", store_port),
+                                         timeout=0.2).close()
+                break
+            except OSError:
+                time.sleep(0.05)
+        rng = np.random.default_rng(1)
+        with open(tmp_path / "prompts.jsonl", "w") as f:
+            for _ in range(8):
+                n = int(rng.integers(128, 257))
+                f.write(json.dumps({
+                    "input_ids": rng.integers(0, 1024, n).tolist(),
+                    "loss_mask": (rng.random(n) > 0.3).astype(int).tolist(),
+                }) + "\n")
+        config = Config.model_validate({
+            "run_id": "card", "output_dir": str(tmp_path / "runs"),
+            "model": {"draft_config": {
+                "architectures": ["LlamaEagle3Draft"], "vocab_size": 1024,
+                "draft_vocab_size": 256, "hidden_size": 256,
+                "intermediate_size": 512, "num_attention_heads": 4,
+                "num_key_value_heads": 2, "head_dim": 64,
+                "max_position_embeddings": 4096}},
+            "data": {"prompt_path": str(tmp_path / "prompts.jsonl"),
+                     "max_length": 256, "num_workers": 0},
+            "training": {"strategy": "eagle3", "batch_size": 2,
+                         "accumulation_steps": 2, "total_steps": 2,
+                         "ttt_length": 7, "log_interval": 1,
+                         "save_interval": 2, "role": "producer",
+                         "attention_backend": "pallas"},
+            "tracking": {"backend": "jsonl"},
+            "runtime": {"store_backend": "network",
+                        "store_endpoint": f"127.0.0.1:{store_port}",
+                        "control_dir": str(tmp_path / "control")},
+            "deployment": {"mode": "disaggregated", "server_urls": [
+                f"http://127.0.0.1:{server.port}"]},
+        })
+        assert run_producer(config) == 8
+        g = torch.Generator().manual_seed(2)
+        frozen = {"target_head_weight": torch.randn(1024, 256, generator=g)
+                  * 0.05,
+                  "target_embed_weight": torch.randn(1024, 256, generator=g)}
+        metrics = run_consumer(config, frozen_override=frozen)
+        assert bool(np.isfinite(metrics["train/loss"]))
+        assert metrics["store/objects"] == 0
+        assert NetworkFeatureStore(
+            f"127.0.0.1:{store_port}").health()["objects"] == 0
+        records = [json.loads(line) for line in open(
+            tmp_path / "runs" / "card.metrics.jsonl")]
+        steps = [r for r in records if "train/loss" in r]
+        for fn in ("ttt_flash_attention_fwd", "loss_forward",
+                   "loss_backward", "ttt_attention_bwd_dq",
+                   "ttt_attention_bwd_dkv"):
+            assert sum(r.get(f"perf/launches/{fn}", 0) for r in steps) \
+                == 7 * 4, fn
+    finally:
+        server.stop()
+        store.terminate()
+        store.wait(timeout=10)

@@ -116,6 +116,39 @@ def test_training_runs_on_the_cpu_at_small_size(smoke, tmp_path):
             "tensors"], "bit_identical": True, "optimizer_fresh": True}
 
 
+def test_online_phase_runs_on_the_cpu_at_small_size(smoke, tmp_path):
+    """The online phase: ``cli train --managed-local --device cpu`` on the
+    online example (the store built by g++, the port's capture server on a
+    random 4-layer qwen3, producer, consumer), the inline features against
+    the runner in this process bit for bit, the ledger, the store, and the
+    online step-1 loss against the offline ``cli train`` run; on the CPU no
+    kernel launches."""
+    cfg = Eagle3Config(vocab_size=2048, draft_vocab_size=512, hidden_size=128,
+                       intermediate_size=384, num_attention_heads=4,
+                       num_key_value_heads=2, max_position_embeddings=4096)
+    cfg_path = tmp_path / "draft.json"
+    cfg_path.write_text(json.dumps(cfg.to_dict()))
+    target = smoke.write_capture_target(
+        tmp_path / "target", {**smoke.QWEN3_8B_TARGET, **TINY_TARGET},
+        torch.device("cpu"), 0, 0.2)
+    results = smoke.online_phase(
+        cfg_path, {"target": target, "vocab_mapping": None},
+        tmp_path / "online", 0, torch.device("cpu"), max_length=64,
+        min_len=40)
+    assert results["supervisor_rc"] == 0
+    assert results["server"]["device"] == "cpu"
+    assert results["producer"]["samples_produced"] == smoke.ONLINE_PROMPTS
+    assert results["store"]["objects"] == 0
+    assert results["store"]["puts"] == 4 * smoke.ONLINE_PROMPTS
+    assert results["ledger"] == {"durable_step": smoke.ONLINE_STEPS,
+                                 "acked": smoke.ONLINE_PROMPTS}
+    assert results["launches"] == dict.fromkeys(smoke.KERNEL_COUNTERS, 0)
+    assert results["features"]["bit_identical"]
+    assert results["step1_loss"]["rel_diff"] == 0.0
+    assert len(results["consumer"]["step_s"]) == smoke.ONLINE_STEPS
+    assert all(40 <= n <= 64 for n in results["prompt_lengths"])
+
+
 FAMILY_DRAFT = {
     "architectures": ["DominoDraftModel"], "vocab_size": 256,
     "hidden_size": 64, "intermediate_size": 128, "num_attention_heads": 4,

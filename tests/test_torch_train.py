@@ -8,6 +8,7 @@ CPU tensors. Each tolerance is taken from the matching JAX test."""
 
 import json
 import os
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -472,6 +473,31 @@ def test_resume_mid_run_reaches_the_same_weights(tmp_path):
                                    atol=0, msg=name)
 
 
+def test_epoch_end_save_writes_the_state_once(tmp_path, monkeypatch):
+    """An interval's checkpoint on the epoch's last step: the state file is
+    written once, and the epoch-end save rewrites only the contract (the
+    next epoch's progress) over the same state."""
+    writes = []
+    save = torch.save
+    monkeypatch.setattr(torch, "save",
+                        lambda obj, path: (writes.append(str(path)),
+                                           save(obj, path))[1])
+    trainer = port_trainer(tmp_path, "once", num_epochs=1, save_interval=2)
+    trainer.fit()
+    assert trainer.state.step == 4  # 8 samples / batch 2
+    runs = tmp_path / "runs"
+    assert [Path(p).parent.parent.name for p in writes] == [
+        "once-step2", "once-step4"]
+    meta = json.loads((runs / "once-step4" / "contract.json").read_text())
+    assert meta["progress"] == {"epoch": 1, "samples_consumed": 0,
+                                "global_step": 4}
+    payload = trainer.checkpoints.load_state(str(runs / "once-step4"))
+    assert payload["step"] == 4
+    for name, p in trainer.state.params.items():
+        torch.testing.assert_close(payload["params"][name], p, rtol=0,
+                                   atol=0, msg=name)
+
+
 def test_resume_contract_mismatch_refuses(tmp_path):
     port_trainer(tmp_path, "c0", num_epochs=1).fit()
     mismatched = port_trainer(tmp_path, "c0", num_epochs=1, resume=True,
@@ -502,24 +528,30 @@ def test_default_device_entry_points_raise_without_cuda(tmp_path, monkeypatch):
         build_training_run(config, frozen_override=frozen_tables())
 
 
-@pytest.mark.parametrize("override,slice_name,error", [
-    pytest.param("deployment.mode=\"disaggregated\"", "online",
-                 NotImplementedError,
+@pytest.mark.parametrize("overrides,slice_name,error", [
+    # ported: an online config reaches the role dispatch, as the JAX CLI's
+    # does (specforge_tpu/cli.py:52-75); its consumer refuses a run
+    # without total_steps in its own words
+    pytest.param(("deployment.mode=\"disaggregated\"",
+                  "training.role=\"consumer\""),
+                 "online consumer requires training.total_steps", ValueError,
                  id="deployment.mode=\"disaggregated\"-online"),
     # ported: a warm start from a missing directory names its function
-    pytest.param("model.draft_checkpoint_path=\"draft\"", "warm_start_draft",
-                 FileNotFoundError,
+    pytest.param(("model.draft_checkpoint_path=\"draft\"",),
+                 "warm_start_draft", FileNotFoundError,
                  id="model.draft_checkpoint_path=\"draft\"-warm_start_draft"),
-    pytest.param("tracking.backend=\"wandb\"", "ROADMAP", NotImplementedError,
-                 id="tracking.backend=\"wandb\"-ROADMAP"),
+    pytest.param(("tracking.backend=\"wandb\"",), "ROADMAP",
+                 NotImplementedError, id="tracking.backend=\"wandb\"-ROADMAP"),
 ])
-def test_unported_options_name_their_slice(tmp_path, override, slice_name,
+def test_unported_options_name_their_slice(tmp_path, overrides, slice_name,
                                            error):
+    """Through ``cli train``, the entry point that dispatches on the
+    role."""
     path = tmp_path / "run.json"
     path.write_text(json.dumps(run_config(tmp_path, "unported")))
+    sets = [arg for o in overrides for arg in ("--set", o)]
     with pytest.raises(error, match=slice_name):
-        build_training_run(load_config(str(path), [override]),
-                           frozen_override=frozen_tables(), device="cpu")
+        cli.main(["train", "-c", str(path), "--device", "cpu", *sets])
 
 
 @pytest.mark.parametrize("overrides,error,match", [
