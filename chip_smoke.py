@@ -5,10 +5,14 @@ Usage: ``python3 chip_smoke.py [--seed N]`` from the repository root.
 ``python3 chip_smoke.py --usp-only`` runs phases 1, 2 and 8's training
 alone, ``--mesh-only`` phases 1, 2 and 9 (on a machine with a card per
 rank their ranks talk NCCL), ``--leftovers-only`` phases 1, 2 and 10's
-training runs (with 10a), ``--capture-only`` phases 1, 2, 5a, 5, 5b and
-10a with its training run (the captures at all 36 and all 27 target
-layers, training, export, the families), ``--online-only`` phases 1, 2
-and 5c, its target at all 36 layers.
+training runs (with 10a), ``--capture-only`` phases 1, 2, 5a, 5, 5d, 5b
+and 10a with its training run (the captures at all 36 and all 27 target
+layers, training, export, serving, the families), ``--online-only``
+phases 1, 2 and 5c, its target at all 36 layers, ``--serving-gaps``
+phase 1 and the study behind ``SERVING_TIE_ULPS`` (``serving_gaps``:
+bf16 greedy decoding against the verify block, sound and with planted
+faults, and the chain and plain decoders against greedy, on random
+targets at all 36 layers of Qwen3-8B).
 
 Phases, each printing JSON lines:
 
@@ -85,6 +89,23 @@ Phases, each printing JSON lines:
    ``config.json``, every weight read back through
    ``draft_state_from_export`` bit-identical to the checkpoint's cast to
    bf16 and the HF embedding the target's;
+5d. slice 19, chain speculative serving (``serving``): phase 5a's target
+   (``CAPTURE_DEPTH`` layers) and phase 5's SGLang export through the
+   serving loaders into the chain decoder (``k`` = 4, ``max_len`` 2048),
+   on 4 prompts of 256-1024 tokens cut from the eval conversations, 64 new
+   tokens each: in fp32 with no TF32, ``greedy_target_decode``,
+   ``fused_plain_decode``, ``generate`` and ``generate_fused`` emit the
+   same tokens, the two chain paths the same accept lengths; in bf16 the
+   prefill ms, rounds/s and tokens/s of ``generate_fused`` (a CUDA graph a
+   round) against ``fused_plain_decode`` (a graph a token), the mean
+   accept length, graph replays equal to the rounds and token steps, peak
+   memory, the agreement with greedy decoding (every token held to
+   greedy's step along the decoder's own output: at most
+   ``SERVING_TIE_ULPS`` bf16 ulps below its top-1) and one round's device
+   ops under torch.profiler; and
+   ``python -m specforge_tpu_torch.inference.serving_server_main`` as a
+   process on the same files, its ``/health`` and a chain and a ``plain``
+   ``/generate`` equal to this process's decoder;
 5c. slice 18, the online runtime (``online``): ``python -m
    specforge_tpu_torch.cli train -c examples/qwen3-8b-eagle3-online.json
    --managed-local`` with its paths, ports and steps overridden, so the
@@ -172,9 +193,11 @@ Phases, each printing JSON lines:
    global batch 4 at S 2048, accumulation 2, 4 optimizer steps, eval,
    checkpoints at steps 2 and 4, a 4-rank resume from step 2 that reaches
    the final weights bit-exactly; on one shared card 2 steps of one
-   micro-batch and a resume from step 1), P-EAGLE at fsdp 4 (factored
-   Adam, the row-sparse embedding), Domino at dp 2 × fsdp 2 and EAGLE3
-   under USP at fsdp 2 × sp_ring 2 (not on one shared card), a step each;
+   micro-batch, a checkpoint at the end and a 4-rank restore of it that
+   gives the final weights bit-exactly), P-EAGLE at fsdp 4
+   (factored Adam, the row-sparse embedding), Domino at dp 2 × fsdp 2 and
+   EAGLE3 under USP at fsdp 2 × sp_ring 2 (not on one shared card), a step
+   each;
    the launches of every kernel on every rank, the same losses and
    bit-identical whole weights on every rank, only rank 0 writing, each
    run against one process of the same global batch (losses; EAGLE3's
@@ -282,6 +305,11 @@ from specforge_tpu_torch.models.draft.llama_eagle3 import (
     LlamaEagle3Draft,
 )
 from specforge_tpu_torch.models.draft.peagle import PEagleConfig, cod_capacities
+from specforge_tpu_torch.inference import spec_decode
+from specforge_tpu_torch.inference.serving_loaders import (
+    build_decoder,
+    load_spec_models,
+)
 from specforge_tpu_torch.models.target.head import TargetHead
 from specforge_tpu_torch.models.target.transformer import (
     TargetConfig,
@@ -2723,7 +2751,8 @@ def check_exports(runs: Path, step_dir: Path, cfg_path: Path, target: Path,
     as ``embedding_source``; the required keys and ``config.json`` (the
     draft config) of each; every weight read back through
     ``draft_state_from_export`` bit-identical to the checkpoint's cast to
-    bf16, the vocab buffers equal, the HF embedding the target's."""
+    bf16, the vocab buffers equal, the HF embedding the target's. The
+    SGLang export is left in ``out / "sglang"``."""
     on_card = device.type == "cuda"
     saved = CheckpointManager.load_state(str(step_dir))
     prefix = "draft_model."
@@ -2775,14 +2804,630 @@ def check_exports(runs: Path, step_dir: Path, cfg_path: Path, target: Path,
             "tensors": len(tensors),
             "bytes": (out / fmt / "model.safetensors").stat().st_size,
             "bit_identical": True}
-    shutil.rmtree(out)
+    # the SGLang export stays for the serving phase
+    shutil.rmtree(out / "hf")
     return results
+
+
+# --------------------------------------------------------------------------
+# slice 19: chain speculative serving of the captured target with the
+# training phase's SGLang export
+# --------------------------------------------------------------------------
+
+#: prompts cut from the phase's eval conversations, their lengths drawn
+#: from the seed, and the tokens each decodes
+SERVING_PROMPTS = 4
+SERVING_PROMPT_LEN = (256, 1024)
+SERVING_NEW_TOKENS = 64
+#: draft tokens a round and the cache budget (serving_server_main's
+#: defaults)
+SERVING_K, SERVING_MAX_LEN = 4, 2048
+#: the server's request: the first prompt cut to this many tokens
+SERVING_SERVER_PROMPT, SERVING_SERVER_NEW = 256, 32
+#: seconds the served subprocess may take to print READY (the target's
+#: load included), and to stop
+SERVING_READY_TIMEOUT, SERVING_STOP_TIMEOUT = 300, 30
+#: bf16 serving may leave greedy decoding only at near-ties: every token
+#: a decoder emits lies at most this many bf16 ulps (of the top-1 logit)
+#: below the top-1 of greedy's step along the decoder's own output
+#: (``departures``). The (k+1)-token verify and the 1-token step sum in
+#: other orders: over 756 positions of 12 prompts on 4 random 36-layer
+#: Qwen3-8B-shaped targets (``--serving-gaps``, one H100) their rounding
+#: moved the margin of greedy's token by 7 ulps at most (5 at the 99th
+#: percentile), the verify's argmax lay at most 6 ulps below greedy's
+#: top-1 and the chain decoder's tokens at most 5; with a RoPE position
+#: one ahead or a stale cache slot planted, the argmax lay a median of 68
+#: and 164 ulps below it, past 8 at 718 and 744 of the 756 positions and
+#: in every prompt. Eight sits above the sound spread and an order of
+#: magnitude below a fault's
+SERVING_TIE_ULPS = 8
+
+
+def serving_prompts(eval_dir: Path, n: int, seed: int, lo: int, hi: int
+                    ) -> list:
+    """``n`` prompts cut from the eval conversations' token ids, each to a
+    length drawn from [lo, hi] (and at most the conversation's)."""
+    rng = np.random.default_rng(seed + 19)
+    prompts = []
+    for path in sorted(eval_dir.glob("*.sft"))[:n]:
+        ids, _ = load_feature_file(str(path))
+        ids = ids["input_ids"].tolist()
+        prompts.append(ids[:min(len(ids), int(rng.integers(lo, hi + 1)))])
+    if len(prompts) != n:
+        raise AssertionError(f"{len(prompts)} eval conversations for {n} "
+                             "serving prompts")
+    return prompts
+
+
+def bf16_ulp(x: float) -> float:
+    """One bf16 ulp at ``x`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(abs(x))) - 7) if x else 2.0 ** -133
+
+
+def greedy_logits(params, config, prompt, new_tokens: int, max_len: int,
+                  forced=None) -> tuple:
+    """``spec_decode.greedy_target_decode``'s loop, keeping each step's
+    logits → (tokens, logits [new_tokens, V]). With ``forced`` (tokens),
+    each step feeds the next of them in place of its own argmax: row j is
+    greedy's step after ``prompt`` and ``forced[:j]``."""
+    device = params["model.embed_tokens.weight"].device
+    state = spec_decode.init_target_state(config, 1, max_len, device=device)
+    ids = torch.tensor([prompt], device=device)
+    out, rows, length = list(prompt), [], len(prompt)
+    ck, cv = state.cache_k, state.cache_v
+    for j in range(new_tokens):
+        logits, _, ck, cv = spec_decode.target_cached_forward(
+            params, config, ids, ck, cv, length - ids.shape[1], ())
+        rows.append(logits[0, -1])
+        # ties: the first index
+        out.append(int(logits[0, -1].argmax()) if forced is None
+                   else int(forced[j]))
+        ids = torch.tensor([[out[-1]]], device=device)
+        length += 1
+    return np.asarray(out), torch.stack(rows)
+
+
+def excess_ulps(rows: torch.Tensor, tokens) -> list:
+    """How far each token's logit lies below its row's top-1, in bf16 ulps
+    of the top-1 (0 for the argmax)."""
+    rows = rows.float()
+    top = rows.max(dim=-1).values.tolist()
+    got = rows.gather(1, torch.as_tensor(tokens, device=rows.device)[:, None]
+                      )[:, 0].tolist()
+    return [(t - g) / bf16_ulp(t) for t, g in zip(top, got)]
+
+
+def departures(params, config, prompt, output_ids, new_tokens: int,
+               max_len: int) -> tuple:
+    """A decoder's first ``new_tokens`` new tokens held to greedy decoding
+    along its own output (``greedy_logits`` forced) → (the tokens before
+    the first that is not its step's argmax, where its prefix is greedy's
+    own output, or None; each token's ``excess_ulps``)."""
+    new = [int(t) for t in output_ids[len(prompt):len(prompt) + new_tokens]]
+    _, rows = greedy_logits(params, config, prompt, len(new), max_len,
+                            forced=new)
+    best = rows.argmax(dim=-1).tolist()
+    first = next((j for j, (b, t) in enumerate(zip(best, new)) if b != t),
+                 None)
+    return first, excess_ulps(rows, new)
+
+
+def first_difference(got, want) -> Optional[int]:
+    n = min(len(got), len(want))
+    diff = np.flatnonzero(np.asarray(got[:n]) != np.asarray(want[:n]))
+    return int(diff[0]) if diff.size else None
+
+
+class ServedProcess:
+    """``python -m specforge_tpu_torch.inference.serving_server_main`` on a
+    target and an export (bf16, the card unless ``device`` is the CPU),
+    started at once: ``ask`` waits for its READY line, then reads
+    ``/health`` and posts each request; ``stop`` ends the process either
+    way."""
+
+    def __init__(self, target: Path, export: Path, device, k: int,
+                 max_len: int):
+        self.port = free_port()
+        cmd = [sys.executable, "-m",
+               "specforge_tpu_torch.inference.serving_server_main",
+               "--target", str(target), "--export", str(export),
+               "--draft-tokens", str(k), "--max-len", str(max_len),
+               "--port", str(self.port)]
+        if device.type != "cuda":
+            cmd += ["--device", str(device)]
+        self.command = " ".join(cmd[2:])
+        # this process's thread count, so a CPU run sums in the same order
+        env = dict(os.environ, PYTHONPATH=str(REPO),
+                   OMP_NUM_THREADS=str(torch.get_num_threads()))
+        self.t0 = time.perf_counter()
+        self.lines, self.ready_s = [], None
+        self._ready = threading.Event()
+        self.proc = subprocess.Popen(cmd, cwd=str(REPO), env=env, text=True,
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT)
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip())
+            if line.startswith("READY port="):
+                self.ready_s = time.perf_counter() - self.t0
+                self._ready.set()
+
+    def wait_ready(self) -> None:
+        if not self._ready.wait(SERVING_READY_TIMEOUT):
+            raise AssertionError("the serving server printed no READY line "
+                                 f"in {SERVING_READY_TIMEOUT} s: "
+                                 + " | ".join(self.lines[-20:]))
+
+    def ask(self, requests: list) -> dict:
+        self.wait_ready()
+        url = f"http://127.0.0.1:{self.port}"
+        return {"command": self.command, "ready_s": self.ready_s,
+                "health": http_json(f"{url}/health"),
+                "answers": [http_json(f"{url}/generate", body)
+                            for body in requests]}
+
+    def stop(self) -> int:
+        self.proc.terminate()
+        try:
+            self.proc.wait(timeout=SERVING_STOP_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.proc.wait(timeout=SERVING_STOP_TIMEOUT)
+        self._reader.join(timeout=SERVING_STOP_TIMEOUT)
+        return self.proc.returncode
+
+
+def serving_phase(captured: dict, export: Path, workdir: Path, seed: int,
+                  device, *, n_prompts=SERVING_PROMPTS,
+                  prompt_len=SERVING_PROMPT_LEN,
+                  new_tokens=SERVING_NEW_TOKENS, k=SERVING_K,
+                  max_len=SERVING_MAX_LEN,
+                  server_prompt=SERVING_SERVER_PROMPT,
+                  server_new=SERVING_SERVER_NEW) -> dict:
+    """Slice 19 on the capture phase's target and the training phase's
+    SGLang export, through ``serving_loaders`` and the chain decoder (the
+    target's bf16 weights read once; the fp32 ones are their exact
+    upcast):
+
+    1. fp32, no TF32: ``greedy_target_decode``, ``fused_plain_decode``,
+       ``generate`` and ``generate_fused`` emit the same tokens on every
+       prompt (the first ``new_tokens``; a round may run past them), and
+       the two chain paths the same accept lengths;
+    2. bf16 (the serving dtype): the prefill, ``generate_fused`` against
+       ``fused_plain_decode`` (rounds/s, tokens/s, accept lengths), the
+       graph replays against the rounds and token steps, peak memory, the
+       agreement with greedy decoding (``departures``: every token at most
+       ``SERVING_TIE_ULPS`` below greedy's top-1 along the decoder's own
+       output) and one round's device ops under torch.profiler;
+    3. ``serving_server_main`` as a process on the same files (started
+       first, so it loads while 1 runs): ``/health`` and one chain and one
+       ``plain`` ``/generate`` equal to this process's decoder."""
+    on_card = device.type == "cuda"
+    layers = tuple(captured["capture_layers"])
+    prompts = serving_prompts(workdir / "eval", n_prompts, seed, *prompt_len)
+    results = {"prompt_lengths": [len(p) for p in prompts],
+               "new_tokens": new_tokens, "num_draft_tokens": k,
+               "max_len": max_len, "capture_layers": list(layers)}
+    server = ServedProcess(captured["target"], export, device, k, max_len)
+    try:
+        checks, decoder = serving_checks(captured, export, prompts, device,
+                                         new_tokens, k, max_len,
+                                         server.wait_ready)
+        results.update(checks)
+        # 3. the server process against this process's decoder
+        params, config = decoder.target_params, decoder.target_config
+        server_ids = prompts[0][:server_prompt]
+        want_chain = decoder.generate_fused(server_ids, server_new)
+        want_plain = spec_decode.fused_plain_decode(
+            params, config, server_ids, server_new, max_len=max_len,
+            loop_cache=decoder.plain_loops)
+        del decoder, params, config
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        body = {"input_ids": server_ids, "max_new_tokens": server_new}
+        served = server.ask([body, {**body, "plain": True}])
+    finally:
+        served_rc = server.stop()
+    chain, plain = served.pop("answers")
+    if (chain["output_ids"] != want_chain.output_ids.tolist()
+            or chain["accept_lengths"] != want_chain.accept_lengths
+            or plain["output_ids"] != want_plain.tolist()):
+        raise AssertionError("the server's /generate differs from this "
+                             "process's decoder")
+    health = served["health"]
+    if (health["status"] != "ok" or health["num_draft_tokens"] != k
+            or health["counters"]["requests"] != 0):
+        raise AssertionError(f"the server's /health: {health}")
+    served.update(exit_code=served_rc, outputs_equal=True,
+                  chain_wall_ms=chain["wall_ms"],
+                  plain_wall_ms=plain["wall_ms"],
+                  chain_mean_accept_length=chain["mean_accept_length"])
+    results["server"] = served
+    return results
+
+
+def serving_checks(captured: dict, export: Path, prompts: list, device,
+                   new_tokens: int, k: int, max_len: int,
+                   before_timing) -> tuple:
+    """Parts 1 and 2 of ``serving_phase`` → (results, the bf16 decoder);
+    ``before_timing()`` runs before the first timed call (the server
+    process has loaded by then)."""
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    results = {}
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, config, draft = load_spec_models(
+        str(captured["target"]), str(export), device=device)
+    n = config.num_hidden_layers
+    if tuple(captured["capture_layers"]) != (1, n // 2 - 1, n - 4):
+        raise AssertionError(f"capture layers {captured['capture_layers']} "
+                             "are not the serving loaders' default rule")
+    results["load_s"] = time.perf_counter() - t0
+
+    # 1. fp32: every decoder emits greedy decoding's tokens
+    t0 = time.perf_counter()
+    with fp32_matmuls():
+        params32 = {name: v.float() if v.is_floating_point() else v
+                    for name, v in params.items()}
+        decoder = build_decoder((params32, config, draft), num_draft_tokens=k,
+                                max_len=max_len, device=device)
+        fp32 = []
+        for prompt in prompts:
+            want = spec_decode.greedy_target_decode(
+                params32, config, prompt, new_tokens, max_len=max_len)
+            plain = spec_decode.fused_plain_decode(
+                params32, config, prompt, new_tokens, max_len=max_len,
+                loop_cache=decoder.plain_loops)
+            host = decoder.generate(prompt, new_tokens)
+            fused = decoder.generate_fused(prompt, new_tokens)
+            for name, got in (("fused_plain_decode", plain),
+                              ("generate", host.output_ids),
+                              ("generate_fused", fused.output_ids)):
+                at = first_difference(got, want)
+                if at is not None or len(got) < len(want):
+                    raise AssertionError(
+                        f"fp32 {name} leaves greedy decoding at token "
+                        f"{at} of a {len(prompt)}-token prompt")
+            if (fused.accept_lengths != host.accept_lengths
+                    or not np.array_equal(fused.output_ids, host.output_ids)):
+                raise AssertionError("fp32 generate_fused differs from the "
+                                     "host loop generate")
+            fp32.append({"rounds": host.steps,
+                         "mean_accept_length": host.mean_accept_length})
+        del decoder, params32
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    results["fp32"] = {"decoders_equal": True, "prompts": fp32,
+                       "seconds": time.perf_counter() - t0}
+
+    # 2. bf16: times, replays, memory, agreement, a round's device ops
+    decoder = build_decoder((params, config, draft), num_draft_tokens=k,
+                            max_len=max_len, device=device)
+    before_timing()
+    # first calls: each builds its program (on the card a CUDA graph)
+    sync()
+    t0 = time.perf_counter()
+    decoder.generate_fused(prompts[0][:64], 8)
+    spec_decode.fused_plain_decode(params, config, prompts[0][:64], 8,
+                                   max_len=max_len,
+                                   loop_cache=decoder.plain_loops)
+    sync()
+    results["first_calls_s"] = time.perf_counter() - t0
+    program, state = decoder._fused.chain(max_len)
+    decoder._fused.replays = spec_decode.fused_plain_decode.replays = 0
+    rows, rounds, plain_steps = [], 0, 0
+    for prompt in prompts:
+        sync()
+        t0 = time.perf_counter()
+        decoder._prefill_device(np.asarray([prompt]), state.t_ck,
+                                state.t_cv, state.d_ck, state.d_cv)
+        sync()
+        prefill = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        spec = decoder.generate_fused(prompt, new_tokens)
+        sync()
+        spec_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        plain = spec_decode.fused_plain_decode(
+            params, config, prompt, new_tokens, max_len=max_len,
+            loop_cache=decoder.plain_loops)
+        sync()
+        plain_s = time.perf_counter() - t0
+        spec_new = len(spec.output_ids) - len(prompt)
+        row = {"prompt_length": len(prompt), "prefill_ms": prefill * 1e3,
+               "rounds": spec.steps,
+               "mean_accept_length": spec.mean_accept_length,
+               "spec_new_tokens": spec_new,
+               "spec_ms": spec_s * 1e3, "plain_ms": plain_s * 1e3,
+               "rounds_per_s": spec.steps / (spec_s - prefill),
+               "spec_tokens_per_s": spec_new / (spec_s - prefill),
+               "plain_tokens_per_s": (len(plain) - len(prompt))
+               / (plain_s - prefill)}
+        for name, got in (("spec", spec.output_ids), ("plain", plain)):
+            at, excess = departures(params, config, prompt, got, new_tokens,
+                                    max_len)
+            row[f"{name}_agreement"] = (
+                len(excess) if at is None else at) / new_tokens
+            row[f"{name}_max_excess_ulps"] = max(excess)
+            if at is not None:
+                row[f"{name}_first_difference"] = {
+                    "token": at, "excess_ulps": excess[at]}
+            if not max(excess) <= SERVING_TIE_ULPS:
+                raise AssertionError(
+                    f"bf16 {name} decoding emits a token {max(excess)} ulps "
+                    "below greedy's top-1 along its own output (more than "
+                    f"{SERVING_TIE_ULPS}: not a near-tie)")
+        rows.append(row)
+        rounds += spec.steps
+        plain_steps += len(plain) - len(prompt) - 1
+    if on_card and (decoder._fused.replays != rounds
+                    or spec_decode.fused_plain_decode.replays != plain_steps):
+        raise AssertionError(
+            f"graph replays {decoder._fused.replays} for {rounds} rounds, "
+            f"{spec_decode.fused_plain_decode.replays} for {plain_steps} "
+            "plain token steps")
+    results["bf16"] = {
+        "prompts": rows,
+        "chain_graph_replays": decoder._fused.replays, "rounds": rounds,
+        "plain_graph_replays": spec_decode.fused_plain_decode.replays,
+        "plain_token_steps": plain_steps,
+        "graphs": on_card,
+        "mean_accept_length": float(np.mean(
+            [r["mean_accept_length"] for r in rows])),
+        "prefill_ms": [r["prefill_ms"] for r in rows],
+        "rounds_per_s": statistics.median(r["rounds_per_s"] for r in rows),
+        "spec_tokens_per_s": statistics.median(
+            r["spec_tokens_per_s"] for r in rows),
+        "plain_tokens_per_s": statistics.median(
+            r["plain_tokens_per_s"] for r in rows),
+        "spec_agreement": float(np.mean([r["spec_agreement"]
+                                         for r in rows])),
+        "tie_ulps": SERVING_TIE_ULPS}
+    if on_card:
+        results["bf16"]["peak_bytes"] = torch.cuda.max_memory_allocated()
+        # one more round (the last request's state) under the profiler
+        results["bf16"]["one_round_profile"] = profile_device(
+            lambda: (program(), sync()), top=12)
+    return results, decoder
+
+
+def emit_serving(results: dict, depth: int) -> None:
+    full = QWEN3_8B_TARGET["num_hidden_layers"]
+    emit({"phase": "serving",
+          "command": "python -m specforge_tpu_torch.inference."
+                     "serving_server_main --target T --export E",
+          "target": "the capture phase's", "draft": "the training phase's "
+          "SGLang export (configs/qwen3-8b-eagle3.json)",
+          "nvidia_smi": subprocess.run(
+              ["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"], capture_output=True,
+              text=True).stdout.strip(),
+          "reduced": {
+              "weights": f"random, from --seed (std {TARGET_STD}); the draft "
+                         "trained 2 steps on their features",
+              "depth": None if depth == full else
+              f"{depth} of {full} target layers (the capture phase's "
+              "target; --capture-only serves all 36)",
+              "prompts": f"{SERVING_PROMPTS} prompts of "
+                         f"{SERVING_PROMPT_LEN[0]}-{SERVING_PROMPT_LEN[1]} "
+                         "tokens cut from the eval conversations, "
+                         f"{SERVING_NEW_TOKENS} new tokens each"},
+          "tolerances": {"fp32": "tokens equal", "bf16_tie_ulps":
+                         SERVING_TIE_ULPS},
+          **results})
+
+
+#: the near-tie study (``--serving-gaps``): target seeds, prompts a seed
+#: (random token ids, lengths drawn from ``SERVING_PROMPT_LEN``), and the
+#: verify blocks it runs beside greedy decoding: sound, and with a fault
+#: planted (RoPE positions one ahead; a rollback that keeps one rejected
+#: slot a step)
+SERVING_GAP_SEEDS, SERVING_GAP_PROMPTS = 4, 3
+SERVING_GAP_VARIANTS = ("sound", "wrong_position", "stale_slot")
+
+
+def random_target_params(config: dict, device, seed: int, std: float,
+                         root: Path) -> tuple:
+    """``write_capture_target``'s kind of weights (bf16 drawn from the seed
+    at ``std``, norms 1, biases 0), kept on ``device`` and written nowhere
+    but ``root``'s config.json → (params, TargetConfig)."""
+    root.mkdir(parents=True, exist_ok=True)
+    (root / "config.json").write_text(json.dumps(config))
+    tc = TargetConfig.from_file(str(root))
+    gen = torch.Generator(device=device).manual_seed(seed + 3)
+    fill = {"norm1": 1.0, "norm0": 0.0, "bias": 0.0}
+    params = {}
+    for name, (shape, kind) in tensor_shapes(tc, config).items():
+        if kind in ("weight", "embed"):
+            params[name] = (torch.randn(shape, generator=gen, device=device)
+                            * std).to(torch.bfloat16)
+        else:
+            params[name] = torch.full(shape, fill[kind], dtype=torch.bfloat16,
+                                      device=device)
+    return params, tc
+
+
+def verify_logits(params, config, prompt, tokens, k: int, max_len: int,
+                  variant: str, gen) -> torch.Tensor:
+    """Greedy decoding's ``tokens`` fed back one a step as the first token
+    of a (k+1)-token verify block (k random proposals after it), one slot
+    kept a step, as a chain round that accepts no proposal keeps it; the
+    prompt's prefill as greedy's. ``variant`` plants a fault: RoPE
+    positions one ahead (``wrong_position``), or two slots kept a step, so
+    a rejected proposal's K/V stays in the cache (``stale_slot``) → the
+    block's first row of logits a step [len(tokens) - 1, V], each
+    predicting greedy's next token."""
+    device = params["model.embed_tokens.weight"].device
+    vocab = params["model.embed_tokens.weight"].shape[0]
+    state = spec_decode.init_target_state(config, 1, max_len, device=device)
+    ck, cv = state.cache_k, state.cache_v
+    spec_decode.target_cached_forward(
+        params, config, torch.tensor([prompt], device=device), ck, cv, 0, ())
+    depths = torch.arange(k + 1, device=device) + (
+        variant == "wrong_position")
+    rows, length = [], len(prompt)
+    for tok in tokens[:-1]:
+        block = torch.cat([torch.tensor([int(tok)], device=device),
+                           torch.randint(0, vocab, (k,), generator=gen,
+                                         device=device)])
+        logits, _, _, _ = spec_decode.target_cached_forward(
+            params, config, block[None], ck, cv, length, (),
+            block_positions=depths)
+        rows.append(logits[0, 0])
+        length += 2 if variant == "stale_slot" else 1
+    return torch.stack(rows)
+
+
+def margin_shifts(greedy_rows: torch.Tensor, rows: torch.Tensor) -> dict:
+    """Row by row against greedy's rows: how far the margin of greedy's
+    token over the best other token moved, in bf16 ulps of greedy's top-1
+    logit; where the argmax left greedy's token (with greedy's top-2 gap
+    there); and the ``excess_ulps`` of each row's argmax under greedy's
+    row, what ``departures`` holds a decoder's tokens to."""
+    g, v = greedy_rows.float(), rows.float()
+    best = g.argmax(dim=-1, keepdim=True)
+    ulps = torch.tensor([bf16_ulp(x) for x in g.gather(1, best)[:, 0]
+                         .tolist()], device=g.device)
+
+    def margin(x):
+        top = x.gather(1, best)[:, 0]
+        return top - x.scatter(1, best, -math.inf).amax(dim=-1)
+
+    shift = ((margin(v) - margin(g)).abs() / ulps).tolist()
+    gaps = (margin(g) / ulps).tolist()
+    flips = (v.argmax(dim=-1) != best[:, 0]).nonzero()[:, 0].tolist()
+    return {"shift_ulps": shift, "flip_gaps_ulps": [gaps[i] for i in flips],
+            "first_flip": flips[0] if flips else None,
+            "excess_ulps": excess_ulps(g, v.argmax(dim=-1))}
+
+
+def serving_gaps_phase(seed: int, config: dict = QWEN3_8B_TARGET, *,
+                       device=None, seeds: int = SERVING_GAP_SEEDS,
+                       prompts: int = SERVING_GAP_PROMPTS,
+                       prompt_len=SERVING_PROMPT_LEN,
+                       new_tokens: int = SERVING_NEW_TOKENS,
+                       k: int = SERVING_K, max_len: int = SERVING_MAX_LEN,
+                       draft_config: Path = CONFIG) -> dict:
+    """The spread behind ``SERVING_TIE_ULPS``, in bf16 at ``config``'s
+    width and depth (all 36 layers of Qwen3-8B by default), over ``seeds``
+    random targets of ``prompts`` random prompts each: greedy decoding's
+    logits against the (k+1)-token verify block's at the same positions
+    (``verify_logits``, sound and with each planted fault: the margin
+    shifts, the argmax flips and greedy's gap at each, the argmax's excess
+    under greedy's row), and the chain decoder (a random draft) and the
+    plain decoder held to greedy along their own output (``departures``).
+    ``check_serving_gaps`` raises, after the line, if a sound path goes
+    past the bound."""
+    device = device or torch.device("cuda")
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    draft_cfg = Eagle3Config.from_file(draft_config)
+    rng = np.random.default_rng(seed + 1919)
+    gen = torch.Generator(device=device).manual_seed(seed + 19)
+    t_start = time.perf_counter()
+    variants = {v: {"shift_ulps": [], "flip_gaps_ulps": [],
+                    "first_flip_gaps_ulps": [], "excess_ulps": [],
+                    "prompts_past_bound": 0} for v in SERVING_GAP_VARIANTS}
+    decoders = {name: {"first_difference": [], "excess_ulps": [],
+                       "max_excess_ulps": []}
+                for name in ("generate_fused", "fused_plain_decode")}
+    n = config["num_hidden_layers"]
+    with tempfile.TemporaryDirectory() as tmp:
+        for s in range(seeds):
+            params, tc = random_target_params(config, device, seed + s,
+                                              TARGET_STD, Path(tmp) / str(s))
+            draft = LlamaEagle3Draft(draft_cfg, dtype=torch.bfloat16,
+                                     device=device, seed=seed + s)
+            decoder = spec_decode.Eagle3SpecDecoder(
+                params, tc, draft.to(torch.bfloat16),
+                capture_layers=(1, n // 2 - 1, n - 4), num_draft_tokens=k,
+                max_len=max_len, device=device)
+            for _ in range(prompts):
+                prompt = rng.integers(0, tc.vocab_size, size=int(
+                    rng.integers(prompt_len[0], prompt_len[1] + 1))).tolist()
+                tokens, g_rows = greedy_logits(params, tc, prompt, new_tokens,
+                                               max_len)
+                new = tokens[len(prompt):]
+                for variant, acc in variants.items():
+                    rows = verify_logits(params, tc, prompt, new, k, max_len,
+                                         variant, gen)
+                    got = margin_shifts(g_rows[1:], rows)
+                    acc["shift_ulps"] += got["shift_ulps"]
+                    acc["flip_gaps_ulps"] += got["flip_gaps_ulps"]
+                    acc["excess_ulps"] += got["excess_ulps"]
+                    acc["prompts_past_bound"] += (
+                        max(got["excess_ulps"]) > SERVING_TIE_ULPS)
+                    if got["first_flip"] is not None:
+                        acc["first_flip_gaps_ulps"].append(
+                            got["flip_gaps_ulps"][0])
+                spec = decoder.generate_fused(prompt, new_tokens).output_ids
+                plain = spec_decode.fused_plain_decode(
+                    params, tc, prompt, new_tokens, max_len=max_len,
+                    loop_cache=decoder.plain_loops)
+                for name, got in (("generate_fused", spec),
+                                  ("fused_plain_decode", plain)):
+                    at, excess = departures(params, tc, prompt, got,
+                                            new_tokens, max_len)
+                    acc = decoders[name]
+                    acc["first_difference"].append(at)
+                    acc["excess_ulps"].append(
+                        None if at is None else excess[at])
+                    acc["max_excess_ulps"].append(max(excess))
+            del decoder, draft, params
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+    sync()
+    def spread(values) -> dict:
+        values = np.asarray(values)
+        return {"median": float(np.median(values)),
+                "p99": float(np.quantile(values, 0.99)),
+                "max": float(values.max())}
+
+    summary = {}
+    for variant, acc in variants.items():
+        excess = np.asarray(acc["excess_ulps"])
+        summary[variant] = {
+            "positions": int(excess.size),
+            "shift_ulps": spread(acc["shift_ulps"]),
+            "flips": len(acc["flip_gaps_ulps"]),
+            "flip_gaps_ulps": spread(acc["flip_gaps_ulps"] or [0.0]),
+            "first_flip_gaps_ulps": acc["first_flip_gaps_ulps"],
+            "excess_ulps": spread(excess),
+            "positions_past_bound": int((excess > SERVING_TIE_ULPS).sum()),
+            "prompts_past_bound": acc["prompts_past_bound"]}
+    results = {"seeds": seeds, "prompts_per_seed": prompts,
+               "new_tokens": new_tokens, "num_draft_tokens": k,
+               "max_len": max_len, "layers": n, "verify": summary,
+               "decoders": decoders,
+               "tie_ulps": SERVING_TIE_ULPS,
+               "seconds": time.perf_counter() - t_start}
+    return results
+
+
+def check_serving_gaps(results: dict) -> None:
+    """The sound verify block and both decoders within the bound."""
+    worst = {name: max(acc["max_excess_ulps"])
+             for name, acc in results["decoders"].items()}
+    worst["sound verify"] = results["verify"]["sound"]["excess_ulps"]["max"]
+    over = {name: w for name, w in worst.items() if w > SERVING_TIE_ULPS}
+    if over:
+        raise AssertionError(f"bf16 tokens {over} ulps below greedy's top-1 "
+                             f"(more than {SERVING_TIE_ULPS}: not near-ties)")
 
 
 def capture_and_train_phase(seed: int, depth: int) -> tuple:
     """Slice 16 on the card: ``capture_phase`` at Qwen3-8B width and
     ``depth`` layers, then the training phase on its features (with the
-    exports), then slice 18's online phase from the same target, a line
+    exports), slice 19's serving phase on that target and the SGLang
+    export, then slice 18's online phase from the same target, a line
     each → (training results, launch counts)."""
     device = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:
@@ -2817,6 +3462,10 @@ def capture_and_train_phase(seed: int, depth: int) -> tuple:
                              "grad_cosine": GRAD_COSINE,
                              "grad_norm_rtol": GRAD_NORM_RTOL},
               **training})
+        torch.cuda.empty_cache()
+        serving = serving_phase(captured, Path(tmp) / "export" / "sglang",
+                                Path(tmp), seed, device)
+        emit_serving(serving, depth)
         torch.cuda.empty_cache()
         online = online_phase(CONFIG, captured, Path(tmp) / "online", seed,
                               device)
@@ -4539,18 +5188,22 @@ MESH_ONE_CARD_MAX_LEN = {"eagle3": 1024}
 MESH_ONE_CARD_FILES = {"eagle3": 8}
 MESH_ONE_CARD_ACCUM = {"eagle3": 1}
 MESH_ONE_CARD_SKIP = ("usp",)
+#: and, since the serving phase joined the script, EAGLE3 there takes no
+#: middle checkpoint (a whole-state gather and write), and its 4-rank
+#: resume restores the end checkpoint and trains no step (no gloo step, no
+#: second save); the 4-card run resumes from the middle checkpoint
 MESH_COUNTERS = {**USP_COUNTERS, **DFLASH_COUNTERS, **PEAGLE_COUNTERS}
 
 
 def mesh_run_json(workdir: Path, name: str, target: Path, cfg: Path,
                   max_length: int, files: int, accum: int,
-                  mesh: bool) -> Path:
+                  mesh: bool, middle_checkpoint: bool = True) -> Path:
     """The example run of ``MESH_RUNS[name]``, read as data, pointed at this
     run's directories and draft config ``cfg``, at its global batch,
     accumulation ``accum``, ``max_length`` tokens, one epoch over ``files``
-    files and a log line per step (EAGLE3 checkpoints halfway and at the
-    end); on its layout (``mesh``), or in one process on the TTT
-    kernels."""
+    files and a log line per step (EAGLE3 checkpoints halfway, with
+    ``middle_checkpoint``, and at the end); on its layout (``mesh``), or in one
+    process on the TTT kernels."""
     example, layout, batch = MESH_RUNS[name][1:4]
     raw = json.loads(example.read_text())
     run_id = f"{'mesh' if mesh else 'single'}_{name}"
@@ -4565,7 +5218,9 @@ def mesh_run_json(workdir: Path, name: str, target: Path, cfg: Path,
     raw["training"].update(batch_size=batch, accumulation_steps=accum,
                            num_epochs=1, log_interval=1, eval_interval=0,
                            save_interval=(files // (batch * accum) // 2
-                                          if name == "eagle3" else 0))
+                                          if name == "eagle3"
+                                          and middle_checkpoint
+                                          else 0))
     if name == "peagle":
         raw["training"]["row_sparse_embedding"] = True
     if mesh:
@@ -4626,7 +5281,8 @@ def mesh_rank(workdir: Path, device, overrides=()) -> None:
     the bytes of this rank's masters and optimizer state, its timings and
     memory; for EAGLE3 also step 1's gradients from the same initial
     weights (gathered whole; rank 0 saves them) and a 4-rank resume from
-    its middle checkpoint. Everything into ``rank{N}.json``."""
+    its middle checkpoint (from its end checkpoint, no step trained, where
+    the ranks share one card). Everything into ``rank{N}.json``."""
     from specforge_tpu_torch.application import composition
     from specforge_tpu_torch.parallel import usp
     from specforge_tpu_torch.parallel.multihost import (
@@ -4713,19 +5369,24 @@ def mesh_rank(workdir: Path, device, overrides=()) -> None:
             if on_card:
                 rec["cli_train_peak_bytes"] = torch.cuda.max_memory_allocated()
             window = first_window(trainer)
+            shared = share_one_card(device, MESH_RANKS)
             if name == "eagle3":
-                middle = f"mesh_eagle3-step{trainer.state.step // 2}"
+                steps = trainer.state.step
+                rec["resumed_from"] = (
+                    f"mesh_eagle3-step{steps if shared else steps // 2}")
                 del trainer
                 gc.collect()
                 if on_card:
                     torch.cuda.empty_cache()
+                # a fresh trainer: the initial weights until a resume's
+                # fit restores the checkpoint
                 trainer = trainer_for(
                     name, 'run_id="mesh_resumed"', "training.save_interval=0",
                     f'output_dir="{workdir / "runs_mesh_resumed"}"',
                     "data.eval_data_path=null",
                     "training.resume_from="
-                    f"{workdir / 'runs_mesh_eagle3' / middle}")
-            if not share_one_card(device, MESH_RANKS):
+                    f"{workdir / 'runs_mesh_eagle3' / rec['resumed_from']}")
+            if not shared:
                 rec.update(mesh_micro_step(trainer, window[0], sync))
             if name == "eagle3":
                 # step 1 from the same initial weights, before the resume
@@ -4744,7 +5405,11 @@ def mesh_rank(workdir: Path, device, overrides=()) -> None:
                 if rank == 0:
                     torch.save(whole, workdir / "mesh_step1_grads.pt")
                 del whole, grads, stats
+                sync()
+                t0 = time.perf_counter()
                 trainer.fit()
+                sync()
+                rec["resume_s"] = time.perf_counter() - t0
                 rec["resumed_digest"] = whole_weights_digest(trainer)
                 rec["resumed_steps"] = trainer.state.step
             barrier(f"mesh-{name}-memory")  # every rank holds its state
@@ -4802,7 +5467,7 @@ def run_mesh_training(device, seed: int, workdir: Path, *, head_std=0.02,
     with a card each) for each run of ``MESH_RUNS``, in one launch. The
     ranks must report the same per-step losses and bit-identical whole
     weights, only rank 0 may write, and the EAGLE3 resume from its middle
-    checkpoint must
+    checkpoint (its end checkpoint where the ranks share one card) must
     reach the final weights bit-exactly (``check_mesh_counts`` holds each
     rank's launches to ``mesh_expected_launches``). Then one process runs each
     run's global batch from the same initial weights on the TTT kernels:
@@ -4846,9 +5511,9 @@ def run_mesh_training(device, seed: int, workdir: Path, *, head_std=0.02,
         else:
             write_features(workdir / name, eagle_cfg, seed, files, lo, hi)
         mesh_run_json(workdir, name, target, cfg_path, hi, files, accum,
-                      mesh=True)
+                      mesh=True, middle_checkpoint=not shared)
         mesh_run_json(workdir, name, target, cfg_path, hi, files, accum,
-                      mesh=False)
+                      mesh=False, middle_checkpoint=not shared)
     write_features(workdir / "eagle3_eval", eagle_cfg, seed + 100,
                    MESH_EVAL_FILES, max_len["eagle3"] - max_len["eagle3"] // 4,
                    max_len["eagle3"])
@@ -4880,10 +5545,10 @@ def run_mesh_training(device, seed: int, workdir: Path, *, head_std=0.02,
             if name == "eagle3" and (rec["resumed_digest"] != rank0["digest"]
                                      or rec["step1_loss"]
                                      != rank0["step1_loss"]):
-                raise AssertionError(f"{name} rank {r}: the resume from the "
-                                     "middle checkpoint did not reach the "
-                                     "final weights bit-exactly, or step 1 "
-                                     "differs")
+                raise AssertionError(f"{name} rank {r}: the resume from "
+                                     f"{rec['resumed_from']} did not reach "
+                                     "the final weights bit-exactly, or step "
+                                     "1 differs")
         roles = [(r["writes_checkpoints"], r["tracks"]) for r in recs]
         if roles != [(True, True)] + [(False, False)] * (MESH_RANKS - 1):
             raise AssertionError(f"{name}: IO roles {roles}")
@@ -4923,9 +5588,10 @@ def run_mesh_training(device, seed: int, workdir: Path, *, head_std=0.02,
             res["step1_grads"] = compare_grads(
                 grads_m, {k: g.cpu() for k, g in grads_s.items()})
             del grads_s, grads_m
-            res["resume"] = {"from": f"mesh_eagle3-step{len(steps) // 2}",
+            res["resume"] = {"from": rank0["resumed_from"],
                              "steps": rank0["resumed_steps"],
-                             "bit_exact": True}
+                             "bit_exact": True,
+                             "seconds": [rec["resume_s"] for rec in recs]}
             res["final_eval"] = final_eval(CheckpointManager.resolve_step_dir(
                 str(workdir / "runs_mesh_eagle3")))
             if not all(math.isfinite(v) for v in res["final_eval"].values()):
@@ -5061,8 +5727,10 @@ def mesh_phase(seed: int) -> None:
                          f"{eagle3['accumulation_steps']} micro-batches of the "
                          f"global batch {eagle3['global_batch']}, "
                          f"{eagle3['files']} files, checkpoints at steps "
-                         f"{eagle3['optimizer_steps'] // 2} and "
-                         f"{eagle3['optimizer_steps']}"),
+                         + ("" if shared else
+                            f"{eagle3['optimizer_steps'] // 2} and ")
+                         + f"{eagle3['optimizer_steps']}, resumed from "
+                         + eagle3["resume"]["from"]),
               "peagle": "one step of the global batch 4, 4 files of "
                         "768-1024 tokens, row-sparse embedding",
               "domino": "one step of the global batch 4, 4 files of "
@@ -5077,10 +5745,13 @@ def mesh_phase(seed: int) -> None:
                            "accumulation_steps": MESH_ONE_CARD_ACCUM,
                            "skipped": list(MESH_ONE_CARD_SKIP),
                            "micro_step_timed": False,
+                           "eagle3_resume": "from the end checkpoint, "
+                                            "no step trained",
                            "why": "the 4 ranks share the card's 80 GB "
                                   "(layers, tokens) and its time (files, "
                                   "accumulation, the USP run, the "
-                                  "micro-step's timing)"}
+                                  "micro-step's timing, the EAGLE3 "
+                                  "middle checkpoint and resumed steps)"}
               if shared else None},
           "launches_summed_over_ranks": counts,
           "tolerances": {"step1_loss_rtol": TRAIN_STEP1_RTOL,
@@ -5480,12 +6151,19 @@ def main() -> int:
     parser.add_argument("--leftovers-only", action="store_true",
                         help="run only the offline_leftovers training runs")
     # capture at Qwen3-8B width and all 36 layers, the training phase on
-    # the captured features and the exports of its checkpoint, the target
+    # the captured features, the exports of its checkpoint and serving
+    # them, the target
     # families, then the MoE capture at all 27 layers of DeepSeek-V2-Lite
     # and its draft's training on those features, alone
     parser.add_argument("--capture-only", action="store_true",
                         help="run only the captures (all layers), their "
-                             "training runs, export and the families")
+                             "training runs, export, serving and the "
+                             "families")
+    # the spread of bf16 logits between the verify block and greedy
+    # decoding at all 36 target layers, sound and with planted faults
+    parser.add_argument("--serving-gaps", action="store_true",
+                        help="run only the bf16 near-tie study of serving "
+                             "(all 36 target layers)")
     # the online stack alone, its target at all 36 layers
     parser.add_argument("--online-only", action="store_true",
                         help="run only the online phase (all 36 target "
@@ -5502,6 +6180,16 @@ def main() -> int:
         return 1
 
     smi = device_facts()
+    if args.serving_gaps:
+        results = serving_gaps_phase(args.seed)
+        emit({"phase": "serving_gaps",
+              "target": "Qwen3-8B's shape, random bf16 weights (std "
+                        f"{TARGET_STD}) from --seed and the target seed",
+              "draft": "random, configs/qwen3-8b-eagle3.json",
+              "nvidia_smi": smi, **results})
+        check_serving_gaps(results)
+        print(smi, flush=True)
+        return 0
     build()
     if args.leftovers_only:
         offline_leftovers_phase(args.seed, None)

@@ -1978,3 +1978,103 @@ def test_online_run_on_the_card(gen, tmp_path):
         server.stop()
         store.terminate()
         store.wait(timeout=10)
+
+
+# --------------------------------------------------------------------------
+# chain speculative serving: the fused round as a CUDA graph
+# --------------------------------------------------------------------------
+
+def serving_models(gen, dtype):
+    """A random dense qwen3-style target (4 layers, hidden 256) as a
+    parameter dict on the card and a random EAGLE3 draft over it."""
+    from specforge_tpu_torch.models.draft.llama_eagle3 import (
+        Eagle3Config,
+        LlamaEagle3Draft,
+    )
+    from specforge_tpu_torch.models.target.transformer import TargetConfig
+
+    v, h, f, heads, kvh, d, layers = 512, 256, 512, 4, 2, 64, 4
+    config = TargetConfig(vocab_size=v, hidden_size=h, intermediate_size=f,
+                          num_hidden_layers=layers, num_attention_heads=heads,
+                          num_key_value_heads=kvh, head_dim=d, qk_norm=True,
+                          model_type="qwen3")
+
+    def rnd(*shape, std=0.05):
+        return (torch.randn(*shape, generator=gen, device="cuda")
+                * std).to(dtype)
+
+    params = {"model.embed_tokens.weight": rnd(v, h, std=1.0),
+              "model.norm.weight": rnd(h, std=0.0) + 1,
+              "lm_head.weight": rnd(v, h, std=0.3)}
+    for i in range(layers):
+        p = f"model.layers.{i}"
+        params.update({
+            f"{p}.input_layernorm.weight": rnd(h, std=0.0) + 1,
+            f"{p}.post_attention_layernorm.weight": rnd(h, std=0.0) + 1,
+            f"{p}.self_attn.q_proj.weight": rnd(heads * d, h),
+            f"{p}.self_attn.k_proj.weight": rnd(kvh * d, h),
+            f"{p}.self_attn.v_proj.weight": rnd(kvh * d, h),
+            f"{p}.self_attn.o_proj.weight": rnd(h, heads * d),
+            f"{p}.self_attn.q_norm.weight": rnd(d, std=0.0) + 1,
+            f"{p}.self_attn.k_norm.weight": rnd(d, std=0.0) + 1,
+            f"{p}.mlp.gate_proj.weight": rnd(f, h),
+            f"{p}.mlp.up_proj.weight": rnd(f, h),
+            f"{p}.mlp.down_proj.weight": rnd(h, f)})
+    draft = LlamaEagle3Draft(Eagle3Config(
+        vocab_size=v, draft_vocab_size=v, hidden_size=h, intermediate_size=f,
+        num_attention_heads=heads, num_key_value_heads=kvh,
+        max_position_embeddings=4096), dtype=dtype, device="cuda", seed=1)
+    return params, config, draft.to(dtype)
+
+
+def test_chain_round_graph_matches_eager_round(gen):
+    """One chain round replayed from its CUDA graph against the same round
+    run eagerly on the same buffers: every output buffer and cache
+    identical."""
+    from specforge_tpu_torch.inference.spec_decode import Eagle3SpecDecoder
+
+    params, config, draft = serving_models(gen, torch.bfloat16)
+    decoder = Eagle3SpecDecoder(params, config, draft, (1, 1, 2),
+                                num_draft_tokens=3, max_len=128)
+    prompt = torch.randint(0, 512, (40,), generator=gen,
+                           device="cuda").tolist()
+    decoder.generate_fused(prompt, max_new_tokens=12)
+    program, state = decoder._fused.chain(128)
+    assert program.graph is not None
+    before = {n: t.clone() for n, t in vars(state).items()}
+    program()
+    replayed = {n: t.clone() for n, t in vars(state).items()}
+    for name, t in vars(state).items():
+        t.copy_(before[name])
+    program.step()
+    torch.cuda.synchronize()
+    for name, t in vars(state).items():
+        assert torch.equal(t, replayed[name]), name
+    assert not torch.equal(replayed["t_len"], before["t_len"])
+
+
+def test_graph_replays_count_rounds_and_match_the_host_loop(gen):
+    """fp32 on the card (no TF32): the graph replays equal the rounds (and
+    the plain decoder's its token steps), and the fused rounds emit the
+    host loop's tokens and accept lengths, the plain decoders greedy's."""
+    from specforge_tpu_torch.inference import spec_decode
+
+    params, config, draft = serving_models(gen, torch.float32)
+    decoder = spec_decode.Eagle3SpecDecoder(params, config, draft, (1, 1, 2),
+                                            num_draft_tokens=3, max_len=128)
+    prompt = torch.randint(0, 512, (40,), generator=gen,
+                           device="cuda").tolist()
+    host = decoder.generate(prompt, max_new_tokens=24)
+    decoder._fused.replays = 0
+    fused = decoder.generate_fused(prompt, max_new_tokens=24)
+    assert decoder._fused.replays == fused.steps > 0
+    assert fused.accept_lengths == host.accept_lengths
+    assert fused.output_ids.tolist() == host.output_ids.tolist()
+    greedy = spec_decode.greedy_target_decode(params, config, prompt, 24,
+                                              max_len=128)
+    spec_decode.fused_plain_decode.replays = 0
+    plain = spec_decode.fused_plain_decode(params, config, prompt, 24,
+                                           max_len=128)
+    assert spec_decode.fused_plain_decode.replays == 23
+    assert plain.tolist() == greedy.tolist()
+    assert host.output_ids[:len(greedy)].tolist() == greedy.tolist()

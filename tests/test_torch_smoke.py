@@ -116,6 +116,81 @@ def test_training_runs_on_the_cpu_at_small_size(smoke, tmp_path):
             "tensors"], "bit_identical": True, "optimizer_fresh": True}
 
 
+def test_serving_phase_runs_on_the_cpu_at_small_size(smoke, tmp_path):
+    """The serving phase on the capture phase's tiny target and the
+    training phase's SGLang export: the four decoders equal in fp32, the
+    bf16 timings, agreement and accept lengths, and the server process on
+    the CPU answering as this process's decoder does (no graphs on the
+    CPU, so no replays)."""
+    cfg = Eagle3Config(vocab_size=2048, draft_vocab_size=512, hidden_size=128,
+                       intermediate_size=384, num_attention_heads=4,
+                       num_key_value_heads=2, max_position_embeddings=4096)
+    cfg_path = tmp_path / "draft.json"
+    cfg_path.write_text(json.dumps(cfg.to_dict()))
+    work = tmp_path / "work"
+    target = {**smoke.QWEN3_8B_TARGET, **TINY_TARGET, "num_hidden_layers": 6}
+    _, captured = smoke.capture_phase(
+        cfg_path, torch.device("cpu"), 0, work, target_config=target,
+        max_length=64, min_len=40, std=0.2)
+    runs = work / "runs"
+    run = smoke.training_run_json(work, cfg_path, captured["target"], 64,
+                                  captured["vocab_mapping"])
+    from specforge_tpu_torch import cli
+
+    assert cli.main(["train", "-c", str(run), "--device", "cpu", "--set",
+                     'model.compute_dtype="float32"']) == 0
+    step = smoke.CheckpointManager.resolve_step_dir(str(runs))
+    smoke.check_exports(runs, smoke.Path(step), cfg_path, captured["target"],
+                        work / "export", torch.device("cpu"))
+    assert not (work / "export" / "hf").exists()
+    results = smoke.serving_phase(
+        captured, work / "export" / "sglang", work, 0, torch.device("cpu"),
+        prompt_len=(16, 40), new_tokens=8, max_len=128, server_prompt=16,
+        server_new=6)
+    assert results["capture_layers"] == [1, 2, 2]
+    assert all(16 <= n <= 40 for n in results["prompt_lengths"])
+    assert results["fp32"]["decoders_equal"]
+    bf16 = results["bf16"]
+    assert bf16["chain_graph_replays"] == bf16["plain_graph_replays"] == 0
+    assert bf16["rounds"] >= len(results["prompt_lengths"])
+    assert 0.0 <= bf16["spec_agreement"] <= 1.0
+    assert bf16["mean_accept_length"] >= 1.0
+    server = results["server"]
+    assert server["outputs_equal"] and server["exit_code"] is not None
+    assert server["health"]["family"] == "Eagle3SpecDecoder"
+
+
+def test_serving_gaps_study_runs_on_the_cpu_at_small_size(smoke, tmp_path):
+    """The study behind the bf16 near-tie bound at a tiny width: the
+    sound verify block moves greedy's margins by no more than the bound,
+    each planted fault moves them by more and flips tokens, and the chain
+    and plain decoders leave greedy only at near-ties."""
+    cfg_path = tmp_path / "draft.json"
+    cfg_path.write_text(json.dumps(Eagle3Config(
+        vocab_size=2048, draft_vocab_size=512, hidden_size=128,
+        intermediate_size=384, num_attention_heads=4, num_key_value_heads=2,
+        max_position_embeddings=4096).to_dict()))
+    target = {**smoke.QWEN3_8B_TARGET, **TINY_TARGET, "num_hidden_layers": 6}
+    results = smoke.serving_gaps_phase(
+        0, target, device=torch.device("cpu"), seeds=2, prompts=2,
+        prompt_len=(16, 40), new_tokens=16, max_len=128,
+        draft_config=cfg_path)
+    verify = results["verify"]
+    assert verify["sound"]["positions"] == 2 * 2 * 15
+    assert verify["sound"]["shift_ulps"]["max"] <= smoke.SERVING_TIE_ULPS
+    for fault in ("wrong_position", "stale_slot"):
+        assert verify[fault]["shift_ulps"]["max"] > smoke.SERVING_TIE_ULPS
+        assert verify[fault]["flips"] > 0
+    assert verify["stale_slot"]["prompts_past_bound"] > 0
+    assert all(len(acc["max_excess_ulps"]) == 4
+               for acc in results["decoders"].values())
+    smoke.check_serving_gaps(results)
+    results["decoders"]["generate_fused"]["max_excess_ulps"][0] = (
+        smoke.SERVING_TIE_ULPS + 1)
+    with pytest.raises(AssertionError, match="not near-ties"):
+        smoke.check_serving_gaps(results)
+
+
 def test_online_phase_runs_on_the_cpu_at_small_size(smoke, tmp_path):
     """The online phase: ``cli train --managed-local --device cpu`` on the
     online example (the store built by g++, the port's capture server on a
