@@ -2515,7 +2515,8 @@ def capture_phase(cfg_path: Path, device, seed: int, workdir: Path, *,
                   target_config=QWEN3_8B_TARGET, depth=None,
                   max_length=MAX_LEN, min_len=1536, batch=CAPTURE_BATCH,
                   std=TARGET_STD, n_train=TRAIN_FILES, n_eval=EVAL_FILES,
-                  capture_layers=None, shard_layers=SHARD_LAYERS) -> tuple:
+                  capture_layers=None, shard_layers=SHARD_LAYERS,
+                  ref_path: Optional[Path] = None) -> tuple:
     """Slices 16 and 17's capture: a random target of ``target_config``
     (cut to ``depth`` layers) written as an HF directory; conversations
     from the seed rendered by the qwen template and parser
@@ -2531,7 +2532,9 @@ def capture_phase(cfg_path: Path, device, seed: int, workdir: Path, *,
     target's routing is recorded in those runs: the share of (token,
     expert) assignments each MoE layer's bf16 run and lone sample agree on
     with the fp32 run and the batch (at least ``MOE_ROUTE_AGREEMENT``),
-    and ``moe_impl="dense"`` against ``gathered`` (``moe_impl_checks``) →
+    and ``moe_impl="dense"`` against ``gathered`` (``moe_impl_checks``).
+    ``ref_path``: the first padded batch's one-process reference for the
+    capture-mesh phase is saved there (``save_capture_reference``) →
     (results, what the training phase reads)."""
     on_card = device.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
@@ -2688,6 +2691,8 @@ def capture_phase(cfg_path: Path, device, seed: int, workdir: Path, *,
         check(f"sample alone vs its padded row, {name} (relative L2)", err,
               CAPTURE_REL_L2)
     results["alone_vs_batch_rel_l2"] = errors
+    if ref_path is not None:
+        save_capture_reference(runner, ids, mask, ref_path)
     del runner, alone, bf16, routes
     gc.collect()
     if on_card:
@@ -3423,16 +3428,20 @@ def check_serving_gaps(results: dict) -> None:
                              f"(more than {SERVING_TIE_ULPS}: not near-ties)")
 
 
-def capture_and_train_phase(seed: int, depth: int) -> tuple:
+def capture_and_train_phase(seed: int, depth: int,
+                            keep: Optional[Path] = None) -> tuple:
     """Slice 16 on the card: ``capture_phase`` at Qwen3-8B width and
     ``depth`` layers, then the training phase on its features (with the
     exports), slice 19's serving phase on that target and the SGLang
     export, then slice 18's online phase from the same target, a line
-    each → (training results, launch counts)."""
+    each → (training results, launch counts). ``keep``: the target and the
+    capture's one-process reference (``dense_target``, ``dense_ref.pt``)
+    are kept there for the capture-mesh phase."""
     device = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:
-        results, captured = capture_phase(CONFIG, device, seed, Path(tmp),
-                                          depth=depth)
+        results, captured = capture_phase(
+            CONFIG, device, seed, Path(tmp), depth=depth,
+            ref_path=None if keep is None else keep / "dense_ref.pt")
         full = QWEN3_8B_TARGET["num_hidden_layers"]
         emit({"phase": "capture", "draft_config": str(CONFIG.relative_to(
                   REPO)),
@@ -3470,6 +3479,8 @@ def capture_and_train_phase(seed: int, depth: int) -> tuple:
         online = online_phase(CONFIG, captured, Path(tmp) / "online", seed,
                               device)
         emit_online(online, depth)
+        if keep is not None:
+            shutil.move(str(captured["target"]), str(keep / "dense_target"))
     training["online_launches"] = online["launches"]
     torch.cuda.empty_cache()
     return training, counts
@@ -3482,7 +3493,7 @@ def emit_online(results: dict, depth: int) -> None:
           "command": "python -m specforge_tpu_torch.cli train -c "
                      f"{ONLINE_EXAMPLE.relative_to(REPO)} --set ... "
                      "--managed-local",
-          "batch": ONLINE_BATCH, "accumulation_steps": ONLINE_ACCUM,
+          "accumulation_steps": ONLINE_ACCUM,
           "ttt_length": TTT, "max_length": MAX_LEN,
           "reduced": {
               "weights": f"random, from --seed (std {TARGET_STD})",
@@ -3498,8 +3509,12 @@ def emit_online(results: dict, depth: int) -> None:
                            f"not 8; total_steps {ONLINE_STEPS}, not 5000; "
                            f"save_interval {ONLINE_STEPS}, not 1000; "
                            "log_interval 1, not 50",
-              "prompts": f"{ONLINE_PROMPTS} tokenised prompts of "
-                         "1536-2048 tokens from --seed"},
+              "prompts": f"{len(results['prompt_lengths'])} tokenised "
+                         "prompts of 1536-2048 tokens from --seed",
+              "ranks": "one capture server rank and one consumer"
+                       if results["ranks"] == 1 else
+                       f"{results['ranks']} capture server ranks and "
+                       f"{results['ranks']} consumer ranks, a card each"},
           "tolerances": {"step1_loss_rtol": TRAIN_STEP1_RTOL,
                          "features": "bit-identical"},
           **results})
@@ -3508,7 +3523,8 @@ def emit_online(results: dict, depth: int) -> None:
 def online_only_phase(seed: int) -> None:
     """``--online-only``: the online phase alone, from a random target of
     all 36 Qwen3-8B layers written here, the vocab mapping derived from
-    the prompts."""
+    the prompts; on a machine of several cards the capture server and the
+    consumer take a rank per card (NCCL)."""
     device = torch.device("cuda")
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -3518,7 +3534,8 @@ def online_only_phase(seed: int) -> None:
         torch.cuda.empty_cache()
         results = online_phase(CONFIG, {"target": target,
                                         "vocab_mapping": None},
-                               Path(tmp) / "online", seed, device)
+                               Path(tmp) / "online", seed, device,
+                               ranks=torch.cuda.device_count())
     results["target_write_s"] = written
     emit_online(results, QWEN3_8B_TARGET["num_hidden_layers"])
 
@@ -3547,20 +3564,19 @@ def free_port() -> int:
 
 
 def json_blocks(text: str) -> list:
-    """The JSON objects a process printed: one-line objects, and objects
-    printed over several lines (``{`` and ``}`` alone on their lines)."""
-    out, block = [], None
-    for line in text.splitlines():
-        if block is not None:
-            block.append(line)
-            if line == "}":
-                out.append(json.loads("\n".join(block)))
-                block = None
-        elif line == "{":
-            block = [line]
-        elif line.startswith("{") and line.endswith("}"):
-            with contextlib.suppress(ValueError):
-                out.append(json.loads(line))
+    """The JSON objects a process printed, on one line or over several:
+    each ``{`` that starts a whole object, scanned left to right, so the
+    output of processes sharing a file parses where one's object lands
+    right after another's, without the newline between."""
+    decoder, out, i = json.JSONDecoder(), [], 0
+    while (i := text.find("{", i)) >= 0:
+        try:
+            obj, i = decoder.raw_decode(text, i)
+        except ValueError:
+            i += 1
+            continue
+        if isinstance(obj, dict):
+            out.append(obj)
     return out
 
 
@@ -3656,7 +3672,8 @@ def metric_steps(path: Path) -> list:
 
 def online_phase(cfg_path: Path, captured: dict, workdir: Path, seed: int,
                  device, *, n_prompts=ONLINE_PROMPTS, min_len=1536,
-                 max_length=MAX_LEN, timeout=ONLINE_TIMEOUT) -> dict:
+                 max_length=MAX_LEN, timeout=ONLINE_TIMEOUT,
+                 ranks: int = 1) -> dict:
     """Slice 18 on the card: ``python -m specforge_tpu_torch.cli train -c
     <run file> --managed-local`` (role ``auto``) on
     ``examples/qwen3-8b-eagle3-online.json`` with its paths, ports and
@@ -3674,7 +3691,12 @@ def online_phase(cfg_path: Path, captured: dict, workdir: Path, seed: int,
     the online step-1 loss within ``TRAIN_STEP1_RTOL`` of an offline ``cli
     train`` run over the same features in the inbox's order, from the same
     draft initialisation. ``captured["vocab_mapping"]`` None: derived from
-    the prompts' ids here."""
+    the prompts' ids here. ``ranks`` > 1: the capture server shards the
+    target over that many ranks (``capture_shard_devices``) and the
+    consumer runs as that many ranks (``training.fsdp_size``: the launch
+    plan starts a consumer a rank of its mesh; a global batch of at least
+    one row a rank), the offline run in one process taking each
+    micro-batch's rows in rank order."""
     from specforge_tpu_torch.data.prompt_builder import prepare_prompt_tasks
     from specforge_tpu_torch.inference.batch_partition import (
         TargetBatchPartition,
@@ -3695,6 +3717,8 @@ def online_phase(cfg_path: Path, captured: dict, workdir: Path, seed: int,
     workdir.mkdir(parents=True, exist_ok=True)
     target = Path(captured["target"])
     tc = TargetConfig.from_file(str(target))
+    batch_size = max(ONLINE_BATCH, ranks)
+    n_prompts = max(n_prompts, batch_size * ONLINE_ACCUM * ONLINE_STEPS)
     records = online_prompt_records(tc.vocab_size, seed, n_prompts, min_len,
                                     max_length)
     prompts = workdir / "prompts.jsonl"
@@ -3719,11 +3743,15 @@ def online_phase(cfg_path: Path, captured: dict, workdir: Path, seed: int,
         f'runtime.store_endpoint="127.0.0.1:{store_port}"',
         f'runtime.control_dir="{workdir / "control"}"',
         f'deployment.server_urls=["{server_url}"]',
-        f"training.batch_size={ONLINE_BATCH}",
+        f"training.batch_size={batch_size}",
         f"training.accumulation_steps={ONLINE_ACCUM}",
         f"training.total_steps={ONLINE_STEPS}",
         f"training.save_interval={ONLINE_STEPS}", "training.log_interval=1",
     ]
+    if ranks > 1:  # the consumer's mesh, a rank each: fsdp over them
+        overrides += [
+            f"deployment.managed_local.capture_shard_devices={ranks}",
+            f"training.fsdp_size={ranks}"]
     config = load_config(str(ONLINE_EXAMPLE), overrides)
     device_args = [] if on_card else ["--device", str(device)]
     # the producer's first lease and its batches, as its worker makes them
@@ -3839,22 +3867,29 @@ def online_phase(cfg_path: Path, captured: dict, workdir: Path, seed: int,
                            "bit_identical": True,
                            "runner_s": time.perf_counter() - t0}
 
-    # offline: the same features in the inbox's order, one window
-    order = [json.loads(line)["sample_id"] for line in
-             (state / "inboxes-g0" / "rank0.jsonl").read_text().splitlines()
-             if json.loads(line).get("kind") == "ref"]
+    # offline: the same features in the inboxes' order, one window: each
+    # micro-batch the ranks' rows in rank order
+    inboxes = [[json.loads(line)["sample_id"] for line in
+                (state / "inboxes-g0" / f"rank{r}.jsonl").read_text()
+                .splitlines() if json.loads(line).get("kind") == "ref"]
+               for r in range(ranks)]
+    rows = batch_size // ranks
+    order = [sid for j in range(ONLINE_ACCUM) for inbox in inboxes
+             for sid in inbox[j * rows:(j + 1) * rows]]
     captured_by_id = {t.prompt_id: tensors
                       for batch, got in zip(batches, watch.inline)
                       for t, tensors in zip(batch, got)}
     features = workdir / "offline_features"
     features.mkdir()
-    for i, sid in enumerate(order[:ONLINE_BATCH * ONLINE_ACCUM]):
+    for i, sid in enumerate(order[:batch_size * ONLINE_ACCUM]):
         save_feature_file(str(features / f"{i:04d}.sft"),
                           captured_by_id[sid], {"target_repr": "hidden_state"})
     off_out = workdir / "offline_runs"
     t0 = time.perf_counter()
     cli.main(["train", "-c", str(ONLINE_EXAMPLE),
-              *[a for o in overrides for a in ("--set", o)],
+              *[a for o in overrides if not o.startswith((
+                  "deployment.managed_local", "training.fsdp_size"))
+                for a in ("--set", o)],
               "--set", 'training.role="all"',
               "--set", f'data.train_data_path="{features}"',
               "--set", f'output_dir="{off_out}"', *device_args])
@@ -3868,6 +3903,9 @@ def online_phase(cfg_path: Path, captured: dict, workdir: Path, seed: int,
                              f"offline {offline_loss}: {rel}")
 
     results.update({
+        "ranks": ranks, "batch": batch_size,
+        # each capture rank's line at its stop (its peak memory)
+        "server_ranks": [b for b in printed if "capture_rank" in b],
         "supervisor_rc": rc,
         "server": {k: health.get(k) for k in (
             "device", "device_name", "max_memory_allocated", "coalesce")},
@@ -4934,6 +4972,14 @@ def start_ranks(workdir: Path, device, overrides, flag: str, ranks: int,
     the SPECFORGE_* env, wait for all within ``timeout`` seconds (killing
     them past it) → their ``rank{N}.json`` records; raise with the ranks'
     logs if one failed."""
+    return join_ranks(launch_ranks(workdir, device, overrides, flag, ranks),
+                      timeout, what)
+
+
+def launch_ranks(workdir: Path, device, overrides, flag: str, ranks: int
+                 ) -> dict:
+    """Start ``ranks`` processes of ``chip_smoke.py <flag> WORKDIR`` with
+    the SPECFORGE_* env, and return at once (``join_ranks`` waits)."""
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -4954,8 +5000,26 @@ def start_ranks(workdir: Path, device, overrides, flag: str, ranks: int,
         log = open(workdir / f"rank{rank}.log", "w")
         procs.append((subprocess.Popen(cmd, env=env, stdout=log,
                                        stderr=subprocess.STDOUT), log))
+    return {"workdir": workdir, "procs": procs,
+            "deadline_from": time.monotonic()}
+
+
+def kill_ranks(launched: dict) -> None:
+    for proc, log in launched["procs"]:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+
+
+def join_ranks(launched: dict, timeout: float, what: str) -> list:
+    """Wait for the ranks of ``launch_ranks`` within ``timeout`` seconds of
+    their launch (killing them past it) → their ``rank{N}.json`` records;
+    raise with the ranks' logs if one failed."""
+    workdir, procs = launched["workdir"], launched["procs"]
+    ranks = len(procs)
     failed = []
-    deadline = time.monotonic() + timeout
+    deadline = launched["deadline_from"] + timeout
     try:
         for rank, (proc, _) in enumerate(procs):
             try:
@@ -4965,11 +5029,7 @@ def start_ranks(workdir: Path, device, overrides, flag: str, ranks: int,
                 failed.append(rank)
                 break
     finally:
-        for proc, log in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log.close()
+        kill_ranks(launched)
     if failed:
         def excerpt(r):  # the rank's JSON progress lines, then its tail
             text = (workdir / f"rank{r}.log").read_text()
@@ -5998,24 +6058,42 @@ def emit_leftover(name: str, spec: dict, results: dict, counts: dict
           **results})
 
 
-def moe_capture_phase(seed: int, depth: int) -> dict:
+def moe_capture_phase(seed: int, depth: int,
+                      mesh_refs: Optional[Path] = None) -> dict:
     """Slice 17 on the card: ``capture_phase`` from a random target in
     DeepSeek-V2-Lite's shape cut to ``depth`` layers (its line
-    ``capture_moe``), then ``LEFTOVER_RUNS["deepseek_v2_lite"]``, its
-    EAGLE3 draft, trained on the captured features and the target's head
-    and embedding (its ``offline_leftovers`` line) → the training run's
-    launch counts."""
+    ``capture_moe``), then, given ``mesh_refs`` (the dense capture's
+    target and reference), slice 20's ``capture_mesh_phase`` on both
+    targets (its line ``capture_mesh``), then
+    ``LEFTOVER_RUNS["deepseek_v2_lite"]``, its EAGLE3 draft, trained on the
+    captured features and the target's head and embedding (its
+    ``offline_leftovers`` line) → the training run's launch counts."""
     device = torch.device("cuda")
     spec = LEFTOVER_RUNS["deepseek_v2_lite"]
     full = DEEPSEEK_V2_LITE_TARGET["num_hidden_layers"]
     dense = DEEPSEEK_V2_LITE_TARGET["first_k_dense_replace"]
     with tempfile.TemporaryDirectory() as tmp:
-        results, captured = capture_phase(
-            spec["config"], device, seed, Path(tmp),
-            target_config=DEEPSEEK_V2_LITE_TARGET, depth=depth,
-            n_train=spec["files"], n_eval=0,
-            capture_layers=None if depth == full else MOE_CAPTURE_LAYERS,
-            shard_layers=MOE_SHARD_LAYERS)
+        mesh = None
+        if mesh_refs is not None:  # the ranks start while the MoE captures
+            mesh = launch_capture_mesh(
+                [{"name": "dense_fsdp",
+                  "target": str(mesh_refs / "dense_target"),
+                  "ref": str(mesh_refs / "dense_ref.pt")},
+                 {"name": "moe_ep", "target": str(Path(tmp) / "target"),
+                  "ref": str(Path(tmp) / "moe_ref.pt")}],
+                Path(tmp) / "capture_mesh", device)
+        try:
+            results, captured = capture_phase(
+                spec["config"], device, seed, Path(tmp),
+                target_config=DEEPSEEK_V2_LITE_TARGET, depth=depth,
+                n_train=spec["files"], n_eval=0,
+                capture_layers=None if depth == full else MOE_CAPTURE_LAYERS,
+                shard_layers=MOE_SHARD_LAYERS,
+                ref_path=None if mesh is None else Path(tmp) / "moe_ref.pt")
+        except BaseException:
+            if mesh is not None:  # no rank waits for a reference in vain
+                kill_ranks(mesh)
+            raise
         emit({"phase": "capture_moe",
               "draft_config": str(spec["config"].relative_to(REPO)),
               "layout": "eagle", "template": "qwen",
@@ -6037,11 +6115,597 @@ def moe_capture_phase(seed: int, depth: int) -> dict:
                                  "routing")},
               **results})
         torch.cuda.empty_cache()
+        if mesh is not None:
+            results = finish_capture_mesh(mesh)
+            shutil.rmtree(mesh_refs / "dense_target")
+            emit_capture_mesh(results, {
+                "weights": f"random, from --seed (std {TARGET_STD})",
+                "targets": f"phase capture's ({CAPTURE_DEPTH} of 36 "
+                           "Qwen3-8B layers) and capture_moe's "
+                           f"({depth} of {full} DeepSeek-V2-Lite layers): "
+                           "the default run's 1,200 s",
+                "ranks": f"{CAPTURE_MESH_RANKS} sharing the card "
+                         "(--capture-mesh-only: a rank per card)",
+                "batch": "the first padded batch of each capture"})
+            torch.cuda.empty_cache()
         results, counts = run_leftover(spec, device, seed, Path(tmp),
                                        captured=captured)
     emit_leftover("deepseek_v2_lite", spec, results, counts)
     torch.cuda.empty_cache()
     return counts
+
+
+# --------------------------------------------------------------------------
+# slice 20: the capture mesh and expert parallelism
+# --------------------------------------------------------------------------
+
+#: the default run's capture mesh: two ranks sharing the card over
+#: host-staged gloo (``--capture-mesh-only`` takes a rank per card)
+CAPTURE_MESH_RANKS = 2
+#: seconds the ranks of one capture-mesh launch may take together
+CAPTURE_MESH_TIMEOUT = 600
+#: phase (c)'s factor that drops rows: every rank holds about 1/ep of the
+#: real assignments, so 0.5·m/ep rows overflow (the runner must abort);
+#: the factor that fits is the least one, to 0.05 up, that holds the
+#: fullest rank's rows of the reference's routing (``fitting_factor``)
+MOE_OVERFLOW_FACTOR = 0.5
+#: Llama-3-70B's target (``configs/llama3-70b-eagle3.json``'s widths, its
+#: rope; meta-llama/Llama-3.1-70B's config.json)
+LLAMA3_70B_TARGET = {
+    "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+    "vocab_size": 128256, "hidden_size": 8192, "intermediate_size": 28672,
+    "num_hidden_layers": 80, "num_attention_heads": 64,
+    "num_key_value_heads": 8, "head_dim": 128, "rms_norm_eps": 1e-5,
+    "rope_theta": 500000.0, "max_position_embeddings": 131072,
+    "rope_scaling": {"rope_type": "llama3", "factor": 8.0,
+                     "high_freq_factor": 4.0, "low_freq_factor": 1.0,
+                     "original_max_position_embeddings": 8192},
+    "hidden_act": "silu", "attention_bias": False,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+}
+#: the 4-card run's Llama-3-70B depth: 48 of 80 layers are 86.3 GB in
+#: bf16, more than one card holds (the case the mesh exists for); less
+#: when the machine's disk cannot hold the files
+LLAMA_MESH_DEPTH = 48
+#: the layers the 4-card Llama run captures, all among the first
+#: ``LLAMA_REF_DEPTH``, which one process captures too (bit for bit)
+LLAMA_MESH_LAYERS = (1, 4, 7)
+LLAMA_REF_DEPTH = 8
+
+
+def save_capture_reference(runner, ids: np.ndarray, mask: np.ndarray,
+                           path: Path) -> None:
+    """What the capture-mesh ranks hold their run against, from a
+    one-process ``gathered`` runner: the padded batch, its bf16 capture
+    (aux, last), the bytes the process holds; for an MoE target also each
+    MoE layer's bf16 routing, and the first MoE layer alone in fp32 (no
+    TF32): its input (the residual stream before it) and its output."""
+    tc = runner.target_config
+    params = runner.params
+    ids_t = torch.as_tensor(ids, device=runner.device)
+    mask_t = torch.as_tensor(mask, device=runner.device)
+    layers = tuple(runner.config.capture_layers)
+    routes = {}
+    aux, last = target_capture_forward(params, tc, ids_t, mask_t, layers,
+                                       routing=routes)
+    ref = {"ids": torch.as_tensor(ids), "mask": torch.as_tensor(mask),
+           "layers": list(layers),
+           "aux": aux.cpu(), "last": last.cpu(),
+           "resident_bytes": sum(t.numel() * t.element_size()
+                                 for t in params.values()),
+           "routes": {k: v.cpu() for k, v in routes.items()}}
+    del aux, last
+    if tc.num_experts:
+        i = next(j for j in range(tc.num_hidden_layers)
+                 if tc.is_moe_layer(j))
+        with fp32_matmuls():
+            stream = target_capture_forward(
+                params, dataclasses.replace(tc, num_hidden_layers=i), ids_t,
+                mask_t, (i - 1,), compute_dtype=torch.float32)[0]
+            layer_routes = {}
+            out, _ = target_capture_forward(
+                moe_layer_cut(params, i), moe_layer_config(tc), ids_t,
+                mask_t, (0,), compute_dtype=torch.float32,
+                inputs_embeds=stream, routing=layer_routes)
+        ref.update(moe_layer=i, moe_in=stream.cpu(), moe_out=out.cpu(),
+                   moe_routes=layer_routes[0].cpu())
+        del stream, out
+    # whole or absent: capture-mesh ranks may be waiting for it
+    torch.save(ref, f"{path}.part")
+    os.replace(f"{path}.part", path)
+
+
+def moe_layer_config(tc: TargetConfig) -> TargetConfig:
+    return dataclasses.replace(tc, num_hidden_layers=1,
+                               first_k_dense_replace=0)
+
+
+def moe_layer_cut(params, i: int) -> dict:
+    """Decoder layer ``i`` of ``params`` (a mapping; sharded params' layer
+    gathered) as the one layer of a target, with its embedding and norm."""
+    layer = params.layer(i) if hasattr(params, "layer") else params
+    prefix = f"model.layers.{i}."
+    cut = {k.replace(prefix, "model.layers.0."): v for k, v in layer.items()
+           if k.startswith(prefix)}
+    cut["model.embed_tokens.weight"] = params["model.embed_tokens.weight"]
+    cut["model.norm.weight"] = (params.whole("model.norm.weight")
+                                if hasattr(params, "whole")
+                                else params["model.norm.weight"])
+    return cut
+
+
+def tensor_digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def fitting_factor(top_i: torch.Tensor, valid: torch.Tensor, experts: int,
+                   ep: int) -> float:
+    """The least capacity factor, to 0.05 up, whose ``ceil(cf·m/ep)`` rows
+    hold the fullest rank's assignments of the routing ``top_i`` [t, k]
+    over the real tokens ``valid`` [t] (padding joins no group)."""
+    sizes = torch.bincount(top_i[valid].reshape(-1), minlength=experts)
+    fullest = int(sizes.view(ep, -1).sum(dim=1).max())
+    return math.ceil(20 * fullest * ep / top_i.numel()) / 20
+
+
+def host_copy_rates(nbytes: int, device, runs: int = 3) -> dict:
+    """GB/s of a copy of ``nbytes`` between the card and the host, each
+    way, from pageable and from page-locked host memory (what a staged
+    collective moves; median of ``runs``)."""
+    x = torch.empty(nbytes, dtype=torch.uint8, device=device)
+    pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    pageable = torch.empty(nbytes, dtype=torch.uint8)
+    rates = {}
+    for name, fn in (("d2h_pageable", lambda: pageable.copy_(x)),
+                     ("d2h_pinned", lambda: pinned.copy_(x)),
+                     ("h2d_pageable", lambda: x.copy_(pageable)),
+                     ("h2d_pinned", lambda: x.copy_(pinned))):
+        times = []
+        for _ in range(runs):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize(device)
+            times.append(time.perf_counter() - t0)
+        rates[name] = nbytes / statistics.median(times) / 1e9
+    return rates
+
+
+def capture_mesh_run(run: dict, mesh, device, workdir: Path) -> dict:
+    """One run of a capture-mesh rank: the target of ``run`` loaded as this
+    rank's shards (``moe_impl="ep"`` for an MoE target), the reference's
+    padded batch captured (3 timed forwards, then one with the collectives
+    timed), and its checks' numbers: a dense target's features against
+    the one-process capture (bit for bit), an MoE target's relative L2
+    error and routing agreement, its first MoE layer alone in fp32 at full
+    capacity and at its fitting factor against the gathered layer, and the
+    runner's abort at ``MOE_OVERFLOW_FACTOR``."""
+    from specforge_tpu_torch.offline_capture.capture import CapacityOverflow
+    from specforge_tpu_torch.parallel import usp
+
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    deadline = time.monotonic() + CAPTURE_MESH_TIMEOUT
+    while not os.path.exists(run["ref"]):  # written while the ranks start
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"no reference {run['ref']}")
+        time.sleep(0.2)
+    ref = torch.load(run["ref"])
+    ids, mask = ref["ids"].numpy(), ref["mask"].numpy()
+    layers = tuple(ref["layers"])
+    batch, seq = ids.shape
+    tc = TargetConfig.from_file(run["target"])
+    moe = tc.num_experts > 0
+    impl = "ep" if moe else "gathered"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    sync()
+    t0 = time.perf_counter()
+    config = OfflineCaptureConfig(run["target"], str(workdir / "unused"),
+                                  layers, seq, batch)
+    runner = OfflineCaptureRunner(config, target_config=tc, mesh=mesh,
+                                  moe_impl=impl, device=device)
+    sync()
+    params = runner.params
+    out = {"load_s": time.perf_counter() - t0,
+           "resident_bytes": params.resident_bytes(),
+           "one_process_bytes": ref["resident_bytes"]}
+    ids_t = torch.as_tensor(ids, device=device)
+    mask_t = torch.as_tensor(mask, device=device)
+    valid = torch.as_tensor(mask, dtype=torch.bool)
+
+    def forward(routes=None, stats=None):
+        return target_capture_forward(params, tc, ids_t, mask_t, layers,
+                                      moe_impl=impl, mesh=mesh,
+                                      routing=routes, stats=stats)
+
+    # the first forward (the checks' features and the bytes gathered),
+    # then one with the collectives timed (the card synced around each)
+    before = dict(params.gathered)
+    routes, stats = {}, {}
+    sync()
+    t0 = time.perf_counter()
+    aux, last = forward(routes, stats)
+    sync()
+    out["first_forward_ms"] = (time.perf_counter() - t0) * 1e3
+    out["gathered_bytes_per_forward"] = (params.gathered["bytes"]
+                                         - before["bytes"])
+    out["gathers_per_forward"] = params.gathered["calls"] - before["calls"]
+    usp.reset_collective_stats()
+    usp.TIMED = True
+    try:
+        sync()
+        t0 = time.perf_counter()
+        forward()
+        sync()
+        timed_s = time.perf_counter() - t0
+    finally:
+        usp.TIMED = False
+    real = int(mask.sum())
+    out["real_tokens"] = real
+    out["forward_ms"] = timed_s * 1e3
+    out["tokens_per_s"] = real / timed_s
+    out["collectives"] = dict(usp.COLLECTIVES)
+    out["collective_share"] = usp.COLLECTIVES["seconds"] / timed_s
+    out["collective_ms_per_layer"] = (usp.COLLECTIVES["seconds"] * 1e3
+                                      / tc.num_hidden_layers)
+    aux, last = aux.cpu(), last.cpu()
+    out["digest"] = tensor_digest(aux, last)
+    if not moe:
+        out["aux_bit_identical"] = torch.equal(aux, ref["aux"])
+        if run.get("compare_last", True):
+            out["last_bit_identical"] = torch.equal(last, ref["last"])
+        if on_card:
+            out["host_copy_GBps"] = host_copy_rates(
+                out["gathered_bytes_per_forward"] // tc.num_hidden_layers
+                // mesh.world_size, device)
+        # the embedding: the rows the batch uses against the whole table
+        key = "model.embed_tokens.weight"
+        for name, fn in (("rows", lambda: params.rows(key, ids_t)),
+                         ("whole", lambda: params.whole(key))):
+            calls = dict(params.gathered)
+            sync()
+            t0 = time.perf_counter()
+            got = fn()
+            sync()
+            out[f"embed_{name}_ms"] = (time.perf_counter() - t0) * 1e3
+            out[f"embed_{name}_bytes"] = (params.gathered["bytes"]
+                                          - calls["bytes"])
+            del got
+    else:
+        experts = tc.num_experts
+        rows = valid.reshape(-1)
+        out["overflow"] = stats["moe_overflow"]
+        out["rel_l2"] = capture_errors((aux[valid], last[valid]),
+                                       (ref["aux"][valid],
+                                        ref["last"][valid]), layers,
+                                       tc.hidden_size)
+        out["route_agreement"] = route_agreements(
+            {k: v.cpu() for k, v in routes.items()}, ref["routes"], experts,
+            rows, rows)
+        i = ref["moe_layer"]
+        cut = moe_layer_cut(params, i)
+        one = moe_layer_config(tc)
+        ref_out = ref["moe_out"][valid]
+        fits = fitting_factor(ref["moe_routes"], valid.reshape(-1), experts,
+                              mesh.world_size)
+        out["fits_factor"] = fits
+        for name, factor in (("full", None), ("fits", fits)):
+            stats = {}
+            with fp32_matmuls():
+                got, _ = target_capture_forward(
+                    cut, one, ids_t, mask_t, (0,),
+                    compute_dtype=torch.float32, moe_impl="ep", mesh=mesh,
+                    moe_capacity_factor=factor,
+                    inputs_embeds=ref["moe_in"].to(device), stats=stats)
+            got = got.cpu()[valid]
+            out[f"layer_{i}_fp32_{name}"] = {
+                "overflow": stats["moe_overflow"],
+                "max_abs_err": max_err(got, ref_out),
+                "excess": float(((got - ref_out).abs()
+                                 - MOE_IMPL_TOL * (1 + ref_out.abs())).max())}
+        del cut
+        bounded = OfflineCaptureRunner(
+            config, target_config=tc, target_params=params, mesh=mesh,
+            moe_impl="ep", moe_capacity_factor=MOE_OVERFLOW_FACTOR)
+        try:
+            bounded._run_batch(ids, mask)
+            out["overflow_abort"] = None
+        except CapacityOverflow as exc:
+            out["overflow_abort"] = str(exc)
+    if on_card:
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del runner, params, aux, last
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
+
+
+def capture_mesh_rank(workdir: Path, device, overrides=()) -> None:
+    """One rank of the capture-mesh phase (``chip_smoke.py
+    --capture-mesh-rank WORKDIR``, started with the SPECFORGE_* env): the
+    capture mesh (``build_capture_mesh``, the transport by the rule), then
+    each run of ``case.json`` (``capture_mesh_run``) → ``rank{N}.json``,
+    with the seconds from its launch to the mesh."""
+    from specforge_tpu_torch.offline_capture.capture import build_capture_mesh
+    from specforge_tpu_torch.parallel.multihost import shutdown
+
+    case = json.loads((workdir / "case.json").read_text())
+    mesh = build_capture_mesh(0, device)
+    rec = {"rank": mesh.rank, "transport": mesh.transport,
+           "device": str(mesh.device),
+           "start_s": time.time() - case["launched"]}
+    try:
+        for run in case["runs"]:
+            rec[run["name"]] = capture_mesh_run(run, mesh, mesh.device,
+                                                workdir)
+            print(json.dumps({"capture_mesh_run": run["name"],
+                              "rank": mesh.rank}), flush=True)
+    finally:
+        shutdown()
+    (workdir / f"rank{mesh.rank}.json").write_text(json.dumps(rec))
+
+
+def capture_mesh_phase(runs: list, workdir: Path, device,
+                       ranks: int = CAPTURE_MESH_RANKS,
+                       timeout: float = CAPTURE_MESH_TIMEOUT) -> dict:
+    """Slice 20: ``ranks`` processes of ``chip_smoke.py
+    --capture-mesh-rank`` (NCCL with a card per rank, host-staged gloo
+    when they share one) started once for ``runs`` (each a target
+    directory and its reference, ``save_capture_reference``). Checks: a
+    dense target's features bit-identical to one process's on every rank,
+    and every rank holding fewer bytes than one process; an MoE target
+    under EP: the same bits on every rank, each captured tensor within
+    ``CAPTURE_REL_L2`` of the gathered capture and each MoE layer's routing
+    agreeing on ``MOE_ROUTE_AGREEMENT``, no overflow at full capacity, the
+    first MoE layer alone in fp32 within ``MOE_IMPL_TOL`` at full capacity
+    and at its fitting factor (below ep), and the runner's abort naming a
+    count at ``MOE_OVERFLOW_FACTOR`` → the ranks' records by run."""
+    return finish_capture_mesh(
+        launch_capture_mesh(runs, workdir, device, ranks), timeout)
+
+
+def launch_capture_mesh(runs: list, workdir: Path, device,
+                        ranks: int = CAPTURE_MESH_RANKS) -> dict:
+    """Start the capture-mesh ranks for ``runs`` and return at once: a
+    rank waits for each run's reference file, so the ranks may start
+    while the last reference is still being made."""
+    workdir.mkdir(parents=True, exist_ok=True)
+    (workdir / "case.json").write_text(json.dumps(
+        {"runs": runs, "launched": time.time()}))
+    launched = launch_ranks(workdir, device, [], "--capture-mesh-rank",
+                            ranks)
+    launched.update(runs=runs, device=device, t0=time.perf_counter())
+    return launched
+
+
+def finish_capture_mesh(launched: dict,
+                        timeout: float = CAPTURE_MESH_TIMEOUT) -> dict:
+    """Wait for ``launch_capture_mesh``'s ranks and hold their records to
+    ``capture_mesh_phase``'s checks → the records by run."""
+    runs, device = launched["runs"], launched["device"]
+    records = join_ranks(launched, timeout, "capture mesh")
+    ranks = len(records)
+    out = {"ranks": ranks, "wall_s": time.perf_counter() - launched["t0"],
+           "transport": records[0]["transport"],
+           "start_s": [r["start_s"] for r in records]}
+    want = ("gloo" if device.type != "cuda" or share_one_card(device, ranks)
+            else "nccl")
+    if {r["transport"] for r in records} != {want}:
+        raise AssertionError(f"transports {[r['transport'] for r in records]}"
+                             f", expected {want}")
+    card = (torch.cuda.get_device_properties(device).total_memory
+            if device.type == "cuda" else None)
+    for run in runs:
+        name = run["name"]
+        per_rank = [r[name] for r in records]
+        if len({r["digest"] for r in per_rank}) != 1:
+            raise AssertionError(f"{name}: the ranks' features differ")
+        for rank, rec in enumerate(per_rank):
+            if card is not None and rec["peak_bytes"] >= card:
+                raise AssertionError(f"{name}: rank {rank} peaked at "
+                                     f"{rec['peak_bytes']} bytes, the card "
+                                     f"holds {card}")
+            if rec["resident_bytes"] >= rec["one_process_bytes"]:
+                raise AssertionError(
+                    f"{name}: rank {rank} holds {rec['resident_bytes']} "
+                    f"bytes, one process {rec['one_process_bytes']}")
+            if "aux_bit_identical" in rec:
+                if not (rec["aux_bit_identical"]
+                        and rec.get("last_bit_identical", True)):
+                    raise AssertionError(f"{name}: rank {rank}'s features "
+                                         "differ from one process's")
+                continue
+            check(f"{name}: overflow at full capacity", rec["overflow"], 0)
+            for key, err in rec["rel_l2"].items():
+                check(f"{name}: EP vs gathered, {key} (relative L2)", err,
+                      CAPTURE_REL_L2)
+            for key, share in rec["route_agreement"].items():
+                check(f"{name}: EP vs gathered routing agreement, {key} "
+                      "(1 - share)", 1.0 - share, 1.0 - MOE_ROUTE_AGREEMENT)
+            if not rec["fits_factor"] < ranks:
+                raise AssertionError(f"{name}: the fitting factor "
+                                     f"{rec['fits_factor']} bounds nothing")
+            for key in [k for k in rec if k.endswith(("_full", "_fits"))]:
+                check(f"{name}: {key} overflow", rec[key]["overflow"], 0)
+                check(f"{name}: {key} vs gathered (|e - g| - {MOE_IMPL_TOL}"
+                      " * (1 + |g|))", rec[key]["excess"], 0.0)
+            abort = rec["overflow_abort"] or ""
+            match = re.match(r"EP MoE capacity overflow: (\d+) expert", abort)
+            if not match or int(match.group(1)) <= 0:
+                raise AssertionError(f"{name}: the runner did not abort at "
+                                     f"factor {MOE_OVERFLOW_FACTOR}: {abort!r}")
+        out[name] = per_rank
+    return out
+
+
+def emit_capture_mesh(results: dict, reduced: dict) -> None:
+    emit({"phase": "capture_mesh",
+          "command": "python -m specforge_tpu_torch.offline_capture.prepare "
+                     "... --shard-over-devices [N] [--moe-impl ep "
+                     "[--moe-capacity-factor F]]",
+          "factors": {"fits": "the least that holds the fullest rank's "
+                              "rows (fits_factor)",
+                      "overflows": MOE_OVERFLOW_FACTOR},
+          "tolerances": {"dense": "bit-identical to one process",
+                         "rel_l2": CAPTURE_REL_L2,
+                         "route_agreement": MOE_ROUTE_AGREEMENT,
+                         "moe_layer_fp32": f"|e - g| <= {MOE_IMPL_TOL} * "
+                                           "(1 + |g|), no TF32"},
+          "reduced": reduced, **results})
+
+
+def reference_cut(target: Path, depth: int, root: Path) -> Path:
+    """The first ``depth`` layers of the HF directory ``target`` as a
+    directory of their own: its config cut, an index of only their
+    tensors, links to the shards that hold them (no bytes copied)."""
+    root.mkdir(parents=True, exist_ok=True)
+    config = json.loads((target / "config.json").read_text())
+    config["num_hidden_layers"] = depth
+    (root / "config.json").write_text(json.dumps(config))
+    index = json.loads((target / "model.safetensors.index.json").read_text())
+    keep = {}
+    for key, shard in index["weight_map"].items():
+        match = re.match(r"model\.layers\.(\d+)\.", key)
+        if match is None or int(match.group(1)) < depth:
+            keep[key] = shard
+    for shard in set(keep.values()):
+        (root / shard).symlink_to(target / shard)
+    (root / "model.safetensors.index.json").write_text(json.dumps(
+        {"metadata": {}, "weight_map": keep}))
+    return root
+
+
+def padded_conversations(vocab_size: int, seed: int, batch: int,
+                         min_len: int, max_length: int) -> tuple:
+    """Phase 5a's conversations (``SpreadTokenizer``, the qwen template)
+    as one padded batch → (ids, mask)."""
+    tokenizer = SpreadTokenizer(vocab_size)
+    parsed = build_dataset(synthetic_conversations(
+        batch, tokenizer, seed, min_len, max_length), tokenizer, "qwen",
+        max_length)
+    ids = np.zeros((batch, max_length), np.int64)
+    mask = np.zeros((batch, max_length), np.int64)
+    for j, p in enumerate(parsed[:batch]):
+        ids[j, :len(p.input_ids)] = p.input_ids
+        mask[j, :len(p.input_ids)] = 1
+    return ids, mask
+
+
+def capture_mesh_only_phase(seed: int, device=None, *,
+                            dense=LLAMA3_70B_TARGET,
+                            moe=DEEPSEEK_V2_LITE_TARGET,
+                            batch=CAPTURE_BATCH, min_len=1536,
+                            max_length=MAX_LEN, ranks=None,
+                            parts=("dense", "moe")) -> dict:
+    """``--capture-mesh-only``, a rank per card (at least 2; on one card 2
+    ranks share it): Llama-3-70B's dense target at ``LLAMA_MESH_DEPTH``
+    layers (or as many as the disk holds) over fsdp, its capture layers
+    ``LLAMA_MESH_LAYERS`` held bit for bit against one process capturing
+    a cut of its first ``LLAMA_REF_DEPTH`` layers; then DeepSeek-V2-Lite
+    at all 27 layers under EP (capture layers by the EAGLE3 rule), held as
+    the default run holds it. A ``capture_mesh`` line each (``parts``:
+    which of the two) → their results."""
+    device = device or torch.device("cuda")
+    on_card = device.type == "cuda"
+    ranks = ranks or max(2, torch.cuda.device_count() if on_card else 2)
+    providers = builtin_algorithm_registry().resolve("eagle3").providers
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        if "dense" in parts:
+            config = dict(dense)
+            (tmp / "probe").mkdir()
+            (tmp / "probe" / "config.json").write_text(json.dumps(config))
+            probe = TargetConfig.from_file(str(tmp / "probe"))
+            per_layer = 2 * sum(math.prod(shape) for shape, _ in
+                                layer_shapes(probe, config, 0).values())
+            # room for the embedding and the head, then for the MoE target
+            free = (shutil.disk_usage(tmp).free - 8e9
+                    - 4 * config["vocab_size"] * config["hidden_size"])
+            depth = max(LLAMA_REF_DEPTH, min(LLAMA_MESH_DEPTH,
+                                             int(free // per_layer)))
+            config["num_hidden_layers"] = depth
+            t0 = time.perf_counter()
+            target = write_capture_target(tmp / "dense", config, device,
+                                          seed, TARGET_STD)
+            write_s = time.perf_counter() - t0
+            ids, mask = padded_conversations(config["vocab_size"], seed,
+                                             batch, min_len, max_length)
+            cut = reference_cut(target, LLAMA_REF_DEPTH, tmp / "dense_cut")
+            runner = OfflineCaptureRunner(OfflineCaptureConfig(
+                str(cut), str(tmp / "unused"), LLAMA_MESH_LAYERS, max_length,
+                batch), moe_impl="gathered", device=device)
+            save_capture_reference(runner, ids, mask, tmp / "dense_ref.pt")
+            del runner
+            # one process would hold the whole target
+            ref = torch.load(tmp / "dense_ref.pt")
+            ref["resident_bytes"] = ref_bytes(target)
+            torch.save(ref, tmp / "dense_ref.pt")
+            del ref
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+            dense_results = capture_mesh_phase(
+                [{"name": "dense_fsdp", "target": str(target),
+                  "ref": str(tmp / "dense_ref.pt"), "compare_last": False}],
+                tmp / "mesh_dense", device, ranks)
+            dense_results.update(target_write_s=write_s, depth=depth,
+                                 target_bytes=ref_bytes(target))
+            full = dense["num_hidden_layers"]
+            emit_capture_mesh(dense_results, {
+                "weights": f"random, from --seed (std {TARGET_STD})",
+                "depth": f"{depth} of {full} layers, "
+                         f"{dense_results['target_bytes']} bytes" + (
+                             "" if depth == LLAMA_MESH_DEPTH else
+                             f" ({LLAMA_MESH_DEPTH} did not fit the disk)"),
+                "reference": f"one process over the first "
+                             f"{LLAMA_REF_DEPTH} layers, capture layers "
+                             f"{list(LLAMA_MESH_LAYERS)} bit for bit (its "
+                             "last hidden is another depth's)",
+                "batch": f"{batch} conversations padded to {max_length}"})
+            shutil.rmtree(tmp / "dense")
+            results["dense"] = dense_results
+        if "moe" in parts:
+            t0 = time.perf_counter()
+            target = write_capture_target(tmp / "moe", dict(moe), device,
+                                          seed, TARGET_STD, MOE_SHARD_LAYERS)
+            write_s = time.perf_counter() - t0
+            ids, mask = padded_conversations(moe["vocab_size"], seed, batch,
+                                             min_len, max_length)
+            layers = tuple(providers.resolve_capture_layers(
+                None, moe["num_hidden_layers"]))
+            runner = OfflineCaptureRunner(OfflineCaptureConfig(
+                str(target), str(tmp / "unused"), layers, max_length, batch),
+                moe_impl="gathered", device=device)
+            save_capture_reference(runner, ids, mask, tmp / "moe_ref.pt")
+            del runner
+            gc.collect()
+            if on_card:
+                torch.cuda.empty_cache()
+            moe_results = capture_mesh_phase(
+                [{"name": "moe_ep", "target": str(target),
+                  "ref": str(tmp / "moe_ref.pt")}],
+                tmp / "mesh_moe", device, ranks)
+            moe_results.update(target_write_s=write_s,
+                               target_bytes=ref_bytes(target))
+            emit_capture_mesh(moe_results, {
+                "weights": f"random, from --seed (std {TARGET_STD})",
+                "capture_layers": f"{list(layers)}, the EAGLE3 rule",
+                "batch": f"{batch} conversations padded to {max_length}"})
+            results["moe"] = moe_results
+    return results
+
+
+def ref_bytes(target: Path) -> int:
+    """The bytes of a target directory's safetensors files."""
+    return sum(p.stat().st_size for p in target.iterdir()
+               if p.suffix == ".safetensors")
 
 
 def target_families_phase(seed: int, device=None) -> dict:
@@ -6105,16 +6769,18 @@ def emit_target_families(seed: int) -> None:
     torch.cuda.empty_cache()
 
 
-def offline_leftovers_phase(seed: int, run_dir_warm_start: dict) -> None:
+def offline_leftovers_phase(seed: int, run_dir_warm_start: dict,
+                            mesh_refs: Optional[Path] = None) -> None:
     """Every run of ``LEFTOVER_RUNS`` at full width, one line each (the
-    DeepSeek-V2-Lite draft's after ``moe_capture_phase``'s own), then the
-    phase's line with the run-directory warm start of the EAGLE3 training
-    phase."""
+    DeepSeek-V2-Lite draft's after ``moe_capture_phase``'s own, and the
+    capture mesh's given ``mesh_refs``), then the phase's line with the
+    run-directory warm start of the EAGLE3 training phase."""
     t0 = time.perf_counter()
     launches = {}
     for name, spec in LEFTOVER_RUNS.items():
         if spec["features"] == "captured":
-            launches[name] = moe_capture_phase(seed, MOE_CAPTURE_DEPTH)
+            launches[name] = moe_capture_phase(seed, MOE_CAPTURE_DEPTH,
+                                               mesh_refs)
             continue
         with tempfile.TemporaryDirectory() as tmp:
             results, counts = run_leftover(spec, torch.device("cuda"), seed,
@@ -6134,6 +6800,8 @@ def main() -> int:
     parser.add_argument("--usp-rank", metavar="WORKDIR",
                         help=argparse.SUPPRESS)
     parser.add_argument("--mesh-rank", metavar="WORKDIR",
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--capture-mesh-rank", metavar="WORKDIR",
                         help=argparse.SUPPRESS)
     parser.add_argument("--device", default="cuda", help=argparse.SUPPRESS)
     parser.add_argument("--set", action="append", default=[],
@@ -6168,12 +6836,22 @@ def main() -> int:
     parser.add_argument("--online-only", action="store_true",
                         help="run only the online phase (all 36 target "
                              "layers)")
+    # the capture mesh alone, a rank per card: Llama-3-70B (fsdp) and
+    # DeepSeek-V2-Lite (EP) at depths one card cannot hold or all layers
+    parser.add_argument("--capture-mesh-only", nargs="?", const="all",
+                        choices=("all", "dense", "moe"),
+                        help="run only the capture mesh (a rank per card): "
+                             "both targets, or the dense or the MoE one")
     args = parser.parse_args()
     if args.usp_rank:
         usp_rank(Path(args.usp_rank), torch.device(args.device), args.set)
         return 0
     if args.mesh_rank:
         mesh_rank(Path(args.mesh_rank), torch.device(args.device), args.set)
+        return 0
+    if args.capture_mesh_rank:
+        capture_mesh_rank(Path(args.capture_mesh_rank),
+                          torch.device(args.device), args.set)
         return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6188,6 +6866,12 @@ def main() -> int:
               "draft": "random, configs/qwen3-8b-eagle3.json",
               "nvidia_smi": smi, **results})
         check_serving_gaps(results)
+        print(smi, flush=True)
+        return 0
+    if args.capture_mesh_only:  # no kernel is on this path
+        capture_mesh_only_phase(
+            args.seed, parts=("dense", "moe") if args.capture_mesh_only
+            == "all" else (args.capture_mesh_only,))
         print(smi, flush=True)
         return 0
     build()
@@ -6287,7 +6971,9 @@ def main() -> int:
     del kernel, plain
     torch.cuda.empty_cache()
 
-    training, counts = capture_and_train_phase(args.seed, CAPTURE_DEPTH)
+    mesh_refs = Path(tempfile.mkdtemp(prefix="capture_mesh_"))
+    training, counts = capture_and_train_phase(args.seed, CAPTURE_DEPTH,
+                                               mesh_refs)
     emit_target_families(args.seed)
 
     family_counts = {}
@@ -6334,7 +7020,9 @@ def main() -> int:
           **results})
     torch.cuda.empty_cache()
 
-    offline_leftovers_phase(args.seed, training["run_dir_warm_start"])
+    offline_leftovers_phase(args.seed, training["run_dir_warm_start"],
+                            mesh_refs)
+    shutil.rmtree(mesh_refs)
 
     # each kernel's launches from its own main path: the EAGLE3 kernels from
     # the EAGLE3 training run, the DFlash kernels from the Domino run, the

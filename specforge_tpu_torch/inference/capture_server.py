@@ -8,10 +8,17 @@ pointing at the network feature store the server writes the tensors
 carries only keys, shapes and dtypes; otherwise the tensors come back
 inline (base64 of their raw bytes) for small runs and tests.
 
+On a capture mesh (``capture_server_main --shard-over-devices N``) every
+rank holds its shards of the target: rank 0 serves HTTP and, for each
+padded batch, broadcasts it (or a stop, or a heartbeat while idle, well
+inside the collectives' timeout) to the other ranks, which follow in
+:meth:`CaptureEngine.follow`; every rank runs the forward and rank 0
+answers.
+
 Endpoints:
     GET  /health          → {"status": "ok", "layout", "coalesce",
-                             "device", "max_memory_allocated"} once the
-                             target is loaded
+                             "device", "ranks", "max_memory_allocated"}
+                             once every rank has loaded the target
     POST /generate        → body {"input_ids": [...], "loss_mask": [...],
                                   "sample_id": str,
                                   "spec_capture": {"sink": "store"|"inline",
@@ -37,7 +44,6 @@ from typing import Any, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from specforge_tpu_torch.models.target.transformer import EP_LATER
 from specforge_tpu_torch.utils import DeviceLike
 
 logger = logging.getLogger("specforge_tpu_torch.capture_server")
@@ -137,17 +143,26 @@ def dtype_name(t: torch.Tensor) -> str:
     return str(t.dtype).removeprefix("torch.")
 
 
+#: what rank 0 broadcasts ahead of each forward
+_STOP, _BATCH, _BEAT = 0, 1, 2
+
+
 class CaptureEngine:
     """The target's capture forward behind a lock.
 
     :meth:`capture_batch` pads a request batch to bucketed (batch, seq)
     shapes, as the JAX engine does, and runs ONE forward of the port's
     ``OfflineCaptureRunner`` on its device (CUDA unless ``device`` names
-    another); the lock serialises the device across server threads. The
-    captured features are cast to bf16."""
+    another; on a capture ``mesh`` this rank's device, with the other
+    ranks following); the lock serialises the device, and the collectives,
+    across server threads. The captured features are cast to bf16. A
+    failure on a mesh other than a capacity overflow leaves the ranks out
+    of step: it is kept in ``fatal`` and ``on_fatal`` is called."""
 
     SEQ_BUCKETS = (128, 256, 512, 1024, 2048, 4096, 8192)
     BATCH_BUCKETS = (1, 2, 4, 8, 16)
+    #: seconds between rank 0's heartbeats to idle ranks
+    HEARTBEAT_S = 60.0
 
     def __init__(self, target_model_path: str, capture_layers: Sequence[int],
                  layout: str = "eagle", max_length: int = 2048,
@@ -160,9 +175,6 @@ class CaptureEngine:
             OfflineCaptureRunner,
         )
 
-        if moe_capacity_factor is not None:
-            raise NotImplementedError(
-                f"an EP capacity factor: {EP_LATER}")
         self.layout = layout
         self.max_length = max_length
         self._runner = OfflineCaptureRunner(
@@ -178,14 +190,100 @@ class CaptureEngine:
             target_params=target_params,
             mesh=mesh,
             moe_impl=moe_impl or "gathered",
+            moe_capacity_factor=moe_capacity_factor,
             device=device,
         )
         self.device = self._runner.device
+        self.mesh = mesh
+        self.primary = self._runner.primary
         self.aux_name, self.last_name = {
             "eagle": ("hidden_state", "target"),
             "dflash": ("hidden_states", "target_last_hidden_states"),
         }[layout]
         self._device_lock = threading.Lock()
+        self._followed = mesh is not None and mesh.world_size > 1
+        self._stopped = threading.Event()
+        self.fatal: Optional[BaseException] = None
+        self.on_fatal = None
+        if self._followed and self.primary:
+            threading.Thread(target=self._heartbeat, daemon=True).start()
+
+    # -- rank 0 and the ranks that follow it -------------------------------
+    def _broadcast(self, x: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        from specforge_tpu_torch.parallel.usp import Staged
+
+        call = Staged(self.mesh, [x])
+        src = call.stage(x)
+        dist.broadcast(src, 0)
+        return call.done(src)
+
+    def _announce(self, op: int, ids=None, mask=None) -> None:
+        """Rank 0: the next step of the ranks that follow."""
+        shape = (0, 0) if ids is None else ids.shape
+        self._broadcast(torch.tensor([op, *shape], dtype=torch.int64,
+                                     device=self.device))
+        if ids is not None:
+            for x in (ids, mask):
+                self._broadcast(torch.as_tensor(x, device=self.device))
+
+    def _heartbeat(self) -> None:
+        while not self._stopped.wait(self.HEARTBEAT_S):
+            with self._device_lock:
+                if not self._stopped.is_set():
+                    self._announce(_BEAT)
+
+    def follow(self) -> int:
+        """A rank other than 0: run every batch rank 0 broadcasts, until
+        its stop → the batches run."""
+        from specforge_tpu_torch.offline_capture.capture import (
+            CapacityOverflow,
+        )
+
+        runs = 0
+        while True:
+            op, bsz, seq = self._broadcast(torch.zeros(
+                3, dtype=torch.int64, device=self.device)).tolist()
+            if op == _STOP:
+                return runs
+            if op == _BEAT:
+                continue
+            ids, mask = (self._broadcast(torch.empty(
+                (bsz, seq), dtype=torch.int64, device=self.device))
+                for _ in range(2))
+            try:
+                self._runner._run_batch(ids, mask)
+            except CapacityOverflow:
+                pass  # rank 0 raised it too, after the same forward
+            runs += 1
+
+    def stop_followers(self) -> None:
+        """Rank 0: end the other ranks' :meth:`follow`."""
+        self._stopped.set()
+        if self._followed and self.fatal is None:
+            with self._device_lock:
+                self._announce(_STOP)
+
+    def _run(self, ids: np.ndarray, mask: np.ndarray):
+        from specforge_tpu_torch.offline_capture.capture import (
+            CapacityOverflow,
+        )
+
+        if not self._followed:
+            return self._runner._run_batch(ids, mask)
+        if self.fatal is not None:
+            raise RuntimeError(f"the capture mesh failed: {self.fatal!r}")
+        try:
+            self._announce(_BATCH, ids, mask)
+            return self._runner._run_batch(ids, mask)
+        except CapacityOverflow:
+            raise
+        except BaseException as exc:
+            self.fatal = exc
+            if self.on_fatal is not None:
+                self.on_fatal()
+            raise
 
     def capture(self, input_ids: np.ndarray, loss_mask: np.ndarray):
         return self.capture_batch([(input_ids, loss_mask)])[0]
@@ -209,7 +307,7 @@ class CaptureEngine:
         per sample, from one forward at bucketed shapes."""
         ids, mask, lengths = self.pad_batch(samples)
         with self._device_lock:
-            aux, last = self._runner._run_batch(ids, mask)
+            aux, last = self._run(ids, mask)
         out = []
         for i, ((sample_ids, sample_mask), length) in enumerate(
                 zip(samples, lengths)):
@@ -292,6 +390,8 @@ class CaptureServer:
             "coalesce": {"batches": self.coalescer.batches_run,
                          "requests": self.coalescer.requests_served},
             "device": str(device),
+            "ranks": 1 if self.engine.mesh is None
+            else self.engine.mesh.world_size,
         }
         if device.type == "cuda":
             out["device_name"] = torch.cuda.get_device_name(device)

@@ -12,7 +12,7 @@ name the CPU) and serves /generate and /health (``serving_server.py``).
 ``--dtype`` is the target's weight dtype (``float32`` for an exact greedy
 check). It prints ``READY port=<port>`` once it listens and stops on
 SIGTERM or SIGINT. ``--family dflash`` and ``--shard-over-devices`` above 1
-are refused by name (``ROADMAP.md`` Queue 1 items 8 and 7d).
+are refused by name (``ROADMAP.md`` Queue 1 item 8).
 """
 
 from __future__ import annotations

@@ -22,7 +22,7 @@ Queue 2 item 6).
 
 Not here yet, refused by name: tree, beam, batched and streamed
 speculation and the DFlash and P-EAGLE decoders (``ROADMAP.md`` Queue 1
-item 8), and sharded serving over a device mesh (item 7d).
+item 8), and sharded serving over a device mesh (item 8 too).
 """
 
 from __future__ import annotations
@@ -49,7 +49,7 @@ SERVING_LATER = ("tree, beam, batched and streamed speculation and the "
                  "DFlash and P-EAGLE decoders come with ROADMAP.md Queue 1 "
                  "item 8")
 MESH_LATER = ("sharded serving over a device mesh comes with ROADMAP.md "
-              "Queue 1 item 7d")
+              "Queue 1 item 8")
 #: the masked attention logit (JAX's fill)
 NEG_INF = -1e30
 #: eager runs of a step on a side stream before its CUDA graph is captured

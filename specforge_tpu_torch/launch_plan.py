@@ -15,7 +15,13 @@ processes and watches them:
                            (``specforge_tpu_torch.inference.capture_server_main``),
                            each gated by a readiness probe (tcp or http)
                            before its dependents start; teardown is
-                           SIGTERM, a grace window, then SIGKILL.
+                           SIGTERM, a grace window, then SIGKILL. A capture
+                           server with ``capture_shard_devices`` > 1 starts
+                           its own ranks.
+
+The consumer runs as one process a rank of its ``training.dp_size`` ×
+``fsdp_size`` mesh, each with the ``SPECFORGE_*`` env of
+``parallel/multihost.py`` and one coordinator.
 
 ``device``: the torch device every child that computes (capture server,
 consumer) is given as ``--device``; the producer computes nothing and gets
@@ -182,12 +188,26 @@ def build_launch_plan(
         argv=_train_argv(config_path, "producer", extra),
         expected_to_exit=True,  # producers drain the prompt plan and exit
     ))
-    commands.append(PlannedCommand(
-        name="consumer",
-        argv=_train_argv(config_path, "consumer",
-                         extra + (["--device", device] if device else [])),
-        expected_to_exit=True,
-    ))
+    consumer_argv = _train_argv(
+        config_path, "consumer",
+        extra + (["--device", device] if device else []))
+    # a consumer process a rank of the run's dp x fsdp mesh
+    t = config.training
+    consumers = t.dp_size * max(t.fsdp_size, 1)
+    if consumers == 1:
+        commands.append(PlannedCommand(name="consumer", argv=consumer_argv,
+                                       expected_to_exit=True))
+    else:  # one coordinator for the ranks, on a port free now
+        from specforge_tpu_torch.parallel.multihost import free_port
+
+        coordinator = f"localhost:{free_port()}"
+        for rank in range(consumers):
+            commands.append(PlannedCommand(
+                name=f"consumer_{rank}", argv=consumer_argv,
+                env=(("SPECFORGE_COORDINATOR", coordinator),
+                     ("SPECFORGE_NUM_PROCESSES", str(consumers)),
+                     ("SPECFORGE_PROCESS_ID", str(rank))),
+                expected_to_exit=True))
     return LaunchPlan(
         kind="managed_supervisor" if managed_local else "supervisor",
         commands=tuple(commands),

@@ -31,8 +31,14 @@ Capture convention: ``hidden_states[0]`` is the embedding output and
 ``hidden_states[i+1]`` the output of layer ``i``, so capture layer ``i``
 (``-1`` for the embedding) is the residual stream after layer ``i``.
 
-Expert parallelism (``moe_impl="ep"``) and a capture mesh are refused by
-name: ``ROADMAP.md`` Queue 1 item 7d.
+On a capture mesh (``parallel/mesh.py``, one process per rank) the
+parameters are a :class:`~.sharding.ShardedParams`: each rank holds its
+slice of every sharded leaf, the forward gathers one layer's leaves at a
+time and the embedding's rows the batch uses, and every rank computes the
+whole batch, so its features are one process's bit for bit. With
+``moe_impl="ep"`` each rank keeps its share of the experts and computes
+only their rows (``_moe_ep``): the capacity factor, overflow count and
+padding rule of the JAX package's ``_moe_mlp_ep``.
 """
 
 from __future__ import annotations
@@ -48,12 +54,20 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from specforge_tpu_torch.models.target.sharding import (
+    ShardedParams,
+    ep_capacity,
+    ep_mix,
+    load_sharded,
+)
 from specforge_tpu_torch.ops.rope import (
     RopeSpec,
     apply_multimodal_rope,
     apply_rope,
     rope_cos_sin,
 )
+from specforge_tpu_torch.parallel.mesh import Mesh
+from specforge_tpu_torch.parallel.usp import all_reduce_sum
 from specforge_tpu_torch.runtime.data_plane.feature_file import (
     read_safetensors_keys,
     read_safetensors_tensors,
@@ -69,11 +83,13 @@ UNSUPPORTED_MODEL_TYPES = {
                    "oracle available",
 }
 #: how the MoE layers combine their experts: ``gathered`` (sorted
-#: assignments, one product per expert over its group) or ``dense`` (every
+#: assignments, one product per expert over its group), ``dense`` (every
 #: expert over every token, weighted by its routing weight: the reference)
-MOE_IMPLS = ("gathered", "dense")
-EP_LATER = ("the port captures on one device; expert parallelism and the "
-            "capture mesh come with ROADMAP.md Queue 1 item 7d")
+#: or ``ep`` (each rank of a capture mesh its own experts' rows)
+MOE_IMPLS = ("gathered", "dense", "ep")
+#: the MoE variants expert parallelism takes (``transformer.py:1719-1723``
+#: of the JAX package)
+EP_VARIANTS = ("qwen", "deepseek", "gptoss")
 _VL_TEXT = ("qwen2_5_vl_text", "qwen2_vl_text")
 
 
@@ -397,14 +413,17 @@ class TargetConfig:
 
 def load_target_params(
     path: str, config: TargetConfig, dtype: torch.dtype = torch.bfloat16,
-    device: DeviceLike = None,
+    device: DeviceLike = None, *, mesh: Optional[Mesh] = None,
+    expert_parallel: bool = False,
 ) -> Dict[str, torch.Tensor]:
     """Every decoder weight of the HF safetensors checkpoint at ``path``
     (one ``model.safetensors`` or shards named by a ``*.index.json``), on
     CUDA unless the caller names another device; floating tensors in
     ``dtype``, the others as they are. A VL composite checkpoint's text
     tower (``model.language_model.*``) is read as ``model.*`` and its
-    vision tower (``model.visual.*``) skipped."""
+    vision tower (``model.visual.*``) skipped. On a capture ``mesh``: this
+    rank's :class:`~.sharding.ShardedParams` (only its slices' bytes read;
+    with ``expert_parallel`` its experts stacked, the others' skipped)."""
     device = resolve_device(device)
     index_files = glob.glob(os.path.join(path, "*.index.json"))
     key_to_shard: Dict[str, str] = {}
@@ -433,15 +452,25 @@ def load_target_params(
             by_shard.setdefault(shard, []).append(key)
 
     params: Dict[str, torch.Tensor] = {}
-    for shard, keys in sorted(by_shard.items()):
-        tensors = read_safetensors_tensors(os.path.join(path, shard), keys)
-        for key, value in tensors.items():
-            value = value.to(device)
-            params[canonical(key)] = (value.to(dtype)
-                                      if value.is_floating_point() else value)
-        del tensors
+    if mesh is not None:
+        params = load_sharded(
+            {os.path.join(path, shard): [(k, canonical(k)) for k in keys]
+             for shard, keys in by_shard.items()},
+            config, dtype, device, mesh, expert_parallel)
+    else:
+        for shard, keys in sorted(by_shard.items()):
+            tensors = read_safetensors_tensors(os.path.join(path, shard),
+                                               keys)
+            for key, value in tensors.items():
+                value = value.to(device)
+                params[canonical(key)] = (
+                    value.to(dtype) if value.is_floating_point() else value)
+            del tensors
     if config.tie_word_embeddings and "lm_head.weight" not in params:
         params["lm_head.weight"] = params["model.embed_tokens.weight"]
+        if mesh is not None:  # the embedding's slice, sharded alike
+            params.dims["lm_head.weight"] = params.dims[
+                "model.embed_tokens.weight"]
     mup = config.logits_mup_width_multiplier
     if mup:
         if config.tie_word_embeddings:
@@ -980,15 +1009,16 @@ def _moe_deepseek(params, cfg: TargetConfig, prefix: str, y: torch.Tensor,
     return out, top_i
 
 
-def _moe_gptoss(params, cfg: TargetConfig, prefix: str, y: torch.Tensor,
-                impl: str):
-    """A biased router (softmax over its top-k logits) and fused expert
-    tensors: interleaved gate/up columns, the clamped SwiGLU, biases."""
-    b, s, h = y.shape
-    x = y.reshape(b * s, h)
+def _gptoss_route(params, cfg: TargetConfig, prefix: str, x: torch.Tensor):
+    """gpt-oss's biased router: a softmax over its top-k logits."""
     logits = _linear(params, f"{prefix}.mlp.router", x)
     top_v, top_i = _topk(logits, cfg.num_experts_per_tok)
-    top_w = torch.softmax(top_v.float(), dim=-1)
+    return torch.softmax(top_v.float(), dim=-1), top_i
+
+
+def _gptoss_experts(params, cfg: TargetConfig, prefix: str) -> ExpertFn:
+    """gpt-oss's fused expert tensors (the ids index their first axis):
+    interleaved gate/up columns, the clamped SwiGLU, biases."""
     ep = f"{prefix}.mlp.experts"
     gate_up_w, gate_up_b = (params[f"{ep}.gate_up_proj"],       # [E, h, 2i]
                             params[f"{ep}.gate_up_proj_bias"])  # [E, 2i]
@@ -1005,7 +1035,16 @@ def _moe_gptoss(params, cfg: TargetConfig, prefix: str, y: torch.Tensor,
         return (torch.matmul(inner.to(rows.dtype), down_w[e].to(rows.dtype))
                 + down_b[e].to(rows.dtype))
 
-    out = _expert_mix(x, top_w, top_i, cfg.num_experts, expert, impl)
+    return expert
+
+
+def _moe_gptoss(params, cfg: TargetConfig, prefix: str, y: torch.Tensor,
+                impl: str):
+    b, s, h = y.shape
+    x = y.reshape(b * s, h)
+    top_w, top_i = _gptoss_route(params, cfg, prefix, x)
+    out = _expert_mix(x, top_w, top_i, cfg.num_experts,
+                      _gptoss_experts(params, cfg, prefix), impl)
     return out.reshape(b, s, h).to(y.dtype), top_i
 
 
@@ -1064,6 +1103,74 @@ _MOE = {"qwen": _moe_qwen, "deepseek": _moe_deepseek, "gptoss": _moe_gptoss,
         "llama4": _moe_llama4, "longcat": _moe_longcat}
 
 
+def _stacked_experts(params, cfg: TargetConfig, prefix: str) -> ExpertFn:
+    """Experts of the stacked tables ``{prefix}.{gate,up,down}_stacked``
+    [n, in, out] (the ids index their first axis): each product is the one
+    ``_linear`` takes of the expert's HF weight."""
+    act = _act(cfg.hidden_act)
+    gate_w, up_w, down_w = (params[f"{prefix}.{name}_stacked"]
+                            for name in ("gate", "up", "down"))
+
+    def expert(e: int, rows: torch.Tensor) -> torch.Tensor:
+        gate = torch.matmul(rows, gate_w[e].to(rows.dtype))
+        up = torch.matmul(rows, up_w[e].to(rows.dtype))
+        return torch.matmul(act(gate) * up, down_w[e].to(rows.dtype))
+
+    return expert
+
+
+def _moe_ep_partial(params, cfg: TargetConfig, prefix: str, y: torch.Tensor,
+                    ep: int, rank: int,
+                    capacity_factor: Optional[float] = None,
+                    token_valid: Optional[torch.Tensor] = None):
+    """Rank ``rank`` of ``ep``'s share of an MoE layer's routed experts,
+    from its own experts (``stack_moe_expert_params``) → (its sum [t, h],
+    the routing ids [t, k], the overflow of every rank). The routing is
+    replicated work: the port's routers, as the gathered path runs them."""
+    b, s, h = y.shape
+    t = b * s
+    x = y.reshape(t, h)
+    variant = cfg.moe_variant
+    if variant == "qwen":
+        top_w, top_i = _moe_route(params[f"{prefix}.mlp.gate.weight"], cfg,
+                                  x)
+    elif variant == "deepseek":
+        top_w, top_i = _deepseek_route(
+            params[f"{prefix}.mlp.gate.weight"],
+            params.get(f"{prefix}.mlp.gate.e_score_correction_bias"), cfg,
+            x.float())
+    elif variant == "gptoss":
+        top_w, top_i = _gptoss_route(params, cfg, prefix, x)
+    else:
+        raise ValueError("moe_impl='ep' supports qwen/deepseek/gptoss MoE "
+                         f"targets (got {variant!r})")
+    expert = (_gptoss_experts(params, cfg, prefix) if variant == "gptoss"
+              else _stacked_experts(params, cfg, f"{prefix}.mlp.experts"))
+    cap = ep_capacity(t * cfg.num_experts_per_tok, ep, capacity_factor)
+    out, overflow = ep_mix(x, top_w, top_i, token_valid, cfg.num_experts, ep,
+                           rank, cap, expert)
+    return out, top_i, overflow
+
+
+def _moe_ep(params, cfg: TargetConfig, prefix: str, y: torch.Tensor,
+            mesh: Mesh, capacity_factor: Optional[float],
+            token_valid: Optional[torch.Tensor]):
+    """Expert-parallel MoE (``_moe_mlp_ep`` of the JAX package): each rank
+    computes its experts' rows within its capacity, the ranks' sums are
+    all-reduced, and deepseek's shared experts, replicated dense work, are
+    added after → (out [B, S, H], routing ids, overflow)."""
+    b, s, h = y.shape
+    out, top_i, overflow = _moe_ep_partial(
+        params, cfg, prefix, y, mesh.fsdp_size, mesh.fsdp_rank,
+        capacity_factor, token_valid)
+    if mesh.world_size > 1:
+        out = all_reduce_sum(out, mesh, mesh.fsdp_group)
+    out = out.reshape(b, s, h).to(y.dtype)
+    if cfg.moe_variant == "deepseek" and cfg.n_shared_experts:
+        out = out + _dense_mlp(params, cfg, f"{prefix}.mlp.shared_experts", y)
+    return out, top_i, overflow
+
+
 def _longcat_layer(params, cfg: TargetConfig, prefix: str, x: torch.Tensor,
                    bias, cos, sin, impl: str):
     """One longcat logical layer: two MLA + dense-MLP sublayers, the
@@ -1087,13 +1194,17 @@ def _longcat_layer(params, cfg: TargetConfig, prefix: str, x: torch.Tensor,
     return x, top_i
 
 
-def check_moe_impl(moe_impl: str) -> None:
-    """Raise unless ``moe_impl`` is one of ``MOE_IMPLS`` (``ep`` by name)."""
-    if moe_impl == "ep":
-        raise NotImplementedError(f"moe_impl='ep': {EP_LATER}")
+def check_moe_impl(moe_impl: str, config: Optional[TargetConfig] = None
+                   ) -> None:
+    """Raise unless ``moe_impl`` is one of ``MOE_IMPLS`` and, for ``ep``
+    on an MoE ``config``, its variant is one EP takes (JAX's message)."""
     if moe_impl not in MOE_IMPLS:
         raise ValueError(f"unknown MoE impl {moe_impl!r}: use one of "
                          f"{MOE_IMPLS}")
+    if (moe_impl == "ep" and config is not None and config.num_experts
+            and config.moe_variant not in EP_VARIANTS):
+        raise ValueError("moe_impl='ep' supports qwen/deepseek/gptoss MoE "
+                         f"targets (got {config.moe_variant!r})")
 
 
 # -- the forward -----------------------------------------------------------
@@ -1108,22 +1219,36 @@ def target_capture_forward(
     compute_dtype: Optional[torch.dtype] = None,
     *,
     moe_impl: str = "gathered",
+    mesh: Optional[Mesh] = None,
+    moe_capacity_factor: Optional[float] = None,
     position_ids: Optional[torch.Tensor] = None,   # [B, S] or [3, B, S]
     inputs_embeds: Optional[torch.Tensor] = None,  # [B, S, H]
     routing: Optional[Dict[int, torch.Tensor]] = None,
+    stats: Optional[Dict[str, int]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Prefill forward → (aux concat [B, S, L·H], post-norm last hidden
     [B, S, H]), on the device of ``params``. ``compute_dtype``: the
     activations' dtype (default the embedding's); each weight is cast to it
     as it is used. ``moe_impl``: ``gathered`` or ``dense`` (see
-    ``_expert_mix``). ``position_ids``: explicit positions, [3, B, S] for
-    a VL text tower's 3-axis rope (default 0..S-1: the capture inputs are
-    right-padded). ``inputs_embeds``: embeddings in place of the lookup,
-    the seam where an external vision tower's features enter.
+    ``_expert_mix``), or ``ep`` (``_moe_ep``: stacked experts, this rank's
+    on a ``mesh``, which defaults to that of sharded ``params``) with
+    ``moe_capacity_factor`` bounding each rank's rows (None: all of them).
+    Sharded ``params`` (:class:`~.sharding.ShardedParams`) gather each
+    layer's leaves before it. ``position_ids``: explicit positions, [3, B,
+    S] for a VL text tower's 3-axis rope (default 0..S-1: the capture
+    inputs are right-padded). ``inputs_embeds``: embeddings in place of the
+    lookup, the seam where an external vision tower's features enter.
     ``routing``: when given, each MoE layer's expert ids [B·S, k] are
-    stored in it under the layer's index."""
+    stored in it under the layer's index. ``stats``: when given, its
+    ``moe_overflow`` is the assignments no rank computed, summed over the
+    layers (0 but under ``ep`` with a capacity factor: the capture is exact
+    only at 0)."""
     cfg = config
-    check_moe_impl(moe_impl)
+    check_moe_impl(moe_impl, cfg)
+    sharded = isinstance(params, ShardedParams)
+    mesh = mesh or (params.mesh if sharded else None)
+    if moe_impl == "ep" and mesh is None:
+        raise ValueError("moe_impl='ep' requires a device mesh")
     embed = params["model.embed_tokens.weight"]
     device = embed.device
     input_ids = input_ids.to(device)
@@ -1137,8 +1262,13 @@ def target_capture_forward(
             f"(-1..{cfg.num_hidden_layers - 1})"
         )
     dtype = compute_dtype or embed.dtype
-    x = (inputs_embeds.to(device) if inputs_embeds is not None
-         else embed[input_ids]).to(dtype)
+    if inputs_embeds is not None:
+        x = inputs_embeds.to(device)
+    elif sharded:
+        x = params.lookup("model.embed_tokens.weight", input_ids)
+    else:
+        x = embed[input_ids]
+    x = x.to(dtype)
     if cfg.embed_scale:  # gemma3 scales by sqrt(hidden) in the input dtype
         x = x * torch.tensor(cfg.embed_scale, dtype=dtype, device=device)
     if attention_mask is not None:
@@ -1178,8 +1308,11 @@ def target_capture_forward(
     captured: Dict[int, torch.Tensor] = {}
     if -1 in capture_set:
         captured[-1] = x
+    overflow = 0
     for i in range(cfg.num_hidden_layers):
         prefix = f"model.layers.{i}"
+        # on a mesh: this layer's sharded leaves, whole until the next
+        lp = params.layer(i) if sharded else params
         kind = cfg.layer_kind(i)
         sliding = kind == "sliding_attention"
         if sliding and sliding_bias is not None:
@@ -1192,8 +1325,9 @@ def target_capture_forward(
                         if sliding and cos_local is not None else (cos, sin))
 
         if cfg.dual_sublayer:
-            x, top_i = _longcat_layer(params, cfg, prefix, x, bias_i, cos_i,
+            x, top_i = _longcat_layer(lp, cfg, prefix, x, bias_i, cos_i,
                                       sin_i, moe_impl)
+            del lp
             if routing is not None:
                 routing[i] = top_i
             if i in capture_set:
@@ -1201,52 +1335,62 @@ def target_capture_forward(
             continue
 
         residual = x
-        y = _norm(cfg, x, params[f"{prefix}.input_layernorm.weight"])
+        y = _norm(cfg, x, lp[f"{prefix}.input_layernorm.weight"])
         if kind == "linear_attention":
-            attn = _gdn_attention(params, cfg, prefix, y, attention_mask)
+            attn = _gdn_attention(lp, cfg, prefix, y, attention_mask)
         elif cfg.attn_variant == "mla":
-            attn = _mla_attention(params, cfg, prefix, y, bias_i, cos_i,
+            attn = _mla_attention(lp, cfg, prefix, y, bias_i, cos_i,
                                   sin_i)
         else:
-            attn = _std_attention(params, cfg, prefix, y, bias_i, cos_i,
+            attn = _std_attention(lp, cfg, prefix, y, bias_i, cos_i,
                                   sin_i, layer_idx=i)
         if cfg.sandwich_norms:  # gemma3 norms the block's output too
             attn = _norm(cfg, attn,
-                         params[f"{prefix}.post_attention_layernorm.weight"])
+                         lp[f"{prefix}.post_attention_layernorm.weight"])
             x = residual + attn
             residual = x
             y = _norm(cfg, x,
-                      params[f"{prefix}.pre_feedforward_layernorm.weight"])
+                      lp[f"{prefix}.pre_feedforward_layernorm.weight"])
         else:
             x = residual + attn
             residual = x
             y = _norm(cfg, x,
-                      params[f"{prefix}.post_attention_layernorm.weight"])
+                      lp[f"{prefix}.post_attention_layernorm.weight"])
 
         if cfg.is_moe_layer(i):
             y_in = y
-            y, top_i = _MOE[cfg.moe_variant](params, cfg, prefix, y,
-                                             moe_impl)
+            if moe_impl == "ep":
+                y, top_i, dropped = _moe_ep(lp, cfg, prefix, y, mesh,
+                                            moe_capacity_factor,
+                                            attention_mask)
+                overflow += dropped
+            else:
+                y, top_i = _MOE[cfg.moe_variant](lp, cfg, prefix, y,
+                                                 moe_impl)
             if routing is not None:
                 routing[i] = top_i
             if cfg.shared_expert_gated:
                 # qwen3_next: a sigmoid-gated shared expert on the MoE input
-                shared = _dense_mlp(params, cfg,
+                shared = _dense_mlp(lp, cfg,
                                     f"{prefix}.mlp.shared_expert", y_in)
-                gate = _linear(params, f"{prefix}.mlp.shared_expert_gate",
+                gate = _linear(lp, f"{prefix}.mlp.shared_expert_gate",
                                y_in)
                 y = y + torch.sigmoid(gate.float()).to(shared.dtype) * shared
         else:
             # llama4 names the dense block feed_forward
-            y = _dense_mlp(params, cfg, f"{prefix}.feed_forward"
+            y = _dense_mlp(lp, cfg, f"{prefix}.feed_forward"
                            if cfg.moe_variant == "llama4"
                            else f"{prefix}.mlp", y)
         if cfg.sandwich_norms:
             y = _norm(cfg, y,
-                      params[f"{prefix}.post_feedforward_layernorm.weight"])
+                      lp[f"{prefix}.post_feedforward_layernorm.weight"])
         x = residual + y
+        del lp
         if i in capture_set:
             captured[i] = x
-    last_hidden = _norm(cfg, x, params["model.norm.weight"])
+    last_hidden = _norm(cfg, x, params.whole("model.norm.weight") if sharded
+                        else params["model.norm.weight"])
+    if stats is not None:
+        stats["moe_overflow"] = overflow
     aux = torch.cat([captured[int(i)] for i in capture_layers], dim=-1)
     return aux, last_hidden

@@ -12,8 +12,12 @@ JAX runner's metadata. Batches are padded to a static ``max_length`` and
 ``batch_size`` rows, as in the JAX package; features are trimmed back to
 each sample's true length before writing.
 
-A capture mesh and EP MoE are refused by name: the port captures on one
-device (``ROADMAP.md`` Queue 1 item 7d).
+On a capture mesh (:func:`build_capture_mesh`: one process per rank, a
+1-D ``fsdp`` mesh) the target's parameters are sharded over the ranks
+(``models/target/sharding.py``) and every rank runs every batch; MoE
+targets may keep their experts sharded (``moe_impl="ep"``) with a
+capacity factor, and the runner aborts when an assignment overflowed.
+Only rank 0 writes files.
 """
 
 from __future__ import annotations
@@ -26,13 +30,15 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from specforge_tpu_torch.models.target.sharding import ShardedParams
 from specforge_tpu_torch.models.target.transformer import (
-    EP_LATER,
     TargetConfig,
     check_moe_impl,
     load_target_params,
     target_capture_forward,
 )
+from specforge_tpu_torch.parallel import multihost
+from specforge_tpu_torch.parallel.mesh import Mesh, MeshConfig, build_mesh
 from specforge_tpu_torch.runtime.data_plane.feature_file import save_feature_file
 from specforge_tpu_torch.utils import DeviceLike, resolve_device
 
@@ -58,6 +64,30 @@ _LAYOUTS = {
 }
 
 
+def build_capture_mesh(n_devices: int = 0, device: DeviceLike = None
+                       ) -> Mesh:
+    """This rank's place on a 1-D ``fsdp`` capture mesh of ``n_devices``
+    ranks (0: every rank of the group), the counterpart of the JAX
+    package's mesh over local devices (``specforge_tpu/offline_capture/
+    capture.py:57-68``). The default process group is made here from the
+    ``SPECFORGE_*`` env (``multihost.maybe_initialize_distributed`` picks
+    the transport: NCCL with a card per rank, host-staged gloo when ranks
+    share a card, gloo on the CPU); without it the mesh is this process
+    alone. A mesh of another size than the group raises."""
+    device = multihost.maybe_initialize_distributed(resolve_device(device))
+    world = multihost.process_count()
+    n = n_devices or world
+    if n != world:
+        raise ValueError(f"a capture mesh of {n} ranks needs {n} processes, "
+                         f"have {world}")
+    return build_mesh(MeshConfig(fsdp=n), device)
+
+
+class CapacityOverflow(RuntimeError):
+    """Expert assignments no rank computed: the capture would be inexact.
+    Every rank raises it after the same forward."""
+
+
 class OfflineCaptureRunner:
     def __init__(
         self,
@@ -65,42 +95,75 @@ class OfflineCaptureRunner:
         *,
         target_config: Optional[TargetConfig] = None,
         target_params: Optional[Dict[str, torch.Tensor]] = None,
-        mesh=None,
+        mesh: Optional[Mesh] = None,
         moe_impl: str = "gathered",
+        moe_capacity_factor: Optional[float] = None,
         device: DeviceLike = None,
     ) -> None:
         """The target's weights are loaded (or ``target_params`` taken) on
-        one device: CUDA unless ``device`` names another. ``moe_impl``:
-        how an MoE target's layers combine their experts, ``gathered`` or
-        ``dense`` (``ep`` is refused)."""
-        if mesh is not None:
-            raise NotImplementedError(f"a capture mesh: {EP_LATER}")
-        check_moe_impl(moe_impl)
-        self.moe_impl = moe_impl
+        one device, CUDA unless ``device`` names another, or on a capture
+        ``mesh`` (:func:`build_capture_mesh`) this rank's shards on its
+        device: each rank keeps its slice of every sharded leaf and runs
+        every batch. ``moe_impl``: how an MoE target's layers combine their
+        experts, ``gathered`` or ``dense``, or ``ep`` (needs a mesh): the
+        expert tables stay sharded by expert and each rank computes its
+        experts' rows, at most ``moe_capacity_factor``·rows/ep of them
+        (default: all); the runner aborts when any assignment overflowed
+        (the capture must be exact), so raise the factor then."""
         self.config = config
         if config.layout not in _LAYOUTS:
             raise ValueError(f"unknown layout {config.layout!r}")
         self.target_config = target_config or TargetConfig.from_file(
             config.target_model_path
         )
+        check_moe_impl(moe_impl, self.target_config)
+        if moe_impl == "ep":
+            if mesh is None:
+                raise ValueError("moe_impl='ep' requires a device mesh")
+            if self.target_config.num_experts <= 0:
+                raise ValueError("moe_impl='ep' needs an MoE target")
+        self.moe_impl = moe_impl
+        self.moe_capacity_factor = moe_capacity_factor
+        self.mesh = mesh
+        ep = moe_impl == "ep"
         if target_params is not None:
+            if mesh is not None and not isinstance(target_params,
+                                                   ShardedParams):
+                raise ValueError(
+                    "on a capture mesh, give this rank's shards "
+                    "(load_target_params(..., mesh=mesh))")
             self.params = target_params
             self.device = next(iter(target_params.values())).device
         else:
-            self.device = resolve_device(device)
+            self.device = (mesh.device if mesh is not None
+                           else resolve_device(device))
             self.params = load_target_params(
                 config.target_model_path, self.target_config,
-                device=self.device)
+                device=self.device, mesh=mesh, expert_parallel=ep)
+
+    @property
+    def primary(self) -> bool:
+        """Whether this process writes: rank 0, or the only process."""
+        return self.mesh is None or self.mesh.rank == 0
 
     def _run_batch(self, input_ids: np.ndarray, attention_mask: np.ndarray
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
         """One padded batch → (aux, last hidden) on the host."""
+        stats: Dict[str, int] = {}
         aux, last = target_capture_forward(
             self.params, self.target_config,
             torch.as_tensor(input_ids, device=self.device),
             torch.as_tensor(attention_mask, device=self.device),
             tuple(self.config.capture_layers), moe_impl=self.moe_impl,
+            mesh=self.mesh, moe_capacity_factor=self.moe_capacity_factor,
+            stats=stats,
         )
+        dropped = stats["moe_overflow"]
+        if dropped:
+            raise CapacityOverflow(
+                f"EP MoE capacity overflow: {dropped} expert assignments "
+                f"were not computed — capture would be inexact. Raise "
+                f"moe_capacity_factor (or use the default full capacity).")
         return aux.cpu(), last.cpu()
 
     def run(
@@ -110,9 +173,11 @@ class OfflineCaptureRunner:
         sample_ids: Optional[Sequence[str]] = None,
     ) -> List[str]:
         """``samples``: dicts with ``input_ids`` [S] and ``loss_mask`` [S].
-        Returns the written file paths."""
+        Returns the written file paths: on a mesh rank 0 writes them and
+        every rank returns the same list, after a barrier."""
         cfg = self.config
-        os.makedirs(cfg.output_dir, exist_ok=True)
+        if self.primary:
+            os.makedirs(cfg.output_dir, exist_ok=True)
         aux_name, last_name = _LAYOUTS[cfg.layout]
         store_dtype = getattr(torch, cfg.store_dtype)
         metadata = {
@@ -145,7 +210,8 @@ class OfflineCaptureRunner:
                     last_name: last[j, :n].to(store_dtype),
                 }
                 path = os.path.join(cfg.output_dir, f"{sid}.sft")
-                save_feature_file(path, tensors, metadata)
+                if self.primary:
+                    save_feature_file(path, tensors, metadata)
                 written.append(path)
             batch.clear()
 
@@ -159,6 +225,8 @@ class OfflineCaptureRunner:
             if len(batch) == cfg.batch_size:
                 flush()
         flush()
+        if self.mesh is not None:
+            multihost.barrier("capture written")
         logger.info("captured %d samples into %s", len(written),
                     cfg.output_dir)
         return written

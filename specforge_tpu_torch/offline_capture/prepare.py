@@ -15,15 +15,24 @@ that are already tokenised (``input_ids`` with ``loss_mask``), truncated to
 ``--max-length``; a record with nothing supervised is dropped, as
 ``build_dataset`` drops one. Conversations go through the Python API:
 ``data.parse.build_dataset(records, tokenizer, template, max_length)`` with
-any tokenizer object, then :func:`capture`. ``--shard-over-devices`` and
-``--moe-impl ep`` are refused by name: the port captures on one device
-(``ROADMAP.md`` Queue 1 item 7d).
+any tokenizer object, then :func:`capture`.
+
+``--shard-over-devices`` shards the target over a capture mesh of every
+local card (``--shard-over-devices N``: N ranks; on the CPU, N gloo
+processes): the command starts one rank process per card itself
+(``parallel/multihost.py:RankProcesses``), every rank loads only its
+shards and runs every batch, and rank 0 writes the files. ``--moe-impl
+ep`` keeps an MoE target's experts sharded by expert
+(``--moe-capacity-factor`` bounds each rank's rows; an overflow aborts).
+Started with the ``SPECFORGE_*`` env already set, the command runs as the
+given rank.
 
 Usage:
     python -m specforge_tpu_torch.offline_capture.prepare \\
         --target-model /path/to/qwen3-8b --data tokenized.jsonl \\
         --output-dir features/ --algorithm eagle3 --max-length 2048 \\
-        --draft-config configs/qwen3-8b-eagle3.json
+        --draft-config configs/qwen3-8b-eagle3.json \\
+        [--shard-over-devices [N]] [--moe-impl ep [--moe-capacity-factor F]]
 """
 
 from __future__ import annotations
@@ -31,12 +40,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
-
-from specforge_tpu_torch.models.target.transformer import EP_LATER
 
 ALGORITHMS = ("eagle3", "peagle", "dflash", "domino", "dspark")
 
@@ -64,12 +72,18 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "capture layers + draft vocab size)")
     parser.add_argument("--capture-layers", type=int, nargs="*")
     parser.add_argument("--limit", type=int, default=0)
-    parser.add_argument("--shard-over-devices", action="store_true",
-                        help="refused: the port captures on one device")
+    parser.add_argument("--shard-over-devices", type=int, nargs="?",
+                        const=0, metavar="N",
+                        help="shard the target over a capture mesh of N "
+                             "ranks, one process each (alone or 0: every "
+                             "local card)")
     parser.add_argument("--moe-impl", choices=("dense", "gathered", "ep"),
                         default="gathered",
-                        help="how an MoE target combines its experts "
-                             "(ep is refused: one device)")
+                        help="how an MoE target combines its experts; ep "
+                             "keeps them sharded over the mesh")
+    parser.add_argument("--moe-capacity-factor", type=float,
+                        help="EP: each rank's rows as a multiple of "
+                             "rows/ep (default: all, never drops)")
     parser.add_argument("--device", default=None,
                         help="torch device (default: CUDA, which must exist)")
     return parser.parse_args(argv)
@@ -118,12 +132,15 @@ def capture(
     batch_size: int = 4,
     device=None,
     moe_impl: str = "gathered",
+    mesh=None,
+    moe_capacity_factor: Optional[float] = None,
     runner=None,
 ) -> CaptureResult:
     """Capture ``samples`` (``input_ids``, ``loss_mask``) into
-    ``output_dir`` and derive the vocab mapping there. ``runner``: one
-    already holding the target's weights (its layers and layout must be
-    this call's), so a second set of files reuses them."""
+    ``output_dir`` and derive the vocab mapping there (on a capture
+    ``mesh``, rank 0 writes). ``runner``: one already holding the target's
+    weights (its layers and layout must be this call's), so a second set
+    of files reuses them, with its mesh and MoE settings."""
     from specforge_tpu_torch.algorithms.builtin import (
         builtin_algorithm_registry,
     )
@@ -155,7 +172,9 @@ def capture(
     if runner is None:
         runner = OfflineCaptureRunner(capture_config,
                                       target_config=target_config,
-                                      moe_impl=moe_impl, device=device)
+                                      mesh=mesh, moe_impl=moe_impl,
+                                      moe_capacity_factor=moe_capacity_factor,
+                                      device=device)
     else:
         if (tuple(runner.config.capture_layers) != layers
                 or runner.config.layout != layout):
@@ -163,43 +182,75 @@ def capture(
                 f"the runner captures layers {runner.config.capture_layers} "
                 f"({runner.config.layout}); this call needs {layers} "
                 f"({layout})")
-        runner = OfflineCaptureRunner(capture_config,
-                                      target_config=target_config,
-                                      target_params=runner.params,
-                                      moe_impl=runner.moe_impl)
+        runner = OfflineCaptureRunner(
+            capture_config, target_config=target_config,
+            target_params=runner.params, mesh=runner.mesh,
+            moe_impl=runner.moe_impl,
+            moe_capacity_factor=runner.moe_capacity_factor)
     written = runner.run(samples)
 
     mapping_path = None
     draft_vocab = getattr(config, "draft_vocab_size", None)
     if draft_vocab and draft_vocab < target_config.vocab_size:
-        t2d, d2t = derive_vocab_mapping(
-            (s["input_ids"] for s in samples), target_config.vocab_size,
-            draft_vocab)
         mapping_path = os.path.join(output_dir, "vocab_mapping.npz")
-        save_vocab_mapping(mapping_path, t2d, d2t)
+        if runner.primary:
+            t2d, d2t = derive_vocab_mapping(
+                (s["input_ids"] for s in samples), target_config.vocab_size,
+                draft_vocab)
+            save_vocab_mapping(mapping_path, t2d, d2t)
     return CaptureResult(runner=runner, capture_layers=layers,
                          written=written, vocab_mapping_path=mapping_path)
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
+    argv = list(sys.argv[1:] if argv is None else argv)
     args = parse_args(argv)
-    if args.shard_over_devices:
-        raise SystemExit(f"--shard-over-devices: {EP_LATER}")
-    if args.moe_impl == "ep":
-        raise SystemExit(f"--moe-impl ep: {EP_LATER}")
     samples = read_tokenized(args.data, args.max_length, args.limit)
-    print(f"read {len(samples)} tokenised samples")
-    result = capture(
-        samples, target_model=args.target_model, output_dir=args.output_dir,
-        algorithm=args.algorithm, draft_config=args.draft_config,
-        capture_layers=args.capture_layers, max_length=args.max_length,
-        batch_size=args.batch_size, device=args.device,
-        moe_impl=args.moe_impl)
-    layout = result.runner.config.layout
-    print(f"capture layers: {result.capture_layers} (layout={layout})")
-    print(f"wrote {len(result.written)} feature files")
-    if result.vocab_mapping_path:
-        print(f"wrote vocab mapping to {result.vocab_mapping_path}")
+    mesh = ranks = None
+    if args.shard_over_devices is not None:
+        from specforge_tpu_torch.offline_capture.capture import (
+            build_capture_mesh,
+        )
+        from specforge_tpu_torch.parallel.multihost import (
+            RankProcesses,
+            resolve_rank_count,
+        )
+        from specforge_tpu_torch.utils import resolve_device
+
+        device = resolve_device(args.device)
+        n = (0 if "SPECFORGE_COORDINATOR" in os.environ
+             else resolve_rank_count(args.shard_over_devices, device))
+        ranks = RankProcesses(
+            "specforge_tpu_torch.offline_capture.prepare", argv, n).start()
+    try:
+        if ranks is not None:
+            mesh = build_capture_mesh(n, device)
+        primary = mesh is None or mesh.rank == 0
+        if primary:
+            print(f"read {len(samples)} tokenised samples")
+            if mesh is not None:
+                print(f"sharding the target over {mesh.world_size} ranks "
+                      f"({mesh.transport})")
+        result = capture(
+            samples, target_model=args.target_model,
+            output_dir=args.output_dir, algorithm=args.algorithm,
+            draft_config=args.draft_config,
+            capture_layers=args.capture_layers, max_length=args.max_length,
+            batch_size=args.batch_size, device=args.device,
+            moe_impl=args.moe_impl, mesh=mesh,
+            moe_capacity_factor=args.moe_capacity_factor)
+    except BaseException:
+        if ranks is not None:
+            ranks.kill()
+        raise
+    if ranks is not None:
+        ranks.join()
+    if primary:
+        layout = result.runner.config.layout
+        print(f"capture layers: {result.capture_layers} (layout={layout})")
+        print(f"wrote {len(result.written)} feature files")
+        if result.vocab_mapping_path:
+            print(f"wrote vocab mapping to {result.vocab_mapping_path}")
     return 0
 
 

@@ -64,6 +64,18 @@ _reduce_scatter = getattr(dist, "reduce_scatter_single", None) or (
     dist.reduce_scatter_tensor)
 
 
+def gather_shards(x: torch.Tensor, dim: int, mesh: Mesh, device=None
+                  ) -> torch.Tensor:
+    """The whole tensor from the fsdp group's slices of it along ``dim``
+    (no gradient), on ``device`` (default: ``x``'s)."""
+    call = Staged(mesh, [x])
+    src = call.stage(x.detach().movedim(dim, 0))
+    out = call.empty((src.shape[0] * mesh.fsdp_size,) + src.shape[1:],
+                     src.dtype)
+    _all_gather(out, src, group=mesh.fsdp_group)
+    return call.done(out, device).movedim(0, dim).contiguous()
+
+
 class ShardPlan:
     """Where each parameter of ``model`` is sharded on ``mesh``: ``dims``
     maps every parameter name to its sharded dimension (None: whole),
@@ -112,18 +124,15 @@ class ShardPlan:
     def gather(self, x: torch.Tensor, dim: int, device=None) -> torch.Tensor:
         """The whole tensor from the fsdp group's slices of it along
         ``dim`` (no gradient), on ``device`` (default: ``x``'s)."""
-        call = Staged(self.mesh, [x])
-        src = call.stage(x.detach().movedim(dim, 0))
-        out = src.new_empty((src.shape[0] * self.fsdp,) + src.shape[1:])
-        _all_gather(out, src, group=self.mesh.fsdp_group)
-        return call.done(out, device).movedim(0, dim).contiguous()
+        return gather_shards(x, dim, self.mesh, device)
 
     def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
         """This rank's slice along ``dim`` of the sum of ``x`` over the
         fsdp group."""
         call = Staged(self.mesh, [x])
         src = call.stage(x.movedim(dim, 0))
-        out = src.new_empty((src.shape[0] // self.fsdp,) + src.shape[1:])
+        out = call.empty((src.shape[0] // self.fsdp,) + src.shape[1:],
+                         src.dtype)
         _reduce_scatter(out, src, group=self.mesh.fsdp_group)
         return call.done(out).movedim(0, dim).contiguous()
 
@@ -184,7 +193,7 @@ class ShardPlan:
         mine = torch.full((n,), -1, dtype=torch.int64, device=dev)
         mine[:need.numel()] = need
         src = call.stage(mine)
-        asks = src.new_empty((f * n,))
+        asks = call.empty((f * n,), src.dtype)
         _all_gather(asks, src, group=mesh.fsdp_group)
         asks = call.done(asks)
         # the rows this rank owns of each rank's request
@@ -194,7 +203,7 @@ class ShardPlan:
         send[owned] = shard[local[owned]]
         call = Staged(mesh, [send])
         src = call.stage(send)
-        recv = torch.empty_like(src)
+        recv = call.empty(src.shape, src.dtype)
         dist.all_to_all_single(recv, src, group=mesh.fsdp_group)
         recv = call.done(recv)
         # each row from its owner
@@ -241,8 +250,8 @@ class ShardPlan:
         out = []
         for x in (ids, rows):
             src = call.stage(x)
-            whole = src.new_empty((self.mesh.world_size * src.shape[0],)
-                                  + src.shape[1:])
+            whole = call.empty((self.mesh.world_size * src.shape[0],)
+                               + src.shape[1:], src.dtype)
             _all_gather(whole, src)
             whole = whole.view((self.mesh.world_size,) + src.shape)
             out.append(call.done(whole.transpose(0, 1).flatten(0, 2)))

@@ -18,6 +18,16 @@ one process per rank (SPMD), as the reference SpecForge does:
   rank's rows of every global batch. Ranks of one (dp, fsdp) batch block
   (the sequence-parallel group) hold the SAME samples, each taking its own
   sequence chunk: ``specforge_tpu/parallel/multihost.py:146-150``.
+- :class:`RankProcesses` — one command, several ranks: ``prepare
+  --shard-over-devices`` and ``capture_server_main --shard-over-devices
+  N`` stay one command each. The process the user started becomes rank 0
+  and starts the other ranks itself, each the same command with the env
+  above (a free port on this host). There is no fallback that hides the
+  mesh: a rank that exits non-zero ends them all and the command exits
+  non-zero; a rank whose rank 0 is gone exits too; rank 0 waits for the
+  others at the end within a join timeout and kills them past it. When
+  the env is already set (ranks started by the caller, as where several
+  ranks share one card), the process is the given rank and starts nobody.
 """
 
 from __future__ import annotations
@@ -27,6 +37,10 @@ import json
 import logging
 import os
 import socket
+import subprocess
+import sys
+import threading
+import time
 from collections import Counter
 from dataclasses import asdict, dataclass
 from typing import Any, List, Optional, Sequence, Tuple
@@ -253,3 +267,104 @@ def shutdown() -> None:
     if dist.is_initialized():
         dist.destroy_process_group()
     _RANK_DEVICE = None
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+#: the pid of rank 0, in the env of the ranks it started
+ENV_PARENT = "SPECFORGE_RANK_PARENT"
+#: seconds rank 0 waits for the other ranks once its own work is done
+JOIN_TIMEOUT = 120.0
+_POLL_S = 0.5
+
+
+def resolve_rank_count(n_devices: int, device: torch.device) -> int:
+    """The ranks a ``--shard-over-devices`` of ``n_devices`` asks for: 0
+    means every local card (one rank on the CPU). More ranks than cards
+    raises with the JAX package's message; CPU ranks share the host."""
+    if device.type != "cuda":
+        return n_devices or 1
+    count = torch.cuda.device_count()
+    n = n_devices or count
+    if n > count:
+        raise ValueError(f"requested {n} capture devices, have {count}")
+    return n
+
+
+class RankProcesses:
+    """The other ranks of this command (``python -m module *argv``), when
+    this process starts them."""
+
+    def __init__(self, module: str, argv: Sequence[str], ranks: int):
+        self.module, self.argv, self.ranks = module, list(argv), ranks
+        self.procs: List[subprocess.Popen] = []
+        self._joining = False
+
+    def start(self) -> "RankProcesses":
+        """Become rank 0 of ``ranks`` and start ranks 1.. (nothing when
+        the env already names this process's rank, or for one rank)."""
+        if "SPECFORGE_COORDINATOR" in os.environ:
+            parent = os.environ.get(ENV_PARENT)
+            if parent is not None:
+                threading.Thread(target=self._watch_parent,
+                                 args=(int(parent),), daemon=True).start()
+            return self
+        if self.ranks <= 1:
+            return self
+        os.environ.update(SPECFORGE_COORDINATOR=f"localhost:{free_port()}",
+                          SPECFORGE_NUM_PROCESSES=str(self.ranks),
+                          SPECFORGE_PROCESS_ID="0")
+        for rank in range(1, self.ranks):
+            self.procs.append(subprocess.Popen(
+                [sys.executable, "-m", self.module, *self.argv],
+                env=dict(os.environ, SPECFORGE_PROCESS_ID=str(rank),
+                         **{ENV_PARENT: str(os.getpid())})))
+        logger.info("started ranks 1..%d of %s", self.ranks - 1, self.module)
+        threading.Thread(target=self._watch_ranks, daemon=True).start()
+        return self
+
+    @staticmethod
+    def _watch_parent(parent: int) -> None:
+        while os.getppid() == parent:
+            time.sleep(_POLL_S)
+        logger.error("rank 0 (pid %d) is gone: exiting", parent)
+        os._exit(1)
+
+    def _watch_ranks(self) -> None:
+        while not self._joining:
+            for rank, proc in enumerate(self.procs, start=1):
+                rc = proc.poll()
+                if rc and not self._joining:
+                    print(f"rank {rank} exited {rc}: ending every rank",
+                          file=sys.stderr, flush=True)
+                    self.kill()
+                    os._exit(1)
+            time.sleep(_POLL_S)
+
+    def kill(self) -> None:
+        for proc in self.procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    def join(self, timeout: float = JOIN_TIMEOUT) -> None:
+        """Wait for the other ranks; raise if one fails or is still
+        running after ``timeout`` seconds (it is killed)."""
+        self._joining = True
+        deadline = time.monotonic() + timeout
+        try:
+            for rank, proc in enumerate(self.procs, start=1):
+                try:
+                    rc = proc.wait(timeout=max(deadline - time.monotonic(),
+                                               0.1))
+                except subprocess.TimeoutExpired:
+                    raise RuntimeError(f"rank {rank} still running "
+                                       f"{timeout} s after rank 0 finished")
+                if rc:
+                    raise RuntimeError(f"rank {rank} exited {rc}")
+        finally:
+            self.kill()

@@ -137,6 +137,52 @@ def read_safetensors_tensors(path: str, names) -> Dict[str, torch.Tensor]:
     return out
 
 
+def read_safetensors_header(path: str) -> Dict[str, dict]:
+    """The tensor entries of a safetensors file's header (dtype code,
+    shape, data offsets)."""
+    with open(path, "rb") as f:
+        header, _, _ = _read_header(f)
+    return header
+
+
+def read_safetensors_slices(
+    path: str, slices: Mapping[str, Optional[Tuple[int, int, int]]]
+) -> Dict[str, torch.Tensor]:
+    """The tensors named in ``slices`` of a safetensors file, each whole
+    (value None) or cut to ``(dim, start, length)`` along one dimension.
+    The file is mapped, not read: a cut touches only the pages that hold
+    its bytes (a strided cut, its rows' runs of them)."""
+    import numpy as np
+
+    with open(path, "rb") as f:
+        header, _, start = _read_header(f)
+    missing = [n for n in slices if n not in header]
+    if missing:
+        raise KeyError(f"{missing} not in {path}")
+    out: Dict[str, torch.Tensor] = {}
+    for name, cut in slices.items():
+        info = header[name]
+        dtype = _DTYPES[info["dtype"]]
+        shape = list(info["shape"])
+        lo, hi = info["data_offsets"]
+        if hi == lo:
+            out[name] = torch.empty(shape, dtype=dtype)
+            continue
+        raw = np.memmap(path, dtype=np.uint8, mode="r", offset=start + lo,
+                        shape=(hi - lo,))
+        # the element's bytes as a last axis, so any dtype cuts alike
+        view = raw.reshape(shape + [dtype.itemsize])
+        if cut is not None:
+            dim, first, length = cut
+            view = view[(slice(None),) * dim + (slice(first,
+                                                      first + length),)]
+            shape[dim] = length
+        data = torch.from_numpy(np.array(view, order="C"))  # a copy
+        del raw, view
+        out[name] = data.reshape(-1).view(dtype).reshape(shape)
+    return out
+
+
 def _load_torch_ckpt(path: str) -> Dict[str, torch.Tensor]:
     """A reference-format ``torch.save`` dict (gzip for ``.gz``) as CPU
     tensors; a value that is not a tensor becomes one."""

@@ -6,7 +6,8 @@ norms) targets, saved as tiny HF checkpoints by ``transformers`` and read
 by both packages' loaders, equals JAX's in fp32 at
 ``tests/test_target_transformer.py``'s 2e-4 (padded keys masked); the
 loader on single-file, sharded and tied checkpoints and the muP fold; the
-refusals of an unsupported family, a capture mesh and EP; both runners on
+refusals of an unsupported family and of EP without a mesh or on a dense
+target, and a one-rank capture mesh; both runners on
 one checkpoint in the eagle and dflash layouts (files agreeing at 2e-4,
 equal metadata, each package reading the other's files); ``python -m
 specforge_tpu_torch.offline_capture.prepare`` on tokenised records with its
@@ -153,9 +154,15 @@ def test_loader_matches_jax(tmp_path, case):
 
 
 def test_refusals(tmp_path):
-    """``bailing_moe`` is refused with the JAX package's reason; EP, a
-    capture mesh, ``--moe-impl ep`` and ``--shard-over-devices`` are
-    refused citing ROADMAP item 7d; the loader needs CUDA unless asked."""
+    """``bailing_moe`` is refused with the JAX package's reason; EP without
+    a mesh and EP on a dense target with JAX's messages
+    (``tests/test_moe_ep.py:192``), the runner and ``prepare --moe-impl
+    ep`` alike; the loader needs CUDA unless asked. A one-rank capture mesh
+    (``prepare --shard-over-devices 1``) captures what one process does."""
+    from specforge_tpu_torch.offline_capture.capture import (
+        build_capture_mesh,
+    )
+
     root = save_target(tmp_path / "llama", "llama")
     cfg_path = os.path.join(root, "config.json")
     bailing = dict(json.load(open(cfg_path)), model_type="bailing_moe")
@@ -166,14 +173,32 @@ def test_refusals(tmp_path):
         pt_tf.TargetConfig.from_file(str(tmp_path / "bailing"))
     assert reason in str(err.value)
     config = OfflineCaptureConfig(root, str(tmp_path / "out"), (1, 1, 1))
-    with pytest.raises(NotImplementedError, match="mesh.*item 7d"):
-        OfflineCaptureRunner(config, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="moe_impl='ep'.*item 7d"):
+    with pytest.raises(ValueError, match="requires a device mesh"):
         OfflineCaptureRunner(config, moe_impl="ep", device="cpu")
-    for flag in (["--shard-over-devices"], ["--moe-impl", "ep"]):
-        with pytest.raises(SystemExit, match="item 7d"):
-            prepare.main(["--target-model", root, "--data", "x.jsonl",
-                          "--output-dir", str(tmp_path / "o"), *flag])
+    mesh = build_capture_mesh(1, "cpu")
+    assert (mesh.world_size, mesh.rank, mesh.transport) == (1, 0, "local")
+    with pytest.raises(ValueError, match="needs an MoE target"):
+        OfflineCaptureRunner(config, mesh=mesh, moe_impl="ep", device="cpu")
+    with pytest.raises(ValueError, match="a capture mesh of 2 ranks needs 2 "
+                                         "processes, have 1"):
+        build_capture_mesh(2, "cpu")
+    data = tmp_path / "data.jsonl"
+    data.write_text(json.dumps({"input_ids": list(range(1, 9)),
+                                "loss_mask": [1] * 8}) + "\n")
+    args = ["--target-model", root, "--data", str(data), "--device", "cpu",
+            "--capture-layers", "1", "1", "1", "--max-length", "8"]
+    with pytest.raises(ValueError, match="requires a device mesh"):
+        prepare.main([*args, "--output-dir", str(tmp_path / "o"),
+                      "--moe-impl", "ep"])
+    for name, flag in (("one", []), ("mesh", ["--shard-over-devices", "1"])):
+        assert prepare.main([*args, "--output-dir", str(tmp_path / name),
+                             *flag]) == 0
+    one, _ = pt_ff.load_feature_file(str(tmp_path / "one" /
+                                         "sample-000000.sft"))
+    meshed, _ = pt_ff.load_feature_file(str(tmp_path / "mesh" /
+                                            "sample-000000.sft"))
+    for key, value in one.items():
+        assert torch.equal(meshed[key], value), key
     with pytest.raises(RuntimeError, match="no CUDA device"):
         pt_tf.load_target_params(root, pt_tf.TargetConfig.from_file(root))
 

@@ -1778,6 +1778,41 @@ def test_gathered_moe_repeats_bit_for_bit(gen):
     assert torch.equal(r1[1], r2[1])
 
 
+def test_ep_rank_sum_on_the_card_matches_gathered(gen):
+    """Expert parallelism in one process on the card: each of 4 ranks'
+    contributions (its 16 of the 64 experts, ``_moe_ep_partial``) summed,
+    plus the shared experts, against the gathered MoE layer in fp32 (no
+    TF32) at the DeepSeek-V2-Lite layout's width, within 2e-4·(1 + |g|),
+    with no overflow at full capacity."""
+    from specforge_tpu_torch.models.target import transformer as tf
+    from specforge_tpu_torch.models.target.sharding import (
+        stack_moe_expert_params,
+    )
+    from specforge_tpu_torch.parallel.mesh import Mesh, MeshConfig
+
+    cfg, params = deepseek_target(dtype=torch.float32)
+    prefix = "model.layers.1"
+    y = torch.randn(2, 256, cfg.hidden_size, generator=gen, device="cuda")
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        want, _ = tf._moe_deepseek(params, cfg, prefix, y, "gathered")
+        total = 0
+        for rank in range(4):
+            mesh = Mesh(MeshConfig(fsdp=4), rank, torch.device("cuda"),
+                        "local")
+            out, _, overflow = tf._moe_ep_partial(
+                stack_moe_expert_params(params, cfg, mesh), cfg, prefix, y,
+                4, rank)
+            assert overflow == 0
+            total = total + out
+        got = total.reshape(y.shape) + tf._dense_mlp(
+            params, cfg, f"{prefix}.mlp.shared_experts", y)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    assert bool(((got - want).abs() <= 2e-4 * (1 + want.abs())).all())
+
+
 # --------------------------------------------------------------------------
 # the online runtime on the card
 # --------------------------------------------------------------------------

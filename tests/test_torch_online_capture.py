@@ -267,15 +267,36 @@ def test_coalescer_merges_concurrent_requests(target):
         server.stop()
 
 
-def test_capture_server_main_refuses_the_mesh_and_ep(target):
-    for argv in (["--shard-over-devices", "2"], ["--moe-impl", "ep"],
-                 ["--moe-capacity-factor", "1.5"]):
-        with pytest.raises(NotImplementedError, match="item 7d"):
-            capture_server_main.main(["--target-model", target, "--port",
-                                      "0", "--capture-layers", "1", *argv])
-    with pytest.raises(NotImplementedError, match="item 7d"):
-        pt_cs.CaptureEngine(target, LAYERS, moe_capacity_factor=1.0,
-                            device="cpu")
+def test_capture_server_main_refuses_the_mesh_and_ep(target, monkeypatch):
+    """JAX's refusals: EP without a mesh (``--moe-impl ep`` alone), EP on a
+    dense target, more ranks than cards (``build_capture_mesh``'s
+    message). A capacity factor without EP is taken, as JAX's engine takes
+    it, and a one-rank mesh serves as one device does."""
+    from specforge_tpu_torch.offline_capture.capture import (
+        build_capture_mesh,
+    )
+    from specforge_tpu_torch.parallel.multihost import resolve_rank_count
+
+    base = ["--target-model", target, "--port", "0", "--capture-layers",
+            "1", "--device", "cpu"]
+    with pytest.raises(ValueError, match="requires a device mesh"):
+        capture_server_main.main([*base, "--moe-impl", "ep"])
+    with pytest.raises(ValueError, match="needs an MoE target"):
+        capture_server_main.main([*base, "--moe-impl", "ep",
+                                  "--shard-over-devices", "0"])
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="requested 2 capture devices, "
+                                         "have 1"):
+        resolve_rank_count(2, torch.device("cuda"))
+    assert resolve_rank_count(0, torch.device("cuda")) == 1
+    engine = pt_cs.CaptureEngine(target, LAYERS, moe_capacity_factor=1.0,
+                                 device="cpu")
+    meshed = pt_cs.CaptureEngine(target, LAYERS, device="cpu",
+                                 mesh=build_capture_mesh(1, "cpu"))
+    ids = np.arange(1, 12)
+    mask = np.ones_like(ids)
+    one, two = engine.capture(ids, mask), meshed.capture(ids, mask)
+    assert all(torch.equal(one[k], two[k]) for k in one)
 
 
 def test_capture_server_main_needs_cuda(target, monkeypatch):

@@ -7,7 +7,7 @@ tokens), the chain decoder's host loop and fused rounds against JAX's for
 k = 2 and 4 on a random draft and on a trained, exported one (output ids
 and accept lengths identical, partial acceptance exercised), the export
 loader bit for bit in bf16 against JAX's, and the refusals that name
-``ROADMAP.md`` Queue 1 items 8 and 7d. The shapes are those of
+``ROADMAP.md`` Queue 1 item 8. The shapes are those of
 ``tests/test_spec_decode.py:21-53``; every weight is loaded by both
 packages from one HF directory or export, or carried over by
 ``convert.params_from_jax``."""
@@ -590,14 +590,14 @@ def test_serving_loaders_build_the_decoder(trained):
 @pytest.mark.parametrize("call,item", [
     ("generate_topk", "item 8"), ("fused_topk", "item 8"),
     ("fused_beam", "item 8"), ("batch", "item 8"), ("stream", "item 8"),
-    ("mesh", "item 7d"), ("dflash_export", "item 8"),
+    ("mesh", "item 8"), ("dflash_export", "item 8"),
     ("peagle_export", "item 8"), ("dflash_draft", "item 8")])
 def test_refusals_name_their_item(target, random_draft, tmp_path, call,
                                   item):
     """What the port does not serve yet raises a ValueError naming its
     ``ROADMAP.md`` item: tree and beam speculation, the batched and
-    streamed decoders, the DFlash-family and P-EAGLE exports and drafts
-    (item 8), and a device mesh (item 7d)."""
+    streamed decoders, the DFlash-family and P-EAGLE exports and drafts,
+    and a device mesh (all item 8)."""
     _, _, pparams, pcfg = target
     draft = random_draft[2]
 

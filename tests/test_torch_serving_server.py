@@ -173,7 +173,7 @@ def test_malformed_body_is_a_400(servers):
 
 @pytest.mark.parametrize("argv,item", [
     (["--family", "dflash"], "item 8"),
-    (["--shard-over-devices", "2"], "item 7d"),
+    (["--shard-over-devices", "2"], "item 8"),
 ])
 def test_main_refuses_by_name(capsys, argv, item):
     with pytest.raises(SystemExit) as exc:

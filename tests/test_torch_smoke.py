@@ -8,6 +8,7 @@ import importlib.util
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
@@ -222,6 +223,34 @@ def test_online_phase_runs_on_the_cpu_at_small_size(smoke, tmp_path):
     assert results["step1_loss"]["rel_diff"] == 0.0
     assert len(results["consumer"]["step_s"]) == smoke.ONLINE_STEPS
     assert all(40 <= n <= 64 for n in results["prompt_lengths"])
+
+
+def test_online_phase_runs_on_ranks_on_the_cpu(smoke, tmp_path):
+    """The online phase on 2 ranks: the managed stack's capture server
+    sharded over 2 gloo ranks (``capture_shard_devices``) and the consumer
+    as 2 ranks (``training.fsdp_size`` 2); the server's features still the
+    runner's bit for bit, every rank of the server stopped, and the online
+    step-1 loss the offline run's over the micro-batches' rows in rank
+    order."""
+    cfg = Eagle3Config(vocab_size=2048, draft_vocab_size=512, hidden_size=128,
+                       intermediate_size=384, num_attention_heads=4,
+                       num_key_value_heads=2, max_position_embeddings=4096)
+    cfg_path = tmp_path / "draft.json"
+    cfg_path.write_text(json.dumps(cfg.to_dict()))
+    target = smoke.write_capture_target(
+        tmp_path / "target", {**smoke.QWEN3_8B_TARGET, **TINY_TARGET},
+        torch.device("cpu"), 0, 0.2)
+    results = smoke.online_phase(
+        cfg_path, {"target": target, "vocab_mapping": None},
+        tmp_path / "online", 0, torch.device("cpu"), max_length=64,
+        min_len=40, ranks=2)
+    assert results["supervisor_rc"] == 0 and results["ranks"] == 2
+    assert sorted(r["capture_rank"] for r in results["server_ranks"]) == [
+        0, 1]
+    assert results["ledger"] == {"durable_step": smoke.ONLINE_STEPS,
+                                 "acked": smoke.ONLINE_PROMPTS}
+    assert results["features"]["bit_identical"]
+    assert results["step1_loss"]["rel_diff"] <= smoke.TRAIN_STEP1_RTOL
 
 
 FAMILY_DRAFT = {
@@ -615,6 +644,73 @@ def test_mesh_training_runs_on_the_cpu_at_small_size(smoke, tmp_path,
     smoke.check_mesh_counts(results)
     assert results["runs"]["usp"]["rank_launches"][0][
         "lse_attention_fwd"] == smoke.TTT * 2
+
+
+def test_capture_mesh_phase_runs_on_the_cpu_at_small_size(smoke, tmp_path):
+    """The capture-mesh phase: 2 ranks (``chip_smoke.py
+    --capture-mesh-rank``, gloo on the CPU) started once for a dense
+    target (bf16, leaves large enough to be cut) and an MoE target in
+    DeepSeek-V2-Lite's layout under EP, held against one process's
+    references (``save_capture_reference``), which are written after the
+    ranks start, as the default run starts them before the MoE capture:
+    the dense features bit for bit, the EP capture within its bounds, the
+    fp32 layer alone, the abort at the overflowing factor; each rank holds
+    fewer bytes."""
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 2048, size=(2, 32))
+    mask = np.ones_like(ids)
+    mask[1, 20:] = 0
+    ids = ids * mask
+    runs = [{"name": name, "target": str(tmp_path / name),
+             "ref": str(tmp_path / f"{name}.pt")}
+            for name in ("dense_fsdp", "moe_ep")]
+    launched = smoke.launch_capture_mesh(runs, tmp_path / "work", cpu)
+    for name, config, layers in (
+            ("dense_fsdp", dict(smoke.QWEN3_8B_TARGET, vocab_size=2048,
+                                hidden_size=256, intermediate_size=512,
+                                num_hidden_layers=3, num_attention_heads=4,
+                                num_key_value_heads=2, head_dim=64),
+             (0, 1, 2)),
+            ("moe_ep", dict(smoke.DEEPSEEK_V2_LITE_TARGET,
+                            **TINY_MOE_TARGET), (1, 2, 3))):
+        target = smoke.write_capture_target(tmp_path / name, config, cpu, 0,
+                                            smoke.TARGET_STD, 1)
+        runner = smoke.OfflineCaptureRunner(smoke.OfflineCaptureConfig(
+            str(target), str(tmp_path / "unused"), layers, 32, 2),
+            device=cpu)
+        smoke.save_capture_reference(runner, ids, mask,
+                                     tmp_path / f"{name}.pt")
+    results = smoke.finish_capture_mesh(launched)
+    assert results["transport"] == "gloo" and results["ranks"] == 2
+    dense, moe = results["dense_fsdp"], results["moe_ep"]
+    assert all(r["aux_bit_identical"] and r["last_bit_identical"]
+               for r in dense)
+    assert all(r["gathered_bytes_per_forward"] > 0 for r in dense)
+    assert all(r["embed_rows_bytes"] < r["embed_whole_bytes"] for r in dense)
+    assert all(r["overflow"] == 0 for r in moe)
+    assert all(r["overflow_abort"].startswith("EP MoE capacity overflow")
+               for r in moe)
+
+
+def test_capture_mesh_only_runs_on_the_cpu_at_small_size(smoke,
+                                                         monkeypatch):
+    """``--capture-mesh-only`` with its targets cut to the CPU: the dense
+    target at ``LLAMA_MESH_DEPTH`` layers against one process over a cut
+    of its first ``LLAMA_REF_DEPTH`` (linked shards, no bytes copied), the
+    MoE target under EP at all its layers, 2 gloo ranks each."""
+    monkeypatch.setattr(smoke, "emit", lambda obj: None)
+    dense = dict(smoke.LLAMA3_70B_TARGET, vocab_size=2048, hidden_size=256,
+                 intermediate_size=512, num_attention_heads=4,
+                 num_key_value_heads=2, head_dim=64)
+    moe = dict(smoke.DEEPSEEK_V2_LITE_TARGET, **TINY_MOE_TARGET)
+    results = smoke.capture_mesh_only_phase(
+        0, torch.device("cpu"), dense=dense, moe=moe, batch=2, min_len=32,
+        max_length=64, ranks=2)
+    assert results["dense"]["depth"] == smoke.LLAMA_MESH_DEPTH
+    assert all(r["aux_bit_identical"] and "last_bit_identical" not in r
+               for r in results["dense"]["dense_fsdp"])
+    assert all(r["overflow"] == 0 for r in results["moe"]["moe_ep"])
 
 
 def test_ce_backward_check_rejects_broken_gradients(smoke):

@@ -160,14 +160,39 @@ def test_expert_mix_repeats_and_impls_route_alike(family_targets):
 
 
 def test_moe_impl_refusals(family_targets):
+    """JAX's refusals (``tests/test_moe_ep.py:192``,
+    ``transformer.py:1719-1723``): EP without a mesh, and the llama4 and
+    longcat variants under EP; an unknown impl. EP on a one-rank mesh runs:
+    the gathered capture bit for bit."""
+    from specforge_tpu_torch.models.target.sharding import (
+        stack_moe_expert_params,
+    )
+    from specforge_tpu_torch.parallel.mesh import Mesh, MeshConfig
+
     _, _, pcfg, pparams = family_targets("qwen3_moe")
     ids, mask = (torch.as_tensor(a) for a in inputs())
-    with pytest.raises(NotImplementedError, match="item 7d"):
+    with pytest.raises(ValueError, match="requires a device mesh"):
         pt_tf.target_capture_forward(pparams, pcfg, ids, mask, (0,),
                                      moe_impl="ep")
     with pytest.raises(ValueError, match="unknown MoE impl 'ragged'"):
         pt_tf.target_capture_forward(pparams, pcfg, ids, mask, (0,),
                                      moe_impl="ragged")
+    mesh = Mesh(MeshConfig(), 0, torch.device("cpu"), "local")
+    for family in ("llama4", "longcat_flash"):
+        _, _, cfg, params = family_targets(family)
+        with pytest.raises(ValueError, match="moe_impl='ep' supports "
+                                             "qwen/deepseek/gptoss MoE "
+                                             f"targets .got '{cfg.moe_variant}'"):
+            pt_tf.target_capture_forward(params, cfg, ids, mask, (0,),
+                                         moe_impl="ep", mesh=mesh)
+    stats = {}
+    got = pt_tf.target_capture_forward(
+        stack_moe_expert_params(pparams, pcfg, mesh), pcfg, ids, mask, (0,),
+        moe_impl="ep", mesh=mesh, stats=stats)
+    want = pt_tf.target_capture_forward(pparams, pcfg, ids, mask, (0,))
+    assert stats["moe_overflow"] == 0
+    valid = mask.bool()  # EP routes no padding token
+    assert all(torch.equal(a[valid], b[valid]) for a, b in zip(got, want))
 
 
 def samples(n, seed=0, lo=5, hi=12):
