@@ -252,6 +252,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import functools
 import gc
 import gzip
 import hashlib
@@ -293,13 +294,17 @@ from specforge_tpu_torch.data.parse import (
 )
 from specforge_tpu_torch.data.vlm import mrope_position_ids, spans_from_token_ids
 from specforge_tpu_torch.eval.evaluator import Evaluator
+from specforge_tpu_torch.export import exporter
 from specforge_tpu_torch.export.exporter import (
     REQUIRED_SGLANG_KEYS,
     export_to_hf,
     serving_state,
 )
 from specforge_tpu_torch.models.model_loading import draft_state_from_export
-from specforge_tpu_torch.models.draft.dflash import DFlashConfig
+from specforge_tpu_torch.models.draft.dflash import (
+    DFlashConfig,
+    build_target_layer_ids,
+)
 from specforge_tpu_torch.models.draft.llama_eagle3 import (
     Eagle3Config,
     LlamaEagle3Draft,
@@ -307,7 +312,9 @@ from specforge_tpu_torch.models.draft.llama_eagle3 import (
 from specforge_tpu_torch.models.draft.peagle import PEagleConfig, cod_capacities
 from specforge_tpu_torch.inference import spec_decode
 from specforge_tpu_torch.inference.serving_loaders import (
+    DFLASH_DRAFTS,
     build_decoder,
+    load_exported_draft,
     load_spec_models,
 )
 from specforge_tpu_torch.models.target.head import TargetHead
@@ -1168,17 +1175,20 @@ def dflash_reached_keys(anchors, keep, s, window) -> torch.Tensor:
 
 def dflash_bounds(inputs, window, bs) -> dict:
     """The least times of the three kernels for these anchors: each input
-    read once and each output written once over the card's memory rate;
-    the tensor-core products over the allowed (row, key) pairs at the bf16
-    peak (2·D operations per pair and product)."""
+    read once (of the context keys and values, those some kept row
+    reaches: ``dflash_reached_keys``) and each output written once over the
+    card's memory rate; the tensor-core products over the allowed (row,
+    key) pairs at the bf16 peak (2·D operations per pair and product)."""
     q, k_ctx, _, _, _, anchors, keep = inputs
     b, h, q_len, d = q.shape
     kvh, s = k_ctx.shape[1], k_ctx.shape[2]
     ctx, drf = dflash_spans(anchors, keep, s, window, bs)
     p_ctx, p_drf = int(ctx.sum()) * h, int(drf.sum()) * h
+    reached = int(dflash_reached_keys(anchors, keep, s, window).sum())
     product = 2 * d
     q_bytes = b * h * q_len * d * 2          # q, out, dO or dq
-    ctx_bytes = b * kvh * s * d * 2          # one context key or value tensor
+    ctx_bytes = kvh * reached * d * 2        # one context key or value read
+    ctx_out_bytes = b * kvh * s * d * 2      # one of the context's dk, dv
     drf_bytes = b * kvh * q_len * d * 2      # one draft key or value tensor
     stat_bytes = b * h * q_len * 4           # one of m, l, delta
     idx_bytes = 2 * anchors.numel() * 4
@@ -1198,7 +1208,8 @@ def dflash_bounds(inputs, window, bs) -> dict:
             + idx_bytes, product * (3 * (p_ctx + p_drf) + 2 * p_drf)),
         # s, dp, dk, dv over the context pairs
         "dflash_attention_bwd_dkv": bound(
-            2 * q_bytes + 4 * ctx_bytes + 3 * stat_bytes + idx_bytes,
+            2 * q_bytes + 2 * ctx_bytes + 2 * ctx_out_bytes + 3 * stat_bytes
+            + idx_bytes,
             4 * product * p_ctx),
     }
 
@@ -2925,19 +2936,21 @@ def first_difference(got, want) -> Optional[int]:
 
 class ServedProcess:
     """``python -m specforge_tpu_torch.inference.serving_server_main`` on a
-    target and an export (bf16, the card unless ``device`` is the CPU),
-    started at once: ``ask`` waits for its READY line, then reads
-    ``/health`` and posts each request; ``stop`` ends the process either
-    way."""
+    target and an export (bf16, the card unless ``device`` is the CPU;
+    ``family`` "dflash" for a block draft, which takes no ``k``), started
+    at once: ``ask`` waits for its READY line, then reads ``/health`` and
+    posts each request; ``stop`` ends the process either way."""
 
-    def __init__(self, target: Path, export: Path, device, k: int,
-                 max_len: int):
+    def __init__(self, target: Path, export: Path, device,
+                 k: Optional[int], max_len: int, family: str = "eagle3"):
         self.port = free_port()
         cmd = [sys.executable, "-m",
                "specforge_tpu_torch.inference.serving_server_main",
-               "--target", str(target), "--export", str(export),
-               "--draft-tokens", str(k), "--max-len", str(max_len),
+               "--family", family, "--target", str(target), "--export",
+               str(export), "--max-len", str(max_len),
                "--port", str(self.port)]
+        if k is not None:
+            cmd += ["--draft-tokens", str(k)]
         if device.type != "cuda":
             cmd += ["--device", str(device)]
         self.command = " ".join(cmd[2:])
@@ -2997,16 +3010,7 @@ def serving_phase(captured: dict, export: Path, workdir: Path, seed: int,
     target's bf16 weights read once; the fp32 ones are their exact
     upcast):
 
-    1. fp32, no TF32: ``greedy_target_decode``, ``fused_plain_decode``,
-       ``generate`` and ``generate_fused`` emit the same tokens on every
-       prompt (the first ``new_tokens``; a round may run past them), and
-       the two chain paths the same accept lengths;
-    2. bf16 (the serving dtype): the prefill, ``generate_fused`` against
-       ``fused_plain_decode`` (rounds/s, tokens/s, accept lengths), the
-       graph replays against the rounds and token steps, peak memory, the
-       agreement with greedy decoding (``departures``: every token at most
-       ``SERVING_TIE_ULPS`` below greedy's top-1 along the decoder's own
-       output) and one round's device ops under torch.profiler;
+    1. and 2. ``serving_checks`` in full, every prompt in fp32 too;
     3. ``serving_server_main`` as a process on the same files (started
        first, so it loads while 1 runs): ``/health`` and one chain and one
        ``plain`` ``/generate`` equal to this process's decoder."""
@@ -3018,9 +3022,21 @@ def serving_phase(captured: dict, export: Path, workdir: Path, seed: int,
                "max_len": max_len, "capture_layers": list(layers)}
     server = ServedProcess(captured["target"], export, device, k, max_len)
     try:
-        checks, decoder = serving_checks(captured, export, prompts, device,
-                                         new_tokens, k, max_len,
-                                         server.wait_ready)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params, config, draft = load_spec_models(
+            str(captured["target"]), str(export), device=device)
+        n = config.num_hidden_layers
+        if layers != (1, n // 2 - 1, n - 4):
+            raise AssertionError(f"capture layers {list(layers)} are not the "
+                                 "serving loaders' default rule")
+        results["load_s"] = time.perf_counter() - t0
+        checks, decoder = serving_checks(
+            (params, config), draft, prompts, device, new_tokens, max_len,
+            fp32_prompts=[(p, new_tokens) for p in prompts], k=k,
+            before_timing=server.wait_ready)
+        del draft
         results.update(checks)
         # 3. the server process against this process's decoder
         params, config = decoder.target_params, decoder.target_config
@@ -3055,107 +3071,134 @@ def serving_phase(captured: dict, export: Path, workdir: Path, seed: int,
     return results
 
 
-def serving_checks(captured: dict, export: Path, prompts: list, device,
-                   new_tokens: int, k: int, max_len: int,
-                   before_timing) -> tuple:
-    """Parts 1 and 2 of ``serving_phase`` → (results, the bf16 decoder);
-    ``before_timing()`` runs before the first timed call (the server
-    process has loaded by then)."""
+def serving_checks(target: tuple, draft, prompts: list, device,
+                   new_tokens: int, max_len: int, *, fp32_prompts: list,
+                   full: bool = True, k: Optional[int] = None,
+                   before_timing=lambda: None) -> tuple:
+    """The decoder over ``target`` (bf16 params, config) and ``draft``: the
+    EAGLE3 chain decoder with ``k`` draft tokens a round, else (``k`` None)
+    the DFlash-family block decoder → (results, the bf16 decoder).
+
+    1. fp32, no TF32, on ``fp32_prompts`` ((prompt, new tokens) pairs):
+       ``greedy_target_decode``, ``fused_plain_decode`` (``full``),
+       ``generate`` and ``generate_fused`` emit the same tokens (the first
+       new tokens; a round may run past them), and the two speculative paths
+       the same accept lengths;
+    2. bf16 (the serving dtype) on every prompt (``full``, else the first):
+       the prefill, ``generate_fused`` beside ``fused_plain_decode``
+       (``full``; rounds/s, tokens/s, accept lengths), the graph replays
+       against the rounds and plain token steps, the agreement with greedy
+       decoding (``departures``: every token at most ``SERVING_TIE_ULPS``
+       below greedy's top-1 along the decoder's own output), peak memory
+       (since the caller's reset) and (``full``) one round's device ops
+       under torch.profiler. A block
+       decoder also gives the DFlash forward's launches (the warm-up runs
+       and the capture counted by its wrapper, then one a draft layer each
+       replay) and its fp32 head copy's cost.
+
+    ``before_timing()`` runs before the first timed call."""
     on_card = device.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
+    block = k is None
+    params, config = target
+    build = {} if block else {"num_draft_tokens": k}
     results = {}
-    if on_card:
-        torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params, config, draft = load_spec_models(
-        str(captured["target"]), str(export), device=device)
-    n = config.num_hidden_layers
-    if tuple(captured["capture_layers"]) != (1, n // 2 - 1, n - 4):
-        raise AssertionError(f"capture layers {captured['capture_layers']} "
-                             "are not the serving loaders' default rule")
-    results["load_s"] = time.perf_counter() - t0
 
     # 1. fp32: every decoder emits greedy decoding's tokens
     t0 = time.perf_counter()
     with fp32_matmuls():
         params32 = {name: v.float() if v.is_floating_point() else v
                     for name, v in params.items()}
-        decoder = build_decoder((params32, config, draft), num_draft_tokens=k,
-                                max_len=max_len, device=device)
-        fp32 = []
-        for prompt in prompts:
+        decoder = build_decoder((params32, config, draft), max_len=max_len,
+                                device=device, **build)
+        rows = []
+        for prompt, n_new in fp32_prompts:
             want = spec_decode.greedy_target_decode(
-                params32, config, prompt, new_tokens, max_len=max_len)
-            plain = spec_decode.fused_plain_decode(
-                params32, config, prompt, new_tokens, max_len=max_len,
-                loop_cache=decoder.plain_loops)
-            host = decoder.generate(prompt, new_tokens)
-            fused = decoder.generate_fused(prompt, new_tokens)
-            for name, got in (("fused_plain_decode", plain),
-                              ("generate", host.output_ids),
-                              ("generate_fused", fused.output_ids)):
-                at = first_difference(got, want)
-                if at is not None or len(got) < len(want):
+                params32, config, prompt, n_new, max_len=max_len)
+            host = decoder.generate(prompt, n_new)
+            fused = decoder.generate_fused(prompt, n_new)
+            got = [("generate", host.output_ids),
+                   ("generate_fused", fused.output_ids)]
+            if full:
+                got.append(("fused_plain_decode", spec_decode.fused_plain_decode(
+                    params32, config, prompt, n_new, max_len=max_len,
+                    loop_cache=decoder.plain_loops)))
+            for name, ids in got:
+                at = first_difference(ids, want)
+                if at is not None or len(ids) < len(want):
                     raise AssertionError(
-                        f"fp32 {name} leaves greedy decoding at token "
-                        f"{at} of a {len(prompt)}-token prompt")
+                        f"fp32 {name} leaves greedy decoding at token {at} "
+                        f"of a {len(prompt)}-token prompt")
             if (fused.accept_lengths != host.accept_lengths
                     or not np.array_equal(fused.output_ids, host.output_ids)):
                 raise AssertionError("fp32 generate_fused differs from the "
                                      "host loop generate")
-            fp32.append({"rounds": host.steps,
+            rows.append({"prompt_length": len(prompt), "new_tokens": n_new,
+                         "rounds": host.steps,
                          "mean_accept_length": host.mean_accept_length})
         del decoder, params32
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
-    results["fp32"] = {"decoders_equal": True, "prompts": fp32,
+    results["fp32"] = {"decoders_equal": True, "prompts": rows,
                        "seconds": time.perf_counter() - t0}
 
-    # 2. bf16: times, replays, memory, agreement, a round's device ops
-    decoder = build_decoder((params, config, draft), num_draft_tokens=k,
-                            max_len=max_len, device=device)
+    # 2. bf16: times, replays, agreement, memory, a round's device ops
+    fwd = dflash_attention_cuda.dflash_flash_attention_fwd
+    fwd.launches = 0
+    decoder = build_decoder((params, config, draft), max_len=max_len,
+                            device=device, **build)
     before_timing()
     # first calls: each builds its program (on the card a CUDA graph)
     sync()
     t0 = time.perf_counter()
     decoder.generate_fused(prompts[0][:64], 8)
-    spec_decode.fused_plain_decode(params, config, prompts[0][:64], 8,
-                                   max_len=max_len,
-                                   loop_cache=decoder.plain_loops)
+    if full:
+        spec_decode.fused_plain_decode(params, config, prompts[0][:64], 8,
+                                       max_len=max_len,
+                                       loop_cache=decoder.plain_loops)
     sync()
     results["first_calls_s"] = time.perf_counter() - t0
-    program, state = decoder._fused.chain(max_len)
+    if block:
+        program, state = decoder._fused.block(max_len)
+        buffers = (state.t_ck, state.t_cv, state.ctx)
+    else:
+        program, state = decoder._fused.chain(max_len)
+        buffers = (state.t_ck, state.t_cv, state.d_ck, state.d_cv)
+    first_replays = decoder._fused.replays
     decoder._fused.replays = spec_decode.fused_plain_decode.replays = 0
     rows, rounds, plain_steps = [], 0, 0
-    for prompt in prompts:
+    for prompt in prompts if full else prompts[:1]:
         sync()
         t0 = time.perf_counter()
-        decoder._prefill_device(np.asarray([prompt]), state.t_ck,
-                                state.t_cv, state.d_ck, state.d_cv)
+        decoder._prefill_device(np.asarray([prompt]), *buffers)
         sync()
         prefill = time.perf_counter() - t0
         t0 = time.perf_counter()
         spec = decoder.generate_fused(prompt, new_tokens)
         sync()
         spec_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        plain = spec_decode.fused_plain_decode(
-            params, config, prompt, new_tokens, max_len=max_len,
-            loop_cache=decoder.plain_loops)
-        sync()
-        plain_s = time.perf_counter() - t0
         spec_new = len(spec.output_ids) - len(prompt)
         row = {"prompt_length": len(prompt), "prefill_ms": prefill * 1e3,
                "rounds": spec.steps,
                "mean_accept_length": spec.mean_accept_length,
-               "spec_new_tokens": spec_new,
-               "spec_ms": spec_s * 1e3, "plain_ms": plain_s * 1e3,
+               "spec_new_tokens": spec_new, "spec_ms": spec_s * 1e3,
                "rounds_per_s": spec.steps / (spec_s - prefill),
-               "spec_tokens_per_s": spec_new / (spec_s - prefill),
-               "plain_tokens_per_s": (len(plain) - len(prompt))
-               / (plain_s - prefill)}
-        for name, got in (("spec", spec.output_ids), ("plain", plain)):
+               "spec_tokens_per_s": spec_new / (spec_s - prefill)}
+        outputs = [("spec", spec.output_ids)]
+        if full:
+            t0 = time.perf_counter()
+            plain = spec_decode.fused_plain_decode(
+                params, config, prompt, new_tokens, max_len=max_len,
+                loop_cache=decoder.plain_loops)
+            sync()
+            plain_s = time.perf_counter() - t0
+            row.update(plain_ms=plain_s * 1e3,
+                       plain_tokens_per_s=(len(plain) - len(prompt))
+                       / (plain_s - prefill))
+            outputs.append(("plain", plain))
+            plain_steps += len(plain) - len(prompt) - 1
+        for name, got in outputs:
             at, excess = departures(params, config, prompt, got, new_tokens,
                                     max_len)
             row[f"{name}_agreement"] = (
@@ -3171,18 +3214,15 @@ def serving_checks(captured: dict, export: Path, prompts: list, device,
                     f"{SERVING_TIE_ULPS}: not a near-tie)")
         rows.append(row)
         rounds += spec.steps
-        plain_steps += len(plain) - len(prompt) - 1
-    if on_card and (decoder._fused.replays != rounds
-                    or spec_decode.fused_plain_decode.replays != plain_steps):
+    replays = decoder._fused.replays
+    if on_card and (replays != rounds or (
+            full and spec_decode.fused_plain_decode.replays != plain_steps)):
         raise AssertionError(
-            f"graph replays {decoder._fused.replays} for {rounds} rounds, "
+            f"graph replays {replays} for {rounds} rounds, "
             f"{spec_decode.fused_plain_decode.replays} for {plain_steps} "
             "plain token steps")
-    results["bf16"] = {
-        "prompts": rows,
-        "chain_graph_replays": decoder._fused.replays, "rounds": rounds,
-        "plain_graph_replays": spec_decode.fused_plain_decode.replays,
-        "plain_token_steps": plain_steps,
+    bf16 = {
+        "prompts": rows, "rounds": rounds, "graph_replays": replays,
         "graphs": on_card,
         "mean_accept_length": float(np.mean(
             [r["mean_accept_length"] for r in rows])),
@@ -3190,16 +3230,53 @@ def serving_checks(captured: dict, export: Path, prompts: list, device,
         "rounds_per_s": statistics.median(r["rounds_per_s"] for r in rows),
         "spec_tokens_per_s": statistics.median(
             r["spec_tokens_per_s"] for r in rows),
-        "plain_tokens_per_s": statistics.median(
-            r["plain_tokens_per_s"] for r in rows),
         "spec_agreement": float(np.mean([r["spec_agreement"]
                                          for r in rows])),
         "tie_ulps": SERVING_TIE_ULPS}
+    if full:
+        bf16.update(
+            plain_graph_replays=spec_decode.fused_plain_decode.replays,
+            plain_token_steps=plain_steps,
+            plain_tokens_per_s=statistics.median(
+                r["plain_tokens_per_s"] for r in rows))
+    if block:
+        # the wrapper counts the warm-up runs and the capture; each replay
+        # launches the forward once a draft layer
+        layers = draft.config.num_hidden_layers
+        eager = fwd.launches
+        if on_card and eager != (spec_decode.WARMUP_RUNS + 1) * layers:
+            raise AssertionError(
+                f"{eager} counted DFlash forward launches while the block "
+                "program was built, expected "
+                f"{(spec_decode.WARMUP_RUNS + 1) * layers}")
+        launches = eager + layers * (first_replays + replays)
+        if on_card and not launches:
+            raise AssertionError("the block decoder launched no DFlash "
+                                 "forward")
+        bf16.update(draft_layers=layers, dflash_fwd_launches={
+            "counted_eager": eager,
+            "replayed": layers * (first_replays + replays),
+            "total": launches})
     if on_card:
-        results["bf16"]["peak_bytes"] = torch.cuda.max_memory_allocated()
-        # one more round (the last request's state) under the profiler
-        results["bf16"]["one_round_profile"] = profile_device(
-            lambda: (program(), sync()), top=12)
+        bf16["peak_bytes"] = torch.cuda.max_memory_allocated()
+        if block:
+            head = decoder._lm_head
+            hidden = torch.randn(1, decoder.block_size, head.shape[1],
+                                 device=device).to(torch.bfloat16)
+            bf16["lm_head_fp32_copy"] = {
+                "choice": "one fp32 copy of the target's head, made at "
+                          "construction: JAX's fp32 product every round, "
+                          "no upcast a round",
+                "bytes": head.numel() * head.element_size(),
+                "product_ms": median_ms(lambda: F.linear(hidden.float(),
+                                                         head)),
+                "bf16_product_ms": median_ms(lambda: F.linear(
+                    hidden, params["lm_head.weight"]))}
+        if full:
+            # one more round (the last request's state) under the profiler
+            bf16["one_round_profile"] = profile_device(
+                lambda: (program(), sync()), top=12)
+    results["bf16"] = bf16
     return results, decoder
 
 
@@ -3226,6 +3303,432 @@ def emit_serving(results: dict, depth: int) -> None:
                          f"{SERVING_NEW_TOKENS} new tokens each"},
           "tolerances": {"fp32": "tokens equal", "bf16_tie_ulps":
                          SERVING_TIE_ULPS},
+          **results})
+
+
+# --------------------------------------------------------------------------
+# DFlash-family block serving on dflash-layout features
+# --------------------------------------------------------------------------
+
+#: DFlash and DSpark: one prompt in bf16, and an fp32 host loop against the
+#: fused rounds on the first prompt cut to this many tokens
+BLOCK_SHORT_PROMPT, BLOCK_SHORT_NEW = 128, 24
+#: Domino's fp32 check: the first prompt (all 4 took 27 s on one H100)
+BLOCK_FP32_PROMPTS = 1
+#: the family phases that train on the block phase's dflash-layout capture
+#: and its target (in this order; DSpark at blocks of 7 needs a Qwen3-4B
+#: width and keeps its own run)
+BLOCK_FAMILIES = ("domino", "dspark", "dflash")
+#: the DFlash forward at the serving shape: one anchor over the budget
+#: (B 1, H 32 / KVH 8, D 128, S = SERVING_MAX_LEN), blocks of 16 and of 7;
+#: None stands for S - bs - 1, the last anchor a round can have
+BLOCK_KERNEL_ANCHORS = (1, 63, 64, 65, 1024, None)
+BLOCK_KERNEL_BLOCKS = (16, 7)
+BLOCK_KERNEL_HEADS = (32, 8, 128)
+
+
+def depth_draft_config(cfg_path: Path, depth: int, out: Path) -> Path:
+    """``cfg_path`` with its capture layers by the evenly spaced rule at a
+    target of ``depth`` layers (``build_target_layer_ids``: the config's own
+    ids at 36, repeated ids at 6), written to ``out``."""
+    raw = json.loads(Path(cfg_path).read_text())
+    n = len(DFlashConfig.from_dict(raw).resolved_target_layer_ids)
+    raw["num_target_layers"] = depth
+    raw.setdefault("dflash_config", {})["target_layer_ids"] = (
+        build_target_layer_ids(depth, n))
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(raw, indent=2))
+    return out
+
+
+def dflash_capture(captured: dict, workdir: Path, cfg_path: Path, device,
+                   max_length: int, batch: int) -> dict:
+    """The capture phase's train conversations (read back from its eagle
+    files, in their order, so the batches are the same) captured again in
+    the dflash layout through ``prepare.capture`` at ``cfg_path``'s layers,
+    into ``workdir / "dflash"``; every column of a layer both layouts
+    capture, and the last hidden state, bit-identical between them."""
+    on_card = device.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    eagle = sorted((workdir / "train").glob("*.sft"))
+    samples = []
+    for path in eagle:
+        tensors, _ = load_feature_file(str(path))
+        samples.append({"input_ids": tensors["input_ids"].numpy(),
+                        "loss_mask": tensors["loss_mask"].numpy()})
+    sync()
+    t0 = time.perf_counter()
+    out = prepare.capture(
+        samples, target_model=str(captured["target"]),
+        output_dir=str(workdir / "dflash"), algorithm="domino",
+        draft_config=str(cfg_path), max_length=max_length, batch_size=batch,
+        device=None if on_card else device)
+    sync()
+    capture_s = time.perf_counter() - t0
+    layers = tuple(out.capture_layers)
+    del out
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    e_layers = tuple(captured["capture_layers"])
+    shared = sorted(set(layers) & set(e_layers))
+    columns = 0
+    for path in eagle:
+        e_t, _ = load_feature_file(str(path))
+        d_t, _ = load_feature_file(str(workdir / "dflash" / path.name))
+        h = e_t["target"].shape[-1]
+
+        def block(x, j):
+            return x[:, j * h:(j + 1) * h]
+
+        for layer in shared:
+            ref = block(e_t["hidden_state"], e_layers.index(layer))
+            got = [block(e_t["hidden_state"], j)
+                   for j, l in enumerate(e_layers) if l == layer]
+            got += [block(d_t["hidden_states"], j)
+                    for j, l in enumerate(layers) if l == layer]
+            if not all(torch.equal(g, ref) for g in got):
+                raise AssertionError(f"{path.name}: layer {layer}'s columns "
+                                     "differ between the eagle and dflash "
+                                     "layouts")
+            columns += len(got)
+        if not torch.equal(e_t["target"], d_t["target_last_hidden_states"]):
+            raise AssertionError(f"{path.name}: the last hidden state "
+                                 "differs between the layouts")
+    real = sum(len(s["input_ids"]) for s in samples)
+    return {"capture_layers": list(layers), "files": len(samples),
+            "real_tokens": real, "capture_s": capture_s,
+            "capture_tokens_per_s": real / capture_s,
+            "eagle_capture_layers": list(e_layers), "shared_layers": shared,
+            "columns_compared": columns, "bit_identical": True}
+
+
+def random_block_export(kind: str, cfg_path: Path, device, seed: int,
+                        root: Path) -> Path:
+    """A ``kind`` draft of ``cfg_path`` with random weights from the seed,
+    exported to the SGLang layout by the exporter's DFlash-family writer
+    (its state handed over in memory, as a loaded checkpoint's) → the
+    export's directory."""
+    cfg = DFlashConfig.from_dict(json.loads(Path(cfg_path).read_text()))
+    draft = DFLASH_DRAFTS[kind](cfg, dtype=torch.bfloat16, device=device,
+                                seed=seed + 21)
+    state = {"params": {f"draft_model.{name}": p.detach()
+                        for name, p in draft.named_parameters()}}
+    out = exporter._export_dflash_to_sglang(state, kind, str(root / kind),
+                                            draft_config_path=str(cfg_path),
+                                            device=device)
+    return Path(out)
+
+
+def dflash_kernel_at_serving(gen, s: int = SERVING_MAX_LEN) -> list:
+    """The DFlash forward at the block decoder's shape against its plain
+    version: one anchor (B 1, N 1) over a context of ``s`` keys, blocks of
+    16 and 7 (the pitched copies), at ``BLOCK_KERNEL_ANCHORS``; each case
+    timed beside its bound, the library's SDPA over the dense mask, and the
+    CTAs it launches against the card's SMs."""
+    fwd = dflash_attention_cuda.dflash_flash_attention_fwd
+    h, kvh, d = BLOCK_KERNEL_HEADS
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cases = []
+    for bs in BLOCK_KERNEL_BLOCKS:
+        for anchor in BLOCK_KERNEL_ANCHORS:
+            a = s - bs - 1 if anchor is None else anchor
+
+            def rnd(*shape):
+                return torch.randn(*shape, generator=gen, device="cuda",
+                                   dtype=torch.bfloat16)
+
+            qkv = rnd(1, bs, (h + 2 * kvh) * d)
+            q = qkv[..., :h * d].view(1, bs, h, d).transpose(1, 2)
+            k_drf = qkv[..., h * d:(h + kvh) * d].view(
+                1, bs, kvh, d).transpose(1, 2)
+            v_drf = qkv[..., (h + kvh) * d:].view(1, bs, kvh, d).transpose(
+                1, 2)
+            anchors = torch.tensor([[a]], device="cuda")
+            keep = torch.ones(1, 1, dtype=torch.bool, device="cuda")
+            inputs = (q, rnd(1, kvh, s, d), rnd(1, kvh, s, d), k_drf, v_drf,
+                      anchors, keep)
+            out, m, l = fwd(*inputs, bs)
+            ref, ref_m, ref_l = (
+                dflash_attention_cuda.dflash_flash_attention_plain(*inputs,
+                                                                   bs))
+            name = f"bs{bs}_anchor{a}"
+            err = rel_max_err(out, ref)
+            check(f"dflash_attention_fwd at the serving shape, {name} "
+                  "(max|err| / max|ref|)", err, ATTN_TOL)
+            err_m = max_err(m, ref_m) / (1.0 + float(ref_m.abs().max()))
+            err_l = float(((l - ref_l).abs() / ref_l.clamp(min=1e-30)).max())
+            check(f"dflash m at the serving shape, {name}", err_m, STAT_RTOL)
+            check(f"dflash l at the serving shape, {name}", err_l, STAT_RTOL)
+            check_repeat(f"dflash_attention_fwd at the serving shape, {name}",
+                         lambda: fwd(*inputs, bs))
+            bound = dflash_bounds(inputs, None, bs)["dflash_attention_fwd"]
+            mask = dflash_dense_mask(anchors, keep, s, bs, None)
+            k_cat = torch.cat([inputs[1], k_drf], dim=2)
+            v_cat = torch.cat([inputs[2], v_drf], dim=2)
+            pitch = dflash_attention_cuda.block_pitch(bs)
+            ctas = (-(-pitch // 64) * kvh
+                    * -(-(h // kvh) // 4))
+            cases.append({
+                "case": name, "block_size": bs, "anchor": a, "s": s,
+                "max_rel_err": err, "m_err": err_m, "l_err": err_l,
+                "ms": median_ms(lambda: fwd(*inputs, bs)),
+                "plain_ms": median_ms(
+                    lambda: dflash_attention_cuda.dflash_flash_attention_plain(
+                        *inputs, bs), runs=5),
+                "library_ms": median_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k_cat, v_cat, attn_mask=mask, enable_gqa=True)),
+                "bound_ms": max(bound.values()),
+                "bound_by": ("bytes" if bound["bytes_ms"] >= bound["ops_ms"]
+                             else "operations"),
+                "ctas": ctas, "sms": sms})
+    return cases
+
+
+def dflash_serving_phase(captured: dict, workdir: Path, seed: int, device,
+                         depth: int, *, configs=None,
+                         n_prompts=SERVING_PROMPTS,
+                         prompt_len=SERVING_PROMPT_LEN,
+                         new_tokens=SERVING_NEW_TOKENS,
+                         max_len=SERVING_MAX_LEN,
+                         max_length=MAX_LEN, batch=CAPTURE_BATCH,
+                         family_length=768,
+                         server_prompt=SERVING_SERVER_PROMPT,
+                         server_new=SERVING_SERVER_NEW,
+                         family_overrides=(), on_training=None) -> tuple:
+    """Block serving on the capture phase's target (``configs``: the drafts'
+    config files by family, by default the repo's Qwen3-8B Domino, DSpark
+    and DFlash configs):
+
+    1. ``dflash_capture``: the capture's train conversations in the dflash
+       layout at the Domino config's capture layers at this depth (the three
+       configs share them);
+    2. the Domino, DSpark and DFlash family phases (``run_family_training``)
+       with those features and that target, Domino's and DSpark's final
+       checkpoints exported by ``cli export --to sglang``;
+       ``on_training(kind, results, counts)`` is called right after each
+       (the script emits its ``<kind>_training`` line there);
+    3. the target read once (bf16) for the three block decoders; the Domino
+       export served in full (``serving_checks``), and
+       ``serving_server_main --family dflash`` as a process on the same files
+       (started first, so it loads while the fp32 checks run): ``/health``
+       with the block size, one block and one ``plain`` ``/generate`` equal
+       to this process's decoder;
+    4. the DSpark export and a DFlash draft with random weights from the
+       seed (the DFlash phase writes no checkpoint), exported, served the
+       short way;
+    5. on the card, the DFlash forward at the serving shape
+       (``dflash_kernel_at_serving``)
+    → (results, the family phases' results and launch counts by kind)."""
+    on_card = device.type == "cuda"
+    configs = configs or BLOCK_CONFIG_FILES
+    drafts = {kind: depth_draft_config(path, depth,
+                                       workdir / "drafts" / f"{kind}.json")
+              for kind, path in configs.items()}
+    layers = {kind: json.loads(path.read_text())["dflash_config"][
+        "target_layer_ids"] for kind, path in drafts.items()}
+    if len({tuple(v) for v in layers.values()}) != 1:
+        raise AssertionError(f"the drafts read other capture layers: {layers}")
+    results = {"draft_configs": {k: str(Path(p).relative_to(REPO))
+                                 if Path(p).is_relative_to(REPO) else str(p)
+                                 for k, p in configs.items()},
+               "new_tokens": new_tokens, "max_len": max_len}
+    results["capture"] = dflash_capture(captured, workdir, drafts["domino"],
+                                        device, max_length, batch)
+    if on_card:
+        torch.cuda.empty_cache()
+    exports = workdir / "exports"
+    families = {}
+    for kind in BLOCK_FAMILIES:
+        trained, counts = run_family_training(
+            kind, drafts[kind], device, seed, workdir / kind,
+            max_length=family_length, overrides=family_overrides,
+            features=workdir / "dflash", target=captured["target"],
+            export_to=exports / kind if kind in FAMILY_CLI else None)
+        families[kind] = (trained, counts)
+        if on_training is not None:
+            on_training(kind, trained, counts)
+        if on_card:
+            torch.cuda.empty_cache()
+    prompts = serving_prompts(workdir / "eval", n_prompts, seed, *prompt_len)
+    results["prompt_lengths"] = [len(p) for p in prompts]
+
+    def serve(export: Path, **how) -> tuple:
+        """``serving_checks`` on the export, loaded by the serving loader."""
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        draft = load_exported_draft(str(export), device=device)
+        loaded = {"draft": type(draft).__name__,
+                  "draft_load_s": time.perf_counter() - t0}
+        checks, decoder = serving_checks(target, draft, prompts, device,
+                                         new_tokens, max_len, **how)
+        return {**loaded, **checks}, decoder
+
+    server = ServedProcess(captured["target"], exports / "domino", device,
+                           None, max_len, family="dflash")
+    served_launches = {}
+    try:
+        t0 = time.perf_counter()
+        config = TargetConfig.from_file(str(captured["target"]))
+        target = (load_target_params(str(captured["target"]), config,
+                                     dtype=torch.bfloat16, device=device),
+                  config)
+        results["target_load_s"] = time.perf_counter() - t0
+
+        checks, decoder = serve(
+            exports / "domino", before_timing=server.wait_ready,
+            fp32_prompts=[(p, new_tokens)
+                          for p in prompts[:BLOCK_FP32_PROMPTS]])
+        results["domino"] = checks
+        served_launches["domino"] = checks["bf16"]["dflash_fwd_launches"]
+        server_ids = prompts[0][:server_prompt]
+        want_block = decoder.generate_fused(server_ids, server_new)
+        want_plain = spec_decode.fused_plain_decode(
+            decoder.target_params, decoder.target_config, server_ids,
+            server_new, max_len=max_len, loop_cache=decoder.plain_loops)
+        block_size = decoder.block_size
+        del decoder
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        body = {"input_ids": server_ids, "max_new_tokens": server_new}
+        served = server.ask([body, {**body, "plain": True}])
+    finally:
+        served_rc = server.stop()
+    block, plain = served.pop("answers")
+    if (block["output_ids"] != want_block.output_ids.tolist()
+            or block["accept_lengths"] != want_block.accept_lengths
+            or plain["output_ids"] != want_plain.tolist()):
+        raise AssertionError("the server's /generate differs from this "
+                             "process's block decoder")
+    health = served["health"]
+    if (health["status"] != "ok" or health.get("block_size") != block_size
+            or health["family"] != "DFlashSpecDecoder"
+            or health["counters"]["requests"] != 0):
+        raise AssertionError(f"the server's /health: {health}")
+    served.update(exit_code=served_rc, outputs_equal=True,
+                  block_wall_ms=block["wall_ms"],
+                  plain_wall_ms=plain["wall_ms"],
+                  block_mean_accept_length=block["mean_accept_length"])
+    results["server"] = served
+    t0 = time.perf_counter()
+    random = random_block_export("dflash", drafts["dflash"], device, seed,
+                                 exports / "random")
+    results["dflash_random_export_s"] = time.perf_counter() - t0
+    for kind, export in (("dspark", exports / "dspark"), ("dflash", random)):
+        checks, decoder = serve(export, full=False, fp32_prompts=[
+            (prompts[0][:BLOCK_SHORT_PROMPT], BLOCK_SHORT_NEW)])
+        del decoder
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        results[kind] = checks
+        served_launches[kind] = checks["bf16"]["dflash_fwd_launches"]
+    del target
+    shutil.rmtree(exports)
+    results["serving_launches"] = served_launches
+    if on_card:
+        gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+        results["kernel_at_serving_shape"] = dflash_kernel_at_serving(gen)
+    return results, families
+
+
+def emit_family(kind: str, cfg_path: Path, results: dict, counts: dict,
+                **extra) -> None:
+    draft = json.loads(Path(cfg_path).read_text())
+    emit({"phase": f"{kind}_training",
+          "config": str(DOMINO_EXAMPLE.relative_to(REPO)),
+          "draft_config": str(cfg_path.relative_to(REPO))
+          if cfg_path.is_relative_to(REPO) else str(cfg_path),
+          "block_size": draft["block_size"],
+          "block_pitch": dflash_attention_cuda.block_pitch(
+              draft["block_size"]),
+          "batch": BATCH, "max_length": 768,
+          "accumulation_steps": ACCUM, "launches": counts,
+          "tolerances": {"step1_loss_rtol": TRAIN_STEP1_RTOL,
+                         "later_loss_rtol": TRAIN_DRIFT_RTOL,
+                         "grad_cosine": GRAD_COSINE,
+                         "grad_norm_rtol": GRAD_NORM_RTOL},
+          **extra, **results})
+
+
+def block_serving_only_phase(seed: int) -> None:
+    """``--block-serving-only``: the capture at ``CAPTURE_DEPTH`` layers,
+    then the block serving phase (with Domino's family phase) on it."""
+    device = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        _, captured = capture_phase(CONFIG, device, seed, Path(tmp),
+                                    depth=CAPTURE_DEPTH)
+        torch.cuda.empty_cache()
+        block, _ = dflash_serving_phase(
+            captured, Path(tmp), seed, device, CAPTURE_DEPTH,
+            on_training=functools.partial(emit_block_family, Path(tmp)))
+        emit_dflash_serving(block, CAPTURE_DEPTH)
+
+
+def emit_block_family(workdir: Path, kind: str, results: dict,
+                      counts: dict) -> None:
+    """The ``<kind>_training`` line of a family phase inside the block
+    serving phase (Domino's time includes the dflash-layout capture before
+    it)."""
+    emit_family(kind, workdir / "drafts" / f"{kind}.json", results, counts,
+                features="captured: the capture phase's train conversations "
+                         "in the dflash layout (phase dflash_serving), on "
+                         "its target",
+                source_config=str(BLOCK_CONFIG_FILES[kind].relative_to(
+                    REPO)))
+
+
+def emit_dflash_serving(results: dict, depth: int) -> None:
+    full = QWEN3_8B_TARGET["num_hidden_layers"]
+    capture = results["capture"]
+    emit({"phase": "dflash_serving",
+          "command": "python -m specforge_tpu_torch.inference."
+                     "serving_server_main --family dflash --target T "
+                     "--export E",
+          "target": "the capture phase's",
+          "drafts": {"domino": "trained on the capture's dflash-layout "
+                               "features (phase domino_training), its "
+                               "SGLang export",
+                     "dspark": "trained on the same features (phase "
+                               "dspark_training), its SGLang export",
+                     "dflash": "random weights from --seed, exported (its "
+                               "phase, dflash_training, writes no "
+                               "checkpoint)"},
+          "nvidia_smi": subprocess.run(
+              ["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"], capture_output=True,
+              text=True).stdout.strip(),
+          "reduced": {
+              "weights": f"random target, from --seed (std {TARGET_STD}); "
+                         "Domino and DSpark trained by their family phases "
+                         "(the domino_training and dspark_training lines) "
+                         f"on the capture's {capture['files']} train "
+                         "conversations cut to 768 tokens; DFlash random",
+              "depth": None if depth == full else
+              f"{depth} of {full} target layers (the capture phase's "
+              "target; --capture-only serves all 36)",
+              "capture_layers": None if depth == full else
+              f"{capture['capture_layers']} by the configs' evenly spaced "
+              f"rule at {depth} layers (repeated ids; "
+              "configs/qwen3-8b-domino.json reads [1, 9, 17, 25, 33] of 36)",
+              "prompts": f"{SERVING_PROMPTS} prompts of "
+                         f"{SERVING_PROMPT_LEN[0]}-{SERVING_PROMPT_LEN[1]} "
+                         "tokens cut from the eval conversations, "
+                         f"{SERVING_NEW_TOKENS} new tokens each (Domino in "
+                         f"fp32: the first {BLOCK_FP32_PROMPTS}; DFlash and "
+                         "DSpark: the first prompt in bf16, its first "
+                         f"{BLOCK_SHORT_PROMPT} tokens and "
+                         f"{BLOCK_SHORT_NEW} new ones in fp32)",
+              "block7": "blocks of 7 (configs/qwen3-4b-dspark.json) need a "
+                        "Qwen3-4B-width target: covered by the kernel at "
+                        "the serving shape and the CPU tests only"},
+          "tolerances": {"fp32": "tokens equal, accept lengths equal",
+                         "bf16_tie_ulps": SERVING_TIE_ULPS,
+                         "kernel": {"out": ATTN_TOL, "m_l": STAT_RTOL},
+                         "capture": "bit-identical"},
           **results})
 
 
@@ -3433,8 +3936,11 @@ def capture_and_train_phase(seed: int, depth: int,
     """Slice 16 on the card: ``capture_phase`` at Qwen3-8B width and
     ``depth`` layers, then the training phase on its features (with the
     exports), slice 19's serving phase on that target and the SGLang
-    export, then slice 18's online phase from the same target, a line
-    each → (training results, launch counts). ``keep``: the target and the
+    export, the block serving phase (its dflash-layout capture, the
+    Domino, DSpark and DFlash family phases on it, each with its line),
+    then the online phase from the same target, a line each →
+    (training results, launch counts, the family phases' results and
+    launch counts by kind, the block decoders' DFlash forward launches). ``keep``: the target and the
     capture's one-process reference (``dense_target``, ``dense_ref.pt``)
     are kept there for the capture-mesh phase."""
     device = torch.device("cuda")
@@ -3476,6 +3982,11 @@ def capture_and_train_phase(seed: int, depth: int,
                                 Path(tmp), seed, device)
         emit_serving(serving, depth)
         torch.cuda.empty_cache()
+        block, families = dflash_serving_phase(
+            captured, Path(tmp), seed, device, depth,
+            on_training=functools.partial(emit_block_family, Path(tmp)))
+        emit_dflash_serving(block, depth)
+        torch.cuda.empty_cache()
         online = online_phase(CONFIG, captured, Path(tmp) / "online", seed,
                               device)
         emit_online(online, depth)
@@ -3483,7 +3994,7 @@ def capture_and_train_phase(seed: int, depth: int,
             shutil.move(str(captured["target"]), str(keep / "dense_target"))
     training["online_launches"] = online["launches"]
     torch.cuda.empty_cache()
-    return training, counts
+    return training, counts, families, block["serving_launches"]
 
 
 def emit_online(results: dict, depth: int) -> None:
@@ -3943,6 +4454,9 @@ DOMINO_EXAMPLE = REPO / "examples" / "qwen3-8b-domino-offline.json"
 DFLASH_CONFIG = REPO / "configs" / "qwen3-8b-dflash.json"
 DSPARK_CONFIG = REPO / "configs" / "qwen3-8b-dspark.json"
 DSPARK7_CONFIG = REPO / "configs" / "qwen3-4b-dspark.json"
+#: the drafts the block serving phase trains (``BLOCK_FAMILIES``) and serves
+BLOCK_CONFIG_FILES = {"domino": DOMINO_CONFIG, "dspark": DSPARK_CONFIG,
+                      "dflash": DFLASH_CONFIG}
 #: the Domino and DSpark runs: 16 files of 512-768 tokens, 4 optimizer
 #: steps of 2 micro-batches; the DFlash step and the DSpark step at blocks
 #: of 7: 4 files, one optimizer step
@@ -3989,9 +4503,11 @@ def write_dflash_features(root: Path, n_capture: int, hidden: int,
 
 
 def family_run_json(kind: str, workdir: Path, draft_config: Path,
-                    target: Path, max_length: int) -> Path:
+                    target: Path, max_length: int,
+                    train_dir: Optional[Path] = None) -> Path:
     """``examples/qwen3-8b-domino-offline.json``, read as data, pointed at
-    this run's directories, with accumulation 2 (from 8) and a log line per
+    this run's directories (the features in ``train_dir``, else
+    ``workdir / "train"``), with accumulation 2 (from 8) and a log line per
     step; for ``dflash`` the same run with the dflash strategy and its
     default 512 anchors, for ``dspark`` and ``dspark_block7`` with the
     dspark strategy (the example's 256 anchors). The checkpoint is written
@@ -4001,7 +4517,7 @@ def family_run_json(kind: str, workdir: Path, draft_config: Path,
     raw["output_dir"] = str(workdir / "runs")
     raw["model"].update(target_model_path=str(target),
                         draft_config_path=str(draft_config))
-    raw["data"].update(train_data_path=str(workdir / "train"),
+    raw["data"].update(train_data_path=str(train_dir or workdir / "train"),
                        max_length=max_length, num_workers=2)
     raw["training"].update(accumulation_steps=ACCUM, log_interval=1)
     if kind == "dflash":
@@ -4044,10 +4560,18 @@ def compare_curves(kernel: list, plain: list) -> list:
 
 def run_family_training(kind: str, cfg_path: Path, device, seed: int,
                         workdir: Path, *, max_length=768, min_len=512,
-                        head_std=0.02, overrides=()) -> tuple:
+                        head_std=0.02, overrides=(),
+                        features: Optional[Path] = None,
+                        target: Optional[Path] = None,
+                        export_to: Optional[Path] = None) -> tuple:
     """Slice 3 end to end for ``kind`` ("domino", "dflash", "dspark" or
     "dspark_block7"); returns the results and the DFlash kernels' launch
     counts of its main path, set to 0 just before it and read just after.
+    ``features`` and ``target``: feature files and a target directory to
+    train on (the block serving phase passes its dflash-layout capture and
+    its target), else random features and a target holding only a head and
+    an embedding, written here; ``export_to``: the ``cli train`` run's
+    final checkpoint is exported there by ``cli export --to sglang``.
 
     domino, dspark: the main path is ``cli.main(["train", ...])`` (4 steps
     and the end-of-epoch checkpoint); then a fresh kernel-path trainer
@@ -4064,13 +4588,18 @@ def run_family_training(kind: str, cfg_path: Path, device, seed: int,
     on_card = device.type == "cuda"
     sync = torch.cuda.synchronize if on_card else (lambda: None)
     dspark = kind.startswith("dspark")
-    write_dflash_features(workdir / "train", len(cfg.resolved_target_layer_ids),
-                          cfg.hidden_size, cfg.vocab_size, seed,
-                          FAMILY_FILES[kind], min_len, max_length,
-                          last_hidden=dspark)
-    target = write_target_dir(workdir / "target", cfg.vocab_size,
-                              cfg.hidden_size, device, seed, head_std)
-    run_json = family_run_json(kind, workdir, cfg_path, target, max_length)
+    workdir.mkdir(parents=True, exist_ok=True)
+    if features is None:
+        write_dflash_features(workdir / "train",
+                              len(cfg.resolved_target_layer_ids),
+                              cfg.hidden_size, cfg.vocab_size, seed,
+                              FAMILY_FILES[kind], min_len, max_length,
+                              last_hidden=dspark)
+    if target is None:
+        target = write_target_dir(workdir / "target", cfg.vocab_size,
+                                  cfg.hidden_size, device, seed, head_std)
+    run_json = family_run_json(kind, workdir, cfg_path, target, max_length,
+                               features)
     chunked_cfg = workdir / "draft-chunked.json"
     chunked_cfg.write_text(json.dumps({**raw_cfg,
                                        "attention_backend": "chunked"}))
@@ -4106,6 +4635,14 @@ def run_family_training(kind: str, cfg_path: Path, device, seed: int,
         results["main_path_s"] = time.perf_counter() - t0
         if on_card:
             results["main_path_peak_bytes"] = torch.cuda.max_memory_allocated()
+        if export_to is not None:
+            t0 = time.perf_counter()
+            if cli.main(["export", str(runs), "-o", str(export_to), "--to",
+                         "sglang", "--draft-config", str(cfg_path),
+                         *device_args]) != 0:
+                raise AssertionError("cli export exited non-zero")
+            results["export"] = {"to": "sglang", "from": step_dir.name,
+                                 "s": time.perf_counter() - t0}
         trainer = trainer_for('run_id="kernel"')
         window = first_window(trainer)
         loss_k, grads_k = window_grads(trainer, window)
@@ -6832,6 +7369,10 @@ def main() -> int:
     parser.add_argument("--serving-gaps", action="store_true",
                         help="run only the bf16 near-tie study of serving "
                              "(all 36 target layers)")
+    # the capture (6 layers) and the block serving phase alone
+    parser.add_argument("--block-serving-only", action="store_true",
+                        help="run only the capture and the DFlash-family "
+                             "block serving phase")
     # the online stack alone, its target at all 36 layers
     parser.add_argument("--online-only", action="store_true",
                         help="run only the online phase (all 36 target "
@@ -6881,6 +7422,10 @@ def main() -> int:
         return 0
     if args.online_only:
         online_only_phase(args.seed)
+        print(smi, flush=True)
+        return 0
+    if args.block_serving_only:
+        block_serving_only_phase(args.seed)
         print(smi, flush=True)
         return 0
     if args.capture_only:
@@ -6972,34 +7517,25 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     mesh_refs = Path(tempfile.mkdtemp(prefix="capture_mesh_"))
-    training, counts = capture_and_train_phase(args.seed, CAPTURE_DEPTH,
-                                               mesh_refs)
+    training, counts, families, serving_launches = capture_and_train_phase(
+        args.seed, CAPTURE_DEPTH, mesh_refs)
     emit_target_families(args.seed)
 
+    # the Domino, DSpark and DFlash phases ran inside the capture phase, on
+    # its features
     family_counts = {}
-    for kind, cfg_path in (("domino", DOMINO_CONFIG),
-                           ("dflash", DFLASH_CONFIG),
-                           ("dspark", DSPARK_CONFIG),
-                           ("dspark_block7", DSPARK7_CONFIG)):
+    for kind, (results, family_counts[kind]) in families.items():
+        check_family_counts(family_counts[kind], results["micro_batches"],
+                            json.loads(BLOCK_CONFIG_FILES[kind].read_text())[
+                                "num_hidden_layers"])
+    for kind, cfg_path in (("dspark_block7", DSPARK7_CONFIG),):
         draft = json.loads(cfg_path.read_text())
         with tempfile.TemporaryDirectory() as tmp:
             results, family_counts[kind] = run_family_training(
                 kind, cfg_path, torch.device("cuda"), args.seed, Path(tmp))
         check_family_counts(family_counts[kind], results["micro_batches"],
                             draft["num_hidden_layers"])
-        emit({"phase": f"{kind}_training",
-              "config": str(DOMINO_EXAMPLE.relative_to(REPO)),
-              "draft_config": str(cfg_path.relative_to(REPO)),
-              "block_size": draft["block_size"],
-              "block_pitch": dflash_attention_cuda.block_pitch(
-                  draft["block_size"]),
-              "batch": BATCH, "max_length": 768,
-              "accumulation_steps": ACCUM, "launches": family_counts[kind],
-              "tolerances": {"step1_loss_rtol": TRAIN_STEP1_RTOL,
-                             "later_loss_rtol": TRAIN_DRIFT_RTOL,
-                             "grad_cosine": GRAD_COSINE,
-                             "grad_norm_rtol": GRAD_NORM_RTOL},
-              **results})
+        emit_family(kind, cfg_path, results, family_counts[kind])
         torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -7037,6 +7573,11 @@ def main() -> int:
         if k["name"] in training["online_launches"]:
             # the same kernel on slice 18's path, the online consumer
             k["online_launches"] = training["online_launches"][k["name"]]
+        if k["name"] == "dflash_attention_fwd":
+            # and on the block decoder's: the counted runs (the
+            # program's warm-ups and capture) and one a draft layer each
+            # graph replay, by served draft
+            k["serving_launches"] = serving_launches
         k["kernel_ms"] = k["ms"]
         if k["name"] in HOPPER_ROUTE:
             k["route_note"] = "wgmma, TMA"

@@ -1,11 +1,14 @@
-"""HTTP serving endpoint over the chain speculative decoder.
+"""HTTP serving endpoint over the chain and block speculative decoders.
 
 Counterpart of ``specforge_tpu/inference/serving_server.py``: the port
 serves a trained, exported draft natively behind the same minimal
-threaded-HTTP surface.
+threaded-HTTP surface, with ``Eagle3SpecDecoder`` or ``DFlashSpecDecoder``
+(``inference/spec_decode.py``).
 
 Endpoints:
-  GET  /health    status, decoder family and config, counters
+  GET  /health    status, decoder family and config (``num_draft_tokens``
+                  for the chain decoder, ``block_size`` for the block
+                  decoder), counters
   POST /generate  {"input_ids": [...], "max_new_tokens": N,
                    "stop_token_ids"?, "plain"?: true}
                   → {"output_ids", "new_tokens", "accept_lengths",
@@ -13,9 +16,11 @@ Endpoints:
                   (``plain``: fused plain greedy decoding, the baseline;
                   no accept lengths)
 
-Tree requests (``topk`` > 1) and ``/generate_batch`` answer 400 naming
-``ROADMAP.md`` Queue 1 item 8, as a malformed body does. Requests
-serialize on a device lock: one card, one decode at a time.
+Tree requests (``topk`` > 1) answer 400, naming ``ROADMAP.md`` Queue 1
+item 8c for the chain decoder (the block decoder proposes one block a
+round), and ``/generate_batch`` answers 400 naming item 8d, as a malformed
+body does. Requests serialize on a device lock: one card, one decode at a
+time.
 """
 
 from __future__ import annotations
@@ -28,7 +33,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional
 
 from specforge_tpu_torch.inference.spec_decode import (
-    SERVING_LATER,
+    BATCH_LATER,
+    TREE_LATER,
     fused_plain_decode,
 )
 
@@ -50,8 +56,11 @@ class SpecServingServer:
         server = self
 
         info: Dict[str, Any] = {"family": type(decoder).__name__,
-                                "max_len": decoder.max_len,
-                                "num_draft_tokens": decoder.k}
+                                "max_len": decoder.max_len}
+        if hasattr(decoder, "k"):
+            info["num_draft_tokens"] = decoder.k
+        if hasattr(decoder, "block_size"):
+            info["block_size"] = decoder.block_size
 
         class Handler(BaseHTTPRequestHandler):
             def log_message(self, *args):  # quiet
@@ -127,9 +136,11 @@ class SpecServingServer:
                                self.default_max_new_tokens))
         stop = body.get("stop_token_ids")
         topk = int(body.get("topk", 1))
-        if topk > 1:
-            raise ValueError(f"topk={topk}: {SERVING_LATER}")
         decoder = self.decoder
+        if topk > 1:
+            raise ValueError(
+                f"topk={topk}: {TREE_LATER}" if hasattr(decoder, "k") else
+                f"topk={topk}: a block decoder proposes one block a round")
         t0 = time.monotonic()
         with self._device_lock:
             if body.get("plain"):
@@ -158,7 +169,7 @@ class SpecServingServer:
         }
 
     def handle_generate_batch(self, body: Dict[str, Any]) -> Dict[str, Any]:
-        raise ValueError(f"/generate_batch: {SERVING_LATER}")
+        raise ValueError(f"/generate_batch: {BATCH_LATER}")
 
     # -- lifecycle ----------------------------------------------------------
 

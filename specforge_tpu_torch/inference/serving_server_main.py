@@ -1,18 +1,22 @@
-"""CLI entry point: serve an exported EAGLE3 draft natively.
+"""CLI entry point: serve an exported draft natively.
 
     python -m specforge_tpu_torch.inference.serving_server_main \\
         --target <hf_target_dir> --export <export_dir> \\
-        [--draft-tokens 4] [--max-len 2048] [--port 8400] \\
-        [--dtype bfloat16] [--device cpu]
+        [--family eagle3|dflash] [--draft-tokens 4] [--max-len 2048] \\
+        [--port 8400] [--dtype bfloat16] [--device cpu]
 
 Counterpart of ``specforge_tpu/inference/serving_server_main.py``: loads
 the target and the exported draft through the serving loaders, builds the
-chain decoder on the card (``--device`` names another device, as the tests
-name the CPU) and serves /generate and /health (``serving_server.py``).
-``--dtype`` is the target's weight dtype (``float32`` for an exact greedy
-check). It prints ``READY port=<port>`` once it listens and stops on
-SIGTERM or SIGINT. ``--family dflash`` and ``--shard-over-devices`` above 1
-are refused by name (``ROADMAP.md`` Queue 1 item 8).
+decoder on the card (``--device`` names another device, as the tests name
+the CPU) and serves /generate and /health (``serving_server.py``): the
+chain decoder for an EAGLE3 export (``--family eagle3``, the default), the
+block decoder for a DFlash, Domino or DSpark SGLang export (``--family
+dflash``; its block size and capture layers come from the export's
+config, ``--draft-tokens`` is not read). ``--dtype`` is the target's
+weight dtype (``float32`` for an exact greedy check). It prints ``READY
+port=<port>`` once it listens and stops on SIGTERM or SIGINT.
+``--shard-over-devices`` above 1 is refused by name (``ROADMAP.md`` Queue
+1 item 8e).
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 
 from specforge_tpu_torch.inference.spec_decode import (
     MESH_LATER,
-    SERVING_LATER,
+    PEAGLE_LATER,
 )
 
 
@@ -35,7 +39,9 @@ def main(argv=None) -> int:
     parser.add_argument("--target", required=True)
     parser.add_argument("--export", required=True)
     parser.add_argument("--family", default="eagle3",
-                        choices=["eagle3", "dflash"])
+                        choices=["eagle3", "dflash"],
+                        help="dflash covers Domino and DSpark exports too "
+                             "(block speculation)")
     parser.add_argument("--draft-tokens", type=int, default=4)
     parser.add_argument("--max-len", type=int, default=2048)
     parser.add_argument("--host", default="127.0.0.1")
@@ -46,8 +52,6 @@ def main(argv=None) -> int:
                         choices=["bfloat16", "float32"])
     parser.add_argument("--device", default=None)
     args = parser.parse_args(argv)
-    if args.family != "eagle3":
-        parser.error(f"--family {args.family}: {SERVING_LATER}")
     if args.shard_over_devices > 1:
         parser.error(f"--shard-over-devices {args.shard_over_devices}: "
                      f"{MESH_LATER}")
@@ -56,11 +60,18 @@ def main(argv=None) -> int:
     from specforge_tpu_torch.inference.serving_loaders import (
         build_decoder,
         load_spec_models,
+        read_export_family,
     )
     from specforge_tpu_torch.inference.serving_server import (
         SpecServingServer,
     )
 
+    family = read_export_family(args.export)
+    if family == "peagle":
+        parser.error(f"{args.export}: {PEAGLE_LATER}")
+    if family != args.family:
+        parser.error(f"--family {args.family}: {args.export} holds a "
+                     f"{family} export")
     models = load_spec_models(args.target, args.export,
                               dtype=getattr(torch, args.dtype),
                               device=args.device)

@@ -1,9 +1,10 @@
-"""Speculative decoding with a trained EAGLE3 draft: the serving-side loop.
+"""Speculative decoding with a trained draft: the serving-side loops.
 
-Counterpart of ``specforge_tpu/inference/spec_decode.py`` in chain mode: a
-greedy chain speculative decoder with KV-cached target and draft forwards,
-which measures the real accept lengths of a trained draft without an
-external serving stack, and plain greedy decoding beside it.
+Counterpart of ``specforge_tpu/inference/spec_decode.py`` in chain and
+block mode: the EAGLE3 greedy chain decoder and the DFlash-family block
+decoder (DFlash, Domino, DSpark), with KV-cached target forwards, which
+measure the real accept lengths of a trained draft without an external
+serving stack, and plain greedy decoding beside them.
 
 Correctness invariant (tested): greedy speculative decoding emits exactly
 the target's greedy sequence, for any draft; the draft changes the accept
@@ -13,16 +14,17 @@ Static-shape design, as in the JAX package: caches are fixed
 ``[L, B, KVH, max_len, D]`` buffers, the cache length is a device tensor,
 a block's K/V land with ``index_copy_`` at device indices, and attention
 runs over the whole budget under a mask. Nothing in a forward reads a
-device value on the host, so one round of the fused decoder is captured
-as a CUDA graph where JAX compiled a ``lax.while_loop``: the host replays
-it and reads one small status tensor a round. On the CPU the same round
-runs eagerly. Serving runs no TPU kernel: the JAX package leaves its
-attention to XLA, and the port keeps it in plain torch (``ROADMAP.md``
-Queue 2 item 6).
+device value on the host, so one round of a fused decoder is captured as
+a CUDA graph where JAX compiled a ``lax.while_loop``: the host replays it
+and reads one small status tensor a round. On the CPU the same round runs
+eagerly. The target's attention over its cache is left to XLA in the JAX
+package, and the port keeps it in plain torch (``ROADMAP.md`` Queue 2
+item 6); the DFlash-family draft forward runs the hand-written DFlash
+block-attention kernel with one anchor at the block's start.
 
-Not here yet, refused by name: tree, beam, batched and streamed
-speculation and the DFlash and P-EAGLE decoders (``ROADMAP.md`` Queue 1
-item 8), and sharded serving over a device mesh (item 8 too).
+Not here yet, refused by name: tree and beam speculation (``ROADMAP.md``
+Queue 1 item 8c), batched and streamed decoding (item 8d), the P-EAGLE
+decoder (item 8b) and sharded serving over a device mesh (item 8e).
 """
 
 from __future__ import annotations
@@ -41,15 +43,22 @@ from specforge_tpu_torch.models.target.transformer import (
     _linear,
     _rms,
 )
-from specforge_tpu_torch.ops.rope import RopeSpec, apply_rope, rope_cos_sin
+from specforge_tpu_torch.ops.rope import (
+    RopeSpec,
+    apply_rope,
+    rope_at,
+    rope_table,
+)
 from specforge_tpu_torch.utils import DeviceLike, resolve_device
 
 #: what the port does not serve yet, as its refusals name it
-SERVING_LATER = ("tree, beam, batched and streamed speculation and the "
-                 "DFlash and P-EAGLE decoders come with ROADMAP.md Queue 1 "
-                 "item 8")
+TREE_LATER = "tree and beam speculation come with ROADMAP.md Queue 1 item 8c"
+BATCH_LATER = ("batched and streamed decoding come with ROADMAP.md Queue 1 "
+               "item 8d")
+PEAGLE_LATER = "P-EAGLE serving comes with ROADMAP.md Queue 1 item 8b"
+SERVING_LATER = f"{TREE_LATER}; {BATCH_LATER}; {PEAGLE_LATER}"
 MESH_LATER = ("sharded serving over a device mesh comes with ROADMAP.md "
-              "Queue 1 item 8")
+              "Queue 1 item 8e")
 #: the masked attention logit (JAX's fill)
 NEG_INF = -1e30
 #: eager runs of a step on a side stream before its CUDA graph is captured
@@ -155,27 +164,6 @@ def _causal_allow(cache_len: torch.Tensor, t: int, m: int) -> torch.Tensor:
     return col <= cache_len + row_pos
 
 
-def rope_table(spec: RopeSpec, max_len: int, dtype: torch.dtype,
-               device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin [max_len, D] for the positions of a ``max_len``-slot cache,
-    made once for a decoder: a captured step indexes them and reads no
-    host memory."""
-    positions = torch.arange(max_len, device=device)[None]
-    cos, sin = rope_cos_sin(spec, positions, max_len, dtype=dtype)
-    return cos[0], sin[0]
-
-
-def _rope_at(spec: RopeSpec, positions: torch.Tensor, m: int,
-             dtype: torch.dtype, table) -> Tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin [B, T, D] at ``positions``: rows of ``table``
-    (``rope_table``'s, positions clamped into it) or computed."""
-    if table is None:
-        return rope_cos_sin(spec, positions, m, dtype=dtype)
-    cos, sin = table
-    idx = positions.clamp(0, cos.shape[0] - 1)
-    return cos[idx], sin[idx]
-
-
 def _attend_cache(q: torch.Tensor, cache_k: torch.Tensor,
                   cache_v: torch.Tensor, allow: torch.Tensor,
                   out_dtype: torch.dtype) -> torch.Tensor:
@@ -243,8 +231,8 @@ def target_cached_forward(
     depths = (torch.arange(t, device=device) if block_positions is None
               else torch.as_tensor(block_positions, device=device).long())
     positions = (len_col + depths[None]).expand(b, t)
-    cos, sin = _rope_at(RopeSpec.from_config(cfg), positions, m,
-                        torch.bfloat16, rope)
+    cos, sin = rope_at(RopeSpec.from_config(cfg), positions, m,
+                       torch.bfloat16, rope)
 
     x = params["model.embed_tokens.weight"][input_ids]
     if block_allow is None:
@@ -366,7 +354,7 @@ def _draft_step(draft, input_ids, hidden, cache_k, cache_v, cache_len,
     k = qkv[..., qc:qc + kc].reshape(b, t, kvh, d).transpose(1, 2)
     v = qkv[..., qc + kc:].reshape(b, t, kvh, d).transpose(1, 2)
     positions = (len_col + torch.arange(t, device=device)[None]).expand(b, t)
-    cos, sin = _rope_at(attn.rope_spec, positions, m, q.dtype, rope)
+    cos, sin = rope_at(attn.rope_spec, positions, m, q.dtype, rope)
     q, k = apply_rope(q, k, cos, sin)
     _write_block(cache_k, k, clen)
     _write_block(cache_v, v, clen)
@@ -608,7 +596,7 @@ class Eagle3SpecDecoder:
     ) -> SpecDecodeResult:
         """The host loop: the oracle the fused path is held to."""
         if topk > 1:
-            raise ValueError(f"topk={topk}: {SERVING_LATER}")
+            raise ValueError(f"topk={topk}: {TREE_LATER}")
         stop = set(stop_token_ids or ())
         prompt = np.asarray(prompt_ids, np.int64)[None]  # [1, P]
         p_len = prompt.shape[1]
@@ -681,7 +669,7 @@ class Eagle3SpecDecoder:
         ``generate`` (tested)."""
         if topk > 1 or tree_style != "root":
             raise ValueError(f"topk={topk}, tree_style={tree_style!r}: "
-                             f"{SERVING_LATER}")
+                             f"{TREE_LATER}")
         stop_ids = _stop_ids(stop_token_ids)
         prompt = np.asarray(prompt_ids, np.int64)[None]
         p_len = prompt.shape[1]
@@ -717,10 +705,10 @@ class Eagle3SpecDecoder:
             steps=n_rounds)
 
     def generate_batch_fused(self, *args, **kwargs):
-        raise ValueError(f"generate_batch_fused: {SERVING_LATER}")
+        raise ValueError(f"generate_batch_fused: {BATCH_LATER}")
 
     def generate_stream_fused(self, *args, **kwargs):
-        raise ValueError(f"generate_stream_fused: {SERVING_LATER}")
+        raise ValueError(f"generate_stream_fused: {BATCH_LATER}")
 
 
 class _FusedEagleLoops:
@@ -824,6 +812,345 @@ class _FusedEagleLoops:
         s.n_rounds.add_(1)
         go = (~s.done) & (s.out_cnt < s.max_new) & (
             s.t_len + k + 1 < s.t_ck.shape[3])
+        s.status.copy_(torch.stack([go.long(), s.out_cnt, s.n_rounds]))
+
+
+# --------------------------------------------------------------------------
+# DFlash-family block speculative decoding
+# --------------------------------------------------------------------------
+
+class DFlashSpecDecoder:
+    """Block speculative decoding with a DFlash-family draft (greedy,
+    batch 1): the draft predicts a whole block of ``block_size - 1`` tokens
+    in one forward (mask tokens attending to the target's captured
+    features), the target verifies the block, and the accepted prefix's
+    fresh features extend the context.
+
+    ``draft`` is a ``DFlashDraftModel``, ``DominoDraftModel`` or
+    ``DSparkDraftModel`` holding its weights; its forward runs the
+    training-time anchor-block attention with a single anchor at the block
+    start (on the card the DFlash kernel), so serving runs the trained code
+    path. The target's weights and the draft are moved to ``device`` once,
+    at construction (CUDA unless the caller names another device), with an
+    fp32 copy of the target's head for the proposals' fp32 logits (JAX's
+    ``einsum`` over the upcast head), made once."""
+
+    def __init__(
+        self,
+        target_params: Dict[str, torch.Tensor],
+        target_config: TargetConfig,
+        draft,
+        *,
+        max_len: int = 512,
+        mesh=None,
+        device: DeviceLike = None,
+    ) -> None:
+        if mesh is not None:
+            raise ValueError(MESH_LATER)
+        check_dense_target(target_config)
+        self.device = resolve_device(device)
+        self.target_params = {name: value.to(self.device)
+                              for name, value in target_params.items()}
+        self.target_config = target_config
+        self.draft = draft.to(self.device)
+        cfg = draft.config
+        self.capture_layers = tuple(cfg.resolved_target_layer_ids)
+        self.block_size = cfg.block_size
+        self.mask_token_id = cfg.mask_token_id or 0
+        self.max_len = max_len
+        self._projector = cfg.projector_type or "dflash"
+        self._shift = bool(cfg.shift_label)
+        self._embed = self.target_params["model.embed_tokens.weight"]
+        self._lm_head = self.target_params["lm_head.weight"].float()
+        self._idx = torch.arange(self.block_size, device=self.device)
+        self._keep = torch.ones((1, 1), dtype=torch.bool, device=self.device)
+        # cos/sin over the cache budget: the target's, and the draft's at
+        # the context's and the block's lengths, shared by every forward
+        self._t_rope = rope_table(RopeSpec.from_config(target_config),
+                                  max_len, torch.bfloat16, self.device)
+        spec = self.draft.layers[0].self_attn.rope_spec
+        self._d_rope = (
+            rope_table(spec, max_len, draft.dtype, self.device),
+            rope_table(spec, max_len, draft.dtype, self.device,
+                       seq_len=self.block_size))
+        self._fused = _FusedDFlashLoops(self)
+        #: ``fused_plain_decode``'s programs for this target (the server's
+        #: plain mode)
+        self.plain_loops: Dict[Any, Any] = {}
+
+    def _check_prompt(self, p_len: int) -> None:
+        if p_len > self.max_len:
+            raise ValueError(f"a prompt of {p_len} tokens does not fit "
+                             f"max_len={self.max_len}")
+
+    def _draft_forward(self, cur: torch.Tensor, ctx: torch.Tensor,
+                       start) -> torch.Tensor:
+        """One block forward: the block [cur, mask, ...] at positions
+        start .., the context ``ctx`` [1, S, n_capture·h] at 0 .. S - 1 and
+        one anchor at ``start`` → the draft's hidden states [1, bs, h]. The
+        noise embeddings and the context are cast to bf16, as JAX casts
+        them."""
+        block = torch.where(self._idx == 0, cur, self.mask_token_id)
+        noise = self._embed[block].float()[None].to(torch.bfloat16)
+        s = ctx.shape[1]
+        ctx_pos = torch.arange(s, device=self.device)[None]
+        start = torch.as_tensor(start, device=self.device).long()
+        return self.draft(noise, ctx.to(torch.bfloat16), ctx_pos,
+                          (start + self._idx)[None], start.view(1, 1),
+                          self._keep, rope=self._d_rope)
+
+    def _propose(self, draft_hidden: torch.Tensor,
+                 cur: torch.Tensor) -> torch.Tensor:
+        """Greedy block proposals [bs - 1], on the device, with the
+        family's logits head applied causally within the block: Domino feeds
+        its GRU the embeddings of the tokens already committed, DSpark its
+        Markov head the previous sampled id, each ``bs - 1`` times; plain
+        DFlash takes one argmax, position j predicting token j + 1 under
+        ``shift_label``."""
+        bs = self.block_size
+        base = torch.nn.functional.linear(draft_hidden.float(),
+                                          self._lm_head)     # [1, bs, V]
+        if self._projector == "dflash":
+            sel = base[0, :-1] if self._shift else base[0, 1:]
+            return sel.argmax(dim=-1)
+        hidden4, base4 = draft_hidden[:, None], base[:, None]
+        if self._projector == "domino":
+            completed = torch.where(self._idx == 0, cur, self.mask_token_id)
+            for pos in range(1, bs):
+                prev = self._embed[completed].float()[None, None]
+                final = self.draft.apply_logits_head(
+                    base4, prev_token_embeddings=prev, hidden_states=hidden4)
+                head_pos = pos - 1 if self._shift else pos
+                completed = torch.where(self._idx == pos,
+                                        final[0, 0, head_pos].argmax(),
+                                        completed)
+            return completed[1:]
+        # DSpark is shift-labelled: position p predicts the token after the
+        # one at p, given that one as its previous id; the heads are causal
+        # in the previous ids, so refilling them one by one is exact
+        prev = torch.zeros_like(self._idx)
+        out: List[torch.Tensor] = []
+        for pos in range(bs - 1):
+            prev = torch.where(self._idx == pos, out[-1] if out else cur,
+                               prev)
+            final = self.draft.apply_logits_head(
+                base4, prev_token_ids=prev[None, None], hidden_states=hidden4)
+            out.append(final[0, 0, pos].argmax())
+        return torch.stack(out)
+
+    def _target_forward(self, ids, state: TargetState):
+        logits, aux, ck, cv = target_cached_forward(
+            self.target_params, self.target_config,
+            torch.as_tensor(ids, device=self.device), state.cache_k,
+            state.cache_v, state.length, self.capture_layers,
+            rope=self._t_rope)
+        new_state = TargetState(cache_k=ck, cache_v=cv,
+                                length=state.length + ids.shape[1])
+        return logits, aux.float(), new_state
+
+    def _context_buffer(self) -> torch.Tensor:
+        """The fp32 context features over the budget [1, max_len,
+        n_capture·h]."""
+        width = len(self.capture_layers) * self.target_config.hidden_size
+        return torch.zeros((1, self.max_len, width), dtype=torch.float32,
+                           device=self.device)
+
+    @torch.no_grad()
+    def generate(
+        self,
+        prompt_ids: Sequence[int],
+        max_new_tokens: int,
+        stop_token_ids: Optional[Sequence[int]] = None,
+    ) -> SpecDecodeResult:
+        """The host loop: the oracle the fused path is held to. The draft
+        reads the context captured so far, ``[:start]``, a new length every
+        round."""
+        stop = set(stop_token_ids or ())
+        bs = self.block_size
+        prompt = np.asarray(prompt_ids, np.int64)[None]
+        p_len = prompt.shape[1]
+        self._check_prompt(p_len)
+        t_state = init_target_state(self.target_config, 1, self.max_len,
+                                    device=self.device)
+        # context features of the positions the target has seen so far
+        ctx_features = self._context_buffer()
+        logits, aux, t_state = self._target_forward(prompt, t_state)
+        ctx_features[:, :p_len] = aux
+        cur_token = int(logits[0, -1].argmax())
+        output = list(prompt_ids) + [cur_token]
+
+        accept_lengths: List[int] = []
+        steps = 0
+        start = p_len  # the position of the current block's first token
+        while (len(output) - p_len < max_new_tokens
+               and start + bs < self.max_len):
+            steps += 1
+            # --- draft: one block forward, bs - 1 proposals ---
+            cur = torch.tensor(cur_token, device=self.device)
+            hidden = self._draft_forward(cur, ctx_features[:, :start], start)
+            proposals = self._propose(hidden, cur).tolist()
+
+            # --- target verification over the whole block ---
+            block = np.asarray([[cur_token, *proposals]], np.int64)
+            logits, aux, t_state = self._target_forward(block, t_state)
+            posterior = logits[0].argmax(dim=-1).tolist()
+            accepted = 0
+            for j in range(bs - 1):
+                if proposals[j] == posterior[j]:
+                    accepted += 1
+                else:
+                    break
+            emitted = [*proposals[:accepted], posterior[accepted]]
+            output.extend(emitted)
+            accept_lengths.append(accepted + 1)
+
+            # roll the target cache back; the accepted positions' features
+            # extend the context
+            t_state = TargetState(cache_k=t_state.cache_k,
+                                  cache_v=t_state.cache_v,
+                                  length=t_state.length - bs + accepted + 1)
+            ctx_features[:, start:start + accepted + 1] = aux[:, :accepted + 1]
+            start += accepted + 1
+            cur_token = posterior[accepted]
+            if stop & set(emitted):
+                break
+        return SpecDecodeResult(output_ids=np.asarray(output),
+                                accept_lengths=accept_lengths, steps=steps)
+
+    @torch.no_grad()
+    def _prefill_device(self, prompt: np.ndarray, t_ck, t_cv,
+                        ctx: torch.Tensor) -> torch.Tensor:
+        """Prefill for the fused path into the given caches and context
+        buffer (zeroed first), everything on the device → the first
+        token."""
+        for buffer in (t_ck, t_cv, ctx):
+            buffer.zero_()
+        logits, aux, _, _ = target_cached_forward(
+            self.target_params, self.target_config,
+            torch.as_tensor(prompt, device=self.device), t_ck, t_cv, 0,
+            self.capture_layers, rope=self._t_rope)
+        ctx[:, :prompt.shape[1]] = aux.float()
+        return logits[0, -1].argmax()
+
+    @torch.no_grad()
+    def generate_fused(
+        self,
+        prompt_ids: Sequence[int],
+        max_new_tokens: int,
+        stop_token_ids: Optional[Sequence[int]] = None,
+    ) -> SpecDecodeResult:
+        """``generate`` with each round fused into one program: on the card
+        a CUDA graph replayed once a round (the block forward over the
+        whole budget-sized context buffer, the proposals, the verification,
+        acceptance and the buffers' writes), with one small status read a
+        round. The DFlash mask is index-based (context slot < anchor), so
+        slots at or past the anchor are masked exactly, and the garbage a
+        rejected block leaves there is overwritten before a later anchor
+        can expose it. The same tokens and accept lengths as ``generate``
+        (tested)."""
+        stop_ids = _stop_ids(stop_token_ids)
+        prompt = np.asarray(prompt_ids, np.int64)[None]
+        p_len = prompt.shape[1]
+        self._check_prompt(p_len)
+
+        program, s = self._fused.block(self.max_len)
+        _fill_stop(s.stop, stop_ids)
+        cur = self._prefill_device(prompt, s.t_ck, s.t_cv, s.ctx)
+        s.t_len.fill_(p_len)
+        s.cur.copy_(cur)
+        s.out_buf.zero_()
+        s.out_buf[:1].copy_(cur.view(1))
+        s.out_cnt.fill_(1)
+        s.acc_buf.zero_()
+        s.n_rounds.zero_()
+        s.done.zero_()
+        s.max_new.fill_(max_new_tokens)
+        go = 1 < max_new_tokens and p_len + self.block_size < self.max_len
+        while go:
+            program()
+            go = bool(s.status[0])
+        out_cnt, n_rounds = int(s.out_cnt), int(s.n_rounds)
+        output = np.concatenate([np.asarray(prompt_ids, np.int64),
+                                 s.out_buf[:out_cnt].cpu().numpy()])
+        return SpecDecodeResult(
+            output_ids=output,
+            accept_lengths=s.acc_buf[:n_rounds].cpu().tolist(),
+            steps=n_rounds)
+
+    def generate_batch_fused(self, *args, **kwargs):
+        raise ValueError(f"generate_batch_fused: {BATCH_LATER}")
+
+
+class _FusedDFlashLoops:
+    """Fused block rounds for one ``DFlashSpecDecoder``: one program (a
+    CUDA graph on the card) per cache budget, serving every stop set and
+    prompt length (the stop set is data in the program's buffer; the
+    prefill runs eagerly). ``replays`` counts graph replays."""
+
+    def __init__(self, decoder: DFlashSpecDecoder):
+        self.decoder = decoder
+        self._cache: Dict[Any, Tuple[_Program, SimpleNamespace]] = {}
+        self.replays = 0
+
+    def block(self, budget: int) -> Tuple[_Program, SimpleNamespace]:
+        key = ("block", budget)
+        if key not in self._cache:
+            s = self._block_state(budget)
+            program = _Program(functools.partial(self._block_round, s),
+                               self.decoder.device, self)
+            self._cache[key] = (program, s)
+        return self._cache[key]
+
+    def _block_state(self, budget: int) -> SimpleNamespace:
+        d = self.decoder
+        dev, bs = d.device, d.block_size
+        s = SimpleNamespace()  # the program's static buffers
+        t_state = init_target_state(d.target_config, 1, budget, device=dev)
+        s.t_ck, s.t_cv = t_state.cache_k, t_state.cache_v
+        s.ctx = d._context_buffer()
+        for name in ("t_len", "cur", "out_cnt", "n_rounds", "max_new"):
+            setattr(s, name, _scalar(0, dev))
+        s.done = torch.zeros((), dtype=torch.bool, device=dev)
+        s.out_buf = torch.zeros(budget + bs, dtype=torch.long, device=dev)
+        s.acc_buf = torch.zeros(budget, dtype=torch.long, device=dev)
+        s.stop = torch.full((STOP_SLOTS,), -1, dtype=torch.long, device=dev)
+        s.status = torch.zeros(3, dtype=torch.long, device=dev)
+        return s
+
+    def _block_round(self, s: SimpleNamespace) -> None:
+        """One block round over the static buffers (JAX's loop body), then
+        the loop condition into ``s.status``: (go on, output count,
+        rounds)."""
+        d = self.decoder
+        bs, idx = d.block_size, d._idx
+        budget = s.t_ck.shape[3]
+        hidden = d._draft_forward(s.cur, s.ctx, s.t_len)
+        proposals = d._propose(hidden, s.cur)                   # [bs - 1]
+        block = torch.cat([s.cur.view(1), proposals])[None]
+        logits, aux, _, _ = target_cached_forward(
+            d.target_params, d.target_config, block, s.t_ck, s.t_cv, s.t_len,
+            d.capture_layers, rope=d._t_rope)
+        posterior = logits[0].argmax(dim=-1)
+        matches = (proposals == posterior[:bs - 1]).long()
+        acc = torch.cumprod(matches, dim=0).sum()
+        bonus = posterior.index_select(0, acc.view(1))
+        emitted = torch.where(idx < acc, torch.cat([proposals, bonus]),
+                              bonus)                                 # [bs]
+        start = s.out_cnt.clamp(max=s.out_buf.shape[0] - bs)
+        s.out_buf.index_copy_(0, start + idx, emitted)
+        s.acc_buf.index_copy_(
+            0, s.n_rounds.clamp(max=s.acc_buf.shape[0] - 1).view(1),
+            (acc + 1).view(1))
+        # the whole block's features land in the buffer; the slots past
+        # acc + 1 lie at or past the next anchor, masked until overwritten
+        s.ctx.index_copy_(1, s.t_len.clamp(0, budget - bs) + idx,
+                          aux.float())
+        s.done.copy_(_fused_stop_hit(emitted, idx <= acc, s.stop))
+        s.t_len.add_(acc + 1)
+        s.cur.copy_(bonus[0])
+        s.out_cnt.add_(acc + 1)
+        s.n_rounds.add_(1)
+        go = (~s.done) & (s.out_cnt < s.max_new) & (s.t_len + bs < budget)
         s.status.copy_(torch.stack([go.long(), s.out_cnt, s.n_rounds]))
 
 

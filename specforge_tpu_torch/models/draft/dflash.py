@@ -37,7 +37,7 @@ from specforge_tpu_torch.ops.dflash_attention_cuda import dflash_flash_attention
 from specforge_tpu_torch.ops.rope import (
     RopeSpec,
     apply_rope,
-    rope_cos_sin,
+    rope_at,
     rotate_half,
 )
 from specforge_tpu_torch.utils import DeviceLike, resolve_device
@@ -165,7 +165,11 @@ class DFlashAttention(nn.Module):
         draft_position_ids: torch.Tensor,  # [B, Q]
         anchor_positions: torch.Tensor,    # [B, N]
         block_keep_mask: torch.Tensor,     # [B, N]
+        rope=None,
     ) -> torch.Tensor:
+        """``rope``: the context's and the draft's cos/sin tables
+        (``ops.rope.rope_table`` at the context's and the block's lengths),
+        indexed by the positions; computed here without them."""
         cfg = self.config
         b, q_len, _ = draft_hidden.shape
         s = context_hidden.shape[1]
@@ -187,10 +191,11 @@ class DFlashAttention(nn.Module):
         v_ctx = kv_ctx[..., kc:].reshape(b, s, kvh, d).transpose(1, 2)
         v_drf = qkv[..., qc + kc:].reshape(b, q_len, kvh, d).transpose(1, 2)
 
-        cos_c, sin_c = rope_cos_sin(self.rope_spec, ctx_position_ids, s,
-                                    dtype=q.dtype)
-        cos_d, sin_d = rope_cos_sin(self.rope_spec, draft_position_ids, q_len,
-                                    dtype=q.dtype)
+        ctx_table, draft_table = rope or (None, None)
+        cos_c, sin_c = rope_at(self.rope_spec, ctx_position_ids, s, q.dtype,
+                               ctx_table)
+        cos_d, sin_d = rope_at(self.rope_spec, draft_position_ids, q_len,
+                               q.dtype, draft_table)
         q, k_drf = apply_rope(q, k_drf, cos_d, sin_d)
         # context keys rotate by their own positions
         k_ctx = k_ctx * cos_c[:, None] + rotate_half(k_ctx) * sin_c[:, None]
@@ -236,12 +241,13 @@ class DFlashDecoderLayer(nn.Module):
         self.post_attention_layernorm = RMSNorm(config.hidden_size, eps, device)
 
     def forward(self, draft_hidden, context_hidden, ctx_position_ids,
-                draft_position_ids, anchor_positions, block_keep_mask):
+                draft_position_ids, anchor_positions, block_keep_mask,
+                rope=None):
         residual = draft_hidden
         x = self.self_attn(
             self.input_layernorm(draft_hidden), context_hidden,
             ctx_position_ids, draft_position_ids, anchor_positions,
-            block_keep_mask,
+            block_keep_mask, rope,
         )
         draft_hidden = residual + x
         return draft_hidden + self.mlp(
@@ -309,13 +315,16 @@ class DFlashDraftModel(nn.Module):
         draft_position_ids: torch.Tensor,
         anchor_positions: torch.Tensor,
         block_keep_mask: torch.Tensor,
+        rope=None,
     ) -> torch.Tensor:
+        """``rope``: cos/sin tables for ``DFlashAttention``, as serving
+        passes them (a captured CUDA graph reads no host memory)."""
         hidden = noise_embedding.to(self.dtype)
         context = self.project_context(target_hidden.to(self.dtype))
         for layer in self.layers:
             hidden = layer(hidden, context, ctx_position_ids,
                            draft_position_ids, anchor_positions,
-                           block_keep_mask)
+                           block_keep_mask, rope)
         return self.norm(hidden)
 
     # --- auxiliary-head seams (overridden by Domino and DSpark) -----------

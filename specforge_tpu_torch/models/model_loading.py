@@ -60,6 +60,8 @@ def _checked(name: str, value: torch.Tensor, expected: torch.Tensor
             f"warm start shape mismatch at {name}: {tuple(value.shape)} vs "
             f"{tuple(expected.shape)}"
         )
+    if value.dtype == expected.dtype:
+        return value
     return value.float().to(expected.dtype)
 
 
@@ -93,5 +95,7 @@ def draft_state_from_export(
                   for part in _MERGED_PARTS[merged]]
         if any(p is None for p in pieces):
             continue
-        out[key] = _checked(key, torch.cat([p.float() for p in pieces]), want)
+        if any(p.dtype != want.dtype for p in pieces):
+            pieces = [p.float() for p in pieces]
+        out[key] = _checked(key, torch.cat(pieces), want)
     return out

@@ -195,6 +195,30 @@ def rope_cos_sin(
     return cos, sin
 
 
+def rope_table(spec: RopeSpec, max_len: int, dtype: torch.dtype, device,
+               seq_len: Optional[int] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin [max_len, D] for positions 0 .. max_len - 1, the rows
+    ``rope_cos_sin`` gives them at ``seq_len`` (default ``max_len``): made
+    once for a decoder, so that a step captured as a CUDA graph indexes
+    them and reads no host memory."""
+    positions = torch.arange(max_len, device=device)[None]
+    cos, sin = rope_cos_sin(spec, positions, seq_len or max_len, dtype=dtype)
+    return cos[0], sin[0]
+
+
+def rope_at(spec: RopeSpec, positions: torch.Tensor, seq_len: int,
+            dtype: torch.dtype, table=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin [B, T, D] at [B, T] ``positions``: rows of ``table``
+    (``rope_table``'s, positions clamped into it) or computed."""
+    if table is None:
+        return rope_cos_sin(spec, positions, seq_len, dtype=dtype)
+    cos, sin = table
+    idx = positions.clamp(0, cos.shape[0] - 1)
+    return cos[idx], sin[idx]
+
+
 def rotate_half(x: torch.Tensor) -> torch.Tensor:
     x1, x2 = x.chunk(2, dim=-1)
     return torch.cat([-x2, x1], dim=-1)

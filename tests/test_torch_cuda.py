@@ -2113,3 +2113,75 @@ def test_graph_replays_count_rounds_and_match_the_host_loop(gen):
     assert spec_decode.fused_plain_decode.replays == 23
     assert plain.tolist() == greedy.tolist()
     assert host.output_ids[:len(greedy)].tolist() == greedy.tolist()
+
+
+def block_decoder(gen, dtype, block_size):
+    """``serving_models``' target and a random Domino draft over it (bf16
+    weights, head dim 64, capture layers (1, 2)) in the block decoder."""
+    from specforge_tpu_torch.inference.spec_decode import DFlashSpecDecoder
+    from specforge_tpu_torch.models.draft.dflash import DFlashConfig
+    from specforge_tpu_torch.models.draft.domino import DominoDraftModel
+
+    params, config, _ = serving_models(gen, dtype)
+    cfg = DFlashConfig.from_dict({
+        "vocab_size": 512, "hidden_size": 256, "intermediate_size": 512,
+        "num_attention_heads": 4, "num_key_value_heads": 2, "head_dim": 64,
+        "num_hidden_layers": 2, "block_size": block_size,
+        "max_position_embeddings": 512,
+        "dflash_config": {"mask_token_id": 511, "target_layer_ids": [1, 2],
+                          "projector_type": "domino", "emb_dim": 32,
+                          "gru_hidden_dim": 32, "shift_label": True,
+                          "pure_draft_prefix_len": 1}})
+    draft = DominoDraftModel(cfg, dtype=torch.bfloat16, device="cuda",
+                             seed=3).to(torch.bfloat16)
+    return DFlashSpecDecoder(params, config, draft, max_len=128), params, \
+        config
+
+
+@pytest.mark.parametrize("block_size", [16, 7])
+def test_block_round_graph_matches_eager_round(gen, block_size):
+    """One block round replayed from its CUDA graph (the DFlash forward at
+    one anchor, and at blocks of 7 its pitched copies, inside the graph)
+    against the same round run eagerly on the same buffers: every buffer
+    identical."""
+    decoder, _, _ = block_decoder(gen, torch.bfloat16, block_size)
+    prompt = torch.randint(0, 511, (40,), generator=gen,
+                           device="cuda").tolist()
+    decoder.generate_fused(prompt, max_new_tokens=12)
+    program, state = decoder._fused.block(128)
+    assert program.graph is not None
+    before = {n: t.clone() for n, t in vars(state).items()}
+    program()
+    replayed = {n: t.clone() for n, t in vars(state).items()}
+    for name, t in vars(state).items():
+        t.copy_(before[name])
+    program.step()
+    torch.cuda.synchronize()
+    for name, t in vars(state).items():
+        assert torch.equal(t, replayed[name]), name
+    assert not torch.equal(replayed["t_len"], before["t_len"])
+
+
+def test_block_replays_count_rounds_and_launches(gen):
+    """fp32 target on the card (no TF32): the block program's replays equal
+    its rounds, the DFlash forward's wrapper counts its warm-up runs and
+    the capture (one a draft layer each) and none a replay, and the fused
+    rounds emit the host loop's tokens and accept lengths, greedy's."""
+    from specforge_tpu_torch.inference import spec_decode
+
+    fwd = dflash_cuda.dflash_flash_attention_fwd
+    decoder, params, config = block_decoder(gen, torch.float32, 16)
+    prompt = torch.randint(0, 511, (40,), generator=gen,
+                           device="cuda").tolist()
+    host = decoder.generate(prompt, max_new_tokens=24)
+    fwd.launches = 0
+    fused = decoder.generate_fused(prompt, max_new_tokens=24)
+    assert decoder._fused.replays == fused.steps > 0
+    assert fwd.launches == (spec_decode.WARMUP_RUNS + 1) * 2
+    decoder.generate_fused(prompt, max_new_tokens=24)
+    assert fwd.launches == (spec_decode.WARMUP_RUNS + 1) * 2
+    assert fused.accept_lengths == host.accept_lengths
+    assert fused.output_ids.tolist() == host.output_ids.tolist()
+    greedy = spec_decode.greedy_target_decode(params, config, prompt, 24,
+                                              max_len=128)
+    assert host.output_ids[:len(greedy)].tolist() == greedy.tolist()

@@ -10,8 +10,8 @@ bit for bit, and equal ``config.json`` bytes; the port's export warm-starts
 a fresh draft bit-identically to the checkpoint's weights cast to bf16.
 Then the rope mirroring and exported-config cases of
 ``tests/test_export_compat.py:35-146``, the DFlash-family normalisation and
-refusals of ``tests/test_dflash_export.py`` (its serving reloads wait for
-the port's spec decoder, ``ROADMAP.md`` Queue 1 item 8), and the CLI."""
+refusals of ``tests/test_dflash_export.py`` (its serving reloads are
+``tests/test_torch_serving_dflash.py``'s), and the CLI."""
 
 import json
 import os

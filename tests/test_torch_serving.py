@@ -7,7 +7,7 @@ tokens), the chain decoder's host loop and fused rounds against JAX's for
 k = 2 and 4 on a random draft and on a trained, exported one (output ids
 and accept lengths identical, partial acceptance exercised), the export
 loader bit for bit in bf16 against JAX's, and the refusals that name
-``ROADMAP.md`` Queue 1 item 8. The shapes are those of
+their ``ROADMAP.md`` Queue 1 item (8b-8e). The shapes are those of
 ``tests/test_spec_decode.py:21-53``; every weight is loaded by both
 packages from one HF directory or export, or carried over by
 ``convert.params_from_jax``."""
@@ -33,9 +33,15 @@ from specforge_tpu_torch import cli
 from specforge_tpu_torch.convert import params_from_jax
 from specforge_tpu_torch.export.exporter import export_to_hf
 from specforge_tpu_torch.inference import serving_loaders, spec_decode
+from specforge_tpu_torch.models.draft.dflash import DFlashConfig
+from specforge_tpu_torch.models.draft.domino import DominoDraftModel
 from specforge_tpu_torch.models.draft.llama_eagle3 import (
     Eagle3Config,
     LlamaEagle3Draft,
+)
+from specforge_tpu_torch.models.draft.peagle import (
+    PEagleConfig,
+    PEagleDraftModel,
 )
 from specforge_tpu_torch.models.target import transformer as pt_tf
 from specforge_tpu_torch.offline_capture import prepare
@@ -588,16 +594,17 @@ def test_serving_loaders_build_the_decoder(trained):
 # --------------------------------------------------------------------------
 
 @pytest.mark.parametrize("call,item", [
-    ("generate_topk", "item 8"), ("fused_topk", "item 8"),
-    ("fused_beam", "item 8"), ("batch", "item 8"), ("stream", "item 8"),
-    ("mesh", "item 8"), ("dflash_export", "item 8"),
-    ("peagle_export", "item 8"), ("dflash_draft", "item 8")])
+    ("generate_topk", "item 8c"), ("fused_topk", "item 8c"),
+    ("fused_beam", "item 8c"), ("batch", "item 8d"), ("stream", "item 8d"),
+    ("mesh", "item 8e"), ("block_mesh", "item 8e"),
+    ("peagle_export", "item 8b"), ("peagle_draft", "item 8b")])
 def test_refusals_name_their_item(target, random_draft, tmp_path, call,
                                   item):
     """What the port does not serve yet raises a ValueError naming its
-    ``ROADMAP.md`` item: tree and beam speculation, the batched and
-    streamed decoders, the DFlash-family and P-EAGLE exports and drafts,
-    and a device mesh (all item 8)."""
+    ``ROADMAP.md`` item: tree and beam speculation (8c), the batched and
+    streamed decoders (8d), a device mesh under either decoder (8e), and
+    P-EAGLE exports and drafts (8b). DFlash-family exports load and serve
+    (``tests/test_torch_serving_dflash.py``)."""
     _, _, pparams, pcfg = target
     draft = random_draft[2]
 
@@ -619,15 +626,19 @@ def test_refusals_name_their_item(target, random_draft, tmp_path, call,
         "batch": lambda: decoder().generate_batch_fused([[1, 2]], 4),
         "stream": lambda: decoder().generate_stream_fused([[1, 2]], 4),
         "mesh": lambda: decoder(mesh=object()),
-        "dflash_export": lambda: serving_loaders.load_exported_draft(
-            export({**DRAFT_KW, "block_size": 4,
-                    "dflash_config": {"projector_type": "dflash"}}),
-            device="cpu"),
+        "block_mesh": lambda: serving_loaders.build_decoder(
+            (pparams, pcfg, DominoDraftModel(DFlashConfig.from_dict(
+                {**DRAFT_KW, "num_hidden_layers": 1, "block_size": 4,
+                 "dflash_config": {"projector_type": "domino",
+                                   "target_layer_ids": [1, 4], "emb_dim": 8,
+                                   "gru_hidden_dim": 8}}),
+                device="cpu")), mesh=object(), device="cpu"),
         "peagle_export": lambda: serving_loaders.load_exported_draft(
             export({**DRAFT_KW, "architectures": ["PEagleDraftModel"]}),
             device="cpu"),
-        "dflash_draft": lambda: serving_loaders.build_decoder(
-            (pparams, pcfg, torch.nn.Linear(1, 1)), device="cpu"),
+        "peagle_draft": lambda: serving_loaders.build_decoder(
+            (pparams, pcfg, PEagleDraftModel(PEagleConfig(**DRAFT_KW),
+                                             device="cpu")), device="cpu"),
     }
     with pytest.raises(ValueError, match=item):
         calls[call]()

@@ -4,10 +4,14 @@ The cases of ``tests/test_serving_server.py:85-148`` for the chain and
 ``plain`` modes: ``/generate`` equal to the decoder's output (and to JAX's
 server on the same weights), ``/health`` with JAX's fields, the error
 reporting, and 400 naming ``ROADMAP.md`` Queue 1 item 8 for tree and batch
-requests. Then ``scripts/gates/serving_gate.py`` with the port alone: a
-tiny ``cli train``, ``cli export --to sglang``, ``serving_server_main`` in
-a subprocess, and ``/generate`` equal to greedy decoding and to the JAX
-decoder on the same export."""
+requests. The same for the DFlash-family block decoder (a Domino draft):
+``/health`` with ``block_size``, ``/generate`` in block and ``plain``
+mode. Then ``scripts/gates/serving_gate.py`` with the port alone: a tiny
+``cli train``, ``cli export --to sglang``, ``serving_server_main`` in a
+subprocess, and ``/generate`` equal to greedy decoding and to the JAX
+decoder on the same export; and ``serving_server_main --family dflash``
+in a subprocess on a port export of a Domino draft, equal to the
+in-process decoder and to JAX's decoder on the same export."""
 
 import http.client
 import json
@@ -21,11 +25,18 @@ import numpy as np
 import pytest
 import torch
 
+from specforge_tpu.inference import serving_loaders as jax_loaders
 from specforge_tpu.inference import spec_decode as jax_sd
 from specforge_tpu.inference.serving_server import (
     SpecServingServer as JaxServer,
 )
-from specforge_tpu_torch.inference import serving_server_main, spec_decode
+from specforge_tpu.models.draft.dflash import DFlashConfig as JaxDFlashConfig
+from specforge_tpu_torch.convert import params_from_jax
+from specforge_tpu_torch.inference import (
+    serving_loaders,
+    serving_server_main,
+    spec_decode,
+)
 from specforge_tpu_torch.inference.serving_server import SpecServingServer
 from tests.test_torch_serving import (  # noqa: F401 (random_draft: a fixture)
     V,
@@ -34,6 +45,13 @@ from tests.test_torch_serving import (  # noqa: F401 (random_draft: a fixture)
     random_draft,
     save_llama,
     train_and_export,
+)
+from tests.test_torch_serving_dflash import (
+    JAX_CLASSES,
+    both_exports,
+    draft_config,
+    jax_init,
+    port_draft,
 )
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
@@ -172,10 +190,17 @@ def test_malformed_body_is_a_400(servers):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--family", "dflash"], "item 8"),
-    (["--shard-over-devices", "2"], "item 8"),
+    (["--export", "{peagle}"], "item 8b"),
+    (["--shard-over-devices", "2"], "item 8e"),
 ])
-def test_main_refuses_by_name(capsys, argv, item):
+def test_main_refuses_by_name(capsys, tmp_path, argv, item):
+    """A P-EAGLE export (item 8b) and a device mesh (item 8e) are refused
+    before anything loads."""
+    peagle = tmp_path / "peagle"
+    peagle.mkdir()
+    (peagle / "config.json").write_text(json.dumps(
+        {"architectures": ["PEagleDraftModel"], "vocab_size": V}))
+    argv = [a.format(peagle=peagle) for a in argv]
     with pytest.raises(SystemExit) as exc:
         serving_server_main.main(["--target", "t", "--export", "e", *argv])
     assert exc.value.code == 2
@@ -249,3 +274,130 @@ def test_serving_gate_end_to_end(tmp_path):
         max_len=256).generate_fused(prompt, max_new_tokens=16)
     np.testing.assert_array_equal(got["output_ids"][:len(greedy)],
                                   want.output_ids[:len(greedy)])
+
+
+# --------------------------------------------------------------------------
+# the block decoder behind the server
+# --------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def block_servers(tmp_path_factory):
+    """The port's server and JAX's over the same 6-layer target and random
+    Domino draft (blocks of 4, capture layers (1, 4)), max_len 128."""
+    jparams, jcfg, pparams, pcfg = both_targets(
+        save_llama(tmp_path_factory.mktemp("block_target")))
+    raw = draft_config("domino")
+    cfg = JaxDFlashConfig.from_dict(raw)
+    module = JAX_CLASSES["domino"](cfg, dtype=jnp.float32,
+                                   attn_chunk_blocks=1)
+    variables = jax_init(module, cfg)
+    draft = port_draft("domino", raw, params_from_jax(variables))
+    jdec = jax_sd.DFlashSpecDecoder(jparams, jcfg, module, variables,
+                                    max_len=128)
+    pdec = spec_decode.DFlashSpecDecoder(pparams, pcfg, draft, max_len=128,
+                                         device="cpu")
+    mine, ref = SpecServingServer(pdec, port=0), JaxServer(jdec, port=0)
+    mine.start()
+    ref.start()
+    yield mine, ref, pdec
+    mine.stop()
+    ref.stop()
+
+
+@pytest.mark.parametrize("plain", [False, True])
+def test_block_generate_matches_decoder_and_jax(block_servers, plain):
+    """``/generate`` in block and plain mode over the block decoder: JAX's
+    server's answer on the same weights, the decoder's tokens and accept
+    lengths, and the same output in both modes."""
+    mine, ref, decoder = block_servers
+    prompt = np.random.default_rng(2).integers(0, V - 1, size=11).tolist()
+    body = {"input_ids": prompt, "max_new_tokens": 12}
+    if plain:
+        body["plain"] = True
+    status, got = _post(mine.port, "/generate", body)
+    assert status == 200
+    _, want = _post(ref.port, "/generate", body)
+    assert set(got) == set(want)
+    for key in ("output_ids", "new_tokens", "accept_lengths",
+                "mean_accept_length", "rounds"):
+        assert got.get(key) == want.get(key), key
+    spec = decoder.generate_fused(prompt, max_new_tokens=12)
+    n = min(len(got["output_ids"]), len(spec.output_ids))
+    np.testing.assert_array_equal(got["output_ids"][:n], spec.output_ids[:n])
+    if not plain:
+        assert got["accept_lengths"] == spec.accept_lengths
+        assert got["rounds"] == spec.steps
+
+
+def test_block_health_and_refusals(block_servers):
+    """``/health`` of a block decoder: JAX's fields, ``block_size`` and no
+    ``num_draft_tokens``; a tree request is a 400, and ``/generate_batch``
+    a 400 naming ``ROADMAP.md`` Queue 1 item 8d."""
+    mine, ref, _ = block_servers
+    (s1, got), (s2, want) = (_request(mine.port, "GET", "/health"),
+                             _request(ref.port, "GET", "/health"))
+    assert s1 == s2 == 200
+    assert set(got) == set(want)
+    for key in ("status", "family", "max_len", "block_size"):
+        assert got[key] == want[key], key
+    assert got["family"] == "DFlashSpecDecoder" and got["block_size"] == 4
+    assert "num_draft_tokens" not in got
+    status, out = _post(mine.port, "/generate", {"input_ids": [1, 2],
+                                                 "topk": 2})
+    assert status == 400 and "one block" in out["error"]
+    status, out = _post(mine.port, "/generate_batch",
+                        {"prompts": [[1, 2]], "max_new_tokens": 4})
+    assert status == 400 and "item 8d" in out["error"]
+
+
+def test_block_server_main_end_to_end(tmp_path, monkeypatch):
+    """``serving_server_main --family dflash`` in a subprocess (fp32
+    target) on a port export of a Domino draft: ``/health`` with its block
+    size, then block and ``plain`` ``/generate`` equal to the in-process
+    decoder built by the loaders on the same files, and to JAX's decoder
+    on the same export; ``--family eagle3`` on that export is refused."""
+    target = save_llama(tmp_path / "target")
+    export = both_exports(tmp_path, monkeypatch, "domino", "port")
+    with pytest.raises(SystemExit):
+        serving_server_main.main(["--target", target, "--export", export])
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(REPO))
+    proc = subprocess.Popen(
+        [sys.executable, "-m",
+         "specforge_tpu_torch.inference.serving_server_main", "--family",
+         "dflash", "--target", target, "--export", export, "--max-len",
+         "128", "--port", "0", "--dtype", "float32", "--device", "cpu"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+        env=env)
+    prompt = np.random.default_rng(4).integers(0, V - 1, size=9).tolist()
+    body = {"input_ids": prompt, "max_new_tokens": 10}
+    try:
+        port = _read_ready(proc, READY_TIMEOUT)
+        status, health = _request(port, "GET", "/health")
+        assert status == 200 and health["block_size"] == 4
+        status, got = _post(port, "/generate", body)
+        assert status == 200
+        status, plain = _post(port, "/generate", {**body, "plain": True})
+        assert status == 200
+    finally:
+        proc.terminate()
+        try:
+            proc.wait(timeout=STOP_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=STOP_TIMEOUT)
+
+    decoder = serving_loaders.build_decoder(serving_loaders.load_spec_models(
+        target, export, dtype=torch.float32, device="cpu"), max_len=128,
+        device="cpu")
+    want = decoder.generate_fused(prompt, max_new_tokens=10)
+    assert got["output_ids"] == want.output_ids.tolist()
+    assert got["accept_lengths"] == want.accept_lengths
+    assert plain["output_ids"][:len(want.output_ids)] == (
+        want.output_ids[:len(plain["output_ids"])].tolist())
+    jparams, jcfg, _, _ = both_targets(target)
+    module, variables = jax_loaders.load_exported_dflash_draft(export)
+    ref = jax_sd.DFlashSpecDecoder(jparams, jcfg, module, variables,
+                                   max_len=128).generate_fused(
+        prompt, max_new_tokens=10)
+    assert got["output_ids"] == [int(t) for t in ref.output_ids]
+    assert got["accept_lengths"] == [int(a) for a in ref.accept_lengths]

@@ -152,13 +152,98 @@ def test_serving_phase_runs_on_the_cpu_at_small_size(smoke, tmp_path):
     assert all(16 <= n <= 40 for n in results["prompt_lengths"])
     assert results["fp32"]["decoders_equal"]
     bf16 = results["bf16"]
-    assert bf16["chain_graph_replays"] == bf16["plain_graph_replays"] == 0
+    assert bf16["graph_replays"] == bf16["plain_graph_replays"] == 0
     assert bf16["rounds"] >= len(results["prompt_lengths"])
     assert 0.0 <= bf16["spec_agreement"] <= 1.0
     assert bf16["mean_accept_length"] >= 1.0
     server = results["server"]
     assert server["outputs_equal"] and server["exit_code"] is not None
     assert server["health"]["family"] == "Eagle3SpecDecoder"
+
+
+#: the block-serving drafts at the tiny target's widths: the Qwen3-8B
+#: configs' capture layers (5 of 36) and heads, two layers, blocks of 4
+BLOCK_DRAFT = {
+    "vocab_size": 2048, "hidden_size": 128, "intermediate_size": 256,
+    "num_attention_heads": 4, "num_key_value_heads": 2, "head_dim": 32,
+    "num_hidden_layers": 2, "num_target_layers": 36, "block_size": 4,
+    "max_position_embeddings": 4096,
+}
+BLOCK_HEADS = {
+    "domino": {"projector_type": "domino", "pure_draft_prefix_len": 1,
+               "emb_dim": 16, "gru_hidden_dim": 16, "shift_label": True},
+    "dflash": {},
+    "dspark": {"projector_type": "dspark", "markov_rank": 8,
+               "markov_head_type": "gated", "enable_confidence_head": True},
+}
+
+
+def test_dflash_serving_phase_runs_on_the_cpu_at_small_size(smoke, tmp_path):
+    """The block serving phase on the capture phase's tiny 6-layer target:
+    the dflash-layout capture at the evenly spaced layers with repeated ids
+    (bit-identical to the eagle layout's shared columns), the Domino, DSpark
+    and DFlash family phases on those features (Domino's and DSpark's
+    exports), the Domino export served in full (the decoders equal in fp32,
+    bf16 agreement, the server process answering as this process's
+    decoder), the DSpark export and a random DFlash export the short way;
+    no kernel launch and no graph on the CPU."""
+    eagle = Eagle3Config(vocab_size=2048, draft_vocab_size=512,
+                         hidden_size=128, intermediate_size=384,
+                         num_attention_heads=4, num_key_value_heads=2,
+                         max_position_embeddings=4096)
+    eagle_path = tmp_path / "eagle.json"
+    eagle_path.write_text(json.dumps(eagle.to_dict()))
+    configs = {}
+    for kind, head in BLOCK_HEADS.items():
+        configs[kind] = tmp_path / f"{kind}.json"
+        configs[kind].write_text(json.dumps({
+            **BLOCK_DRAFT, "dflash_config": {
+                "mask_token_id": 2047,
+                "target_layer_ids": [1, 9, 17, 25, 33], **head}}))
+    work = tmp_path / "work"
+    target = {**smoke.QWEN3_8B_TARGET, **TINY_TARGET, "num_hidden_layers": 6}
+    _, captured = smoke.capture_phase(
+        eagle_path, torch.device("cpu"), 0, work, target_config=target,
+        max_length=64, min_len=40, std=0.2)
+    trained = []
+    results, families = smoke.dflash_serving_phase(
+        captured, work, 0, torch.device("cpu"), 6, configs=configs,
+        on_training=lambda *done: trained.append(done),
+        prompt_len=(16, 40), new_tokens=8, max_len=128, max_length=64,
+        batch=4, family_length=64, server_prompt=16, server_new=6,
+        family_overrides=['model.compute_dtype="float32"',
+                          "training.num_anchors=8",
+                          "training.objective_chunk_blocks=4"])
+    capture = results["capture"]
+    assert capture["capture_layers"] == [1, 2, 2, 2, 3]
+    assert capture["eagle_capture_layers"] == [1, 2, 2]
+    assert capture["bit_identical"] and capture["files"] == smoke.TRAIN_FILES
+    # a file's layer-1 columns (one a layout) and layer-2 columns (two in
+    # the eagle layout, three in the dflash one)
+    assert capture["columns_compared"] == smoke.TRAIN_FILES * 7
+    steps = smoke.TRAIN_FILES // (smoke.BATCH * smoke.ACCUM)
+    assert [t[0] for t in trained] == list(smoke.BLOCK_FAMILIES)
+    for kind, done, counts in trained:
+        assert families[kind] == (done, counts)
+        assert done["optimizer_steps"] == steps
+        assert counts == dict.fromkeys(smoke.DFLASH_COUNTERS, 0)
+        if kind in smoke.FAMILY_CLI:
+            assert done["export"]["from"] == f"{kind}-step{steps}"
+    for kind in ("domino", "dflash", "dspark"):
+        checks = results[kind]
+        assert checks["fp32"]["decoders_equal"]
+        bf16 = checks["bf16"]
+        assert bf16["graph_replays"] == 0 and bf16["rounds"] >= 1
+        assert bf16["dflash_fwd_launches"]["total"] == 0
+        assert 0.0 <= bf16["spec_agreement"] <= 1.0
+    assert [results[k]["draft"] for k in ("domino", "dflash", "dspark")] == [
+        "DominoDraftModel", "DFlashDraftModel", "DSparkDraftModel"]
+    assert len(results["domino"]["fp32"]["prompts"]) == (
+        smoke.BLOCK_FP32_PROMPTS)
+    server = results["server"]
+    assert server["outputs_equal"] and server["exit_code"] is not None
+    assert server["health"]["block_size"] == 4
+    assert "kernel_at_serving_shape" not in results
 
 
 def test_serving_gaps_study_runs_on_the_cpu_at_small_size(smoke, tmp_path):
